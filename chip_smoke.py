@@ -1,18 +1,26 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (seaweedfs_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed N] [--workdir DIR]
+    python3 chip_smoke.py [--seed N] [--workdir DIR] [--phases 1,2,...]
 
 Phases, each fatal on failure (the script exits non-zero and prints no
-result):
+result). `--phases` runs a subset (default: all); phase 1 always runs, and
+the kernels line needs phases 3, 4 and 6.
 
 1. device: card name, count, `nvidia-smi` name and power limit;
-2. build: kernel K1 (csrc/rs_gf.cu) with nvcc, and what ptxas says of it;
+2. build: kernel K1 (csrc/rs_gf.cu) with nvcc, what ptxas says of it, and
+   an opcode histogram of its machine code (cuobjdump);
 3. K1 against its plain PyTorch version on the card, byte for byte, at
-   (10,4), (14,2), (5,3), (4,2) x C in {100, 384, 65536} with several loss
-   patterns, the seeded entries, and the main shape [32, 10, 1 MiB];
-4. K1's time at the main shape (CUDA events over many launches, each with
-   another seed), its HBM bound, and the plain version's time;
+   (10,4), (14,2), (5,3), (4,2) x C in {16, 48, 100, 384, 4112, 65536,
+   65552} (the edges of a thread's 32-byte span) with several loss
+   patterns, the seeded entries, batches of 1 and 3 and single stripes,
+   and the main shape [32, 10, 1 MiB];
+4. K1's time (CUDA events over many launches, each with another seed),
+   its HBM bound and the plain version's time at the main shape, for all
+   four entries; encode and reconstruct at RS(14,2) [32, 14, 1 MiB]; at
+   the main shape, reconstruct of 2 and of 1 lost shard (how the time
+   scales with the outputs) and a device copy of the input (the card's
+   reachable memory rate); the SM clock, power and temperature around;
 5. entry(): ECPipeline(10, 4).forward on [8, 10, 65536] through K1;
 6. the main path at real size: ec encode of a 10 GiB + 3 MiB + 12,345 B
    RS(10,4) volume and two 256 MiB volumes in one job (1 GiB / 1 MiB
@@ -30,8 +38,10 @@ Needs CUDA and the repository beside it; without either it exits 2.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -41,6 +51,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 INT8_OPS_PER_S = 1.979e15      # H100 SXM dense int8 tensor-core peak
 MAIN_SHAPE = (32, 10, 1 << 20)  # [batch, d, chunk] of one encode call
 LOST_10_4 = (0, 5, 10, 13)
+LOST_14_2 = (3, 15)
+WIDTHS = (16, 48, 100, 384, 4112, 65536, 65552)
+PHASES = (1, 2, 3, 4, 5, 6)
 PALLAS = "seaweedfs_tpu/ops/rs_pallas.py"
 K1_SOURCE = "seaweedfs_tpu_torch/csrc/rs_gf.cu"
 K1_ENTRIES = {  # wrapper entry -> the Pallas entry it replaces
@@ -57,13 +70,17 @@ def log(msg: str) -> None:
 
 
 # -- phase 1 ----------------------------------------------------------------
+def _smi(fields: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
 def phase_device(torch) -> str:
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True,
-        timeout=60).stdout.strip().splitlines()[0]
+    smi = _smi("name,power.limit")
     log(f"[device] {name} count={count} torch={torch.__version__} "
         f"cuda={torch.version.cuda}")
     log(smi)
@@ -80,6 +97,21 @@ def phase_build():
     for line in built.ptxas_log.splitlines():
         if "Used" in line or "spill" in line or "smem" in line:
             log(f"[build] {line.strip()}")
+    log(f"[build] SASS opcodes (static count): {_sass_opcodes(built.path)}")
+
+
+def _sass_opcodes(lib) -> str:
+    """Opcode histogram of the library's machine code, from cuobjdump."""
+    from seaweedfs_tpu_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    if not os.access(tool, os.X_OK):
+        return "cuobjdump not found"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    ops = collections.Counter(re.findall(
+        r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)", sass))
+    return f"{sum(ops.values())} in all; " + ", ".join(
+        f"{op} {n}" for op, n in ops.most_common(16))
 
 
 # -- phase 3 ----------------------------------------------------------------
@@ -106,12 +138,14 @@ def phase_compare(torch, np, seed: int) -> "dict[str, int]":
 
     for d, p in ((10, 4), (14, 2), (5, 3), (4, 2)):
         n = d + p
-        for C in (100, 384, 65536):
+        for C in WIDTHS:
             x = torch.from_numpy(rng.integers(0, 256, (3, d, C), np.uint8)).to(dev)
             par = rs_torch.encode(x, d, p)
             check("encode", rs_cuda.encode(x, d, p), par, f"({d},{p}) C={C}")
             check("encode", rs_cuda.encode(x[1].contiguous(), d, p), par[1],
                   f"({d},{p}) C={C} single stripe")
+            check("encode", rs_cuda.encode(x[2:].contiguous(), d, p), par[2:],
+                  f"({d},{p}) C={C} batch of 1")
             s = int(rng.integers(1, 256))
             check("encode_seeded", rs_cuda.encode_seeded(x, s, d, p),
                   rs_torch.gf_apply(gf8.parity_matrix(d, p), x, s),
@@ -126,6 +160,9 @@ def phase_compare(torch, np, seed: int) -> "dict[str, int]":
                 got = rs_cuda.reconstruct(surv, present, lost, d, p)
                 check("reconstruct", got, shards[:, list(lost)],
                       f"({d},{p}) C={C} lost={lost}")
+                check("reconstruct",
+                      rs_cuda.reconstruct(surv[:1].contiguous(), present, lost, d, p),
+                      shards[:1, list(lost)], f"({d},{p}) C={C} lost={lost} batch of 1")
                 check("reconstruct_seeded",
                       rs_cuda.reconstruct_seeded(surv, s, present, lost, d, p),
                       rs_torch.reconstruct(surv ^ s, present, lost, d, p),
@@ -177,38 +214,69 @@ def phase_timing(torch, np, seed: int, card: str) -> "dict[str, dict]":
     p = 4
     rng = np.random.default_rng(seed + 1)
     x = torch.from_numpy(rng.integers(0, 256, MAIN_SHAPE, np.uint8)).to("cuda")
+    shape14 = (B, 14, C)
+    y = torch.from_numpy(rng.integers(0, 256, shape14, np.uint8)).to("cuda")
     present = tuple(i for i in range(d + p) if i not in LOST_10_4)
     rec = rs_torch.decode_rows(d, p, present, LOST_10_4)
     enc = gf8.parity_matrix(d, p)
-    kernels = {
-        "encode": lambda s: rs_cuda.encode(x, d, p),
-        "encode_seeded": lambda s: rs_cuda.encode_seeded(x, s, d, p),
-        "reconstruct": lambda s: rs_cuda.reconstruct(x, present, LOST_10_4, d, p),
-        "reconstruct_seeded": lambda s: rs_cuda.reconstruct_seeded(
+    live14 = tuple(i for i in range(16) if i not in LOST_14_2)
+    rec14 = rs_torch.decode_rows(14, 2, live14, LOST_14_2)
+    enc14 = gf8.parity_matrix(14, 2)
+    # (what, K1 call, plain version or None, input shape, outputs); the first
+    # four are the entries of the kernels line
+    rows = [
+        ("encode", lambda s: rs_cuda.encode(x, d, p),
+         lambda s: rs_torch.gf_apply(enc, x), MAIN_SHAPE, p),
+        ("encode_seeded", lambda s: rs_cuda.encode_seeded(x, s, d, p),
+         lambda s: rs_torch.gf_apply(enc, x, s), MAIN_SHAPE, p),
+        ("reconstruct",
+         lambda s: rs_cuda.reconstruct(x, present, LOST_10_4, d, p),
+         lambda s: rs_torch.gf_apply(rec, x), MAIN_SHAPE, p),
+        ("reconstruct_seeded", lambda s: rs_cuda.reconstruct_seeded(
             x, s, present, LOST_10_4, d, p),
-    }
-    plains = {
-        "encode": lambda s: rs_torch.gf_apply(enc, x),
-        "encode_seeded": lambda s: rs_torch.gf_apply(enc, x, s),
-        "reconstruct": lambda s: rs_torch.gf_apply(rec, x),
-        "reconstruct_seeded": lambda s: rs_torch.gf_apply(rec, x, s),
-    }
+         lambda s: rs_torch.gf_apply(rec, x, s), MAIN_SHAPE, p),
+    ]
+    # how K1's time scales with its outputs, on the same input
+    for lost in (LOST_10_4[:2], LOST_10_4[:1]):
+        live = tuple(i for i in range(d + p) if i not in lost)
+        rows.append((f"reconstruct of {lost}",
+                     lambda s, live=live, lost=lost: rs_cuda.reconstruct(
+                         x, live, lost, d, p), None, MAIN_SHAPE, len(lost)))
+    # the fork's default geometry
+    rows += [
+        ("encode RS(14,2)", lambda s: rs_cuda.encode(y, 14, 2),
+         lambda s: rs_torch.gf_apply(enc14, y), shape14, 2),
+        (f"reconstruct RS(14,2) of {LOST_14_2}",
+         lambda s: rs_cuda.reconstruct(y, live14, LOST_14_2, 14, 2),
+         lambda s: rs_torch.gf_apply(rec14, y), shape14, len(LOST_14_2)),
+    ]
+    # Every K1 time first, between two readings of the SM clock and power,
+    # so that none of the plain version's large float32 products runs among
+    # them.
+    log(f"[timing] clocks.sm, power.draw, temperature before: "
+        f"{_smi('clocks.sm,power.draw,temperature.gpu')}")
+    k1_ms = {what: _time_ms(torch, fn, iters=50) for what, fn, *_ in rows}
+    copy_ms = _time_ms(torch, lambda s: torch.empty_like(x).copy_(x), iters=50)
+    log(f"[timing] clocks.sm, power.draw, temperature after K1: "
+        f"{_smi('clocks.sm,power.draw,temperature.gpu')}")
     out = {}
-    for entry in K1_ENTRIES:
-        ms = _time_ms(torch, kernels[entry], iters=50)
-        plain_ms = _time_ms(torch, plains[entry], iters=3, warmup=1)
+    for what, _, plain, (b, k, c), m in rows:
+        ms = k1_ms[what]
+        plain_ms = _time_ms(torch, plain, iters=3, warmup=1) if plain else None
         torch.cuda.empty_cache()
-        bound_ms, bound_by = _bound(B, d, p, C)
-        moved = B * C * (d + p)
-        out[entry] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by=bound_by)
-        log(f"[timing] K1 {entry} [{B}, {d}, {C}] -> [{B}, {p}, {C}]: "
-            f"{ms:.4f} ms, {moved / ms / 1e6:.1f} GB/s moved, bound "
-            f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound; "
-            f"plain version {plain_ms:.3f} ms [{card}]")
+        bound_ms, bound_by = _bound(b, k, m, c)
+        log(f"[timing] K1 {what} [{b}, {k}, {c}] -> [{b}, {m}, {c}]: "
+            f"{ms:.4f} ms, {b * c * (k + m) / ms / 1e6:.1f} GB/s moved, bound "
+            f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound"
+            + (f"; plain version {plain_ms:.3f} ms" if plain else "")
+            + f" [{card}]")
+        out[what] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by)
+    log(f"[timing] device copy of the [{B}, {d}, {C}] input: {copy_ms:.4f} ms, "
+        f"{2 * x.numel() / copy_ms / 1e6:.1f} GB/s moved [{card}]")
     log("[timing] library yardstick: none (no single PyTorch call computes "
         "a GF(2^8) matrix apply)")
-    del x
+    del x, y
     torch.cuda.empty_cache()
     return out
 
@@ -391,7 +459,7 @@ def phase_main(torch, np, workdir: str, seed: int, card: str) -> "dict[str, int]
                LOST_10_4, seed, card)
     round_trip(torch, np, workdir, 14, 2,
                [300 * MiB + 4_321, 300 * MiB + 77, 300 * MiB + 1_048_573],
-               (3, 15), seed + 1, card, decode_loses=(0, 9))
+               LOST_14_2, seed + 1, card, decode_loses=(0, 9))
     torch.cuda.synchronize()
     launches = dict(rs_cuda.launches_by_entry)
     log(f"[main] K1 launches on the main path: {json.dumps(launches)}; peak "
@@ -407,7 +475,12 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--workdir", default=os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "build", "smoke_work"))
+    ap.add_argument("--phases", default=",".join(map(str, PHASES)),
+                    help="comma-separated phases to run (default: all)")
     args = ap.parse_args(argv)
+    phases = {int(f) for f in args.phases.split(",") if f.strip()}
+    if not phases <= set(PHASES):
+        ap.error(f"--phases takes numbers among {PHASES}")
 
     import numpy as np
     import torch
@@ -424,23 +497,30 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     card = phase_device(torch)
-    phase_build()
-    errs = phase_compare(torch, np, args.seed)
-    times = phase_timing(torch, np, args.seed, card)
-    phase_entry(torch)
-    try:
-        launches = phase_main(torch, np, args.workdir, args.seed, card)
-    finally:
-        shutil.rmtree(args.workdir, ignore_errors=True)
-    kernels = [dict(name=f"rs_gf_apply:{entry}", route="cuda", source=K1_SOURCE,
-                    replaces=replaces, launches=launches.get(entry, 0),
-                    max_abs_err=errs[entry], ms=times[entry]["ms"],
-                    plain_ms=times[entry]["plain_ms"],
-                    bound_ms=times[entry]["bound_ms"],
-                    bound_by=times[entry]["bound_by"], library_ms=None)
-               for entry, replaces in K1_ENTRIES.items()]
-    log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s [{card}]")
-    print(json.dumps({"kernels": kernels}))
+    if 2 in phases:
+        phase_build()
+    errs = phase_compare(torch, np, args.seed) if 3 in phases else None
+    times = phase_timing(torch, np, args.seed, card) if 4 in phases else None
+    if 5 in phases:
+        phase_entry(torch)
+    launches = None
+    if 6 in phases:
+        try:
+            launches = phase_main(torch, np, args.workdir, args.seed, card)
+        finally:
+            shutil.rmtree(args.workdir, ignore_errors=True)
+    log(f"[done] phases {sorted(phases | {1})} passed in "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    if errs is not None and times is not None and launches is not None:
+        kernels = [dict(name=f"rs_gf_apply:{entry}", route="cuda",
+                        source=K1_SOURCE, replaces=replaces,
+                        launches=launches.get(entry, 0),
+                        max_abs_err=errs[entry], ms=times[entry]["ms"],
+                        plain_ms=times[entry]["plain_ms"],
+                        bound_ms=times[entry]["bound_ms"],
+                        bound_by=times[entry]["bound_by"], library_ms=None)
+                   for entry, replaces in K1_ENTRIES.items()]
+        print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

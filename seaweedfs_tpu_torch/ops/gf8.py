@@ -23,7 +23,8 @@ binary matrix multiply
 
 which the plain PyTorch version (ops/rs_torch.py) takes as a float32 matmul
 followed by ``& 1``. The CUDA kernel (csrc/rs_gf.cu, wrapped by ops/rs_cuda.py)
-instead looks products up in 16-entry nibble tables built from the same field.
+instead looks products up in 8-entry register tables built from the same field
+(ops/rs_cuda.field_tables).
 """
 
 from __future__ import annotations

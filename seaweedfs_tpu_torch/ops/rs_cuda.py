@@ -20,6 +20,7 @@ that its main path went through the kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -58,21 +59,24 @@ def load() -> ctypes.CDLL:
     return _LIB
 
 
-def nibble_tables(mat: np.ndarray) -> np.ndarray:
-    """[m, k] GF matrix -> [m, k, 32] uint8: for each coefficient, its
-    products with every low nibble (0:16) and every high nibble (16:32)."""
+def field_tables(mat: np.ndarray) -> np.ndarray:
+    """[m, k] GF matrix -> [m, k, 32] uint8, K1's tables. A byte x is
+    a | b << 3 | e << 6 (a, b < 8, e < 4), and for each coefficient c
+    slots 0:8 hold c*a, 8:16 hold c*(b << 3), 16:20 hold c*(e << 6) and
+    20:32 are zero, so c*x = t[a] ^ t[8 + b] ^ t[16 + e]."""
     mat = np.asarray(mat, dtype=np.uint8)
-    nib = np.arange(16, dtype=np.uint8)
-    lo = gf8.GF_MUL[mat[:, :, None], nib[None, None, :]]
-    hi = gf8.GF_MUL[mat[:, :, None], (nib << 4)[None, None, :]]
-    return np.ascontiguousarray(np.concatenate([lo, hi], axis=2))
+    part = np.arange(8, dtype=np.uint8)
+    slots = np.concatenate([part, part << 3, part[:4] << 6])
+    tab = np.zeros(mat.shape + (32,), dtype=np.uint8)
+    tab[:, :, :20] = gf8.GF_MUL[mat[:, :, None], slots[None, None, :]]
+    return tab
 
 
 def _device_tables(mat: np.ndarray, device: torch.device) -> torch.Tensor:
     key = (device.index, mat.shape, mat.tobytes())
     tab = _tables.get(key)
     if tab is None:
-        tab = torch.from_numpy(nibble_tables(mat)).to(device)
+        tab = torch.from_numpy(field_tables(mat)).to(device)
         _tables[key] = tab
     return tab
 
@@ -105,7 +109,7 @@ def gf_apply(mat: np.ndarray, data: torch.Tensor, seed: int = 0,
     b, _, c = x.shape
     lib = load()
     if m * k * 32 > lib.rs_gf_max_table_bytes():
-        raise ValueError(f"[{m}, {k}] matrix needs {m * k * 32} B of nibble "
+        raise ValueError(f"[{m}, {k}] matrix needs {m * k * 32} B of field "
                          f"tables, over the kernel's "
                          f"{lib.rs_gf_max_table_bytes()} B of shared memory")
     if b > 65535:
@@ -134,15 +138,25 @@ def encode_seeded(data: torch.Tensor, seed: int, d: int, p: int) -> torch.Tensor
     return gf_apply(gf8.parity_matrix(d, p), data, seed, entry="encode_seeded")
 
 
+@functools.lru_cache(maxsize=256)
+def _decode_rows(d: int, p: int, survivors: tuple, wanted: tuple) -> np.ndarray:
+    """rs_torch.decode_rows, cached: the GF(2^8) inversion behind it takes
+    the host longer than K1 takes for a batch."""
+    rows = rs_torch.decode_rows(d, p, survivors, wanted)
+    rows.setflags(write=False)
+    return rows
+
+
 def reconstruct(survivors: torch.Tensor, present, wanted, d: int,
                 p: int) -> torch.Tensor:
     """survivors [B, d, C] (rows = sorted(present)[:d]) -> [B, |wanted|, C]."""
-    return gf_apply(rs_torch.decode_rows(d, p, present, wanted), survivors,
-                    entry="reconstruct")
+    return gf_apply(_decode_rows(d, p, tuple(sorted(present)[:d]),
+                                 tuple(wanted)), survivors, entry="reconstruct")
 
 
 def reconstruct_seeded(survivors: torch.Tensor, seed: int, present, wanted,
                        d: int, p: int) -> torch.Tensor:
     """Timing entry: reconstruct of survivors ^ seed, XOR inside the kernel."""
-    return gf_apply(rs_torch.decode_rows(d, p, present, wanted), survivors,
-                    seed, entry="reconstruct_seeded")
+    return gf_apply(_decode_rows(d, p, tuple(sorted(present)[:d]),
+                                 tuple(wanted)), survivors, seed,
+                    entry="reconstruct_seeded")

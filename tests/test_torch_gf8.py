@@ -1,11 +1,12 @@
 """The port's GF(2^8) tables and matrices (seaweedfs_tpu_torch/ops/gf8.py)
-equal the JAX package's, and K1's nibble tables are products in that field."""
+equal the JAX package's. K1's own tables are checked against the field in
+tests/test_torch_k1_model.py."""
 
 import numpy as np
 import pytest
 
 from seaweedfs_tpu.ops import gf8 as ref_gf8
-from seaweedfs_tpu_torch.ops import gf8, rs_cuda
+from seaweedfs_tpu_torch.ops import gf8
 
 GEOMETRIES = [(10, 4), (14, 2), (4, 2), (5, 3)]
 
@@ -39,15 +40,3 @@ def test_expand_to_bits_equal(d, p):
     mat = gf8.parity_matrix(d, p)
     np.testing.assert_array_equal(gf8.expand_to_bits(mat),
                                   ref_gf8.expand_to_bits(mat))
-
-
-@pytest.mark.parametrize("d,p", GEOMETRIES)
-def test_nibble_tables_are_field_products(d, p):
-    """K1's tables: lo[x] ^ hi[y] == M * (x | y << 4) for every byte."""
-    mat = gf8.parity_matrix(d, p)
-    tab = rs_cuda.nibble_tables(mat)
-    assert tab.shape == (p, d, 32) and tab.dtype == np.uint8
-    byte = np.arange(256)
-    got = tab[:, :, byte & 15] ^ tab[:, :, 16 + (byte >> 4)]
-    want = ref_gf8.GF_MUL[mat[:, :, None], byte[None, None, :]]
-    np.testing.assert_array_equal(got, want)
