@@ -5,7 +5,8 @@
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result). `--phases` runs a subset (default: all); phase 1 always runs, and
-the kernels line needs phases 3, 4 and 6.
+the kernels line needs phases 3, 4, 6, 7 and 8. The kernels of the phases
+asked for are built first, all at once (one nvcc per source).
 
 1. device: card name, count, `nvidia-smi` name and power limit;
 2. build: kernel K1 (csrc/rs_gf.cu) with nvcc, what ptxas says of it, and
@@ -29,7 +30,24 @@ the kernels line needs phases 3, 4 and 6.
    with the sources; then the same round trip at RS(14,2) on three
    300 MiB + ragged-tail volumes. K1's launch counts are zeroed just
    before this phase and read just after;
-7. summary: one JSON line of every kernel with its launches, error against
+7. kernel K3 (csrc/crc32c.cu, batched raw CRC32C states): what ptxas says
+   of it; K3 against its plain PyTorch version on the card, bit for bit,
+   at B in {1, 3, 4096} x L in {0, 512, ..., 1 MiB} with rows of zeros,
+   0xFF and random bytes; a non-contiguous input must raise; after
+   finalize, against the host CRC on seeded needles. K3's time (CUDA
+   events over launches queued back to back, each on another input), its
+   HBM bound, the plain version's time and a device copy of the input at
+   [4096, 2048] (the scrub's batch), [16384, 4096] and [64, 1 MiB]; the SM
+   clock and power around;
+8. the scrub main path at deployment size: one Volume of 1,048,576
+   needles of 1024 + 0..63 B (weed benchmark's default write set) written
+   through Volume.write_needles; 16 data bytes and one stored CRC of live
+   needles flipped, 64 needles overwritten (8 of their old records then
+   flipped), 64 deleted; scrub_volume(device="cuda") must report exactly
+   the 17 damaged ids, with the scanned and checked counts of
+   device="off". Every launch count is zeroed just before the cuda scrub
+   and read just after; K3 must have launched;
+9. summary: one JSON line of every kernel with its launches, error against
    the plain version, times and bound; then the result line.
 
 Needs CUDA and the repository beside it; without either it exits 2.
@@ -53,9 +71,17 @@ MAIN_SHAPE = (32, 10, 1 << 20)  # [batch, d, chunk] of one encode call
 LOST_10_4 = (0, 5, 10, 13)
 LOST_14_2 = (3, 15)
 WIDTHS = (16, 48, 100, 384, 4112, 65536, 65552)
-PHASES = (1, 2, 3, 4, 5, 6)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8)
 PALLAS = "seaweedfs_tpu/ops/rs_pallas.py"
 K1_SOURCE = "seaweedfs_tpu_torch/csrc/rs_gf.cu"
+K3_SOURCE = "seaweedfs_tpu_torch/csrc/crc32c.cu"
+K3_REPLACES = "seaweedfs_tpu/ops/crc32c.py:183"  # device_crc_states
+KERNELS = {2: "rs_gf", 7: "crc32c"}  # phase -> csrc source it builds
+K3_SHAPES = ((4096, 2048), (16384, 4096), (64, 1 << 20))  # first: the scrub's
+K3_ROWS = (1, 3, 4096)
+K3_LENGTHS = (0, 512, 1024, 2048, 4096, 65536, 1 << 20)
+NEEDLE_LENGTHS = (0, 1, 511, 512, 513, 1087, 9000)
+SCRUB_NEEDLES = 1 << 20
 K1_ENTRIES = {  # wrapper entry -> the Pallas entry it replaces
     "encode": f"{PALLAS}:156",
     "encode_seeded": f"{PALLAS}:164",
@@ -88,16 +114,26 @@ def phase_device(torch) -> str:
 
 
 # -- phase 2 ----------------------------------------------------------------
-def phase_build():
-    from seaweedfs_tpu_torch.ops import _build, rs_cuda
-    t0 = time.perf_counter()
-    rs_cuda.load()
-    built = _build.build("rs_gf")
-    log(f"[build] {built.path.name} in {time.perf_counter() - t0:.2f} s")
+def build_kernels(phases) -> None:
+    """Build the kernels of the phases asked for, one nvcc each, together."""
+    from seaweedfs_tpu_torch.ops import _build
+    names = [name for ph, name in KERNELS.items() if ph in phases]
+    if names:
+        t0 = time.perf_counter()
+        _build.build_all(names)
+        log(f"[build] {', '.join(names)} built together in "
+            f"{time.perf_counter() - t0:.2f} s")
+
+
+def phase_build(name: str = "rs_gf", tag: str = "build"):
+    from seaweedfs_tpu_torch.ops import _build, crc_cuda, rs_cuda
+    (rs_cuda if name == "rs_gf" else crc_cuda).load()
+    built = _build.build(name)
+    log(f"[{tag}] {built.path.name}")
     for line in built.ptxas_log.splitlines():
         if "Used" in line or "spill" in line or "smem" in line:
-            log(f"[build] {line.strip()}")
-    log(f"[build] SASS opcodes (static count): {_sass_opcodes(built.path)}")
+            log(f"[{tag}] {line.strip()}")
+    log(f"[{tag}] SASS opcodes (static count): {_sass_opcodes(built.path)}")
 
 
 def _sass_opcodes(lib) -> str:
@@ -470,6 +506,256 @@ def phase_main(torch, np, workdir: str, seed: int, card: str) -> "dict[str, int]
     return launches
 
 
+# -- phase 7 ----------------------------------------------------------------
+def _state_err(a, b) -> int:
+    """Largest difference of two int64 state vectors (0 when equal)."""
+    assert a.shape == b.shape, (tuple(a.shape), tuple(b.shape))
+    return int((a - b).abs().max().item()) if a.numel() else 0
+
+
+def phase_k3_compare(torch, np, seed: int) -> int:
+    from seaweedfs_tpu_torch.ops import crc32c, crc_cuda, crc_torch
+    from seaweedfs_tpu_torch.storage.scrub import _pad_pow2
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    err = cases = 0
+    for b in K3_ROWS:
+        for length in K3_LENGTHS:
+            for fill in ("zeros", "0xFF", "random"):
+                if fill == "random":
+                    x = torch.randint(0, 256, (b, length), dtype=torch.uint8,
+                                      device="cuda", generator=gen)
+                else:
+                    x = torch.full((b, length), 0 if fill == "zeros" else 255,
+                                   dtype=torch.uint8, device="cuda")
+                got = crc_cuda.crc_states(x)
+                e = _state_err(got, crc_torch.crc_states(x))
+                err = max(err, e)
+                cases += 1
+                if e:
+                    raise AssertionError(f"K3 differs from the plain version "
+                                         f"at [{b}, {length}] {fill}")
+                del x, got
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    try:
+        crc_cuda.crc_states(torch.zeros((4, 1024), dtype=torch.uint8,
+                                        device="cuda")[:, :512])
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("K3 took a non-contiguous input")
+    rng = np.random.default_rng(seed + 3)
+    msgs = [rng.integers(0, 256, n, dtype=np.uint8) for n in NEEDLE_LENGTHS]
+    width = _pad_pow2(max(NEEDLE_LENGTHS))
+    blocks = np.zeros((len(msgs), width), dtype=np.uint8)
+    for i, m in enumerate(msgs):
+        blocks[i, width - m.size:] = m
+    raw = crc_cuda.crc_states(torch.from_numpy(blocks).cuda())
+    vals = crc32c.finalize(raw.cpu().numpy().astype(np.uint32),
+                           np.array(NEEDLE_LENGTHS))
+    want = [crc32c.crc32c(m.tobytes()) for m in msgs]
+    if [int(v) for v in vals] != want:
+        raise AssertionError(f"K3 + finalize differs from the host CRC: "
+                             f"{[hex(v) for v in vals]} != "
+                             f"{[hex(v) for v in want]}")
+    log(f"[k3] K3 == plain version on {cases} cases (max abs err {err}); "
+        f"non-contiguous input refused; after finalize == host crc32c on "
+        f"needles of {NEEDLE_LENGTHS} B")
+    return err
+
+
+def _queued_ms(torch, fn, inputs, iters: int) -> float:
+    """Device ms per call of fn, each call on the next of `inputs`: the
+    calls are queued behind a sleeping kernel, so the card runs them back
+    to back however slowly the host enqueues them."""
+    for x in inputs[:2]:
+        fn(x)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # ~50 ms at 2 GHz: covers the enqueue
+    start.record()
+    for i in range(iters):
+        fn(inputs[i % len(inputs)])
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _k3_bound(b: int, length: int) -> "tuple[float, str]":
+    """Least time for [B, L] -> [B] states: every input byte read and every
+    8-byte state written once over HBM, or the reference's GF(2)
+    formulation (per 512-byte chunk, [32, 4096] and [32, 32] bit-matrix
+    products, 2 ops per multiply-add) at the int8 tensor-core peak,
+    whichever is larger."""
+    t_bytes = (b * length + 8 * b) / HBM_BYTES_PER_S
+    chunks = length // 512
+    t_ops = 2 * 32 * (8 * 512 + 32) * chunks * b / INT8_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_k3_timing(torch, np, seed: int, card: str) -> "dict[tuple, dict]":
+    from seaweedfs_tpu_torch.ops import crc_cuda, crc_torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 5)
+    sets = {}
+    for b, length in K3_SHAPES:
+        # distinct inputs adding up to >= 256 MiB, five times the L2
+        n = max(4, -(-(256 * MiB) // (b * length)))
+        sets[(b, length)] = [torch.randint(0, 256, (b, length), dtype=torch.uint8,
+                                           device="cuda", generator=gen)
+                             for _ in range(n)]
+    log(f"[k3] clocks.sm, power.draw, temperature before: "
+        f"{_smi('clocks.sm,power.draw,temperature.gpu')}")
+    k3_ms = {shape: _queued_ms(torch, crc_cuda.crc_states, xs,
+                               iters=200 if shape[0] * shape[1] < 64 * MiB else 50)
+             for shape, xs in sets.items()}
+    copy_ms = {shape: _queued_ms(torch, lambda x: torch.empty_like(x).copy_(x),
+                                 xs, iters=50)
+               for shape, xs in sets.items()}
+    log(f"[k3] clocks.sm, power.draw, temperature after K3: "
+        f"{_smi('clocks.sm,power.draw,temperature.gpu')}")
+    out = {}
+    for (b, length), xs in sets.items():
+        ms = k3_ms[(b, length)]
+        plain_ms = _time_ms(torch, lambda s, x=xs[0]: crc_torch.crc_states(x),
+                            iters=3, warmup=1)
+        bound_ms, bound_by = _k3_bound(b, length)
+        log(f"[k3] K3 [{b}, {length}] -> [{b}]: {ms:.4f} ms, "
+            f"{b * length / ms / 1e6:.1f} GB/s read, bound {bound_ms:.4f} ms "
+            f"({bound_by}), {bound_ms / ms:.1%} of bound; plain version "
+            f"{plain_ms:.3f} ms; device copy of the input "
+            f"{copy_ms[(b, length)]:.4f} ms "
+            f"({2 * b * length / copy_ms[(b, length)] / 1e6:.1f} GB/s moved); "
+            f"{crc_cuda.segments(b, length // 512)} segment(s) per row [{card}]")
+        out[(b, length)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                bound_by=bound_by, copy_ms=copy_ms[(b, length)])
+    log("[k3] library yardstick: none (no PyTorch call computes CRC32C)")
+    del sets
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 8 ----------------------------------------------------------------
+def make_scrub_volume(np, vdir: str, seed: int):
+    """The 1,048,576-needle volume, damaged; returns (volume, the 17 ids
+    whose live bytes were damaged, the 64 deleted ids)."""
+    from seaweedfs_tpu_torch.storage.needle import Needle
+    from seaweedfs_tpu_torch.storage.volume import Volume
+    rng = np.random.default_rng(seed)
+    n = SCRUB_NEEDLES
+    sizes = 1024 + rng.integers(0, 64, n)
+    cookies = rng.integers(0, 1 << 32, n, dtype=np.uint64)
+    v = Volume(vdir, "", 1)
+    t0 = time.perf_counter()
+    frame = 4096
+    for lo in range(0, n, frame):
+        hi = min(n, lo + frame)
+        buf = rng.bytes(int(sizes[lo:hi].sum()))
+        ends = np.cumsum(sizes[lo:hi])
+        v.write_needles([Needle(id=lo + i + 1, cookie=int(cookies[lo + i]),
+                                data=buf[int(e - sizes[lo + i]):int(e)])
+                         for i, e in enumerate(ends)])
+    log(f"[scrub] wrote {n} needles ({os.path.getsize(v.dat_path)} B of "
+        f".dat) through Volume.write_needles in "
+        f"{time.perf_counter() - t0:.1f} s")
+    pick = rng.choice(n, 16 + 1 + 64 + 64, replace=False) + 1
+    flipped, crc_hit = pick[:16], int(pick[16])
+    overwritten, deleted = pick[17:81], pick[81:]
+    garbage = [(v.nm.get(int(i)).offset, v.nm.get(int(i)).size)
+               for i in overwritten[:8]]
+    v.write_needles([Needle(id=int(i), cookie=int(cookies[i - 1]),
+                            data=rng.bytes(1024)) for i in overwritten])
+    for i in deleted:
+        assert v.delete_needle(int(i), int(cookies[i - 1]))
+    v.sync()
+
+    def flip(f, off: int) -> None:
+        f.seek(off)
+        b = f.read(1)
+        f.seek(off)
+        f.write(bytes([b[0] ^ 0x5A]))
+
+    with open(v.dat_path, "r+b") as f:
+        for i in flipped:
+            nv = v.nm.get(int(i))
+            flip(f, nv.offset + 20 + int(rng.integers(0, nv.size - 5)))
+        nv = v.nm.get(crc_hit)
+        flip(f, nv.offset + 16 + nv.size + int(rng.integers(0, 4)))
+        for off, size in garbage:
+            flip(f, off + 20 + int(rng.integers(0, size - 5)))
+    damaged = sorted(int(i) for i in flipped) + [crc_hit]
+    return v, sorted(damaged), deleted
+
+
+def phase_scrub(torch, np, workdir: str, seed: int, card: str) -> int:
+    from seaweedfs_tpu_torch.ops import crc_cuda, rs_cuda
+    from seaweedfs_tpu_torch.storage import scrub
+    vdir = os.path.join(workdir, "scrub")
+    os.makedirs(vdir, exist_ok=True)
+    v, damaged, deleted = make_scrub_volume(np, vdir, seed + 11)
+    try:
+        torch.cuda.synchronize()
+        rs_cuda.reset_launches()
+        crc_cuda.reset_launches()
+        stages: dict = {}
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = scrub.scrub_volume(v, device="cuda", stats=stages)
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+        launches = {"crc32c_states": crc_cuda.launches,
+                    **{f"rs_gf_apply:{e}": c
+                       for e, c in rs_cuda.launches_by_entry.items()}}
+        device_us = collections.Counter()
+        for avg in prof.key_averages():
+            device_us[avg.key] += getattr(avg, "self_device_time_total",
+                                          getattr(avg, "self_cuda_time_total", 0))
+        k3_ms = sum(us for key, us in device_us.items()
+                    if "crc_segments" in key or "crc_combine" in key) / 1e3
+        busy_ms = sum(device_us.values()) / 1e3
+        by_name = {k: round(us / 1e3, 4) for k, us in device_us.most_common(4)}
+        log(f"[scrub] profiler, device time by name (ms): {json.dumps(by_name)}; "
+            f"all device work {busy_ms:.3f} ms = {busy_ms / 1e3 / wall:.3%} of "
+            f"the {wall:.3f} s wall (idle {1 - busy_ms / 1e3 / wall:.3%})")
+        log(f"[scrub] launches on the scrub path: {json.dumps(launches)}")
+        if not launches["crc32c_states"]:
+            raise AssertionError("K3 never launched on the scrub path")
+        if sorted(res.corrupt) != damaged or res.error or res.mode != "device":
+            raise AssertionError(f"scrub(cuda) reported {res.corrupt} (error "
+                                 f"{res.error!r}, mode {res.mode}); damaged "
+                                 f"were {damaged}")
+        if res.scanned != SCRUB_NEEDLES - len(deleted):
+            raise AssertionError(f"scrub(cuda) scanned {res.scanned}")
+        off_stages: dict = {}
+        off = scrub.scrub_volume(v, device="off", stats=off_stages)
+        if (off.scanned, off.bytes_checked, off.corrupt, off.error) != (
+                res.scanned, res.bytes_checked, res.corrupt, res.error):
+            raise AssertionError(f"scrub(off) {off} != scrub(cuda) {res}")
+        t0 = time.perf_counter()
+        walked = sum(len(ids) for ids, _, _ in scrub._iter_batches(
+            v, 4096, scrub.ScrubResult(v.id)))
+        walk_s = time.perf_counter() - t0
+        assert walked == res.scanned
+    finally:
+        v.close()
+    log(f"[scrub] device=cuda: {res.scanned} needles, {res.bytes_checked} B "
+        f"checked in {wall:.3f} s: {res.scanned / wall:.0f} needles/s, "
+        f"{res.bytes_checked / wall / 1e9:.4f} GB/s; corrupt == the 17 "
+        f"damaged ids; stages {json.dumps(stages)}; K3 summed device time "
+        f"(profiler) {k3_ms:.3f} ms over {launches['crc32c_states']} launches, "
+        f"{k3_ms / 1e3 / wall:.4%} of the wall [{card}]")
+    log(f"[scrub] device=off: {off.elapsed_s:.3f} s, "
+        f"{off.scanned / off.elapsed_s:.0f} needles/s; stages "
+        f"{json.dumps(off_stages)}; same scanned, bytes_checked and corrupt")
+    log(f"[scrub] the record walk alone: {walk_s:.3f} s "
+        f"({walked / walk_s:.0f} needles/s) [{card}]")
+    return launches["crc32c_states"]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -497,6 +783,7 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     card = phase_device(torch)
+    build_kernels(phases)
     if 2 in phases:
         phase_build()
     errs = phase_compare(torch, np, args.seed) if 3 in phases else None
@@ -509,9 +796,19 @@ def main(argv=None) -> int:
             launches = phase_main(torch, np, args.workdir, args.seed, card)
         finally:
             shutil.rmtree(args.workdir, ignore_errors=True)
+    k3_err = k3_times = k3_launches = None
+    if 7 in phases:
+        phase_build("crc32c", tag="k3")
+        k3_err = phase_k3_compare(torch, np, args.seed)
+        k3_times = phase_k3_timing(torch, np, args.seed, card)
+    if 8 in phases:
+        try:
+            k3_launches = phase_scrub(torch, np, args.workdir, args.seed, card)
+        finally:
+            shutil.rmtree(args.workdir, ignore_errors=True)
     log(f"[done] phases {sorted(phases | {1})} passed in "
         f"{time.perf_counter() - t0:.1f} s [{card}]")
-    if errs is not None and times is not None and launches is not None:
+    if None not in (errs, times, launches, k3_err, k3_times, k3_launches):
         kernels = [dict(name=f"rs_gf_apply:{entry}", route="cuda",
                         source=K1_SOURCE, replaces=replaces,
                         launches=launches.get(entry, 0),
@@ -520,6 +817,13 @@ def main(argv=None) -> int:
                         bound_ms=times[entry]["bound_ms"],
                         bound_by=times[entry]["bound_by"], library_ms=None)
                    for entry, replaces in K1_ENTRIES.items()]
+        k3 = k3_times[K3_SHAPES[0]]  # the scrub path's batch
+        kernels.append(dict(name="crc32c_states", route="cuda",
+                            source=K3_SOURCE, replaces=K3_REPLACES,
+                            launches=k3_launches, max_abs_err=k3_err,
+                            ms=k3["ms"], plain_ms=k3["plain_ms"],
+                            bound_ms=k3["bound_ms"], bound_by=k3["bound_by"],
+                            library_ms=None))
         print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

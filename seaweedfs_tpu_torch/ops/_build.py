@@ -1,10 +1,12 @@
-"""Build the package's CUDA kernels with nvcc and load them with ctypes.
+"""Build the package's native code at first use and load it with ctypes.
 
 Each ``csrc/*.cu`` source has a plain C interface. At first use it is
 compiled for Hopper (``sm_90a``) into ``build/kernels/`` at the repository
 root, under a name that carries a hash of the source and the flags, so one
 process builds it at most once and a changed source never loads a stale
-library. A missing nvcc or a failed build raises; nothing falls back.
+library. ``csrc/*.c`` sources (host code) are built the same way by the host
+C compiler (``build_host``). A missing compiler or a failed build raises;
+nothing falls back.
 """
 
 from __future__ import annotations
@@ -22,13 +24,15 @@ CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+CC_FLAGS = ("-O3", "-shared", "-fPIC")
 
-_lock = threading.Lock()
+_lock = threading.Lock()                     # guards the two dicts below
+_key_locks: "dict[str, threading.Lock]" = {}  # one build at a time per library
 _loaded: "dict[str, Built]" = {}
 
 
 class Built:
-    """A loaded kernel library plus what the compiler said about it."""
+    """A loaded library plus what the compiler said about it."""
 
     def __init__(self, lib: ctypes.CDLL, path: Path, ptxas_log: str):
         self.lib = lib
@@ -48,27 +52,75 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def build(name: str) -> Built:
-    """Compile csrc/<name>.cu (once per process and source hash) and load it."""
+def find_cc() -> str:
+    for name in (os.environ.get("CC"), "cc", "gcc", "clang"):
+        path = shutil.which(name) if name else None
+        if path:
+            return path
+    raise RuntimeError("no host C compiler found ($CC, cc, gcc, clang): "
+                       "cannot build the host libraries")
+
+
+def cpu_flags() -> "set[str]":
+    """The CPU feature flags /proc/cpuinfo lists (empty where it is absent)."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("flags"):
+                    return set(line.split(":", 1)[1].split())
+    except OSError:
+        pass
+    return set()
+
+
+def _compile(key: str, src: Path, cmd: "list[str]", flags) -> Built:
+    """Compile `src` with `cmd + flags -o <so> src` (once per process and
+    hash of source and flags) and load it. Different libraries build
+    concurrently (see build_all)."""
     with _lock:
-        if name in _loaded:
-            return _loaded[name]
-        src = CSRC / f"{name}.cu"
+        key_lock = _key_locks.setdefault(key, threading.Lock())
+    with key_lock:
+        if key in _loaded:
+            return _loaded[key]
         digest = hashlib.sha256(src.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                                + " ".join(flags).encode()).hexdigest()[:16]
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        so = BUILD_DIR / f"{name}_{digest}.so"
+        so = BUILD_DIR / f"{src.stem}_{digest}.so"
         log_path = so.with_suffix(".log")
         if not so.exists():
             tmp = so.with_suffix(f".so.tmp{os.getpid()}")
-            proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                                   str(src)], capture_output=True, text=True)
+            proc = subprocess.run([*cmd, *flags, "-o", str(tmp), str(src)],
+                                  capture_output=True, text=True)
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed to build {src} "
+                raise RuntimeError(f"{Path(cmd[0]).name} failed to build {src} "
                                    f"(exit {proc.returncode}):\n{proc.stderr}")
             log_path.write_text(proc.stdout + proc.stderr)
             os.replace(tmp, so)
         ptxas_log = log_path.read_text() if log_path.exists() else ""
         built = Built(ctypes.CDLL(str(so)), so, ptxas_log)
-        _loaded[name] = built
+        with _lock:
+            _loaded[key] = built
         return built
+
+
+def build(name: str) -> Built:
+    """Compile csrc/<name>.cu with nvcc for sm_90a and load it."""
+    return _compile(name, CSRC / f"{name}.cu", [find_nvcc()], NVCC_FLAGS)
+
+
+def build_host(name: str) -> Built:
+    """Compile csrc/<name>.c with the host C compiler and load it. Adds
+    -msse4.2 when the CPU lists sse4_2, so the source can take the CPU's
+    crc32 instruction."""
+    flags = CC_FLAGS + (("-msse4.2",) if "sse4_2" in cpu_flags() else ())
+    return _compile(f"host:{name}:{' '.join(flags)}", CSRC / f"{name}.c",
+                    [find_cc()], flags)
+
+
+def build_all(names) -> "dict[str, Built]":
+    """Build several CUDA sources at once, one nvcc process each, all
+    started together; raises the first failure."""
+    from concurrent.futures import ThreadPoolExecutor
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(build, names)))

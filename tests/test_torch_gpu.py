@@ -1,6 +1,6 @@
-"""Kernel K1 (seaweedfs_tpu_torch/csrc/rs_gf.cu) on the card, against its
-plain PyTorch version and the port's NumpyCoder (both held to the JAX
-package by the CPU tests). CUDA kernels have no interpret mode, so every
+"""Kernels K1 (seaweedfs_tpu_torch/csrc/rs_gf.cu) and K3 (csrc/crc32c.cu) on
+the card, against their plain PyTorch versions, the port's NumpyCoder and
+the scrub's host loop (all held to the JAX package by the CPU tests). CUDA kernels have no interpret mode, so every
 test here is marked `gpu` and skips where there is no card. Imports only
 the port, so it also runs where jax is not installed:
 
@@ -15,8 +15,12 @@ import torch
 
 from seaweedfs_tpu_torch.ec import encoder, files, stream
 from seaweedfs_tpu_torch.ec.locate import EcGeometry
-from seaweedfs_tpu_torch.ops import rs_cuda, rs_torch
+from seaweedfs_tpu_torch.models.ec_pipeline import ECPipeline
+from seaweedfs_tpu_torch.ops import crc32c, crc_cuda, crc_torch, rs_cuda, rs_torch
 from seaweedfs_tpu_torch.ops.coder import NumpyCoder, TorchCoder
+from seaweedfs_tpu_torch.storage import scrub
+from seaweedfs_tpu_torch.storage.needle import Needle
+from seaweedfs_tpu_torch.storage.volume import Volume
 
 GEO = EcGeometry(d=4, p=2, large_block=4096, small_block=512)
 SIZES = [0, 77, GEO.small_block * GEO.d, GEO.large_block * GEO.d + 1,
@@ -27,7 +31,8 @@ SIZES = [0, 77, GEO.small_block * GEO.d, GEO.large_block * GEO.d + 1,
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card (K1 is CUDA-only; no interpret mode)")
+        pytest.skip("needs an NVIDIA card (K1 and K3 are CUDA-only; no "
+                    "interpret mode)")
     return torch.device("cuda")
 
 
@@ -103,3 +108,69 @@ def test_encode_rebuild_through_k1_on_card(cuda, tmp_path):
     assert encoder.rebuild_shards(base, GEO, TorchCoder(4, 2), chunk=256,
                                   batch=3) == [1, 4]
     assert _outputs(base, GEO.n) == orig
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,length", [(1, 512), (3, 2048), (4096, 2048),
+                                         (3, 65536), (2, 1 << 20), (5, 0)])
+def test_k3_matches_plain_on_card(cuda, rows, length):
+    before = crc_cuda.launches
+    x = torch.from_numpy(_data((rows, length), rows + length)).to(cuda)
+    got = crc_cuda.crc_states(x)
+    assert got.dtype == torch.int64 and got.is_cuda
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  crc_torch.crc_states(x).cpu().numpy())
+    torch.cuda.synchronize()
+    assert crc_cuda.launches == before + (1 if length else 0)
+
+
+@pytest.mark.gpu
+def test_k3_rejects_non_contiguous_on_card(cuda):
+    x = torch.zeros((4, 1024), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        crc_cuda.crc_states(x[:, :512])
+
+
+@pytest.mark.gpu
+def test_k3_finalized_needles_on_card(cuda):
+    lengths = [0, 1, 511, 512, 513, 1087, 9000]
+    rng = np.random.default_rng(5)
+    msgs = [rng.integers(0, 256, n, dtype=np.uint8) for n in lengths]
+    blocks = np.zeros((len(msgs), 16384), dtype=np.uint8)
+    for i, m in enumerate(msgs):
+        blocks[i, 16384 - m.size:] = m
+    raw = crc_cuda.crc_states(torch.from_numpy(blocks).to(cuda))
+    vals = crc32c.finalize(raw.cpu().numpy().astype(np.uint32), np.array(lengths))
+    assert [int(v) for v in vals] == [crc32c.crc32c(m.tobytes()) for m in msgs]
+
+
+@pytest.mark.gpu
+def test_scrub_through_k3_on_card(cuda, tmp_path):
+    v = Volume(str(tmp_path), "", 1)
+    rng = np.random.default_rng(3)
+    for i in range(1, 301):
+        v.write_needle(Needle(id=i, cookie=1, data=rng.bytes(int(rng.integers(0, 3000)))))
+    nv = v.nm.get(17)
+    with open(v.dat_path, "r+b") as f:
+        f.seek(nv.offset + 16 + nv.size)
+        f.write(b"\x00\x00\x00\x00" if nv.size > 5 else b"\x01")
+    before = crc_cuda.launches
+    got = scrub.scrub_volume(v, device="cuda", batch=64)
+    assert crc_cuda.launches > before and got.mode == "device"
+    want = scrub.scrub_volume(v, device="off", batch=64)
+    assert (got.scanned, got.corrupt, got.bytes_checked, got.error) == (
+        want.scanned, want.corrupt, want.bytes_checked, want.error)
+    assert got.corrupt == [17]
+    v.close()
+
+
+@pytest.mark.gpu
+def test_pipeline_scrub_on_card(cuda):
+    rng = np.random.default_rng(4)
+    lengths = rng.integers(1, 768, 16)
+    blocks = np.zeros((16, 768), dtype=np.uint8)
+    for i, n in enumerate(lengths):
+        blocks[i, 768 - n:] = rng.integers(0, 256, n, dtype=np.uint8)
+    blocks[2, 768 - lengths[2] - 1] = 1
+    assert ECPipeline().scrub(blocks, lengths) == \
+        ECPipeline(device="cpu").scrub(blocks, lengths) == 1
