@@ -31,9 +31,12 @@ asked for are built first, all at once (one nvcc per source).
    300 MiB + ragged-tail volumes. K1's launch counts are zeroed just
    before this phase and read just after;
 7. kernel K3 (csrc/crc32c.cu, batched raw CRC32C states): what ptxas says
-   of it; K3 against its plain PyTorch version on the card, bit for bit,
-   at B in {1, 3, 4096} x L in {0, 512, ..., 1 MiB} with rows of zeros,
-   0xFF and random bytes; a non-contiguous input must raise; after
+   of it (registers, spills) and its shared memory per block; K3 against
+   its plain PyTorch version on the card, bit for bit, at B in {1, 3, 4096,
+   4225} x L in {0, 512, ..., 1 MiB} with rows of zeros, 0xFF and random
+   bytes (4225 rows are more tasks than an H100 holds resident warps, so
+   the grid-stride loop runs; [1, 1 MiB] splits its row into 512 segments);
+   a non-contiguous input must raise; after
    finalize, against the host CRC on seeded needles. K3's time (CUDA
    events over launches queued back to back, each on another input), its
    HBM bound, the plain version's time and a device copy of the input at
@@ -78,7 +81,7 @@ K3_SOURCE = "seaweedfs_tpu_torch/csrc/crc32c.cu"
 K3_REPLACES = "seaweedfs_tpu/ops/crc32c.py:183"  # device_crc_states
 KERNELS = {2: "rs_gf", 7: "crc32c"}  # phase -> csrc source it builds
 K3_SHAPES = ((4096, 2048), (16384, 4096), (64, 1 << 20))  # first: the scrub's
-K3_ROWS = (1, 3, 4096)
+K3_ROWS = (1, 3, 4096, 4225)  # 4225 = 132 SMs x 32 warps + 1
 K3_LENGTHS = (0, 512, 1024, 2048, 4096, 65536, 1 << 20)
 NEEDLE_LENGTHS = (0, 1, 511, 512, 513, 1087, 9000)
 SCRUB_NEEDLES = 1 << 20
@@ -133,6 +136,9 @@ def phase_build(name: str = "rs_gf", tag: str = "build"):
     for line in built.ptxas_log.splitlines():
         if "Used" in line or "spill" in line or "smem" in line:
             log(f"[{tag}] {line.strip()}")
+    if name == "crc32c":
+        log(f"[{tag}] dynamic shared memory per block of crc_segments_kernel: "
+            f"{crc_cuda.load().crc32c_shared_bytes()} B")
     log(f"[{tag}] SASS opcodes (static count): {_sass_opcodes(built.path)}")
 
 
@@ -623,13 +629,14 @@ def phase_k3_timing(torch, np, seed: int, card: str) -> "dict[tuple, dict]":
         plain_ms = _time_ms(torch, lambda s, x=xs[0]: crc_torch.crc_states(x),
                             iters=3, warmup=1)
         bound_ms, bound_by = _k3_bound(b, length)
-        log(f"[k3] K3 [{b}, {length}] -> [{b}]: {ms:.4f} ms, "
-            f"{b * length / ms / 1e6:.1f} GB/s read, bound {bound_ms:.4f} ms "
+        log(f"[k3] K3 [{b}, {length}] -> [{b}]: {ms:.5f} ms, "
+            f"{b * length / ms / 1e6:.1f} GB/s read, bound {bound_ms:.5f} ms "
             f"({bound_by}), {bound_ms / ms:.1%} of bound; plain version "
             f"{plain_ms:.3f} ms; device copy of the input "
-            f"{copy_ms[(b, length)]:.4f} ms "
+            f"{copy_ms[(b, length)]:.5f} ms "
             f"({2 * b * length / copy_ms[(b, length)] / 1e6:.1f} GB/s moved); "
-            f"{crc_cuda.segments(b, length // 512)} segment(s) per row [{card}]")
+            f"{crc_cuda.segments(b, length // 512, crc_cuda.target_tasks(xs[0].device))} "
+            f"segment(s) per row [{card}]")
         out[(b, length)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                 bound_by=bound_by, copy_ms=copy_ms[(b, length)])
     log("[k3] library yardstick: none (no PyTorch call computes CRC32C)")

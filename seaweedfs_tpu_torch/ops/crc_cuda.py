@@ -13,11 +13,17 @@ raises: there is no fallback. States come back as int64 holding the uint32
 value.
 
 The tables K3 reads are built here, from the port's GF(2) matrices
-(ops/crc32c.py): ``slice_tables`` (S_j[x] = A^j T[x], j < 16) for the
-16-byte lane CRC, and ``shift_tables(n)`` (the four byte tables of A^n) for
-the lane tree (n = 16, 32, 64, 128, 256), the chunk step (n = 512) and the
-fold of a split row's segments (n = 512 q). tests/test_torch_k3_model.py
-runs K3's arithmetic over them in numpy.
+(ops/crc32c.py). A linear map (a 32x32 GF(2) map M, or the raw state of a
+16-byte piece) cut into fields of w input bits is one table per field,
+T_i[e] = M (e << w i), and M v is the XOR over the fields of T_i[field i of
+v] (``field_tables``). ``kernel_tables`` is the compact image the kernel
+copies in: the lane tables (16 data bytes, 5-bit fields), the chunk step
+A^512 (5-bit fields) and the fold tables (``fold_tables``: lane l's map
+A^(16 (31 - l)), 4-bit fields, one value per lane). Each block writes the
+lane and step tables 32-fold, so that every lane reads its own copy in its
+own bank. ``shift_tables(n)`` (the four byte tables of A^n) serve the fold
+of a split row's segments (n = 512 q). tests/test_torch_k3_model.py runs
+K3's arithmetic over them in numpy.
 
 ``launches`` counts kernel launches (one per call that reaches the card),
 so a run can show that its main path went through the kernel.
@@ -35,10 +41,16 @@ from . import _build, crc32c, crc_torch
 
 CHUNK = 512          # bytes a warp folds per step (the kernel's constant)
 LANE_BYTES = 16      # bytes per lane per step
-TREE_SHIFTS = (16, 32, 64, 128, 256)
-#: split a row into segments until the batch has this many warp tasks
-TARGET_TASKS = 8192
-#: ... while every segment keeps at least this many chunks
+LANES = 32
+#: field widths, in bits, of the lane, chunk-step and fold tables (the
+#: kernel's kLaneBits, kStepBits, kFoldBits)
+LANE_BITS, STEP_BITS, FOLD_BITS = 5, 5, 4
+#: warps K3 keeps resident on an SM: one 1024-thread block, whose tables
+#: take most of the SM's shared memory (the kernel's kWarps)
+WARPS_PER_SM = 32
+#: a row is split only while every segment keeps at least this many chunks,
+#: so that a task's fold (8 lookups, a butterfly and a store) stays small
+#: beside its 33 lookups a chunk
 MIN_SEGMENT_CHUNKS = 4
 
 #: kernel launches since the last reset_launches()
@@ -62,7 +74,8 @@ def load() -> ctypes.CDLL:
         lib.crc32c_states.argtypes = [ctypes.c_void_p] * 5 + [
             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
         lib.crc32c_states.restype = ctypes.c_int
-        for fn in (lib.crc32c_chunk_bytes, lib.crc32c_table_words):
+        for fn in (lib.crc32c_chunk_bytes, lib.crc32c_table_words,
+                   lib.crc32c_shared_bytes):
             fn.argtypes = []
             fn.restype = ctypes.c_int
         if lib.crc32c_chunk_bytes() != CHUNK or (
@@ -108,34 +121,77 @@ def shift_tables(n: int) -> np.ndarray:
     return out
 
 
+def bit_images(m: np.ndarray) -> np.ndarray:
+    """[32] uint32: M applied to each single-bit state, bit b in row b."""
+    return apply_matrix(m, np.uint64(1) << np.arange(32, dtype=np.uint64))
+
+
 @functools.lru_cache(maxsize=1)
-def slice_tables() -> np.ndarray:
-    """[16, 256] uint32: S_j[x] = A^j T[x], the raw zero-init state of byte
-    x followed by j zero bytes."""
+def lane_bit_images() -> np.ndarray:
+    """[128] uint32: the raw zero-init state of 16 bytes whose only set bit
+    is bit b (byte b // 8, bit b % 8), A^(15 - b // 8) T[1 << b % 8]."""
     t = crc32c._table()
-    out = np.stack([apply_matrix(pow_matrix(j), t) for j in range(LANE_BYTES)])
+    return np.array([apply_matrix(pow_matrix(LANE_BYTES - 1 - b // 8),
+                                  t[1 << (b % 8)]) for b in range(128)],
+                    dtype=np.uint32)
+
+
+def field_tables(images: np.ndarray, width: int) -> np.ndarray:
+    """The tables of a linear map cut into fields of `width` input bits,
+    concatenated: field i (bits [width i, width i + w)) has 2^w entries,
+    entry e = XOR of the images of the bits set in e << width i. The last
+    field may be narrower. The map of v is the XOR over the fields of
+    table_i[field i of v]."""
+    out = []
+    for lo in range(0, images.size, width):
+        img = images[lo:lo + width]
+        e = np.arange(1 << img.size)
+        bits = (e[:, None] >> np.arange(img.size)) & 1
+        out.append(np.bitwise_xor.reduce(
+            np.where(bits == 1, img[None, :], 0).astype(np.uint32), axis=1))
+    return np.concatenate(out).astype(np.uint32)
+
+
+@functools.lru_cache(maxsize=1)
+def fold_tables() -> np.ndarray:
+    """[entries, 32] uint32: column l holds the FOLD_BITS field tables of
+    lane l's map A^(16 (31 - l)), from its running state to its share of
+    the segment's state."""
+    out = np.stack([field_tables(bit_images(pow_matrix(LANE_BYTES * (LANES - 1 - lane))),
+                                 FOLD_BITS) for lane in range(LANES)], axis=-1)
     out.setflags(write=False)
     return out
 
 
 @functools.lru_cache(maxsize=1)
 def kernel_tables() -> np.ndarray:
-    """K3's shared-memory image: slice tables, the five tree shifts, the
-    chunk step, as one flat uint32 array (the kernel's layout)."""
-    parts = [slice_tables().ravel()]
-    parts += [shift_tables(n).ravel() for n in TREE_SHIFTS]
-    parts.append(shift_tables(CHUNK).ravel())
-    out = np.concatenate(parts)
+    """K3's compact table image, one flat uint32 array in the kernel's
+    order: the lane tables (16 data bytes in fields of LANE_BITS), the
+    chunk step A^512 (fields of STEP_BITS), the fold tables (one value per
+    lane). The kernel writes the first two 32-fold into shared memory."""
+    out = np.concatenate([field_tables(lane_bit_images(), LANE_BITS),
+                          field_tables(bit_images(pow_matrix(CHUNK)), STEP_BITS),
+                          fold_tables().ravel()])
     out.setflags(write=False)
     return out
 
 
-def segments(rows: int, chunks: int) -> int:
+def target_tasks(device: torch.device) -> int:
+    """One round of the card's resident warps, the grid crc32c_states
+    launches (SMs x WARPS_PER_SM), rounded down to a power of two: rows
+    are split until the batch has this many warp tasks. More tasks balance
+    no better and lengthen the serial fold of a row's segments in the
+    second launch."""
+    n = torch.cuda.get_device_properties(device).multi_processor_count * WARPS_PER_SM
+    return 1 << (n.bit_length() - 1)
+
+
+def segments(rows: int, chunks: int, target: int) -> int:
     """How many segments K3 splits each row into: doubled (a power of two
-    that divides the chunks) while the batch has fewer than TARGET_TASKS
-    warp tasks and each segment keeps MIN_SEGMENT_CHUNKS chunks."""
+    that divides the chunks) while the batch has fewer than `target` warp
+    tasks and each segment keeps MIN_SEGMENT_CHUNKS chunks."""
     s = 1
-    while (rows * s < TARGET_TASKS and chunks % (2 * s) == 0
+    while (rows * s < target and chunks % (2 * s) == 0
            and chunks // (2 * s) >= MIN_SEGMENT_CHUNKS):
         s *= 2
     return s
@@ -175,7 +231,7 @@ def crc_states(blocks: torch.Tensor) -> torch.Tensor:
         return torch.zeros(b, dtype=torch.int64, device=dev)
     out = torch.empty(b, dtype=torch.int64, device=dev)
     chunks = length // CHUNK
-    s = segments(b, chunks)
+    s = segments(b, chunks, target_tasks(dev))
     lib = load()
     tables = _on_device("tables", kernel_tables, dev)
     if s > 1:

@@ -112,7 +112,8 @@ def test_encode_rebuild_through_k1_on_card(cuda, tmp_path):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("rows,length", [(1, 512), (3, 2048), (4096, 2048),
-                                         (3, 65536), (2, 1 << 20), (5, 0)])
+                                         (3, 65536), (2, 1 << 20), (5, 0),
+                                         (4225, 2048), (1, 1 << 20)])
 def test_k3_matches_plain_on_card(cuda, rows, length):
     before = crc_cuda.launches
     x = torch.from_numpy(_data((rows, length), rows + length)).to(cuda)
