@@ -5,7 +5,7 @@
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result). `--phases` runs a subset (default: all); phase 1 always runs, and
-the kernels line needs phases 3, 4, 6, 7 and 8. The kernels of the phases
+the kernels line needs phases 3, 4, 6, 7, 8 and 9. The kernels of the phases
 asked for are built first, all at once (one nvcc per source).
 
 1. device: card name, count, `nvidia-smi` name and power limit;
@@ -50,8 +50,27 @@ asked for are built first, all at once (one nvcc per source).
    the 17 damaged ids, with the scanned and checked counts of
    device="off". Every launch count is zeroed just before the cuda scrub
    and read just after; K3 must have launched;
-9. summary: one JSON line of every kernel with its launches, error against
-   the plain version, times and bound; then the result line.
+9. EC volumes served from a Store at deployment size: servers A and B,
+   each a Store on the card (coder "torch", kernel K1); 1,048,576 needles
+   of 1024 + 0..63 B written on A through Store.write_needles_bulk,
+   Store.generate_ec_shards at RS(10,4) (1 GiB / 1 MiB blocks), shards 7-13
+   with copies of the .ecx and .vif moved to B, the source volume deleted,
+   both mounted. A seeded sample of 16,384 needles read on A through
+   Store.read_needle with the shard reader of server/volume_server.py
+   (fetching B's shards from B) healthy, then again after shards (0, 5)
+   are lost on A and (10, 13) on B: every payload must equal what was
+   written, and the reconstructs must number the sampled intervals on lost
+   shards. Then A rebuilds (0, 5) and B rebuilds (10, 13), each with the
+   other's shards as remote survivors, to the shards' hashes; a needle
+   deleted through the EC volume must read as KeyError; both heartbeats'
+   ec_index_bits; B's data shards copied to A and ec_shards_to_volume
+   must give back the source .dat's hash and the sample. K1's launch
+   counts are zeroed just before this phase and read just after; then,
+   outside the counts, the costs of one degraded interval's K1 call at
+   [10, ~1 KB] are timed;
+10. summary: one JSON line of every kernel with its launches (K1's from
+   phases 6 and 9 together), error against the plain version, times and
+   bound; then the result line.
 
 Needs CUDA and the repository beside it; without either it exits 2.
 """
@@ -60,6 +79,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import hashlib
 import json
 import os
 import re
@@ -74,17 +94,21 @@ MAIN_SHAPE = (32, 10, 1 << 20)  # [batch, d, chunk] of one encode call
 LOST_10_4 = (0, 5, 10, 13)
 LOST_14_2 = (3, 15)
 WIDTHS = (16, 48, 100, 384, 4112, 65536, 65552)
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9)
 PALLAS = "seaweedfs_tpu/ops/rs_pallas.py"
 K1_SOURCE = "seaweedfs_tpu_torch/csrc/rs_gf.cu"
 K3_SOURCE = "seaweedfs_tpu_torch/csrc/crc32c.cu"
 K3_REPLACES = "seaweedfs_tpu/ops/crc32c.py:183"  # device_crc_states
-KERNELS = {2: "rs_gf", 7: "crc32c"}  # phase -> csrc source it builds
+KERNELS = {2: "rs_gf", 7: "crc32c", 9: "rs_gf"}  # phase -> csrc source it builds
 K3_SHAPES = ((4096, 2048), (16384, 4096), (64, 1 << 20))  # first: the scrub's
 K3_ROWS = (1, 3, 4096, 4225)  # 4225 = 132 SMs x 32 warps + 1
 K3_LENGTHS = (0, 512, 1024, 2048, 4096, 65536, 1 << 20)
 NEEDLE_LENGTHS = (0, 1, 511, 512, 513, 1087, 9000)
 SCRUB_NEEDLES = 1 << 20
+EC_NEEDLES = 1 << 20   # weed benchmark's default write set, as phase 8
+EC_SAMPLE = 16384      # needles read back per pass
+EC_VID = 1
+A_LOST, B_LOST = (0, 5), (10, 13)
 K1_ENTRIES = {  # wrapper entry -> the Pallas entry it replaces
     "encode": f"{PALLAS}:156",
     "encode_seeded": f"{PALLAS}:164",
@@ -120,7 +144,7 @@ def phase_device(torch) -> str:
 def build_kernels(phases) -> None:
     """Build the kernels of the phases asked for, one nvcc each, together."""
     from seaweedfs_tpu_torch.ops import _build
-    names = [name for ph, name in KERNELS.items() if ph in phases]
+    names = sorted({name for ph, name in KERNELS.items() if ph in phases})
     if names:
         t0 = time.perf_counter()
         _build.build_all(names)
@@ -763,6 +787,337 @@ def phase_scrub(torch, np, workdir: str, seed: int, card: str) -> int:
     return launches["crc32c_states"]
 
 
+# -- phase 9 ----------------------------------------------------------------
+def _sha256(path: str) -> str:
+    with open(path, "rb") as f:
+        return hashlib.file_digest(f, "sha256").hexdigest()
+
+
+def _serve(store, vid: int):
+    """Server `store`'s side of a shard fetch: the bytes of one of its
+    mounted shards, or None when it holds no such shard."""
+    def fetch(sid: int, off: int, ln: int):
+        ev = store.find_ec_volume(vid)
+        sh = ev.shards.get(sid) if ev is not None else None
+        return None if sh is None else sh.read_at(off, ln)
+    return fetch
+
+
+def _must(fetch):
+    """A rebuild's shard_reader over `fetch`: a shard it lacks is an error."""
+    def read(sid: int, off: int, ln: int) -> bytes:
+        data = fetch(sid, off, ln)
+        if data is None:
+            raise OSError(f"shard {sid} is not on the remote server")
+        return data
+    return read
+
+
+def _pct(np, xs, q: float) -> float:
+    return float(np.percentile(np.asarray(xs), q))
+
+
+def ec_store_round_trip(np, workdir: str, seed: int, card: str, geo,
+                        needles: int, sample: int, device: str = "cuda") -> dict:
+    """Phase 9's path through two Stores, every check fatal; returns the
+    measured numbers and the degraded intervals' lengths."""
+    from concurrent.futures import ThreadPoolExecutor
+    from seaweedfs_tpu_torch.ec import files
+    from seaweedfs_tpu_torch.ec.locate import locate
+    from seaweedfs_tpu_torch.server.volume_server import make_shard_reader
+    from seaweedfs_tpu_torch.storage.disk_location import DiskLocation
+    from seaweedfs_tpu_torch.storage.needle import Needle, record_size_from_header
+    from seaweedfs_tpu_torch.storage.store import Store
+
+    lost = set(A_LOST + B_LOST)
+    dirs = [os.path.join(workdir, f"server_{x}") for x in "ab"]
+    a, b = (Store("127.0.0.1", 8080 + i, "", [DiskLocation(d)],
+                  ec_geometry=geo, device=device) for i, d in enumerate(dirs))
+    pool = ThreadPoolExecutor(max_workers=8)
+    try:
+        rng = np.random.default_rng(seed)
+        sizes = 1024 + rng.integers(0, 64, needles)
+        cookies = rng.integers(0, 1 << 32, needles, dtype=np.uint64)
+        picked = rng.choice(needles, sample, replace=False) + 1
+        in_sample = set(int(i) for i in picked)
+        want: "dict[int, bytes]" = {}
+        a.add_volume(EC_VID)
+        t0 = time.perf_counter()
+        for lo in range(0, needles, 4096):  # one bulk frame per 4096
+            hi = min(needles, lo + 4096)
+            buf = rng.bytes(int(sizes[lo:hi].sum()))
+            ends = np.cumsum(sizes[lo:hi])
+            batch = []
+            for i, e in enumerate(ends):
+                nid = lo + i + 1
+                data = buf[int(e - sizes[lo + i]):int(e)]
+                batch.append(Needle(id=nid, cookie=int(cookies[lo + i]), data=data))
+                if nid in in_sample:
+                    want[nid] = data
+            a.write_needles_bulk(EC_VID, batch)
+        base_a = a.find_volume(EC_VID).file_name()
+        dat_size = os.path.getsize(base_a + ".dat")
+        log(f"[ec] server A: wrote {needles} needles ({dat_size} B of .dat) "
+            f"through Store.write_needles_bulk in {time.perf_counter() - t0:.1f} s")
+        dat_hash = _sha256(base_a + ".dat")
+
+        enc: dict = {}
+        t0 = time.perf_counter()
+        a.generate_ec_shards(EC_VID, stats=enc)
+        enc_s = time.perf_counter() - t0
+        log(f"[ec] Store.generate_ec_shards RS({geo.d},{geo.p}) of {dat_size} B "
+            f"in {enc_s:.3f} s: {dat_size / enc_s / 1e9:.3f} GB/s end to end "
+            f"(stream wall {enc['wall_s']:.3f} s, seal {enc['seal_s']:.3f} s, "
+            f"fill {enc['fill_s']:.3f} s) [{card}]")
+
+        # VolumeEcShardsCopy stand-in: shards 7-13 to B with the sidecars
+        base_b = os.path.join(dirs[1], os.path.basename(base_a))
+        for s in range(7, geo.n):
+            os.replace(base_a + files.shard_ext(s), base_b + files.shard_ext(s))
+        for ext in (".ecx", ".vif"):
+            shutil.copy(base_a + ext, base_b + ext)
+        a.delete_volume(EC_VID)
+        ev_a, ev_b = a.mount_ec_shards(EC_VID), b.mount_ec_shards(EC_VID)
+        if (ev_a.dat_size, sorted(ev_a.shards), sorted(ev_b.shards)) != (
+                dat_size, list(range(7)), list(range(7, geo.n))):
+            raise AssertionError("EC volume mounted with the wrong shards or size")
+        shard_size = ev_a.shard_size
+
+        order = sorted(want)
+        on_lost = {}
+        for nid in order:
+            off, size = ev_a.find_needle(nid)
+            on_lost[nid] = [iv.size for iv in locate(
+                geo, dat_size, off, record_size_from_header(size))
+                if iv.shard_and_offset(geo)[0] in lost]
+        rstats: dict = {}
+        reader = make_shard_reader(a, EC_VID, _serve(b, EC_VID), pool, rstats)
+
+        def read_pass(tag: str) -> "dict[int, tuple]":
+            """(latency, gather, decode) seconds of each sampled read."""
+            out = {}
+            for nid in order:
+                g0, k0 = rstats.get("gather_s", 0.0), rstats.get("decode_s", 0.0)
+                t = time.perf_counter()
+                n = a.read_needle(EC_VID, nid, cookie=int(cookies[nid - 1]),
+                                  shard_reader=reader)
+                lat = time.perf_counter() - t
+                out[nid] = (lat, rstats.get("gather_s", 0.0) - g0,
+                            rstats.get("decode_s", 0.0) - k0)
+                if n.data != want[nid]:
+                    raise AssertionError(f"{tag} read of needle {nid} differs "
+                                         "from what was written")
+            return out
+
+        healthy = read_pass("healthy")
+        if rstats:
+            raise AssertionError(f"healthy reads reconstructed: {rstats}")
+        # a healthy read's parts, timed alone on a slice of the sample
+        part = order[:2000]
+        t_find, t_read, t_parse = [], [], []
+        for nid in part:
+            t = time.perf_counter()
+            off, size = ev_a.find_needle(nid)
+            t_find.append(time.perf_counter() - t)
+            t = time.perf_counter()
+            buf = ev_a.read_logical(off, record_size_from_header(size), reader)
+            t_read.append(time.perf_counter() - t)
+            t = time.perf_counter()
+            Needle.from_bytes(buf)
+            t_parse.append(time.perf_counter() - t)
+        shard_hash = {s: _sha256((base_a if s < 7 else base_b) + files.shard_ext(s))
+                      for s in range(geo.n)}
+        for store, base, gone in ((a, base_a, A_LOST), (b, base_b, B_LOST)):
+            for s in gone:
+                os.unlink(base + files.shard_ext(s))
+            store.mount_ec_shards(EC_VID)
+        t0 = time.perf_counter()
+        degraded = read_pass("degraded")
+        pass_s = time.perf_counter() - t0
+        expected = sum(len(v) for v in on_lost.values())
+        if rstats.get("reconstructs", 0) != expected or not expected:
+            raise AssertionError(f"{rstats.get('reconstructs', 0)} degraded "
+                                 f"reconstructs; the sample's intervals on "
+                                 f"lost shards number {expected}")
+        deg_ids = [nid for nid in order if on_lost[nid]]
+        lat, gat, dec = (np.array([degraded[i][j] for i in deg_ids]) for j in range(3))
+        rest = lat - gat - dec
+        h_lat = np.array([healthy[i][0] for i in order])
+
+        def ms(xs, q: float) -> str:
+            return f"{_pct(np, xs, q) * 1e3:.4f}"
+        log(f"[ec] degraded pass on A: {len(order)} sampled needles == written "
+            f"in {pass_s:.3f} s ({len(order) / pass_s:.0f} reads/s); "
+            f"{len(deg_ids)} degraded reads, {expected} reconstructed intervals "
+            f"== the sample's intervals on shards {sorted(lost)} [{card}]")
+        log(f"[ec] degraded reads: {len(deg_ids) / lat.sum():.1f} reads/s one at "
+            f"a time, p50 {ms(lat, 50)} ms, p99 {ms(lat, 99)} ms, mean "
+            f"{lat.mean() * 1e3:.4f} ms; per read p50 (mean): gather "
+            f"{ms(gat, 50)} ({gat.mean() * 1e3:.4f}) ms, K1 call with "
+            f"host_result {ms(dec, 50)} ({dec.mean() * 1e3:.4f}) ms, rest "
+            f"{ms(rest, 50)} ({rest.mean() * 1e3:.4f}) ms [{card}]")
+        log(f"[ec] healthy reads of the same sample: p50 {ms(h_lat, 50)} ms, p99 "
+            f"{ms(h_lat, 99)} ms, mean {h_lat.mean() * 1e3:.4f} ms; of the "
+            f"degraded reads' needles p50 "
+            f"{ms([healthy[i][0] for i in deg_ids], 50)} ms; parts timed alone "
+            f"on {len(part)} of them, p50: .ecx search {ms(t_find, 50)} ms, "
+            f"interval reads {ms(t_read, 50)} ms, needle parse and CRC "
+            f"{ms(t_parse, 50)} ms [{card}]")
+
+        rebuilt = {}
+        for tag, store, peer, wanted, remote, base in (
+                ("A", a, b, A_LOST, [s for s in range(7, geo.n) if s not in B_LOST],
+                 base_a),
+                ("B", b, a, B_LOST, list(range(7)), base_b)):
+            st: dict = {}
+            got = store.rebuild_ec_shards(EC_VID, shard_reader=_must(_serve(peer, EC_VID)),
+                                          remote_shards=remote, wanted=list(wanted),
+                                          stats=st)
+            if got != list(wanted):
+                raise AssertionError(f"server {tag} rebuilt {got}, not {wanted}")
+            for s in wanted:
+                if _sha256(base + files.shard_ext(s)) != shard_hash[s]:
+                    raise AssertionError(f"server {tag}: rebuilt shard {s} differs")
+            if st["bytes_read"] != geo.d * shard_size:
+                raise AssertionError(f"server {tag} read {st['bytes_read']} B, "
+                                     f"not d x {shard_size}")
+            local_b = st["bytes_read"] - st["remote_bytes_read"]
+            log(f"[ec] rebuild on {tag} of {tuple(wanted)}: {st['bytes_read']} B "
+                f"read in {st['wall_s']:.3f} s = "
+                f"{st['bytes_read'] / st['wall_s'] / 1e9:.3f} GB/s read; remote "
+                f"survivors {st['remote_bytes_read']} B in "
+                f"{st['remote_read_s']:.3f} s "
+                f"({st['remote_bytes_read'] / st['remote_read_s'] / 1e9:.3f} GB/s), "
+                f"local {local_b} B in {st['local_read_s']:.3f} s "
+                f"({local_b / st['local_read_s'] / 1e9:.3f} GB/s); stages read "
+                f"{st['read_s']:.3f} write {st['write_s']:.3f} flush "
+                f"{st['flush_s']:.3f} s; == the lost shards' hashes [{card}]")
+            rebuilt[tag] = st
+
+        gone = order[0]
+        if not a.find_ec_volume(EC_VID).delete_needle(gone):
+            raise AssertionError(f"EC delete of needle {gone} found nothing")
+        try:
+            a.read_needle(EC_VID, gone, shard_reader=reader)
+        except KeyError:
+            pass
+        else:
+            raise AssertionError(f"deleted needle {gone} still reads")
+        bits = [s.collect_heartbeat()["ec_shards"][0]["ec_index_bits"] for s in (a, b)]
+        if bits != [(1 << 7) - 1, ((1 << geo.n) - 1) ^ ((1 << 7) - 1)]:
+            raise AssertionError(f"heartbeat ec_index_bits {[hex(x) for x in bits]}")
+
+        for s in range(7, geo.d):
+            shutil.copy(base_b + files.shard_ext(s), base_a + files.shard_ext(s))
+        t0 = time.perf_counter()
+        v = a.ec_shards_to_volume(EC_VID)
+        decode_s = time.perf_counter() - t0
+        if _sha256(v.dat_path) != dat_hash:
+            raise AssertionError("decoded .dat differs from the source's hash")
+        for nid in order[1:]:
+            if a.read_needle(EC_VID, nid, cookie=int(cookies[nid - 1])).data != want[nid]:
+                raise AssertionError(f"needle {nid} differs after decode")
+        try:
+            a.read_needle(EC_VID, gone)
+        except KeyError:
+            pass
+        else:
+            raise AssertionError(f"deleted needle {gone} came back in the decode")
+        t0 = time.perf_counter()
+        a.reload_volume(EC_VID)
+        load_s = time.perf_counter() - t0
+        log(f"[ec] ec_shards_to_volume on A: {dat_size} B in {decode_s:.3f} s "
+            f"({dat_size / decode_s / 1e9:.3f} GB/s; opening the decoded volume, "
+            f"timed again as a reload: {load_s:.3f} s); .dat == source hash, "
+            f"sample == written, deleted needle stays deleted; heartbeat "
+            f"ec_index_bits A {bits[0]:#x}, B {bits[1]:#x} [{card}]")
+        return dict(lengths=[ln for v in on_lost.values() for ln in v])
+    finally:
+        pool.shutdown()
+        a.close()
+        b.close()
+
+
+def one_stripe_costs(torch, np, lengths, seed: int, card: str) -> dict:
+    """One degraded interval's GF step at the path's typical length: K1 at
+    [10, L] (CUDA events), its bound and plain version, and on the host clock
+    the coder call the degraded read makes (pageable H2D, K1, a fresh pinned
+    buffer and event per call) split into its parts, and the first call of
+    a new survivor set (host GF inversion and table upload)."""
+    from seaweedfs_tpu_torch.ops import rs_cuda, rs_torch
+    from seaweedfs_tpu_torch.ops.coder import TorchCoder, host_result
+    L = int(np.median(lengths))
+    d, p = 10, 4
+    present, lost = (1, 2, 3, 4, 6, 7, 8, 9, 11, 12), (0,)
+    rng = np.random.default_rng(seed + 9)
+    arr = rng.integers(0, 256, (d, L), dtype=np.uint8)
+    x = torch.from_numpy(arr).cuda()
+    ms = _queued_ms(torch, lambda x: rs_cuda.reconstruct(x, present, lost, d, p),
+                    [x], iters=500)
+    rec = rs_torch.decode_rows(d, p, present, lost)
+    plain_ms = _time_ms(torch, lambda s: rs_torch.gf_apply(rec, x), iters=50)
+    bound_ms, bound_by = _bound(1, d, 1, L)
+    coder = TorchCoder(d, p)
+
+    def host_ms(fn, iters: int = 500) -> float:
+        ts = []
+        for _ in range(iters):
+            t = time.perf_counter()
+            fn()
+            ts.append(time.perf_counter() - t)
+        return _pct(np, ts, 50) * 1e3
+
+    def to_device():
+        coder._to_device(arr)
+        torch.cuda.synchronize()
+    out = rs_cuda.reconstruct(x, present, lost, d, p)
+    call = host_ms(lambda: host_result(coder.reconstruct(arr, present, lost)))
+    h2d = host_ms(to_device)
+    launch = host_ms(lambda: (rs_cuda.reconstruct(x, present, lost, d, p),
+                              torch.cuda.synchronize()))
+    finish = host_ms(lambda: coder._finish(out).wait())
+    firsts = []
+    for i in range(20):
+        rs_cuda._decode_rows.cache_clear()
+        rs_cuda._tables.clear()
+        t = time.perf_counter()
+        host_result(coder.reconstruct(arr, present, lost))
+        firsts.append(time.perf_counter() - t)
+    rs_cuda._decode_rows.cache_clear()
+    t = time.perf_counter()
+    rs_cuda._decode_rows(d, p, present, lost)
+    inv_ms = (time.perf_counter() - t) * 1e3
+    log(f"[ec] K1 reconstruct one stripe [1, {d}, {L}] -> [1, 1, {L}]: "
+        f"{ms:.5f} ms, bound {bound_ms:.7f} ms ({bound_by}), "
+        f"{bound_ms / ms:.3%} of bound; plain version {plain_ms:.4f} ms [{card}]")
+    log(f"[ec] one degraded interval's coder call, host clock p50: "
+        f"TorchCoder.reconstruct + host_result {call:.4f} ms = pageable H2D "
+        f"{h2d:.4f} ms + K1 launch to sync {launch:.4f} ms + pinned D2H buffer, "
+        f"copy and event {finish:.4f} ms (each timed alone, synchronized); "
+        f"first call of a new survivor set p50 {_pct(np, firsts, 50) * 1e3:.4f} ms, "
+        f"of which the GF inversion {inv_ms:.4f} ms [{card}]")
+    return dict(L=L, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, call_ms=call)
+
+
+def phase_ec_store(torch, np, workdir: str, seed: int, card: str) -> "dict[str, int]":
+    from seaweedfs_tpu_torch.ec.locate import EcGeometry
+    from seaweedfs_tpu_torch.ops import rs_cuda
+    os.makedirs(workdir, exist_ok=True)
+    torch.cuda.synchronize()
+    rs_cuda.reset_launches()
+    res = ec_store_round_trip(np, workdir, seed + 13, card, EcGeometry(10, 4),
+                              EC_NEEDLES, EC_SAMPLE)
+    torch.cuda.synchronize()
+    launches = dict(rs_cuda.launches_by_entry)
+    log(f"[ec] K1 launches on the EC store path: {json.dumps(launches)} [{card}]")
+    for entry in ("encode", "reconstruct"):
+        if not launches.get(entry):
+            raise AssertionError(f"K1 {entry} never launched on the EC store path")
+    one_stripe_costs(torch, np, res["lengths"], seed, card)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -813,12 +1168,20 @@ def main(argv=None) -> int:
             k3_launches = phase_scrub(torch, np, args.workdir, args.seed, card)
         finally:
             shutil.rmtree(args.workdir, ignore_errors=True)
+    ec_launches = None
+    if 9 in phases:
+        try:
+            ec_launches = phase_ec_store(torch, np, args.workdir, args.seed, card)
+        finally:
+            shutil.rmtree(args.workdir, ignore_errors=True)
     log(f"[done] phases {sorted(phases | {1})} passed in "
         f"{time.perf_counter() - t0:.1f} s [{card}]")
-    if None not in (errs, times, launches, k3_err, k3_times, k3_launches):
+    if None not in (errs, times, launches, k3_err, k3_times, k3_launches,
+                    ec_launches):
         kernels = [dict(name=f"rs_gf_apply:{entry}", route="cuda",
                         source=K1_SOURCE, replaces=replaces,
-                        launches=launches.get(entry, 0),
+                        launches=launches.get(entry, 0)
+                        + ec_launches.get(entry, 0),
                         max_abs_err=errs[entry], ms=times[entry]["ms"],
                         plain_ms=times[entry]["plain_ms"],
                         bound_ms=times[entry]["bound_ms"],

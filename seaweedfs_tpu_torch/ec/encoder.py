@@ -10,10 +10,10 @@ coder.
 The whole .dat byte stream is striped, super block included, exactly like the
 reference — decode reproduces the original file bit-for-bit.
 
-Rebuild reads LOCAL survivors only, with one positional pread reader per
-shard file (plain RS, path "full"). Remote and ranged survivors
-(shard_reader / fragment_reader, the repair-plane executors) are not ported
-yet.
+Rebuild reads survivors from local shard files and, through a caller's
+`shard_reader`, from another server (ec/repair.make_readers). Only plain RS
+is ported: the layered codecs' ranged rebuilders (ec/repair.REBUILDERS) and
+ranged-compute `fragment_reader` survivors are not.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from typing import Sequence
 import numpy as np
 
 from ..ops.coder import ErasureCoder
-from . import files
+from . import files, repair
 from .locate import EcGeometry
 from .stream import AsyncPipe, require_plain_rs
 
@@ -57,69 +57,32 @@ def find_shards(base: str, n: int) -> dict[int, str]:
             for i in range(n) if os.path.exists(base + files.shard_ext(i))}
 
 
-class _Counter:
-    """Survivor bytes read and rebuilt bytes written by one rebuild, and
-    where its wall time went (read_s: survivor loads; write_s: copying
-    rebuilt rows out; flush_s: flushing the rebuilt files)."""
-
-    def __init__(self):
-        self.bytes_read = 0
-        self.bytes_written = 0
-        self.read_s = self.write_s = self.flush_s = 0.0
-
-    def wrote(self, n: int) -> None:
-        self.bytes_written += n
-
-
-def _local_readers(present_local: "dict[int, str]", counter: _Counter):
-    """One positional reader per local shard file: reader(off, length)
-    -> uint8 array. Returns (readers, close)."""
-    fds = {}
-    readers = {}
-
-    def make(fd):
-        def read(off: int, length: int) -> np.ndarray:
-            buf = bytearray(length)
-            mv = memoryview(buf)
-            got = 0
-            while got < length:
-                n = os.preadv(fd, [mv[got:]], off + got)
-                if n == 0:
-                    raise EOFError(f"short read at {off + got}")
-                got += n
-            counter.bytes_read += length
-            return np.frombuffer(buf, dtype=np.uint8)
-        return read
-
-    try:
-        for sid, path in present_local.items():
-            fds[sid] = os.open(path, os.O_RDONLY)
-            readers[sid] = make(fds[sid])
-    except BaseException:
-        for fd in fds.values():
-            os.close(fd)
-        raise
-
-    def close():
-        for fd in fds.values():
-            os.close(fd)
-    return readers, close
-
-
 def rebuild_shards(base: str, geo: EcGeometry, coder: ErasureCoder,
                    wanted: Sequence[int] | None = None,
                    chunk: int = DEFAULT_CHUNK, batch: int = DEFAULT_BATCH,
+                   shard_reader=None,
+                   remote_shards: Sequence[int] | None = None,
                    stats: "dict | None" = None,
+                   fragment_reader=None,
                    ) -> list[int]:
-    """Recreate missing shard files from >= d local survivors.
+    """Recreate missing shard files from >= d survivors.
 
     Reference: RebuildEcFiles ec_encoder.go:61 / rebuildEcFiles :237-291.
-    `stats` receives bytes_read / bytes_written / codec / path /
-    shard_size. Returns the shard ids rebuilt.
+    Survivors may live elsewhere: `shard_reader(sid, offset, length)`
+    serves the ids listed in `remote_shards`. `stats` receives
+    bytes_read / bytes_written / codec / path / shard_size, the stage
+    times read_s / write_s / flush_s / wall_s, `remote` (how many
+    survivors a reader could serve remotely), and remote_bytes_read /
+    remote_read_s / local_read_s (the survivor reads by kind). Returns the
+    shard ids rebuilt (always written under `base`).
     """
-    require_plain_rs(coder)
     present_local = find_shards(base, geo.n)
-    present = set(present_local)
+    # a shard the caller explicitly wants rebuilt is never a survivor,
+    # even if a stale holder list still claims a remote copy
+    remote = [s for s in (remote_shards or ())
+              if s not in present_local and shard_reader is not None
+              and (wanted is None or s not in set(wanted))]
+    present = set(present_local) | set(remote)
     missing = sorted(set(wanted) if wanted is not None
                      else set(range(geo.n)) - present)
     missing = [m for m in missing if m not in present_local]
@@ -129,20 +92,26 @@ def rebuild_shards(base: str, geo: EcGeometry, coder: ErasureCoder,
         raise RuntimeError(
             f"cannot rebuild: only {len(present)} shards present, need {geo.d}")
     shard_size = _shard_size(base, geo, present_local)
-    counter = _Counter()
+    counter = repair.RepairCounter(coder.codec)
     t_wall0 = time.perf_counter()
-    readers, close = _local_readers(present_local, counter)
+    readers, frag_readers, close = repair.make_readers(
+        base, present_local, shard_reader, remote, counter,
+        fragment_reader=fragment_reader)
     try:
-        _rebuild_positional(base, geo, coder, tuple(sorted(present)), missing,
-                            readers, shard_size, chunk, batch, counter)
+        path = _dispatch_rebuild(base, geo, coder, tuple(sorted(present)),
+                                 missing, readers, frag_readers, shard_size,
+                                 chunk, batch, counter)
     finally:
         close()
     if stats is not None:
         stats.update(bytes_read=counter.bytes_read,
                      bytes_written=counter.bytes_written,
-                     codec=coder.codec, path="full", shard_size=shard_size,
-                     read_s=counter.read_s, write_s=counter.write_s,
-                     flush_s=counter.flush_s,
+                     codec=coder.codec, path=path, shard_size=shard_size,
+                     remote=len(remote), read_s=counter.read_s,
+                     write_s=counter.write_s, flush_s=counter.flush_s,
+                     remote_bytes_read=counter.remote_bytes_read,
+                     remote_read_s=counter.remote_read_s,
+                     local_read_s=counter.local_read_s,
                      wall_s=time.perf_counter() - t_wall0)
     return missing
 
@@ -159,6 +128,30 @@ def _shard_size(base: str, geo: EcGeometry,
     return geo.shard_file_size(dat_size)
 
 
+def _dispatch_rebuild(base: str, geo: EcGeometry, coder: ErasureCoder,
+                      present: tuple, missing: list[int], readers: dict,
+                      frag_readers: dict, shard_size: int, chunk: int,
+                      batch: int, counter) -> str:
+    """Pick the cheapest reconstruction the codec supports, resolved
+    through repair.REBUILDERS; with that table empty (no layered codec is
+    ported) every rebuild is positional. Returns the path taken."""
+    ranged, general = repair.REBUILDERS.get(coder.codec, (None, None))
+    plan = coder.repair_plan(present, tuple(missing), shard_size)
+    if plan is not None and ranged is not None:
+        ranged(base, coder, missing[0], readers, frag_readers, shard_size,
+               counter)
+        return "ranged"
+    if general is not None:
+        general(base, coder, present, missing, readers, frag_readers,
+                shard_size, counter)
+        return "general"
+    # a codec without rebuilders must never decode its parities as RS
+    require_plain_rs(coder)
+    _rebuild_positional(base, geo, coder, present, missing, readers,
+                        shard_size, chunk, batch, counter)
+    return "full"
+
+
 def _rebuild_positional(base: str, geo: EcGeometry, coder: ErasureCoder,
                         present: tuple, missing: list[int], readers: dict,
                         shard_size: int, chunk: int, batch: int,
@@ -166,6 +159,9 @@ def _rebuild_positional(base: str, geo: EcGeometry, coder: ErasureCoder,
     """Plain-RS path: positional reconstruct over [batch, d, chunk] slabs
     of the first d survivors (device-batched like encode)."""
     use = sorted(present)[:geo.d]
+    # shards shorter than one batch need no full-size staging buffers
+    chunk = max(1, min(chunk, shard_size))
+    batch = max(1, min(batch, -(-shard_size // chunk)))
     outs = {}
     for m in missing:
         p = base + files.shard_ext(m)

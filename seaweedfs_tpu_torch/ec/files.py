@@ -13,6 +13,7 @@ from __future__ import annotations
 import json
 import os
 import struct
+import threading
 
 import numpy as np
 
@@ -146,3 +147,35 @@ def read_vif(path: str) -> dict:
         return {}
     with open(path) as f:
         return json.load(f)
+
+
+# Concurrent .vif writers (the idle-close read stamp on one thread, later
+# seals on others) must not interleave read-modify-write cycles: a lost
+# update could drop a field another writer just sealed. One lock per
+# sidecar path serializes them.
+_vif_locks: dict = {}
+_vif_locks_guard = threading.Lock()
+
+
+def _vif_lock(path: str) -> threading.Lock:
+    key = os.path.abspath(path)
+    with _vif_locks_guard:
+        lk = _vif_locks.get(key)
+        if lk is None:
+            lk = _vif_locks[key] = threading.Lock()
+        return lk
+
+
+def update_vif(path: str, updates: "dict | None" = None,
+               remove: tuple = ()) -> dict:
+    """Locked read-modify-write of a .vif: merge `updates`, drop the
+    `remove` keys, write atomically. Returns the resulting dict. Every
+    change to an existing .vif goes through here (the first seal of a
+    fresh sidecar is exclusive by construction and may write_vif)."""
+    with _vif_lock(path):
+        info = read_vif(path)
+        info.update(updates or {})
+        for k in remove:
+            info.pop(k, None)
+        write_vif(path, **info)
+        return info

@@ -1,13 +1,16 @@
 """Kernels K1 (seaweedfs_tpu_torch/csrc/rs_gf.cu) and K3 (csrc/crc32c.cu) on
-the card, against their plain PyTorch versions, the port's NumpyCoder and
-the scrub's host loop (all held to the JAX package by the CPU tests). CUDA kernels have no interpret mode, so every
+the card, against their plain PyTorch versions, the port's NumpyCoder, the
+scrub's host loop and a Store on the CPU (all held to the JAX package by the
+CPU tests). CUDA kernels have no interpret mode, so every
 test here is marked `gpu` and skips where there is no card. Imports only
 the port, so it also runs where jax is not installed:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 """
 
+import concurrent.futures as cf
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -18,8 +21,11 @@ from seaweedfs_tpu_torch.ec.locate import EcGeometry
 from seaweedfs_tpu_torch.models.ec_pipeline import ECPipeline
 from seaweedfs_tpu_torch.ops import crc32c, crc_cuda, crc_torch, rs_cuda, rs_torch
 from seaweedfs_tpu_torch.ops.coder import NumpyCoder, TorchCoder
+from seaweedfs_tpu_torch.server.volume_server import make_shard_reader
 from seaweedfs_tpu_torch.storage import scrub
+from seaweedfs_tpu_torch.storage.disk_location import DiskLocation
 from seaweedfs_tpu_torch.storage.needle import Needle
+from seaweedfs_tpu_torch.storage.store import Store
 from seaweedfs_tpu_torch.storage.volume import Volume
 
 GEO = EcGeometry(d=4, p=2, large_block=4096, small_block=512)
@@ -175,3 +181,39 @@ def test_pipeline_scrub_on_card(cuda):
     blocks[2, 768 - lengths[2] - 1] = 1
     assert ECPipeline().scrub(blocks, lengths) == \
         ECPipeline(device="cpu").scrub(blocks, lengths) == 1
+
+
+@pytest.mark.gpu
+def test_store_degraded_read_through_k1_on_card(cuda, tmp_path):
+    geo = EcGeometry(d=10, p=4, large_block=8192, small_block=1024)
+    card = Store("127.0.0.1", 0, "", [DiskLocation(str(tmp_path / "card"))],
+                 ec_geometry=geo)
+    rng = np.random.default_rng(6)
+    card.add_volume(1)
+    want = {i: rng.bytes(int(rng.integers(0, 3000))) for i in range(1, 81)}
+    card.write_needles_bulk(1, [Needle(id=i, cookie=9, data=d)
+                                for i, d in want.items()])
+    before = dict(rs_cuda.launches_by_entry)
+    base = card.generate_ec_shards(1)
+    assert rs_cuda.launches_by_entry.get("encode", 0) > before.get("encode", 0)
+    card.delete_volume(1)
+    os.makedirs(tmp_path / "cpu")
+    for ext in [files.shard_ext(s) for s in range(1, 14)] + [".ecx", ".vif"]:
+        shutil.copy(base + ext, str(tmp_path / "cpu" / "1") + ext)
+    os.unlink(base + files.shard_ext(0))
+    card.mount_ec_shards(1)
+    cpu = Store("127.0.0.1", 0, "", [DiskLocation(str(tmp_path / "cpu"))],
+                ec_geometry=geo, device="cpu")
+    with cf.ThreadPoolExecutor(2) as pool:
+        stats = {}
+        on_card = make_shard_reader(card, 1, lambda *a: None, pool, stats)
+        on_cpu = make_shard_reader(cpu, 1, lambda *a: None, pool)
+        before = rs_cuda.launches_by_entry.get("reconstruct", 0)
+        for i, data in want.items():
+            got = card.read_needle(1, i, cookie=9, shard_reader=on_card)
+            assert got.data == data == cpu.read_needle(1, i, shard_reader=on_cpu).data
+        assert on_card(0, 100, 3000) == on_cpu(0, 100, 3000)
+    assert stats["reconstructs"] > 0
+    assert rs_cuda.launches_by_entry["reconstruct"] >= before + stats["reconstructs"]
+    card.close()
+    cpu.close()
