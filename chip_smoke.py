@@ -5,8 +5,8 @@
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result). `--phases` runs a subset (default: all); phase 1 always runs, and
-the kernels line needs phases 3, 4, 6, 7, 8 and 9. The kernels of the phases
-asked for are built first, all at once (one nvcc per source).
+the kernels line needs phases 3, 4, 6, 7, 8, 9 and 10. The kernels of the
+phases asked for are built first, all at once (one nvcc per source).
 
 1. device: card name, count, `nvidia-smi` name and power limit;
 2. build: kernel K1 (csrc/rs_gf.cu) with nvcc, what ptxas says of it, and
@@ -68,9 +68,32 @@ asked for are built first, all at once (one nvcc per source).
    counts are zeroed just before this phase and read just after; then,
    outside the counts, the costs of one degraded interval's K1 call at
    [10, ~1 KB] are timed;
-10. summary: one JSON line of every kernel with its launches (K1's from
-   phases 6 and 9 together), error against the plain version, times and
-   bound; then the result line.
+10. tiered volumes at deployment size, on one Store with an `ssd` and an
+   `hdd` location and a remote tier `local:<workdir>/tier`
+   (storage/backend.LocalDirRemote, its object reads counted): the write
+   set of phase 9 written on `ssd`, 64 needles deleted and 64 overwritten,
+   vacuum.compact + commit_compact (garbage 0, the .dat shrunk by exactly
+   the dead records); Store.move_volume_local to `hdd`; the .dat tiered up
+   (a stand-in of VolumeTierMoveDatToRemote) and a seeded sample of 16,384
+   needles read through storage/backend.RemoteDatFile; scrub_volume of the
+   tiered volume must be "skipped-tiered" with no K3 launch and no remote
+   read; a second Store over the same directories loads it; the .dat tiered
+   down (VolumeTierMoveDatFromRemote) and scrubbed through K3 (K3's count
+   zeroed just before, read just after; 0 corrupt, every live needle
+   checked). Then EC at the fork's RS(14,2) (1 GiB / 1 MiB blocks), shards
+   (0, 5) lost, the 14 others offloaded to the tier; the sample read
+   through Store.read_needle with server/volume_server.make_shard_reader
+   (no peers): healthy intervals from the tier, intervals on (0, 5)
+   reconstructed through K1 at one stripe [1, 14, ~1 KB] from 14 survivors
+   on the tier, the reconstructs numbering the sampled intervals on (0, 5);
+   (0, 5) rebuilt from the tier (K1 at [32, 14, 1 MiB] -> 2 rows) to their
+   hashes; promote_ec_shards back to all 16 hashes with an empty tier;
+   ec_shards_to_volume to the .dat's hash. K1's counts are zeroed before
+   the EC steps and read after; then K1 at one stripe [1, 14, ~1 KB] is
+   timed;
+11. summary: one JSON line of every kernel with its launches (K1's from
+   phases 6, 9 and 10, K3's from phases 8 and 10), error against the plain
+   version, times and bound; then the result line.
 
 Needs CUDA and the repository beside it; without either it exits 2.
 """
@@ -94,12 +117,13 @@ MAIN_SHAPE = (32, 10, 1 << 20)  # [batch, d, chunk] of one encode call
 LOST_10_4 = (0, 5, 10, 13)
 LOST_14_2 = (3, 15)
 WIDTHS = (16, 48, 100, 384, 4112, 65536, 65552)
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10)
 PALLAS = "seaweedfs_tpu/ops/rs_pallas.py"
 K1_SOURCE = "seaweedfs_tpu_torch/csrc/rs_gf.cu"
 K3_SOURCE = "seaweedfs_tpu_torch/csrc/crc32c.cu"
 K3_REPLACES = "seaweedfs_tpu/ops/crc32c.py:183"  # device_crc_states
-KERNELS = {2: "rs_gf", 7: "crc32c", 9: "rs_gf"}  # phase -> csrc source it builds
+KERNELS = {2: ("rs_gf",), 7: ("crc32c",), 9: ("rs_gf",),  # phase -> csrc
+           10: ("rs_gf", "crc32c")}                    # sources it builds
 K3_SHAPES = ((4096, 2048), (16384, 4096), (64, 1 << 20))  # first: the scrub's
 K3_ROWS = (1, 3, 4096, 4225)  # 4225 = 132 SMs x 32 warps + 1
 K3_LENGTHS = (0, 512, 1024, 2048, 4096, 65536, 1 << 20)
@@ -109,6 +133,8 @@ EC_NEEDLES = 1 << 20   # weed benchmark's default write set, as phase 8
 EC_SAMPLE = 16384      # needles read back per pass
 EC_VID = 1
 A_LOST, B_LOST = (0, 5), (10, 13)
+TIER_LOST = (0, 5)     # phase 10's lost shards at RS(14,2)
+TIER_CHURN = 64        # phase 10: needles deleted, and needles overwritten
 K1_ENTRIES = {  # wrapper entry -> the Pallas entry it replaces
     "encode": f"{PALLAS}:156",
     "encode_seeded": f"{PALLAS}:164",
@@ -144,7 +170,8 @@ def phase_device(torch) -> str:
 def build_kernels(phases) -> None:
     """Build the kernels of the phases asked for, one nvcc each, together."""
     from seaweedfs_tpu_torch.ops import _build
-    names = sorted({name for ph, name in KERNELS.items() if ph in phases})
+    names = sorted({name for ph, names in KERNELS.items() if ph in phases
+                    for name in names})
     if names:
         t0 = time.perf_counter()
         _build.build_all(names)
@@ -1038,17 +1065,19 @@ def ec_store_round_trip(np, workdir: str, seed: int, card: str, geo,
         b.close()
 
 
-def one_stripe_costs(torch, np, lengths, seed: int, card: str) -> dict:
+def one_stripe_costs(torch, np, lengths, seed: int, card: str, d: int = 10,
+                     p: int = 4, present=(1, 2, 3, 4, 6, 7, 8, 9, 11, 12),
+                     split: bool = True) -> dict:
     """One degraded interval's GF step at the path's typical length: K1 at
-    [10, L] (CUDA events), its bound and plain version, and on the host clock
-    the coder call the degraded read makes (pageable H2D, K1, a fresh pinned
-    buffer and event per call) split into its parts, and the first call of
-    a new survivor set (host GF inversion and table upload)."""
+    [d, L] -> shard 0 (CUDA events), its bound and plain version; with
+    `split`, also on the host clock the coder call the degraded read makes
+    (pageable H2D, K1, a fresh pinned buffer and event per call) split into
+    its parts, and the first call of a new survivor set (host GF inversion
+    and table upload)."""
     from seaweedfs_tpu_torch.ops import rs_cuda, rs_torch
     from seaweedfs_tpu_torch.ops.coder import TorchCoder, host_result
     L = int(np.median(lengths))
-    d, p = 10, 4
-    present, lost = (1, 2, 3, 4, 6, 7, 8, 9, 11, 12), (0,)
+    lost = (0,)
     rng = np.random.default_rng(seed + 9)
     arr = rng.integers(0, 256, (d, L), dtype=np.uint8)
     x = torch.from_numpy(arr).cuda()
@@ -1057,6 +1086,13 @@ def one_stripe_costs(torch, np, lengths, seed: int, card: str) -> dict:
     rec = rs_torch.decode_rows(d, p, present, lost)
     plain_ms = _time_ms(torch, lambda s: rs_torch.gf_apply(rec, x), iters=50)
     bound_ms, bound_by = _bound(1, d, 1, L)
+    log(f"[{'ec' if split else 'tier'}] K1 reconstruct one stripe RS({d},{p}) "
+        f"[1, {d}, {L}] -> [1, 1, {L}]: {ms:.5f} ms, bound {bound_ms:.7f} ms "
+        f"({bound_by}), {bound_ms / ms:.3%} of bound; plain version "
+        f"{plain_ms:.4f} ms [{card}]")
+    if not split:
+        return dict(L=L, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by)
     coder = TorchCoder(d, p)
 
     def host_ms(fn, iters: int = 500) -> float:
@@ -1087,9 +1123,6 @@ def one_stripe_costs(torch, np, lengths, seed: int, card: str) -> dict:
     t = time.perf_counter()
     rs_cuda._decode_rows(d, p, present, lost)
     inv_ms = (time.perf_counter() - t) * 1e3
-    log(f"[ec] K1 reconstruct one stripe [1, {d}, {L}] -> [1, 1, {L}]: "
-        f"{ms:.5f} ms, bound {bound_ms:.7f} ms ({bound_by}), "
-        f"{bound_ms / ms:.3%} of bound; plain version {plain_ms:.4f} ms [{card}]")
     log(f"[ec] one degraded interval's coder call, host clock p50: "
         f"TorchCoder.reconstruct + host_result {call:.4f} ms = pageable H2D "
         f"{h2d:.4f} ms + K1 launch to sync {launch:.4f} ms + pinned D2H buffer, "
@@ -1116,6 +1149,433 @@ def phase_ec_store(torch, np, workdir: str, seed: int, card: str) -> "dict[str, 
             raise AssertionError(f"K1 {entry} never launched on the EC store path")
     one_stripe_costs(torch, np, res["lengths"], seed, card)
     return launches
+
+
+# -- phase 10 ---------------------------------------------------------------
+def _vacuum(store, vid: int):
+    """VacuumVolumeCompact + VacuumVolumeCommit stand-in (the JAX package's
+    server/volume_server.py:2580-2601): a tiered volume is refused, the
+    compacted Volume is installed in place of the old one."""
+    from seaweedfs_tpu_torch.storage import vacuum
+    v = store.find_volume(vid)
+    if v.remote_spec is not None:
+        raise PermissionError(f"volume {vid} is tiered; download it before "
+                              "compacting")
+    _, reclaimed = vacuum.compact(v)
+    newv = vacuum.commit_compact(v)
+    for loc in store.locations:
+        if loc.volumes.get(vid) is v:
+            loc.volumes[vid] = newv
+    return newv, reclaimed
+
+
+def _tier_upload(store, vid: int, spec: str) -> int:
+    """VolumeTierMoveDatToRemote stand-in (volume_server.py:3269-3306, the
+    local .dat not kept): seal, upload, record the remote in the .vif,
+    close, unlink and reload. Returns the bytes uploaded."""
+    from seaweedfs_tpu_torch.ec import files
+    from seaweedfs_tpu_torch.storage.backend import open_remote
+    v = store.find_volume(vid)
+    if v.remote_spec is not None:
+        raise ValueError(f"volume {vid} already tiered")
+    client = open_remote(spec)
+    v.read_only = True
+    v.sync()
+    key = os.path.basename(v.dat_path)
+    size = client.write_object(key, v.dat_path)
+    files.update_vif(v.vif_path, {"remote": {"spec": spec, "key": key,
+                                             "size": size}})
+    v.close()
+    os.unlink(v.dat_path)
+    store.reload_volume(vid)
+    return size
+
+
+def _tier_download(store, vid: int) -> int:
+    """VolumeTierMoveDatFromRemote stand-in (volume_server.py:3311-3353, the
+    remote copy not kept): download to a temp name, check its size, make it
+    durable, swap it in, drop `remote` from the .vif, reload, delete the
+    remote object. Returns the bytes downloaded."""
+    from seaweedfs_tpu_torch.ec import files
+    from seaweedfs_tpu_torch.storage.backend import open_remote
+    from seaweedfs_tpu_torch.utils import fsutil
+    v = store.find_volume(vid)
+    remote = v.remote_spec
+    client = open_remote(remote["spec"])
+    tmp = v.dat_path + ".tiertmp"
+    client.read_object_to(remote["key"], tmp)
+    got = os.path.getsize(tmp)
+    if got != remote["size"]:
+        raise OSError(f"short download: {got} != {remote['size']}")
+    v.close()
+    fsutil.fsync_path(tmp)
+    os.replace(tmp, v.dat_path)
+    fsutil.fsync_dir(v.dat_path)
+    files.update_vif(v.vif_path, remove=("remote",))
+    store.reload_volume(vid)
+    client.delete_object(remote["key"])
+    return got
+
+
+def _timed_reads(order, read, counted) -> dict:
+    """Read every id of `order` one at a time through read(nid); each read's
+    latency, filed as cold when it made a remote object read, else warm."""
+    out = {"cold": [], "warm": []}
+    for nid in order:
+        calls = counted["calls"]
+        t = time.perf_counter()
+        read(nid)
+        out["cold" if counted["calls"] > calls else "warm"].append(
+            time.perf_counter() - t)
+    return out
+
+
+def _lat(np, xs) -> str:
+    if not xs:
+        return "none"
+    return (f"{len(xs)} reads p50 {_pct(np, xs, 50) * 1e3:.4f} ms p99 "
+            f"{_pct(np, xs, 99) * 1e3:.4f} ms")
+
+
+def tier_round_trip(np, workdir: str, seed: int, card: str, geo,
+                    needles: int, sample: int, device: str = "cuda") -> dict:
+    """Phase 10's path on one Store, every check fatal; logs the measured
+    numbers and returns the K1 and K3 launch counts of its steps, the
+    number of degraded reads and the degraded intervals' lengths."""
+    from concurrent.futures import ThreadPoolExecutor
+    from seaweedfs_tpu_torch.ec import files
+    from seaweedfs_tpu_torch.ec.locate import locate
+    from seaweedfs_tpu_torch.ops import crc_cuda, rs_cuda
+    from seaweedfs_tpu_torch.server.volume_server import make_shard_reader
+    from seaweedfs_tpu_torch.storage import backend, scrub
+    from seaweedfs_tpu_torch.storage.disk_location import DiskLocation
+    from seaweedfs_tpu_torch.storage.needle import Needle, record_size_from_header
+    from seaweedfs_tpu_torch.storage.store import Store
+
+    counted = collections.Counter()
+
+    class CountingRemote(backend.LocalDirRemote):
+        """The tier's client, counting its object reads."""
+
+        def read_object(self, key: str, offset: int, size: int) -> bytes:
+            counted["calls"] += 1
+            counted["bytes"] += size
+            return super().read_object(key, offset, size)
+
+    ssd, hdd, tier = (os.path.join(workdir, x) for x in ("ssd", "hdd", "tier"))
+    spec = f"local:{tier}"
+
+    def locations():
+        return [DiskLocation(ssd, disk_type="ssd"),
+                DiskLocation(hdd, disk_type="hdd")]
+
+    plain_remote, backend.LocalDirRemote = backend.LocalDirRemote, CountingRemote
+    store = Store("127.0.0.1", 8080, "", locations(), ec_geometry=geo,
+                  device=device)
+    pool = ThreadPoolExecutor(max_workers=4)
+    out: dict = {}
+    try:
+        rng = np.random.default_rng(seed)
+        sizes = 1024 + rng.integers(0, 64, needles)
+        cookies = rng.integers(0, 1 << 32, needles, dtype=np.uint64)
+        picked = rng.choice(needles, sample + TIER_CHURN, replace=False) + 1
+        order = sorted(int(i) for i in picked[:sample])
+        deleted = sorted(int(i) for i in picked[sample:])
+        overwritten = order[::max(1, sample // TIER_CHURN)][:TIER_CHURN]
+        in_sample = set(order)
+        want: "dict[int, bytes]" = {}
+        store.add_volume(EC_VID, disk_type="ssd")
+        t0 = time.perf_counter()
+        for lo in range(0, needles, 4096):  # one bulk frame per 4096
+            hi = min(needles, lo + 4096)
+            buf = rng.bytes(int(sizes[lo:hi].sum()))
+            ends = np.cumsum(sizes[lo:hi])
+            batch = []
+            for i, e in enumerate(ends):
+                nid = lo + i + 1
+                data = buf[int(e - sizes[lo + i]):int(e)]
+                batch.append(Needle(id=nid, cookie=int(cookies[lo + i]), data=data))
+                if nid in in_sample:
+                    want[nid] = data
+            store.write_needles_bulk(EC_VID, batch)
+        v = store.find_volume(EC_VID)
+        log(f"[tier] wrote {needles} needles ({v.content_size} B of .dat) on "
+            f"ssd through Store.write_needles_bulk in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        # 1. churn and vacuum
+        dead = sum(record_size_from_header(v.nm.get(i).size)
+                   for i in deleted + overwritten)
+        size0 = v.content_size
+        for i in deleted:
+            if not store.delete_needle(EC_VID, i):
+                raise AssertionError(f"delete of needle {i} found nothing")
+        dead += v.content_size - size0  # the tombstone records
+        fresh = [Needle(id=i, cookie=int(cookies[i - 1]), data=rng.bytes(1024))
+                 for i in overwritten]
+        store.write_needles_bulk(EC_VID, fresh)
+        want.update((n.id, n.data) for n in fresh)
+        before = v.content_size
+        garbage = v.garbage_ratio()
+        t0 = time.perf_counter()
+        v, reclaimed = _vacuum(store, EC_VID)
+        vac_s = time.perf_counter() - t0
+        if (v.garbage_ratio(), v.content_size, reclaimed) != (
+                0.0, before - dead, dead):
+            raise AssertionError(
+                f"vacuum: garbage {v.garbage_ratio()}, .dat {v.content_size} B "
+                f"(reclaimed {reclaimed}); {before} B less {dead} dead expected")
+        if v.file_count != needles - len(deleted):
+            raise AssertionError(f"vacuum kept {v.file_count} live needles")
+        for i in deleted:
+            try:
+                store.read_needle(EC_VID, i)
+            except KeyError:
+                continue
+            raise AssertionError(f"deleted needle {i} reads after the vacuum")
+        log(f"[tier] vacuum of {before} B (garbage ratio {garbage:.6f}): "
+            f"{dead} dead B reclaimed in {vac_s:.3f} s = "
+            f"{before / vac_s / 1e9:.3f} GB/s of .dat; garbage 0, .dat {before} -> "
+            f"{v.content_size} B [{card}]")
+
+        # 2. move to hdd
+        moved_b = os.path.getsize(v.dat_path) + os.path.getsize(v.idx_path)
+        t0 = time.perf_counter()
+        where = store.move_volume_local(EC_VID, "hdd")
+        move_s = time.perf_counter() - t0
+        v = store.find_volume(EC_VID)
+        left = [n for n in os.listdir(ssd) if n.startswith(f"{EC_VID}.")]
+        if where != os.path.abspath(hdd) or v.dir != where or left:
+            raise AssertionError(f"move to hdd: now in {where}, ssd keeps {left}")
+        dat_hash = _sha256(v.dat_path)
+        log(f"[tier] move_volume_local ssd -> hdd: {moved_b} B in {move_s:.3f} s "
+            f"= {moved_b / move_s / 1e9:.3f} GB/s; ssd copy gone [{card}]")
+
+        # 3. tier the .dat up, read it through the RemoteDatFile
+        t0 = time.perf_counter()
+        up_b = _tier_upload(store, EC_VID, spec)
+        up_s = time.perf_counter() - t0
+        v = store.find_volume(EC_VID)
+        if v.remote_spec is None or os.path.exists(v.dat_path):
+            raise AssertionError("the tiered volume still has a local .dat")
+
+        def read_tiered(nid: int) -> None:
+            n = store.read_needle(EC_VID, nid, cookie=int(cookies[nid - 1]))
+            if n.data != want[nid]:
+                raise AssertionError(f"tiered read of needle {nid} differs")
+        tiered = _timed_reads(order, read_tiered, counted)
+        try:
+            store.write_needle(EC_VID, Needle(id=1, cookie=1, data=b"x"))
+        except PermissionError:
+            pass
+        else:
+            raise AssertionError("a tiered volume took a write")
+        try:
+            _vacuum(store, EC_VID)
+        except PermissionError:
+            pass
+        else:
+            raise AssertionError("a tiered volume was compacted")
+        calls, k3 = counted["calls"], crc_cuda.launches
+        res = scrub.scrub_volume(v, device=device)
+        out["k3_tiered"] = crc_cuda.launches - k3
+        if (res.mode, res.scanned, counted["calls"] - calls,
+                out["k3_tiered"]) != ("skipped-tiered", 0, 0, 0):
+            raise AssertionError(f"scrub of the tiered volume: {res}, "
+                                 f"{counted['calls'] - calls} remote reads, "
+                                 f"{out['k3_tiered']} K3 launches")
+        second = Store("127.0.0.1", 8081, "", locations(), ec_geometry=geo,
+                       device=device)
+        try:
+            sv = second.find_volume(EC_VID)
+            if sv is None or sv.remote_spec != v.remote_spec:
+                raise AssertionError("a second Store did not load the tiered volume")
+            if second.read_needle(EC_VID, order[0]).data != want[order[0]]:
+                raise AssertionError("the second Store's tiered read differs")
+        finally:
+            second.close()
+        log(f"[tier] tier upload of {up_b} B in {up_s:.3f} s = "
+            f"{up_b / up_s / 1e9:.3f} GB/s [{card}]")
+        log(f"[tier] tiered needle reads through RemoteDatFile, {len(order)} "
+            f"sampled == written: cold blocks {_lat(np, tiered['cold'])}, warm "
+            f"blocks {_lat(np, tiered['warm'])} [{card}]")
+        log("[tier] scrub of the tiered volume: skipped-tiered, 0 remote "
+            "reads, 0 K3 launches; writes and vacuum refused; a second Store "
+            "loads it")
+
+        # 4. tier the .dat down, scrub it through K3
+        t0 = time.perf_counter()
+        down_b = _tier_download(store, EC_VID)
+        down_s = time.perf_counter() - t0
+        v = store.find_volume(EC_VID)
+        if v.remote_spec is not None or _sha256(v.dat_path) != dat_hash:
+            raise AssertionError("the downloaded .dat differs from the uploaded")
+        crc_cuda.reset_launches()
+        t0 = time.perf_counter()
+        res = scrub.scrub_volume(v, device=device)
+        scrub_s = time.perf_counter() - t0
+        out["k3_scrub"] = crc_cuda.launches
+        if (res.corrupt, res.error, res.scanned) != ([], "", v.file_count):
+            raise AssertionError(f"scrub after the tier round trip: {res}; "
+                                 f"{v.file_count} live")
+        log(f"[tier] tier download of {down_b} B in {down_s:.3f} s = "
+            f"{down_b / down_s / 1e9:.3f} GB/s; .dat == hash before the upload "
+            f"[{card}]")
+        log(f"[tier] scrub({device}) after vacuum, move and tier round trip: "
+            f"{res.scanned} needles == live, 0 corrupt, in {scrub_s:.3f} s "
+            f"({res.scanned / scrub_s:.0f} needles/s); K3 launches "
+            f"{out['k3_scrub']} [{card}]")
+
+        # 5. EC at RS(14,2), lose (0, 5), offload the rest
+        rs_cuda.reset_launches()
+        t0 = time.perf_counter()
+        base = store.generate_ec_shards(EC_VID)
+        enc_s = time.perf_counter() - t0
+        dat_size = os.path.getsize(base + ".dat")
+        shard_hash = {s: _sha256(base + files.shard_ext(s)) for s in range(geo.n)}
+        store.delete_volume(EC_VID)
+        ev = store.mount_ec_shards(EC_VID)
+        shard_size = ev.shard_size
+        for s in TIER_LOST:
+            os.unlink(base + files.shard_ext(s))
+        store.unmount_ec_shards(EC_VID, list(TIER_LOST))
+        kept = [s for s in range(geo.n) if s not in TIER_LOST]
+        t0 = time.perf_counter()
+        off_b = store.offload_ec_shards(EC_VID, spec)
+        off_s = time.perf_counter() - t0
+        ev = store.find_ec_volume(EC_VID)
+        rem = files.read_vif(base + ".vif").get("remote_shards", {})
+        local = [n for n in os.listdir(hdd) if re.fullmatch(rf"{EC_VID}\.ec\d\d", n)]
+        if (off_b, sorted(map(int, rem.get("keys", {}))), ev.remote_shard_ids(),
+                local) != (len(kept) * shard_size, kept, kept, []):
+            raise AssertionError(f"offload moved {off_b} B, sealed {rem}, serves "
+                                 f"{ev.remote_shard_ids()} remote, leaves {local}")
+        if store.offload_ec_shards(EC_VID, spec) != 0:
+            raise AssertionError("a repeat offload moved bytes")
+        try:
+            store.offload_ec_shards(EC_VID, spec + "_other")
+        except ValueError:
+            pass
+        else:
+            raise AssertionError("an offload to a second tier was taken")
+        log(f"[tier] Store.generate_ec_shards RS({geo.d},{geo.p}) of {dat_size} B "
+            f"in {enc_s:.3f} s = {dat_size / enc_s / 1e9:.3f} GB/s; shards "
+            f"{TIER_LOST} lost; offload of {len(kept)} shards, {off_b} B in "
+            f"{off_s:.3f} s = {off_b / off_s / 1e9:.3f} GB/s; .vif remote_shards "
+            f"{kept}, no local payload; a repeat offload moves 0 B, a second "
+            f"tier is refused [{card}]")
+
+        # 6. serve the sample from the tier
+        on_lost = {}
+        for nid in order:
+            off, size = ev.find_needle(nid)
+            on_lost[nid] = [iv.size for iv in locate(
+                geo, dat_size, off, record_size_from_header(size))
+                if iv.shard_and_offset(geo)[0] in TIER_LOST]
+        expected = sum(len(x) for x in on_lost.values())
+        rstats: dict = {}
+        reader = make_shard_reader(store, EC_VID, lambda *a: None, pool, rstats)
+        served = {"healthy": [], "degraded": []}
+        cold = {"healthy": 0, "degraded": 0}
+        t0 = time.perf_counter()
+        for nid in order:
+            calls = counted["calls"]
+            t = time.perf_counter()
+            n = store.read_needle(EC_VID, nid, cookie=int(cookies[nid - 1]),
+                                  shard_reader=reader)
+            kind = "degraded" if on_lost[nid] else "healthy"
+            served[kind].append(time.perf_counter() - t)
+            cold[kind] += counted["calls"] > calls
+            if n.data != want[nid]:
+                raise AssertionError(f"{kind} EC read of needle {nid} from the "
+                                     "tier differs from what was written")
+        pass_s = time.perf_counter() - t0
+        if rstats.get("reconstructs", 0) != expected or not expected:
+            raise AssertionError(f"{rstats.get('reconstructs', 0)} reconstructs; "
+                                 f"the sample's intervals on {TIER_LOST} "
+                                 f"number {expected}")
+        out["degraded_reads"] = len(served["degraded"])
+        for k, xs in served.items():
+            log(f"[tier] {k} EC reads from the tier: {len(xs)} reads "
+                f"({cold[k]} with a cold block), {len(xs) / sum(xs):.1f} "
+                f"reads/s one at a time, p50 {_pct(np, xs, 50) * 1e3:.4f} ms, "
+                f"p99 {_pct(np, xs, 99) * 1e3:.4f} ms [{card}]")
+        log(f"[tier] {len(order)} sampled needles == written in {pass_s:.3f} s; "
+            f"{expected} reconstructs == the sampled intervals on {TIER_LOST} "
+            f"(gather {rstats['gather_s']:.3f} s, K1 call {rstats['decode_s']:.3f} s "
+            f"in all) [{card}]")
+
+        # 7. rebuild (0, 5) from the tier
+        held = store.find_ec_volume(EC_VID)
+        st: dict = {}
+        t0 = time.perf_counter()
+        got = store.rebuild_ec_shards(
+            EC_VID, shard_reader=lambda sid, off, ln: held.shards[sid].read_at(off, ln),
+            remote_shards=held.remote_shard_ids(), wanted=list(TIER_LOST), stats=st)
+        reb_s = time.perf_counter() - t0
+        if got != list(TIER_LOST) or st["remote_bytes_read"] != geo.d * shard_size:
+            raise AssertionError(f"rebuilt {got}, {st['remote_bytes_read']} B "
+                                 "read from the tier")
+        for s in TIER_LOST:
+            if _sha256(base + files.shard_ext(s)) != shard_hash[s]:
+                raise AssertionError(f"shard {s} rebuilt from the tier differs")
+        log(f"[tier] rebuild of {TIER_LOST} from the tier: {st['bytes_read']} B "
+            f"read in {reb_s:.3f} s = {st['bytes_read'] / reb_s / 1e9:.3f} GB/s read; "
+            f"stages read {st['read_s']:.3f} write {st['write_s']:.3f} flush "
+            f"{st['flush_s']:.3f} s; == the lost shards' hashes [{card}]")
+
+        # 8. promote, then decode
+        t0 = time.perf_counter()
+        prom_b = store.promote_ec_shards(EC_VID)
+        prom_s = time.perf_counter() - t0
+        ev = store.find_ec_volume(EC_VID)
+        bad = [s for s in range(geo.n)
+               if _sha256(base + files.shard_ext(s)) != shard_hash[s]]
+        objects = plain_remote(tier).list_keys()
+        if (prom_b, bad, objects, ev.remote_shard_ids()) != (off_b, [], [], []) \
+                or "remote_shards" in files.read_vif(base + ".vif"):
+            raise AssertionError(f"promote moved {prom_b} B; shards {bad} differ; "
+                                 f"the tier holds {objects}")
+        t0 = time.perf_counter()
+        v = store.ec_shards_to_volume(EC_VID)
+        dec_s = time.perf_counter() - t0
+        out["k1"] = dict(rs_cuda.launches_by_entry)
+        if _sha256(v.dat_path) != dat_hash:
+            raise AssertionError("the decoded .dat differs from the source's hash")
+        log(f"[tier] promote of {prom_b} B in {prom_s:.3f} s = "
+            f"{prom_b / prom_s / 1e9:.3f} GB/s; all {geo.n} shards == their "
+            f"hashes, the tier empty; ec_shards_to_volume in {dec_s:.3f} s, "
+            f".dat == the source's hash [{card}]")
+        out["lengths"] = [ln for x in on_lost.values() for ln in x]
+        return out
+    finally:
+        backend.LocalDirRemote = plain_remote
+        pool.shutdown()
+        store.close()
+
+
+def phase_tier(torch, np, workdir: str, seed: int, card: str) -> dict:
+    from seaweedfs_tpu_torch.ec.locate import EcGeometry
+    os.makedirs(workdir, exist_ok=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = tier_round_trip(np, workdir, seed + 17, card, EcGeometry(14, 2),
+                          EC_NEEDLES, EC_SAMPLE)
+    torch.cuda.synchronize()
+    log(f"[tier] K1 launches of the EC steps: {json.dumps(res['k1'])}; K3 "
+        f"launches: tiered scrub {res['k3_tiered']}, scrub after the round "
+        f"trip {res['k3_scrub']}; phase wall {time.perf_counter() - t0:.1f} s "
+        f"[{card}]")
+    for entry in ("encode", "reconstruct"):
+        if not res["k1"].get(entry):
+            raise AssertionError(f"K1 {entry} never launched on the tier path")
+    if not res["k3_scrub"]:
+        raise AssertionError("K3 never launched in the scrub after the tier "
+                             "round trip")
+    one_stripe_costs(torch, np, res["lengths"], seed, card, d=14, p=2,
+                     present=tuple(i for i in range(16) if i not in TIER_LOST),
+                     split=False)
+    return res
 
 
 def main(argv=None) -> int:
@@ -1174,14 +1634,21 @@ def main(argv=None) -> int:
             ec_launches = phase_ec_store(torch, np, args.workdir, args.seed, card)
         finally:
             shutil.rmtree(args.workdir, ignore_errors=True)
+    tier = None
+    if 10 in phases:
+        try:
+            tier = phase_tier(torch, np, args.workdir, args.seed, card)
+        finally:
+            shutil.rmtree(args.workdir, ignore_errors=True)
     log(f"[done] phases {sorted(phases | {1})} passed in "
         f"{time.perf_counter() - t0:.1f} s [{card}]")
     if None not in (errs, times, launches, k3_err, k3_times, k3_launches,
-                    ec_launches):
+                    ec_launches, tier):
         kernels = [dict(name=f"rs_gf_apply:{entry}", route="cuda",
                         source=K1_SOURCE, replaces=replaces,
                         launches=launches.get(entry, 0)
-                        + ec_launches.get(entry, 0),
+                        + ec_launches.get(entry, 0)
+                        + tier["k1"].get(entry, 0),
                         max_abs_err=errs[entry], ms=times[entry]["ms"],
                         plain_ms=times[entry]["plain_ms"],
                         bound_ms=times[entry]["bound_ms"],
@@ -1190,7 +1657,8 @@ def main(argv=None) -> int:
         k3 = k3_times[K3_SHAPES[0]]  # the scrub path's batch
         kernels.append(dict(name="crc32c_states", route="cuda",
                             source=K3_SOURCE, replaces=K3_REPLACES,
-                            launches=k3_launches, max_abs_err=k3_err,
+                            launches=k3_launches + tier["k3_scrub"],
+                            max_abs_err=k3_err,
                             ms=k3["ms"], plain_ms=k3["plain_ms"],
                             bound_ms=k3["bound_ms"], bound_by=k3["bound_by"],
                             library_ms=None))

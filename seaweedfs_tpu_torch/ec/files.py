@@ -2,7 +2,8 @@
 
 Reference: weed/storage/erasure_coding/ec_encoder.go:27
 (`WriteSortedFileFromIdx`), ec_decoder.go:18/:121 (.ecx+.ecj -> .idx),
-ec_volume.go:47 (.vif carries version + fork's DestroyTime). The .vif is JSON
+ec_volume.go:47 (.vif carries version + fork's DestroyTime, and the remote
+tier's `remote` / `remote_shards` mappings). The .vif is JSON
 rather than a VolumeInfo protobuf — same fields, human-debuggable — and its
 bytes are the same as the JAX package's for the same volume, so either
 package rebuilds and decodes what the other encoded.
@@ -149,10 +150,11 @@ def read_vif(path: str) -> dict:
         return json.load(f)
 
 
-# Concurrent .vif writers (the idle-close read stamp on one thread, later
-# seals on others) must not interleave read-modify-write cycles: a lost
-# update could drop a field another writer just sealed. One lock per
-# sidecar path serializes them.
+# Concurrent .vif writers (the idle-close read stamp on one thread, tier
+# offload/promote seals and tier moves on others) must not interleave
+# read-modify-write cycles: a lost update could drop the remote_shards
+# mapping after the local payloads were deleted. One lock per sidecar path
+# serializes them.
 _vif_locks: dict = {}
 _vif_locks_guard = threading.Lock()
 
@@ -179,3 +181,69 @@ def update_vif(path: str, updates: "dict | None" = None,
             info.pop(k, None)
         write_vif(path, **info)
         return info
+
+
+# -- offloaded-shard claims. A claim is one shard's entry of the .vif's
+# `remote_shards` mapping {"spec":, "keys": {sid: key}, "sizes": {sid:
+# size}}. Moving a remote-backed shard between servers moves its claim,
+# never the remote payload; exactly one server must hold each claim, or the
+# fleet double-counts (and a reap double-deletes) the remote object.
+
+def remote_claims(info: dict, sids) -> "dict | None":
+    """Extract the `remote_shards` sub-mapping covering exactly `sids`
+    from a parsed .vif — None when no claim covers any of them."""
+    rem = info.get("remote_shards") or {}
+    keys = {str(s): rem["keys"][str(s)] for s in sids
+            if str(s) in rem.get("keys", {})}
+    if not keys:
+        return None
+    sizes = rem.get("sizes", {})
+    return {"spec": rem.get("spec", ""), "keys": keys,
+            "sizes": {k: sizes[k] for k in keys if k in sizes}}
+
+
+def merge_remote_claims(path: str, claims: "dict | None") -> None:
+    """Fold `claims` (a remote_shards-shaped mapping) into the .vif at
+    `path` under the sidecar lock. A spec mismatch with existing claims
+    is refused: one volume's offloaded shards live under one backend
+    spec by construction (storage/store.py offload seal)."""
+    if not claims or not claims.get("keys"):
+        return
+    with _vif_lock(path):
+        info = read_vif(path)
+        rem = info.get("remote_shards") or \
+            {"spec": claims.get("spec", ""), "keys": {}, "sizes": {}}
+        if rem.get("spec") and claims.get("spec") and \
+                rem["spec"] != claims["spec"]:
+            raise ValueError(
+                f"remote claim spec {claims['spec']!r} conflicts with "
+                f"sealed {rem['spec']!r} in {path}")
+        rem.setdefault("keys", {}).update(claims["keys"])
+        rem.setdefault("sizes", {}).update(claims.get("sizes", {}))
+        info["remote_shards"] = rem
+        write_vif(path, **info)
+
+
+def drop_remote_claims(path: str, sids) -> list[int]:
+    """Remove the claims for `sids` from the .vif (the remote objects
+    themselves are untouched: a move's source-side release, not a
+    delete). Drops the whole mapping when its last claim goes. Returns
+    the shard ids whose claims were actually dropped."""
+    dropped: list[int] = []
+    with _vif_lock(path):
+        info = read_vif(path)
+        rem = info.get("remote_shards")
+        if not rem:
+            return dropped
+        for s in sids:
+            if rem.get("keys", {}).pop(str(s), None) is not None:
+                dropped.append(int(s))
+            rem.get("sizes", {}).pop(str(s), None)
+        if not dropped:
+            return dropped
+        if rem.get("keys"):
+            info["remote_shards"] = rem
+        else:
+            info.pop("remote_shards", None)
+        write_vif(path, **info)
+    return dropped

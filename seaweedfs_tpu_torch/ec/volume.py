@@ -1,15 +1,16 @@
 """EcVolume: serve needle reads from an erasure-coded shard set.
 
-Port of seaweedfs_tpu/ec/volume.py for local shard files. Reference:
+Port of seaweedfs_tpu/ec/volume.py. Reference:
 weed/storage/erasure_coding/ec_volume.go:28-48 (EcVolume), :267
 (`LocateEcShardNeedle`), :321 (.ecx binary search), ec_shard.go (shard file
-handles), ec_volume_info.go:73-118 (ShardBits). Shards that are not on this
-disk come through a caller's `shard_reader`: the volume server wires it to
+handles), ec_volume_info.go:73-118 (ShardBits). Shards that are not held
+here come through a caller's `shard_reader`: the volume server wires it to
 remote fetches and, when a shard is lost, to the degraded reconstruct
 (server/volume_server.make_shard_reader).
 
-Shards offloaded to a remote tier (a .vif carrying `remote_shards`) are not
-ported yet: such a volume refuses to open.
+A shard this holder offloaded to a remote tier (the .vif's `remote_shards`)
+is still held: it serves through `RemoteEcVolumeShard`'s ranged reads
+(storage/backend.RemoteDatFile) instead of a local file.
 """
 
 from __future__ import annotations
@@ -71,6 +72,7 @@ class EcVolumeShard:
         self._f = open(self.path, "rb")
         self.size = os.path.getsize(self.path)
         self._mu = threading.Lock()  # read vs idle-close race
+        self._pinned = False
 
     def read_at(self, offset: int, length: int) -> bytes:
         with self._mu:
@@ -81,8 +83,47 @@ class EcVolumeShard:
 
     def close(self):
         with self._mu:
-            if not self._f.closed:
+            if not self._f.closed and not self._pinned:
                 self._f.close()
+
+    def pin(self) -> None:
+        """Hold the file open for this object's life, before its path goes
+        away (Store.offload_ec_shards unlinks it): reads still in flight
+        on this object finish on the open fd, an idle close leaves it
+        open, and the read path never reopens a path that may be gone."""
+        with self._mu:
+            if self._f.closed:
+                self._f = open(self.path, "rb")
+            self._pinned = True
+
+
+class RemoteEcVolumeShard:
+    """An EC shard whose payload lives in a remote tier (lifecycle
+    EC->remote offload). Same read_at/close surface as EcVolumeShard, so
+    EcVolume's stripe map, degraded reads and the heartbeat shard_bits are
+    tier-blind: this holder still owns the shard and serves it through lazy
+    ranged reads (RemoteDatFile's LRU block cache) instead of a local fd.
+    `reads` feeds the promote-on-heat policy."""
+
+    def __init__(self, shard_id: int, client, key: str, size: int):
+        from ..storage.backend import RemoteDatFile
+        self.shard_id = shard_id
+        self.key = key
+        self.size = size
+        self._f = RemoteDatFile(client, key, size)
+        self._mu = threading.Lock()  # _pos is shared; reads serialize
+        self.reads = 0
+
+    def read_at(self, offset: int, length: int) -> bytes:
+        with self._mu:
+            self.reads += 1
+            self._f.seek(offset)
+            return self._f.read(length)
+
+    def close(self):
+        # nothing to release but the block cache; an idle close must not
+        # force a re-fetch storm, so it is kept
+        pass
 
 
 class EcVolume:
@@ -92,10 +133,6 @@ class EcVolume:
         self.id = vid
         self.collection = collection
         info = files.read_vif(base + ".vif")
-        if info.get("remote_shards"):
-            raise NotImplementedError(
-                f"ec volume {vid}: shards offloaded to a remote tier are not "
-                f"yet ported to seaweedfs_tpu_torch")
         if geo is None:
             geo = EcGeometry.from_vif(info)
         self.geo = geo
@@ -105,9 +142,26 @@ class EcVolume:
         # encoded; pre-codec .vifs are plain RS by construction)
         self.codec = info.get("codec", "rs")
         self.destroy_time = info.get("destroy_time", 0)  # fork TTL reap
-        self.shards: dict[int, EcVolumeShard] = {}
+        self.shards: dict[int, EcVolumeShard | RemoteEcVolumeShard] = {}
         for i, p in sorted(self._scan_shards().items()):
             self.shards[i] = EcVolumeShard(i, p)
+        # shards whose payload was offloaded keep serving through ranged
+        # remote reads (.vif `remote_shards` is the source of truth: {"spec":,
+        # "keys": {sid: key}, "sizes": {sid: size}}). A shard present both
+        # locally and remotely (a promote raced a crash) serves local: the
+        # bytes are the same and local is cheaper; the stale remote copy is
+        # cleaned up by the next offload or promote.
+        self.remote_spec: dict | None = info.get("remote_shards") or None
+        if self.remote_spec:
+            from ..storage.backend import open_remote
+            client = open_remote(self.remote_spec["spec"])
+            for sid_s, key in self.remote_spec.get("keys", {}).items():
+                sid = int(sid_s)
+                if sid not in self.shards:
+                    self.shards[sid] = RemoteEcVolumeShard(
+                        sid, client, key,
+                        int(self.remote_spec.get("sizes", {}).get(sid_s, 0))
+                        or self.shard_size)
         self.last_read_at = time.monotonic()
         self.reads = 0  # needle reads since mount (lifecycle heat)
         # last-read instant persisted across restarts (stamped into the
@@ -137,6 +191,17 @@ class EcVolume:
 
     def shard_bits(self) -> ShardBits:
         return ShardBits().add(*self.shards.keys())
+
+    def remote_shard_ids(self) -> list[int]:
+        """Shard ids this holder serves from the remote tier."""
+        return sorted(i for i, s in self.shards.items()
+                      if isinstance(s, RemoteEcVolumeShard))
+
+    def remote_reads(self) -> int:
+        """Ranged remote reads served since mount: the promote-on-heat
+        signal (a cold volume that keeps getting read belongs local)."""
+        return sum(s.reads for s in self.shards.values()
+                   if isinstance(s, RemoteEcVolumeShard))
 
     def read_age_s(self) -> float:
         """Seconds since the last known needle read. In-process reads drive
@@ -179,6 +244,8 @@ class EcVolume:
             self._idle_stamped = True
         closed = False
         for shard in self.shards.values():
+            if isinstance(shard, RemoteEcVolumeShard):
+                continue  # no fd to release; the block cache stays warm
             if not shard._f.closed:
                 shard.close()
                 closed = True
@@ -247,7 +314,21 @@ class EcVolume:
 
     def destroy(self, to_trash: str | None = None):
         """Remove all files, or move them into `to_trash` (the fork's
-        soft delete, ec_volume.go:184-198)."""
+        soft delete, ec_volume.go:184-198).
+
+        Offloaded shard payloads: a soft delete to trash keeps the remote
+        objects (the .vif rides into the trash dir, so a restore before the
+        grace expires remounts the remote tier intact); a hard destroy
+        deletes them best-effort, like Volume.destroy."""
+        if to_trash is None and self.remote_spec:
+            try:
+                from ..storage.backend import open_remote
+                client = open_remote(self.remote_spec["spec"])
+                for key in self.remote_spec.get("keys", {}).values():
+                    client.delete_object(key)
+            except Exception as e:  # noqa: BLE001 — an orphan object, not data
+                log.warning("delete remote shards of ec volume %d: %s",
+                            self.id, e)
         self.close()
         exts = [files.shard_ext(i) for i in range(self.geo.n)] + [".ecx", ".ecj", ".vif"]
         for ext in exts:

@@ -2,9 +2,9 @@
 
 Port of seaweedfs_tpu/storage/disk_location.py. Reference:
 weed/storage/disk_location.go (+ disk_location_ec.go:75,136 for EC
-scanning). Scans the directory at startup, loads .dat/.idx volumes and
-.ecx/.ec?? shard sets. Tiered volumes (a .vif naming a remote .dat, no local
-.dat) are not ported yet: the scan logs and skips them.
+scanning). Scans the directory at startup, loads .dat/.idx volumes,
+tiered volumes (a .vif naming a remote .dat, no local .dat) and
+.ecx/.ec?? shard sets.
 """
 
 from __future__ import annotations
@@ -59,14 +59,19 @@ class DiskLocation:
                     continue
                 m = _VIF_RE.match(name)
                 if m:
+                    vid = int(m.group("vid"))
+                    col = m.group("col") or ""
                     dat = os.path.join(self.directory, name[:-4] + ".dat")
-                    if (int(m.group("vid")) not in self.volumes
-                            and not os.path.exists(dat)
+                    if (vid not in self.volumes and not os.path.exists(dat)
                             and "remote" in ec_files.read_vif(
                                 os.path.join(self.directory, name))):
-                        log.warning("tiered volume %s not loaded: tiered "
-                                    "volumes are not yet ported to "
-                                    "seaweedfs_tpu_torch", name)
+                        try:
+                            self.volumes[vid] = Volume(
+                                self.directory, col, vid,
+                                needle_map_kind=self.needle_map_kind,
+                                create_if_missing=False)
+                        except Exception as e:  # noqa: BLE001 — one bad volume must not stop the scan
+                            log.error("load tiered volume %s: %s", name, e)
                     continue
                 m = _ECX_RE.match(name)
                 if m:

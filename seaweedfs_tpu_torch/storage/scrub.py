@@ -2,7 +2,10 @@
 of kernel K3 on the card (ops/crc_cuda.py) and report corrupt needles.
 
 Port of the JAX package's storage/scrub.py, with the same record walk, the
-same skip rules and the same torn-walk error. The device is chosen by the
+same skip rules and the same torn-walk error. A tiered volume (remote .dat)
+is skipped, mode "skipped-tiered", before anything is read or launched: a
+scrub must not pull the whole volume back from the tier; its integrity
+story is the backend's checksums. The device is chosen by the
 caller and never changes on its own:
 
     device="cuda"  the batched path through K3 (the default; raises
@@ -136,11 +139,15 @@ def scrub_volume(v: Volume, device: str = "cuda", batch: int = 4096,
     seconds spent in each stage, summed over batches: walk_s (the record
     walk), pack_s (left-padding into blocks), crc_s (H2D copy, K3 or its
     plain version, D2H copy and finalize; or the host loop), compare_s.
+    A tiered volume returns mode "skipped-tiered" without a read.
     """
     if device not in DEVICES:
         raise ValueError(f"scrub device {device!r}: choose one of "
                          f"{', '.join(map(repr, DEVICES))} explicitly")
     res = ScrubResult(volume_id=v.id)
+    if v.remote_spec is not None:
+        res.mode = "skipped-tiered"
+        return res
     dev = _BatchCrc(device) if device != "off" else None
     res.mode = "device" if dev is not None else "cpu"
     spent = dict.fromkeys(("walk_s", "pack_s", "crc_s", "compare_s"), 0.0)

@@ -7,8 +7,13 @@ store_ec.go (EC mount/read), :389 (deleteExpiredEcVolumes, fork).
 Coder selection has no fallback: `coder_name="torch"` (the default) is
 TorchCoder on `device` (default "cuda", kernel K1), `"numpy"` is the host
 oracle, and any other name, a coder that fails to build, or a codec other
-than plain RS raises. Remote-tier EC shards (offload / promote) and the
-local volume move are not ported yet.
+than plain RS raises.
+
+The lifecycle tiers: `offload_ec_shards` moves this holder's shard payloads
+to a remote tier (storage/backend.py) and keeps serving them through ranged
+reads, `promote_ec_shards` pulls them back, `move_volume_local` moves a
+volume to another disk type of this server, and the DestroyTime reap knows
+both EC tiers.
 """
 
 from __future__ import annotations
@@ -19,9 +24,9 @@ import time
 from ..ec import files as ec_files
 from ..ec.encoder import decode_volume, encode_volume, rebuild_shards
 from ..ec.locate import EcGeometry
-from ..ec.volume import EcVolume
+from ..ec.volume import EcVolume, RemoteEcVolumeShard
 from ..ops.coder import ErasureCoder, NumpyCoder, TorchCoder, codec_coder
-from ..utils import failpoints
+from ..utils import failpoints, fsutil
 from ..utils.log import logger
 from . import types as t
 from .disk_location import DiskLocation
@@ -30,9 +35,10 @@ from .volume import Volume, VolumeClosedError
 
 log = logger("store")
 
-# the lifecycle tier an EC volume's reap record names (the JAX package's
-# lifecycle.TIER_EC; remote-tier shards are not ported)
-TIER_EC = "ec"
+# the lifecycle tiers an EC volume's reap record names (the JAX package's
+# lifecycle.TIER_EC and TIER_REMOTE)
+TIER_EC = "ec"          # erasure-coded, local shards
+TIER_REMOTE = "remote"  # erasure-coded, shard payload in a remote tier
 
 _CODERS = {"torch": TorchCoder, "numpy": NumpyCoder}
 
@@ -137,7 +143,8 @@ class Store:
         raise KeyError(f"volume {vid} not found on disk")
 
     def reload_volume(self, vid: int) -> Volume | None:
-        """Re-open a volume whose files changed under it."""
+        """Re-open a volume whose backing changed (a tier upload or download
+        swaps the .dat between local disk and a remote backend)."""
         for loc in self.locations:
             v = loc.volumes.get(vid)
             if v is not None:
@@ -450,6 +457,209 @@ class Store:
                 return v
         raise RuntimeError("location vanished")
 
+    # -- lifecycle tiering (EC->remote offload, remote->local promote) --------
+    def offload_ec_shards(self, vid: int, spec: str, collection: str = ""
+                          ) -> int:
+        """Move this holder's local shard payloads of an EC volume to a
+        remote tier. The .ecx/.ecj/.vif sidecars stay local (lookup is
+        local, payload is remote), the .vif records the remote mapping,
+        and the volume keeps serving through lazy ranged reads. Returns
+        bytes offloaded (0: nothing local to move; idempotent)."""
+        from .backend import open_remote
+        ev = self.find_ec_volume(vid)
+        if ev is None:
+            raise KeyError(f"no ec volume {vid}")
+        remote = dict(ev.remote_spec or {"spec": spec, "keys": {},
+                                         "sizes": {}})
+        if remote["spec"] != spec:
+            # one remote tier per volume: mixing specs would strand the
+            # earlier objects when the .vif only records one client
+            raise ValueError(
+                f"ec volume {vid} already offloaded to "
+                f"{remote['spec']!r}; refusing {spec!r}")
+        local = [(sid, sh) for sid, sh in sorted(ev.shards.items())
+                 if not isinstance(sh, RemoteEcVolumeShard)]
+        if not local:
+            return 0
+        client = open_remote(spec)
+        prefix = f"{collection or ev.collection or 'default'}"
+        moved = 0
+        uploaded: list[tuple[int, str, int]] = []
+        try:
+            for sid, sh in local:
+                key = f"{prefix}/{vid}{ec_files.shard_ext(sid)}"
+                size = client.write_object(key, sh.path)
+                uploaded.append((sid, key, size))
+                moved += size
+        except Exception:
+            # roll back: local files are untouched, so the volume is still
+            # whole; only the objects already uploaded would be orphaned
+            for _sid, key, _size in uploaded:
+                try:
+                    client.delete_object(key)
+                except Exception as e:  # noqa: BLE001 — the upload's error is raised below
+                    log.warning("offload rollback of %s: %s", key, e)
+            raise
+        keys = dict(remote.get("keys", {}))
+        sizes = dict(remote.get("sizes", {}))
+        for sid, key, size in uploaded:
+            keys[str(sid)] = key
+            sizes[str(sid)] = size
+        remote.update(keys=keys, sizes=sizes)
+        # seal the mapping BEFORE deleting local payloads: a crash in between
+        # leaves both copies (served local, cleaned on the next pass), never
+        # neither. Locked update: the idle-close stamp on another thread
+        # must not lose this seal.
+        ec_files.update_vif(ev.base + ".vif", {"remote_shards": remote})
+        # unlink the local payloads, then swap in a fresh EcVolume that
+        # scans remote read-through. The old object is not closed: reads in
+        # flight on it finish on its open fds (posix unlink semantics), so
+        # each fd is pinned open first (an idle-closed shard would otherwise
+        # reopen its unlinked path); the fds go when the object is collected
+        for _sid, sh in local:
+            sh.pin()
+            os.remove(sh.path)
+        for loc in self.locations:
+            if loc.ec_volumes.get(vid) is ev:
+                nev = EcVolume(ev.base, vid, ev.collection, ev.geo)
+                with loc.lock:
+                    loc.ec_volumes[vid] = nev
+        return moved
+
+    def promote_ec_shards(self, vid: int, collection: str = "",
+                          keep_remote: bool = False) -> int:
+        """Pull this holder's offloaded shard payloads back to local disk
+        (promote-on-heat). Downloads land beside the sidecars under a temp
+        name and swap in atomically: a torn download never costs the
+        remote copy. Returns bytes promoted."""
+        from .backend import open_remote
+        ev = self.find_ec_volume(vid)
+        if ev is None:
+            raise KeyError(f"no ec volume {vid}")
+        if not ev.remote_spec:
+            return 0
+        client = open_remote(ev.remote_spec["spec"])
+        remote_shards = [(sid, sh) for sid, sh in sorted(ev.shards.items())
+                         if isinstance(sh, RemoteEcVolumeShard)]
+        moved = 0
+        landed: list[tuple[int, str]] = []
+        try:
+            for sid, sh in remote_shards:
+                path = ev.base + ec_files.shard_ext(sid)
+                tmp = path + ".tiertmp"
+                client.read_object_to(sh.key, tmp)
+                got = os.path.getsize(tmp)
+                if sh.size and got != sh.size:
+                    raise OSError(f"short promote of shard {sid}: "
+                                  f"{got} != {sh.size}")
+                # the remote copy may be deleted below (keep_remote False):
+                # the local bytes and their rename must be durable before
+                # the last other copy goes away
+                fsutil.fsync_path(tmp)
+                os.replace(tmp, path)
+                landed.append((sid, sh.key))
+                moved += got
+            fsutil.fsync_dir(ev.base + ".vif")
+        except Exception:
+            for sid, _key in landed:
+                try:
+                    os.remove(ev.base + ec_files.shard_ext(sid))
+                except OSError:
+                    pass  # never landed: nothing to undo
+            raise
+        ec_files.update_vif(ev.base + ".vif", remove=("remote_shards",))
+        # swap in a fresh local-backed EcVolume; the old (remote-backed)
+        # object is not closed, so ranged reads in flight on it finish (the
+        # same contract as offload above)
+        for loc in self.locations:
+            if loc.ec_volumes.get(vid) is ev:
+                nev = EcVolume(ev.base, vid, ev.collection, ev.geo)
+                with loc.lock:
+                    loc.ec_volumes[vid] = nev
+        if not keep_remote:
+            # delete every mapped key, not just the shards downloaded this
+            # pass: a shard present both locally and remotely (a promote
+            # raced a crash) still has a remote object, and the mapping
+            # just dropped was its last reference
+            for key in (ev.remote_spec or {}).get("keys", {}).values():
+                try:
+                    client.delete_object(key)
+                except Exception as e:  # noqa: BLE001 — an orphan object, not data
+                    log.warning("delete promoted remote shard %s: %s",
+                                key, e)
+        return moved
+
+    def move_volume_local(self, vid: int, disk_type: str) -> str:
+        """Same-server cross-tier move: copy a volume's files to a location
+        of `disk_type` on this server and retire the old copy (the
+        disk-to-disk half of volume.tier.move). Returns the new directory."""
+        import shutil
+        src_loc = None
+        v = None
+        for loc in self.locations:
+            v = loc.volumes.get(vid)
+            if v is not None:
+                src_loc = loc
+                break
+        if v is None:
+            raise KeyError(f"volume {vid} not found")
+        if src_loc.disk_type == disk_type:
+            return src_loc.directory  # already on the target tier
+        dst_loc = self._location_for(disk_type)
+        # freeze for the copy window (callers normally froze already), or
+        # an append landing between copy and swap would be silently lost
+        was_read_only = v.read_only
+        v.read_only = True
+        v.sync()
+        src_base = v.file_name()
+        dst_base = dst_loc.base_name(v.collection, vid)
+        exts = [e for e in (".dat", ".idx", ".vif")
+                if os.path.exists(src_base + e)]
+        copied = []
+        try:
+            for ext in exts:
+                # copy + fsync under a temp name, then rename: a crash
+                # mid-move leaves the source authoritative
+                tmp = dst_base + ext + ".tiertmp"
+                shutil.copyfile(src_base + ext, tmp)
+                with open(tmp, "rb+") as f:
+                    os.fsync(f.fileno())
+                os.replace(tmp, dst_base + ext)
+                copied.append(dst_base + ext)
+            # the source files are removed once the swap commits: the
+            # destination's directory entries must survive first
+            fsutil.fsync_dir(dst_base + ".dat")
+            # build the replacement fully (needle-map load, integrity scan)
+            # before touching the mapping: reads must never find the vid
+            # unmapped mid-move
+            nv = Volume(dst_loc.directory, v.collection, vid,
+                        needle_map_kind=dst_loc.needle_map_kind,
+                        create_if_missing=False)
+        except Exception:
+            v.read_only = was_read_only
+            for p in copied:
+                try:
+                    os.remove(p)
+                except OSError:
+                    pass  # never copied: nothing to undo
+            raise
+        nv.read_only = was_read_only
+        # map the destination before unmapping the source: both serve the
+        # same frozen bytes, so whichever a racing read resolves is right;
+        # closing the source then routes stragglers through the refreshed
+        # mapping (VolumeClosedError retry)
+        with dst_loc.lock:
+            dst_loc.volumes[vid] = nv
+        with src_loc.lock:
+            src_loc.volumes.pop(vid, None)
+        v.close()
+        for ext in exts:
+            try:
+                os.remove(src_base + ext)
+            except OSError as e:
+                log.warning("retire source copy %s%s: %s", src_base, ext, e)
+        return dst_loc.directory
+
     def close_idle_ec_handles(self, idle_s: float = 3600.0) -> int:
         """Idle-close EC shard handles (fork ec_volume.go:348 IsExpire)."""
         n = 0
@@ -464,7 +674,9 @@ class Store:
         """Fork behavior (store.go:389): reap EC volumes past DestroyTime
         into the soft-delete trash dir. A volume reaps at its destroy_time
         instant (<=). Returns one record per reaped volume: {"vid",
-        "collection", "from", "bytes" (local bytes soft-moved to trash)}."""
+        "collection", "from" (ec or remote), "bytes" (local bytes soft-moved
+        to trash)}. An offloaded volume's remote objects are kept, so a
+        restore remounts its remote tier intact."""
         if now is None:
             now = time.time()
         reaped = []
@@ -474,8 +686,11 @@ class Store:
                     with loc.lock:
                         loc.ec_volumes.pop(vid, None)
                     rec = {"vid": vid, "collection": ev.collection,
-                           "from": TIER_EC,
-                           "bytes": sum(sh.size for sh in ev.shards.values())}
+                           "from": (TIER_REMOTE if ev.remote_spec
+                                    else TIER_EC),
+                           "bytes": sum(
+                               sh.size for sh in ev.shards.values()
+                               if not isinstance(sh, RemoteEcVolumeShard))}
                     ev.destroy(to_trash=os.path.join(loc.directory, ".trash"))
                     self._drop_access(vid)
                     reaped.append(rec)

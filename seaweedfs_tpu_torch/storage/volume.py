@@ -1,12 +1,12 @@
 """Volume: one append-only .dat file + its .idx needle index.
 
-The port's copy of the JAX package's storage/volume.py for a LOCAL .dat:
-write, bulk write, delete, read (lock-free seqlock path and locked
-fallback), load-time integrity check, sync, close and destroy. A volume
-whose .vif names a remote tier raises NotImplementedError: tiered volumes
-(storage/backend.py) are not yet ported. The tail / incremental-copy
-readers (offset_by_append_ns, read_records_since, append_records) come
-with the volume server.
+The port's copy of the JAX package's storage/volume.py: write, bulk write,
+delete, read (lock-free seqlock path and locked fallback), load-time
+integrity check, the tail / incremental-copy readers (offset_by_append_ns,
+read_records_since, append_records), sync, close and destroy. A tiered
+volume (its .vif names a remote tier, reference volume_tier.go) opens
+read-only: with no local .dat its reads go through storage/backend's
+RemoteDatFile under the volume lock.
 
 Reference equivalents: weed/storage/volume.go, volume_write.go:111-180,
 volume_read.go, volume_loading.go, volume_checking.go:17
@@ -94,17 +94,22 @@ class Volume:
         self._closed = False
         self._fileno = -1
         self._commit_offset = SUPER_BLOCK_SIZE
+        # append offset when vacuum.compact snapshotted the live set; the
+        # commit replays what landed after it (vacuum._makeup_diff)
+        self.last_compact_offset: int | None = None
 
         base = self.file_name()
         self.dat_path = base + ".dat"
         self.idx_path = base + ".idx"
         self.vif_path = base + ".vif"
-        # Tiered volume: the .vif carries a remote location (reference
-        # volume_tier.go). Refused whole, never opened as a local volume.
-        if "remote" in self._read_vif():
-            raise NotImplementedError(
-                f"volume {vid}: tiered (remote .dat) volumes are not yet "
-                f"ported to seaweedfs_tpu_torch")
+        # Tiered volume: the sealed .dat lives in a remote backend
+        # (reference volume_tier.go; the .vif carries the remote location)
+        self.remote_spec: dict | None = None
+        if not os.path.exists(self.dat_path):
+            vif = self._read_vif()
+            if "remote" in vif:
+                self._open_remote(vif["remote"])
+                return
         exists = os.path.exists(self.dat_path)
         if not exists and not create_if_missing:
             raise FileNotFoundError(self.dat_path)
@@ -119,10 +124,31 @@ class Volume:
         self.super_block = SuperBlock.from_bytes(self._dat.read(SUPER_BLOCK_SIZE))
         self.nm = NeedleMap(self.idx_path, needle_map_kind)
         self._check_integrity()
+        # a volume tiered with keep_local serves reads from the local .dat
+        # but stays read-only: writes would silently diverge from the
+        # remote copy
+        vif = self._read_vif()
+        if "remote" in vif:
+            self.remote_spec = vif["remote"]
+            self.read_only = True
 
     def _read_vif(self) -> dict:
         from ..ec import files as ec_files
         return ec_files.read_vif(self.vif_path)
+
+    def _open_remote(self, remote: dict) -> None:
+        """Open a tiered (remote .dat) volume read-only."""
+        from .backend import RemoteDatFile, open_remote
+        client = open_remote(remote["spec"])
+        self.remote_spec = remote
+        self._dat = RemoteDatFile(client, remote["key"], remote.get("size"))
+        self._dat.seek(0)
+        self.super_block = SuperBlock.from_bytes(
+            self._dat.read(SUPER_BLOCK_SIZE))
+        self.nm = NeedleMap(self.idx_path, self._nm_kind)
+        self.read_only = True
+        self._append_offset = self._dat.size
+        self._commit_offset = self._append_offset
 
     # -- naming ------------------------------------------------------------
     def file_name(self) -> str:
@@ -187,6 +213,150 @@ class Volume:
             pos = off + record_size_from_header(nsize)
         return pos
 
+    # -- tail / incremental sync (reference volume_grpc_tail.go,
+    #    volume_grpc_copy_incremental.go) ----------------------------------
+    def record_append_ns(self, offset: int, nsize: int) -> int:
+        """append_at_ns from a record's trailer (crc u32 then ts u64,
+        needle.py layout)."""
+        import struct
+        body = 0 if t.is_tombstone(nsize) else nsize
+        raw = self.read_raw(offset + t.NEEDLE_HEADER_SIZE + body + 4, 8)
+        return struct.unpack("<Q", raw)[0]
+
+    def _probe_entries(self, end: int):
+        """.idx entries usable as timestamp probes: live, whole, within
+        `end` (a torn-tail repair truncates the .dat but leaves the original
+        live entries in the raw .idx — filter those out)."""
+        if not os.path.exists(self.idx_path):
+            return []
+        keys, offs, sizes = idx_entries_numpy(self.idx_path)
+        probes = []
+        for i in range(len(keys)):
+            if int(offs[i]) <= 0:
+                continue
+            off = t.stored_to_offset(int(offs[i]))
+            if off + record_size_from_header(int(sizes[i])) <= end:
+                probes.append((off, int(sizes[i])))
+        return probes
+
+    def offset_by_append_ns(self, since_ns: int) -> int:
+        """First .dat offset whose record has append_at_ns > since_ns.
+
+        Binary search over the append-ordered .idx probing timestamps from
+        the .dat (reference BinarySearchByAppendAtNs), then a short linear
+        walk so tombstone records (absent from probe entries) are included.
+        Requires the .dat to be append-time-ordered: vacuum preserves that
+        (compact copies in offset order) and a compaction-revision bump
+        tells cross-revision followers to resync in full.
+        Returns self._append_offset when fully caught up.
+        """
+        with self._lock:
+            self.sync()
+            end = self._append_offset
+            probes = self._probe_entries(end)
+            lo, hi = 0, len(probes)  # first probe with ts > since_ns
+            while lo < hi:
+                mid = (lo + hi) // 2
+                off, nsize = probes[mid]
+                if self.record_append_ns(off, nsize) > since_ns:
+                    hi = mid
+                else:
+                    lo = mid + 1
+            if lo == 0:
+                start = SUPER_BLOCK_SIZE
+            else:
+                off, nsize = probes[lo - 1]  # last record at-or-before
+                start = off + record_size_from_header(nsize)
+            # walk (possibly tombstone) records until ts > since_ns
+            for off, _nid, nsize in iter_records(self._dat, start, end):
+                if self.record_append_ns(off, nsize) > since_ns:
+                    return off
+            return end
+
+    def last_record_append_ns(self) -> int:
+        """append_at_ns of the newest record (0 for an empty volume):
+        jump to the newest .idx probe, walk the short tail."""
+        with self._lock:
+            self.sync()
+            end = self._append_offset
+            probes = self._probe_entries(end)
+            start = max((off for off, _ in probes), default=SUPER_BLOCK_SIZE)
+            last = 0
+            for off, _nid, nsize in iter_records(self._dat, start, end):
+                last = self.record_append_ns(off, nsize)
+            return last
+
+    def read_records_since(self, since_ns: int, max_batch: int = 2 << 20):
+        """Yield (record_bytes, append_at_ns, nsize) for records newer than
+        since_ns, in append order (tail sender body). Records are collected
+        in <= max_batch byte batches under the volume lock and yielded
+        outside it, so a slow stream consumer never blocks writers."""
+        pos = self.offset_by_append_ns(since_ns)
+        while True:
+            batch = []
+            with self._lock:
+                self.sync()
+                end = self._append_offset
+                if pos >= end:
+                    return
+                got = 0
+                for off, _nid, nsize in iter_records(self._dat, pos, end):
+                    rec_len = record_size_from_header(nsize)
+                    self._dat.seek(off)
+                    rec = self._dat.read(rec_len)
+                    batch.append((rec, self.record_append_ns(off, nsize),
+                                  nsize))
+                    pos = off + rec_len
+                    got += rec_len
+                    if got >= max_batch:
+                        break
+            yield from batch
+
+    def append_records(self, raw: bytes) -> int:
+        """Append raw record bytes (from tail/incremental copy) and replay
+        them into the needle map. Returns records applied."""
+        import struct
+        touched: "list[int]" = []
+        with self._lock:
+            if self.read_only:
+                raise PermissionError(f"volume {self.id} is read-only")
+            start = self._append_offset
+            if start + len(raw) > t.MAX_VOLUME_SIZE:
+                raise OSError(f"volume {self.id} exceeds max size")
+            self._dat.seek(start)
+            self._dat.write(raw)
+            self._append_offset = start + len(raw)
+            # flush before any index replay publishes the new records
+            # (seqlock read path); the torn-tail branch re-anchors the
+            # watermark after its truncate
+            self._dat.flush()
+            self._commit_offset = self._append_offset
+            applied = 0
+            pos = 0
+            while pos + t.NEEDLE_HEADER_SIZE <= len(raw):
+                _, nid, nsize = struct.unpack_from("<IQI", raw, pos)
+                rec_len = record_size_from_header(nsize)
+                if pos + rec_len > len(raw):
+                    # torn tail: truncate back to the last whole record
+                    self._append_offset = start + pos
+                    self._dat.seek(self._append_offset)
+                    self._dat.truncate()
+                    self._commit_offset = self._append_offset
+                    break
+                if t.is_tombstone(nsize):
+                    self.nm.delete(nid)
+                else:
+                    self.nm.put(nid, start + pos, nsize)
+                    ts = struct.unpack_from(
+                        "<Q", raw, pos + t.NEEDLE_HEADER_SIZE + nsize + 4)[0]
+                    self.last_append_at_ns = ts
+                touched.append(nid)
+                pos += rec_len
+                applied += 1
+        # tail replay mutates through the chokepoint (batched)
+        read_cache.invalidate_keys(self.id, touched)
+        return applied
+
     # -- write path (reference volume_write.go:119 writeNeedle2) -----------
     def write_needle(self, n: Needle, sync: bool = False) -> int:
         """`sync=True` is the durable single-needle write (the upload's
@@ -214,7 +384,8 @@ class Volume:
             self.nm.put(n.id, off, self._body_size(rec))
             self.last_append_at_ns = n.append_at_ns
             if sync:
-                os.fsync(self._dat.fileno())
+                if self.remote_spec is None:
+                    os.fsync(self._dat.fileno())
                 self.nm.flush()
         read_cache.invalidate(self.id, n.id)  # overwrite coherence
         return off
@@ -261,7 +432,8 @@ class Volume:
                               for n, o, rec in zip(needles, offs, recs)])
             self.last_append_at_ns = needles[-1].append_at_ns
             if sync:
-                os.fsync(self._dat.fileno())
+                if self.remote_spec is None:
+                    os.fsync(self._dat.fileno())
                 self.nm.flush()
         # bulk-frame appends share the one chokepoint, batched: one
         # epoch bump + one lock pass instead of 2N on the ingest ack
@@ -321,8 +493,9 @@ class Volume:
         fd number can never leak another file's bytes past validation.
         Any validation failure falls back to the locked path, which
         raises VolumeClosedError for the store to retry on its fresh
-        volume mapping."""
-        if not self._closed:
+        volume mapping. A tiered volume has no fd (`_fileno`): its reads
+        take the locked path through the RemoteDatFile."""
+        if self.remote_spec is None and not self._closed:
             nv = self.nm.get(needle_id)  # index snapshot (GIL-atomic)
             if nv is None:
                 raise KeyError(f"needle {needle_id:x} not found in "
@@ -354,7 +527,7 @@ class Volume:
         """Bulk-GET storage path: resolve and read a whole batch of
         (key, cookie) pairs through the lock-free read protocol — one
         index pass, zero volume-lock acquisitions on the fast path (the
-        locked fallback only fires on a racing close).
+        locked fallback only fires on a racing close or a tiered volume).
         Returns [(status, needle)] aligned with `pairs`; statuses are
         storage/bulk.py's READ_OK / READ_NOT_FOUND / READ_ERROR /
         READ_OVERFLOW. `byte_budget` bounds the bytes MATERIALIZED for
@@ -417,7 +590,8 @@ class Volume:
         with self._lock:
             self._dat.flush()
             self._commit_offset = self._append_offset
-            os.fsync(self._dat.fileno())
+            if self.remote_spec is None:
+                os.fsync(self._dat.fileno())
             self.nm.flush()
 
     def close(self) -> None:
@@ -437,6 +611,16 @@ class Volume:
 
     def destroy(self) -> None:
         self.close()
+        if self.remote_spec is not None:
+            # best-effort: replicas may share the remote key, so a failure
+            # here only leaks an orphan object
+            try:
+                from .backend import open_remote
+                open_remote(self.remote_spec["spec"]).delete_object(
+                    self.remote_spec["key"])
+            except Exception as e:  # noqa: BLE001 — an orphan object, not data
+                log.warning("delete remote copy of volume %d: %s",
+                            self.id, e)
         # the .vif is shared with an EC conversion of this volume: after
         # VolumeEcShardsGenerate it carries the stripe's codec + geometry
         # and belongs to the shard set, so deleting the source volume

@@ -218,10 +218,18 @@ def test_destroy_matches_reference(tmp_path, trash):
 
 
 def test_remote_tier_vif_raises(tmp_path):
+    """Offloaded shards open on a ported remote kind and raise on one that
+    is not ported (no other kind serves in its place)."""
     base, _ = _encoded(tmp_path)
     files.update_vif(base + ".vif", {"remote_shards": {
-        "spec": "local:/nowhere", "keys": {"3": "k3"}, "sizes": {"3": 10}}})
-    with pytest.raises(NotImplementedError, match="remote tier"):
+        "spec": f"local:{tmp_path / 'tier'}", "keys": {"3": "k3"},
+        "sizes": {"3": 10}}})
+    os.unlink(base + files.shard_ext(3))
+    ev = ec_volume.EcVolume(base, 7)
+    assert ev.remote_shard_ids() == [3] and ev.shards[3].size == 10
+    files.update_vif(base + ".vif", {"remote_shards": {
+        "spec": "azure:https://a.example/c?k:s", "keys": {"3": "k3"}}})
+    with pytest.raises(NotImplementedError, match="remote tier kind 'azure'"):
         ec_volume.EcVolume(base, 7)
 
 

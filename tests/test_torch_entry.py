@@ -44,6 +44,8 @@ bad = sorted(n for n in sys.modules
              if n == "seaweedfs_tpu" or n.startswith("seaweedfs_tpu.")
              or (n.startswith("jax") and sys.modules[n] is not None))
 print("LOADED", len([n for n in sys.modules if n.startswith("seaweedfs_tpu_torch")]))
+print("TIER", all(f"seaweedfs_tpu_torch.{m}" in sys.modules
+                  for m in ("storage.backend", "storage.vacuum", "s3.auth")))
 print("BAD", bad)
 """
 
@@ -53,6 +55,7 @@ def test_import_hygiene_no_jax_no_reference_package():
                          text=True, timeout=120, cwd=str(_repo_root()))
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
+    assert "TIER True" in out.stdout, out.stdout
     assert int(out.stdout.split("LOADED ")[1].split()[0]) >= 15
 
 

@@ -217,3 +217,46 @@ def test_store_degraded_read_through_k1_on_card(cuda, tmp_path):
     assert rs_cuda.launches_by_entry["reconstruct"] >= before + stats["reconstructs"]
     card.close()
     cpu.close()
+
+
+@pytest.mark.gpu
+def test_offload_degraded_read_promote_on_card(cuda, tmp_path):
+    """EC shards offloaded to a tier and served from it: intervals on a lost
+    shard are reconstructed through K1 from survivors read off the tier,
+    equal to the plain version's; then the shards are promoted back."""
+    geo = EcGeometry(d=14, p=2, large_block=8192, small_block=1024)
+    card = Store("127.0.0.1", 0, "", [DiskLocation(str(tmp_path / "card"))],
+                 ec_geometry=geo)
+    rng = np.random.default_rng(8)
+    card.add_volume(1)
+    want = {i: rng.bytes(int(rng.integers(0, 3000))) for i in range(1, 81)}
+    card.write_needles_bulk(1, [Needle(id=i, cookie=3, data=d)
+                                for i, d in want.items()])
+    base = card.generate_ec_shards(1)
+    card.delete_volume(1)
+    card.mount_ec_shards(1)
+    hashes = {s: open(base + files.shard_ext(s), "rb").read() for s in range(16)}
+    for s in (0, 5):
+        os.unlink(base + files.shard_ext(s))
+    card.unmount_ec_shards(1, [0, 5])
+    spec = f"local:{tmp_path / 'tier'}"
+    assert card.offload_ec_shards(1, spec) > 0
+    assert card.find_ec_volume(1).remote_shard_ids() == \
+        [s for s in range(16) if s not in (0, 5)]
+    with cf.ThreadPoolExecutor(2) as pool:
+        stats = {}
+        on_card = make_shard_reader(card, 1, lambda *a: None, pool, stats)
+        before = rs_cuda.launches_by_entry.get("reconstruct", 0)
+        for i, data in want.items():
+            assert card.read_needle(1, i, cookie=3, shard_reader=on_card).data == data
+        assert on_card(0, 100, 900) == hashes[0][100:1000]
+    assert stats["reconstructs"] > 0
+    assert rs_cuda.launches_by_entry["reconstruct"] >= before + stats["reconstructs"]
+    held = card.find_ec_volume(1)
+    assert card.rebuild_ec_shards(
+        1, shard_reader=lambda sid, off, ln: held.shards[sid].read_at(off, ln),
+        remote_shards=held.remote_shard_ids(), wanted=[0, 5]) == [0, 5]
+    assert card.promote_ec_shards(1) > 0
+    assert {s: open(base + files.shard_ext(s), "rb").read() for s in range(16)} == hashes
+    assert card.find_ec_volume(1).remote_shard_ids() == []
+    card.close()

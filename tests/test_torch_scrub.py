@@ -209,9 +209,21 @@ def test_k3_launch_failure_is_not_swallowed(tmp_path, monkeypatch):
 
 
 def test_tiered_volume_refused(tmp_path):
-    (tmp_path / "5.vif").write_text('{"remote": {"spec": "mem://", "key": "5.dat"}}')
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        scrub.scrub_volume(Volume(str(tmp_path), "", 5), device="off")
+    """The scrub refuses to read a tiered volume: skipped-tiered, nothing
+    scanned, on every device (as the reference's scrub)."""
+    v = Volume(str(tmp_path), "", 5)
+    _fill(v, 3)
+    v.close()
+    (tmp_path / "5.vif").write_text(
+        '{"remote": {"spec": "local:%s", "key": "5.dat"}}' % (tmp_path / "t"))
+    v = Volume(str(tmp_path), "", 5)  # .dat kept local, tiered read-only
+    for device in DEVICES + ["cuda"]:
+        res = scrub.scrub_volume(v, device=device)
+        assert (res.mode, res.scanned, res.corrupt) == ("skipped-tiered", 0, [])
+    r = ref_volume.Volume(str(tmp_path), "", 5)
+    assert ref_scrub.scrub_volume(r, device="off").mode == "skipped-tiered"
+    r.close()
+    v.close()
 
 
 @pytest.mark.parametrize("width", [512, 768, 1024])

@@ -284,12 +284,16 @@ def test_closed_volume_and_read_only(tmp_path):
 
 
 def test_tiered_volume_not_yet_ported(tmp_path):
-    (tmp_path / "9.vif").write_text('{"remote": {"spec": "s3://b", "key": "9.dat"}}')
+    """A tiered volume on a remote kind that is not ported raises at open;
+    with its .dat kept local it opens read-only without touching the tier."""
+    (tmp_path / "9.vif").write_text(
+        '{"remote": {"spec": "gcs-json:https://g.example/b", "key": "9.dat"}}')
     with pytest.raises(NotImplementedError, match="not yet ported"):
         volume.Volume(str(tmp_path), "", 9)
     (tmp_path / "9.dat").write_bytes(super_block.SuperBlock().to_bytes())
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        volume.Volume(str(tmp_path), "", 9)
+    v = volume.Volume(str(tmp_path), "", 9)
+    assert v.read_only and v.remote_spec["key"] == "9.dat"
+    v.close()
 
 
 def test_read_cache_invalidation_chokepoint(tmp_path):

@@ -24,6 +24,7 @@ from seaweedfs_tpu_torch.storage import bulk
 from seaweedfs_tpu_torch.storage.disk_location import DiskLocation
 from seaweedfs_tpu_torch.storage.needle import Needle, record_size_from_header
 from seaweedfs_tpu_torch.storage.store import Store
+from seaweedfs_tpu_torch.storage.super_block import SuperBlock
 
 GEO = EcGeometry(d=10, p=4, large_block=8192, small_block=1024)
 REF_GEO = RefGeometry(d=10, p=4, large_block=8192, small_block=1024)
@@ -412,13 +413,24 @@ def test_volume_lifecycle(pair, tmp_path):
 
 
 def test_disk_location_skips_tiered_volumes(tmp_path, caplog):
+    """A tiered volume the port can open is loaded; one on a remote kind
+    that is not ported is logged and skipped, and the scan goes on."""
     d = tmp_path / "loc"
     d.mkdir()
-    files.write_vif(str(d / "9.vif"), remote={"spec": "s3://b", "key": "9.dat"})
+    (tmp_path / "tier").mkdir()
+    (tmp_path / "tier" / "8.dat").write_bytes(SuperBlock().to_bytes())
+    (d / "8.idx").write_bytes(b"")
+    files.write_vif(str(d / "8.vif"), remote={
+        "spec": f"local:{tmp_path / 'tier'}", "key": "8.dat"})
+    files.write_vif(str(d / "9.vif"), remote={
+        "spec": "azure:https://a.example/c?k:s", "key": "9.dat"})
     loc = DiskLocation(str(d))
     loc.load_existing()
-    assert loc.volumes == {} and loc.ec_volumes == {}
-    assert "tiered volumes are not yet ported" in caplog.text
+    assert sorted(loc.volumes) == [8] and loc.ec_volumes == {}
+    assert loc.volumes[8].remote_spec["key"] == "8.dat" and loc.volumes[8].read_only
+    assert "load tiered volume 9.vif" in caplog.text
+    assert "not yet ported" in caplog.text
+    loc.volumes[8].close()
 
 
 def test_coder_selection_has_no_fallback(tmp_path, monkeypatch):
