@@ -5,7 +5,7 @@
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result). `--phases` runs a subset (default: all); phase 1 always runs, and
-the kernels line needs phases 3, 4, 6, 7, 8, 9 and 10. The kernels of the
+the kernels line needs phases 3, 4, 6, 7, 8, 9, 10 and 11. The kernels of the
 phases asked for are built first, all at once (one nvcc per source).
 
 1. device: card name, count, `nvidia-smi` name and power limit;
@@ -15,13 +15,16 @@ phases asked for are built first, all at once (one nvcc per source).
    (10,4), (14,2), (5,3), (4,2) x C in {16, 48, 100, 384, 4112, 65536,
    65552} (the edges of a thread's 32-byte span) with several loss
    patterns, the seeded entries, batches of 1 and 3 and single stripes,
-   and the main shape [32, 10, 1 MiB];
+   the apply entry at the msr codec's solve and repair matrices of (10,4)
+   and (14,2), and the main shape [32, 10, 1 MiB];
 4. K1's time (CUDA events over many launches, each with another seed),
    its HBM bound and the plain version's time at the main shape, for all
    four entries; encode and reconstruct at RS(14,2) [32, 14, 1 MiB]; at
    the main shape, reconstruct of 2 and of 1 lost shard (how the time
-   scales with the outputs) and a device copy of the input (the card's
-   reachable memory rate); the SM clock, power and temperature around;
+   scales with the outputs), the apply entry at the msr seal's shape
+   ([2, 14] over [14, 256 x 16 KiB]) and a device copy of the input (the
+   card's reachable memory rate); the SM clock, power and temperature
+   around;
 5. entry(): ECPipeline(10, 4).forward on [8, 10, 65536] through K1;
 6. the main path at real size: ec encode of a 10 GiB + 3 MiB + 12,345 B
    RS(10,4) volume and two 256 MiB volumes in one job (1 GiB / 1 MiB
@@ -68,10 +71,11 @@ phases asked for are built first, all at once (one nvcc per source).
    counts are zeroed just before this phase and read just after; then,
    outside the counts, the costs of one degraded interval's K1 call at
    [10, ~1 KB] are timed;
-10. tiered volumes at deployment size, on one Store with an `ssd` and an
-   `hdd` location and a remote tier `local:<workdir>/tier`
-   (storage/backend.LocalDirRemote, its object reads counted): the write
-   set of phase 9 written on `ssd`, 64 needles deleted and 64 overwritten,
+10. tiered volumes, on one Store with an `ssd` and an `hdd` location and a
+   remote tier `local:<workdir>/tier` (storage/backend.LocalDirRemote, its
+   object reads counted): half the write set of phase 9 (524,288 needles
+   of 1024 + 0..63 B; depth cut to keep the whole within its time)
+   written on `ssd`, 64 needles deleted and 64 overwritten,
    vacuum.compact + commit_compact (garbage 0, the .dat shrunk by exactly
    the dead records); Store.move_volume_local to `hdd`; the .dat tiered up
    (a stand-in of VolumeTierMoveDatToRemote) and a seeded sample of 16,384
@@ -91,9 +95,27 @@ phases asked for are built first, all at once (one nvcc per source).
    ec_shards_to_volume to the .dat's hash. K1's counts are zeroed before
    the EC steps and read after; then K1 at one stripe [1, 14, ~1 KB] is
    timed;
-11. summary: one JSON line of every kernel with its launches (K1's from
-   phases 6, 9 and 10, K3's from phases 8 and 10), error against the plain
-   version, times and bound; then the result line.
+11. the layered codecs at deployment size, on one Store on the card: the
+   write set of phase 9 written once and encoded twice. (a) msr at the
+   fork's RS(14,2) (1 GiB / 1 MiB blocks, alpha 256): generate_ec_shards
+   (plain-RS slabs through K1 encode, then the msr overlay through K1's
+   apply entry), a seeded sample of sub-symbol columns against the plain
+   version on the CPU; a 4,096-needle sample read healthy, then with shard
+   5 lost (repair-plane plans, all 15 helpers present); shard 5 rebuilt on
+   the single-loss ranged path, reading exactly
+   repair_read_bytes("msr", 14, 2, [5], shard) = 7.5 shards, to its hash;
+   shards (0, 14) lost, their sampled needles read (general plans), a
+   general rebuild to their hashes; ec_shards_to_volume to the .dat's
+   hash. (b) piggyback at RS(10,4) on the decoded volume: shards (3, 7)
+   lost (the survivors used take piggybacked parity 11, so b-half
+   intervals strip it), their sampled needles read, a general rebuild to
+   the hashes; shard 3 alone rebuilt on the ranged path reading exactly
+   0.70 of plain RS. Every K1 call on the card is timed with CUDA events
+   by entry; K1's counts are zeroed just before the phase and read just
+   after, and encode, reconstruct and apply must all have launched;
+12. summary: one JSON line of every kernel with its launches (K1's from
+   phases 6, 9, 10 and 11, K3's from phases 8 and 10), error against the
+   plain version, times and bound; then the result line.
 
 Needs CUDA and the repository beside it; without either it exits 2.
 """
@@ -117,13 +139,13 @@ MAIN_SHAPE = (32, 10, 1 << 20)  # [batch, d, chunk] of one encode call
 LOST_10_4 = (0, 5, 10, 13)
 LOST_14_2 = (3, 15)
 WIDTHS = (16, 48, 100, 384, 4112, 65536, 65552)
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11)
 PALLAS = "seaweedfs_tpu/ops/rs_pallas.py"
 K1_SOURCE = "seaweedfs_tpu_torch/csrc/rs_gf.cu"
 K3_SOURCE = "seaweedfs_tpu_torch/csrc/crc32c.cu"
 K3_REPLACES = "seaweedfs_tpu/ops/crc32c.py:183"  # device_crc_states
 KERNELS = {2: ("rs_gf",), 7: ("crc32c",), 9: ("rs_gf",),  # phase -> csrc
-           10: ("rs_gf", "crc32c")}                    # sources it builds
+           10: ("rs_gf", "crc32c"), 11: ("rs_gf",)}    # sources it builds
 K3_SHAPES = ((4096, 2048), (16384, 4096), (64, 1 << 20))  # first: the scrub's
 K3_ROWS = (1, 3, 4096, 4225)  # 4225 = 132 SMs x 32 warps + 1
 K3_LENGTHS = (0, 512, 1024, 2048, 4096, 65536, 1 << 20)
@@ -134,12 +156,17 @@ EC_SAMPLE = 16384      # needles read back per pass
 EC_VID = 1
 A_LOST, B_LOST = (0, 5), (10, 13)
 TIER_LOST = (0, 5)     # phase 10's lost shards at RS(14,2)
+TIER_NEEDLES = 1 << 19  # phase 10: half the write set, to keep the whole in time
 TIER_CHURN = 64        # phase 10: needles deleted, and needles overwritten
-K1_ENTRIES = {  # wrapper entry -> the Pallas entry it replaces
+CODEC_SAMPLE = 4096    # phase 11: needles read back per pass
+MSR_LOST, MSR_LOST2 = 5, (0, 14)  # phase 11(a) at RS(14,2)
+PB_LOST = (3, 7)       # phase 11(b) at RS(10,4): survivors take parity 11
+K1_ENTRIES = {  # wrapper entry -> the TPU function it replaces
     "encode": f"{PALLAS}:156",
     "encode_seeded": f"{PALLAS}:164",
     "reconstruct": f"{PALLAS}:173",
     "reconstruct_seeded": f"{PALLAS}:182",
+    "apply": "seaweedfs_tpu/ops/rs_jax.py:53",  # apply_bitmatrix (K2)
 }
 GiB, MiB = 1 << 30, 1 << 20
 
@@ -260,6 +287,18 @@ def phase_compare(torch, np, seed: int) -> "dict[str, int]":
                       rs_cuda.reconstruct_seeded(surv, s, present, lost, d, p),
                       rs_torch.reconstruct(surv ^ s, present, lost, d, p),
                       f"({d},{p}) C={C} lost={lost} seed={s}")
+    # the apply entry at the msr codec's matrices: every solve matrix of a
+    # survivor set and every single-loss repair matrix
+    for d, p, mat in msr_matrices(np):
+        for C in WIDTHS:
+            x = torch.from_numpy(rng.integers(0, 256, (mat.shape[1], C),
+                                              np.uint8)).to(dev)
+            check("apply", rs_cuda.gf_apply(mat, x), rs_torch.gf_apply(mat, x),
+                  f"msr ({d},{p}) matrix {tuple(mat.shape)} C={C}")
+        x = torch.from_numpy(rng.integers(0, 256, (2, mat.shape[1], 4112),
+                                          np.uint8)).to(dev)
+        check("apply", rs_cuda.gf_apply(mat, x), rs_torch.gf_apply(mat, x),
+              f"msr ({d},{p}) matrix {tuple(mat.shape)} batch of 2")
     # the main shape, as the encode and rebuild paths give it
     x = torch.from_numpy(rng.integers(0, 256, MAIN_SHAPE, np.uint8)).to(dev)
     par = rs_torch.encode(x, 10, 4)
@@ -274,6 +313,23 @@ def phase_compare(torch, np, seed: int) -> "dict[str, int]":
     log(f"[compare] K1 == plain version on {cases} cases, max abs err "
         f"{max(errs.values())}")
     return errs
+
+
+def msr_matrices(np):
+    """(d, p, GF matrix) of every apply the msr codec makes at RS(10,4) and
+    RS(14,2): the solve matrix of each survivor set of the degraded reads
+    and rebuilds (all data, one loss, two losses) and each single-loss
+    repair matrix."""
+    from seaweedfs_tpu_torch.ops.product_matrix import ProductMatrixCoder
+    out = []
+    for d, p in ((10, 4), (14, 2)):
+        n = d + p
+        g = ProductMatrixCoder(d, p, backend="numpy").grid
+        sets = [tuple(range(d)), tuple(range(1, d + 1)),
+                tuple(i for i in range(n) if i not in (0, n - 2))[:d]]
+        out += [(d, p, g.solve_matrices(u)[2]) for u in sets]
+        out += [(d, p, g.repair_matrices(f)[2]) for f in range(n)]
+    return out
 
 
 # -- phase 4 ----------------------------------------------------------------
@@ -315,8 +371,8 @@ def phase_timing(torch, np, seed: int, card: str) -> "dict[str, dict]":
     live14 = tuple(i for i in range(16) if i not in LOST_14_2)
     rec14 = rs_torch.decode_rows(14, 2, live14, LOST_14_2)
     enc14 = gf8.parity_matrix(14, 2)
-    # (what, K1 call, plain version or None, input shape, outputs); the first
-    # four are the entries of the kernels line
+    # (what, K1 call, plain version or None, input shape, outputs); the rows
+    # named after an entry are the entries of the kernels line
     rows = [
         ("encode", lambda s: rs_cuda.encode(x, d, p),
          lambda s: rs_torch.gf_apply(enc, x), MAIN_SHAPE, p),
@@ -335,6 +391,15 @@ def phase_timing(torch, np, seed: int, card: str) -> "dict[str, dict]":
         rows.append((f"reconstruct of {lost}",
                      lambda s, live=live, lost=lost: rs_cuda.reconstruct(
                          x, live, lost, d, p), None, MAIN_SHAPE, len(lost)))
+    # the apply entry at the msr seal's shape: RS(14,2)'s [2, 14] solve
+    # matrix over one window's 256 layers x 16 KiB (ec/repair._msr_window)
+    from seaweedfs_tpu_torch.ops.product_matrix import ProductMatrixCoder
+    seal = ProductMatrixCoder(14, 2, backend="numpy").grid.solve_matrices(
+        tuple(range(14)))[2]
+    seal_shape = (1, 14, 256 * 16384)
+    z = torch.from_numpy(rng.integers(0, 256, seal_shape[1:], np.uint8)).to("cuda")
+    rows.append(("apply", lambda s: rs_cuda.gf_apply(seal, z),
+                 lambda s: rs_torch.gf_apply(seal, z), seal_shape, 2))
     # the fork's default geometry
     rows += [
         ("encode RS(14,2)", lambda s: rs_cuda.encode(y, 14, 2),
@@ -369,7 +434,7 @@ def phase_timing(torch, np, seed: int, card: str) -> "dict[str, dict]":
         f"{2 * x.numel() / copy_ms / 1e6:.1f} GB/s moved [{card}]")
     log("[timing] library yardstick: none (no single PyTorch call computes "
         "a GF(2^8) matrix apply)")
-    del x, y
+    del x, y, z
     torch.cuda.empty_cache()
     return out
 
@@ -844,6 +909,28 @@ def _pct(np, xs, q: float) -> float:
     return float(np.percentile(np.asarray(xs), q))
 
 
+def write_set(np, store, rng, sizes, cookies, in_sample) -> "dict[int, bytes]":
+    """Write needles 1..len(sizes) of `sizes` random bytes each into
+    volume EC_VID of `store` through write_needles_bulk, one frame per 4096;
+    returns the payloads of the ids in `in_sample`."""
+    from seaweedfs_tpu_torch.storage.needle import Needle
+    needles = len(sizes)
+    want: "dict[int, bytes]" = {}
+    for lo in range(0, needles, 4096):
+        hi = min(needles, lo + 4096)
+        buf = rng.bytes(int(sizes[lo:hi].sum()))
+        ends = np.cumsum(sizes[lo:hi])
+        batch = []
+        for i, e in enumerate(ends):
+            nid = lo + i + 1
+            data = buf[int(e - sizes[lo + i]):int(e)]
+            batch.append(Needle(id=nid, cookie=int(cookies[lo + i]), data=data))
+            if nid in in_sample:
+                want[nid] = data
+        store.write_needles_bulk(EC_VID, batch)
+    return want
+
+
 def ec_store_round_trip(np, workdir: str, seed: int, card: str, geo,
                         needles: int, sample: int, device: str = "cuda") -> dict:
     """Phase 9's path through two Stores, every check fatal; returns the
@@ -867,21 +954,9 @@ def ec_store_round_trip(np, workdir: str, seed: int, card: str, geo,
         cookies = rng.integers(0, 1 << 32, needles, dtype=np.uint64)
         picked = rng.choice(needles, sample, replace=False) + 1
         in_sample = set(int(i) for i in picked)
-        want: "dict[int, bytes]" = {}
         a.add_volume(EC_VID)
         t0 = time.perf_counter()
-        for lo in range(0, needles, 4096):  # one bulk frame per 4096
-            hi = min(needles, lo + 4096)
-            buf = rng.bytes(int(sizes[lo:hi].sum()))
-            ends = np.cumsum(sizes[lo:hi])
-            batch = []
-            for i, e in enumerate(ends):
-                nid = lo + i + 1
-                data = buf[int(e - sizes[lo + i]):int(e)]
-                batch.append(Needle(id=nid, cookie=int(cookies[lo + i]), data=data))
-                if nid in in_sample:
-                    want[nid] = data
-            a.write_needles_bulk(EC_VID, batch)
+        want = write_set(np, a, rng, sizes, cookies, in_sample)
         base_a = a.find_volume(EC_VID).file_name()
         dat_size = os.path.getsize(base_a + ".dat")
         log(f"[ec] server A: wrote {needles} needles ({dat_size} B of .dat) "
@@ -1283,21 +1358,9 @@ def tier_round_trip(np, workdir: str, seed: int, card: str, geo,
         deleted = sorted(int(i) for i in picked[sample:])
         overwritten = order[::max(1, sample // TIER_CHURN)][:TIER_CHURN]
         in_sample = set(order)
-        want: "dict[int, bytes]" = {}
         store.add_volume(EC_VID, disk_type="ssd")
         t0 = time.perf_counter()
-        for lo in range(0, needles, 4096):  # one bulk frame per 4096
-            hi = min(needles, lo + 4096)
-            buf = rng.bytes(int(sizes[lo:hi].sum()))
-            ends = np.cumsum(sizes[lo:hi])
-            batch = []
-            for i, e in enumerate(ends):
-                nid = lo + i + 1
-                data = buf[int(e - sizes[lo + i]):int(e)]
-                batch.append(Needle(id=nid, cookie=int(cookies[lo + i]), data=data))
-                if nid in in_sample:
-                    want[nid] = data
-            store.write_needles_bulk(EC_VID, batch)
+        want = write_set(np, store, rng, sizes, cookies, in_sample)
         v = store.find_volume(EC_VID)
         log(f"[tier] wrote {needles} needles ({v.content_size} B of .dat) on "
             f"ssd through Store.write_needles_bulk in "
@@ -1560,7 +1623,7 @@ def phase_tier(torch, np, workdir: str, seed: int, card: str) -> dict:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = tier_round_trip(np, workdir, seed + 17, card, EcGeometry(14, 2),
-                          EC_NEEDLES, EC_SAMPLE)
+                          TIER_NEEDLES, EC_SAMPLE)
     torch.cuda.synchronize()
     log(f"[tier] K1 launches of the EC steps: {json.dumps(res['k1'])}; K3 "
         f"launches: tiered scrub {res['k3_tiered']}, scrub after the round "
@@ -1576,6 +1639,384 @@ def phase_tier(torch, np, workdir: str, seed: int, card: str) -> dict:
                      present=tuple(i for i in range(16) if i not in TIER_LOST),
                      split=False)
     return res
+
+
+# -- phase 11 ---------------------------------------------------------------
+class K1Probe:
+    """CUDA events around every K1 call made on the card while installed
+    (rs_cuda.gf_apply, which every entry goes through), summed by entry.
+    The events do not synchronise; take() does, and clears them."""
+
+    def __init__(self, torch):
+        from seaweedfs_tpu_torch.ops import rs_cuda
+        self.torch, self.rs_cuda = torch, rs_cuda
+        self.events: "dict[str, list]" = collections.defaultdict(list)
+
+    def __enter__(self) -> "K1Probe":
+        real = self._real = self.rs_cuda.gf_apply
+
+        def timed(mat, data, seed=0, entry="apply"):
+            if data.device.type != "cuda":
+                return real(mat, data, seed, entry)
+            ev = (self.torch.cuda.Event(enable_timing=True),
+                  self.torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = real(mat, data, seed, entry)
+            ev[1].record()
+            self.events[entry].append(ev)
+            return out
+        self.rs_cuda.gf_apply = timed
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.rs_cuda.gf_apply = self._real
+
+    def take(self) -> str:
+        """'entry N calls x ms' for each entry since the last take()."""
+        if self.events:
+            self.torch.cuda.synchronize()
+        parts = [f"{entry} {len(evs)} calls "
+                 f"{sum(a.elapsed_time(b) for a, b in evs):.3f} ms"
+                 for entry, evs in sorted(self.events.items())]
+        self.events.clear()
+        return "; ".join(parts) or "no K1 call on the card"
+
+
+def _stripes_against_plain(np, coder, base: str, shard_size: int, rng,
+                           count: int = 8, width: int = 64) -> None:
+    """The codec's parity at `count` seeded spots recomputed on the CPU by
+    its plain version (`coder`, device="cpu"), against the shard files: for
+    msr, the `width` columns at one inner offset of every sub-symbol; for
+    piggyback, one column span of the a-half with its pair in the b-half."""
+    from seaweedfs_tpu_torch.ec import files
+    d, n = coder.d, coder.n
+    maps = [np.memmap(base + files.shard_ext(i), dtype=np.uint8, mode="r")
+            for i in range(n)]
+    if coder.codec == "msr":
+        s = shard_size // coder.alpha
+        width = min(width, s)
+        for _ in range(count):
+            u = int(rng.integers(0, s - width + 1))
+            idx = (np.arange(coder.alpha)[:, None] * s + u
+                   + np.arange(width)[None, :]).reshape(-1)
+            sub = np.stack([m[idx] for m in maps[:d]]).reshape(
+                d, coder.alpha, width)
+            got = np.stack([m[idx] for m in maps[d:]])
+            if not np.array_equal(coder.encode_subsymbols(sub).reshape(
+                    n - d, -1), got):
+                raise AssertionError(f"msr parity at inner offset {u} "
+                                     "differs from the plain version")
+        return
+    half = shard_size // 2
+    width = min(width, half)
+    for _ in range(count):
+        u = int(rng.integers(0, half - width + 1))
+        cols = np.r_[u:u + width, half + u:half + u + width]
+        data = np.stack([m[cols] for m in maps[:d]])
+        if not np.array_equal(coder.encode(data),
+                              np.stack([m[cols] for m in maps[d:]])):
+            raise AssertionError(f"piggyback parity at offset {u} differs "
+                                 "from the plain version")
+
+
+def _shard_hashes(base: str, n: int) -> "dict[int, str]":
+    from seaweedfs_tpu_torch.ec import files
+    return {s: _sha256(base + files.shard_ext(s)) for s in range(n)}
+
+
+def _rebuild_line(tag: str, st: dict, wall: float, k1: str, card: str) -> str:
+    read_s = st["local_read_s"] + st["remote_read_s"]
+    return (f"[codec] {tag}: path {st['path']}, {st['bytes_read']} B read "
+            f"({st['bytes_read'] / st['shard_size']:.2f} shards) in {wall:.3f} "
+            f"s = {st['bytes_read'] / wall / 1e9:.3f} GB/s read, "
+            f"{st['bytes_written']} B written = "
+            f"{st['bytes_written'] / wall / 1e9:.3f} GB/s; survivor reads "
+            f"{read_s:.3f} s, write {st['write_s']:.3f} s, flush "
+            f"{st['flush_s']:.3f} s; K1 on the card: {k1} [{card}]")
+
+
+def codec_round_trip(np, workdir: str, seed: int, card: str, blocks,
+                     needles: int, sample: int, device: str = "cuda") -> dict:
+    """Phase 11's path on one Store with (large, small) `blocks`, every
+    check fatal: the phase-9 write set written once, sealed (a) with msr at
+    RS(14,2) and (b) with piggyback at RS(10,4); degraded reads, ranged and
+    general rebuilds, decode. Logs the measured numbers; returns the counts
+    of degraded reads by kind."""
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+    from seaweedfs_tpu_torch.ec import files
+    from seaweedfs_tpu_torch.ec.locate import EcGeometry, locate
+    from seaweedfs_tpu_torch.ops.coder import codec_coder, repair_read_bytes
+    from seaweedfs_tpu_torch.server.volume_server import make_shard_reader
+    from seaweedfs_tpu_torch.storage.disk_location import DiskLocation
+    from seaweedfs_tpu_torch.storage.needle import record_size_from_header
+    from seaweedfs_tpu_torch.storage.store import Store
+
+    geo_msr, geo_pb = (EcGeometry(d, p, *blocks) for d, p in ((14, 2), (10, 4)))
+    store = Store("127.0.0.1", 8080, "", [DiskLocation(workdir)],
+                  ec_geometry=geo_msr, device=device)
+    pool = ThreadPoolExecutor(max_workers=8)
+    out: dict = {}
+    try:
+        rng = np.random.default_rng(seed)
+        sizes = 1024 + rng.integers(0, 64, needles)
+        cookies = rng.integers(0, 1 << 32, needles, dtype=np.uint64)
+        order = sorted(int(i) for i in rng.choice(needles, sample, replace=False) + 1)
+        store.add_volume(EC_VID)
+        t0 = time.perf_counter()
+        want = write_set(np, store, rng, sizes, cookies, set(order))
+        base = store.find_volume(EC_VID).file_name()
+        dat_size = os.path.getsize(base + ".dat")
+        dat_hash = _sha256(base + ".dat")
+        log(f"[codec] wrote {needles} needles ({dat_size} B of .dat) through "
+            f"Store.write_needles_bulk in {time.perf_counter() - t0:.1f} s")
+
+        recs: "dict[int, tuple[int, int]]" = {}  # .dat extents: codec-free
+
+        def lost_intervals(ev, geo, lost) -> "dict[int, int]":
+            """Sampled needle -> its intervals on the `lost` shards."""
+            if not recs:
+                for nid in order:
+                    off, size = ev.find_needle(nid)
+                    recs[nid] = (off, record_size_from_header(size))
+            return {nid: sum(1 for iv in locate(geo, ev.dat_size, *recs[nid])
+                             if iv.shard_and_offset(geo)[0] in lost)
+                    for nid in order}
+
+        def read_pass(tag: str, ids, reader, stats, kind) -> dict:
+            """Read `ids` one at a time; each read's latency filed under
+            kind(stats before, stats after)."""
+            lat: dict = collections.defaultdict(list)
+            t = time.perf_counter()
+            for nid in ids:
+                before = {k: (dict(v) if isinstance(v, dict) else v)
+                          for k, v in stats.items()}
+                t1 = time.perf_counter()
+                n = store.read_needle(EC_VID, nid, cookie=int(cookies[nid - 1]),
+                                      shard_reader=reader)
+                lat[kind(before, stats)].append(time.perf_counter() - t1)
+                if n.data != want[nid]:
+                    raise AssertionError(f"{tag} read of needle {nid} differs "
+                                         "from what was written")
+            wall = time.perf_counter() - t
+            for k, xs in sorted(lat.items()):
+                log(f"[codec] {tag} reads, {k}: {_lat(np, xs)}, "
+                    f"{len(xs) / sum(xs):.1f} reads/s one at a time [{card}]")
+            log(f"[codec] {tag} pass: {len(ids)} needles == written in "
+                f"{wall:.3f} s; reader stats "
+                f"{json.dumps({k: v for k, v in stats.items() if 'mode' in k or k in ('reconstructs', 'strips', 'fetch_bytes')})}")
+            return lat
+
+        def msr_kind(before, after) -> str:
+            if after.get("reconstructs", 0) == before.get("reconstructs", 0):
+                return "healthy"
+            modes = after.get("msr_mode", {})
+            new = [m for m in modes if modes[m] != before.get("msr_mode", {}).get(m, 0)]
+            return "degraded " + ",".join(sorted(new))
+
+        def pb_kind(before, after) -> str:
+            if after.get("reconstructs", 0) == before.get("reconstructs", 0):
+                return "healthy"
+            strip = after.get("strips", 0) != before.get("strips", 0)
+            return "degraded " + ("strip" if strip else "plain")
+
+        def lose(ids) -> None:
+            for s in ids:
+                os.unlink(base + files.shard_ext(s))
+            store.mount_ec_shards(EC_VID)
+
+        probe = K1Probe(torch)
+        with probe:
+            # (a) msr at geo_msr
+            g = geo_msr
+            st: dict = {}
+            t0 = time.perf_counter()
+            store.generate_ec_shards(EC_VID, codec="msr", stats=st)
+            enc_s = time.perf_counter() - t0
+            log(f"[codec] msr RS({g.d},{g.p}) generate_ec_shards of {dat_size} B "
+                f"in {enc_s:.3f} s = {dat_size / enc_s / 1e9:.3f} GB/s end to "
+                f"end; plain-RS slab stream {st['wall_s'] - st['seal_s']:.3f} s "
+                f"(fill {st['fill_s']:.3f}, dispatch {st['dispatch_s']:.3f}); "
+                f"overlay seal {st['overlay_s']:.3f} s = "
+                f"{dat_size / st['overlay_s'] / 1e9:.3f} GB/s of .dat; seal "
+                f"{st['seal_s']:.3f} s; K1 on the card: {probe.take()} [{card}]")
+            shard_size = g.shard_file_size(dat_size)
+            plain = codec_coder("msr", g.d, g.p, backend="torch", device="cpu")
+            if shard_size % plain.alpha:
+                raise AssertionError(f"shard {shard_size} B not divisible by "
+                                     f"alpha {plain.alpha}")
+            _stripes_against_plain(np, plain, base, shard_size, rng)
+            hashes = _shard_hashes(base, g.n)
+            store.delete_volume(EC_VID)
+            ev = store.mount_ec_shards(EC_VID)
+            if (ev.codec, ev.shard_size, sorted(ev.shards)) != (
+                    "msr", shard_size, list(range(g.n))):
+                raise AssertionError("msr EC volume mounted wrong")
+            rstats: dict = {}
+            reader = make_shard_reader(store, EC_VID, lambda *a: None, pool,
+                                       rstats)
+            read_pass("msr healthy", order, reader, rstats, msr_kind)
+            if rstats:
+                raise AssertionError(f"healthy reads reconstructed: {rstats}")
+            on = lost_intervals(ev, g, {MSR_LOST})
+            lose((MSR_LOST,))
+            read_pass(f"msr shard {MSR_LOST} lost", order, reader, rstats,
+                      msr_kind)
+            k1 = probe.take()
+            log(f"[codec] K1 in those reads: {k1} [{card}]")
+            if rstats.get("reconstructs", 0) != sum(on.values()) or not any(on.values()):
+                raise AssertionError(f"{rstats.get('reconstructs')} reconstructs; "
+                                     f"the sample's intervals on shard "
+                                     f"{MSR_LOST} number {sum(on.values())}")
+            if {m for k in rstats["msr_mode"] for m in k.split("+")} != {"repair"}:
+                raise AssertionError(f"msr modes {rstats['msr_mode']}: all 15 "
+                                     "helpers were present")
+            out["msr_repair_reads"] = sum(1 for v in on.values() if v)
+            st = {}
+            t0 = time.perf_counter()
+            got = store.rebuild_ec_shards(EC_VID, wanted=[MSR_LOST], stats=st)
+            wall = time.perf_counter() - t0
+            want_b = repair_read_bytes("msr", g.d, g.p, [MSR_LOST], shard_size)
+            if got != [MSR_LOST] or st["path"] != "ranged" or \
+                    st["bytes_read"] != want_b:
+                raise AssertionError(f"msr single rebuild {got} path "
+                                     f"{st['path']} read {st['bytes_read']} B, "
+                                     f"not {want_b}")
+            if _sha256(base + files.shard_ext(MSR_LOST)) != hashes[MSR_LOST]:
+                raise AssertionError(f"rebuilt shard {MSR_LOST} differs")
+            log(_rebuild_line(f"msr single-loss rebuild of {MSR_LOST} "
+                              f"(== repair_read_bytes, == hash)", st, wall,
+                              probe.take(), card))
+            ev = store.mount_ec_shards(EC_VID)
+            on = lost_intervals(ev, g, set(MSR_LOST2))
+            lose(MSR_LOST2)
+            rstats.clear()
+            read_pass(f"msr shards {MSR_LOST2} lost",
+                      [i for i in order if on[i]], reader, rstats, msr_kind)
+            log(f"[codec] K1 in those reads: {probe.take()} [{card}]")
+            if rstats.get("reconstructs", 0) != sum(on.values()):
+                raise AssertionError(f"{rstats.get('reconstructs')} reconstructs; "
+                                     f"the sample's intervals on {MSR_LOST2} "
+                                     f"number {sum(on.values())}")
+            if {m for k in rstats["msr_mode"] for m in k.split("+")} != {"general"}:
+                raise AssertionError(f"msr modes {rstats['msr_mode']} with two "
+                                     "shards lost")
+            out["msr_general_reads"] = sum(1 for v in on.values() if v)
+            st = {}
+            t0 = time.perf_counter()
+            got = store.rebuild_ec_shards(EC_VID, stats=st)
+            wall = time.perf_counter() - t0
+            if got != list(MSR_LOST2) or st["path"] != "general" or \
+                    st["bytes_read"] != g.d * shard_size:
+                raise AssertionError(f"msr general rebuild {got} path "
+                                     f"{st['path']} read {st['bytes_read']} B")
+            for s in MSR_LOST2:
+                if _sha256(base + files.shard_ext(s)) != hashes[s]:
+                    raise AssertionError(f"rebuilt shard {s} differs")
+            log(_rebuild_line(f"msr general rebuild of {MSR_LOST2} (== hashes)",
+                              st, wall, probe.take(), card))
+            store.mount_ec_shards(EC_VID)
+            t0 = time.perf_counter()
+            v = store.ec_shards_to_volume(EC_VID)
+            dec_s = time.perf_counter() - t0
+            if _sha256(v.dat_path) != dat_hash:
+                raise AssertionError("decoded .dat differs from the source's hash")
+            log(f"[codec] msr ec_shards_to_volume in {dec_s:.3f} s, .dat == the "
+                f"source's hash [{card}]")
+
+            # (b) piggyback at geo_pb, on the decoded volume
+            g = geo_pb
+            for ext in [files.shard_ext(i) for i in range(geo_msr.n)] + [
+                    ".ecx", ".ecj", ".vif"]:
+                if os.path.exists(base + ext):
+                    os.unlink(base + ext)
+            st = {}
+            t0 = time.perf_counter()
+            store.generate_ec_shards(EC_VID, d=g.d, p=g.p, codec="piggyback",
+                                     stats=st)
+            enc_s = time.perf_counter() - t0
+            log(f"[codec] piggyback RS({g.d},{g.p}) generate_ec_shards of "
+                f"{dat_size} B in {enc_s:.3f} s = {dat_size / enc_s / 1e9:.3f} "
+                f"GB/s end to end; plain-RS slab stream "
+                f"{st['wall_s'] - st['seal_s']:.3f} s; overlay seal "
+                f"{st['overlay_s']:.3f} s = {dat_size / st['overlay_s'] / 1e9:.3f} "
+                f"GB/s of .dat; seal {st['seal_s']:.3f} s; K1 on the card: "
+                f"{probe.take()} [{card}]")
+            shard_size = g.shard_file_size(dat_size)
+            _stripes_against_plain(np, codec_coder("piggyback", g.d, g.p,
+                                                   backend="torch", device="cpu"),
+                                   base, shard_size, rng)
+            hashes = _shard_hashes(base, g.n)
+            store.delete_volume(EC_VID)
+            ev = store.mount_ec_shards(EC_VID)
+            if (ev.codec, ev.geo.d, ev.shard_size) != ("piggyback", g.d, shard_size):
+                raise AssertionError("piggyback EC volume mounted wrong")
+            on = lost_intervals(ev, g, set(PB_LOST))
+            lose(PB_LOST)
+            rstats = {}
+            reader = make_shard_reader(store, EC_VID, lambda *a: None, pool,
+                                       rstats)
+            lat = read_pass(f"piggyback shards {PB_LOST} lost",
+                            [i for i in order if on[i]], reader, rstats, pb_kind)
+            log(f"[codec] K1 in those reads: {probe.take()} [{card}]")
+            if rstats.get("reconstructs", 0) != sum(on.values()) or \
+                    not rstats.get("strips"):
+                raise AssertionError(f"piggyback reads {rstats}; the sample's "
+                                     f"intervals on {PB_LOST} number "
+                                     f"{sum(on.values())}")
+            out["pb_strip_reads"] = len(lat.get("degraded strip", ()))
+            out["pb_plain_reads"] = len(lat.get("degraded plain", ()))
+            st = {}
+            t0 = time.perf_counter()
+            got = store.rebuild_ec_shards(EC_VID, stats=st)
+            wall = time.perf_counter() - t0
+            if got != list(PB_LOST) or st["path"] != "general":
+                raise AssertionError(f"piggyback rebuild {got} path {st['path']}")
+            for s in PB_LOST:
+                if _sha256(base + files.shard_ext(s)) != hashes[s]:
+                    raise AssertionError(f"rebuilt shard {s} differs")
+            log(_rebuild_line(f"piggyback general rebuild of {PB_LOST} "
+                              "(== hashes)", st, wall, probe.take(), card))
+            f = PB_LOST[0]
+            store.mount_ec_shards(EC_VID)
+            lose((f,))
+            st = {}
+            t0 = time.perf_counter()
+            got = store.rebuild_ec_shards(EC_VID, stats=st)
+            wall = time.perf_counter() - t0
+            want_b = repair_read_bytes("piggyback", g.d, g.p, [f], shard_size)
+            if got != [f] or st["path"] != "ranged" or st["bytes_read"] != want_b \
+                    or 10 * want_b != 7 * g.d * shard_size:
+                raise AssertionError(f"piggyback single rebuild {got} path "
+                                     f"{st['path']} read {st['bytes_read']} B, "
+                                     f"not {want_b} = 0.70 of plain RS")
+            if _sha256(base + files.shard_ext(f)) != hashes[f]:
+                raise AssertionError(f"rebuilt shard {f} differs")
+            log(_rebuild_line(f"piggyback single-loss rebuild of {f} (0.70 of "
+                              "plain RS, == hash)", st, wall, probe.take(), card))
+        return out
+    finally:
+        pool.shutdown()
+        store.close()
+
+
+def phase_codecs(torch, np, workdir: str, seed: int, card: str) -> "dict[str, int]":
+    from seaweedfs_tpu_torch.ops import rs_cuda
+    os.makedirs(workdir, exist_ok=True)
+    torch.cuda.synchronize()
+    rs_cuda.reset_launches()
+    t0 = time.perf_counter()
+    res = codec_round_trip(np, workdir, seed + 19, card, (GiB, MiB),
+                           EC_NEEDLES, CODEC_SAMPLE)
+    torch.cuda.synchronize()
+    launches = dict(rs_cuda.launches_by_entry)
+    log(f"[codec] K1 launches on the codec path: {json.dumps(launches)}; "
+        f"degraded reads {json.dumps(res)}; phase wall "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    for entry in ("encode", "reconstruct", "apply"):
+        if not launches.get(entry):
+            raise AssertionError(f"K1 {entry} never launched on the codec path")
+    return launches
 
 
 def main(argv=None) -> int:
@@ -1640,15 +2081,22 @@ def main(argv=None) -> int:
             tier = phase_tier(torch, np, args.workdir, args.seed, card)
         finally:
             shutil.rmtree(args.workdir, ignore_errors=True)
+    codec_launches = None
+    if 11 in phases:
+        try:
+            codec_launches = phase_codecs(torch, np, args.workdir, args.seed, card)
+        finally:
+            shutil.rmtree(args.workdir, ignore_errors=True)
     log(f"[done] phases {sorted(phases | {1})} passed in "
         f"{time.perf_counter() - t0:.1f} s [{card}]")
     if None not in (errs, times, launches, k3_err, k3_times, k3_launches,
-                    ec_launches, tier):
+                    ec_launches, tier, codec_launches):
         kernels = [dict(name=f"rs_gf_apply:{entry}", route="cuda",
                         source=K1_SOURCE, replaces=replaces,
                         launches=launches.get(entry, 0)
                         + ec_launches.get(entry, 0)
-                        + tier["k1"].get(entry, 0),
+                        + tier["k1"].get(entry, 0)
+                        + codec_launches.get(entry, 0),
                         max_abs_err=errs[entry], ms=times[entry]["ms"],
                         plain_ms=times[entry]["plain_ms"],
                         bound_ms=times[entry]["bound_ms"],

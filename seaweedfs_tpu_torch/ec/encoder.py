@@ -11,9 +11,9 @@ The whole .dat byte stream is striped, super block included, exactly like the
 reference — decode reproduces the original file bit-for-bit.
 
 Rebuild reads survivors from local shard files and, through a caller's
-`shard_reader`, from another server (ec/repair.make_readers). Only plain RS
-is ported: the layered codecs' ranged rebuilders (ec/repair.REBUILDERS) and
-ranged-compute `fragment_reader` survivors are not.
+`shard_reader` (ranges) or `fragment_reader` (packed ranged-compute
+fragments), from another server (ec/repair.make_readers), and takes the
+cheapest path its codec offers (ec/repair.REBUILDERS).
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ import numpy as np
 from ..ops.coder import ErasureCoder
 from . import files, repair
 from .locate import EcGeometry
-from .stream import AsyncPipe, require_plain_rs
+from .stream import AsyncPipe
 
 DEFAULT_CHUNK = 1 << 20   # device slab length per stripe row
 DEFAULT_BATCH = 32        # slabs per device call
@@ -64,14 +64,21 @@ def rebuild_shards(base: str, geo: EcGeometry, coder: ErasureCoder,
                    remote_shards: Sequence[int] | None = None,
                    stats: "dict | None" = None,
                    fragment_reader=None,
+                   fold_planner=None,
                    ) -> list[int]:
     """Recreate missing shard files from >= d survivors.
 
     Reference: RebuildEcFiles ec_encoder.go:61 / rebuildEcFiles :237-291.
     Survivors may live elsewhere: `shard_reader(sid, offset, length)`
-    serves the ids listed in `remote_shards`. `stats` receives
-    bytes_read / bytes_written / codec / path / shard_size, the stage
-    times read_s / write_s / flush_s / wall_s, `remote` (how many
+    serves the ids listed in `remote_shards` by range, so a
+    repair-efficient codec's plan fetches byte ranges instead of d full
+    shards; `fragment_reader(sid, ranges)` lets a holder gather scattered
+    ranges and ship ONE fragment (the msr codec's beta-fragments ride it).
+    `fold_planner(coder, f) -> [(sids, fetch)]` lets the caller group
+    far survivors behind relay holders that fold their plane rows into one
+    partial; it is consulted only on the single-loss msr path. `stats`
+    receives bytes_read / bytes_written / codec / path / shard_size, the
+    stage times read_s / write_s / flush_s / wall_s, `remote` (how many
     survivors a reader could serve remotely), and remote_bytes_read /
     remote_read_s / local_read_s (the survivor reads by kind). Returns the
     shard ids rebuilt (always written under `base`).
@@ -100,7 +107,9 @@ def rebuild_shards(base: str, geo: EcGeometry, coder: ErasureCoder,
     try:
         path = _dispatch_rebuild(base, geo, coder, tuple(sorted(present)),
                                  missing, readers, frag_readers, shard_size,
-                                 chunk, batch, counter)
+                                 chunk, batch, counter,
+                                 fold_planner=fold_planner,
+                                 local_sids=frozenset(present_local))
     finally:
         close()
     if stats is not None:
@@ -131,13 +140,25 @@ def _shard_size(base: str, geo: EcGeometry,
 def _dispatch_rebuild(base: str, geo: EcGeometry, coder: ErasureCoder,
                       present: tuple, missing: list[int], readers: dict,
                       frag_readers: dict, shard_size: int, chunk: int,
-                      batch: int, counter) -> str:
+                      batch: int, counter, fold_planner=None,
+                      local_sids: frozenset = frozenset()) -> str:
     """Pick the cheapest reconstruction the codec supports, resolved
-    through repair.REBUILDERS; with that table empty (no layered codec is
-    ported) every rebuild is positional. Returns the path taken."""
+    through repair.REBUILDERS, so a codec plugs in its executors without
+    touching this dispatch. Returns the path taken ("ranged" |
+    "ranged-folded" | "general" | "full")."""
     ranged, general = repair.REBUILDERS.get(coder.codec, (None, None))
     plan = coder.repair_plan(present, tuple(missing), shard_size)
     if plan is not None and ranged is not None:
+        folds = ()
+        if fold_planner is not None and coder.codec == "msr":
+            # a survivor on THIS disk never folds: local preads beat any
+            # relay hop, and a stale holder list must not reroute them
+            folds = tuple(x for x in (fold_planner(coder, missing[0]) or ())
+                          if not set(x[0]) & local_sids)
+        if folds:
+            ranged(base, coder, missing[0], readers, frag_readers,
+                   shard_size, counter, folds=folds)
+            return "ranged-folded"
         ranged(base, coder, missing[0], readers, frag_readers, shard_size,
                counter)
         return "ranged"
@@ -145,8 +166,6 @@ def _dispatch_rebuild(base: str, geo: EcGeometry, coder: ErasureCoder,
         general(base, coder, present, missing, readers, frag_readers,
                 shard_size, counter)
         return "general"
-    # a codec without rebuilders must never decode its parities as RS
-    require_plain_rs(coder)
     _rebuild_positional(base, geo, coder, present, missing, readers,
                         shard_size, chunk, batch, counter)
     return "full"

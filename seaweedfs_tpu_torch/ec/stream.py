@@ -40,8 +40,9 @@ offsets of each shard file, so a run is ONE queue item per shard that the
 writer flushes with k contiguous `os.pwrite`s (or a single one when the
 source bytes are themselves contiguous).
 
-Stage timings are returned in a plain dict (`stats`). Codecs other than
-plain RS (piggyback, msr) are not ported yet and raise.
+Stage timings are returned in a plain dict (`stats`). The layered codecs
+(piggyback, msr) stream their slabs as plain RS through their inner coder
+and seal their parities with an overlay before the .vif (ec/repair.py).
 """
 
 from __future__ import annotations
@@ -62,6 +63,7 @@ from ..utils.fsutil import fsync_path
 from ..utils.log import logger
 from . import files
 from .locate import EcGeometry
+from .repair import OVERLAYS, apply_codec_overlay
 
 log = logger("ec.stream")
 
@@ -78,12 +80,6 @@ def _default_writer_queue() -> int:
     # per-writer item bound; items reference (not copy) up to batch*chunk
     # bytes each, so this also bounds parity arrays kept alive
     return env_int("SWTPU_EC_WRITER_QUEUE", 8)
-
-
-def require_plain_rs(coder: ErasureCoder) -> None:
-    if coder.codec != "rs":
-        raise NotImplementedError(
-            f"codec {coder.codec!r} is not yet ported to seaweedfs_tpu_torch")
 
 
 def fit_chunk(geo: EcGeometry, chunk: int) -> int:
@@ -360,8 +356,15 @@ class _VolumePlan:
     inflight_runs: int = 0
     finished: bool = False
     # seconds spent creating outputs + mapping the source, and sealing
+    # (overlay_s: the codec overlay, inside seal_s)
     open_s: float = 0.0
     seal_s: float = 0.0
+    overlay_s: float = 0.0
+    # overlay codec (ops/piggyback.py, ops/product_matrix.py) to seal with:
+    # slabs are encoded as plain RS by the inner coder and finish() applies
+    # the codec's overlay — piggyback XOR-folds, msr rewrites the parities
+    # — before the .vif seal
+    overlay: "ErasureCoder | None" = None
     # (view4d [rows, d, nch, C], shard_base, rows, nch) per region
     regions: list[tuple[np.ndarray, int, int, int]] = field(default_factory=list)
     # iteration cursor: (region_idx, row, chunk)
@@ -509,6 +512,15 @@ class _VolumePlan:
         self._close_fds()
         self._release_source()
         geo = self.geo
+        codec = "rs"
+        if self.overlay is not None:
+            # overlay BEFORE the .vif seal: a crash mid-overlay leaves
+            # unsealed outputs, never a valid-looking .vif over
+            # half-sealed parities (the overlay fsyncs what it rewrites)
+            t0 = time.perf_counter()
+            apply_codec_overlay(self.out_base, self.overlay, self.shard_size)
+            self.overlay_s += time.perf_counter() - t0
+            codec = self.overlay.codec
         if self.idx_path and os.path.exists(self.idx_path):
             files.write_ecx_from_idx(self.idx_path, self.out_base + ".ecx")
             # the .ecx must be durable BEFORE the .vif seals the volume
@@ -516,7 +528,7 @@ class _VolumePlan:
         files.write_vif(self.out_base + ".vif", version=3,
                         dat_size=self.dat_size, d=geo.d, p=geo.p,
                         large_block=geo.large_block,
-                        small_block=geo.small_block, codec="rs")
+                        small_block=geo.small_block, codec=codec)
         self.finished = True
 
     def abort(self) -> None:
@@ -578,22 +590,28 @@ def encode_volumes(jobs: "list[tuple[str, str, str | None]]", geo: EcGeometry,
     Synchronous host coders (numpy) skip the batch assembly: each volume
     region feeds the coder zero-copy [k, d, chunk] views of the source
     mapping. Device coders (TorchCoder) go through the async path.
+    Overlay codecs (piggyback, msr) encode their slabs as plain RS through
+    `coder.inner`, so both paths stay codec-agnostic, and seal the real
+    parities at finish() (repair.apply_codec_overlay, timed as
+    `overlay_s`).
 
     On failure (a writer hitting ENOSPC, a coder error) the pool is
     poisoned and joined, and every not-yet-finished volume's partial
     outputs (.ec*, .ecx, .vif) are removed before the error re-raises.
     """
     assert coder.d == geo.d and coder.p == geo.p
-    require_plain_rs(coder)
     chunk = fit_chunk(geo, chunk)
+    overlay = coder if coder.codec in OVERLAYS else None
+    slab_coder = coder.inner if overlay is not None else coder
     if stats is None:
         stats = {}
-    if not coder.async_dispatch:
-        res = _encode_volumes_sync(jobs, geo, coder, chunk, batch, stats,
-                                   writers=writers)
+    if not slab_coder.async_dispatch:
+        res = _encode_volumes_sync(jobs, geo, slab_coder, chunk, batch, stats,
+                                   writers=writers, overlay=overlay)
     else:
-        res = _encode_volumes_async(jobs, geo, coder, chunk, batch, depth,
-                                    stats, writers=writers)
+        res = _encode_volumes_async(jobs, geo, slab_coder, chunk, batch,
+                                    depth, stats, writers=writers,
+                                    overlay=overlay)
     wall = stats.get("wall_s", 0.0)
     if wall > 0:
         # fraction of writer busy time hidden behind fill/compute: 1 means
@@ -606,6 +624,7 @@ def encode_volumes(jobs: "list[tuple[str, str, str | None]]", geo: EcGeometry,
 def _encode_volumes_sync(jobs, geo: EcGeometry, coder: ErasureCoder,
                          chunk: int, batch: int, stats: dict,
                          writers: "int | None" = None,
+                         overlay: "ErasureCoder | None" = None,
                          ) -> "dict[str, list[str]]":
     """Zero-copy streaming encode for synchronous host coders.
 
@@ -625,7 +644,8 @@ def _encode_volumes_sync(jobs, geo: EcGeometry, coder: ErasureCoder,
     created: list[_VolumePlan] = []
     try:
         for dat_path, out_base, idx_path in jobs:
-            plan = _VolumePlan(dat_path, out_base, idx_path, geo, chunk)
+            plan = _VolumePlan(dat_path, out_base, idx_path, geo, chunk,
+                               overlay=overlay)
             created.append(plan)
             out[dat_path] = [out_base + files.shard_ext(i)
                              for i in range(geo.n)]
@@ -688,9 +708,11 @@ def _encode_volumes_sync(jobs, geo: EcGeometry, coder: ErasureCoder,
 
 def _plan_stages(plans: "list[_VolumePlan]") -> dict:
     """open_s: creating shard files and mapping sources; seal_s: fsync of
-    the shards, .ecx and .vif (both on the submitting thread)."""
+    the shards, the codec overlay (overlay_s), .ecx and .vif (all on the
+    submitting thread)."""
     return dict(open_s=sum(p.open_s for p in plans),
-                seal_s=sum(p.seal_s for p in plans))
+                seal_s=sum(p.seal_s for p in plans),
+                overlay_s=sum(p.overlay_s for p in plans))
 
 
 def _abort(pool: WriterPool, created: "list[_VolumePlan]") -> None:
@@ -707,11 +729,13 @@ def _abort(pool: WriterPool, created: "list[_VolumePlan]") -> None:
 def _encode_volumes_async(jobs, geo: EcGeometry, coder: ErasureCoder,
                           chunk: int, batch: int, depth: int, stats: dict,
                           writers: "int | None" = None,
+                          overlay: "ErasureCoder | None" = None,
                           ) -> "dict[str, list[str]]":
     out: dict[str, list[str]] = {}
     todo = deque()
     for dat_path, out_base, idx_path in jobs:
-        todo.append(_VolumePlan(dat_path, out_base, idx_path, geo, chunk))
+        todo.append(_VolumePlan(dat_path, out_base, idx_path, geo, chunk,
+                                overlay=overlay))
         out[dat_path] = [out_base + files.shard_ext(i) for i in range(geo.n)]
 
     d, p = geo.d, geo.p

@@ -8,6 +8,9 @@ Implementations:
   on the card unless the caller passes ``device="cpu"``, which selects the
   plain PyTorch version (ops/rs_torch.py). Without CUDA it raises; it
   never drops to another backend on its own.
+* the layered codecs ``piggyback`` (ops/piggyback.py) and ``msr``
+  (ops/product_matrix.py), registered when first asked for by name; they
+  wrap a backend coder built on the device the caller names.
 
 All coders operate on uint8 arrays shaped [d, L] / [B, d, L] and are
 stateless w.r.t. data; geometry is fixed per instance.
@@ -16,6 +19,7 @@ stateless w.r.t. data; geometry is fixed per instance.
 from __future__ import annotations
 
 import abc
+import importlib
 import inspect
 
 import numpy as np
@@ -116,11 +120,14 @@ class DeviceResult:
 
 
 def host_result(out) -> np.ndarray:
-    """Host bytes of a coder output (DeviceResult, tensor or array)."""
-    if isinstance(out, DeviceResult):
-        return out.wait()
+    """Host bytes of a coder output: an array, a tensor, or a pending
+    result — anything with a ``wait()`` that hands over the array, as
+    DeviceResult does."""
     if isinstance(out, torch.Tensor):
         return out.cpu().numpy()
+    wait = getattr(out, "wait", None)
+    if callable(wait):
+        return np.asarray(wait())
     return np.asarray(out)
 
 
@@ -177,8 +184,12 @@ _REGISTRY = {"numpy": NumpyCoder, "torch": TorchCoder}
 # oracle, so "rs" resolves there (repair costing, codec enumeration)
 _REGISTRY["rs"] = NumpyCoder
 
-# coders and codecs of the JAX package that this port does not carry yet
-_NOT_PORTED = ("native", "mesh", "piggyback", "msr")
+# coders of the JAX package that this port does not carry yet
+_NOT_PORTED = ("native", "mesh")
+
+# layered codecs register themselves when their module is imported; a
+# .vif or a caller may name one before anything imported it
+_LAZY = {"piggyback": "piggyback", "msr": "product_matrix"}
 
 
 def _not_ported(name: str) -> NotImplementedError:
@@ -186,13 +197,32 @@ def _not_ported(name: str) -> NotImplementedError:
         f"coder/codec {name!r} is not yet ported to seaweedfs_tpu_torch")
 
 
-def get_coder(name: str, d: int, p: int) -> ErasureCoder:
+def _resolve(name: str):
     if name in _NOT_PORTED and name not in _REGISTRY:
         raise _not_ported(name)
+    if name not in _REGISTRY and name in _LAZY:
+        importlib.import_module(f"{__package__}.{_LAZY[name]}")
+    return _REGISTRY.get(name)
+
+
+def _takes(cls, arg: str) -> bool:
+    """Whether constructor `cls` has a parameter named `arg` (inspected,
+    not probed: a TypeError raised inside the constructor must not be
+    mistaken for a missing parameter)."""
     try:
-        cls = _REGISTRY[name]
-    except KeyError:
-        raise ValueError(f"unknown coder {name!r}; have {sorted(_REGISTRY)}") from None
+        return arg in inspect.signature(cls).parameters
+    except (TypeError, ValueError):  # uninspectable callable
+        return False
+
+
+def get_coder(name: str, d: int, p: int, device="cuda") -> ErasureCoder:
+    """Coder `name` at RS(d, p); `device` reaches every constructor that
+    takes one (TorchCoder and the layered codecs' inner coders)."""
+    cls = _resolve(name)
+    if cls is None:
+        raise ValueError(f"unknown coder {name!r}; have {sorted(_REGISTRY)}")
+    if _takes(cls, "device"):
+        return cls(d, p, device=device)
     return cls(d, p)
 
 
@@ -204,32 +234,26 @@ def registered_codecs() -> "list[str]":
     """Erasure CODEC names (one per wire/disk format, not per compute
     backend). Entries may be classes or factory callables; those without
     a `codec` attribute are plain-RS backends."""
+    for name in _LAZY:
+        _resolve(name)
     return sorted({getattr(cls, "codec", "rs") for cls in _REGISTRY.values()})
 
 
-def codec_coder(codec: str, d: int, p: int,
-                backend: str = "numpy") -> ErasureCoder:
+def codec_coder(codec: str, d: int, p: int, backend: str = "numpy",
+                device="cuda") -> ErasureCoder:
     """Construct the coder for an erasure `codec` on a compute `backend`.
     Plain "rs" is the backend coder itself; layered codecs wrap the
-    backend as their inner GF engine."""
+    backend as their inner GF engine. A torch backend runs on `device`,
+    always the caller's choice."""
     if not codec or codec == "rs":
-        return get_coder(backend, d, p)
-    if codec in _NOT_PORTED and codec not in _REGISTRY:
-        raise _not_ported(codec)
-    cls = _REGISTRY.get(codec)
+        return get_coder(backend, d, p, device=device)
+    cls = _resolve(codec)
     if cls is None or getattr(cls, "codec", "rs") != codec:
         raise ValueError(
             f"unknown erasure codec {codec!r}; have {registered_codecs()}")
-    # pass the backend only when the constructor takes one — probing via
-    # except TypeError would also swallow TypeErrors raised INSIDE the
-    # constructor and silently drop the requested backend
-    try:
-        takes_backend = "backend" in inspect.signature(cls).parameters
-    except (TypeError, ValueError):  # uninspectable callable
-        takes_backend = False
-    if takes_backend:
-        return cls(d, p, backend=backend)
-    return cls(d, p)
+    kwargs = {k: v for k, v in (("backend", backend), ("device", device))
+              if _takes(cls, k)}
+    return cls(d, p, **kwargs)
 
 
 def repair_read_bytes(codec: str, d: int, p: int, missing, shard_size: int,

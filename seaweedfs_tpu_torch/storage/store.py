@@ -6,8 +6,9 @@ store_ec.go (EC mount/read), :389 (deleteExpiredEcVolumes, fork).
 
 Coder selection has no fallback: `coder_name="torch"` (the default) is
 TorchCoder on `device` (default "cuda", kernel K1), `"numpy"` is the host
-oracle, and any other name, a coder that fails to build, or a codec other
-than plain RS raises.
+oracle, and any other name or a coder that fails to build raises. The
+layered codecs (`ec_codec` or a volume's sealed codec "piggyback" or "msr")
+wrap that same backend on that same device.
 
 The lifecycle tiers: `offload_ec_shards` moves this holder's shard payloads
 to a remote tier (storage/backend.py) and keeps serving them through ranged
@@ -25,7 +26,7 @@ from ..ec import files as ec_files
 from ..ec.encoder import decode_volume, encode_volume, rebuild_shards
 from ..ec.locate import EcGeometry
 from ..ec.volume import EcVolume, RemoteEcVolumeShard
-from ..ops.coder import ErasureCoder, NumpyCoder, TorchCoder, codec_coder
+from ..ops.coder import ErasureCoder, codec_coder
 from ..utils import failpoints, fsutil
 from ..utils.log import logger
 from . import types as t
@@ -40,7 +41,7 @@ log = logger("store")
 TIER_EC = "ec"          # erasure-coded, local shards
 TIER_REMOTE = "remote"  # erasure-coded, shard payload in a remote tier
 
-_CODERS = {"torch": TorchCoder, "numpy": NumpyCoder}
+_CODERS = ("torch", "numpy")
 
 
 class Store:
@@ -94,17 +95,13 @@ class Store:
               codec: str | None = None) -> ErasureCoder:
         d = d or self.ec_geometry.d
         p = p or self.ec_geometry.p
-        codec = codec or self.ec_codec
-        if codec != "rs":
-            # layered codecs are not ported: codec_coder raises for them
-            return codec_coder(codec, d, p, backend=self.coder_name)
-        cls = _CODERS.get(self.coder_name)
-        if cls is None:
+        if self.coder_name not in _CODERS:
             raise ValueError(f"unknown coder {self.coder_name!r}; have "
                              f"{sorted(_CODERS)} (no automatic choice)")
-        if cls is TorchCoder:
-            return TorchCoder(d, p, device=self.device)
-        return cls(d, p)
+        # plain RS is the backend coder itself; a layered codec wraps it
+        # as its inner coder, on this Store's device either way
+        return codec_coder(codec or self.ec_codec, d, p,
+                           backend=self.coder_name, device=self.device)
 
     # -- volume lifecycle ---------------------------------------------------
     def find_volume(self, vid: int) -> Volume | None:
@@ -396,11 +393,15 @@ class Store:
                           shard_reader=None,
                           remote_shards: "list[int] | None" = None,
                           stats: "dict | None" = None,
-                          wanted: "list[int] | None" = None) -> list[int]:
+                          wanted: "list[int] | None" = None,
+                          fragment_reader=None,
+                          fold_planner=None) -> list[int]:
         """Rebuild missing shards locally (all not held here or listed in
         `remote_shards`, or just `wanted`), decoding with the codec the
-        .vif seal names. Survivors not on this disk are read through
-        `shard_reader`, which serves the ids in `remote_shards`."""
+        .vif seal names. Survivors not on this disk are read by range
+        through `shard_reader`, which serves the ids in `remote_shards`,
+        or as packed fragments through `fragment_reader`; `fold_planner`
+        lets far survivors fold behind a relay (ec/encoder.py contract)."""
         ev = self.find_ec_volume(vid)
         base = ev.base if ev else None
         if base is None:
@@ -418,7 +419,9 @@ class Store:
         coder = self.coder(geo.d, geo.p, codec=info.get("codec", "rs"))
         rebuilt = rebuild_shards(base, geo, coder, wanted=wanted,
                                  shard_reader=shard_reader,
-                                 remote_shards=remote_shards, stats=stats)
+                                 remote_shards=remote_shards, stats=stats,
+                                 fragment_reader=fragment_reader,
+                                 fold_planner=fold_planner)
         if ev:
             for loc in self.locations:
                 if loc.ec_volumes.get(vid) is ev:

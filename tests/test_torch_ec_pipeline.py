@@ -15,6 +15,7 @@ from seaweedfs_tpu.ec import encoder as ref_encoder
 from seaweedfs_tpu.ec import stream as ref_stream
 from seaweedfs_tpu.ec.locate import EcGeometry as RefGeometry
 from seaweedfs_tpu.ops.coder import NumpyCoder as RefNumpyCoder
+from seaweedfs_tpu.ops.coder import codec_coder as ref_codec_coder
 from seaweedfs_tpu_torch.ec import encoder, files, stream
 from seaweedfs_tpu_torch.ec.locate import EcGeometry
 from seaweedfs_tpu_torch.ops import coder as coder_mod
@@ -221,16 +222,27 @@ def test_fit_chunk_matches_reference():
 
 
 def test_codecs_not_ported_raise(tmp_path):
-    for name in ("piggyback", "msr", "mesh", "native"):
+    """native and mesh stay refused; the layered codecs are registered and
+    stream their slabs as plain RS through their inner coder, sealing the
+    codec's parities and the .vif as the JAX package does."""
+    for name in ("mesh", "native"):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             coder_mod.get_coder(name, 4, 2)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        coder_mod.codec_coder("msr", 4, 2)
-    assert coder_mod.registered_codecs() == ["rs"]
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            coder_mod.codec_coder(name, 4, 2)
+    assert coder_mod.registered_codecs() == ["msr", "piggyback", "rs"]
     assert coder_mod.repair_read_bytes("rs", 10, 4, [0, 3], 1000) == 10_000
-
-    class Overlay(NumpyCoder):
-        codec = "piggyback"
-    srcs = _make_jobs(tmp_path, [100])
-    with pytest.raises(NotImplementedError):
-        stream.encode_volumes(_jobs(srcs, tmp_path, "v"), GEO, Overlay(4, 2))
+    srcs = _make_jobs(tmp_path, [100, GEO.large_block * GEO.d + 5])
+    for codec in ("piggyback", "msr"):
+        port = coder_mod.codec_coder(codec, 4, 2, backend="torch", device="cpu")
+        assert port.inner.device.type == "cpu"
+        stats = {}
+        stream.encode_volumes(_jobs(srcs, tmp_path, codec), GEO, port, batch=4,
+                              stats=stats)
+        assert stats["mode"] == "async" and stats["overlay_s"] > 0
+        ref_stream.encode_volumes(_jobs(srcs, tmp_path, "ref" + codec), REF_GEO,
+                                  ref_codec_coder(codec, 4, 2), batch=4)
+        for i in range(len(srcs)):
+            for ext in [files.shard_ext(s) for s in range(6)] + [".vif"]:
+                assert (tmp_path / f"{codec}{i}{ext}").read_bytes() == \
+                    (tmp_path / f"ref{codec}{i}{ext}").read_bytes(), (codec, i, ext)

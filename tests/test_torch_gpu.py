@@ -260,3 +260,59 @@ def test_offload_degraded_read_promote_on_card(cuda, tmp_path):
     assert {s: open(base + files.shard_ext(s), "rb").read() for s in range(16)} == hashes
     assert card.find_ec_volume(1).remote_shard_ids() == []
     card.close()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,p", [(10, 4), (14, 2)])
+def test_layered_codecs_on_card_match_cpu(cuda, d, p):
+    """ProductMatrixCoder and PiggybackCoder on the card (GF applies through
+    K1's apply, encode and reconstruct entries) against their CPU selves."""
+    from seaweedfs_tpu_torch.ops.piggyback import PiggybackCoder
+    from seaweedfs_tpu_torch.ops.product_matrix import ProductMatrixCoder
+    pm, pm_cpu = ProductMatrixCoder(d, p), ProductMatrixCoder(d, p, device="cpu")
+    data = _data((2, d, pm.alpha * 6), d)
+    before = rs_cuda.launches_by_entry.get("apply", 0)
+    par = pm.encode(data)
+    assert rs_cuda.launches_by_entry["apply"] > before
+    np.testing.assert_array_equal(par, pm_cpu.encode(data))
+    shards = np.concatenate([data, par], axis=1)
+    for lost in [(0, d), (d, d + p - 1), (1,)]:
+        present = tuple(i for i in range(d + p) if i not in lost)
+        surv = shards[:, sorted(present)[:d]]
+        np.testing.assert_array_equal(pm.reconstruct(surv, present, lost),
+                                      shards[:, list(lost)])
+    g, s = pm.grid, 6
+    row = shards[0]
+    planes = g.repair_planes(3)
+    c = np.zeros((g.nbar, g.alpha, s), np.uint8)
+    for sid in range(d + p):
+        if sid != 3:
+            c[sid, planes] = row[sid].reshape(g.alpha, s)[planes]
+    np.testing.assert_array_equal(pm.repair_decode(c, 3).reshape(-1), row[3])
+    plan = pm.interval_plan(tuple(i for i in range(d + p) if i != 3), 3, 5, 40,
+                            g.alpha * s)
+    fetched = {sid: b"".join(row[sid][o:o + k].tobytes()
+                             for o, k in plan.byte_ranges(sid)) for sid in plan.fetch}
+    assert pm.interval_decode(plan, fetched) == row[3][5:45].tobytes()
+    pb, pb_cpu = PiggybackCoder(d, p), PiggybackCoder(d, p, device="cpu")
+    data = _data((3, d, 1000), d + 1)
+    par = pb.encode(data)
+    np.testing.assert_array_equal(par, pb_cpu.encode(data))
+    shards = np.concatenate([data, par], axis=1)
+    present = tuple(i for i in range(d + p) if i not in (1, d + 1))
+    surv = shards[:, sorted(present)[:d]]
+    np.testing.assert_array_equal(pb.reconstruct(surv, present, (1, d + 1)),
+                                  shards[:, [1, d + 1]])
+
+
+@pytest.mark.gpu
+def test_msr_apply_raises_when_kernel_fails_to_load(cuda, monkeypatch):
+    from seaweedfs_tpu_torch.ops.product_matrix import ProductMatrixCoder
+    pm = ProductMatrixCoder(4, 2)
+    monkeypatch.setattr(rs_cuda, "_LIB", None)
+
+    def broken():
+        raise OSError("libswtpu_rs_gf.so: cannot open shared object file")
+    monkeypatch.setattr(rs_cuda, "load", broken)
+    with pytest.raises(OSError, match="cannot open"):
+        pm.encode(_data((4, pm.alpha * 2), 1))

@@ -15,20 +15,21 @@ from seaweedfs_tpu.ec.locate import EcGeometry as RefGeometry
 from seaweedfs_tpu.ops.coder import get_coder as ref_get_coder
 from seaweedfs_tpu_torch.ec import encoder, files, repair
 from seaweedfs_tpu_torch.ec.locate import EcGeometry
-from seaweedfs_tpu_torch.ops.coder import NumpyCoder, TorchCoder
+from seaweedfs_tpu_torch.ops.coder import NumpyCoder, TorchCoder, codec_coder
 
 GEO = EcGeometry(d=10, p=4, large_block=16384, small_block=2048)
 REF_GEO = RefGeometry(d=10, p=4, large_block=16384, small_block=2048)
 SIZE = GEO.large_block * GEO.d + 7 * GEO.small_block * GEO.d + 1234
 
 
-def _encode(tmp_path, name="v", size=SIZE, seed=3):
-    """One RS(10,4) shard set under tmp_path/name; returns (base, shards)."""
+def _encode(tmp_path, name="v", size=SIZE, seed=3, coder=None):
+    """One RS(10,4) shard set under tmp_path/name (plain RS unless `coder`
+    names another codec); returns (base, shards)."""
     dat = tmp_path / f"{name}.dat"
     dat.write_bytes(np.random.default_rng(seed).integers(
         0, 256, size, dtype=np.uint8).tobytes())
     base = str(tmp_path / name)
-    encoder.encode_volume(str(dat), base, GEO, NumpyCoder(10, 4))
+    encoder.encode_volume(str(dat), base, GEO, coder or NumpyCoder(10, 4))
     return base, {s: open(base + files.shard_ext(s), "rb").read()
                   for s in range(GEO.n)}
 
@@ -78,15 +79,33 @@ def test_make_readers_counts_bytes_by_kind(tmp_path):
         base, {1: base + files.shard_ext(1)},
         lambda sid, off, ln: shards[sid][off:off + ln], [1, 2, 3], counter)
     try:
-        assert sorted(readers) == [1, 2, 3] and frag == {}
+        assert sorted(readers) == sorted(frag) == [1, 2, 3]
         assert readers[1](5, 100).tobytes() == shards[1][5:105]
         assert readers[3](7, 50).tobytes() == shards[3][7:57]
+        # fragment reads: gathered preads locally, one ranged fetch per run
+        # remotely when no fragment_reader is wired
+        assert frag[1]([(0, 4), (9, 6)]).tobytes() == shards[1][:4] + shards[1][9:15]
+        assert frag[2]([(3, 5)]).tobytes() == shards[2][3:8]
     finally:
         close()
-    assert (counter.bytes_read, counter.remote_bytes_read) == (150, 50)
-    with pytest.raises(NotImplementedError, match="fragment_reader"):
-        repair.make_readers(base, {}, None, (), counter,
-                            fragment_reader=lambda sid, ranges: b"")
+    assert (counter.bytes_read, counter.remote_bytes_read) == (165, 55)
+    packed = []
+
+    def fragment_reader(sid, ranges):
+        packed.append((sid, list(ranges)))
+        return b"".join(shards[sid][o:o + ln] for o, ln in ranges)
+    counter = repair.RepairCounter("msr")
+    _, frag, close = repair.make_readers(
+        base, {}, lambda sid, off, ln: b"", [4], counter,
+        fragment_reader=fragment_reader)
+    try:
+        assert frag[4]([(1, 2), (7, 3)]).tobytes() == shards[4][1:3] + shards[4][7:10]
+        with pytest.raises(OSError, match="short fragment"):
+            repair.make_readers(base, {}, lambda *a: b"", [5], counter,
+                                fragment_reader=lambda sid, r: b"x")[1][5]([(0, 2)])
+    finally:
+        close()
+    assert packed == [(4, [(1, 2), (7, 3)])] and counter.remote_bytes_read == 5
 
 
 @pytest.mark.parametrize("ref_coder", ["numpy", "jax"])
@@ -166,19 +185,36 @@ def test_wanted_shard_is_never_a_survivor(tmp_path):
 
 
 def test_rebuild_refuses_too_few_survivors_and_layered_codecs(tmp_path):
+    """Too few survivors is refused as in the reference; the layered codecs
+    now rebuild through their own rebuilders (never positionally), with a
+    fragment_reader accepted beside the shard_reader."""
     base, _ = _encode(tmp_path)
     for s in range(5):
         os.unlink(base + files.shard_ext(s))
     with pytest.raises(RuntimeError, match="only 9 shards"):
         encoder.rebuild_shards(base, GEO, NumpyCoder(10, 4))
+    assert sorted(repair.REBUILDERS) == sorted(ref_repair.REBUILDERS) == \
+        ["msr", "piggyback"]
+    assert sorted(repair.OVERLAYS) == sorted(ref_repair.OVERLAYS)
+    for codec in ("piggyback", "msr"):
+        pbase, shards = _encode(tmp_path, name=codec, coder=codec_coder(
+            codec, 10, 4, backend="torch", device="cpu"))
+        shard_reader, calls = _split(pbase, str(tmp_path / f"far_{codec}"),
+                                     [0, 11, 12, 13])
+        frags = []
 
-    class Layered(NumpyCoder):
-        codec = "piggyback"
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        encoder.rebuild_shards(base, GEO, Layered(10, 4),
-                               shard_reader=lambda sid, off, ln: b"",
-                               remote_shards=[0])
-    assert repair.REBUILDERS == {}
+        def fragment_reader(sid, ranges):
+            frags.append(sid)
+            return b"".join(shard_reader(sid, o, ln) for o, ln in ranges)
+        os.unlink(pbase + files.shard_ext(3))
+        st = {}
+        assert encoder.rebuild_shards(
+            pbase, GEO, codec_coder(codec, 10, 4, backend="torch", device="cpu"),
+            shard_reader=shard_reader, remote_shards=[0, 11, 12, 13], stats=st,
+            fragment_reader=fragment_reader) == [3]
+        assert st["path"] == "ranged" and st["codec"] == codec
+        assert open(pbase + files.shard_ext(3), "rb").read() == shards[3]
+        assert bool(frags) == (codec == "msr")
 
 
 def test_open_outputs_and_pwrite(tmp_path):

@@ -201,14 +201,33 @@ def test_fewer_than_d_reachable_raises_oserror(pair, tmp_path):
 
 
 def test_degraded_read_refuses_layered_codec(pair, tmp_path):
-    a, ref, _ = pair
-    base, _ = _encode_both(a, ref, tmp_path)
-    files.update_vif(base + ".vif", {"codec": "piggyback"})
-    _lose(a, base, (0,))
-    with cf.ThreadPoolExecutor(1) as pool:
-        reader = make_shard_reader(a, VID, lambda sid, off, ln: None, pool)
-        with pytest.raises(NotImplementedError, match="piggyback"):
-            reader(0, 0, 10)
+    """A layered codec sealed in the .vif is served (piggyback here, msr in
+    test_torch_codec_store.py); a codec the port does not carry is refused."""
+    a, ref, want = pair
+    base = a.generate_ec_shards(VID, codec="piggyback")
+    ref_base = ref.generate_ec_shards(VID, codec="piggyback")
+    shards = {s: open(ref_base + files.shard_ext(s), "rb").read() for s in range(14)}
+    assert all(open(base + files.shard_ext(s), "rb").read() == shards[s]
+               for s in range(14))
+    for s in (a, ref):
+        s.delete_volume(VID)
+        s.mount_ec_shards(VID)
+    _lose(a, base, (0, 1))
+    half = len(shards[0]) // 2
+    with cf.ThreadPoolExecutor(2) as pool:
+        stats = {}
+        reader = make_shard_reader(a, VID, lambda sid, off, ln: None, pool, stats)
+        assert reader(0, 0, 10) == shards[0][:10]
+        assert reader(1, half + 3, 40) == shards[1][half + 3:half + 43]
+        assert stats["reconstructs"] == 2 and stats["strips"] == 1
+        for nid, (cookie, data) in want.items():
+            assert a.read_needle(VID, nid, cookie=cookie,
+                                 shard_reader=reader).data == data
+        for codec, err in (("mesh", NotImplementedError), ("bogus", ValueError)):
+            files.update_vif(base + ".vif", {"codec": codec})
+            a.mount_ec_shards(VID)
+            with pytest.raises(err, match=codec):
+                reader(0, 0, 10)
 
 
 def test_rebuild_with_remote_survivors_and_decode_match_reference(pair, tmp_path):
@@ -443,11 +462,17 @@ def test_coder_selection_has_no_fallback(tmp_path, monkeypatch):
         with pytest.raises(ValueError, match="unknown coder"):
             Store("127.0.0.1", 0, "", [DiskLocation(str(tmp_path / name))],
                   coder_name=name, device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        Store("127.0.0.1", 0, "", [DiskLocation(str(tmp_path / "pb"))],
-              ec_codec="piggyback", device="cpu")
-    with pytest.raises(NotImplementedError):
-        t.coder(codec="msr")
+    for codec in ("piggyback", "msr"):
+        layered = Store("127.0.0.1", 0, "", [DiskLocation(str(tmp_path / codec))],
+                        ec_codec=codec, device="cpu").coder()
+        assert layered.codec == codec and layered.inner.device.type == "cpu"
+        assert t.coder(codec=codec).inner.device.type == "cpu"
+    for codec in ("native", "mesh"):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            Store("127.0.0.1", 0, "", [DiskLocation(str(tmp_path / codec))],
+                  ec_codec=codec, device="cpu")
+        with pytest.raises(NotImplementedError):
+            t.coder(codec=codec)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Store("127.0.0.1", 0, "", [DiskLocation(str(tmp_path / "d"))])
