@@ -5,7 +5,7 @@
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result). `--phases` runs a subset (default: all); phase 1 always runs, and
-the kernels line needs phases 3, 4, 6, 7, 8, 9, 10 and 11. The kernels of the
+the kernels line needs phases 3, 4, 6, 7, 8, 9, 10, 11 and 12. The kernels of the
 phases asked for are built first, all at once (one nvcc per source).
 
 1. device: card name, count, `nvidia-smi` name and power limit;
@@ -113,9 +113,24 @@ phases asked for are built first, all at once (one nvcc per source).
    0.70 of plain RS. Every K1 call on the card is timed with CUDA events
    by entry; K1's counts are zeroed just before the phase and read just
    after, and encode, reconstruct and apply must all have launched;
-12. summary: one JSON line of every kernel with its launches (K1's from
-   phases 6, 9, 10 and 11, K3's from phases 8 and 10), error against the
-   plain version, times and bound; then the result line.
+12. the multi-device EC step on a 1x1 mesh over NCCL (parallel/mesh.py,
+   parallel/pipeline.py; a world of one on this card, as the reference's
+   build_mesh gives on one chip): ECPipeline.step at RS(10,4)
+   [32, 10, 1 MiB] with (0, 5, 10, 13) lost and at RS(14,2) [32, 14, 1 MiB]
+   with (0, 5) lost, mismatch 0; a 1,145,031,680 B .dat (phase 9's size)
+   through ec/stream.encode_volumes with MeshCoder at RS(10,4), 1 GiB /
+   1 MiB blocks, batch 32; the mesh-wide scrub of 1,048,576 needles of
+   1024 + 0..63 B in [4096, 2048] batches against their stored CRC states,
+   17 of them damaged, which the all_reduce must count exactly. K1's and
+   K3's counts are zeroed just before these three and read just after.
+   Then, outside the counts: the same .dat through TorchCoder, every shard's
+   sha256 equal; the step's time by CUDA events beside forward +
+   reconstruct of the same shapes without the mesh; NativeCoder (the port's
+   AVX2 CPU coder) on [32, 10, 1 MiB] byte-equal to K1, both timed, with
+   the host's CPU model; entry.dryrun_multichip(1) on one launched rank;
+13. summary: one JSON line of every kernel with its launches (K1's from
+   phases 6, 9, 10, 11 and 12, K3's from phases 8, 10 and 12), error
+   against the plain version, times and bound; then the result line.
 
 Needs CUDA and the repository beside it; without either it exits 2.
 """
@@ -139,13 +154,14 @@ MAIN_SHAPE = (32, 10, 1 << 20)  # [batch, d, chunk] of one encode call
 LOST_10_4 = (0, 5, 10, 13)
 LOST_14_2 = (3, 15)
 WIDTHS = (16, 48, 100, 384, 4112, 65536, 65552)
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12)
 PALLAS = "seaweedfs_tpu/ops/rs_pallas.py"
 K1_SOURCE = "seaweedfs_tpu_torch/csrc/rs_gf.cu"
 K3_SOURCE = "seaweedfs_tpu_torch/csrc/crc32c.cu"
 K3_REPLACES = "seaweedfs_tpu/ops/crc32c.py:183"  # device_crc_states
 KERNELS = {2: ("rs_gf",), 7: ("crc32c",), 9: ("rs_gf",),  # phase -> csrc
-           10: ("rs_gf", "crc32c"), 11: ("rs_gf",)}    # sources it builds
+           10: ("rs_gf", "crc32c"), 11: ("rs_gf",),    # sources it builds
+           12: ("rs_gf", "crc32c")}
 K3_SHAPES = ((4096, 2048), (16384, 4096), (64, 1 << 20))  # first: the scrub's
 K3_ROWS = (1, 3, 4096, 4225)  # 4225 = 132 SMs x 32 warps + 1
 K3_LENGTHS = (0, 512, 1024, 2048, 4096, 65536, 1 << 20)
@@ -161,6 +177,11 @@ TIER_CHURN = 64        # phase 10: needles deleted, and needles overwritten
 CODEC_SAMPLE = 4096    # phase 11: needles read back per pass
 MSR_LOST, MSR_LOST2 = 5, (0, 14)  # phase 11(a) at RS(14,2)
 PB_LOST = (3, 7)       # phase 11(b) at RS(10,4): survivors take parity 11
+MESH_STEPS = ((10, 4, (0, 5, 10, 13)), (14, 2, (0, 5)))  # phase 12
+MESH_DAT = 1_145_031_680  # phase 12: phase 9's .dat size
+MESH_SCRUB_NEEDLES = 1 << 20  # phase 12: weed benchmark's default write set
+MESH_SCRUB_BATCH = (4096, 2048)
+MESH_DAMAGED = 17
 K1_ENTRIES = {  # wrapper entry -> the TPU function it replaces
     "encode": f"{PALLAS}:156",
     "encode_seeded": f"{PALLAS}:164",
@@ -2019,6 +2040,244 @@ def phase_codecs(torch, np, workdir: str, seed: int, card: str) -> "dict[str, in
     return launches
 
 
+# -- phase 12 ---------------------------------------------------------------
+def _host_cpu() -> str:
+    """The host CPU as /proc/cpuinfo names it (vendor, family, model and
+    model name of the first processor), with the number of CPUs."""
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                key = key.strip()
+                if key in ("vendor_id", "cpu family", "model", "model name",
+                           "cpu MHz") and key not in fields:
+                    fields[key] = value.strip()
+    except OSError:
+        return "a CPU /proc/cpuinfo does not describe"
+    return (f"{fields.get('model name', '?')} ({fields.get('vendor_id', '?')} "
+            f"family {fields.get('cpu family', '?')} model "
+            f"{fields.get('model', '?')}, {fields.get('cpu MHz', '?')} MHz; "
+            f"{os.cpu_count()} CPUs)")
+
+
+def _trace_breakdown(path: str, steps: int) -> str:
+    """Device time per step by kernel or copy name, from a Chrome trace of
+    torch.profiler (utils/profiling.start_device_trace)."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    by_name = collections.Counter()
+    for ev in events:
+        if ev.get("ph") == "X" and ev.get("cat") in ("kernel", "gpu_memcpy",
+                                                     "gpu_memset"):
+            by_name[ev.get("name", "?")[:60]] += ev.get("dur", 0.0)
+    if not by_name:
+        return "no device events in the trace (not measured)"
+    total = sum(by_name.values())
+    return (f"device {total / 1e3 / steps:.3f} ms a step: " + "; ".join(
+        f"{name} {us / 1e3 / steps:.3f}" for name, us in by_name.most_common(8)))
+
+
+def _scrub_batches(np, rng):
+    """The scrub's write set as the mesh scrub reads it: MESH_SCRUB_NEEDLES
+    needles of 1024 + 0..63 B (phase 8's sizes), left-padded into
+    [4096, 2048] batches, with their stored raw CRC states (the host's
+    SSE4.2 CRC of each intact padded row from init 0, as written, through
+    the native library's crc32c_batch); then MESH_DAMAGED needles damaged
+    by one flipped payload byte each. Returns (batches, states, damaged)."""
+    from seaweedfs_tpu_torch.ops import native
+    lib = native.load()
+    rows, width = MESH_SCRUB_BATCH
+    n_batches = MESH_SCRUB_NEEDLES // rows
+    words = rng.integers(0, 2**64 - 1, n_batches * rows * width // 8,
+                         dtype=np.uint64, endpoint=True)
+    allblk = words.view(np.uint8).reshape(n_batches, rows, width)
+    sizes = 1024 + rng.integers(0, 64, (n_batches, rows))
+    cols = np.arange(width)
+    batches, states = [], []
+    for blk, sz in zip(allblk, sizes):
+        blk[cols[None, :] < (width - sz)[:, None]] = 0
+        st = np.empty(rows, dtype=np.uint32)
+        lib.crc32c_batch(blk.ctypes.data, width, rows, 0, st.ctypes.data)
+        states.append(st.astype(np.int64))
+        batches.append((blk, sz))
+    picks = rng.choice(MESH_SCRUB_NEEDLES, MESH_DAMAGED, replace=False)
+    for i in picks:
+        blk, sz = batches[i // rows]
+        r = i % rows
+        blk[r, width - 1 - int(rng.integers(0, sz[r]))] ^= 0x5A
+    return batches, states, sorted(int(i) for i in picks)
+
+
+def phase_mesh(torch, np, workdir: str, seed: int, card: str) -> dict:
+    """The multi-device EC step on a 1x1 NCCL mesh; returns the kernel
+    launches of its counted run and its times."""
+    import torch.distributed as dist
+
+    from seaweedfs_tpu_torch.ec import stream
+    from seaweedfs_tpu_torch.ec.locate import EcGeometry
+    from seaweedfs_tpu_torch.entry import dryrun_multichip
+    from seaweedfs_tpu_torch.models.ec_pipeline import ECPipeline
+    from seaweedfs_tpu_torch.ops import crc_cuda, native, rs_cuda
+    from seaweedfs_tpu_torch.ops.coder import TorchCoder
+    from seaweedfs_tpu_torch.parallel import pipeline as pp
+    from seaweedfs_tpu_torch.parallel.mesh import AXES, build_mesh
+    from seaweedfs_tpu_torch.utils import profiling
+    os.makedirs(workdir, exist_ok=True)
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 23)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 23)
+    steps = {(d, p): torch.randint(0, 256, (MAIN_SHAPE[0], d, MAIN_SHAPE[2]),
+                                   dtype=torch.uint8, device="cuda",
+                                   generator=gen)
+             for d, p, _ in MESH_STEPS}
+    dat = os.path.join(workdir, "mesh.dat")
+    make_dat(np, dat, MESH_DAT, seed + 23)
+    batches, states, damaged = _scrub_batches(np, rng)
+    geo = EcGeometry(10, 4)  # 1 GiB / 1 MiB blocks
+    log(f"[mesh] inputs: steps {[list(t.shape) for t in steps.values()]}, "
+        f".dat {MESH_DAT} B, {len(batches)} scrub batches of "
+        f"{list(MESH_SCRUB_BATCH)}, damaged needles {damaged} "
+        f"({time.perf_counter() - t_phase:.1f} s) [{card}]")
+
+    t0 = time.perf_counter()
+    mesh = build_mesh(device="cuda")
+    backend = str(dist.get_backend())
+    log(f"[mesh] {mesh}: world {dist.get_world_size()} over {backend} in "
+        f"{time.perf_counter() - t0:.2f} s [{card}]")
+    if backend != "nccl" or mesh.shape != {"data": 1, "shard": 1}:
+        raise AssertionError(f"expected a 1x1 NCCL mesh, got {mesh} on {backend}")
+    res = {}
+    try:
+        torch.cuda.synchronize()
+        rs_cuda.reset_launches()
+        crc_cuda.reset_launches()
+        # (a) the step, (b) MeshCoder through encode_volumes, (c) the scrub
+        pipes = {}
+        for d, p, lost in MESH_STEPS:
+            pipes[(d, p)] = ECPipeline(d=d, p=p, mesh=mesh)
+            out = pipes[(d, p)].step(steps[(d, p)], lost)
+            mism = int(out["rebuild_mismatch_bytes"].item())
+            log(f"[mesh] step RS({d},{p}) [{MAIN_SHAPE[0]}, {d}, "
+                f"{MAIN_SHAPE[2]}] lost {lost}: mismatch {mism}, "
+                f"bytes_encoded {int(out['bytes_encoded'].item())}")
+            if mism:
+                raise AssertionError(f"step RS({d},{p}) mismatch {mism}")
+        mesh_base = os.path.join(workdir, "mesh")
+        st = {}
+        t0 = time.perf_counter()
+        stream.encode_volumes([(dat, mesh_base, None)], geo,
+                              pp.MeshCoder(mesh, 10, 4), batch=32, stats=st)
+        res["mesh_encode_s"] = time.perf_counter() - t0
+        count = 0
+        t0 = time.perf_counter()
+        for (blk, _), want in zip(batches, states):
+            bad = pp.scrub_sharded(mesh, pp.shard_put(mesh, blk, (AXES, None)),
+                                   pp.shard_put(mesh, want, (AXES,)))
+            count += int(bad.item())
+        res["scrub_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = {"k1": dict(rs_cuda.launches_by_entry),
+                    "k3": crc_cuda.launches}
+        log(f"[mesh] kernel launches on the mesh path: {json.dumps(launches)}")
+        if not (launches["k1"].get("encode") and launches["k1"].get("reconstruct")
+                and launches["k3"]):
+            raise AssertionError("K1 encode, K1 reconstruct or K3 never "
+                                 "launched on the mesh path")
+        if count != MESH_DAMAGED:
+            raise AssertionError(f"mesh scrub counted {count} damaged needles, "
+                                 f"want {MESH_DAMAGED}")
+        log(f"[mesh] scrub of {MESH_SCRUB_NEEDLES} needles through K3 and "
+            f"the all_reduce: {count} damaged (want {MESH_DAMAGED}), "
+            f"{res['scrub_s']:.3f} s = "
+            f"{MESH_SCRUB_NEEDLES / res['scrub_s']:.0f} needles/s [{card}]")
+        res["launches"] = launches
+
+        # outside the counts: the TorchCoder encode of the same .dat
+        torch_base = os.path.join(workdir, "torch")
+        t0 = time.perf_counter()
+        stream.encode_volumes([(dat, torch_base, None)], geo,
+                              TorchCoder(10, 4), batch=32)
+        res["torch_encode_s"] = time.perf_counter() - t0
+        for s in range(geo.n):
+            ext = f".ec{s:02d}"
+            if _sha256(mesh_base + ext) != _sha256(torch_base + ext):
+                raise AssertionError(f"MeshCoder shard {s} differs from "
+                                     f"TorchCoder's")
+        log(f"[mesh] MeshCoder encode_volumes of {MESH_DAT} B at RS(10,4), "
+            f"batch 32: {res['mesh_encode_s']:.3f} s = "
+            f"{MESH_DAT / res['mesh_encode_s'] / 1e9:.3f} GB/s (dispatch "
+            f"{st['dispatch_s']:.3f}, drain {st['drain_block_s']:.3f}, seal "
+            f"{st['seal_s']:.3f} s); TorchCoder {res['torch_encode_s']:.3f} s "
+            f"= {MESH_DAT / res['torch_encode_s'] / 1e9:.3f} GB/s; all 14 "
+            f"shard sha256 equal [{card}]")
+
+        # the step's time beside forward + reconstruct without the mesh
+        for d, p, lost in MESH_STEPS:
+            data = steps[(d, p)]
+            use = tuple(i for i in range(d + p) if i not in lost)[:d]
+            rows = tuple(range(d + p))
+
+            def plain(_, data=data, d=d, p=p, use=use, rows=rows):
+                full = torch.cat([data, rs_cuda.encode(data, d, p)], 1)
+                return rs_cuda.reconstruct(full[:, list(use)].contiguous(),
+                                           use, rows, d, p)
+
+            def step(_, pipe=pipes[(d, p)], data=data, lost=lost):
+                return pipe.step(data, lost)
+
+            plain_ms = _time_ms(torch, plain, 10)
+            step_ms = _time_ms(torch, step, 10)
+            res[f"step_{d}_{p}"] = (step_ms, plain_ms)
+            log(f"[mesh] step RS({d},{p}) [{MAIN_SHAPE[0]}, {d}, "
+                f"{MAIN_SHAPE[2]}]: {step_ms:.4f} ms by CUDA events; forward "
+                f"+ reconstruct of all {d + p} rows without the mesh "
+                f"{plain_ms:.4f} ms; the collective layer on one rank "
+                f"{step_ms - plain_ms:.4f} ms [{card}]")
+        # where the step's device time goes: one torch.profiler capture
+        # through the port's profiling hook around 5 steps at RS(10,4)
+        torch.cuda.synchronize()
+        profiling.start_device_trace(out_dir=workdir)
+        for _ in range(5):
+            pipes[(10, 4)].step(steps[(10, 4)], MESH_STEPS[0][2])
+        torch.cuda.synchronize()
+        trace = profiling.stop_device_trace()
+        log(f"[mesh] step RS(10,4) under torch.profiler, "
+            f"{_trace_breakdown(trace, 5)} [{card}]")
+    finally:
+        mesh.close()
+
+    # the native CPU coder on this host against K1
+    x = steps[(10, 4)]
+    host = x.cpu().numpy()
+    nat = native.NativeCoder(10, 4)
+    t0 = time.perf_counter()
+    got = nat.encode(host)
+    native_s = time.perf_counter() - t0
+    for _ in range(2):
+        t0 = time.perf_counter()
+        nat.encode(host)
+        native_s = min(native_s, time.perf_counter() - t0)
+    k1 = rs_cuda.encode(x, 10, 4).cpu().numpy()
+    if not np.array_equal(got, k1):
+        raise AssertionError("NativeCoder differs from K1 at [32, 10, 1 MiB]")
+    k1_ms = _time_ms(torch, lambda i: rs_cuda.encode(x, 10, 4), 20)
+    res["native"] = (native_s * 1e3, k1_ms)
+    log(f"[mesh] NativeCoder [32, 10, 1 MiB] == K1, byte for byte; native "
+        f"{native_s * 1e3:.2f} ms = {x.numel() / native_s / 1e9:.3f} GB/s on "
+        f"one thread of {_host_cpu()} ({json.dumps(native.features())}); K1 "
+        f"{k1_ms:.4f} ms = {x.numel() / k1_ms / 1e6:.1f} GB/s [{card}]")
+    del steps, x
+
+    t0 = time.perf_counter()
+    reports = dryrun_multichip(1)
+    log(f"[mesh] dryrun_multichip(1) on one launched rank: "
+        f"{json.dumps(reports)} in {time.perf_counter() - t0:.1f} s [{card}]")
+    log(f"[mesh] phase wall {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2087,16 +2346,23 @@ def main(argv=None) -> int:
             codec_launches = phase_codecs(torch, np, args.workdir, args.seed, card)
         finally:
             shutil.rmtree(args.workdir, ignore_errors=True)
+    mesh = None
+    if 12 in phases:
+        try:
+            mesh = phase_mesh(torch, np, args.workdir, args.seed, card)
+        finally:
+            shutil.rmtree(args.workdir, ignore_errors=True)
     log(f"[done] phases {sorted(phases | {1})} passed in "
         f"{time.perf_counter() - t0:.1f} s [{card}]")
     if None not in (errs, times, launches, k3_err, k3_times, k3_launches,
-                    ec_launches, tier, codec_launches):
+                    ec_launches, tier, codec_launches, mesh):
         kernels = [dict(name=f"rs_gf_apply:{entry}", route="cuda",
                         source=K1_SOURCE, replaces=replaces,
                         launches=launches.get(entry, 0)
                         + ec_launches.get(entry, 0)
                         + tier["k1"].get(entry, 0)
-                        + codec_launches.get(entry, 0),
+                        + codec_launches.get(entry, 0)
+                        + mesh["launches"]["k1"].get(entry, 0),
                         max_abs_err=errs[entry], ms=times[entry]["ms"],
                         plain_ms=times[entry]["plain_ms"],
                         bound_ms=times[entry]["bound_ms"],
@@ -2105,7 +2371,8 @@ def main(argv=None) -> int:
         k3 = k3_times[K3_SHAPES[0]]  # the scrub path's batch
         kernels.append(dict(name="crc32c_states", route="cuda",
                             source=K3_SOURCE, replaces=K3_REPLACES,
-                            launches=k3_launches + tier["k3_scrub"],
+                            launches=k3_launches + tier["k3_scrub"]
+                            + mesh["launches"]["k3"],
                             max_abs_err=k3_err,
                             ms=k3["ms"], plain_ms=k3["plain_ms"],
                             bound_ms=k3["bound_ms"], bound_by=k3["bound_by"],

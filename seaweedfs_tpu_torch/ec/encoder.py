@@ -24,7 +24,9 @@ from typing import Sequence
 
 import numpy as np
 
+from .. import tracing
 from ..ops.coder import ErasureCoder
+from ..stats import EC_REBUILD_BYTES
 from . import files, repair
 from .locate import EcGeometry
 from .stream import AsyncPipe
@@ -76,9 +78,11 @@ def rebuild_shards(base: str, geo: EcGeometry, coder: ErasureCoder,
     ranges and ship ONE fragment (the msr codec's beta-fragments ride it).
     `fold_planner(coder, f) -> [(sids, fetch)]` lets the caller group
     far survivors behind relay holders that fold their plane rows into one
-    partial; it is consulted only on the single-loss msr path. `stats`
-    receives bytes_read / bytes_written / codec / path / shard_size, the
-    stage times read_s / write_s / flush_s / wall_s, `remote` (how many
+    partial; it is consulted only on the single-loss msr path. Every
+    survivor byte consumed lands in SeaweedFS_repair_bytes_read_total{codec}
+    and the call is one ec.rebuild span. `stats` receives bytes_read /
+    bytes_written / codec / path / shard_size, the stage times read_s /
+    write_s / flush_s / wall_s, `remote` (how many
     survivors a reader could serve remotely), and remote_bytes_read /
     remote_read_s / local_read_s (the survivor reads by kind). Returns the
     shard ids rebuilt (always written under `base`).
@@ -101,17 +105,26 @@ def rebuild_shards(base: str, geo: EcGeometry, coder: ErasureCoder,
     shard_size = _shard_size(base, geo, present_local)
     counter = repair.RepairCounter(coder.codec)
     t_wall0 = time.perf_counter()
-    readers, frag_readers, close = repair.make_readers(
-        base, present_local, shard_reader, remote, counter,
-        fragment_reader=fragment_reader)
-    try:
-        path = _dispatch_rebuild(base, geo, coder, tuple(sorted(present)),
-                                 missing, readers, frag_readers, shard_size,
-                                 chunk, batch, counter,
-                                 fold_planner=fold_planner,
-                                 local_sids=frozenset(present_local))
-    finally:
-        close()
+    with tracing.start_span(
+            "ec.rebuild", component="ec",
+            attrs={"base": os.path.basename(base), "missing": missing,
+                   "present": len(present), "remote": len(remote),
+                   "coder": type(coder).__name__,
+                   "codec": coder.codec}) as sp:
+        readers, frag_readers, close = repair.make_readers(
+            base, present_local, shard_reader, remote, counter,
+            fragment_reader=fragment_reader)
+        try:
+            path = _dispatch_rebuild(base, geo, coder, tuple(sorted(present)),
+                                     missing, readers, frag_readers,
+                                     shard_size, chunk, batch, counter,
+                                     fold_planner=fold_planner,
+                                     local_sids=frozenset(present_local))
+        finally:
+            close()
+        sp.set_attr("bytes_read", counter.bytes_read)
+        sp.set_attr("bytes_written", counter.bytes_written)
+        sp.set_attr("path", path)
     if stats is not None:
         stats.update(bytes_read=counter.bytes_read,
                      bytes_written=counter.bytes_written,
@@ -217,6 +230,7 @@ def _rebuild_positional(base: str, geo: EcGeometry, coder: ErasureCoder,
         if nb < batch:
             arr[nb:] = 0
         counter.read_s += time.perf_counter() - t0
+        EC_REBUILD_BYTES.inc(type(coder).__name__, amount=arr.nbytes)
         pipe.submit(coder.reconstruct(arr, present_t, wanted_t),
                     (off, span, nb), drain)
     pipe.flush()

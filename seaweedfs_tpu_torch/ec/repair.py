@@ -24,6 +24,7 @@ import numpy as np
 
 from ..ops.coder import host_result
 from ..ops.piggyback import PiggybackCoder
+from ..stats import REPAIR_BYTES_READ, REPAIR_BYTES_WRITTEN
 from ..utils.log import logger
 from . import files
 
@@ -43,12 +44,13 @@ FragmentReader = Callable[[int, list], bytes]
 
 
 class RepairCounter:
-    """Survivor bytes read and rebuilt bytes written by one repair, and
-    where its wall time went: read_s (loading survivor slabs on the
-    positional plain-RS path), write_s (copying rebuilt rows out), flush_s
-    (flushing the rebuilt files), and the time spent in remote and local
-    survivor reads with the bytes each served (on the codec paths these
-    two are the whole read time)."""
+    """Survivor bytes read and rebuilt bytes written by one repair, mirrored
+    to the codec-labelled repair counters as they accumulate, and where its
+    wall time went: read_s (loading survivor slabs on the positional
+    plain-RS path), write_s (copying rebuilt rows out), flush_s (flushing
+    the rebuilt files), and the time spent in remote and local survivor
+    reads with the bytes each served (on the codec paths these two are the
+    whole read time)."""
 
     def __init__(self, codec: str):
         self.codec = codec or "rs"
@@ -60,6 +62,7 @@ class RepairCounter:
 
     def read(self, n: int, seconds: float = 0.0, remote: bool = False) -> None:
         self.bytes_read += n
+        REPAIR_BYTES_READ.inc(self.codec, amount=n)
         if remote:
             self.remote_bytes_read += n
             self.remote_read_s += seconds
@@ -68,6 +71,7 @@ class RepairCounter:
 
     def wrote(self, n: int) -> None:
         self.bytes_written += n
+        REPAIR_BYTES_WRITTEN.inc(self.codec, amount=n)
 
 
 def make_readers(base: str, present_local: "dict[int, str]",

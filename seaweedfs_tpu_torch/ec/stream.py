@@ -40,9 +40,13 @@ offsets of each shard file, so a run is ONE queue item per shard that the
 writer flushes with k contiguous `os.pwrite`s (or a single one when the
 source bytes are themselves contiguous).
 
-Stage timings are returned in a plain dict (`stats`). The layered codecs
-(piggyback, msr) stream their slabs as plain RS through their inner coder
-and seal their parities with an overlay before the .vif (ec/repair.py).
+Stage timings are returned in a plain dict (`stats`), observed into
+SeaweedFS_ec_pipeline_seconds{stage} and set on the call's ec.encode span;
+SeaweedFS_ec_encode_bytes_total{coder} counts the bytes fed to the coder
+and SeaweedFS_ec_writer_queue_depth the runs queued to the writers. The
+layered codecs (piggyback, msr) stream their slabs as plain RS through
+their inner coder and seal their parities with an overlay before the .vif
+(ec/repair.py).
 """
 
 from __future__ import annotations
@@ -57,7 +61,10 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from .. import tracing
 from ..ops.coder import ErasureCoder, host_result
+from ..stats import (EC_ENCODE_BYTES, EC_PIPELINE_SECONDS,
+                     EC_WRITER_QUEUE_DEPTH)
 from ..utils.env import env_int
 from ..utils.fsutil import fsync_path
 from ..utils.log import logger
@@ -212,6 +219,7 @@ class WriterPool:
                 except Exception:  # noqa: BLE001 — a callback must not kill the writer
                     log.warning("ec writer completion callback failed",
                                 exc_info=True)
+            EC_WRITER_QUEUE_DEPTH.add(amount=-1)
             q.task_done()
 
     # -- submitting side ----------------------------------------------------
@@ -223,12 +231,17 @@ class WriterPool:
         q = self._queues[shard_id % self.writers]
         item = (fd, off, arr, on_done)
         t0 = time.perf_counter()
+        # delta, not an absolute set: concurrent encodes each run their own
+        # pool but share the gauge. Counted BEFORE the put so the writer's
+        # post-dequeue decrement can never take the gauge below zero.
+        EC_WRITER_QUEUE_DEPTH.add(amount=1)
         while True:
             try:
                 q.put(item, timeout=0.2)
                 break
             except queue.Full:
                 if self._err is not None:
+                    EC_WRITER_QUEUE_DEPTH.add(amount=-1)  # never enqueued
                     raise self._err from None
         self.block_s += time.perf_counter() - t0
 
@@ -605,20 +618,49 @@ def encode_volumes(jobs: "list[tuple[str, str, str | None]]", geo: EcGeometry,
     slab_coder = coder.inner if overlay is not None else coder
     if stats is None:
         stats = {}
-    if not slab_coder.async_dispatch:
-        res = _encode_volumes_sync(jobs, geo, slab_coder, chunk, batch, stats,
-                                   writers=writers, overlay=overlay)
-    else:
-        res = _encode_volumes_async(jobs, geo, slab_coder, chunk, batch,
-                                    depth, stats, writers=writers,
-                                    overlay=overlay)
+    total = sum(os.path.getsize(j[0]) for j in jobs
+                if os.path.exists(j[0]))
+    with tracing.start_span(
+            "ec.encode", component="ec",
+            attrs={"volumes": len(jobs), "bytes": total,
+                   "coder": type(coder).__name__, "codec": coder.codec,
+                   "geometry": f"{geo.d}+{geo.p}"}) as sp:
+        if not slab_coder.async_dispatch:
+            res = _encode_volumes_sync(jobs, geo, slab_coder, chunk, batch,
+                                       stats, writers=writers, overlay=overlay)
+        else:
+            res = _encode_volumes_async(jobs, geo, slab_coder, chunk, batch,
+                                        depth, stats, writers=writers,
+                                        overlay=overlay)
+        _publish_pipeline_stats(stats, sp)
+    return res
+
+
+def _publish_pipeline_stats(stats: dict, span) -> None:
+    """Feed the per-call stage breakdown into the stage histogram (the
+    active trace exemplar-linked automatically) and onto the ec.encode
+    span, so a trace shows where an encode spent its wall time."""
     wall = stats.get("wall_s", 0.0)
+    stages = {
+        "fill": stats.get("fill_s", 0.0),
+        "dispatch": stats.get("dispatch_s", stats.get("coder_s", 0.0)),
+        "drain": stats.get("drain_block_s", 0.0),
+        "write": stats.get("write_s", 0.0),
+    }
+    for stage, secs in stages.items():
+        EC_PIPELINE_SECONDS.observe(stage, value=secs)
+        span.set_attr(f"{stage}_s", round(secs, 4))
+    span.set_attr("wall_s", round(wall, 4))
+    span.set_attr("write_block_s", round(stats.get("write_block_s", 0.0), 4))
+    span.set_attr("writers", stats.get("writers", 0))
     if wall > 0:
         # fraction of writer busy time hidden behind fill/compute: 1 means
         # writes were free (fully overlapped), 0 means fully additive
         stats["write_overlap"] = round(
             1.0 - min(1.0, stats.get("write_block_s", 0.0) / wall), 4)
-    return res
+        span.set_attr("write_overlap", stats["write_overlap"])
+    if "batches" in stats:
+        span.set_attr("batches", stats["batches"])
 
 
 def _encode_volumes_sync(jobs, geo: EcGeometry, coder: ErasureCoder,
@@ -688,6 +730,7 @@ def _encode_volumes_sync(jobs, geo: EcGeometry, coder: ErasureCoder,
                         pool.submit(d + j, plan.fds[d + j], shard_off,
                                     parity[:, j, :], plan.write_done)
                     r0 += k
+            EC_ENCODE_BYTES.inc(type(coder).__name__, amount=plan.dat_size)
             if not plan.finished:
                 finishing.append(plan)
             _reap(finishing, pool)  # seal volumes whose writeback drained
@@ -831,6 +874,7 @@ def _encode_volumes_async(jobs, geo: EcGeometry, coder: ErasureCoder,
                 break
             if b0 < batch:
                 buf[b0:] = 0  # final partial batch: one fixed batch shape
+            EC_ENCODE_BYTES.inc(type(coder).__name__, amount=buf.nbytes)
             t0 = time.perf_counter()
             fut = coder.encode(buf)
             dispatch_s += time.perf_counter() - t0

@@ -4,9 +4,9 @@ Each ``csrc/*.cu`` source has a plain C interface. At first use it is
 compiled for Hopper (``sm_90a``) into ``build/kernels/`` at the repository
 root, under a name that carries a hash of the source and the flags, so one
 process builds it at most once and a changed source never loads a stale
-library. ``csrc/*.c`` sources (host code) are built the same way by the host
-C compiler (``build_host``). A missing compiler or a failed build raises;
-nothing falls back.
+library. ``csrc/*.c`` and ``csrc/*.cpp`` sources (host code) are built the
+same way by the host C or C++ compiler (``build_host``). A missing compiler
+or a failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 CC_FLAGS = ("-O3", "-shared", "-fPIC")
+CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-Wall")
 
 _lock = threading.Lock()                     # guards the two dicts below
 _key_locks: "dict[str, threading.Lock]" = {}  # one build at a time per library
@@ -52,13 +53,21 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def find_cc() -> str:
-    for name in (os.environ.get("CC"), "cc", "gcc", "clang"):
+def _find(env: str, names, what: str) -> str:
+    for name in (os.environ.get(env), *names):
         path = shutil.which(name) if name else None
         if path:
             return path
-    raise RuntimeError("no host C compiler found ($CC, cc, gcc, clang): "
-                       "cannot build the host libraries")
+    raise RuntimeError(f"no host {what} compiler found (${env}, "
+                       f"{', '.join(names)}): cannot build the host libraries")
+
+
+def find_cc() -> str:
+    return _find("CC", ("cc", "gcc", "clang"), "C")
+
+
+def find_cxx() -> str:
+    return _find("CXX", ("c++", "g++", "clang++"), "C++")
 
 
 def cpu_flags() -> "set[str]":
@@ -108,13 +117,25 @@ def build(name: str) -> Built:
     return _compile(name, CSRC / f"{name}.cu", [find_nvcc()], NVCC_FLAGS)
 
 
+def simd_flags() -> "tuple[str, ...]":
+    """The SIMD flags the JAX package's native/Makefile picks from
+    /proc/cpuinfo: -mavx2 -mssse3 with avx2, -msse4.2 with sse4_2."""
+    have = cpu_flags()
+    return ((("-mavx2", "-mssse3") if "avx2" in have else ())
+            + (("-msse4.2",) if "sse4_2" in have else ()))
+
+
 def build_host(name: str) -> Built:
-    """Compile csrc/<name>.c with the host C compiler and load it. Adds
-    -msse4.2 when the CPU lists sse4_2, so the source can take the CPU's
-    crc32 instruction."""
-    flags = CC_FLAGS + (("-msse4.2",) if "sse4_2" in cpu_flags() else ())
-    return _compile(f"host:{name}:{' '.join(flags)}", CSRC / f"{name}.c",
-                    [find_cc()], flags)
+    """Compile csrc/<name>.c with the host C compiler, or csrc/<name>.cpp
+    with the host C++ compiler, and load it, with the SIMD flags the CPU
+    allows (simd_flags)."""
+    src = CSRC / f"{name}.c"
+    if src.exists():
+        cmd, flags = find_cc(), CC_FLAGS + simd_flags()
+    else:
+        src = CSRC / f"{name}.cpp"
+        cmd, flags = find_cxx(), CXX_FLAGS + simd_flags()
+    return _compile(f"host:{name}:{' '.join(flags)}", src, [cmd], flags)
 
 
 def build_all(names) -> "dict[str, Built]":

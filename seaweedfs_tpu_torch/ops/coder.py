@@ -8,9 +8,15 @@ Implementations:
   on the card unless the caller passes ``device="cpu"``, which selects the
   plain PyTorch version (ops/rs_torch.py). Without CUDA it raises; it
   never drops to another backend on its own.
+* ``native`` (ops/native.py) — the port's own AVX2 split-table CPU coder,
+  the klauspost-style CPU baseline; raises where it cannot be built.
+* ``mesh`` (parallel/pipeline.MeshCoder) — K1 sharded over a ('data',
+  'shard') mesh of torch.distributed ranks.
 * the layered codecs ``piggyback`` (ops/piggyback.py) and ``msr``
-  (ops/product_matrix.py), registered when first asked for by name; they
-  wrap a backend coder built on the device the caller names.
+  (ops/product_matrix.py); they wrap a backend coder built on the device
+  the caller names.
+
+All but ``numpy`` and ``torch`` register when first asked for by name.
 
 All coders operate on uint8 arrays shaped [d, L] / [B, d, L] and are
 stateless w.r.t. data; geometry is fixed per instance.
@@ -184,24 +190,20 @@ _REGISTRY = {"numpy": NumpyCoder, "torch": TorchCoder}
 # oracle, so "rs" resolves there (repair costing, codec enumeration)
 _REGISTRY["rs"] = NumpyCoder
 
-# coders of the JAX package that this port does not carry yet
-_NOT_PORTED = ("native", "mesh")
-
-# layered codecs register themselves when their module is imported; a
-# .vif or a caller may name one before anything imported it
-_LAZY = {"piggyback": "piggyback", "msr": "product_matrix"}
-
-
-def _not_ported(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"coder/codec {name!r} is not yet ported to seaweedfs_tpu_torch")
+# coders that register themselves when their module is imported; a .vif or
+# a caller may name one before anything imported it. name -> (module,
+# whether it is an erasure codec rather than a compute backend)
+_LAZY = {
+    "native": (".native", False),
+    "mesh": ("..parallel.pipeline", False),
+    "piggyback": (".piggyback", True),
+    "msr": (".product_matrix", True),
+}
 
 
 def _resolve(name: str):
-    if name in _NOT_PORTED and name not in _REGISTRY:
-        raise _not_ported(name)
     if name not in _REGISTRY and name in _LAZY:
-        importlib.import_module(f"{__package__}.{_LAZY[name]}")
+        importlib.import_module(_LAZY[name][0], __package__)
     return _REGISTRY.get(name)
 
 
@@ -234,8 +236,9 @@ def registered_codecs() -> "list[str]":
     """Erasure CODEC names (one per wire/disk format, not per compute
     backend). Entries may be classes or factory callables; those without
     a `codec` attribute are plain-RS backends."""
-    for name in _LAZY:
-        _resolve(name)
+    for name, (_, is_codec) in _LAZY.items():
+        if is_codec:
+            _resolve(name)
     return sorted({getattr(cls, "codec", "rs") for cls in _REGISTRY.values()})
 
 

@@ -24,6 +24,7 @@ import numpy as np
 
 from ..ec import repair as ec_repair
 from ..ops.coder import host_result
+from ..stats import DEGRADED_EC_READS
 from ..utils.log import logger
 
 log = logger("volume_server")
@@ -62,6 +63,7 @@ def make_shard_reader(store, vid: int, fetch: Fetch,
     failure, not a lookup miss). The GF steps run on `store.coder`
     (kernel K1 on the card).
 
+    Every degraded interval counts one SeaweedFS_degraded_ec_reads_total.
     `stats`, when given, accumulates `reconstructs` (degraded intervals),
     `gather_s` (survivor reads and fetches), `decode_s` (the decode with
     its coder calls and, for the piggyback strip, its paired a-range
@@ -80,6 +82,7 @@ def make_shard_reader(store, vid: int, fetch: Fetch,
         return _reconstruct(shard_id, offset, length)
 
     def _count(t0: float, t1: float, fetched: int, **kinds) -> None:
+        DEGRADED_EC_READS.inc()  # one logical degraded read
         if stats is None:
             return
         t2 = time.perf_counter()

@@ -23,10 +23,13 @@ Admission is size-capped (`SWTPU_READ_CACHE_MAX_OBJ`): large needles
 stream straight off the volume file — one multi-MB blob must not evict
 thousands of hot small objects for a single pass-through read.
 
-The port's copy of the JAX package's storage/read_cache.py, without its
-metric hooks (SeaweedFS_read_cache_{hits,misses,evictions}_total and the
-bytes gauge): the port has no stats module yet. `stats()` still reports
-the cache's own counts.
+The port's copy of the JAX package's storage/read_cache.py, with its
+metric hooks (SeaweedFS_read_cache_{hits,misses,evictions}_total).
+Accounting uses delta updates against the shared
+`SeaweedFS_read_cache_bytes` gauge (+n on insert, -n on evict /
+invalidate / clear) so several caches in one process compose and the
+gauge can never scrape negative while each cache's own contribution is
+non-negative.
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ import threading
 import weakref
 from collections import OrderedDict
 
+from ..stats import (READ_CACHE_BYTES, READ_CACHE_EVICTIONS, READ_CACHE_HITS,
+                     READ_CACHE_MISSES)
 from ..utils.env import env_int
 
 # Defaults: a 64 MB cache holds ~64k hot 1 KB needles; objects above
@@ -124,6 +129,10 @@ class ReadCache:
         register(self)
 
     # -- accounting ---------------------------------------------------------
+    def _gauge_add(self, delta: int) -> None:
+        if delta:
+            READ_CACHE_BYTES.add(amount=delta)
+
     @property
     def bytes_used(self) -> int:
         return self._bytes
@@ -141,13 +150,17 @@ class ReadCache:
             ent = self._protected.get(k)
             if ent is not None:
                 if cookie is not None and ent.needle.cookie != cookie:
+                    self._miss()
                     return None
                 self._protected.move_to_end(k)
+                self._hit()
                 return ent.needle
             ent = self._probation.get(k)
             if ent is None:
+                self._miss()
                 return None
             if cookie is not None and ent.needle.cookie != cookie:
+                self._miss()
                 return None
             # second touch while on probation: earned a protected slot
             del self._probation[k]
@@ -155,6 +168,7 @@ class ReadCache:
             self._protected[k] = ent
             self._protected_bytes += ent.nbytes
             self._shrink_protected()
+            self._hit()
             return ent.needle
 
     def epoch(self, vid: int) -> int:
@@ -180,6 +194,7 @@ class ReadCache:
         if self.capacity <= 0 or nbytes > self.max_obj:
             return False
         k = (vid, key)
+        freed = 0
         with self._lock:
             if epoch is not None and self._epochs.get(vid, 0) != epoch:
                 return False
@@ -195,10 +210,16 @@ class ReadCache:
                 if old.protected:
                     self._protected_bytes += nbytes - old.nbytes
                     self._shrink_protected()
+                delta = nbytes - old.nbytes
             else:
                 self._probation[k] = _Entry(needle, nbytes)
                 self._bytes += nbytes
-            self._evict_over_capacity()
+                delta = nbytes
+            freed = self._evict_over_capacity()
+            # gauge delta INSIDE the lock: this cache's contribution is
+            # never observably negative, so the shared gauge (a sum of
+            # per-cache contributions) can never scrape negative either
+            self._gauge_add(delta - freed)
         return True
 
     def invalidate(self, vid: int, key: "int | None" = None) -> None:
@@ -207,39 +228,47 @@ class ReadCache:
         bytes cannot land afterwards. Callers invalidate AFTER the
         mutation is visible in the needle map — any fill that saw the
         old bytes necessarily snapshotted the pre-bump epoch."""
+        freed = 0
         with self._lock:
             self._epochs[vid] = self._epochs.get(vid, 0) + 1
             if key is not None:
-                self._drop((vid, key))
+                freed = self._drop((vid, key))
             else:
                 for seg in (self._probation, self._protected):
                     for k in [k for k in seg if k[0] == vid]:
-                        self._drop(k)
+                        freed += self._drop(k)
+            self._gauge_add(-freed)
 
     def invalidate_many(self, vid: int, keys) -> None:
         """Drop a batch of needles under ONE lock acquisition with a
         single epoch bump — same coherence as N invalidate() calls."""
+        freed = 0
         with self._lock:
             self._epochs[vid] = self._epochs.get(vid, 0) + 1
             for key in keys:
-                self._drop((vid, key))
+                freed += self._drop((vid, key))
+            self._gauge_add(-freed)
 
     def clear(self) -> None:
         with self._lock:
+            freed = self._bytes
             self._probation.clear()
             self._protected.clear()
             self._bytes = 0
             self._protected_bytes = 0
+            self._gauge_add(-freed)
 
     # -- internals (call with self._lock held) ------------------------------
-    def _drop(self, k) -> None:
+    def _drop(self, k) -> int:
         ent = self._probation.pop(k, None)
         if ent is None:
             ent = self._protected.pop(k, None)
             if ent is not None:
                 self._protected_bytes -= ent.nbytes
-        if ent is not None:
-            self._bytes -= ent.nbytes
+        if ent is None:
+            return 0
+        self._bytes -= ent.nbytes
+        return ent.nbytes
 
     def _shrink_protected(self) -> None:
         """Demote protected LRU entries back to probation's MRU end until
@@ -251,9 +280,10 @@ class ReadCache:
             ent.protected = False
             self._probation[k] = ent
 
-    def _evict_over_capacity(self) -> None:
+    def _evict_over_capacity(self) -> int:
         """Evict probation LRU first (the scan victims), protected only
-        when probation alone cannot make room."""
+        when probation alone cannot make room. Returns bytes freed."""
+        freed = 0
         while self._bytes > self.capacity:
             if self._probation:
                 _, ent = self._probation.popitem(last=False)
@@ -263,6 +293,22 @@ class ReadCache:
             else:
                 break
             self._bytes -= ent.nbytes
+            freed += ent.nbytes
+            self._evictions()
+        return freed
+
+    # -- metrics ------------------------------------------------------------
+    @staticmethod
+    def _hit() -> None:
+        READ_CACHE_HITS.inc()
+
+    @staticmethod
+    def _miss() -> None:
+        READ_CACHE_MISSES.inc()
+
+    @staticmethod
+    def _evictions() -> None:
+        READ_CACHE_EVICTIONS.inc()
 
     def stats(self) -> dict:
         with self._lock:

@@ -2,8 +2,9 @@
 with glog-style V(n) verbosity gates.
 
 `SWTPU_LOG_JSON=1` switches every record to one JSON object per line
-(level, ts, logger, msg) without changing the default human-readable
-format. `set_json_logging()` toggles it at runtime."""
+(level, ts, logger, msg, plus trace_id/span_id when a tracing span is
+active on the emitting thread/task) without changing the default
+human-readable format. `set_json_logging()` toggles it at runtime."""
 
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ _HUMAN_FORMATTER = logging.Formatter(
 
 
 class _JsonFormatter(logging.Formatter):
-    """One JSON object per line, machine-shippable."""
+    """One JSON object per line, machine-shippable, trace-correlated."""
 
     def format(self, record: logging.LogRecord) -> str:
         obj = {
@@ -29,6 +30,14 @@ class _JsonFormatter(logging.Formatter):
             "logger": record.name,
             "msg": record.getMessage(),
         }
+        try:
+            from ..tracing import current_ids
+            trace_id, span_id = current_ids()
+            if trace_id:
+                obj["trace_id"] = trace_id
+                obj["span_id"] = span_id
+        except Exception:  # noqa: BLE001 — logging must never raise
+            pass
         if record.exc_info:
             obj["exc"] = self.formatException(record.exc_info)
         return json.dumps(obj, default=str)

@@ -222,14 +222,19 @@ def test_fit_chunk_matches_reference():
 
 
 def test_codecs_not_ported_raise(tmp_path):
-    """native and mesh stay refused; the layered codecs are registered and
-    stream their slabs as plain RS through their inner coder, sealing the
-    codec's parities and the .vif as the JAX package does."""
+    """Every coder of the JAX package is ported: native and mesh are compute
+    backends, so as erasure codecs they are refused as the reference
+    refuses them; the layered codecs are registered and stream their slabs
+    as plain RS through their inner coder, sealing the codec's parities and
+    the .vif as the JAX package does."""
     for name in ("mesh", "native"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            coder_mod.get_coder(name, 4, 2)
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+        with pytest.raises(ValueError, match=f"unknown erasure codec '{name}'"):
             coder_mod.codec_coder(name, 4, 2)
+        with pytest.raises(ValueError, match=f"unknown erasure codec '{name}'"):
+            ref_codec_coder(name, 4, 2)
+    assert isinstance(coder_mod.get_coder("native", 4, 2),
+                      coder_mod.ErasureCoder)
+    assert not getattr(coder_mod, "_NOT_PORTED", ())
     assert coder_mod.registered_codecs() == ["msr", "piggyback", "rs"]
     assert coder_mod.repair_read_bytes("rs", 10, 4, [0, 3], 1000) == 10_000
     srcs = _make_jobs(tmp_path, [100, GEO.large_block * GEO.d + 5])

@@ -46,6 +46,13 @@ bad = sorted(n for n in sys.modules
 print("LOADED", len([n for n in sys.modules if n.startswith("seaweedfs_tpu_torch")]))
 print("TIER", all(f"seaweedfs_tpu_torch.{m}" in sys.modules
                   for m in ("storage.backend", "storage.vacuum", "s3.auth")))
+print("MESH", all(f"seaweedfs_tpu_torch.{m}" in sys.modules
+                  for m in ("parallel.mesh", "parallel.pipeline",
+                            "parallel.launch", "ops.native", "stats.metrics",
+                            "stats.parse", "stats.expo_lint", "tracing.trace",
+                            "utils.profiling")))
+from seaweedfs_tpu_torch.ops import coder
+print("CODERS", sorted(n for n in ("mesh", "native") if coder._resolve(n)))
 print("BAD", bad)
 """
 
@@ -56,6 +63,8 @@ def test_import_hygiene_no_jax_no_reference_package():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     assert "TIER True" in out.stdout, out.stdout
+    assert "MESH True" in out.stdout, out.stdout
+    assert "CODERS ['mesh', 'native']" in out.stdout, out.stdout
     assert int(out.stdout.split("LOADED ")[1].split()[0]) >= 15
 
 
@@ -64,12 +73,35 @@ def _repo_root():
     return Path(__file__).resolve().parent.parent
 
 
+def test_dryrun_multichip_on_four_cpu_ranks():
+    """The port's dryrun_multichip launches 4 gloo ranks (a 1x4 mesh, the
+    reference's build_mesh(4)): the step rebuilds exactly, the mesh scrub
+    is clean and every rank's MeshCoder shard files equal NumpyCoder's.
+    Its inputs are the reference dryrun's, from the same seed; the step's
+    byte count is the JAX step's on them."""
+    reports = port_entry.dryrun_multichip(4, device="cpu", timeout=240)
+    assert [r["rank"] for r in reports] == [0, 1, 2, 3]
+    for r in reports:
+        assert r["mesh"] == {"data": 1, "shard": 4} and r["device"] == "cpu"
+        assert (r["rebuild_mismatch_bytes"], r["scrub_bad"], r["volumes"]) == (0, 0, 3)
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    import jax
+    from seaweedfs_tpu.parallel.mesh import build_mesh
+    mesh = build_mesh(4)
+    data = np.random.default_rng(1).integers(0, 256, (2, 10, 512), np.uint8)
+    out = jax.jit(RefPipeline(d=10, p=4, mesh=mesh).step, static_argnums=(1,))(
+        jax.device_put(data, NamedSharding(mesh, P("data", None, None))),
+        (0, 5, 10, 13))
+    assert int(np.asarray(out["bytes_encoded"])) == reports[0]["bytes_encoded"]
+
+
 def test_no_silent_cpu_fallback(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for make in (lambda: coder.TorchCoder(10, 4),
                  lambda: coder.get_coder("torch", 10, 4),
                  lambda: ECPipeline(),
-                 lambda: port_entry.entry()):
+                 lambda: port_entry.entry(),
+                 lambda: port_entry.dryrun_multichip(1)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
     # the explicit CPU device is the only way to the plain version

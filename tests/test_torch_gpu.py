@@ -15,12 +15,18 @@ import shutil
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
+
+import torch_mesh_ranks
 
 from seaweedfs_tpu_torch.ec import encoder, files, stream
 from seaweedfs_tpu_torch.ec.locate import EcGeometry
+from seaweedfs_tpu_torch.entry import dryrun_multichip
 from seaweedfs_tpu_torch.models.ec_pipeline import ECPipeline
 from seaweedfs_tpu_torch.ops import crc32c, crc_cuda, crc_torch, rs_cuda, rs_torch
-from seaweedfs_tpu_torch.ops.coder import NumpyCoder, TorchCoder
+from seaweedfs_tpu_torch.ops.coder import NumpyCoder, TorchCoder, get_coder
+from seaweedfs_tpu_torch.parallel import launch
+from seaweedfs_tpu_torch.parallel.mesh import build_mesh
 from seaweedfs_tpu_torch.server.volume_server import make_shard_reader
 from seaweedfs_tpu_torch.storage import scrub
 from seaweedfs_tpu_torch.storage.disk_location import DiskLocation
@@ -179,8 +185,14 @@ def test_pipeline_scrub_on_card(cuda):
     for i, n in enumerate(lengths):
         blocks[i, 768 - n:] = rng.integers(0, 256, n, dtype=np.uint8)
     blocks[2, 768 - lengths[2] - 1] = 1
-    assert ECPipeline().scrub(blocks, lengths) == \
-        ECPipeline(device="cpu").scrub(blocks, lengths) == 1
+    counts = []
+    for device in ("cuda", "cpu"):  # an NCCL world of one, then a gloo one
+        pipe = ECPipeline(device=device)
+        try:
+            counts.append(pipe.scrub(blocks, lengths))
+        finally:
+            pipe.close()
+    assert counts == [1, 1]
 
 
 @pytest.mark.gpu
@@ -316,3 +328,91 @@ def test_msr_apply_raises_when_kernel_fails_to_load(cuda, monkeypatch):
     monkeypatch.setattr(rs_cuda, "load", broken)
     with pytest.raises(OSError, match="cannot open"):
         pm.encode(_data((4, pm.alpha * 2), 1))
+
+
+def _same(a, b, path="") -> None:
+    """a == b, recursively, arrays byte for byte."""
+    if isinstance(a, dict):
+        assert set(a) == set(b), path
+        for k in a:
+            _same(a[k], b[k], f"{path}/{k}")
+    elif isinstance(a, np.ndarray):
+        np.testing.assert_array_equal(a, b, err_msg=path)
+    else:
+        assert a == b, path
+
+
+@pytest.mark.gpu
+def test_mesh_step_on_one_card_matches_cpu_plain_run(cuda, tmp_path):
+    """The sharded encode, rebuild, scrub, ECPipeline.step and MeshCoder
+    stream on a 1x1 NCCL mesh (K1 and K3 on the card) against the same
+    program on a 1x1 gloo mesh (the plain versions), byte for byte."""
+    cases = torch_mesh_ranks.make_cases(1, 1, tmp_path)
+    card, plain = (launch.launch(torch_mesh_ranks.sharded_results, 1,
+                                 args=(1, None, cases, str(tmp_path), dev),
+                                 device=dev, timeout=300)[0]
+                   for dev in ("cuda", "cpu"))
+    launches = card.pop("launches"), plain.pop("launches")
+    _same(card, plain)
+    assert card[(10, 4)]["step"]["rebuild_mismatch_bytes"] == 0
+    assert card["scrub_damaged"] == 3 and card["pipeline_scrub"] == 3
+    k1, k3 = launches[0]["k1"], launches[0]["k3"]
+    assert k1.get("encode", 0) > 0 and k1.get("reconstruct", 0) > 0 and k3 > 0
+    assert launches[1] == {"k1": {}, "k3": 0}
+
+
+@pytest.mark.gpu
+def test_mesh_coder_raises_when_k1_fails_to_load(cuda, monkeypatch):
+    coder = get_coder("mesh", 10, 4)  # an NCCL world of one, in-process
+    try:
+        assert str(dist.get_backend()) == "nccl"
+        assert coder.device.type == "cuda"
+        monkeypatch.setattr(rs_cuda, "_LIB", None)
+
+        def broken():
+            raise OSError("libswtpu_rs_gf.so: cannot open shared object file")
+        monkeypatch.setattr(rs_cuda, "load", broken)
+        for call in (lambda: coder.encode(_data((2, 10, 100), 1)),
+                     lambda: coder.reconstruct(_data((2, 10, 100), 2),
+                                               tuple(range(10)), (10,))):
+            with pytest.raises(OSError, match="cannot open"):
+                call()
+    finally:
+        coder.mesh.close()
+    assert not dist.is_initialized()
+
+
+@pytest.mark.gpu
+def test_build_mesh_on_cuda_without_cuda_raises(cuda, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_mesh(device="cuda")
+    assert not dist.is_initialized()
+
+
+@pytest.mark.gpu
+def test_dryrun_multichip_on_card(cuda):
+    reports = dryrun_multichip(1)
+    assert reports == [{"rank": 0, "mesh": {"data": 1, "shard": 1},
+                        "device": "cuda:0", "rebuild_mismatch_bytes": 0,
+                        "bytes_encoded": 2 * 10 * 512, "scrub_bad": 0,
+                        "volumes": 3}]
+
+
+@pytest.mark.gpu
+def test_device_trace_records_kernels_on_card(cuda, tmp_path):
+    """utils/profiling's capture sees K1's launches on the card."""
+    from seaweedfs_tpu_torch.utils import profiling
+    x = torch.from_numpy(_data((4, 10, 4096), 9)).to(cuda)
+    profiling.start_device_trace(out_dir=str(tmp_path))
+    try:
+        for _ in range(3):
+            rs_cuda.encode(x, 10, 4)
+        torch.cuda.synchronize()
+    finally:
+        path = profiling.stop_device_trace()
+    import json
+    with open(path) as f:
+        names = {ev.get("name", "") for ev in json.load(f)["traceEvents"]
+                 if ev.get("cat") == "kernel"}
+    assert any("rs_gf" in n for n in names), sorted(names)[:20]

@@ -241,6 +241,10 @@ def test_pipeline_scrub_count_matches_jax(width):
     lengths[3] -= 1                              # a length that disagrees
     want = RefPipeline().scrub(blocks, lengths)
     assert want == 4
-    assert ECPipeline(device="cpu").scrub(blocks, lengths) == want
+    pipe = ECPipeline(device="cpu")  # a world of one, released below
+    try:
+        assert pipe.scrub(blocks, lengths) == want
+    finally:
+        pipe.close()
     np.testing.assert_array_equal(ECPipeline._expected(blocks, lengths),
                                   RefPipeline._expected(blocks, lengths))

@@ -202,7 +202,8 @@ def test_fewer_than_d_reachable_raises_oserror(pair, tmp_path):
 
 def test_degraded_read_refuses_layered_codec(pair, tmp_path):
     """A layered codec sealed in the .vif is served (piggyback here, msr in
-    test_torch_codec_store.py); a codec the port does not carry is refused."""
+    test_torch_codec_store.py); a name that is no erasure codec (a compute
+    backend such as mesh, or nothing at all) is refused."""
     a, ref, want = pair
     base = a.generate_ec_shards(VID, codec="piggyback")
     ref_base = ref.generate_ec_shards(VID, codec="piggyback")
@@ -223,7 +224,7 @@ def test_degraded_read_refuses_layered_codec(pair, tmp_path):
         for nid, (cookie, data) in want.items():
             assert a.read_needle(VID, nid, cookie=cookie,
                                  shard_reader=reader).data == data
-        for codec, err in (("mesh", NotImplementedError), ("bogus", ValueError)):
+        for codec, err in (("mesh", ValueError), ("bogus", ValueError)):
             files.update_vif(base + ".vif", {"codec": codec})
             a.mount_ec_shards(VID)
             with pytest.raises(err, match=codec):
@@ -467,11 +468,11 @@ def test_coder_selection_has_no_fallback(tmp_path, monkeypatch):
                         ec_codec=codec, device="cpu").coder()
         assert layered.codec == codec and layered.inner.device.type == "cpu"
         assert t.coder(codec=codec).inner.device.type == "cpu"
-    for codec in ("native", "mesh"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+    for codec in ("native", "mesh"):  # compute backends, not codecs
+        with pytest.raises(ValueError, match="unknown erasure codec"):
             Store("127.0.0.1", 0, "", [DiskLocation(str(tmp_path / codec))],
                   ec_codec=codec, device="cpu")
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="unknown erasure codec"):
             t.coder(codec=codec)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
