@@ -5,7 +5,7 @@
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result). `--phases` runs a subset (default: all); phase 1 always runs, and
-the kernels line needs phases 3, 4, 6, 7, 8, 9, 10, 11 and 12. The kernels of the
+the kernels line needs phases 3, 4 and 6 to 13. The kernels of the
 phases asked for are built first, all at once (one nvcc per source).
 
 1. device: card name, count, `nvidia-smi` name and power limit;
@@ -53,9 +53,10 @@ phases asked for are built first, all at once (one nvcc per source).
    the 17 damaged ids, with the scanned and checked counts of
    device="off". Every launch count is zeroed just before the cuda scrub
    and read just after; K3 must have launched;
-9. EC volumes served from a Store at deployment size: servers A and B,
-   each a Store on the card (coder "torch", kernel K1); 1,048,576 needles
-   of 1024 + 0..63 B written on A through Store.write_needles_bulk,
+9. EC volumes served from a Store: servers A and B, each a Store on the
+   card (coder "torch", kernel K1); 524,288 needles of 1024 + 0..63 B
+   (half of weed benchmark's write set: phase 13 runs the same flow at
+   full size) written on A through Store.write_needles_bulk,
    Store.generate_ec_shards at RS(10,4) (1 GiB / 1 MiB blocks), shards 7-13
    with copies of the .ecx and .vif moved to B, the source volume deleted,
    both mounted. A seeded sample of 16,384 needles read on A through
@@ -73,16 +74,17 @@ phases asked for are built first, all at once (one nvcc per source).
    [10, ~1 KB] are timed;
 10. tiered volumes, on one Store with an `ssd` and an `hdd` location and a
    remote tier `local:<workdir>/tier` (storage/backend.LocalDirRemote, its
-   object reads counted): half the write set of phase 9 (524,288 needles
+   object reads counted): half the write set of phase 13 (524,288 needles
    of 1024 + 0..63 B; depth cut to keep the whole within its time)
    written on `ssd`, 64 needles deleted and 64 overwritten,
-   vacuum.compact + commit_compact (garbage 0, the .dat shrunk by exactly
-   the dead records); Store.move_volume_local to `hdd`; the .dat tiered up
-   (a stand-in of VolumeTierMoveDatToRemote) and a seeded sample of 16,384
+   VacuumVolumeCompact + Commit through the RPC bodies of a
+   server/volume_server.VolumeServer over that Store (garbage 0, the .dat
+   shrunk by exactly the dead records); Store.move_volume_local to `hdd`;
+   the .dat tiered up (its VolumeTierMoveDatToRemote) and a seeded sample of 16,384
    needles read through storage/backend.RemoteDatFile; scrub_volume of the
    tiered volume must be "skipped-tiered" with no K3 launch and no remote
    read; a second Store over the same directories loads it; the .dat tiered
-   down (VolumeTierMoveDatFromRemote) and scrubbed through K3 (K3's count
+   down (its VolumeTierMoveDatFromRemote) and scrubbed through K3 (K3's count
    zeroed just before, read just after; 0 corrupt, every live needle
    checked). Then EC at the fork's RS(14,2) (1 GiB / 1 MiB blocks), shards
    (0, 5) lost, the 14 others offloaded to the tier; the sample read
@@ -117,7 +119,8 @@ phases asked for are built first, all at once (one nvcc per source).
    parallel/pipeline.py; a world of one on this card, as the reference's
    build_mesh gives on one chip): ECPipeline.step at RS(10,4)
    [32, 10, 1 MiB] with (0, 5, 10, 13) lost and at RS(14,2) [32, 14, 1 MiB]
-   with (0, 5) lost, mismatch 0; a 1,145,031,680 B .dat (phase 9's size)
+   with (0, 5) lost, mismatch 0; a 1,145,031,680 B .dat (the size of
+   weed benchmark's write set)
    through ec/stream.encode_volumes with MeshCoder at RS(10,4), 1 GiB /
    1 MiB blocks, batch 32; the mesh-wide scrub of 1,048,576 needles of
    1024 + 0..63 B in [4096, 2048] batches against their stored CRC states,
@@ -128,9 +131,37 @@ phases asked for are built first, all at once (one nvcc per source).
    reconstruct of the same shapes without the mesh; NativeCoder (the port's
    AVX2 CPU coder) on [32, 10, 1 MiB] byte-equal to K1, both timed, with
    the host's CPU model; entry.dryrun_multichip(1) on one launched rank;
-13. summary: one JSON line of every kernel with its launches (K1's from
-   phases 6, 9, 10, 11 and 12, K3's from phases 8, 10 and 12), error
-   against the plain version, times and bound; then the result line.
+13. the volume server on the card (server/volume_server.py): servers A, B
+   and C, each a VolumeServer over a Store on the card (coder "torch",
+   RS(10,4), 1 GiB / 1 MiB blocks) with its HTTP plane on a localhost
+   port, joined by one LocalPeers. Phase 9's write set on A through
+   Store.write_needles_bulk, then 4,096 needles POSTed over HTTP, each
+   acknowledged and read back by GET; VolumeMarkReadonly and
+   VolumeEcShardsGenerate (K1 encode); VolumeEcShardsCopy of shards 7-13
+   with the .ecx and .vif to B through CopyFile on the peer plane, both
+   mounted, 7-13 deleted on A, the source volume deleted. A seeded sample
+   of 16,384 needles GET from A by one keep-alive client, a quarter with a
+   Range header, healthy, then after VolumeEcShardsDelete of (0, 5) on A
+   and (10, 13) on B: every body equal, the reconstructs (K1 at one
+   stripe) numbering the sampled intervals on lost shards; then the
+   degraded reads again with A's shard reads over gRPC (grpc_service on A
+   and B; the holder lookup from the heartbeats, as no master runs). Shard
+   8 moved B -> C by VolumeEcShardsMove on C behind A's location cache:
+   its reads refresh the stale locations and fetch from C without a
+   reconstruct. B rebuilds (10, 13) by VolumeEcShardsCopyByRebuild and A
+   (0, 5) by VolumeEcShardsRebuild (K1 at [32, 10, 1 MiB]) with the
+   others' shards as remote survivors, to the shards' hashes. With B's
+   breaker open, reads of its shards succeed through the last probe.
+   VolumeEcBlobDelete then GET 404; the data shards copied to A and
+   VolumeEcShardsToVolume to the .dat's hash, the sample by GET. A regular
+   volume of 262,144 needles on C damaged as phase 8 does: VolumeScrub
+   with device "" reports exactly the 17 through K3, "auto" the same,
+   "off" the same counts in mode cpu. K1's and K3's counts are zeroed just
+   before the phase and read just after; then K1 at the degraded reads'
+   one-stripe width is timed;
+14. summary: one JSON line of every kernel with its launches (K1's from
+   phases 6, 9, 10, 11, 12 and 13, K3's from phases 8, 10, 12 and 13),
+   error against the plain version, times and bound; then the result line.
 
 Needs CUDA and the repository beside it; without either it exits 2.
 """
@@ -154,20 +185,22 @@ MAIN_SHAPE = (32, 10, 1 << 20)  # [batch, d, chunk] of one encode call
 LOST_10_4 = (0, 5, 10, 13)
 LOST_14_2 = (3, 15)
 WIDTHS = (16, 48, 100, 384, 4112, 65536, 65552)
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13)
 PALLAS = "seaweedfs_tpu/ops/rs_pallas.py"
 K1_SOURCE = "seaweedfs_tpu_torch/csrc/rs_gf.cu"
 K3_SOURCE = "seaweedfs_tpu_torch/csrc/crc32c.cu"
 K3_REPLACES = "seaweedfs_tpu/ops/crc32c.py:183"  # device_crc_states
 KERNELS = {2: ("rs_gf",), 7: ("crc32c",), 9: ("rs_gf",),  # phase -> csrc
            10: ("rs_gf", "crc32c"), 11: ("rs_gf",),    # sources it builds
-           12: ("rs_gf", "crc32c")}
+           12: ("rs_gf", "crc32c"), 13: ("rs_gf", "crc32c")}
 K3_SHAPES = ((4096, 2048), (16384, 4096), (64, 1 << 20))  # first: the scrub's
 K3_ROWS = (1, 3, 4096, 4225)  # 4225 = 132 SMs x 32 warps + 1
 K3_LENGTHS = (0, 512, 1024, 2048, 4096, 65536, 1 << 20)
 NEEDLE_LENGTHS = (0, 1, 511, 512, 513, 1087, 9000)
 SCRUB_NEEDLES = 1 << 20
 EC_NEEDLES = 1 << 20   # weed benchmark's default write set, as phase 8
+EC_STORE_NEEDLES = 1 << 19  # phase 9: half of it (phase 13 runs the same
+                            # flow at full size behind the server)
 EC_SAMPLE = 16384      # needles read back per pass
 EC_VID = 1
 A_LOST, B_LOST = (0, 5), (10, 13)
@@ -178,10 +211,16 @@ CODEC_SAMPLE = 4096    # phase 11: needles read back per pass
 MSR_LOST, MSR_LOST2 = 5, (0, 14)  # phase 11(a) at RS(14,2)
 PB_LOST = (3, 7)       # phase 11(b) at RS(10,4): survivors take parity 11
 MESH_STEPS = ((10, 4, (0, 5, 10, 13)), (14, 2, (0, 5)))  # phase 12
-MESH_DAT = 1_145_031_680  # phase 12: phase 9's .dat size
+MESH_DAT = 1_145_031_680  # phase 12: the .dat size of 1,048,576 needles
 MESH_SCRUB_NEEDLES = 1 << 20  # phase 12: weed benchmark's default write set
 MESH_SCRUB_BATCH = (4096, 2048)
 MESH_DAMAGED = 17
+SERVER_HTTP_NEEDLES = 4096  # phase 13: needles POSTed over HTTP after the bulk set
+SERVER_SCRUB_NEEDLES = 1 << 18  # phase 13: the regular volume VolumeScrub checks
+# `python3 -c "import grpc, google.protobuf"` on the card's machine found
+# grpc 1.80.0 and protobuf 6.33.6 (PERF.md), so phase 13 also reads its
+# degraded sample over gRPC
+GRPC_ON_CARD = True
 K1_ENTRIES = {  # wrapper entry -> the TPU function it replaces
     "encode": f"{PALLAS}:156",
     "encode_seeded": f"{PALLAS}:164",
@@ -783,16 +822,16 @@ def phase_k3_timing(torch, np, seed: int, card: str) -> "dict[tuple, dict]":
 
 
 # -- phase 8 ----------------------------------------------------------------
-def make_scrub_volume(np, vdir: str, seed: int):
-    """The 1,048,576-needle volume, damaged; returns (volume, the 17 ids
-    whose live bytes were damaged, the 64 deleted ids)."""
+def make_scrub_volume(np, vdir: str, seed: int, n: int = SCRUB_NEEDLES,
+                      vid: int = 1):
+    """Volume `vid` of `n` needles (1,048,576 by default), damaged; returns
+    (volume, the 17 ids whose live bytes were damaged, the 64 deleted ids)."""
     from seaweedfs_tpu_torch.storage.needle import Needle
     from seaweedfs_tpu_torch.storage.volume import Volume
     rng = np.random.default_rng(seed)
-    n = SCRUB_NEEDLES
     sizes = 1024 + rng.integers(0, 64, n)
     cookies = rng.integers(0, 1 << 32, n, dtype=np.uint64)
-    v = Volume(vdir, "", 1)
+    v = Volume(vdir, "", vid)
     t0 = time.perf_counter()
     frame = 4096
     for lo in range(0, n, frame):
@@ -1236,7 +1275,7 @@ def phase_ec_store(torch, np, workdir: str, seed: int, card: str) -> "dict[str, 
     torch.cuda.synchronize()
     rs_cuda.reset_launches()
     res = ec_store_round_trip(np, workdir, seed + 13, card, EcGeometry(10, 4),
-                              EC_NEEDLES, EC_SAMPLE)
+                              EC_STORE_NEEDLES, EC_SAMPLE)
     torch.cuda.synchronize()
     launches = dict(rs_cuda.launches_by_entry)
     log(f"[ec] K1 launches on the EC store path: {json.dumps(launches)} [{card}]")
@@ -1248,69 +1287,13 @@ def phase_ec_store(torch, np, workdir: str, seed: int, card: str) -> "dict[str, 
 
 
 # -- phase 10 ---------------------------------------------------------------
-def _vacuum(store, vid: int):
-    """VacuumVolumeCompact + VacuumVolumeCommit stand-in (the JAX package's
-    server/volume_server.py:2580-2601): a tiered volume is refused, the
-    compacted Volume is installed in place of the old one."""
-    from seaweedfs_tpu_torch.storage import vacuum
-    v = store.find_volume(vid)
-    if v.remote_spec is not None:
-        raise PermissionError(f"volume {vid} is tiered; download it before "
-                              "compacting")
-    _, reclaimed = vacuum.compact(v)
-    newv = vacuum.commit_compact(v)
-    for loc in store.locations:
-        if loc.volumes.get(vid) is v:
-            loc.volumes[vid] = newv
-    return newv, reclaimed
-
-
-def _tier_upload(store, vid: int, spec: str) -> int:
-    """VolumeTierMoveDatToRemote stand-in (volume_server.py:3269-3306, the
-    local .dat not kept): seal, upload, record the remote in the .vif,
-    close, unlink and reload. Returns the bytes uploaded."""
-    from seaweedfs_tpu_torch.ec import files
-    from seaweedfs_tpu_torch.storage.backend import open_remote
-    v = store.find_volume(vid)
-    if v.remote_spec is not None:
-        raise ValueError(f"volume {vid} already tiered")
-    client = open_remote(spec)
-    v.read_only = True
-    v.sync()
-    key = os.path.basename(v.dat_path)
-    size = client.write_object(key, v.dat_path)
-    files.update_vif(v.vif_path, {"remote": {"spec": spec, "key": key,
-                                             "size": size}})
-    v.close()
-    os.unlink(v.dat_path)
-    store.reload_volume(vid)
-    return size
-
-
-def _tier_download(store, vid: int) -> int:
-    """VolumeTierMoveDatFromRemote stand-in (volume_server.py:3311-3353, the
-    remote copy not kept): download to a temp name, check its size, make it
-    durable, swap it in, drop `remote` from the .vif, reload, delete the
-    remote object. Returns the bytes downloaded."""
-    from seaweedfs_tpu_torch.ec import files
-    from seaweedfs_tpu_torch.storage.backend import open_remote
-    from seaweedfs_tpu_torch.utils import fsutil
-    v = store.find_volume(vid)
-    remote = v.remote_spec
-    client = open_remote(remote["spec"])
-    tmp = v.dat_path + ".tiertmp"
-    client.read_object_to(remote["key"], tmp)
-    got = os.path.getsize(tmp)
-    if got != remote["size"]:
-        raise OSError(f"short download: {got} != {remote['size']}")
-    v.close()
-    fsutil.fsync_path(tmp)
-    os.replace(tmp, v.dat_path)
-    fsutil.fsync_dir(v.dat_path)
-    files.update_vif(v.vif_path, remove=("remote",))
-    store.reload_volume(vid)
-    client.delete_object(remote["key"])
-    return got
+def _vacuum(vs, vid: int):
+    """VacuumVolumeCompact + VacuumVolumeCommit through the volume server's
+    RPC bodies (a tiered volume is refused with FAILED_PRECONDITION);
+    returns the compacted Volume and the bytes reclaimed."""
+    reclaimed = vs.vacuum_volume_compact(vid)
+    vs.vacuum_volume_commit(vid)
+    return vs.store.find_volume(vid), reclaimed
 
 
 def _timed_reads(order, read, counted) -> dict:
@@ -1342,7 +1325,8 @@ def tier_round_trip(np, workdir: str, seed: int, card: str, geo,
     from seaweedfs_tpu_torch.ec import files
     from seaweedfs_tpu_torch.ec.locate import locate
     from seaweedfs_tpu_torch.ops import crc_cuda, rs_cuda
-    from seaweedfs_tpu_torch.server.volume_server import make_shard_reader
+    from seaweedfs_tpu_torch.server.volume_server import (
+        FAILED_PRECONDITION, RpcAbort, VolumeServer, make_shard_reader)
     from seaweedfs_tpu_torch.storage import backend, scrub
     from seaweedfs_tpu_torch.storage.disk_location import DiskLocation
     from seaweedfs_tpu_torch.storage.needle import Needle, record_size_from_header
@@ -1368,6 +1352,8 @@ def tier_round_trip(np, workdir: str, seed: int, card: str, geo,
     plain_remote, backend.LocalDirRemote = backend.LocalDirRemote, CountingRemote
     store = Store("127.0.0.1", 8080, "", locations(), ec_geometry=geo,
                   device=device)
+    # the vacuum and tier moves run through the volume server's RPC bodies
+    vs = VolumeServer(store, "127.0.0.1", 8080)
     pool = ThreadPoolExecutor(max_workers=4)
     out: dict = {}
     try:
@@ -1402,7 +1388,7 @@ def tier_round_trip(np, workdir: str, seed: int, card: str, geo,
         before = v.content_size
         garbage = v.garbage_ratio()
         t0 = time.perf_counter()
-        v, reclaimed = _vacuum(store, EC_VID)
+        v, reclaimed = _vacuum(vs, EC_VID)
         vac_s = time.perf_counter() - t0
         if (v.garbage_ratio(), v.content_size, reclaimed) != (
                 0.0, before - dead, dead):
@@ -1437,7 +1423,7 @@ def tier_round_trip(np, workdir: str, seed: int, card: str, geo,
 
         # 3. tier the .dat up, read it through the RemoteDatFile
         t0 = time.perf_counter()
-        up_b = _tier_upload(store, EC_VID, spec)
+        up_b = vs.volume_tier_move_dat_to_remote(EC_VID, spec)["processed"]
         up_s = time.perf_counter() - t0
         v = store.find_volume(EC_VID)
         if v.remote_spec is None or os.path.exists(v.dat_path):
@@ -1455,9 +1441,10 @@ def tier_round_trip(np, workdir: str, seed: int, card: str, geo,
         else:
             raise AssertionError("a tiered volume took a write")
         try:
-            _vacuum(store, EC_VID)
-        except PermissionError:
-            pass
+            _vacuum(vs, EC_VID)
+        except RpcAbort as e:
+            if e.code != FAILED_PRECONDITION:
+                raise
         else:
             raise AssertionError("a tiered volume was compacted")
         calls, k3 = counted["calls"], crc_cuda.launches
@@ -1489,7 +1476,7 @@ def tier_round_trip(np, workdir: str, seed: int, card: str, geo,
 
         # 4. tier the .dat down, scrub it through K3
         t0 = time.perf_counter()
-        down_b = _tier_download(store, EC_VID)
+        down_b = vs.volume_tier_move_dat_from_remote(EC_VID)["processed"]
         down_s = time.perf_counter() - t0
         v = store.find_volume(EC_VID)
         if v.remote_spec is not None or _sha256(v.dat_path) != dat_hash:
@@ -1635,7 +1622,7 @@ def tier_round_trip(np, workdir: str, seed: int, card: str, geo,
     finally:
         backend.LocalDirRemote = plain_remote
         pool.shutdown()
-        store.close()
+        vs.stop()  # its read pools and the Store
 
 
 def phase_tier(torch, np, workdir: str, seed: int, card: str) -> dict:
@@ -2278,6 +2265,446 @@ def phase_mesh(torch, np, workdir: str, seed: int, card: str) -> dict:
     return res
 
 
+# -- phase 13 ---------------------------------------------------------------
+def _free_port() -> int:
+    """A free localhost port whose +10000 gRPC sibling is free and valid."""
+    import socket
+    for _ in range(200):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        if port + 10000 >= 65536:
+            continue
+        try:
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", port + 10000))
+            return port
+        except OSError:
+            continue
+    raise RuntimeError("no free port pair")
+
+
+class _Client:
+    """One HTTP/1.1 client on one keep-alive connection (a user's reads
+    one at a time)."""
+
+    def __init__(self, url: str):
+        import http.client
+        host, port = url.rsplit(":", 1)
+        self.conn = http.client.HTTPConnection(host, int(port), timeout=60)
+
+    def request(self, method: str, path: str, body: bytes = None,
+                headers: "dict | None" = None) -> "tuple[int, bytes, dict]":
+        self.conn.request(method, path, body=body, headers=headers or {})
+        r = self.conn.getresponse()
+        return r.status, r.read(), dict(r.getheaders())
+
+    def close(self) -> None:
+        self.conn.close()
+
+
+def _intervals(ev, geo, nid: int) -> "list[tuple[int, int]]":
+    """(shard, length) of each interval of needle `nid` of EC volume `ev`."""
+    from seaweedfs_tpu_torch.ec.locate import locate
+    from seaweedfs_tpu_torch.storage.needle import record_size_from_header
+    off, size = ev.find_needle(nid)
+    return [(iv.shard_and_offset(geo)[0], iv.size) for iv in locate(
+        geo, ev.dat_size, off, record_size_from_header(size))]
+
+
+def server_round_trip(np, workdir: str, seed: int, card: str, geo,
+                      needles: int, sample: int, http_needles: int,
+                      scrub_needles: int, device: str = "cuda",
+                      grpc_pass: bool = GRPC_ON_CARD) -> dict:
+    """Phase 13's path through three volume servers, every check fatal;
+    logs the measured numbers and returns them with the degraded
+    intervals' lengths."""
+    from seaweedfs_tpu_torch.ec import files
+    from seaweedfs_tpu_torch.ops import crc_cuda
+    from seaweedfs_tpu_torch.server.volume_server import LocalPeers, VolumeServer
+    from seaweedfs_tpu_torch.storage.disk_location import DiskLocation
+    from seaweedfs_tpu_torch.storage.needle import Needle
+    from seaweedfs_tpu_torch.storage.store import Store
+    from seaweedfs_tpu_torch.storage.types import file_id
+    from seaweedfs_tpu_torch.utils import retry
+
+    lost = {"a": A_LOST, "b": B_LOST}
+    servers = {}
+    for x in "abc":
+        port = _free_port()
+        store = Store("127.0.0.1", port, "", [DiskLocation(os.path.join(
+            workdir, f"server_{x}"))], ec_geometry=geo, coder_name="torch",
+            device=device)
+        servers[x] = VolumeServer(store, "127.0.0.1", port)
+    a, b, c = servers["a"], servers["b"], servers["c"]
+    peers = LocalPeers({vs.peer_address: vs for vs in servers.values()})
+    client = None
+    grpc_servers = []
+    out: dict = {}
+    retry.reset_breakers()
+    try:
+        for vs in servers.values():
+            vs.start()
+        client = _Client(a.url)
+
+        # 2. write: the bulk write set on A, then needles over HTTP
+        rng = np.random.default_rng(seed)
+        sizes = 1024 + rng.integers(0, 64, needles)
+        cookies = rng.integers(0, 1 << 32, needles, dtype=np.uint64)
+        order = sorted(int(i) for i in rng.choice(needles, sample,
+                                                   replace=False) + 1)
+        a.allocate_volume(EC_VID)
+        t0 = time.perf_counter()
+        want = write_set(np, a.store, rng, sizes, cookies, set(order))
+        bulk_s = time.perf_counter() - t0
+        posted = {}
+        t0 = time.perf_counter()
+        for i in range(needles + 1, needles + http_needles + 1):
+            body = rng.bytes(int(1024 + rng.integers(0, 64)))
+            fid = file_id(EC_VID, i, int(rng.integers(1, 1 << 32)))
+            st, resp, _ = client.request("POST", f"/{fid}", body)
+            if st != 201 or json.loads(resp)["size"] != len(body):
+                raise AssertionError(f"POST of {fid}: {st} {resp[:200]!r}")
+            posted[fid] = body
+        post_s = time.perf_counter() - t0
+        for fid, body in posted.items():
+            st, got, _ = client.request("GET", f"/{fid}")
+            if (st, got) != (200, body):
+                raise AssertionError(f"GET of posted {fid}: {st}")
+        base_a = a.store.find_volume(EC_VID).file_name()
+        a.store.find_volume(EC_VID).sync()
+        dat_size = os.path.getsize(base_a + ".dat")
+        dat_hash = _sha256(base_a + ".dat")
+        log(f"[server] A: {needles} needles through Store.write_needles_bulk "
+            f"in {bulk_s:.1f} s, then {http_needles} POSTed over HTTP in "
+            f"{post_s:.3f} s ({http_needles / post_s:.0f} writes/s, one "
+            f"client), each acknowledged and read back by GET; .dat {dat_size} B")
+
+        # 3. encode and spread
+        a.volume_mark_readonly(EC_VID)
+        t0 = time.perf_counter()
+        a.volume_ec_shards_generate(EC_VID)
+        gen_s = time.perf_counter() - t0
+        b.volume_ec_shards_copy(EC_VID, shard_ids=list(range(7, geo.n)),
+                                copy_ecx_file=True, copy_vif_file=True,
+                                source_data_node=a.peer_address)
+        a.volume_ec_shards_mount(EC_VID)
+        b.volume_ec_shards_mount(EC_VID)
+        a.volume_ec_shards_delete(EC_VID, shard_ids=list(range(7, geo.n)))
+        a.volume_delete(EC_VID)
+        base_b = b.store.find_ec_volume(EC_VID).base
+        ev_a, ev_b = (s.store.find_ec_volume(EC_VID) for s in (a, b))
+        if (ev_a.dat_size, sorted(ev_a.shards), sorted(ev_b.shards)) != (
+                dat_size, list(range(7)), list(range(7, geo.n))):
+            raise AssertionError("EC volume mounted with the wrong shards")
+        shard_hash = {s: _sha256((base_a if s < 7 else base_b)
+                                 + files.shard_ext(s)) for s in range(geo.n)}
+        log(f"[server] VolumeEcShardsGenerate RS({geo.d},{geo.p}) of {dat_size} "
+            f"B in {gen_s:.3f} s = {dat_size / gen_s / 1e9:.3f} GB/s; shards "
+            f"7-{geo.n - 1} with the .ecx and .vif copied to B through "
+            f"CopyFile on the peer plane, mounted, deleted on A, source "
+            f"volume deleted [{card}]")
+
+        ivs = {nid: _intervals(ev_a, geo, nid) for nid in order}
+        fids = {nid: file_id(EC_VID, nid, int(cookies[nid - 1])) for nid in order}
+        ranged = set(order[::4])  # a quarter of the reads carry a Range
+
+        def read_pass(tag: str, ids=None) -> "list[float]":
+            """GET each sampled needle (or `ids`) from A; the latencies."""
+            lat = []
+            for nid in order if ids is None else ids:
+                hdr = {}
+                data = want[nid]
+                if nid in ranged:
+                    lo = nid % 97
+                    hi = min(len(data), lo + 511)
+                    hdr = {"Range": f"bytes={lo}-{hi - 1}"}
+                    data = data[lo:hi]
+                t = time.perf_counter()
+                st, got, _ = client.request("GET", f"/{fids[nid]}",
+                                            headers=hdr)
+                lat.append(time.perf_counter() - t)
+                if (st, got) != (206 if hdr else 200, data):
+                    raise AssertionError(f"{tag} GET of needle {nid}: {st}, "
+                                         f"body {'==' if got == data else '!='}")
+            return lat
+
+        def ms(xs, q):
+            return _pct(np, xs, q) * 1e3
+
+        # 4. healthy reads
+        healthy = read_pass("healthy")
+        if a.read_stats.get("reconstructs"):
+            raise AssertionError("healthy reads reconstructed")
+        out["healthy"] = healthy
+        log(f"[server] healthy GETs on A: {len(order)} sampled needles "
+            f"({len(ranged)} ranged) == written; p50 {ms(healthy, 50):.4f} ms, "
+            f"p99 {ms(healthy, 99):.4f} ms, {len(order) / sum(healthy):.1f} "
+            f"reads/s one client [{card}]")
+        # the HTTP layer's cost: a slice of the sample read through the
+        # server without HTTP, by GET, and the round trip of GET /status
+        part = order[:2000]
+        t_read, t_get, t_status = [], [], []
+        for nid in part:
+            t = time.perf_counter()
+            a._store_read(EC_VID, nid, int(cookies[nid - 1]))
+            t_read.append(time.perf_counter() - t)
+            t = time.perf_counter()
+            client.request("GET", f"/{fids[nid]}")
+            t_get.append(time.perf_counter() - t)
+            t = time.perf_counter()
+            client.request("GET", "/status")
+            t_status.append(time.perf_counter() - t)
+        log(f"[server] the same reads' parts on {len(part)} of them, p50: "
+            f"the server's store read without HTTP {ms(t_read, 50):.4f} ms, "
+            f"GET {ms(t_get, 50):.4f} ms, GET /status (the HTTP round trip "
+            f"alone) {ms(t_status, 50):.4f} ms [{card}]")
+
+        # 5. degraded reads
+        a.volume_ec_shards_delete(EC_VID, shard_ids=list(A_LOST))
+        b.volume_ec_shards_delete(EC_VID, shard_ids=list(B_LOST))
+        gone = set(A_LOST + B_LOST)
+        expected = sum(1 for nid in order for s, _ in ivs[nid] if s in gone)
+        deg_ids = [nid for nid in order if any(s in gone for s, _ in ivs[nid])]
+        r0 = a.read_stats.get("reconstructs", 0)
+        degraded = read_pass("degraded")
+        got_rec = a.read_stats.get("reconstructs", 0) - r0
+        if got_rec != expected or not expected:
+            raise AssertionError(f"{got_rec} reconstructs; the sample's "
+                                 f"intervals on lost shards number {expected}")
+        deg_lat = [degraded[order.index(nid)] for nid in deg_ids]
+        out["degraded"] = deg_lat
+        out["lengths"] = [ln for nid in order for s, ln in ivs[nid] if s in gone]
+        log(f"[server] degraded GETs on A, shards {sorted(gone)} lost: "
+            f"{len(order)} sampled == written, {expected} reconstructs == the "
+            f"sampled intervals on lost shards; the {len(deg_ids)} degraded "
+            f"reads p50 {ms(deg_lat, 50):.4f} ms, p99 {ms(deg_lat, 99):.4f} "
+            f"ms, {len(deg_ids) / sum(deg_lat):.1f} reads/s; the same "
+            f"needles healthy p50 "
+            f"{ms([healthy[order.index(n)] for n in deg_ids], 50):.4f} ms "
+            f"[{card}]")
+
+        # 11. the degraded reads again, their shard reads over gRPC
+        if grpc_pass:
+            from seaweedfs_tpu_torch.server.grpc_service import (GrpcPeers,
+                                                                 build_service)
+            from seaweedfs_tpu_torch.utils.rpc import serve
+
+            class GrpcReads(GrpcPeers):
+                """Shard reads over gRPC to the servers' bindings; the
+                holder lookup the master answers comes from the servers'
+                heartbeats (no master runs here)."""
+
+                def __init__(self, local):
+                    super().__init__("127.0.0.1:1")
+                    self.local = local
+
+                def lookup_ec(self, vid):
+                    return self.local.lookup_ec(vid)
+
+            for vs in (a, b):
+                grpc_servers.append(serve(vs.peer_address, [build_service(vs)]))
+            a.peers = GrpcReads(peers)
+            r0 = a.read_stats.get("reconstructs", 0)
+            try:
+                over = read_pass("degraded over gRPC", ids=deg_ids)
+            finally:
+                a.peers = peers
+            got_rec = a.read_stats.get("reconstructs", 0) - r0
+            if got_rec != expected:
+                raise AssertionError(f"{got_rec} reconstructs over gRPC; "
+                                     f"{expected} expected")
+            out["grpc_degraded"] = over
+            log(f"[server] the {len(deg_ids)} degraded reads again with shard "
+                f"reads over gRPC (grpc_service on A and B): == written, "
+                f"{got_rec} reconstructs; p50 {ms(over, 50):.4f} ms, p99 "
+                f"{ms(over, 99):.4f} ms, {len(over) / sum(over):.1f} reads/s "
+                f"[{card}]")
+            for g in grpc_servers:
+                g.stop(grace=0.5).wait(timeout=10)
+            grpc_servers.clear()
+
+        # 6a. stale locations: a shard of B moves to C behind A's cache
+        moved = 8
+        c.volume_ec_shards_move(EC_VID, shard_ids=[moved],
+                                source_data_node=b.peer_address)
+        if sorted(c.store.find_ec_volume(EC_VID).shards) != [moved]:
+            raise AssertionError("the move left C without the shard")
+        fetched = a._ec_loc_cache[EC_VID][1]
+        time.sleep(max(0.0, a._EC_LOC_TTL_FAILED
+                       - (time.monotonic() - fetched)) + 0.05)
+        on_moved = [nid for nid in order
+                    if any(s == moved for s, _ in ivs[nid])
+                    and not any(s in gone for s, _ in ivs[nid])]
+        r0 = a.read_stats.get("reconstructs", 0)
+        s0 = a.read_stats.get("stale_locations_refreshed", 0)
+        for nid in on_moved:
+            st, got, _ = client.request("GET", f"/{fids[nid]}")
+            if (st, got) != (200, want[nid]):
+                raise AssertionError(f"read of needle {nid} after the move")
+        refreshed = a.read_stats.get("stale_locations_refreshed", 0) - s0
+        if not on_moved or refreshed < 1 or \
+                a.read_stats.get("reconstructs", 0) != r0:
+            raise AssertionError(f"after the move: {len(on_moved)} reads, "
+                                 f"{refreshed} refreshes, reconstructs "
+                                 f"{a.read_stats.get('reconstructs', 0) - r0}")
+        log(f"[server] shard {moved} moved B -> C (VolumeEcShardsMove on C): "
+            f"{len(on_moved)} reads of it on A == written, "
+            f"stale_locations_refreshed {refreshed}, 0 reconstructs")
+
+        # 7. rebuild: B rebuilds (10, 13) by CopyByRebuild, A rebuilds the
+        # rest, each with the others' shards as remote survivors
+        t0 = time.perf_counter()
+        rb = b.volume_ec_shards_copy_by_rebuild(EC_VID,
+                                                shard_ids=list(B_LOST))
+        rb_s = time.perf_counter() - t0
+        b.volume_ec_shards_mount(EC_VID)
+        t0 = time.perf_counter()
+        ra = a.volume_ec_shards_rebuild(EC_VID)
+        ra_s = time.perf_counter() - t0
+        if (ra["rebuilt_shard_ids"], rb["rebuilt_shard_ids"]) != (
+                list(A_LOST), list(B_LOST)):
+            raise AssertionError(f"rebuilt {ra['rebuilt_shard_ids']} on A, "
+                                 f"{rb['rebuilt_shard_ids']} on B")
+        for base, sids in ((base_a, A_LOST), (base_b, B_LOST)):
+            for s in sids:
+                if _sha256(base + files.shard_ext(s)) != shard_hash[s]:
+                    raise AssertionError(f"rebuilt shard {s} differs")
+        out["rebuild"] = []
+        for tag, r, wall in (("A VolumeEcShardsRebuild", ra, ra_s),
+                             ("B VolumeEcShardsCopyByRebuild", rb, rb_s)):
+            st = r["stats"]
+            out["rebuild"].append(r["bytes_read"] / wall / 1e9)
+            log(f"[server] {tag} of {tuple(r['rebuilt_shard_ids'])}: "
+                f"{r['bytes_read']} B read in {wall:.3f} s = "
+                f"{r['bytes_read'] / wall / 1e9:.3f} GB/s read (remote "
+                f"{st['remote_bytes_read']} B through the peer plane); == "
+                f"the lost shards' hashes [{card}]")
+
+        # 6b. B's breaker open (after the rebuild, so that d survivors of a
+        # shard of B exist without B): reads that need B's shards succeed
+        # through the last probe of circuit-open holders
+        retry.breaker(b.peer_address).trip()
+        on_b = [nid for nid in order
+                if any(s in (7, 9) for s, _ in ivs[nid])][:64]
+        p0 = a.read_stats.get("last_probes", 0)
+        for nid in on_b:
+            st, got, _ = client.request("GET", f"/{fids[nid]}")
+            if (st, got) != (200, want[nid]):
+                raise AssertionError(f"read of needle {nid} with B's "
+                                     "breaker open")
+        probes = a.read_stats.get("last_probes", 0) - p0
+        if not on_b or probes < 1:
+            raise AssertionError(f"{len(on_b)} reads, {probes} last probes")
+        retry.reset_breakers()
+        log(f"[server] B's breaker open: {len(on_b)} reads of its shards on A "
+            f"== written, {probes} through the last probe of circuit-open "
+            "holders")
+
+        # 8. delete a needle, then decode
+        dead = order[0]
+        a.volume_ec_blob_delete(EC_VID, dead)
+        st, _, _ = client.request("GET", f"/{fids[dead]}")
+        if st != 404:
+            raise AssertionError(f"GET of the deleted needle: {st}")
+        for src, sids in ((b, [7, 9]), (c, [moved])):
+            a.volume_ec_shards_copy(EC_VID, shard_ids=sids,
+                                    source_data_node=src.peer_address)
+        a.volume_ec_shards_mount(EC_VID)
+        t0 = time.perf_counter()
+        a.volume_ec_shards_to_volume(EC_VID)
+        dec_s = time.perf_counter() - t0
+        if _sha256(base_a + ".dat") != dat_hash:
+            raise AssertionError("the decoded .dat differs from the source")
+        for nid in order[1:]:
+            st, got, _ = client.request("GET", f"/{fids[nid]}")
+            if (st, got) != (200, want[nid]):
+                raise AssertionError(f"GET of needle {nid} after the decode")
+        st, _, _ = client.request("GET", f"/{fids[dead]}")
+        if st != 404:
+            raise AssertionError("the deleted needle came back in the decode")
+        out["decode"] = dat_size / dec_s / 1e9
+        log(f"[server] VolumeEcBlobDelete: GET 404; data shards copied to A, "
+            f"VolumeEcShardsToVolume of {dat_size} B in {dec_s:.3f} s = "
+            f"{out['decode']:.3f} GB/s; .dat == the source's hash, the sample "
+            f"== written over GET, the deleted needle 404 [{card}]")
+
+        # 9. scrub a damaged regular volume on C through K3
+        svid = EC_VID + 1
+        v, damaged, _ = make_scrub_volume(
+            np, os.path.join(workdir, "server_c"), seed + 3, n=scrub_needles,
+            vid=svid)
+        v.close()
+        c.volume_mount(svid)
+        k0 = crc_cuda.launches
+        (res,) = c.volume_scrub(svid, device="")
+        k3 = crc_cuda.launches - k0
+        if sorted(res["corrupt_needle_ids"]) != damaged or res["mode"] != \
+                "device" or res["error"] or (device == "cuda" and not k3):
+            raise AssertionError(f"VolumeScrub(''): {res}; damaged {damaged}; "
+                                 f"{k3} K3 launches")
+        (auto,) = c.volume_scrub(svid, device="auto")
+        (off,) = c.volume_scrub(svid, device="off")
+        keys = ("scanned", "corrupt_needle_ids", "bytes_checked", "mode")
+        if [auto[k] for k in keys] != [res[k] for k in keys] or \
+                (off["scanned"], off["bytes_checked"], off["mode"]) != (
+                    res["scanned"], res["bytes_checked"], "cpu"):
+            raise AssertionError(f"VolumeScrub auto {auto} / off {off} "
+                                 f"against '' {res}")
+        out["scrub"] = res["scanned"] / res["elapsed_s"]
+        log(f"[server] VolumeScrub on C of {res['scanned']} needles: device "
+            f"'' -> {device}, {len(damaged)} corrupt == the damaged, "
+            f"{out['scrub']:.0f} needles/s, {k3} K3 launches; 'auto' the "
+            f"same; 'off' the same counts in mode cpu, "
+            f"{off['scanned'] / off['elapsed_s']:.0f} needles/s [{card}]")
+        out["gen"] = dat_size / gen_s / 1e9
+        return out
+    finally:
+        retry.reset_breakers()
+        for g in grpc_servers:
+            g.stop(grace=0)
+        if client is not None:
+            client.close()
+        for vs in servers.values():
+            vs.stop()
+
+
+def phase_server(torch, np, workdir: str, seed: int, card: str) -> dict:
+    from seaweedfs_tpu_torch.ec.locate import EcGeometry
+    from seaweedfs_tpu_torch.ops import crc_cuda, rs_cuda
+    os.makedirs(workdir, exist_ok=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rs_cuda.reset_launches()
+    crc_cuda.reset_launches()
+    res = server_round_trip(np, workdir, seed + 23, card, EcGeometry(10, 4),
+                            EC_NEEDLES, EC_SAMPLE, SERVER_HTTP_NEEDLES,
+                            SERVER_SCRUB_NEEDLES)
+    torch.cuda.synchronize()
+    k1 = dict(rs_cuda.launches_by_entry)
+    k3 = crc_cuda.launches
+    log(f"[server] launches on the volume server path: K1 {json.dumps(k1)}, "
+        f"K3 {k3}; phase wall {time.perf_counter() - t0:.1f} s [{card}]")
+    for entry in ("encode", "reconstruct"):
+        if not k1.get(entry):
+            raise AssertionError(f"K1 {entry} never launched behind the server")
+    if not k3:
+        raise AssertionError("K3 never launched behind the server")
+    stripe = one_stripe_costs(torch, np, res["lengths"], seed, card,
+                              split=False)
+    log(f"[server] rates: generate {res['gen']:.3f} GB/s, rebuild "
+        f"{' / '.join(f'{x:.3f}' for x in res['rebuild'])} GB/s read, decode "
+        f"{res['decode']:.3f} GB/s; GET p50/p99 healthy "
+        f"{_pct(np, res['healthy'], 50) * 1e3:.4f} / "
+        f"{_pct(np, res['healthy'], 99) * 1e3:.4f} ms, degraded "
+        f"{_pct(np, res['degraded'], 50) * 1e3:.4f} / "
+        f"{_pct(np, res['degraded'], 99) * 1e3:.4f} ms; scrub "
+        f"{res['scrub']:.0f} needles/s; degraded one-stripe width "
+        f"{stripe['L']} B (% 16 = {stripe['L'] % 16}), K1 there "
+        f"{stripe['ms']:.5f} ms [{card}]")
+    return {"k1": k1, "k3": k3}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2352,17 +2779,24 @@ def main(argv=None) -> int:
             mesh = phase_mesh(torch, np, args.workdir, args.seed, card)
         finally:
             shutil.rmtree(args.workdir, ignore_errors=True)
+    server = None
+    if 13 in phases:
+        try:
+            server = phase_server(torch, np, args.workdir, args.seed, card)
+        finally:
+            shutil.rmtree(args.workdir, ignore_errors=True)
     log(f"[done] phases {sorted(phases | {1})} passed in "
         f"{time.perf_counter() - t0:.1f} s [{card}]")
     if None not in (errs, times, launches, k3_err, k3_times, k3_launches,
-                    ec_launches, tier, codec_launches, mesh):
+                    ec_launches, tier, codec_launches, mesh, server):
         kernels = [dict(name=f"rs_gf_apply:{entry}", route="cuda",
                         source=K1_SOURCE, replaces=replaces,
                         launches=launches.get(entry, 0)
                         + ec_launches.get(entry, 0)
                         + tier["k1"].get(entry, 0)
                         + codec_launches.get(entry, 0)
-                        + mesh["launches"]["k1"].get(entry, 0),
+                        + mesh["launches"]["k1"].get(entry, 0)
+                        + server["k1"].get(entry, 0),
                         max_abs_err=errs[entry], ms=times[entry]["ms"],
                         plain_ms=times[entry]["plain_ms"],
                         bound_ms=times[entry]["bound_ms"],
@@ -2372,7 +2806,7 @@ def main(argv=None) -> int:
         kernels.append(dict(name="crc32c_states", route="cuda",
                             source=K3_SOURCE, replaces=K3_REPLACES,
                             launches=k3_launches + tier["k3_scrub"]
-                            + mesh["launches"]["k3"],
+                            + mesh["launches"]["k3"] + server["k3"],
                             max_abs_err=k3_err,
                             ms=k3["ms"], plain_ms=k3["plain_ms"],
                             bound_ms=k3["bound_ms"], bound_by=k3["bound_by"],

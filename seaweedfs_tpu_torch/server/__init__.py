@@ -1,2 +1,2 @@
-"""Volume-server pieces of the port. The server class itself is not ported
-yet; `volume_server.make_shard_reader` is the EC read path it will wire in."""
+"""The volume server of the port: its core (`volume_server`, no grpcio or
+protobuf) and its gRPC binding (`grpc_service`)."""

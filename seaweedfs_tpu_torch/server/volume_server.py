@@ -1,30 +1,58 @@
-"""The volume server's EC read path: the shard reader behind needle reads
-of an EC volume whose shards are spread over servers.
+"""Volume server core: the HTTP data plane, the EC read plane and the RPC
+bodies of a volume server, over a Store of the port.
 
-Port of the degraded read of seaweedfs_tpu/server/volume_server.py
-(`VolumeServer._make_shard_reader`, :1827-2070; reference store_ec.go:357-400)
-as a function of a Store, so that the server class, when it is ported, wraps
-it. `fetch(sid, offset, length) -> bytes | None` stands in for the remote
-shard fetch over the holder lists that come with the server, and
-`fetch_fragment(sid, ranges) -> bytes | None` for its ranged-compute fetch
-(`_fetch_fragment_or_raise`). All three codecs are served: plain RS
-positionally, piggyback with its strip of a load-bearing piggybacked parity,
-msr through the codec's interval plans. Not ported: the stale-location
-refresh and the last probe of circuit-open holders.
+Port of seaweedfs_tpu/server/volume_server.py (reference
+weed/server/volume_server*.go, volume_grpc_*.go, store_ec.go:357-400) in
+two parts. This module is the core: it imports neither `grpc` nor
+`google.protobuf`, so it runs wherever the port does. Each RPC is a method
+named after it in snake case that takes plain arguments and returns plain
+values; `server/grpc_service.py` binds them to the wire and feeds the
+master's heartbeat. Another server is reached only through the peer plane
+`VolumeServer.peers`: `LocalPeers` joins servers of one process, and
+`grpc_service.GrpcPeers` reaches them over gRPC.
+
+`make_shard_reader` is the degraded read as a function of a Store:
+`fetch(sid, offset, length) -> bytes | None` serves a remote shard and
+`fetch_fragment(sid, ranges) -> bytes | None` its ranged-compute fetch.
+All three codecs are served: plain RS positionally, piggyback with its
+strip of a load-bearing piggybacked parity, msr through the codec's
+interval plans. `VolumeServer._make_shard_reader` wraps it with the
+location cache, the breakers, the stale-location refresh and the last
+probe of circuit-open holders.
+
+Not ported yet: QoS admission, the security guard, the profiling monitors,
+the bulk routes, the debug routes and status UI, the write fan-out to
+replicas and proxy or redirect reads (both need the master's replica
+lookup), image resize, and the Query, tail, sync, VolumeCopy, BatchDelete,
+VolumeConfigure, VolumeServerLeave and VolumeNeedleStatus RPCs.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
+import contextvars
+import gzip
+import json
+import os
 import threading
 import time
 from typing import Callable, Optional
 
 import numpy as np
 
+from .. import tracing
+from ..ec import files as ec_files
 from ..ec import repair as ec_repair
+from ..ec.encoder import rebuild_shards
+from ..ec.locate import EcGeometry
+from ..ops import events
 from ..ops.coder import host_result
 from ..stats import DEGRADED_EC_READS
+from ..storage.needle import Needle
+from ..storage.store import TIER_TRASH
+from ..storage.types import TTL, parse_file_id
+from ..storage.vacuum import commit_compact, compact
+from ..utils import failpoints, fsutil, retry
 from ..utils.log import logger
 
 log = logger("volume_server")
@@ -52,16 +80,20 @@ def _joined(fetch: Fetch) -> FetchFragment:
 
 def make_shard_reader(store, vid: int, fetch: Fetch,
                       pool: cf.Executor, stats: "dict | None" = None,
-                      fetch_fragment: "FetchFragment | None" = None):
+                      fetch_fragment: "FetchFragment | None" = None,
+                      direct: "Fetch | None" = None,
+                      probe: "Fetch | None" = None,
+                      lock: "threading.Lock | None" = None):
     """A `shard_reader(shard_id, offset, length) -> bytes` for EC volume
-    `vid` of `store`: `fetch` serves the shard itself; when it gives None,
-    the interval is reconstructed — from d other shards for plain RS and
-    piggyback, local ones first, the rest fetched concurrently on `pool`
-    until d have answered; from the msr interval plan's layer slices
-    (`fetch_fragment`, by default `fetch` joined over the ranges) for msr.
-    Fewer survivors than the decode needs raises OSError (an availability
-    failure, not a lookup miss). The GF steps run on `store.coder`
-    (kernel K1 on the card).
+    `vid` of `store`: `direct` (by default `fetch`) serves the shard
+    itself; when it gives None, the interval is reconstructed — from d
+    other shards for plain RS and piggyback, local ones first, the rest
+    fetched concurrently on `pool` through `fetch` until d have answered,
+    then, as a last resort, one by one through `probe` when it is given;
+    from the msr interval plan's layer slices (`fetch_fragment`, by default
+    `fetch` joined over the ranges) for msr. Fewer survivors than the
+    decode needs raises OSError (an availability failure, not a lookup
+    miss). The GF steps run on `store.coder` (kernel K1 on the card).
 
     Every degraded interval counts one SeaweedFS_degraded_ec_reads_total.
     `stats`, when given, accumulates `reconstructs` (degraded intervals),
@@ -71,12 +103,14 @@ def make_shard_reader(store, vid: int, fetch: Fetch,
     `strips` (piggyback intervals whose b-half span was decoded through a
     piggybacked parity, its piggyback stripped with the paired a-range)
     and `msr_mode` (msr intervals by plan mode: "repair", "general", or
-    the modes of a ragged span's pieces joined by "+")."""
-    mu = threading.Lock()
+    the modes of a ragged span's pieces joined by "+"); `lock` guards it
+    when readers share it."""
+    mu = lock or threading.Lock()
     fetch_fragment = fetch_fragment or _joined(fetch)
+    direct = direct or fetch
 
     def reader(shard_id: int, offset: int, length: int) -> bytes:
-        data = fetch(shard_id, offset, length)
+        data = direct(shard_id, offset, length)
         if data is not None:
             return data
         return _reconstruct(shard_id, offset, length)
@@ -150,6 +184,16 @@ def make_shard_reader(store, vid: int, fetch: Fetch,
                     for f in futs:  # stop fetches nobody will use
                         f.cancel()
                     break
+        if len(gathered) < geo.d and probe is not None:
+            # the healthy holders alone cannot reach d: probe the rest (the
+            # circuit-open holders) too — an open breaker should cost
+            # latency, never turn a recoverable read into an error
+            for sid in remote_sids:
+                if sid in gathered or len(gathered) >= geo.d:
+                    continue
+                data = probe(sid, offset, length)
+                if data is not None:
+                    gathered[sid] = _checked(sid, data, offset, length)
         if len(gathered) < geo.d:
             raise OSError(f"cannot reconstruct shard {shard_id}: only "
                           f"{len(gathered)} shards reachable")
@@ -268,3 +312,1524 @@ def make_shard_reader(store, vid: int, fetch: Fetch,
                 plan.bytes_total(), gather_s)
 
     return reader
+
+
+# -- the volume server core ---------------------------------------------------
+
+# gRPC status codes the RPC bodies abort with (grpc.StatusCode values)
+INVALID_ARGUMENT, NOT_FOUND = 3, 5
+FAILED_PRECONDITION, INTERNAL, UNAVAILABLE = 9, 13, 14
+
+READ_MODES = ("local",)
+
+
+class RpcAbort(Exception):
+    """An RPC body's refusal with a gRPC status code (the reference's
+    `context.abort(code, message)`); the binding aborts the call with it."""
+
+    def __init__(self, code: int, message: str):
+        super().__init__(message)
+        self.code = code
+        self.message = message
+
+
+def _ec_stage_fields(stats: dict) -> dict:
+    """ec.encode.finish event fields from an encode pipeline stats dict:
+    the stage split and the overlap fraction, so /debug/events shows where
+    an encode spent its wall time without pulling the trace."""
+    fields = {}
+    for key in ("fill_s", "dispatch_s", "coder_s", "drain_block_s",
+                "write_s", "write_block_s", "wall_s"):
+        if key in stats:
+            fields[key] = round(stats[key], 3)
+    for key in ("write_overlap", "writers", "batches", "mode"):
+        if key in stats:
+            fields[key] = stats[key]
+    return fields
+
+
+def _parse_range(value: "str | None"):
+    """One single-range `bytes=` spec, or None for absent / invalid /
+    multi-range (those serve the full body, per RFC 7233's allowance to
+    ignore unsupported Range headers). Returns ("suffix", n) |
+    ("from", start) | ("range", start, last)."""
+    if not value or not value.startswith("bytes="):
+        return None
+    spec = value[len("bytes="):].strip()
+    if "," in spec:
+        return None
+    first, sep, last = spec.partition("-")
+    if not sep:
+        return None
+    first, last = first.strip(), last.strip()
+    try:
+        if not first:
+            n = int(last)
+            return ("suffix", n) if n > 0 else None
+        start = int(first)
+        if start < 0:
+            return None
+        if not last:
+            return ("from", start)
+        stop = int(last)
+        return ("range", start, stop) if stop >= start else None
+    except ValueError:
+        return None
+
+
+def _resolve_range(spec, size: int) -> "tuple[int, int] | None":
+    """[start, stop) byte window of `spec` over a `size`-byte body, or None
+    when unsatisfiable (RFC 7233: start past the end)."""
+    if spec[0] == "suffix":
+        if size == 0:
+            return None
+        return max(0, size - spec[1]), size
+    start = spec[1]
+    if start >= size:
+        return None
+    if spec[0] == "from":
+        return start, size
+    return start, min(spec[2] + 1, size)
+
+
+class VolumeServer:
+    """One volume server over `store`: its device is the Store's ("cuda"
+    unless the Store was built with device="cpu"). `start()` and `stop()`
+    run the HTTP data plane only; the gRPC binding and the master's
+    heartbeat stream live in server/grpc_service.py, which sets the gRPC
+    port (by default port + 10000). `peers` is the peer plane (LocalPeers
+    or grpc_service.GrpcPeers); `peer_address` is the address peers know
+    this server by (ip:grpc_port, the master's convention)."""
+
+    # shard-location cache staleness tiers (store_ec.go:256-267): complete
+    # location sets refresh every 37 min, incomplete every 7 min, and a
+    # failed read may force a refresh after 11 s — the master is off the
+    # EC read hot path
+    _EC_LOC_TTL_COMPLETE = 37 * 60
+    _EC_LOC_TTL_INCOMPLETE = 7 * 60
+    _EC_LOC_TTL_FAILED = 11
+
+    def __init__(self, store, ip: str = "127.0.0.1", port: int = 8080,
+                 data_center: str = "", rack: str = "", peers=None,
+                 pulse_seconds: float = 2.0, read_mode: str = "local"):
+        if read_mode not in READ_MODES:
+            raise ValueError(
+                f"read mode {read_mode!r}: only 'local' is ported (proxy "
+                "and redirect reads need the master's replica lookup)")
+        self.store = store
+        self.device = store.device
+        self.ip = ip
+        self.port = port
+        self.grpc_port = port + 10000
+        self.peer_address = f"{ip}:{self.grpc_port}"
+        self.data_center = data_center
+        self.rack = rack
+        self.peers = peers
+        self.pulse_seconds = pulse_seconds
+        self.read_mode = read_mode
+        # set by the heartbeat binding: blocks until the master ingested a
+        # heartbeat covering every change before the call
+        self.heartbeat_flush: "Callable[[], bool] | None" = None
+        # read-plane counters the degraded read moves (the reference's
+        # trace events, kept countable): stale_locations_refreshed,
+        # last_probes, and make_shard_reader's reconstructs/gather_s/...
+        self.read_stats: dict = {}
+        self._stats_lock = threading.Lock()
+        self._stop = threading.Event()
+        self._http_thread: "threading.Thread | None" = None
+        # EC shard-location cache (store_ec.go:256-267) and the degraded
+        # read's fan-out pool (store_ec.go:367)
+        self._ec_loc_cache: dict[int, tuple[dict, float, bool]] = {}
+        self._ec_loc_lock = threading.Lock()
+        self._ec_read_pool = cf.ThreadPoolExecutor(
+            max_workers=16, thread_name_prefix=f"ec-read-{port}")
+        self._read_pool = cf.ThreadPoolExecutor(
+            max_workers=8, thread_name_prefix=f"vs-read-{port}")
+        self._scrub_cursor = 0
+        self._gauge_keys: dict[str, set] = {}
+
+    @property
+    def url(self) -> str:
+        return f"{self.ip}:{self.port}"
+
+    def _count(self, key: str, n: int = 1) -> None:
+        with self._stats_lock:
+            self.read_stats[key] = self.read_stats.get(key, 0) + n
+
+    # -- lifecycle ------------------------------------------------------------
+    def start(self, timeout: float = 10.0) -> None:
+        """Serve the HTTP plane on a thread; returns once it accepts."""
+        import socket
+        self._http_thread = threading.Thread(
+            target=self._run_http, daemon=True, name=f"vs-http-{self.port}")
+        self._http_thread.start()
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                socket.create_connection((self.ip, self.port),
+                                         timeout=0.5).close()
+                break
+            except OSError:
+                if not self._http_thread.is_alive():
+                    raise RuntimeError(f"volume server {self.url}: the HTTP "
+                                       "plane failed to start")
+                if time.monotonic() > deadline:
+                    self.stop()
+                    raise TimeoutError(f"volume server {self.url}: HTTP plane "
+                                       f"not up within {timeout} s")
+                time.sleep(0.02)
+        log.info("volume server %s up on %s", self.url, self.device)
+
+    def stop(self) -> None:
+        """Join the HTTP thread, shut the read pools down, close the Store."""
+        if self._stop.is_set():
+            return
+        self._stop.set()
+        if self._http_thread is not None:
+            self._http_thread.join(timeout=5.0)
+        self._ec_read_pool.shutdown(wait=True, cancel_futures=True)
+        self._read_pool.shutdown(wait=True, cancel_futures=True)
+        self.store.close()
+
+    def flush_heartbeat(self) -> bool:
+        """Make a mutation visible to the master before the RPC returns
+        (the binding's flush); False when no heartbeat stream is bound."""
+        fn = self.heartbeat_flush
+        return fn() if fn is not None else False
+
+    # -- heartbeat ------------------------------------------------------------
+    def heartbeat(self) -> dict:
+        """One pulse of the reference's _heartbeat_messages as a plain dict
+        with the fields of master.proto's Heartbeat. Runs the per-pulse
+        housekeeping first: the reap of EC volumes past their DestroyTime
+        (journaled and metered like every tier move), then the idle close
+        of EC shard handles."""
+        try:
+            reaped = self.store.delete_expired_ec_volumes()
+            if reaped:
+                from ..stats import (LIFECYCLE_BYTES_MOVED,
+                                     LIFECYCLE_TRANSITIONS)
+                for rec in reaped:
+                    events.emit("lifecycle.transition", kind="reap",
+                                vid=rec["vid"], node=self.url,
+                                collection=rec["collection"],
+                                **{"from": rec["from"], "to": TIER_TRASH},
+                                bytes_moved=rec["bytes"])
+                    LIFECYCLE_TRANSITIONS.inc(rec["from"], TIER_TRASH)
+                    LIFECYCLE_BYTES_MOVED.inc(rec["from"], TIER_TRASH,
+                                              amount=rec["bytes"])
+                log.info("reaped expired ec volumes %s",
+                         [r["vid"] for r in reaped])
+            self.store.close_idle_ec_handles()
+        except Exception as e:  # noqa: BLE001 — housekeeping never stops a pulse
+            log.warning("ec housekeeping: %s", e)
+        hb = self.store.collect_heartbeat()
+        self._update_gauges(hb)
+        return {
+            "ip": self.ip, "port": self.port, "grpc_port": self.grpc_port,
+            "public_url": self.store.public_url,
+            "max_file_key": hb["max_file_key"],
+            "data_center": self.data_center, "rack": self.rack,
+            "max_volume_counts": hb["max_volume_counts"],
+            "has_no_volumes": not hb["volumes"],
+            "has_no_ec_shards": not hb["ec_shards"],
+            "volumes": hb["volumes"], "ec_shards": hb["ec_shards"],
+        }
+
+    def _update_gauges(self, hb: dict) -> None:
+        """Volume/EC/disk gauges from heartbeat state (store_ec.go:41);
+        label sets seen before but absent now are zeroed."""
+        from ..stats import (VOLUME_SERVER_DISK_SIZE_GAUGE,
+                             VOLUME_SERVER_EC_SHARD_GAUGE,
+                             VOLUME_SERVER_VOLUME_GAUGE)
+        per: dict = {}
+        size: dict = {}
+        for v in hb["volumes"]:
+            key = (v["collection"], v["disk_type"])
+            per[key] = per.get(key, 0) + 1
+            size[key] = size.get(key, 0) + v["size"]
+        ec_per: dict = {}
+        for s in hb["ec_shards"]:
+            key = (s["collection"],)
+            ec_per[key] = ec_per.get(key, 0) + bin(s["ec_index_bits"]).count("1")
+        for gauge, cur, name in (
+                (VOLUME_SERVER_VOLUME_GAUGE, per, "vol"),
+                (VOLUME_SERVER_DISK_SIZE_GAUGE, size, "size"),
+                (VOLUME_SERVER_EC_SHARD_GAUGE, ec_per, "ec")):
+            for key in self._gauge_keys.get(name, set()) - set(cur):
+                gauge.set(*key, value=0)
+            for key, n in cur.items():
+                gauge.set(*key, value=n)
+            self._gauge_keys[name] = set(cur)
+
+    # -- HTTP data plane (utils/fastweb) ---------------------------------------
+    def _run_http(self) -> None:
+        from ..stats import VOLUME_REQUEST_COUNTER, VOLUME_REQUEST_SECONDS
+        from ..utils import fastweb
+        from ..utils.fastweb import json_response
+
+        kinds = {"POST": "post", "PUT": "put", "GET": "get",
+                 "HEAD": "head", "DELETE": "delete"}
+
+        async def handle(request: fastweb.Request):
+            kind = kinds.get(request.method, "other")
+            t0 = time.perf_counter()
+            status = 500
+            # the server span continues the caller's trace; a GET's span
+            # parents the EC shard fetches
+            with tracing.start_span(
+                    f"volume.{kind}", component="volume",
+                    child_of=tracing.extract(request.headers),
+                    attrs={"fid": request.path.lstrip("/"),
+                           "server": self.url}) as sp:
+                try:
+                    try:
+                        if request.method in ("POST", "PUT"):
+                            resp = await self._handle_write(request)
+                        elif request.method in ("GET", "HEAD"):
+                            resp = await self._handle_read(request)
+                        elif request.method == "DELETE":
+                            resp = await self._handle_delete(request)
+                        else:
+                            resp = json_response(
+                                {"error": "method not allowed"}, status=405)
+                    except KeyError as e:
+                        resp = json_response({"error": str(e)}, status=404)
+                    except PermissionError as e:
+                        resp = json_response({"error": str(e)}, status=403)
+                    except ValueError as e:
+                        resp = json_response({"error": str(e)}, status=400)
+                    except Exception as e:  # noqa: BLE001 — answer, keep serving
+                        log.error("http error: %s", e)
+                        resp = json_response({"error": str(e)}, status=500)
+                    status = resp.status
+                    return resp
+                finally:
+                    sp.set_attr("status", status)
+                    if status >= 500:
+                        sp.set_error(f"HTTP {status}")
+                    VOLUME_REQUEST_COUNTER.inc(kind, str(status))
+                    VOLUME_REQUEST_SECONDS.observe(
+                        kind, value=time.perf_counter() - t0)
+
+        def status(request):
+            return json_response({"version": "swtpu",
+                                  "device": self.device,
+                                  **self.store.status()})
+
+        def metrics(request):
+            from ..stats import scrape_payload
+            body, ctype = scrape_payload(request.headers.get("Accept", ""))
+            return fastweb.Response(body.encode(), content_type=ctype)
+
+        app = fastweb.FastApp()
+        app.route("/status", status)
+        app.route("/metrics", metrics)
+        app.default(handle)
+        fastweb.serve_fast_app(app, self.ip, self.port, self._stop,
+                               client_max_size=256 << 20, logger=log)
+
+    async def _off_loop(self, pool, fn, *args):
+        """Run blocking storage work on `pool`, keeping the trace context."""
+        import asyncio
+        loop = asyncio.get_running_loop()
+        ctx = contextvars.copy_context()
+        return await loop.run_in_executor(pool, ctx.run, fn, *args)
+
+    @staticmethod
+    def _read_body(request):
+        """(data, name, mime, gzipped) of an upload: a multipart part or the
+        raw body."""
+        from ..utils.fastweb import parse_multipart_single
+        ct = request.headers.get("Content-Type") or ""
+        if ct.startswith("multipart/"):
+            data, filename, ptype, part_headers = parse_multipart_single(
+                request.body, ct)
+            mime = (ptype.encode() if ptype and not ptype.startswith(
+                "multipart/") else b"")
+            return (data, filename.encode(), mime,
+                    part_headers.get("Content-Encoding") == "gzip")
+        mime = ct.encode() if ct and ct != "application/octet-stream" else b""
+        return (request.body, (request.query.get("name") or "").encode(),
+                mime, request.headers.get("Content-Encoding") == "gzip")
+
+    def _single_copy(self, vid: int) -> None:
+        """Refuse a write or delete that would need the replica fan-out."""
+        v = self.store.find_volume(vid)
+        if v is not None and v.super_block.replica_placement.copy_count != 1:
+            raise NotImplementedError(
+                f"volume {vid} has replica placement "
+                f"{v.super_block.replica_placement}: the write fan-out needs "
+                "the master's replica lookup, which is not ported")
+
+    async def _handle_write(self, request):
+        from ..utils.fastweb import json_response
+        fid = request.path.lstrip("/")
+        vid, key, cookie = parse_file_id(fid)
+        try:
+            self._single_copy(vid)
+        except NotImplementedError as e:
+            return json_response({"error": str(e)}, status=501)
+        ttl = TTL.parse(request.query.get("ttl"))
+        # ?fsync=true: this ack stands on a real fsync
+        fsync = request.query.get("fsync") in ("true", "1")
+
+        # body parse, needle serialization and the store write run off
+        # the loop in one executor hop
+        def parse_and_write():
+            data, name, mime, gzipped = self._read_body(request)
+            n = Needle(id=key, cookie=cookie, data=data, name=name,
+                       mime=mime, is_gzipped=gzipped, ttl=ttl)
+            self.store.write_needle(vid, n, sync=fsync)
+            return n
+
+        n = await self._off_loop(None, parse_and_write)
+        return json_response({"name": n.name.decode(errors="replace"),
+                              "size": len(n.data),
+                              "eTag": f"{n.checksum:x}"}, status=201)
+
+    async def _handle_read(self, request):
+        from ..utils.fastweb import Response, json_response
+        fid = request.path.lstrip("/")
+        vid, key, cookie = parse_file_id(fid)
+        if (self.store.find_volume(vid) is None
+                and self.store.find_ec_volume(vid) is None):
+            # read_mode "local": a volume this server lacks is not found
+            return json_response({"error": f"volume {vid} not local"},
+                                 status=404)
+        try:
+            # the storage read off the loop, on the read pool
+            n = await self._off_loop(self._read_pool, self._store_read,
+                                     vid, key, cookie)
+        except OSError as e:
+            # a degraded EC read that could not gather d shards: the object
+            # is recoverable, so 503, not a 404 that reads as "deleted"
+            return json_response({"error": str(e)}, status=503)
+        body = n.data
+        headers = {}
+        if n.name:
+            headers["Content-Disposition"] = \
+                f'inline; filename="{n.name.decode(errors="replace")}"'
+        # Range works on the identity bytes: a ranged read of a gzip
+        # needle, or one whose client does not take gzip, is decompressed
+        rng_spec = _parse_range(request.headers.get("Range"))
+        gzip_ok = "gzip" in (request.headers.get("Accept-Encoding") or "")
+        if n.is_gzipped and (rng_spec is not None or not gzip_ok):
+            body = gzip.decompress(body)
+        elif n.is_gzipped:
+            headers["Content-Encoding"] = "gzip"
+        status = 200
+        if rng_spec is not None:
+            window = _resolve_range(rng_spec, len(body))
+            if window is None:
+                return Response(
+                    b"", status=416,
+                    headers={"Content-Range": f"bytes */{len(body)}"},
+                    content_type="application/octet-stream")
+            start, stop = window
+            headers["Content-Range"] = f"bytes {start}-{stop - 1}/{len(body)}"
+            body = body[start:stop]
+            status = 206
+        return Response(body, status=status, headers=headers or None,
+                        content_type=(n.mime.decode() if n.mime else
+                                      "application/octet-stream"))
+
+    def _store_read(self, vid: int, key: int, cookie: "int | None"):
+        """Blocking storage read (runs on the read pool)."""
+        return self.store.read_needle(
+            vid, key, cookie=cookie,
+            shard_reader=self._make_shard_reader(vid))
+
+    async def _handle_delete(self, request):
+        from ..utils.fastweb import json_response
+        fid = request.path.lstrip("/")
+        vid, key, _ = parse_file_id(fid)
+        try:
+            self._single_copy(vid)
+        except NotImplementedError as e:
+            return json_response({"error": str(e)}, status=501)
+        if self.store.find_volume(vid) is not None:
+            ok = self.store.delete_needle(vid, key)
+        else:
+            ev = self.store.find_ec_volume(vid)
+            if ev is None:
+                raise KeyError(f"volume {vid} not local")
+            ok = ev.delete_needle(key)
+        return json_response({"size": 1 if ok else 0}, status=202)
+
+    # -- EC read plane ----------------------------------------------------------
+    def _lookup_ec_shards(self, vid: int, failed: bool = False
+                          ) -> "dict[int, list[str]]":
+        """shard id -> peer addresses of its holders, via the tiered cache."""
+        now = time.monotonic()
+        with self._ec_loc_lock:
+            ent = self._ec_loc_cache.get(vid)
+            if ent is not None:
+                locs, fetched, complete = ent
+                ttl = (self._EC_LOC_TTL_FAILED if failed else
+                       self._EC_LOC_TTL_COMPLETE if complete else
+                       self._EC_LOC_TTL_INCOMPLETE)
+                if now - fetched < ttl:
+                    return locs
+        locs = self._lookup_ec_shards_peers(vid)
+        if locs is not None:
+            ev = self.store.find_ec_volume(vid)
+            n = ev.geo.n if ev is not None else 0
+            complete = n > 0 and all(locs.get(s) for s in range(n))
+            with self._ec_loc_lock:
+                self._ec_loc_cache[vid] = (locs, now, complete)
+            return locs
+        # the lookup failed: serve stale rather than fail the read, and
+        # re-stamp the entry so the next probe waits a full failed tier
+        # instead of paying the lookup's timeout on every read
+        with self._ec_loc_lock:
+            ent = self._ec_loc_cache.get(vid)
+            if ent is not None:
+                self._ec_loc_cache[vid] = (ent[0], now, False)
+        return ent[0] if ent is not None else {}
+
+    def _lookup_ec_shards_peers(self, vid: int) -> "dict | None":
+        if self.peers is None:
+            return None
+        try:
+            return self.peers.lookup_ec(vid)
+        except Exception as e:  # noqa: BLE001 — a failed lookup serves stale
+            log.warning("ec lookup vid=%d: %s", vid, e)
+            return None
+
+    def _fetch_remote_shard(self, vid: int, sid: int, offset: int,
+                            length: int, holders: "list[str]",
+                            include_open: bool = False) -> "bytes | None":
+        # one span per shard fetch: a degraded read's trace shows every
+        # attempted shard, the failed ones included
+        with tracing.start_span(
+                "ec.shard.fetch", component="volume",
+                attrs={"vid": vid, "shard": sid, "offset": offset,
+                       "length": length, "holders": len(holders)}) as sp:
+            data = self._fetch_remote_shard_inner(vid, sid, offset, length,
+                                                  holders, include_open, sp)
+            if data is None:
+                sp.set_error("no holder served shard"
+                             if holders else "shard has no holders")
+            return data
+
+    def _fetch_remote_shard_inner(self, vid: int, sid: int, offset: int,
+                                  length: int, holders: "list[str]",
+                                  include_open: bool, sp) -> "bytes | None":
+        try:
+            # a shard fetch failure -> the caller's degraded reconstruct
+            failpoints.check("ec.shard.read")
+        except failpoints.FailpointError as e:
+            log.warning("ec shard %d.%d read failpoint: %s", vid, sid, e)
+            sp.add_event("failpoint", error=str(e)[:200])
+            return None
+        # circuit-open holders are skipped (None sends the caller down the
+        # reconstruct path); include_open is the reconstruct's last resort
+        ordered = retry.order_by_breaker(holders)
+        if not include_open:
+            allowed = []
+            for addr in ordered:
+                br = retry.breaker(addr)
+                if br.would_allow():
+                    allowed.append(addr)
+                else:
+                    sp.add_event("breaker_open", peer=addr, state=br.state)
+            ordered = allowed
+        for addr in ordered:
+            br = retry.breaker(addr)
+            try:
+                data = self.peers.read_shard(addr, vid, sid, offset, length)
+                br.record_success()
+                sp.set_attr("holder", addr)
+                # corrupt site: bit flips on the shard wire, which the
+                # needle CRC downstream must catch
+                return failpoints.corrupt("ec.shard.read.data", data)
+            except Exception as e:  # noqa: BLE001 — try the next holder
+                br.record_failure()
+                sp.add_event("holder_failed", peer=addr, error=str(e)[:200])
+                log.warning("remote shard %d.%d read from %s: %s",
+                            vid, sid, addr, e)
+        return None
+
+    def _make_shard_reader(self, vid: int):
+        """The shard reader of a needle read on EC volume `vid`:
+        make_shard_reader over this server's peers, with the stale-location
+        refresh on the shard's own fetch and the last probe of circuit-open
+        holders in the reconstruct."""
+
+        def direct(sid: int, offset: int, length: int) -> "bytes | None":
+            locs = self._lookup_ec_shards(vid)
+            data = self._fetch_remote_shard(vid, sid, offset, length,
+                                            locs.get(sid, []))
+            if data is None and locs.get(sid):
+                # holders listed but unreachable: the locations may be
+                # stale (the 11 s tier) — refresh once and retry
+                fresh = self._lookup_ec_shards(vid, failed=True)
+                if fresh.get(sid, []) != locs.get(sid, []):
+                    tracing.add_event("stale_locations_refreshed", vid=vid,
+                                      shard=sid)
+                    self._count("stale_locations_refreshed")
+                    data = self._fetch_remote_shard(vid, sid, offset, length,
+                                                    fresh.get(sid, []))
+            return data
+
+        def fetch(sid: int, offset: int, length: int) -> "bytes | None":
+            return self._fetch_remote_shard(
+                vid, sid, offset, length,
+                self._lookup_ec_shards(vid).get(sid, []))
+
+        def probe(sid: int, offset: int, length: int) -> "bytes | None":
+            data = self._fetch_remote_shard(
+                vid, sid, offset, length,
+                self._lookup_ec_shards(vid).get(sid, []), include_open=True)
+            if data is not None:
+                self._count("last_probes")
+            return data
+
+        def fetch_fragment(sid: int, ranges) -> bytes:
+            return self._fetch_fragment_or_raise(
+                vid, sid, ranges, self._lookup_ec_shards(vid).get(sid, []))
+
+        return make_shard_reader(self.store, vid, fetch, self._ec_read_pool,
+                                 stats=self.read_stats,
+                                 fetch_fragment=fetch_fragment,
+                                 direct=direct, probe=probe,
+                                 lock=self._stats_lock)
+
+    def _fetch_range_or_raise(self, vid: int, sid: int, offset: int,
+                              length: int, holders: "list[str]") -> bytes:
+        """One ranged fetch: healthy holders first, then circuit-open ones
+        as a last resort, else OSError."""
+        data = self._fetch_remote_shard(vid, sid, offset, length, holders)
+        if data is None:
+            data = self._fetch_remote_shard(vid, sid, offset, length,
+                                            holders, include_open=True)
+        if data is None:
+            raise OSError(f"shard {vid}.{sid} range [{offset}, +{length}) "
+                          "unreachable")
+        return data
+
+    def _fetch_fragment_or_raise(self, vid: int, sid: int, ranges,
+                                 holders: "list[str]") -> bytes:
+        """One computed fragment (scattered ranges packed holder-side); a
+        holder that answers a legacy empty stream degrades to per-range
+        fetches."""
+        want = sum(ln for _, ln in ranges)
+        if want == 0:
+            return b""
+        ordered = retry.order_by_breaker(
+            [a for a in holders if retry.breaker(a).would_allow()]) \
+            or list(holders)
+        for addr in ordered:
+            try:
+                # a firing failpoint degrades to per-range fetches (no
+                # breaker penalty: the peer did nothing wrong)
+                failpoints.check("ec.shard.read")
+            except failpoints.FailpointError as e:
+                log.warning("ec fragment read failpoint: %s", e)
+                break
+            br = retry.breaker(addr)
+            try:
+                buf = self.peers.read_fragment(addr, vid, sid, list(ranges))
+                if len(buf) == want:
+                    br.record_success()
+                    return failpoints.corrupt("ec.shard.read.data", buf)
+                if not buf:
+                    tracing.add_event("fragment_unsupported", peer=addr,
+                                      vid=vid, shard=sid)
+                    break  # legacy holder: per-range fallback below
+                raise OSError(f"fragment length {len(buf)} != {want}")
+            except Exception as e:  # noqa: BLE001 — try the next holder
+                br.record_failure()
+                log.warning("fragment read %d.%d from %s: %s",
+                            vid, sid, addr, e)
+        out = bytearray()
+        for off, ln in ranges:
+            out += self._fetch_range_or_raise(vid, sid, off, ln, holders)
+        return bytes(out)
+
+    def _make_repair_reader(self, vid: int, codec: "str | None" = None):
+        """(shard_reader, fragment_reader, remote_sids, fold_planner) for a
+        rebuild on this server. Survivors elsewhere are fetched by range,
+        or as packed fragments for the repair-efficient codecs; the fold
+        planner groups far-DC msr helpers behind a same-DC relay. The
+        location cache is bypassed (a rebuild planned against a
+        pre-failure holder set would count the lost shard among its
+        survivors), and the holder lists drop this server itself."""
+        locs = self._lookup_ec_shards_peers(vid)
+        if locs is None:
+            # the lookup failed: use the cached entry as it stands
+            with self._ec_loc_lock:
+                ent = self._ec_loc_cache.get(vid)
+            locs = ent[0] if ent is not None else {}
+        else:
+            with self._ec_loc_lock:
+                self._ec_loc_cache[vid] = (locs, time.monotonic(), False)
+        me = self.peer_address
+        peers = {sid: [a for a in addrs if a != me]
+                 for sid, addrs in locs.items()}
+        remote = sorted(sid for sid, addrs in peers.items() if addrs)
+        if codec is None:
+            ev = self.store.find_ec_volume(vid)
+            codec = ev.codec if ev is not None else "rs"
+
+        def dc_of(addr: str) -> str:
+            return self.peers.data_center(addr) if self.peers else ""
+
+        def book(link: str, n: int) -> None:
+            from ..stats import REPAIR_BYTES_BY_LINK
+            REPAIR_BYTES_BY_LINK.inc(codec, link, amount=n)
+
+        def link_of(sid: int) -> "str | None":
+            # attributed to the first holder, the one almost always used
+            holders = peers.get(sid)
+            if not holders or not self.data_center:
+                return None
+            dc = dc_of(holders[0])
+            if not dc:
+                return None
+            return "cross_rack" if dc == self.data_center else "cross_dc"
+
+        def reader(sid: int, offset: int, length: int) -> bytes:
+            data = self._fetch_range_or_raise(vid, sid, offset, length,
+                                              peers.get(sid, []))
+            link = link_of(sid)
+            if link:
+                book(link, len(data))
+            return data
+
+        def fragment_reader(sid: int, ranges) -> bytes:
+            buf = self._fetch_fragment_or_raise(vid, sid, ranges,
+                                                peers.get(sid, []))
+            link = link_of(sid)
+            if link:
+                book(link, len(buf))
+            return buf
+
+        def fold_fetch(f, sids, srcs, mat, alpha):
+            """One relay group's fetch(ranges) -> folded partial of alpha
+            rows: the relay (sids[0] on srcs[0]) gathers the group's rows
+            DC-locally and applies the stacked combine matrix."""
+            relay_sid, relay = sids[0], srcs[0]
+
+            def fetch(ranges) -> np.ndarray:
+                want = alpha * ranges[0][1]
+                try:
+                    buf = self.peers.read_fragment(
+                        relay, vid, relay_sid, list(ranges),
+                        combine_rows=alpha, combine_matrix=mat.tobytes(),
+                        gather_shard_ids=list(sids[1:]),
+                        gather_sources=list(srcs[1:]))
+                    if len(buf) != want:
+                        raise OSError(f"folded partial {len(buf)} bytes "
+                                      f"!= {want}")
+                    book("cross_dc", want)
+                    return np.frombuffer(buf, dtype=np.uint8)
+                except Exception as e:  # noqa: BLE001 — fold locally instead
+                    log.warning("folded fetch vid=%d f=%d relay=%s: %s; "
+                                "shipping raw fragments", vid, f, relay, e)
+                from ..ops import gf8
+                w = ranges[0][1]
+                rows = []
+                for s in sids:
+                    arr = np.frombuffer(fragment_reader(s, list(ranges)),
+                                        dtype=np.uint8)
+                    rows.extend(arr.reshape(len(ranges), w))
+                return gf8.np_gf_apply(mat, np.stack(rows))
+            return fetch
+
+        def fold_planner(coder, f: int):
+            """[(sids, fetch)] relay groups: one per far DC holding more
+            than q helpers (geo/repair_fold.py); empty when folding is off
+            (SWTPU_GEO_FOLD=0), the topology is unknown or no far group
+            pays for a relay hop."""
+            if os.environ.get("SWTPU_GEO_FOLD", "1") == "0" or \
+                    not self.data_center or coder.codec != "msr":
+                return []
+            g = coder.grid
+            if g.q < 2:
+                return []
+            from ..geo import repair_fold
+            helper_dcs = {}
+            for sid, addrs in peers.items():
+                if sid != f and addrs:
+                    dc = dc_of(addrs[0])
+                    if dc:
+                        helper_dcs[sid] = dc
+            folds = []
+            for dc, sids in repair_fold.fold_groups(
+                    helper_dcs, self.data_center, g.q):
+                srcs = []
+                for s in sids:
+                    cands = [a for a in peers.get(s, ()) if dc_of(a) == dc]
+                    if not cands:
+                        break
+                    srcs.append(cands[0])
+                if len(srcs) != len(sids):
+                    continue  # a member lost its in-DC holder
+                mat = repair_fold.stacked_matrix(g.d, g.p, f, sids)
+                folds.append((sids, fold_fetch(f, sids, srcs, mat, g.alpha)))
+            return folds
+        return reader, fragment_reader, remote, fold_planner
+
+    # -- RPC bodies: volume admin -----------------------------------------------
+    def _volume(self, vid: int, where: str = "found"):
+        v = self.store.find_volume(vid)
+        if v is None:
+            raise RpcAbort(NOT_FOUND, f"volume {vid} not {where}")
+        return v
+
+    def allocate_volume(self, volume_id: int, collection: str = "",
+                        replication: str = "", ttl: str = "",
+                        disk_type: str = "") -> None:
+        self.store.add_volume(volume_id, collection, replication, ttl,
+                              disk_type or None)
+        self.flush_heartbeat()
+
+    def volume_delete(self, volume_id: int, only_empty: bool = False) -> None:
+        self.store.delete_volume(volume_id, only_empty)
+        self.flush_heartbeat()
+
+    def volume_mark_readonly(self, volume_id: int) -> None:
+        self.store.mark_readonly(volume_id, True)
+        self.flush_heartbeat()
+
+    def volume_mark_writable(self, volume_id: int) -> None:
+        self.store.mark_readonly(volume_id, False)
+        self.flush_heartbeat()
+
+    def volume_mount(self, volume_id: int, collection: str = "") -> None:
+        self.store.mount_volume(volume_id, collection)
+        self.flush_heartbeat()
+
+    def volume_unmount(self, volume_id: int) -> None:
+        if not self.store.unmount_volume(volume_id):
+            raise RpcAbort(NOT_FOUND, f"volume {volume_id} not found")
+        self.flush_heartbeat()
+
+    def volume_status(self, volume_id: int) -> dict:
+        v = self._volume(volume_id)
+        return {"is_read_only": v.read_only, "volume_size": v.content_size,
+                "file_count": v.file_count,
+                "file_deleted_count": v.deleted_count}
+
+    def ping(self) -> dict:
+        now = time.time_ns()
+        return {"start_time_ns": now, "remote_time_ns": now,
+                "stop_time_ns": time.time_ns()}
+
+    def read_volume_file_status(self, volume_id: int) -> dict:
+        v = self._volume(volume_id)
+        dat_size = (os.path.getsize(v.dat_path) if os.path.exists(v.dat_path)
+                    else v.remote_spec.get("size", 0) if v.remote_spec else 0)
+        return {"volume_id": volume_id, "dat_file_size": dat_size,
+                "idx_file_size": os.path.getsize(v.idx_path),
+                "file_count": v.file_count,
+                "compaction_revision": v.super_block.compaction_revision,
+                "collection": v.collection}
+
+    def copy_file(self, volume_id: int, collection: str = "", ext: str = "",
+                  is_ec_volume: bool = False):
+        """The file's bytes in chunks of up to 1 MiB (an iterator). A live
+        volume's buffered appends are flushed first: the stream reads
+        through a fresh handle."""
+        v = self.store.find_volume(volume_id)
+        if v is not None and ext in (".dat", ".idx"):
+            v.sync()
+        for loc in self.store.locations:
+            path = loc.base_name(collection, volume_id) + ext
+            if os.path.exists(path):
+                break
+        else:
+            raise RpcAbort(NOT_FOUND, f"file vol={volume_id}{ext} not found")
+        return self._stream_file(path)
+
+    @staticmethod
+    def _stream_file(path: str):
+        with open(path, "rb") as f:
+            while True:
+                chunk = f.read(1 << 20)
+                if not chunk:
+                    return
+                yield chunk
+
+    def volume_scrub(self, volume_id: int = 0, device: str = "",
+                     time_budget_s: float = 0.0) -> "list[dict]":
+        """Check every live needle's CRC (storage/scrub.py), kernel K3 on
+        the card. `device` "", "auto" and "on" scrub on this server's own
+        device; "off" (the host loop), "cpu" and "cuda" are taken as
+        named; anything else is refused. No card is probed for: "cuda" on a
+        host without one gives an error result. One failing volume never
+        loses the others' results; with no volume named, a time budget and
+        a rotating cursor cover a large server across sweeps."""
+        from ..storage.scrub import scrub_volume
+        if device in ("", "auto", "on"):
+            device = self.device
+        elif device not in ("off", "cpu", "cuda"):
+            raise RpcAbort(INVALID_ARGUMENT, f"scrub device {device!r}: one "
+                           "of '', 'auto', 'on', 'off', 'cpu', 'cuda'")
+        if volume_id:
+            vols = [self._volume(volume_id)]
+        else:
+            vols = []
+            for loc in self.store.locations:
+                with loc.lock:
+                    vols.extend(loc.volumes.values())
+            vols.sort(key=lambda v: v.id)
+            # start after the last volume a budgeted sweep finished with
+            cursor = self._scrub_cursor
+            vols = ([v for v in vols if v.id > cursor]
+                    + [v for v in vols if v.id <= cursor])
+        results = []
+        deadline = (time.monotonic() + time_budget_s if time_budget_s
+                    else None)
+        for v in vols:
+            try:
+                r = scrub_volume(v, device=device)
+                results.append({"volume_id": r.volume_id,
+                                "scanned": r.scanned,
+                                "corrupt_needle_ids": list(r.corrupt),
+                                "bytes_checked": r.bytes_checked,
+                                "elapsed_s": r.elapsed_s, "mode": r.mode,
+                                "error": r.error})
+            except Exception as e:  # noqa: BLE001 — isolate per volume
+                results.append({"volume_id": v.id, "scanned": 0,
+                                "corrupt_needle_ids": [], "bytes_checked": 0,
+                                "elapsed_s": 0.0, "mode": "error",
+                                "error": str(e)})
+            if not volume_id:
+                self._scrub_cursor = v.id
+            if deadline is not None and time.monotonic() > deadline:
+                break
+        return results
+
+    # -- vacuum (reference volume_grpc_vacuum.go) -------------------------------
+    def vacuum_volume_check(self, volume_id: int) -> float:
+        v = self._volume(volume_id)
+        # a tiered volume never reports garbage: compacting it would
+        # un-tier it and orphan the remote copy
+        return 0.0 if v.remote_spec is not None else v.garbage_ratio()
+
+    def vacuum_volume_compact(self, volume_id: int) -> int:
+        v = self._volume(volume_id)
+        if v.remote_spec is not None:
+            raise RpcAbort(FAILED_PRECONDITION, f"volume {volume_id} is "
+                           "tiered; download it before compacting")
+        _, reclaimed = compact(v)
+        return reclaimed
+
+    def vacuum_volume_commit(self, volume_id: int) -> int:
+        v = self._volume(volume_id)
+        newv = commit_compact(v)
+        for loc in self.store.locations:
+            if loc.volumes.get(volume_id) is v:
+                loc.volumes[volume_id] = newv
+        self.flush_heartbeat()
+        return newv.content_size
+
+    def vacuum_volume_cleanup(self, volume_id: int) -> None:
+        v = self.store.find_volume(volume_id)
+        if v is not None:
+            base = v.file_name()
+            for ext in (".cpd", ".cpx"):
+                if os.path.exists(base + ext):
+                    os.remove(base + ext)
+
+    # -- EC RPC set (reference volume_grpc_erasure_coding.go) ---------------------
+    def _ec_base(self, vid: int, collection: str) -> "str | None":
+        """Base path of this server's EC files of `vid`: the mounted
+        volume's, else a location holding its .ecx."""
+        ev = self.store.find_ec_volume(vid)
+        if ev is not None:
+            return ev.base
+        for loc in self.store.locations:
+            cand = loc.base_name(collection, vid)
+            if os.path.exists(cand + ".ecx"):
+                return cand
+        return None
+
+    def _ec_location(self, vid: int, collection: str):
+        """The location for a volume's EC files: the one already holding
+        its .ecx, else the emptiest."""
+        return next((l for l in self.store.locations
+                     if os.path.exists(l.base_name(collection, vid) + ".ecx")),
+                    None) or self.store._location_for(None)
+
+    def _ensure_vif(self, vid: int, collection: str,
+                    base: "str | None" = None) -> "str | None":
+        """A rebuild decodes with the codec and geometry sealed in the .vif:
+        make sure one exists at `base`, pulling it from a peer holder when
+        this server's copy is gone."""
+        if base is None:
+            base = self._ec_base(vid, collection)
+        if base is None or os.path.exists(base + ".vif"):
+            return base
+        locs = self._lookup_ec_shards(vid, failed=True)
+        for addr in sorted({a for addrs in locs.values() for a in addrs
+                            if a != self.peer_address}):
+            try:
+                raw = b"".join(self.peers.copy_file(addr, vid, collection,
+                                                    ".vif", True))
+                info = json.loads(raw)
+            except Exception:  # noqa: BLE001 — the peer may lack it too
+                continue
+            # installed through the one sanctioned .vif writer, parsed first:
+            # a torn peer copy never lands as a valid-looking sidecar
+            ec_files.write_vif(base + ".vif", **info)
+            return base
+        return base
+
+    def volume_ec_shards_generate(self, volume_id: int, collection: str = "",
+                                  data_shards: int = 0, parity_shards: int = 0,
+                                  codec: str = "") -> None:
+        events.emit("ec.encode.start", vid=volume_id, collection=collection,
+                    node=self.url)
+        t0 = time.perf_counter()
+        stats: dict = {}
+        try:
+            self.store.generate_ec_shards(volume_id, collection,
+                                          data_shards or None,
+                                          parity_shards or None, stats=stats,
+                                          codec=codec or None)
+        except Exception as e:
+            events.emit("ec.encode.finish", severity=events.ERROR,
+                        vid=volume_id, node=self.url, ok=False,
+                        error=str(e)[:200])
+            raise
+        events.emit("ec.encode.finish", vid=volume_id, node=self.url, ok=True,
+                    duration_ms=round((time.perf_counter() - t0) * 1e3, 1),
+                    **_ec_stage_fields(stats))
+
+    def volume_ec_shards_generate_batch(self, volume_ids, collection: str = "",
+                                        data_shards: int = 0,
+                                        parity_shards: int = 0,
+                                        codec: str = "") -> dict:
+        t0 = time.perf_counter()
+        stats: dict = {}
+        try:
+            done = self.store.generate_ec_shards_batch(
+                list(volume_ids), collection, data_shards or None,
+                parity_shards or None, stats=stats, codec=codec or None)
+        except Exception as e:
+            events.emit("ec.encode.finish", severity=events.ERROR,
+                        node=self.url, ok=False, vids=list(volume_ids),
+                        error=str(e))
+            raise
+        events.emit("ec.encode.finish", node=self.url, ok=True,
+                    vids=list(done),
+                    duration_ms=round((time.perf_counter() - t0) * 1e3, 1),
+                    **_ec_stage_fields(stats))
+        return {"encoded_volume_ids": done,
+                "data_shards": data_shards or self.store.ec_geometry.d,
+                "parity_shards": parity_shards or self.store.ec_geometry.p,
+                "codec": codec or self.store.ec_codec}
+
+    def volume_ec_shards_info(self, volume_id: int,
+                              collection: str = "") -> dict:
+        """Geometry probe from the .vif. local_shard_ids lists every shard
+        file on disk, mounted or not (the repair planner's remount probe)."""
+        def on_disk(base):
+            return sorted(sid for sid in range(32)
+                          if os.path.exists(base + ec_files.shard_ext(sid)))
+        ev = self.store.find_ec_volume(volume_id)
+        if ev is not None:
+            return {"data_shards": ev.geo.d, "parity_shards": ev.geo.p,
+                    "dat_size": ev.dat_size or 0, "codec": ev.codec,
+                    "shard_size": ev.shard_size,
+                    "local_shard_ids": sorted(set(ev.shards)
+                                              | set(on_disk(ev.base))),
+                    "remote_shard_ids": ev.remote_shard_ids()}
+        for loc in self.store.locations:
+            base = loc.base_name(collection, volume_id)
+            if os.path.exists(base + ".vif"):
+                info = ec_files.read_vif(base + ".vif")
+                geo = EcGeometry.from_vif(info, self.store.ec_geometry)
+                rem = info.get("remote_shards") or {}
+                return {"data_shards": info.get("d", 0),
+                        "parity_shards": info.get("p", 0),
+                        "dat_size": info.get("dat_size", 0),
+                        "codec": info.get("codec", "rs"),
+                        "shard_size": geo.shard_file_size(
+                            info.get("dat_size", 0)),
+                        "local_shard_ids": on_disk(base),
+                        "remote_shard_ids": sorted(
+                            int(k) for k in rem.get("keys", {}))}
+        raise KeyError(f"ec volume {volume_id} not found")
+
+    def volume_ec_shards_rebuild(self, volume_id: int,
+                                 collection: str = "") -> dict:
+        """Rebuild every shard no server holds, here, with the survivors on
+        other servers read by range through the peer plane."""
+        failpoints.check("ec.rebuild")
+        events.emit("ec.rebuild.start", vid=volume_id, collection=collection,
+                    node=self.url)
+        t0 = time.perf_counter()
+        stats: dict = {}
+        try:
+            reader, frag, remote, fold = self._make_repair_reader(volume_id)
+            self._ensure_vif(volume_id, collection)
+            rebuilt = self.store.rebuild_ec_shards(
+                volume_id, collection, shard_reader=reader,
+                remote_shards=remote, stats=stats, fragment_reader=frag,
+                fold_planner=fold)
+        except Exception as e:
+            events.emit("ec.rebuild.finish", severity=events.ERROR,
+                        vid=volume_id, node=self.url, ok=False,
+                        error=str(e)[:200])
+            raise
+        events.emit("ec.rebuild.finish", vid=volume_id, node=self.url,
+                    ok=True, rebuilt_shard_ids=list(rebuilt),
+                    codec=stats.get("codec", "rs"),
+                    repair_path=stats.get("path"),
+                    bytes_read=stats.get("bytes_read", 0),
+                    bytes_written=stats.get("bytes_written", 0),
+                    duration_ms=round((time.perf_counter() - t0) * 1e3, 1))
+        self.flush_heartbeat()
+        return {"rebuilt_shard_ids": list(rebuilt),
+                "bytes_read": stats.get("bytes_read", 0),
+                "bytes_written": stats.get("bytes_written", 0),
+                "stats": stats}
+
+    def volume_ec_shards_copy(self, volume_id: int, collection: str = "",
+                              shard_ids=(), copy_ecx_file: bool = False,
+                              copy_ecj_file: bool = False,
+                              copy_vif_file: bool = False,
+                              source_data_node: str = "") -> None:
+        """Pull shard files from `source_data_node` to this server, into
+        the location already holding the volume's .ecx if any."""
+        failpoints.check("ec.shard.copy")
+        base = self._ec_location(volume_id, collection).base_name(
+            collection, volume_id)
+        exts = [ec_files.shard_ext(s) for s in shard_ids]
+        if copy_ecx_file:
+            exts.append(".ecx")
+        if copy_ecj_file:
+            exts.append(".ecj")
+        if copy_vif_file:
+            exts.append(".vif")
+        for ext in exts:
+            try:
+                parts = list(self.peers.copy_file(source_data_node, volume_id,
+                                                  collection, ext, True))
+            except Exception:
+                if ext in (".ecj", ".ecx", ".vif"):
+                    continue  # optional sidecars may not exist at the source
+                raise
+            with open(base + ext, "wb") as f:
+                for pc in parts:
+                    f.write(pc)
+
+    def volume_ec_shards_copy_by_rebuild(self, volume_id: int,
+                                         collection: str = "",
+                                         shard_ids=()) -> dict:
+        """Rebuild `shard_ids` directly onto this server from the
+        survivors on its peers (the .vif, with the codec and geometry, is
+        the only file copied whole)."""
+        base = self.store._location_for(None).base_name(collection, volume_id)
+        self._ensure_vif(volume_id, collection, base)
+        info = ec_files.read_vif(base + ".vif")
+        geo = EcGeometry.from_vif(info, self.store.ec_geometry)
+        codec = info.get("codec", "rs")
+        reader, frag, remote, fold = self._make_repair_reader(volume_id,
+                                                              codec=codec)
+        stats: dict = {}
+        rebuilt = rebuild_shards(
+            base, geo, self.store.coder(geo.d, geo.p, codec=codec),
+            wanted=list(shard_ids), shard_reader=reader,
+            remote_shards=remote, stats=stats, fragment_reader=frag,
+            fold_planner=fold)
+        return {"rebuilt_shard_ids": list(rebuilt),
+                "bytes_read": stats.get("bytes_read", 0),
+                "bytes_written": stats.get("bytes_written", 0),
+                "stats": stats}
+
+    def volume_ec_shards_mount(self, volume_id: int,
+                               collection: str = "") -> None:
+        self.store.mount_ec_shards(volume_id, collection)
+        self.flush_heartbeat()
+
+    def volume_ec_shards_unmount(self, volume_id: int, shard_ids=()) -> None:
+        self.store.unmount_ec_shards(volume_id, list(shard_ids) or None)
+        self.flush_heartbeat()
+
+    def volume_ec_shards_delete(self, volume_id: int, collection: str = "",
+                                shard_ids=()) -> None:
+        ev = self.store.find_ec_volume(volume_id)
+        base = None
+        if ev is not None:
+            base = ev.base
+            for s in shard_ids:
+                sh = ev.shards.get(s)
+                if sh is not None and hasattr(sh, "pin"):
+                    # reads in flight on this shard finish on its open fd
+                    sh.pin()
+            self.store.unmount_ec_shards(volume_id, list(shard_ids))
+        else:
+            for loc in self.store.locations:
+                cand = loc.base_name(collection, volume_id)
+                if any(os.path.exists(cand + ec_files.shard_ext(s))
+                       for s in shard_ids):
+                    base = cand
+                    break
+        if base:
+            for s in shard_ids:
+                p = base + ec_files.shard_ext(s)
+                if os.path.exists(p):
+                    os.remove(p)
+            # a remote-backed shard has no payload file here: release its
+            # .vif claim; the remote object is left to its new holder or to
+            # the lifecycle reaper
+            if os.path.exists(base + ".vif"):
+                ec_files.drop_remote_claims(base + ".vif", list(shard_ids))
+        self.flush_heartbeat()
+
+    def volume_ec_shards_move(self, volume_id: int, collection: str = "",
+                              shard_ids=(), source_data_node: str = "") -> None:
+        """Move = copy from the source + delete there, driven from here. A
+        shard whose payload lives on the remote tier moves its .vif claim,
+        not bytes."""
+        need_sidecars = not any(
+            os.path.exists(loc.base_name(collection, volume_id) + ".ecx")
+            for loc in self.store.locations)
+        src = source_data_node
+        try:
+            sinfo = self.peers.ec_shards_info(src, volume_id, collection)
+            claim_sids = [s for s in shard_ids
+                          if s in set(sinfo["remote_shard_ids"])]
+        except Exception:  # noqa: BLE001 — a peer without it: payload only
+            claim_sids = []
+        payload_sids = [s for s in shard_ids if s not in set(claim_sids)]
+        self.volume_ec_shards_copy(
+            volume_id, collection, payload_sids,
+            copy_ecx_file=need_sidecars, copy_ecj_file=need_sidecars,
+            copy_vif_file=need_sidecars, source_data_node=src)
+        base = self._ec_location(volume_id, collection).base_name(
+            collection, volume_id)
+        claims = None
+        if claim_sids:
+            raw = b"".join(self.peers.copy_file(src, volume_id, collection,
+                                                ".vif", True))
+            claims = ec_files.remote_claims(json.loads(raw), claim_sids)
+            if claims is None:
+                raise RpcAbort(FAILED_PRECONDITION, "source holds no remote "
+                               f"claim for shards {list(claim_sids)}")
+        if need_sidecars and os.path.exists(base + ".vif"):
+            # the whole-sidecar copy brought claims for shards not moving
+            # here; exactly one server may hold each claim
+            here = ec_files.read_vif(base + ".vif")
+            stray = [int(k) for k in (here.get("remote_shards") or {})
+                     .get("keys", {}) if int(k) not in set(shard_ids)]
+            ec_files.drop_remote_claims(base + ".vif", stray)
+        if claims is not None:
+            ec_files.merge_remote_claims(base + ".vif", claims)
+        self.peers.ec_shards_delete(src, volume_id, collection,
+                                    list(shard_ids))
+        self.store.mount_ec_shards(volume_id, collection)
+        self.flush_heartbeat()
+
+    def volume_ec_shard_read(self, volume_id: int, shard_id: int,
+                             offset: int = 0, size: int = 0,
+                             fragment_offsets=(), fragment_lengths=(),
+                             combine_rows: int = 0, combine_matrix: bytes = b"",
+                             gather_shard_ids=(), gather_sources=()):
+        """The bytes of one mounted shard (an iterator of chunks of up to
+        1 MiB): `size` bytes at `offset`, or the ranged-compute fragment
+        of the ranges (fragment_offsets, fragment_lengths) packed in order,
+        GF-combined by `combine_matrix` when `combine_rows` is set."""
+        ev = self.store.find_ec_volume(volume_id)
+        if ev is None:
+            raise RpcAbort(NOT_FOUND, f"ec volume {volume_id} not found")
+        sh = ev.shards.get(shard_id)
+        if sh is None:
+            raise RpcAbort(NOT_FOUND, f"shard {shard_id} not on this server")
+        if len(fragment_offsets) != len(fragment_lengths):
+            raise RpcAbort(INVALID_ARGUMENT,
+                           "fragment_offsets/lengths length mismatch")
+        frag_ranges = list(zip(fragment_offsets, fragment_lengths))
+        if frag_ranges:
+            return self._serve_fragment(volume_id, sh, frag_ranges,
+                                        combine_rows, combine_matrix,
+                                        list(gather_shard_ids),
+                                        list(gather_sources))
+        return self._serve_range(sh, offset, size)
+
+    @staticmethod
+    def _serve_range(sh, offset: int, size: int):
+        remaining = size
+        while remaining > 0:
+            data = sh.read_at(offset, min(remaining, 1 << 20))
+            if not data:
+                return
+            yield data
+            offset += len(data)
+            remaining -= len(data)
+
+    def _serve_fragment(self, vid: int, sh, frag_ranges, combine_rows: int,
+                        combine_matrix: bytes, gather_ids, gather_sources):
+        if not combine_rows:
+            if gather_ids:
+                # a relay gather without a combine matrix would ship more
+                # bytes than the callers fetching directly
+                raise RpcAbort(INVALID_ARGUMENT, "gather requires combine_rows")
+            return self._serve_packed(sh, frag_ranges)
+        # helper-side GF fold: rows_out = M (x) range_rows; it holds every
+        # row at once, so its request-controlled size is capped
+        from ..ops import gf8
+        if len(gather_ids) != len(gather_sources):
+            raise RpcAbort(INVALID_ARGUMENT,
+                           "gather ids/sources length mismatch")
+        gather = list(zip(gather_ids, gather_sources))
+        if sum(ln for _, ln in frag_ranges) * (1 + len(gather)) > (64 << 20):
+            raise RpcAbort(INVALID_ARGUMENT,
+                           "combine fragment exceeds 64 MB; window the request")
+        if len({ln for _, ln in frag_ranges}) != 1:
+            raise RpcAbort(INVALID_ARGUMENT,
+                           "combine needs equal-length ranges")
+        total_rows = len(frag_ranges) * (1 + len(gather))
+        if len(combine_matrix) != combine_rows * total_rows:
+            raise RpcAbort(INVALID_ARGUMENT, "combine_matrix shape mismatch")
+        rows = []
+        for off, ln in frag_ranges:
+            buf = sh.read_at(off, ln)
+            if len(buf) != ln:
+                raise RpcAbort(INVALID_ARGUMENT,
+                               f"fragment range [{off}, +{ln}) beyond shard")
+            rows.append(np.frombuffer(buf, dtype=np.uint8))
+        # geo relay: the same ranges from DC-local peers; matrix columns run
+        # sid-major (own rows first), as geo/repair_fold.stacked_matrix
+        for gsid, gsrc in gather:
+            try:
+                buf = self._fetch_fragment_or_raise(vid, gsid, frag_ranges,
+                                                    [gsrc])
+            except OSError as e:
+                raise RpcAbort(UNAVAILABLE,
+                               f"gather shard {gsid} from {gsrc}: {e}") from e
+            arr = np.frombuffer(buf, dtype=np.uint8)
+            rows.extend(arr.reshape(len(frag_ranges), frag_ranges[0][1]))
+        mat = np.frombuffer(combine_matrix, dtype=np.uint8).reshape(
+            combine_rows, total_rows)
+        data = gf8.np_gf_apply(mat, np.stack(rows)).tobytes()
+        return (data[i:i + (1 << 20)] for i in range(0, len(data), 1 << 20))
+
+    @staticmethod
+    def _serve_packed(sh, frag_ranges):
+        # streamed straight from disk in 1 MiB chunks: a request-controlled
+        # fragment never materializes whole
+        for off, ln in frag_ranges:
+            rem, pos = ln, off
+            while rem > 0:
+                buf = sh.read_at(pos, min(rem, 1 << 20))
+                if not buf:
+                    raise RpcAbort(INVALID_ARGUMENT, f"fragment range [{off}, "
+                                   f"+{ln}) beyond shard")
+                yield buf
+                pos += len(buf)
+                rem -= len(buf)
+
+    def volume_ec_blob_delete(self, volume_id: int, file_key: int,
+                              collection: str = "") -> None:
+        ev = self.store.find_ec_volume(volume_id)
+        if ev is None:
+            raise RpcAbort(NOT_FOUND, f"ec volume {volume_id} not found")
+        ev.delete_needle(file_key)
+
+    def volume_ec_shards_to_volume(self, volume_id: int,
+                                   collection: str = "") -> None:
+        self.store.ec_shards_to_volume(volume_id, collection)
+        self.flush_heartbeat()
+
+    def _set_destroy_time(self, vid: int, at: float) -> bool:
+        """Stamp DestroyTime into a local EC volume's .vif and live object;
+        False when there is no such EC volume here."""
+        ev = self.store.find_ec_volume(vid)
+        if ev is None:
+            return False
+        ec_files.update_vif(ev.base + ".vif", {"destroy_time": at})
+        ev.destroy_time = at
+        return True
+
+    def volume_ec_shards_set_destroy_time(self, volume_id: int,
+                                          destroy_time_s: float) -> None:
+        if not self._set_destroy_time(volume_id, destroy_time_s):
+            raise RpcAbort(NOT_FOUND, f"no ec volume {volume_id}")
+
+    # -- tier moves (reference volume_grpc_tier_*.go) ------------------------------
+    def volume_tier_move_dat_to_remote(self, volume_id: int,
+                                       destination_backend_name: str,
+                                       keep_local_dat_file: bool = False
+                                       ) -> dict:
+        """Seal and upload the .dat to a remote backend; the volume stays
+        readable through ranged reads."""
+        from ..storage.backend import open_remote
+        v = self._volume(volume_id, "local")
+        if v.remote_spec is not None:
+            raise RpcAbort(FAILED_PRECONDITION,
+                           f"volume {volume_id} already tiered")
+        try:
+            client = open_remote(destination_backend_name)
+        except ValueError as e:
+            raise RpcAbort(INVALID_ARGUMENT, str(e)) from e
+        was_read_only = v.read_only
+        v.read_only = True
+        try:
+            v.sync()
+            key = os.path.basename(v.dat_path)
+            size = client.write_object(key, v.dat_path)
+        except Exception as e:
+            v.read_only = was_read_only  # roll back: no remote copy
+            raise RpcAbort(INTERNAL, f"tier upload: {e}") from e
+        remote = {"spec": destination_backend_name, "key": key, "size": size}
+        ec_files.update_vif(v.vif_path, {"remote": remote})
+        if keep_local_dat_file:
+            # the local .dat keeps serving; the volume stays read-only and
+            # marked tiered so the guards above hold
+            v.remote_spec = remote
+        else:
+            v.close()
+            os.unlink(v.dat_path)
+            self.store.reload_volume(volume_id)
+        return {"processed": size, "processedPercentage": 100.0}
+
+    def volume_tier_move_dat_from_remote(self, volume_id: int,
+                                         keep_remote_dat_file: bool = False
+                                         ) -> dict:
+        """Pull a tiered .dat back to local disk: download to a temporary
+        file and check its size before touching the .vif or the remote
+        copy; make it durable before the remote copy may go."""
+        from ..storage.backend import open_remote
+        v = self._volume(volume_id, "local")
+        if v.remote_spec is None:
+            raise RpcAbort(FAILED_PRECONDITION,
+                           f"volume {volume_id} not tiered")
+        remote = v.remote_spec
+        client = open_remote(remote["spec"])
+        tmp = v.dat_path + ".tiertmp"
+        try:
+            client.read_object_to(remote["key"], tmp)
+            got = os.path.getsize(tmp)
+            want = remote.get("size") or client.object_size(remote["key"])
+            if got != want:
+                raise OSError(f"short download: {got} != {want}")
+        except Exception as e:
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+            raise RpcAbort(INTERNAL, f"tier download: {e}") from e
+        v.close()
+        fsutil.fsync_path(tmp)
+        os.replace(tmp, v.dat_path)
+        fsutil.fsync_dir(v.dat_path)
+        ec_files.update_vif(v.vif_path, remove=("remote",))
+        nv = self.store.reload_volume(volume_id)
+        if not keep_remote_dat_file and nv is not None:
+            client.delete_object(remote["key"])
+        return {"processed": remote.get("size", 0),
+                "processedPercentage": 100.0}
+
+    def volume_ec_shards_tier_move_to_remote(self, volume_id: int,
+                                             collection: str = "",
+                                             destination_backend_name: str = ""
+                                             ) -> dict:
+        """Offload this holder's local shard payloads of an EC volume to
+        the remote tier; the volume keeps serving through ranged reads."""
+        try:
+            moved = self.store.offload_ec_shards(
+                volume_id, destination_backend_name, collection=collection)
+        except KeyError as e:
+            raise RpcAbort(NOT_FOUND, str(e)) from e
+        except ValueError as e:
+            raise RpcAbort(INVALID_ARGUMENT, str(e)) from e
+        except Exception as e:
+            raise RpcAbort(INTERNAL, f"ec tier offload: {e}") from e
+        if moved:
+            events.emit("lifecycle.transition", kind="offload",
+                        vid=volume_id, node=self.url, collection=collection,
+                        **{"from": "ec", "to": "remote"}, bytes_moved=moved)
+        return {"processed": moved, "processedPercentage": 100.0}
+
+    def volume_ec_shards_tier_move_from_remote(self, volume_id: int,
+                                               collection: str = "",
+                                               keep_remote_dat_file: bool = False
+                                               ) -> dict:
+        """Pull this holder's offloaded shard payloads back to local disk."""
+        try:
+            moved = self.store.promote_ec_shards(
+                volume_id, collection=collection,
+                keep_remote=keep_remote_dat_file)
+        except KeyError as e:
+            raise RpcAbort(NOT_FOUND, str(e)) from e
+        except Exception as e:
+            raise RpcAbort(INTERNAL, f"ec tier promote: {e}") from e
+        if moved:
+            events.emit("lifecycle.transition", kind="promote",
+                        vid=volume_id, node=self.url, collection=collection,
+                        **{"from": "remote", "to": "ec"}, bytes_moved=moved)
+        return {"processed": moved, "processedPercentage": 100.0}
+
+
+class LocalPeers:
+    """The in-process peer plane: servers of one process reach each other
+    through their methods (the way storage/backend.LocalDirRemote stands in
+    for a cloud tier). `lookup_ec` assembles a volume's holders from the
+    servers' heartbeat()s, which is what the master answers. A server
+    marked down raises ConnectionError, like a dead peer.
+
+    Joining sets each server's `peers` and `peer_address`."""
+
+    def __init__(self, servers: "dict[str, VolumeServer]"):
+        self.servers = dict(servers)
+        self.down: set = set()
+        for addr, vs in self.servers.items():
+            vs.peers = self
+            vs.peer_address = addr
+
+    def _server(self, addr: str) -> VolumeServer:
+        if addr in self.down or addr not in self.servers:
+            raise ConnectionError(f"peer {addr} unreachable")
+        return self.servers[addr]
+
+    def data_center(self, addr: str) -> str:
+        vs = self.servers.get(addr)
+        return vs.data_center if vs is not None else ""
+
+    def lookup_ec(self, vid: int) -> "dict[int, list[str]]":
+        locs: dict[int, list[str]] = {}
+        for addr, vs in self.servers.items():
+            if addr in self.down:
+                continue
+            for s in vs.heartbeat()["ec_shards"]:
+                if s["id"] != vid:
+                    continue
+                for sid in range(32):
+                    if s["ec_index_bits"] >> sid & 1:
+                        locs.setdefault(sid, []).append(addr)
+        return locs
+
+    def read_shard(self, addr: str, vid: int, sid: int, offset: int,
+                   size: int) -> bytes:
+        return b"".join(self._server(addr).volume_ec_shard_read(
+            vid, sid, offset=offset, size=size))
+
+    def read_fragment(self, addr: str, vid: int, sid: int, ranges,
+                      combine_rows: int = 0, combine_matrix: bytes = b"",
+                      gather_shard_ids=(), gather_sources=()) -> bytes:
+        return b"".join(self._server(addr).volume_ec_shard_read(
+            vid, sid, fragment_offsets=[o for o, _ in ranges],
+            fragment_lengths=[ln for _, ln in ranges],
+            combine_rows=combine_rows, combine_matrix=combine_matrix,
+            gather_shard_ids=gather_shard_ids,
+            gather_sources=gather_sources))
+
+    def copy_file(self, addr: str, vid: int, collection: str, ext: str,
+                  is_ec_volume: bool = False):
+        return self._server(addr).copy_file(vid, collection, ext,
+                                            is_ec_volume)
+
+    def ec_shards_info(self, addr: str, vid: int, collection: str) -> dict:
+        return self._server(addr).volume_ec_shards_info(vid, collection)
+
+    def ec_shards_delete(self, addr: str, vid: int, collection: str,
+                         shard_ids) -> None:
+        self._server(addr).volume_ec_shards_delete(vid, collection,
+                                                   list(shard_ids))

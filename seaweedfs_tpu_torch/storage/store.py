@@ -5,8 +5,9 @@ Port of seaweedfs_tpu/storage/store.py. Reference: weed/storage/store.go:83
 store_ec.go (EC mount/read), :389 (deleteExpiredEcVolumes, fork).
 
 Coder selection has no fallback: `coder_name="torch"` (the default) is
-TorchCoder on `device` (default "cuda", kernel K1), `"numpy"` is the host
-oracle, and any other name or a coder that fails to build raises. The
+TorchCoder on `device` (default "cuda", kernel K1), `"native"` the AVX2
+host coder (ops/native.py), `"numpy"` the host oracle, and any other name
+or a coder that fails to build raises. The
 layered codecs (`ec_codec` or a volume's sealed codec "piggyback" or "msr")
 wrap that same backend on that same device.
 
@@ -36,12 +37,13 @@ from .volume import Volume, VolumeClosedError
 
 log = logger("store")
 
-# the lifecycle tiers an EC volume's reap record names (the JAX package's
-# lifecycle.TIER_EC and TIER_REMOTE)
+# the lifecycle tiers an EC volume's reap names (the JAX package's
+# lifecycle.TIER_EC, TIER_REMOTE and TIER_TRASH)
 TIER_EC = "ec"          # erasure-coded, local shards
 TIER_REMOTE = "remote"  # erasure-coded, shard payload in a remote tier
+TIER_TRASH = "trash"    # soft-deleted (DestroyTime reap), restorable
 
-_CODERS = ("torch", "numpy")
+_CODERS = ("torch", "numpy", "native")
 
 
 class Store:

@@ -107,3 +107,50 @@ def test_no_silent_cpu_fallback(monkeypatch):
     # the explicit CPU device is the only way to the plain version
     c = coder.TorchCoder(10, 4, device="cpu")
     assert c.device.type == "cpu" and c.async_dispatch
+
+
+_CORE_HYGIENE = r"""
+import sys
+import seaweedfs_tpu_torch.server.volume_server
+import seaweedfs_tpu_torch.utils.retry, seaweedfs_tpu_torch.utils.fastweb
+import seaweedfs_tpu_torch.ops.events
+bad = sorted(n for n in sys.modules
+             if n.split(".")[0] in ("grpc", "jax", "seaweedfs_tpu")
+             or n.startswith("google.protobuf"))
+print("BAD", bad)
+"""
+
+
+def test_volume_server_core_loads_no_grpc_protobuf_jax_or_reference():
+    """The server core, and the retry, fastweb and events copies it uses,
+    run where there is no grpcio or protobuf: only the gRPC binding
+    (server/grpc_service.py) and pb/ import them."""
+    out = subprocess.run([sys.executable, "-c", _CORE_HYGIENE],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=str(_repo_root()))
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+_NO_CARD_CLI = r"""
+import sys, torch
+torch.cuda.is_available = lambda: False
+from seaweedfs_tpu_torch.__main__ import main
+sys.exit(main(sys.argv[1:]))
+"""
+
+
+@pytest.mark.parametrize("flags,refused", [
+    ([], "CUDA is not available"),
+    (["-device", "auto"], "invalid choice"),
+    (["-coder", "numpy"], "invalid choice")])
+def test_volume_verb_refuses_without_a_card(tmp_path, flags, refused):
+    """`python -m seaweedfs_tpu_torch volume` runs on the card unless
+    `-device cpu` is asked for: with no card it exits non-zero before
+    serving; -device and -coder take no automatic choice."""
+    out = subprocess.run(
+        [sys.executable, "-c", _NO_CARD_CLI, "volume", "-dir", str(tmp_path),
+         "-port", "1", "-mserver", "127.0.0.1:1", *flags],
+        capture_output=True, text=True, timeout=120, cwd=str(_repo_root()))
+    assert out.returncode != 0
+    assert refused in out.stderr, out.stderr

@@ -416,3 +416,39 @@ def test_device_trace_records_kernels_on_card(cuda, tmp_path):
         names = {ev.get("name", "") for ev in json.load(f)["traceEvents"]
                  if ev.get("cat") == "kernel"}
     assert any("rs_gf" in n for n in names), sorted(names)[:20]
+
+
+@pytest.mark.gpu
+def test_degraded_http_read_on_card_launches_k1(cuda, tmp_path):
+    """One degraded needle read over the volume server's HTTP plane on the
+    card: the lost interval reconstructed through K1 at one stripe."""
+    import requests
+
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.storage.types import file_id
+    store = Store("127.0.0.1", 0, "", [DiskLocation(str(tmp_path))],
+                  ec_geometry=GEO, coder_name="torch", device="cuda")
+    vs = VolumeServer(store, "127.0.0.1", 18431)
+    vs.start()
+    try:
+        body = _data(3000, 41).tobytes()
+        fid = file_id(1, 7, 0xC0FFEE)
+        vs.allocate_volume(1)
+        assert requests.post(f"http://{vs.url}/{fid}", data=body,
+                             timeout=10).status_code == 201
+        vs.volume_mark_readonly(1)
+        vs.volume_ec_shards_generate(1)
+        vs.volume_ec_shards_mount(1)
+        vs.volume_delete(1)
+        ev = store.find_ec_volume(1)
+        off, _ = ev.find_needle(7)
+        first = off // GEO.small_block % GEO.d  # the shard of its head
+        vs.volume_ec_shards_delete(1, shard_ids=[first])
+        rs_cuda.reset_launches()
+        r = requests.get(f"http://{vs.url}/{fid}", timeout=60)
+        torch.cuda.synchronize()
+        assert (r.status_code, r.content) == (200, body)
+        assert rs_cuda.launches_by_entry.get("reconstruct", 0) >= 1
+        assert vs.read_stats["reconstructs"] >= 1
+    finally:
+        vs.stop()

@@ -1,0 +1,295 @@
+"""A mixed cluster over gRPC: the JAX package's MasterServer, one of its
+VolumeServers and two of the port's volume servers behind
+seaweedfs_tpu_torch/server/grpc_service.py (device="cpu"). The flow of
+tests/test_cluster.py::test_ec_encode_spread_and_degraded_read, driven by
+the reference's Stub and operation.submit: an EC volume spread over JAX and
+port servers, healthy and degraded reads on every server (the port's fetch
+shards from the JAX server, the JAX server's from the port's), the JAX
+shell's ec.rebuild run on a port server and volume.scrub on a port server's
+volume, and the CLI verb `python -m seaweedfs_tpu_torch volume -device cpu`
+registering with the JAX master and serving a GET."""
+
+import hashlib
+import io
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import requests
+
+from conftest import free_port_pair, wait_cluster_up, wait_until
+from seaweedfs_tpu.client import operation
+from seaweedfs_tpu.client.master_client import MasterClient
+from seaweedfs_tpu.ec.locate import EcGeometry as RefGeometry
+from seaweedfs_tpu.master.master_server import MasterServer
+from seaweedfs_tpu.pb import volume_server_pb2 as vpb
+from seaweedfs_tpu.server.volume_server import VolumeServer as RefServer
+from seaweedfs_tpu.shell import ec_commands, volume_commands  # noqa: F401 (register)
+from seaweedfs_tpu.shell.commands import CommandEnv, run_command
+from seaweedfs_tpu.storage.disk_location import DiskLocation as RefLocation
+from seaweedfs_tpu.storage.store import Store as RefStore
+from seaweedfs_tpu.utils.rpc import VOLUME_SERVICE, Stub
+from seaweedfs_tpu_torch.ec import files
+from seaweedfs_tpu_torch.ec.locate import EcGeometry
+from seaweedfs_tpu_torch.server.grpc_service import GrpcPeers, serve_volume
+from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+from seaweedfs_tpu_torch.storage.disk_location import DiskLocation
+from seaweedfs_tpu_torch.storage.store import Store
+from seaweedfs_tpu_torch.storage.types import file_id
+from seaweedfs_tpu_torch.utils import retry
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+D, P, LB, SB = 4, 2, 1 << 20, 1 << 14
+
+
+class _RecordingPeers(GrpcPeers):
+    """GrpcPeers that records which address each shard read went to."""
+
+    def __init__(self, master):
+        super().__init__(master)
+        self.reads = []
+
+    def read_shard(self, addr, vid, sid, offset, size):
+        self.reads.append(addr)
+        return super().read_shard(addr, vid, sid, offset, size)
+
+
+@pytest.fixture(scope="module")
+def cluster(tmp_path_factory):
+    retry.reset_breakers()
+    mport = free_port_pair()
+    maddr = f"127.0.0.1:{mport}"
+    master = MasterServer(port=mport, volume_size_limit_mb=64,
+                          pulse_seconds=0.5)
+    master.start()
+    ref = served = None
+    try:
+        d = tmp_path_factory.mktemp("jax_vs")
+        port = free_port_pair()
+        store = RefStore("127.0.0.1", port, f"127.0.0.1:{port}",
+                         [RefLocation(str(d), max_volume_count=10)],
+                         ec_geometry=RefGeometry(D, P, large_block=LB,
+                                                 small_block=SB),
+                         coder_name="numpy")
+        ref = RefServer(store, maddr, port=port, grpc_port=port + 10000,
+                        pulse_seconds=0.5, rack="rack0")
+        ref.start()
+        served = []
+        for i in (1, 2):
+            d = tmp_path_factory.mktemp(f"port_vs{i}")
+            port = free_port_pair()
+            store = Store("127.0.0.1", port, f"127.0.0.1:{port}",
+                          [DiskLocation(str(d), max_volume_count=10)],
+                          ec_geometry=EcGeometry(D, P, large_block=LB,
+                                                 small_block=SB),
+                          coder_name="torch", device="cpu")
+            vs = VolumeServer(store, "127.0.0.1", port, rack=f"rack{i}",
+                              pulse_seconds=0.5,
+                              peers=_RecordingPeers(maddr))
+            served.append(serve_volume(vs, port + 10000, master=maddr))
+        servers = [ref] + [s.vs for s in served]
+        wait_cluster_up(master, servers, timeout=20)
+        mc = MasterClient(maddr).start()
+        try:
+            yield master, maddr, ref, [s.vs for s in served], mc
+        finally:
+            mc.stop()
+    finally:
+        for s in served or ():
+            s.stop()
+        if ref is not None:
+            ref.stop()
+        master.stop()
+        retry.reset_breakers()
+
+
+def _grpc(vs) -> str:
+    return f"127.0.0.1:{vs.grpc_port}"
+
+
+def _call(vs, method, req, resp_cls, timeout=60):
+    return Stub(_grpc(vs), VOLUME_SERVICE).call(method, req, resp_cls,
+                                                timeout=timeout)
+
+
+def _sha(path):
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def _base(vs, vid, collection):
+    return vs.store.locations[0].base_name(collection, vid)
+
+
+def test_mixed_cluster_ec_spread_degraded_reads_and_shell_rebuild(cluster):
+    master, maddr, ref, (p1, p2), mc = cluster
+    rng = np.random.default_rng(1)
+    blobs = {}
+    for _ in range(30):
+        data = rng.integers(0, 256, int(rng.integers(100, 20000)),
+                            dtype=np.uint8).tobytes()
+        blobs[operation.submit(mc, data, collection="ecol").fid] = data
+    vid = int(next(iter(blobs)).split(",")[0])
+    assert all(int(f.split(",")[0]) == vid for f in blobs)
+    servers = (ref, p1, p2)
+    src = next(vs for vs in servers if vs.store.find_volume(vid) is not None)
+    _call(src, "VolumeMarkReadonly",
+          vpb.VolumeMarkReadonlyRequest(volume_id=vid),
+          vpb.VolumeMarkReadonlyResponse)
+    _call(src, "VolumeEcShardsGenerate",
+          vpb.VolumeEcShardsGenerateRequest(volume_id=vid, collection="ecol"),
+          vpb.VolumeEcShardsGenerateResponse, timeout=120)
+    sealed = {s: _sha(_base(src, vid, "ecol") + files.shard_ext(s))
+              for s in range(D + P)}
+
+    # the spread: the first port server holds 0-2, the JAX server 3-4, the
+    # second port server 5
+    spread = {p1: [0, 1, 2], ref: [3, 4], p2: [5]}
+    for vs, sids in spread.items():
+        if vs is not src:
+            _call(vs, "VolumeEcShardsCopy", vpb.VolumeEcShardsCopyRequest(
+                volume_id=vid, collection="ecol", shard_ids=sids,
+                copy_ecx_file=True, copy_vif_file=True, copy_ecj_file=True,
+                source_data_node=_grpc(src)), vpb.VolumeEcShardsCopyResponse)
+        _call(vs, "VolumeEcShardsMount", vpb.VolumeEcShardsMountRequest(
+            volume_id=vid, collection="ecol"), vpb.VolumeEcShardsMountResponse)
+    _call(src, "VolumeEcShardsDelete", vpb.VolumeEcShardsDeleteRequest(
+        volume_id=vid, collection="ecol",
+        shard_ids=[s for s in range(D + P) if s not in spread[src]]),
+        vpb.VolumeEcShardsDeleteResponse)
+    _call(src, "VolumeDelete", vpb.VolumeDeleteRequest(volume_id=vid),
+          vpb.VolumeDeleteResponse)
+    wait_until(lambda: {s: len(h) for s, h in
+                        master.topo.ec_locations.get(vid, {}).items() if h}
+               == dict.fromkeys(range(D + P), 1), timeout=15,
+               msg="every shard registered once")
+
+    served_by_port = []
+    for vs in (p1, p2):
+        real = vs.volume_ec_shard_read
+
+        def counted(*a, _real=real, **kw):
+            served_by_port.append(a[1])
+            return _real(*a, **kw)
+        vs.volume_ec_shard_read = counted
+
+    def read_everywhere(tag):
+        for vs in servers:
+            for fid, data in blobs.items():
+                r = requests.get(f"http://{vs.url}/{fid}", timeout=30)
+                assert (r.status_code, r.content) == (200, data), (tag, vs.url)
+        for fid, data in list(blobs.items())[:10]:
+            assert operation.read(mc, fid) == data, tag
+
+    read_everywhere("healthy")
+    assert _grpc(ref) in p1.peers.reads + p2.peers.reads  # port <- JAX
+    assert served_by_port                                 # JAX <- port
+
+    # degraded: shard 0 lost on a port server, shard 3 on the JAX server
+    _call(p1, "VolumeEcShardsDelete", vpb.VolumeEcShardsDeleteRequest(
+        volume_id=vid, collection="ecol", shard_ids=[0]),
+        vpb.VolumeEcShardsDeleteResponse)
+    _call(ref, "VolumeEcShardsDelete", vpb.VolumeEcShardsDeleteRequest(
+        volume_id=vid, collection="ecol", shard_ids=[3]),
+        vpb.VolumeEcShardsDeleteResponse)
+    wait_until(lambda: not master.topo.ec_locations[vid].get(0)
+               and not master.topo.ec_locations[vid].get(3), timeout=15,
+               msg="lost shards unregistered")
+    p1.peers.reads.clear()
+    before = sum(vs.read_stats.get("reconstructs", 0) for vs in (p1, p2))
+    read_everywhere("degraded")
+    assert sum(vs.read_stats.get("reconstructs", 0)
+               for vs in (p1, p2)) > before
+    assert _grpc(ref) in p1.peers.reads
+
+    # the JAX shell's ec.rebuild: the first port server holds the most
+    # shards, so it rebuilds (0, 3) from the JAX and port survivors
+    out = io.StringIO()
+    env = CommandEnv(maddr, out=out)
+    try:
+        run_command(env, "lock")
+        run_command(env, f"ec.rebuild -volumeId {vid}")
+        run_command(env, "unlock")
+    finally:
+        env.mc.stop()
+    assert f"rebuilt [0, 3] on {p1.url}" in out.getvalue(), out.getvalue()
+    for s in (0, 3):
+        assert _sha(_base(p1, vid, "ecol") + files.shard_ext(s)) == sealed[s]
+    assert sorted(p1.store.find_ec_volume(vid).shards) == [0, 1, 2, 3]
+    read_everywhere("rebuilt")
+
+
+def test_shell_volume_scrub_on_a_port_server(cluster):
+    master, maddr, ref, (p1, p2), mc = cluster
+    vid = 901
+    _call(p2, "AllocateVolume", vpb.AllocateVolumeRequest(
+        volume_id=vid, collection="scrub"), vpb.AllocateVolumeResponse)
+    rng = np.random.default_rng(7)
+    for i in range(1, 41):
+        fid = file_id(vid, i, 0x1234)
+        r = requests.post(f"http://{p2.url}/{fid}",
+                          data=rng.bytes(int(rng.integers(1, 4000))),
+                          timeout=10)
+        assert r.status_code == 201
+    v = p2.store.find_volume(vid)
+    v.sync()
+    off = v.nm.get(17).offset
+    with open(v.file_name() + ".dat", "r+b") as f:
+        f.seek(off + 16 + 4 + 1)
+        b = f.read(1)
+        f.seek(off + 16 + 4 + 1)
+        f.write(bytes([b[0] ^ 0xFF]))
+    wait_until(lambda: [n.url for n in master.topo.lookup(vid)] == [p2.url],
+               timeout=10, msg="the volume in the master's topology")
+    for device in ("auto", "off"):
+        out = io.StringIO()
+        env = CommandEnv(maddr, out=out)
+        try:
+            with pytest.raises(RuntimeError, match="1 corrupt needles"):
+                run_command(env, f"volume.scrub -volumeId {vid} "
+                                 f"-device {device}")
+        finally:
+            env.mc.stop()
+        text = out.getvalue()
+        mode = "device" if device == "auto" else "cpu"
+        assert f"{p2.url} volume {vid}: 40 needles" in text, text
+        assert f"[{mode}]" in text and "CORRUPT: ['0x11']" in text, text
+
+
+def test_cli_volume_verb_joins_the_jax_master(cluster, tmp_path):
+    master, maddr, ref, _, mc = cluster
+    port = free_port_pair()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "seaweedfs_tpu_torch", "volume",
+         "-dir", str(tmp_path), "-port", str(port), "-mserver", maddr,
+         "-device", "cpu", "-pulseSeconds", "0.5"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        env={**os.environ, "PYTHONPATH": str(REPO)})
+    try:
+        me = f"127.0.0.1:{port}"
+        wait_until(lambda: me in master.topo.nodes or proc.poll() is not None,
+                   timeout=60, msg="the CLI server registered")
+        assert proc.poll() is None, proc.stdout.read().decode()
+        vid = 902
+        Stub(f"127.0.0.1:{port + 10000}", VOLUME_SERVICE).call(
+            "AllocateVolume", vpb.AllocateVolumeRequest(volume_id=vid),
+            vpb.AllocateVolumeResponse, timeout=30)
+        fid = file_id(vid, 5, 0xBEEF)
+        body = b"served by the port's volume verb" * 40
+        assert requests.post(f"http://{me}/{fid}", data=body,
+                             timeout=10).status_code == 201
+        r = requests.get(f"http://{me}/{fid}", timeout=10)
+        assert (r.status_code, r.content) == (200, body)
+        wait_until(lambda: [n.url for n in master.topo.lookup(vid)] == [me],
+                   timeout=10, msg="the volume in the master's topology")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=15)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=5)
+    assert proc.returncode == 0, proc.stdout.read().decode()
