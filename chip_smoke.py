@@ -5,7 +5,7 @@
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result). `--phases` runs a subset (default: all); phase 1 always runs, and
-the kernels line needs phases 3, 4 and 6 to 13. The kernels of the
+the kernels line needs phases 3, 4 and 6 to 14. The kernels of the
 phases asked for are built first, all at once (one nvcc per source).
 
 1. device: card name, count, `nvidia-smi` name and power limit;
@@ -140,7 +140,9 @@ phases asked for are built first, all at once (one nvcc per source).
    VolumeEcShardsGenerate (K1 encode); VolumeEcShardsCopy of shards 7-13
    with the .ecx and .vif to B through CopyFile on the peer plane, both
    mounted, 7-13 deleted on A, the source volume deleted. A seeded sample
-   of 16,384 needles GET from A by one keep-alive client, a quarter with a
+   of 4,096 needles (16,384 until the replicated data plane's phase took
+   the time; a smaller depth of this earlier path, the needles' sizes
+   unchanged) GET from A by one keep-alive client, a quarter with a
    Range header, healthy, then after VolumeEcShardsDelete of (0, 5) on A
    and (10, 13) on B: every body equal, the reconstructs (K1 at one
    stripe) numbering the sampled intervals on lost shards; then the
@@ -159,9 +161,30 @@ phases asked for are built first, all at once (one nvcc per source).
    "off" the same counts in mode cpu. K1's and K3's counts are zeroed just
    before the phase and read just after; then K1 at the degraded reads'
    one-stripe width is timed;
-14. summary: one JSON line of every kernel with its launches (K1's from
-   phases 6, 9, 10, 11, 12 and 13, K3's from phases 8, 10, 12 and 13),
-   error against the plain version, times and bound; then the result line.
+14. the replicated data plane (server/volume_server.py with
+   client/http_util.py, storage/bulk.py and the read cache): servers A, B
+   and C, each a VolumeServer over a Store on the card, joined by one
+   LocalPeers that answers lookup_volume from their heartbeats; the replica
+   hops are HTTP over loopback. A fresh "001" volume on A and B; the full
+   write set (1,048,576 needles of 1024 + 0..63 B, `weed benchmark -n
+   1048576 -size 1024`) PUT to A by one client as /bulk frames of 1,024
+   needles, each frame replicated to B in one hop; A's and B's .idx equal by
+   sha256. 4,096 POSTs through A, each read back from B; 256 DELETEs, 404 on
+   both; one ?type=replicate POST on B lands on B alone. 4,096 sampled GETs
+   from A twice: 0 read-cache hits in the first pass, 4,096 in the second.
+   1,024 of them GET from C (proxied to a holder, a quarter ranged), then C
+   in redirect mode answers 301 to a holder. /bulk-read of a 16,384-needle
+   sample from B in frames of 256. VolumeScrub of B's copy with device ""
+   (K3): every live needle, 0 corrupt. B's copy sealed by
+   VolumeEcShardsGenerate at RS(10,4) (K1 encode), mounted, both plain
+   copies deleted, shards (0, 5, 10, 13) deleted: the /bulk-read sample
+   again, every body equal and the reconstructs (K1 at one stripe)
+   numbering the sampled intervals on lost shards. K1's and K3's counts are
+   zeroed just before the phase and read just after;
+15. summary: one JSON line of every kernel with its launches (K1's from
+   phases 6, 9, 10, 11, 12, 13 and 14, K3's from phases 8, 10, 12, 13 and
+   14), error against the plain version, times and bound; then the result
+   line.
 
 Needs CUDA and the repository beside it; without either it exits 2.
 """
@@ -185,14 +208,15 @@ MAIN_SHAPE = (32, 10, 1 << 20)  # [batch, d, chunk] of one encode call
 LOST_10_4 = (0, 5, 10, 13)
 LOST_14_2 = (3, 15)
 WIDTHS = (16, 48, 100, 384, 4112, 65536, 65552)
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14)
 PALLAS = "seaweedfs_tpu/ops/rs_pallas.py"
 K1_SOURCE = "seaweedfs_tpu_torch/csrc/rs_gf.cu"
 K3_SOURCE = "seaweedfs_tpu_torch/csrc/crc32c.cu"
 K3_REPLACES = "seaweedfs_tpu/ops/crc32c.py:183"  # device_crc_states
 KERNELS = {2: ("rs_gf",), 7: ("crc32c",), 9: ("rs_gf",),  # phase -> csrc
            10: ("rs_gf", "crc32c"), 11: ("rs_gf",),    # sources it builds
-           12: ("rs_gf", "crc32c"), 13: ("rs_gf", "crc32c")}
+           12: ("rs_gf", "crc32c"), 13: ("rs_gf", "crc32c"),
+           14: ("rs_gf", "crc32c")}
 K3_SHAPES = ((4096, 2048), (16384, 4096), (64, 1 << 20))  # first: the scrub's
 K3_ROWS = (1, 3, 4096, 4225)  # 4225 = 132 SMs x 32 warps + 1
 K3_LENGTHS = (0, 512, 1024, 2048, 4096, 65536, 1 << 20)
@@ -215,8 +239,18 @@ MESH_DAT = 1_145_031_680  # phase 12: the .dat size of 1,048,576 needles
 MESH_SCRUB_NEEDLES = 1 << 20  # phase 12: weed benchmark's default write set
 MESH_SCRUB_BATCH = (4096, 2048)
 MESH_DAMAGED = 17
-SERVER_HTTP_NEEDLES = 4096  # phase 13: needles POSTed over HTTP after the bulk set
+SERVER_HTTP_NEEDLES = 4096  # phase 13: needles POSTed over HTTP after the
+                            # bulk set; phase 14: POSTs fanned out to B
 SERVER_SCRUB_NEEDLES = 1 << 18  # phase 13: the regular volume VolumeScrub checks
+SERVER_SAMPLE = 4096   # phase 13: needles GET per pass (cut from 16,384 to
+                       # make room for phase 14)
+REPLICA_VID = 21       # phase 14's "001" volume
+REPLICA_FRAME = 1024   # phase 14: needles a /bulk frame (the JAX client's
+                       # BULK_MAX_FRAME_NEEDLES)
+REPLICA_DELETES = 256  # phase 14: DELETEs fanned out
+REPLICA_GETS = 4096    # phase 14: GETs on A per pass, twice
+REPLICA_PROXIED = 1024  # phase 14: of them, GETs proxied by C
+REPLICA_READ_FRAME = 256  # phase 14: needles a /bulk-read frame
 # `python3 -c "import grpc, google.protobuf"` on the card's machine found
 # grpc 1.80.0 and protobuf 6.33.6 (PERF.md), so phase 13 also reads its
 # degraded sample over gRPC
@@ -2678,7 +2712,7 @@ def phase_server(torch, np, workdir: str, seed: int, card: str) -> dict:
     rs_cuda.reset_launches()
     crc_cuda.reset_launches()
     res = server_round_trip(np, workdir, seed + 23, card, EcGeometry(10, 4),
-                            EC_NEEDLES, EC_SAMPLE, SERVER_HTTP_NEEDLES,
+                            EC_NEEDLES, SERVER_SAMPLE, SERVER_HTTP_NEEDLES,
                             SERVER_SCRUB_NEEDLES)
     torch.cuda.synchronize()
     k1 = dict(rs_cuda.launches_by_entry)
@@ -2702,6 +2736,278 @@ def phase_server(torch, np, workdir: str, seed: int, card: str) -> dict:
         f"{res['scrub']:.0f} needles/s; degraded one-stripe width "
         f"{stripe['L']} B (% 16 = {stripe['L'] % 16}), K1 there "
         f"{stripe['ms']:.5f} ms [{card}]")
+    return {"k1": k1, "k3": k3}
+
+
+# -- phase 14 ---------------------------------------------------------------
+def replica_round_trip(np, workdir: str, seed: int, card: str, geo,
+                       needles: int, frame: int, posts: int, deletes: int,
+                       gets: int, proxied: int, bulk_sample: int,
+                       bulk_frame: int, device: str = "cuda") -> dict:
+    """Phase 14's path through three volume servers, every check fatal:
+    a "001" volume on A and B written as /bulk frames on A (each frame
+    replicated to B in one HTTP hop), POSTs and DELETEs fanned out, GETs
+    through the read cache, proxied and redirected GETs on C, /bulk-read
+    of B healthy and, after B's copy is sealed at RS(10,4) and shards
+    (0, 5, 10, 13) are lost, degraded (K1 at one stripe); VolumeScrub of
+    B's copy through K3. Logs the measured numbers and returns them."""
+    from seaweedfs_tpu_torch.ops import crc_cuda
+    from seaweedfs_tpu_torch.server.volume_server import LocalPeers, VolumeServer
+    from seaweedfs_tpu_torch.stats import READ_CACHE_HITS
+    from seaweedfs_tpu_torch.storage import bulk
+    from seaweedfs_tpu_torch.storage.disk_location import DiskLocation
+    from seaweedfs_tpu_torch.storage.store import Store
+    from seaweedfs_tpu_torch.storage.types import file_id
+    from seaweedfs_tpu_torch.utils import retry
+
+    vid = REPLICA_VID
+    servers = {}
+    for x in "abc":
+        port = _free_port()
+        store = Store("127.0.0.1", port, "", [DiskLocation(os.path.join(
+            workdir, f"replica_{x}"))], ec_geometry=geo, coder_name="torch",
+            device=device)
+        servers[x] = VolumeServer(store, "127.0.0.1", port)
+    a, b, c = servers["a"], servers["b"], servers["c"]
+    LocalPeers({vs.peer_address: vs for vs in servers.values()})
+    clients = []
+    out: dict = {}
+    retry.reset_breakers()
+    try:
+        for vs in servers.values():
+            vs.start()
+        ca, cb, cc = (_Client(vs.url) for vs in (a, b, c))
+        clients += [ca, cb, cc]
+
+        def ms(xs, q):
+            return _pct(np, xs, q) * 1e3
+
+        # 1. the write set as /bulk frames on A, each replicated to B
+        for vs in (a, b):
+            vs.allocate_volume(vid, replication="001")
+        rng = np.random.default_rng(seed)
+        sampled = sorted(int(i) for i in rng.choice(needles, bulk_sample,
+                                                    replace=False) + 1)
+        keep = set(sampled)
+        cookie_of = rng.integers(1, 1 << 32, needles // frame, dtype=np.uint64)
+        want: "dict[int, bytes]" = {}
+        put_s = 0.0
+        total = 0
+        for f in range(needles // frame):
+            cookie = int(cookie_of[f])
+            sizes = 1024 + rng.integers(0, 64, frame)
+            buf = rng.bytes(int(sizes.sum()))
+            ends = np.cumsum(sizes)
+            entries = []
+            for i, e in enumerate(ends):
+                nid = f * frame + i + 1
+                data = buf[int(e - sizes[i]):int(e)]
+                entries.append((nid, cookie, data, 0))
+                if nid in keep:
+                    want[nid] = data
+            body = bulk.pack_frame(vid, entries)
+            total += len(buf)
+            t = time.perf_counter()
+            st, resp, _ = ca.request("PUT", f"/bulk?vid={vid}", body)
+            put_s += time.perf_counter() - t
+            if st != 201 or json.loads(resp)["count"] != frame:
+                raise AssertionError(f"/bulk frame {f}: {st} {resp[:200]!r}")
+        idx_hash = []
+        for vs in (a, b):
+            v = vs.store.find_volume(vid)
+            v.sync()
+            idx_hash.append(_sha256(v.file_name() + ".idx"))
+        if idx_hash[0] != idx_hash[1]:
+            raise AssertionError("A's and B's .idx differ after the ingest")
+        out["ingest"] = needles / put_s
+        log(f"[replica] {needles} needles ({total} B) PUT to A as "
+            f"{needles // frame} /bulk frames of {frame}, each replicated to B "
+            f"in one hop: {out['ingest']:.0f} needles/s, "
+            f"{total / put_s / 1e6:.1f} MB/s one client; A's and B's .idx "
+            f"sha256 equal [{card}]")
+
+        def cookie(nid):
+            return int(cookie_of[(nid - 1) // frame])
+
+        # 2. POSTs and DELETEs through A, fanned out to B
+        posted = {}
+        post_lat = []
+        for nid in range(needles + 1, needles + posts + 1):
+            body = rng.bytes(int(1024 + rng.integers(0, 64)))
+            fid = file_id(vid, nid, int(rng.integers(1, 1 << 32)))
+            t = time.perf_counter()
+            st, resp, _ = ca.request("POST", f"/{fid}", body)
+            post_lat.append(time.perf_counter() - t)
+            if st != 201 or json.loads(resp)["size"] != len(body):
+                raise AssertionError(f"POST of {fid}: {st} {resp[:200]!r}")
+            if cb.request("GET", f"/{fid}")[:2] != (200, body):
+                raise AssertionError(f"the POST of {fid} did not reach B")
+            posted[fid] = body
+        for fid in list(posted)[:deletes]:
+            st, _, _ = ca.request("DELETE", f"/{fid}")
+            if st != 202:
+                raise AssertionError(f"DELETE of {fid}: {st}")
+            if (ca.request("GET", f"/{fid}")[0],
+                    cb.request("GET", f"/{fid}")[0]) != (404, 404):
+                raise AssertionError(f"the DELETE of {fid} left a copy")
+        hop = file_id(vid, needles + posts + 1, 0x5EED)
+        if cb.request("POST", f"/{hop}?type=replicate", b"hop" * 300)[0] != 201 \
+                or cb.request("GET", f"/{hop}")[:2] != (200, b"hop" * 300) \
+                or ca.request("GET", f"/{hop}")[0] != 404:
+            raise AssertionError("a replica hop on B did not land on B alone")
+        out["post"] = post_lat
+        log(f"[replica] {posts} POSTs through A, each replicated to B and read "
+            f"back there: p50 {ms(post_lat, 50):.4f} ms, p99 "
+            f"{ms(post_lat, 99):.4f} ms, {posts / sum(post_lat):.0f} writes/s "
+            f"one client; {deletes} DELETEs 404 on A and B; one "
+            f"?type=replicate POST on B landed on B only [{card}]")
+
+        # 3. sampled GETs from A, twice: the second pass from the cache
+        get_ids = sorted(int(i) for i in rng.choice(sampled, gets,
+                                                    replace=False))
+        passes = []
+        for tag in ("first", "second"):
+            h0 = READ_CACHE_HITS.value()
+            lat = []
+            for nid in get_ids:
+                t = time.perf_counter()
+                st, got, _ = ca.request("GET", f"/{file_id(vid, nid, cookie(nid))}")
+                lat.append(time.perf_counter() - t)
+                if (st, got) != (200, want[nid]):
+                    raise AssertionError(f"{tag} GET of needle {nid}: {st}")
+            hits = READ_CACHE_HITS.value() - h0
+            if hits != (0 if tag == "first" else gets):
+                raise AssertionError(f"{tag} pass: {hits} read-cache hits")
+            passes.append(lat)
+        out["get"] = passes
+        log(f"[replica] {gets} sampled GETs from A == written: first pass "
+            f"(0 cache hits) p50 {ms(passes[0], 50):.4f} ms, p99 "
+            f"{ms(passes[0], 99):.4f} ms; second pass ({gets} cache hits) p50 "
+            f"{ms(passes[1], 50):.4f} ms, p99 {ms(passes[1], 99):.4f} ms "
+            f"[{card}]")
+
+        # 4. proxied GETs on C (a quarter ranged), then one redirect
+        lat = []
+        for i, nid in enumerate(get_ids[:proxied]):
+            data, hdr = want[nid], {}
+            if i % 4 == 0:
+                lo = nid % 97
+                hdr = {"Range": f"bytes={lo}-{lo + 510}"}
+                data = data[lo:lo + 511]
+            t = time.perf_counter()
+            st, got, _ = cc.request("GET", f"/{file_id(vid, nid, cookie(nid))}",
+                                    headers=hdr)
+            lat.append(time.perf_counter() - t)
+            if (st, got) != (206 if hdr else 200, data):
+                raise AssertionError(f"proxied GET of needle {nid}: {st}")
+        c.read_mode = "redirect"
+        fid = file_id(vid, get_ids[0], cookie(get_ids[0]))
+        st, _, hdrs = cc.request("GET", f"/{fid}")
+        c.read_mode = "proxy"
+        holders = [f"http://{vs.url}/{fid}?proxied=1" for vs in (a, b)]
+        if st != 301 or hdrs.get("Location") not in holders:
+            raise AssertionError(f"redirect: {st} {hdrs.get('Location')}")
+        out["proxy"] = lat
+        log(f"[replica] {proxied} GETs on C proxied to a holder "
+            f"({len(range(0, proxied, 4))} ranged) == written: p50 "
+            f"{ms(lat, 50):.4f} ms, p99 {ms(lat, 99):.4f} ms; C in redirect "
+            f"mode: 301 to {hdrs['Location'].split('/')[2]} [{card}]")
+
+        def bulk_read(tag: str) -> float:
+            t = time.perf_counter()
+            for lo in range(0, len(sampled), bulk_frame):
+                ids = sampled[lo:lo + bulk_frame]
+                req = bulk.pack_read_request(vid, [(n, cookie(n)) for n in ids])
+                st, resp, _ = cb.request("POST", f"/bulk-read?vid={vid}", req)
+                if st != 200:
+                    raise AssertionError(f"{tag} /bulk-read: {st}")
+                _, res = bulk.unpack_read_response(resp)
+                if [(r.key, r.status, bytes(r.data)) for r in res] != \
+                        [(n, bulk.READ_OK, want[n]) for n in ids]:
+                    raise AssertionError(f"{tag} /bulk-read frame at {lo}")
+            return len(sampled) / (time.perf_counter() - t)
+
+        # 5. /bulk-read of B, healthy
+        out["bulk_read"] = bulk_read("healthy")
+        log(f"[replica] /bulk-read of {len(sampled)} sampled needles from B in "
+            f"frames of {bulk_frame} == written: {out['bulk_read']:.0f} "
+            f"needles/s one client [{card}]")
+
+        # 6. VolumeScrub of B's copy through K3
+        live = needles + posts - deletes + 1
+        k0 = crc_cuda.launches
+        (res,) = b.volume_scrub(vid, device="")
+        k3 = crc_cuda.launches - k0
+        if (res["scanned"], res["corrupt_needle_ids"], res["mode"]) != (
+                live, [], "device") or res["error"] or (
+                device == "cuda" and not k3):
+            raise AssertionError(f"VolumeScrub of B: {res}; {live} live, "
+                                 f"{k3} K3 launches")
+        out["scrub"] = res["scanned"] / res["elapsed_s"]
+        log(f"[replica] VolumeScrub of B's copy: {res['scanned']} needles, 0 "
+            f"corrupt, {out['scrub']:.0f} needles/s, {k3} K3 launches [{card}]")
+
+        # 7. B's copy sealed at RS(10,4), plain copies deleted, four shards
+        # lost: /bulk-read reconstructs through K1 at one stripe
+        b.volume_mark_readonly(vid)
+        t = time.perf_counter()
+        b.volume_ec_shards_generate(vid)
+        gen_s = time.perf_counter() - t
+        b.volume_ec_shards_mount(vid)
+        a.volume_delete(vid)
+        b.volume_delete(vid)
+        b.volume_ec_shards_delete(vid, shard_ids=list(LOST_10_4))
+        ev = b.store.find_ec_volume(vid)
+        if sorted(ev.shards) != [s for s in range(geo.n) if s not in LOST_10_4]:
+            raise AssertionError(f"B mounted shards {sorted(ev.shards)}")
+        gone = set(LOST_10_4)
+        expected = sum(1 for nid in sampled for s, _ in _intervals(ev, geo, nid)
+                       if s in gone)
+        r0 = b.read_stats.get("reconstructs", 0)
+        out["degraded_bulk_read"] = bulk_read("degraded")
+        got_rec = b.read_stats.get("reconstructs", 0) - r0
+        if got_rec != expected or not expected:
+            raise AssertionError(f"{got_rec} reconstructs; the sample's "
+                                 f"intervals on lost shards number {expected}")
+        out["gen"] = ev.dat_size / gen_s / 1e9
+        out["reconstructs"] = got_rec
+        log(f"[replica] B's copy sealed by VolumeEcShardsGenerate RS({geo.d},"
+            f"{geo.p}) in {gen_s:.3f} s = {out['gen']:.3f} GB/s, plain copies "
+            f"deleted, shards {sorted(gone)} lost: /bulk-read of the "
+            f"{len(sampled)} == written, {got_rec} reconstructs == the sampled "
+            f"intervals on lost shards; {out['degraded_bulk_read']:.0f} "
+            f"needles/s [{card}]")
+        return out
+    finally:
+        retry.reset_breakers()
+        for cl in clients:
+            cl.close()
+        for vs in servers.values():
+            vs.stop()
+
+
+def phase_replica(torch, np, workdir: str, seed: int, card: str) -> dict:
+    from seaweedfs_tpu_torch.ec.locate import EcGeometry
+    from seaweedfs_tpu_torch.ops import crc_cuda, rs_cuda
+    os.makedirs(workdir, exist_ok=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rs_cuda.reset_launches()
+    crc_cuda.reset_launches()
+    res = replica_round_trip(np, workdir, seed + 29, card, EcGeometry(10, 4),
+                             EC_NEEDLES, REPLICA_FRAME, SERVER_HTTP_NEEDLES,
+                             REPLICA_DELETES, REPLICA_GETS, REPLICA_PROXIED,
+                             EC_SAMPLE, REPLICA_READ_FRAME)
+    torch.cuda.synchronize()
+    k1 = dict(rs_cuda.launches_by_entry)
+    k3 = crc_cuda.launches
+    log(f"[replica] launches on the replicated data plane: K1 {json.dumps(k1)}, "
+        f"K3 {k3}; phase wall {time.perf_counter() - t0:.1f} s [{card}]")
+    for entry in ("encode", "reconstruct"):
+        if not k1.get(entry):
+            raise AssertionError(f"K1 {entry} never launched on the replica")
+    if not k3:
+        raise AssertionError("K3 never launched on the replica")
     return {"k1": k1, "k3": k3}
 
 
@@ -2785,10 +3091,16 @@ def main(argv=None) -> int:
             server = phase_server(torch, np, args.workdir, args.seed, card)
         finally:
             shutil.rmtree(args.workdir, ignore_errors=True)
+    replica = None
+    if 14 in phases:
+        try:
+            replica = phase_replica(torch, np, args.workdir, args.seed, card)
+        finally:
+            shutil.rmtree(args.workdir, ignore_errors=True)
     log(f"[done] phases {sorted(phases | {1})} passed in "
         f"{time.perf_counter() - t0:.1f} s [{card}]")
     if None not in (errs, times, launches, k3_err, k3_times, k3_launches,
-                    ec_launches, tier, codec_launches, mesh, server):
+                    ec_launches, tier, codec_launches, mesh, server, replica):
         kernels = [dict(name=f"rs_gf_apply:{entry}", route="cuda",
                         source=K1_SOURCE, replaces=replaces,
                         launches=launches.get(entry, 0)
@@ -2796,7 +3108,8 @@ def main(argv=None) -> int:
                         + tier["k1"].get(entry, 0)
                         + codec_launches.get(entry, 0)
                         + mesh["launches"]["k1"].get(entry, 0)
-                        + server["k1"].get(entry, 0),
+                        + server["k1"].get(entry, 0)
+                        + replica["k1"].get(entry, 0),
                         max_abs_err=errs[entry], ms=times[entry]["ms"],
                         plain_ms=times[entry]["plain_ms"],
                         bound_ms=times[entry]["bound_ms"],
@@ -2806,7 +3119,8 @@ def main(argv=None) -> int:
         kernels.append(dict(name="crc32c_states", route="cuda",
                             source=K3_SOURCE, replaces=K3_REPLACES,
                             launches=k3_launches + tier["k3_scrub"]
-                            + mesh["launches"]["k3"] + server["k3"],
+                            + mesh["launches"]["k3"] + server["k3"]
+                            + replica["k3"],
                             max_abs_err=k3_err,
                             ms=k3["ms"], plain_ms=k3["plain_ms"],
                             bound_ms=k3["bound_ms"], bound_by=k3["bound_by"],

@@ -3,7 +3,10 @@
 The counterpart of the JAX package's `run_volume` with `_add_volume_flags`
 (seaweedfs_tpu/__main__.py:115, :203): a volume server that serves HTTP and
 gRPC and heartbeats to `-mserver`. It runs on the card unless `-device cpu`
-is asked for, and exits non-zero on a host without one.
+is asked for, and exits non-zero on a host without one. `-jwtSigningKey`,
+`-jwtReadSigningKey` and `-whiteList` build its security guard (reference
+`_add_security_flags` and `_make_guard`, :87-96) from the flags alone: the
+security.toml tier waits for a port of utils/config.
 """
 
 from __future__ import annotations
@@ -49,6 +52,21 @@ def _volume_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("-ecShards", default="",
                    help="default EC geometry as 'd,p' (e.g. 14,2 or 10,4)")
     p.add_argument("-pulseSeconds", type=float, default=2.0)
+    # empty keys keep security off, as in the reference's default
+    p.add_argument("-jwtSigningKey", default="")
+    p.add_argument("-jwtReadSigningKey", default="")
+    p.add_argument("-whiteList", default="",
+                   help="comma-separated IPs/CIDRs allowed without jwt")
+
+
+def _make_guard(opt):
+    """The security guard of the flags, or None when every one is empty."""
+    from .security import Guard
+    if not (opt.jwtSigningKey or opt.jwtReadSigningKey or opt.whiteList):
+        return None
+    return Guard(white_list=[s for s in opt.whiteList.split(",") if s],
+                 signing_key=opt.jwtSigningKey,
+                 read_signing_key=opt.jwtReadSigningKey)
 
 
 def run_volume(argv) -> int:
@@ -70,7 +88,8 @@ def run_volume(argv) -> int:
                   device=opt.device)
     vs = VolumeServer(store, ip=opt.ip, port=opt.port,
                       data_center=opt.dataCenter, rack=opt.rack,
-                      pulse_seconds=opt.pulseSeconds)
+                      pulse_seconds=opt.pulseSeconds,
+                      guard=_make_guard(opt))
     served = serve_volume(vs, opt.grpcPort, master=opt.mserver)
     print(f"volume server {vs.url} (grpc :{vs.grpc_port}, {vs.device}) "
           f"heartbeating to {opt.mserver}", flush=True)

@@ -21,7 +21,8 @@ import grpc
 from ..pb import master_pb2 as mpb
 from ..pb import volume_server_pb2 as vpb
 from ..utils.log import logger
-from ..utils.rpc import MASTER_SERVICE, VOLUME_SERVICE, RpcService, Stub, serve
+from ..utils.rpc import (MASTER_SERVICE, VOLUME_SERVICE, RpcService, Stub,
+                         serve, set_cluster_key)
 from .volume_server import RpcAbort, VolumeServer
 
 log = logger("volume_grpc")
@@ -309,8 +310,9 @@ def build_service(vs: VolumeServer) -> RpcService:
 
 
 class GrpcPeers:
-    """The network peer plane: other volume servers over gRPC and the
-    master's LookupEcVolume, which also teaches each holder's data center.
+    """The network peer plane: other volume servers over gRPC, and the
+    master's LookupVolume and LookupEcVolume (the latter also teaches each
+    holder's data center).
     `master` is a comma-separated list; lookups go to the heartbeat's
     current leader when one is bound."""
 
@@ -321,6 +323,16 @@ class GrpcPeers:
 
     def data_center(self, addr: str) -> str:
         return self._dc.get(addr, "")
+
+    def lookup_volume(self, vid: int) -> "list[str]":
+        """HTTP urls of the volume's holders (the master's LookupVolume)."""
+        resp = Stub(self.leader, MASTER_SERVICE).call(
+            "LookupVolume",
+            mpb.LookupVolumeRequest(volume_or_file_ids=[str(vid)]),
+            mpb.LookupVolumeResponse, timeout=5)
+        for e in resp.volume_id_locations:
+            return [loc.url for loc in e.locations]
+        return []
 
     def lookup_ec(self, vid: int) -> "dict[int, list[str]]":
         resp = Stub(self.leader, MASTER_SERVICE).call(
@@ -527,11 +539,17 @@ def serve_volume(vs: VolumeServer, grpc_port: "int | None" = None,
     """Serve core `vs` over gRPC on `grpc_port` (by default its own) and,
     when `master` is given, heartbeat to it and reach peers through it
     (GrpcPeers); a core that already has peers keeps them. Starts the HTTP
-    plane too if it is not running."""
+    plane too if it is not running. A core whose guard has a signing key
+    sets the process's gRPC cluster key from it and serves only callers
+    that carry the cluster token, as the JAX package's server does."""
     if grpc_port:
         vs.grpc_port = grpc_port
     vs.peer_address = f"{vs.ip}:{vs.grpc_port}"
-    server = serve(f"{vs.ip}:{vs.grpc_port}", [build_service(vs)])
+    key = vs.guard.signing_key if vs.guard is not None else ""
+    if key:
+        set_cluster_key(key)
+    server = serve(f"{vs.ip}:{vs.grpc_port}", [build_service(vs)],
+                   auth_key=key)
     heartbeater = None
     try:
         if master:

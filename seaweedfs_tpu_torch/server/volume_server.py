@@ -20,11 +20,18 @@ interval plans. `VolumeServer._make_shard_reader` wraps it with the
 location cache, the breakers, the stale-location refresh and the last
 probe of circuit-open holders.
 
-Not ported yet: QoS admission, the security guard, the profiling monitors,
-the bulk routes, the debug routes and status UI, the write fan-out to
-replicas and proxy or redirect reads (both need the master's replica
-lookup), image resize, and the Query, tail, sync, VolumeCopy, BatchDelete,
-VolumeConfigure, VolumeServerLeave and VolumeNeedleStatus RPCs.
+The replicated data plane: a write or delete of a volume whose placement
+needs copies fans out to the other holders (`peers.lookup_volume`, the
+master's LookupVolume) over HTTP (`client/http_util.send`, run off the
+loop); a GET of a volume this server lacks is proxied to a holder or
+redirected there (`read_mode`); `/bulk` and `/bulk-read` take the framed
+batches of storage/bulk.py; plain-volume GETs go through the hot-needle
+read cache; a `security.Guard` checks every request.
+
+Not ported yet: QoS admission, the profiling monitors, the debug routes
+and status UI, image resize, and the Query, tail, sync, VolumeCopy,
+BatchDelete, VolumeConfigure, VolumeServerLeave and VolumeNeedleStatus
+RPCs (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ import json
 import os
 import threading
 import time
+import urllib.parse
 from typing import Callable, Optional
 
 import numpy as np
@@ -320,7 +328,9 @@ def make_shard_reader(store, vid: int, fetch: Fetch,
 INVALID_ARGUMENT, NOT_FOUND = 3, 5
 FAILED_PRECONDITION, INTERNAL, UNAVAILABLE = 9, 13, 14
 
-READ_MODES = ("local",)
+# "local": a volume this server lacks reads 404; "proxy": the GET is
+# forwarded to a holder; "redirect": answered with a 301 to a holder
+READ_MODES = ("local", "proxy", "redirect")
 
 
 class RpcAbort(Exception):
@@ -399,7 +409,9 @@ class VolumeServer:
     heartbeat stream live in server/grpc_service.py, which sets the gRPC
     port (by default port + 10000). `peers` is the peer plane (LocalPeers
     or grpc_service.GrpcPeers); `peer_address` is the address peers know
-    this server by (ip:grpc_port, the master's convention)."""
+    this server by (ip:grpc_port, the master's convention). `guard` (a
+    security.Guard) checks writes, reads and bulk frames; `read_mode` is
+    one of READ_MODES."""
 
     # shard-location cache staleness tiers (store_ec.go:256-267): complete
     # location sets refresh every 37 min, incomplete every 7 min, and a
@@ -411,11 +423,12 @@ class VolumeServer:
 
     def __init__(self, store, ip: str = "127.0.0.1", port: int = 8080,
                  data_center: str = "", rack: str = "", peers=None,
-                 pulse_seconds: float = 2.0, read_mode: str = "local"):
+                 pulse_seconds: float = 2.0, read_mode: str = "proxy",
+                 guard=None):
         if read_mode not in READ_MODES:
-            raise ValueError(
-                f"read mode {read_mode!r}: only 'local' is ported (proxy "
-                "and redirect reads need the master's replica lookup)")
+            raise ValueError(f"read mode {read_mode!r}: one of "
+                             f"{', '.join(READ_MODES)}")
+        from ..storage import read_cache
         self.store = store
         self.device = store.device
         self.ip = ip
@@ -427,6 +440,12 @@ class VolumeServer:
         self.peers = peers
         self.pulse_seconds = pulse_seconds
         self.read_mode = read_mode
+        self.guard = guard
+        # the hot-needle cache under plain-volume GETs and bulk reads
+        # (SWTPU_READ_CACHE_MB=0 disables it)
+        self.read_cache = read_cache.default_cache()
+        # replica sets for the write fan-out (see _lookup_replicas_cached)
+        self._replica_cache: dict[int, tuple[float, list[str]]] = {}
         # set by the heartbeat binding: blocks until the master ingested a
         # heartbeat covering every change before the call
         self.heartbeat_flush: "Callable[[], bool] | None" = None
@@ -445,6 +464,11 @@ class VolumeServer:
             max_workers=16, thread_name_prefix=f"ec-read-{port}")
         self._read_pool = cf.ThreadPoolExecutor(
             max_workers=8, thread_name_prefix=f"vs-read-{port}")
+        # blocking HTTP hops to peers (replica fan-out, proxy reads): a
+        # pool of their own, so a hop never waits on a worker that the
+        # peer's handler needs in the same process
+        self._hop_pool = cf.ThreadPoolExecutor(
+            max_workers=16, thread_name_prefix=f"vs-hop-{port}")
         self._scrub_cursor = 0
         self._gauge_keys: dict[str, set] = {}
 
@@ -481,14 +505,14 @@ class VolumeServer:
         log.info("volume server %s up on %s", self.url, self.device)
 
     def stop(self) -> None:
-        """Join the HTTP thread, shut the read pools down, close the Store."""
+        """Join the HTTP thread, shut the pools down, close the Store."""
         if self._stop.is_set():
             return
         self._stop.set()
         if self._http_thread is not None:
             self._http_thread.join(timeout=5.0)
-        self._ec_read_pool.shutdown(wait=True, cancel_futures=True)
-        self._read_pool.shutdown(wait=True, cancel_futures=True)
+        for pool in (self._ec_read_pool, self._read_pool, self._hop_pool):
+            pool.shutdown(wait=True, cancel_futures=True)
         self.store.close()
 
     def flush_heartbeat(self) -> bool:
@@ -566,7 +590,7 @@ class VolumeServer:
     def _run_http(self) -> None:
         from ..stats import VOLUME_REQUEST_COUNTER, VOLUME_REQUEST_SECONDS
         from ..utils import fastweb
-        from ..utils.fastweb import json_response
+        from ..utils.fastweb import Redirect, json_response
 
         kinds = {"POST": "post", "PUT": "put", "GET": "get",
                  "HEAD": "head", "DELETE": "delete"}
@@ -597,8 +621,10 @@ class VolumeServer:
                         resp = json_response({"error": str(e)}, status=404)
                     except PermissionError as e:
                         resp = json_response({"error": str(e)}, status=403)
-                    except ValueError as e:
-                        resp = json_response({"error": str(e)}, status=400)
+                    except Redirect as e:
+                        status = e.status
+                        sp.status = "redirect"  # control flow, not a fault
+                        raise
                     except Exception as e:  # noqa: BLE001 — answer, keep serving
                         log.error("http error: %s", e)
                         resp = json_response({"error": str(e)}, status=500)
@@ -622,8 +648,47 @@ class VolumeServer:
             body, ctype = scrape_payload(request.headers.get("Accept", ""))
             return fastweb.Response(body.encode(), content_type=ctype)
 
+        def framed(kind: str, span: str, handler):
+            """The envelope of a bulk route: the default handler's, with
+            its own request kind and span. QoS admission waits for the qos
+            package (ROADMAP Queue 1)."""
+            async def handle_frame(request: fastweb.Request):
+                t0 = time.perf_counter()
+                status = 500
+                with tracing.start_span(
+                        span, component="volume",
+                        child_of=tracing.extract(request.headers),
+                        attrs={"server": self.url,
+                               "bytes": len(request.body or b"")}) as sp:
+                    try:
+                        try:
+                            resp = await handler(request, sp)
+                        except KeyError as e:
+                            resp = json_response({"error": str(e)},
+                                                 status=404)
+                        except PermissionError as e:
+                            resp = json_response({"error": str(e)},
+                                                 status=403)
+                        except Exception as e:  # noqa: BLE001 — answer, keep serving
+                            log.error("%s http error: %s", kind, e)
+                            resp = json_response({"error": str(e)},
+                                                 status=500)
+                        status = resp.status
+                        return resp
+                    finally:
+                        sp.set_attr("status", status)
+                        if status >= 500:
+                            sp.set_error(f"HTTP {status}")
+                        VOLUME_REQUEST_COUNTER.inc(kind, str(status))
+                        VOLUME_REQUEST_SECONDS.observe(
+                            kind, value=time.perf_counter() - t0)
+            return handle_frame
+
         app = fastweb.FastApp()
         app.route("/status", status)
+        app.route("/bulk", framed("bulk", "bulk.put", self._handle_bulk))
+        app.route("/bulk-read", framed("bulk-read", "bulk.read",
+                                       self._handle_bulk_read))
         app.route("/metrics", metrics)
         app.default(handle)
         fastweb.serve_fast_app(app, self.ip, self.port, self._stop,
@@ -653,23 +718,32 @@ class VolumeServer:
         return (request.body, (request.query.get("name") or "").encode(),
                 mime, request.headers.get("Content-Encoding") == "gzip")
 
-    def _single_copy(self, vid: int) -> None:
-        """Refuse a write or delete that would need the replica fan-out."""
-        v = self.store.find_volume(vid)
-        if v is not None and v.super_block.replica_placement.copy_count != 1:
-            raise NotImplementedError(
-                f"volume {vid} has replica placement "
-                f"{v.super_block.replica_placement}: the write fan-out needs "
-                "the master's replica lookup, which is not ported")
+    def _check(self, verdict) -> "object | None":
+        """A 401 response for a guard's refusal, else None."""
+        from ..utils.fastweb import json_response
+        ok, why = verdict
+        return None if ok else json_response({"error": why}, status=401)
+
+    def _guard_write(self, request, fid: str):
+        if self.guard is None:
+            return None
+        return self._check(self.guard.check_write(
+            request.remote or "", request.query, request.headers, fid))
+
+    def _guard_read(self, request, fid: str):
+        if self.guard is None:
+            return None
+        return self._check(self.guard.check_read(
+            request.remote or "", request.query, request.headers, fid))
 
     async def _handle_write(self, request):
         from ..utils.fastweb import json_response
         fid = request.path.lstrip("/")
+        refused = self._guard_write(request, fid)
+        if refused is not None:
+            return refused
         vid, key, cookie = parse_file_id(fid)
-        try:
-            self._single_copy(vid)
-        except NotImplementedError as e:
-            return json_response({"error": str(e)}, status=501)
+        is_replicate = request.query.get("type") == "replicate"
         ttl = TTL.parse(request.query.get("ttl"))
         # ?fsync=true: this ack stands on a real fsync
         fsync = request.query.get("fsync") in ("true", "1")
@@ -681,29 +755,417 @@ class VolumeServer:
             n = Needle(id=key, cookie=cookie, data=data, name=name,
                        mime=mime, is_gzipped=gzipped, ttl=ttl)
             self.store.write_needle(vid, n, sync=fsync)
-            return n
+            return data, name, mime, gzipped, n
 
-        n = await self._off_loop(None, parse_and_write)
-        return json_response({"name": n.name.decode(errors="replace"),
-                              "size": len(n.data),
+        data, name, mime, gzipped, n = await self._off_loop(None,
+                                                            parse_and_write)
+        if not is_replicate:
+            # a replica hop lands here only: the sender fans out
+            await self._off_loop(self._hop_pool, self._replicate, fid, data,
+                                 name, mime, gzipped, fsync)
+        return json_response({"name": name.decode(errors="replace"),
+                              "size": len(data),
                               "eTag": f"{n.checksum:x}"}, status=201)
 
+    def _single_copy(self, vid: int) -> bool:
+        """True when the volume is local with placement 000: the write is
+        final here and needs no replica lookup."""
+        v = self.store.find_volume(vid)
+        return v is not None and \
+            v.super_block.replica_placement.copy_count == 1
+
+    def _other_holders(self, vid: int, cached: bool = False) -> "list[str]":
+        urls = (self._lookup_replicas_cached(vid) if cached
+                else self._lookup_replicas(vid))
+        return [u for u in urls if u != self.url]
+
+    def _replicate(self, fid: str, data: bytes, name: bytes, mime: bytes,
+                   gzipped: bool, fsync: bool = False) -> None:
+        """Synchronous fan-out of one write to the replica peers (runs on
+        the hop pool), carrying the needle's name, mime and gzip flag and
+        the durability mode: a ?fsync=true write is fsynced on every
+        replica, or the ack overstates what a crash can keep."""
+        from ..client import http_util
+        vid = int(fid.split(",")[0])
+        if self._single_copy(vid):
+            return
+        peers = self._other_holders(vid, cached=True)
+        if not peers:
+            return
+        headers = {"Content-Type": mime.decode() or "application/octet-stream"}
+        if gzipped:
+            headers["Content-Encoding"] = "gzip"
+        tail = "&fsync=true" if fsync else ""
+        if name:
+            tail += "&" + urllib.parse.urlencode(
+                {"name": name.decode(errors="replace")})
+        tail += self._peer_jwt_param(fid)
+
+        def send_one(peer: str) -> int:
+            return http_util.send(
+                "POST", f"http://{peer}/{fid}?type=replicate{tail}",
+                body=data, headers=headers,
+                timeout=retry.WRITE_POLICY.attempt_timeout).status
+
+        self._fan_out_to_peers(
+            peers, lambda peer: {"peer": peer, "fid": fid, "bytes": len(data)},
+            "replicate", send_one)
+
+    def _fan_out_to_peers(self, peers, span_attrs, desc, send_one) -> None:
+        """The synchronous replica fan-out envelope (blocking, on the hop
+        pool): every peer must land or the write fails, so a flaky peer
+        gets retry.WRITE_POLICY (jittered backoff, one deadline over the
+        whole fan-out, the retry budget) before the write gives up.
+        Breakers record outcomes but never skip a peer: durability beats
+        latency on the replica hop. A 3xx or 4xx is a deterministic
+        rejection (auth or configuration): the peer is alive and the same
+        retry cannot succeed, so no breaker charge, no backoff, the write
+        fails now. `send_one(peer) -> status` is one attempt;
+        `span_attrs(peer)` labels the per-peer span."""
+        pol = retry.WRITE_POLICY
+        deadline = time.monotonic() + pol.deadline
+        for peer in peers:
+            br = retry.breaker(peer)
+            last_err: "Exception | None" = None
+            # one child span per replica hop: a slow or retried write shows
+            # which peer cost it
+            with tracing.start_span("volume.replicate", component="volume",
+                                    attrs=span_attrs(peer)) as sp:
+                for attempt in range(1, pol.max_attempts + 1):
+                    try:
+                        # a dead replica peer without killing a process
+                        failpoints.check("replicate.peer")
+                        status = send_one(peer)
+                        if 300 <= status < 500:
+                            last_err = OSError(f"{desc} to {peer}: "
+                                               f"HTTP {status}")
+                            break
+                        if status >= 500:
+                            raise OSError(f"{desc} to {peer}: HTTP {status}")
+                        br.record_success()
+                        retry.BUDGET.deposit()
+                        last_err = None
+                        break
+                    except Exception as e:  # noqa: BLE001 — retried below
+                        br.record_failure()
+                        last_err = e
+                        delay = pol.backoff(attempt)
+                        if (attempt >= pol.max_attempts
+                                or time.monotonic() + delay > deadline
+                                or not retry.BUDGET.withdraw()):
+                            break
+                        from ..stats import RETRY_ATTEMPTS
+                        RETRY_ATTEMPTS.inc("replicate.peer")
+                        sp.add_event("retry", op="replicate.peer",
+                                     attempt=attempt, breaker=br.state,
+                                     delay_ms=round(delay * 1e3, 2),
+                                     error=str(e)[:200])
+                        time.sleep(delay)
+                if last_err is not None:
+                    sp.set_error(last_err)
+            if last_err is not None:
+                raise OSError(f"{desc} to {peer} failed after retries: "
+                              f"{last_err}")
+
+    def _peer_jwt_param(self, fid: str) -> str:
+        """The replica hop's write token, re-minted with the shared signing
+        key (peers share the key, so minting here is equivalent to
+        forwarding the request's token and survives its expiry)."""
+        if self.guard is None or not self.guard.signing_key:
+            return ""
+        from ..security import gen_jwt_for_volume_server
+        tok = gen_jwt_for_volume_server(self.guard.signing_key,
+                                        self.guard.expires_after_sec, fid)
+        return "&jwt=" + urllib.parse.quote(tok)
+
+    # -- bulk ingest and bulk read (storage/bulk.py frames) ---------------------
+    async def _handle_bulk(self, request, sp):
+        """One framed bulk PUT: N needles land under one volume-lock
+        acquisition with one batched needle-map update and one fsync
+        (Volume.write_needles), the range JWT is checked once for the whole
+        frame, and replicas take the frame in one hop each."""
+        from ..storage import bulk as bulk_frame
+        from ..utils.fastweb import json_response
+        if request.method not in ("POST", "PUT"):
+            return json_response({"error": "method not allowed"}, status=405)
+        # the server dying mid-frame: nothing written, no ack
+        failpoints.check("volume.bulk.put")
+        # the frame parse and its per-needle CRC32C run off the loop
+        try:
+            vid, entries = await self._off_loop(
+                None, bulk_frame.unpack_frame, request.body or b"")
+        except bulk_frame.FrameError as e:
+            return json_response({"error": str(e)}, status=400)
+        refused = self._frame_vid_mismatch(request, vid)
+        if refused is not None:
+            return refused
+        cookies = {e.cookie for e in entries}
+        if len(cookies) != 1:
+            # a lease shares one cookie across its range: mixed cookies
+            # mean a stitched frame, refused before the auth check
+            return json_response({"error": "mixed cookies in frame"},
+                                 status=400)
+        keys = [e.key for e in entries]
+        cookie = entries[0].cookie
+        sp.set_attr("vid", vid)
+        sp.set_attr("needles", len(entries))
+        if self.guard is not None:
+            # one token check covers the whole frame (range JWT)
+            refused = self._check(self.guard.check_bulk(
+                request.remote or "", request.query, request.headers, vid,
+                keys, cookie))
+            if refused is not None:
+                return refused
+        ttl_str = request.query.get("ttl") or ""
+        ttl = TTL.parse(ttl_str)
+        is_replicate = request.query.get("type") == "replicate"
+
+        def build_and_write():
+            needles = [Needle(id=e.key, cookie=e.cookie, data=bytes(e.data),
+                              is_gzipped=bool(e.flags & 0x01), ttl=ttl)
+                       for e in entries]
+            return self.store.write_needles_bulk(vid, needles)
+
+        await self._off_loop(None, build_and_write)
+        if not is_replicate:
+            await self._off_loop(self._hop_pool, self._replicate_bulk, vid,
+                                 request.body, keys, cookie, ttl_str)
+        # the ack lost after the frame is durable everywhere
+        failpoints.check("volume.bulk.ack")
+        from ..stats import BULK_PUT_NEEDLES
+        BULK_PUT_NEEDLES.observe(value=len(entries))
+        events.emit("bulk.put", vid=vid, needles=len(entries),
+                    bytes=len(request.body), node=self.url,
+                    replicate=is_replicate)
+        return json_response({"count": len(entries),
+                              "eTags": [f"{e.crc:x}" for e in entries]},
+                             status=201)
+
+    @staticmethod
+    def _frame_vid_mismatch(request, vid: int):
+        """A 400 when the query's vid names another volume than the
+        frame's, else None."""
+        from ..utils.fastweb import json_response
+        q_vid = request.query.get("vid", "")
+        try:
+            if q_vid and int(q_vid) != vid:
+                return json_response(
+                    {"error": f"query vid {q_vid} != frame vid {vid}"},
+                    status=400)
+        except ValueError:
+            return json_response({"error": f"bad vid {q_vid!r}"}, status=400)
+        return None
+
+    def _replicate_bulk(self, vid: int, body: bytes, keys: "list[int]",
+                        cookie: int, ttl_str: str = "") -> None:
+        """The fan-out of a whole bulk frame (on the hop pool): one hop
+        per peer, under _fan_out_to_peers' envelope."""
+        from ..client import http_util
+        if self._single_copy(vid):
+            return
+        peers = self._other_holders(vid, cached=True)
+        if not peers:
+            return
+        tail = "&type=replicate" + self._peer_range_jwt_param(vid, keys,
+                                                              cookie)
+        if ttl_str:
+            # replicas store the same ttl, or the copies' expiry diverges
+            tail += "&ttl=" + urllib.parse.quote(ttl_str)
+
+        def send_one(peer: str) -> int:
+            return http_util.send(
+                "PUT", f"http://{peer}/bulk?vid={vid}{tail}", body=body,
+                timeout=retry.WRITE_POLICY.attempt_timeout).status
+
+        self._fan_out_to_peers(
+            peers, lambda peer: {"peer": peer, "vid": vid,
+                                 "bulk_needles": len(keys),
+                                 "bytes": len(body)},
+            "bulk replicate", send_one)
+
+    def _peer_range_jwt_param(self, vid: int, keys: "list[int]",
+                              cookie: int) -> str:
+        """The bulk hop's range token over the frame's [min, max] keys,
+        minted with the shared signing key."""
+        if self.guard is None or not self.guard.signing_key:
+            return ""
+        from ..security import gen_jwt_for_fid_range
+        lo = min(keys)
+        tok = gen_jwt_for_fid_range(
+            self.guard.signing_key, max(30, self.guard.expires_after_sec),
+            vid, lo, max(keys) - lo + 1, cookie)
+        return "&jwt=" + urllib.parse.quote(tok)
+
+    async def _handle_bulk_read(self, request, sp):
+        """One framed bulk GET: a vid and (key, cookie) pairs in ("SWBR"),
+        the whole batch resolved in one pass and sent back in one frame
+        ("SWBG") with a status per needle; hot needles come from the read
+        cache."""
+        from ..storage import bulk as bulk_frame
+        from ..storage.types import file_id
+        from ..utils.fastweb import Response, json_response
+        if request.method not in ("POST", "PUT"):
+            return json_response({"error": "method not allowed"}, status=405)
+        # the server dying mid-read: the client fails over to a replica
+        failpoints.check("volume.bulk.read")
+        try:
+            vid, pairs = bulk_frame.unpack_read_request(request.body or b"")
+        except bulk_frame.FrameError as e:
+            return json_response({"error": str(e)}, status=400)
+        refused = self._frame_vid_mismatch(request, vid)
+        if refused is not None:
+            return refused
+        sp.set_attr("vid", vid)
+        sp.set_attr("needles", len(pairs))
+        if self.guard is not None:
+            # read tokens are per fid: the frame passes only if the caller
+            # is white-listed or its token covers every fid, as the
+            # per-needle GET demands
+            for key, cookie in pairs:
+                refused = self._guard_read(request, file_id(vid, key, cookie))
+                if refused is not None:
+                    return refused
+        if (self.store.find_volume(vid) is None
+                and self.store.find_ec_volume(vid) is None):
+            # no proxy hop for frames: the client fails over by itself
+            return json_response({"error": f"volume {vid} not local"},
+                                 status=404)
+        body, hits = await self._off_loop(self._read_pool,
+                                          self._bulk_read_frame, vid, pairs)
+        sp.set_attr("cache_hits", hits)
+        from ..stats import BULK_READ_NEEDLES
+        BULK_READ_NEEDLES.observe(value=len(pairs))
+        return Response(body, content_type="application/octet-stream")
+
+    def _bulk_read_frame(self, vid: int, pairs: "list[tuple[int, int]]"
+                         ) -> "tuple[bytes, int]":
+        """(response frame, cache hits) of one bulk-read frame (runs on the
+        read pool): cache hits first, then one batched storage pass for the
+        misses, with epoch-gated cache fills. A byte budget per frame
+        (SWTPU_BULK_READ_FRAME_BYTES, 32 MB) bounds what one frame
+        materializes: found needles past it come back READ_OVERFLOW unread,
+        and the client fetches them one by one."""
+        from ..storage import bulk as bulk_frame
+        from ..storage.needle import FLAG_GZIP
+        from ..utils.env import env_int
+        budget = env_int("SWTPU_BULK_READ_FRAME_BYTES", 32 << 20)
+        cache = (self.read_cache
+                 if self.store.find_volume(vid) is not None else None)
+        results: "list[tuple | None]" = [None] * len(pairs)
+        misses: "list[int]" = []
+        hits = used = 0
+        epoch = cache.epoch(vid) if cache is not None else None
+        for i, (key, cookie) in enumerate(pairs):
+            n = cache.get(vid, key, cookie) if cache is not None else None
+            if n is None:
+                misses.append(i)
+            elif used >= budget:
+                # hits spend the budget too: the response join is what it
+                # bounds
+                results[i] = (key, cookie, bulk_frame.READ_OVERFLOW, 0, b"")
+            else:
+                hits += 1
+                used += len(n.data)
+                results[i] = (key, cookie, bulk_frame.READ_OK,
+                              FLAG_GZIP if n.is_gzipped else 0, n.data)
+        if hits:
+            # hits never reach the store: feed the heat counters here
+            self.store.note_read(vid, n=hits)
+        if misses:
+            got = self.store.read_needles_bulk(
+                vid, [pairs[i] for i in misses],
+                shard_reader=self._make_shard_reader(vid),
+                byte_budget=max(0, budget - used))
+            for i, (st, n) in zip(misses, got):
+                key, cookie = pairs[i]
+                if st == bulk_frame.READ_OK:
+                    results[i] = (key, cookie, st,
+                                  FLAG_GZIP if n.is_gzipped else 0, n.data)
+                    if cache is not None:
+                        cache.put(vid, key, n, epoch=epoch)
+                else:
+                    results[i] = (key, cookie, st, 0, b"")
+        return bulk_frame.pack_read_response(vid, results), hits
+
+    # -- replica lookup ---------------------------------------------------------
+    def _lookup_replicas_cached(self, vid: int) -> "list[str]":
+        """Replica sets move only on evacuate or rebalance: a 5 s cache
+        keeps the lookup off each write."""
+        now = time.monotonic()
+        hit = self._replica_cache.get(vid)
+        if hit is not None and now - hit[0] < 5.0:
+            return hit[1]
+        urls = self._lookup_replicas(vid)
+        self._replica_cache[vid] = (now, urls)
+        return urls
+
+    def _lookup_replicas(self, vid: int) -> "list[str]":
+        """HTTP urls of the volume's holders, as the master's LookupVolume
+        answers; [] when there is no peer plane or the lookup fails (the
+        write then lands on this copy alone, as the JAX package's does
+        when its master lookup fails)."""
+        if self.peers is None:
+            return []
+        try:
+            return list(self.peers.lookup_volume(vid))
+        except Exception as e:  # noqa: BLE001 — a failed lookup finds none
+            log.warning("replica lookup vid=%d failed: %s", vid, e)
+            return []
+
+    # -- reads ------------------------------------------------------------------
     async def _handle_read(self, request):
         from ..utils.fastweb import Response, json_response
         fid = request.path.lstrip("/")
+        refused = self._guard_read(request, fid)
+        if refused is not None:
+            return refused
         vid, key, cookie = parse_file_id(fid)
-        if (self.store.find_volume(vid) is None
-                and self.store.find_ec_volume(vid) is None):
-            # read_mode "local": a volume this server lacks is not found
-            return json_response({"error": f"volume {vid} not local"},
-                                 status=404)
+        # the hot-needle cache sits in front of local plain volumes only:
+        # EC and proxied reads stay uncached (their bytes take the same
+        # serve and Range steps below)
+        cache = self.read_cache
+        cacheable = (cache is not None
+                     and self.store.find_volume(vid) is not None)
+        n = None
+        if cacheable:
+            n = cache.get(vid, key, cookie)
+            if n is not None:
+                # hits never reach the store: feed the heat counters here
+                self.store.note_read(vid)
+            sp = tracing.current_span()
+            if sp is not None:
+                sp.set_attr("cache", "hit" if n is not None else "miss")
         try:
-            # the storage read off the loop, on the read pool
-            n = await self._off_loop(self._read_pool, self._store_read,
-                                     vid, key, cookie)
+            if n is None:
+                # the epoch before the storage read: a mutation landing in
+                # between drops this fill (ReadCache.put)
+                epoch = cache.epoch(vid) if cacheable else None
+                # the storage read off the loop, on the read pool
+                n = await self._off_loop(self._read_pool, self._store_read,
+                                         vid, key, cookie)
+                if epoch is not None:
+                    cache.put(vid, key, n, epoch=epoch)
+        except KeyError:
+            if (self.store.find_volume(vid) is not None
+                    or self.store.find_ec_volume(vid) is not None):
+                # the volume is local, so this copy is authoritative: a
+                # missing needle is a definitive 404 (proxying would
+                # ping-pong between replicas after a delete)
+                raise
+            if request.query.get("proxied"):
+                raise  # one forwarding hop at most
+            return await self._read_remote(request, fid, vid)
         except OSError as e:
-            # a degraded EC read that could not gather d shards: the object
-            # is recoverable, so 503, not a 404 that reads as "deleted"
+            # a degraded EC read that could not gather d shards from here:
+            # another holder may reach another subset, so fail over unless
+            # this is a forwarded hop; with no failover answer 503, not a
+            # 404 that reads as "deleted"
+            if (self.store.find_ec_volume(vid) is not None
+                    and not request.query.get("proxied")
+                    and self.read_mode != "local"
+                    and await self._off_loop(self._hop_pool,
+                                             self._other_holders, vid)):
+                return await self._read_remote(request, fid, vid)
             return json_response({"error": str(e)}, status=503)
         body = n.data
         headers = {}
@@ -740,14 +1202,67 @@ class VolumeServer:
             vid, key, cookie=cookie,
             shard_reader=self._make_shard_reader(vid))
 
+    async def _read_remote(self, request, fid: str, vid: int):
+        """A GET of a volume this server lacks: 404 in read mode "local",
+        else proxied to a holder or redirected there, the hop marked
+        `proxied=1` so that it is never forwarded again."""
+        from ..utils.fastweb import Redirect, json_response
+        if self.read_mode == "local":
+            return json_response({"error": f"volume {vid} not local"},
+                                 status=404)
+        # known-dead holders go last
+        peers = retry.order_by_breaker(await self._off_loop(
+            self._hop_pool, self._other_holders, vid))
+        if not peers:
+            return json_response({"error": f"volume {vid} not found"},
+                                 status=404)
+        # the caller's query (jwt, ...) goes along
+        qs = request.query_string
+        suffix = "?" + (f"{qs}&" if qs else "") + "proxied=1"
+        if self.read_mode == "redirect":
+            raise Redirect(f"http://{peers[0]}/{fid}{suffix}", status=301)
+        # Range must survive the hop, and Content-Range and -Encoding the
+        # way back, or ranged reads would widen to whole bodies; only the
+        # client's own Accept-Encoding goes forward
+        fwd = {h: request.headers.get(h) for h in ("Range", "Accept-Encoding")
+               if request.headers.get(h)}
+        return await self._off_loop(self._hop_pool, self._proxy, vid,
+                                    f"/{fid}{suffix}", peers, fwd)
+
+    def _proxy(self, vid: int, path: str, peers: "list[str]", fwd: dict):
+        """The proxy hop (blocking, on the hop pool): the first holder
+        that answers, its status, body and content headers passed back."""
+        from ..client import http_util
+        from ..utils.fastweb import Response, json_response
+        last_err: "Exception | None" = None
+        for peer in peers:
+            br = retry.breaker(peer)
+            try:
+                r = http_util.send("GET", f"http://{peer}{path}", headers=fwd,
+                                   timeout=retry.READ_POLICY.attempt_timeout)
+            except Exception as e:  # noqa: BLE001 — try the next holder
+                br.record_failure()
+                last_err = e
+                continue
+            br.record_success()
+            back = {h: r.headers[h] for h in ("Content-Range",
+                                              "Content-Encoding",
+                                              "Content-Disposition")
+                    if h in r.headers}
+            ctype = r.headers.get("Content-Type", "").split(";")[0].strip()
+            return Response(r.content, status=r.status, headers=back or None,
+                            content_type=ctype or "application/octet-stream")
+        return json_response(
+            {"error": f"proxy read vid {vid} failed: {last_err}"}, status=502)
+
     async def _handle_delete(self, request):
         from ..utils.fastweb import json_response
         fid = request.path.lstrip("/")
+        refused = self._guard_write(request, fid)
+        if refused is not None:
+            return refused
         vid, key, _ = parse_file_id(fid)
-        try:
-            self._single_copy(vid)
-        except NotImplementedError as e:
-            return json_response({"error": str(e)}, status=501)
+        is_replicate = request.query.get("type") == "replicate"
         if self.store.find_volume(vid) is not None:
             ok = self.store.delete_needle(vid, key)
         else:
@@ -755,7 +1270,27 @@ class VolumeServer:
             if ev is None:
                 raise KeyError(f"volume {vid} not local")
             ok = ev.delete_needle(key)
+        if not is_replicate:
+            # fanned out even when the needle was not here: a replica that
+            # missed an earlier delete's fan-out still holds it
+            await self._off_loop(self._hop_pool, self._replicate_delete, fid,
+                                 vid)
         return json_response({"size": 1 if ok else 0}, status=202)
+
+    def _replicate_delete(self, fid: str, vid: int) -> None:
+        """The best-effort delete fan-out (on the hop pool): the local
+        delete already succeeded, so a peer that misses it is logged."""
+        from ..client import http_util
+        for peer in self._other_holders(vid):
+            try:
+                # a replica missing the delete fan-out
+                failpoints.check("replicate.delete.peer")
+                http_util.send(
+                    "DELETE", f"http://{peer}/{fid}?type=replicate"
+                    + self._peer_jwt_param(fid),
+                    timeout=retry.WRITE_POLICY.attempt_timeout)
+            except Exception as e:  # noqa: BLE001 — best effort per peer
+                log.warning("delete fan-out to %s: %s", peer, e)
 
     # -- EC read plane ----------------------------------------------------------
     def _lookup_ec_shards(self, vid: int, failed: bool = False
@@ -1771,8 +2306,9 @@ class VolumeServer:
 class LocalPeers:
     """The in-process peer plane: servers of one process reach each other
     through their methods (the way storage/backend.LocalDirRemote stands in
-    for a cloud tier). `lookup_ec` assembles a volume's holders from the
-    servers' heartbeat()s, which is what the master answers. A server
+    for a cloud tier). `lookup_volume` and `lookup_ec` assemble a volume's
+    holders from the servers' heartbeat()s, which is what the master
+    answers. A server
     marked down raises ConnectionError, like a dead peer.
 
     Joining sets each server's `peers` and `peer_address`."""
@@ -1792,6 +2328,13 @@ class LocalPeers:
     def data_center(self, addr: str) -> str:
         vs = self.servers.get(addr)
         return vs.data_center if vs is not None else ""
+
+    def lookup_volume(self, vid: int) -> "list[str]":
+        """HTTP urls (ip:port) of the servers whose heartbeat holds volume
+        `vid`: the master's LookupVolume answer."""
+        return [vs.url for addr, vs in self.servers.items()
+                if addr not in self.down
+                and any(v["id"] == vid for v in vs.heartbeat()["volumes"])]
 
     def lookup_ec(self, vid: int) -> "dict[int, list[str]]":
         locs: dict[int, list[str]] = {}

@@ -7,9 +7,13 @@ client side wraps channel.unary_unary etc. with cached channels. The
 service strings are the JAX package's, so its stubs reach the port's
 servers and the other way round.
 
-Not ported yet: the cluster key (bearer tokens) and mTLS. This module and
-`pb/` are the only ones of the port, with `server/grpc_service.py`, that
-import `grpc` or `google.protobuf`; the volume server's core never does.
+The cluster key is ported: a process given the signing key
+(`set_cluster_key`) attaches a bearer token to every Stub call, and a
+server started with `serve(..., auth_key=...)` checks it before dispatch,
+so a port server joins a JAX-package cluster started with -jwtSigningKey.
+Not ported yet: mTLS (`TlsConfig`, `set_tls_config`). This module and `pb/`
+are the only ones of the port, with `server/grpc_service.py`, that import
+`grpc` or `google.protobuf`; the volume server's core never does.
 """
 
 from __future__ import annotations
@@ -20,13 +24,88 @@ from typing import Callable
 
 import grpc
 
+# -- optional gRPC auth ------------------------------------------------------
+# The reference gates its gRPC plane with mTLS from security.toml
+# (weed/security/tls.go:26,92). Our equivalent is a shared-key bearer token:
+# when a process is configured with the cluster signing key
+# (set_cluster_key), every outgoing Stub call attaches a JWT and every
+# serve(..., auth_key=...) server verifies it before dispatch. Empty key =
+# open cluster, matching the reference default.
+
+_cluster_key: str = ""
+_cluster_key_lock = threading.Lock()
+
+
+def set_cluster_key(key: str) -> None:
+    """Accepts the configured signing key; stores the DERIVED gRPC-plane
+    key so control-plane bearer tokens never double as data-plane JWTs."""
+    from ..security.jwt import derive_cluster_key
+    global _cluster_key
+    with _cluster_key_lock:
+        _cluster_key = derive_cluster_key(key)
+
 
 def _outgoing_metadata() -> list[tuple[str, str]]:
+    md = []
     # trace-context propagation: a sampled active span rides every gRPC
     # hop as traceparent metadata; unsampled/absent adds nothing
     from .. import tracing
     tp = tracing.injectable()
-    return [(tracing.TRACEPARENT_HEADER, tp)] if tp else []
+    if tp:
+        md.append((tracing.TRACEPARENT_HEADER, tp))
+    # the QoS class metadata (x-swtpu-qos) waits for the qos package
+    # (ROADMAP Queue 1)
+    if not _cluster_key:
+        return md
+    from ..security.jwt import gen_jwt_for_filer_server
+    md.append(("authorization", "Bearer "
+               + gen_jwt_for_filer_server(_cluster_key, 60)))
+    return md
+
+
+class _AuthInterceptor(grpc.ServerInterceptor):
+    def __init__(self, key: str):
+        self._key = key
+
+    def intercept_service(self, continuation, handler_call_details):
+        from ..security.jwt import JwtError, decode_jwt
+        for k, v in handler_call_details.invocation_metadata or ():
+            if k == "authorization" and v.startswith("Bearer "):
+                try:
+                    decode_jwt(v[7:], self._key)
+                    return continuation(handler_call_details)
+                except JwtError:
+                    break
+        # Reject with a handler of the same streaming shape as the target
+        # method, else grpc mismatches the wire protocol.
+        handler = continuation(handler_call_details)
+        if handler is None:
+            return None
+
+        def abort(request_or_iter, context):
+            context.abort(grpc.StatusCode.UNAUTHENTICATED,
+                          "missing or invalid cluster token")
+
+        def abort_stream(request_or_iter, context):
+            context.abort(grpc.StatusCode.UNAUTHENTICATED,
+                          "missing or invalid cluster token")
+            yield  # pragma: no cover
+
+        if handler.unary_unary:
+            return grpc.unary_unary_rpc_method_handler(
+                abort, handler.request_deserializer,
+                handler.response_serializer)
+        if handler.unary_stream:
+            return grpc.unary_stream_rpc_method_handler(
+                abort_stream, handler.request_deserializer,
+                handler.response_serializer)
+        if handler.stream_unary:
+            return grpc.stream_unary_rpc_method_handler(
+                abort, handler.request_deserializer,
+                handler.response_serializer)
+        return grpc.stream_stream_rpc_method_handler(
+            abort_stream, handler.request_deserializer,
+            handler.response_serializer)
 
 
 def _extract_trace_context(context):
@@ -124,8 +203,11 @@ class RpcService:
         return grpc.method_handlers_generic_handler(self.name, self._handlers)
 
 
-def serve(bind: str, services: list[RpcService],
-          max_workers: int = 16) -> grpc.Server:
+def serve(bind: str, services: list[RpcService], max_workers: int = 16,
+          auth_key: str = "") -> grpc.Server:
+    """Serve `services` on `bind`; with `auth_key` (the signing key) every
+    call must carry a cluster token derived from it."""
+    from ..security.jwt import derive_cluster_key
     port = int(bind.rsplit(":", 1)[1])
     if not 0 < port < 65536:
         # grpc silently wraps port numbers modulo 65536, so an overflowed
@@ -135,6 +217,8 @@ def serve(bind: str, services: list[RpcService],
     server = grpc.server(
         futures.ThreadPoolExecutor(max_workers=max_workers,
                                    thread_name_prefix="grpc-worker"),
+        interceptors=([_AuthInterceptor(derive_cluster_key(auth_key))]
+                      if auth_key else []),
         options=[("grpc.max_receive_message_length", 256 << 20),
                  ("grpc.max_send_message_length", 256 << 20)])
     for s in services:

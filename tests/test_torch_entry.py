@@ -42,10 +42,13 @@ for m in pkgutil.walk_packages(seaweedfs_tpu_torch.__path__, "seaweedfs_tpu_torc
 import chip_smoke
 bad = sorted(n for n in sys.modules
              if n == "seaweedfs_tpu" or n.startswith("seaweedfs_tpu.")
-             or (n.startswith("jax") and sys.modules[n] is not None))
+             or (n.startswith("jax") and sys.modules[n] is not None)
+             or n.split(".")[0] == "aiohttp")
 print("LOADED", len([n for n in sys.modules if n.startswith("seaweedfs_tpu_torch")]))
 print("TIER", all(f"seaweedfs_tpu_torch.{m}" in sys.modules
-                  for m in ("storage.backend", "storage.vacuum", "s3.auth")))
+                  for m in ("storage.backend", "storage.vacuum", "s3.auth",
+                            "storage.bulk", "client.http_util",
+                            "security.jwt", "security.guard")))
 print("MESH", all(f"seaweedfs_tpu_torch.{m}" in sys.modules
                   for m in ("parallel.mesh", "parallel.pipeline",
                             "parallel.launch", "ops.native", "stats.metrics",
@@ -113,18 +116,20 @@ _CORE_HYGIENE = r"""
 import sys
 import seaweedfs_tpu_torch.server.volume_server
 import seaweedfs_tpu_torch.utils.retry, seaweedfs_tpu_torch.utils.fastweb
-import seaweedfs_tpu_torch.ops.events
+import seaweedfs_tpu_torch.ops.events, seaweedfs_tpu_torch.storage.bulk
+import seaweedfs_tpu_torch.client.http_util, seaweedfs_tpu_torch.security
 bad = sorted(n for n in sys.modules
-             if n.split(".")[0] in ("grpc", "jax", "seaweedfs_tpu")
+             if n.split(".")[0] in ("grpc", "jax", "seaweedfs_tpu", "aiohttp")
              or n.startswith("google.protobuf"))
 print("BAD", bad)
 """
 
 
 def test_volume_server_core_loads_no_grpc_protobuf_jax_or_reference():
-    """The server core, and the retry, fastweb and events copies it uses,
-    run where there is no grpcio or protobuf: only the gRPC binding
-    (server/grpc_service.py) and pb/ import them."""
+    """The server core, and the retry, fastweb, events, bulk-frame,
+    http_util and security copies it uses, run where there is no grpcio
+    or protobuf: only the gRPC binding (server/grpc_service.py),
+    utils/rpc.py and pb/ import them. None imports aiohttp."""
     out = subprocess.run([sys.executable, "-c", _CORE_HYGIENE],
                          capture_output=True, text=True, timeout=120,
                          cwd=str(_repo_root()))

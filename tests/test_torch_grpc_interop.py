@@ -7,7 +7,12 @@ port servers, healthy and degraded reads on every server (the port's fetch
 shards from the JAX server, the JAX server's from the port's), the JAX
 shell's ec.rebuild run on a port server and volume.scrub on a port server's
 volume, and the CLI verb `python -m seaweedfs_tpu_torch volume -device cpu`
-registering with the JAX master and serving a GET."""
+registering with the JAX master and serving a GET. Then the replicated data
+plane: a "001" volume over the JAX server and a port server written by
+operation.submit and submit_batch, read from both holders, through
+read_batch on the port server and by proxy on the server with no copy,
+deletes fanned out both ways; and a port server joining a master started
+with a signing key (the gRPC cluster key and the write tokens)."""
 
 import hashlib
 import io
@@ -86,7 +91,10 @@ def cluster(tmp_path_factory):
                           ec_geometry=EcGeometry(D, P, large_block=LB,
                                                  small_block=SB),
                           coder_name="torch", device="cpu")
-            vs = VolumeServer(store, "127.0.0.1", port, rack=f"rack{i}",
+            # the first port server shares the JAX server's rack, so a
+            # "001" volume spans the two; the second holds no copy
+            vs = VolumeServer(store, "127.0.0.1", port,
+                              rack="rack0" if i == 1 else "rack2",
                               pulse_seconds=0.5,
                               peers=_RecordingPeers(maddr))
             served.append(serve_volume(vs, port + 10000, master=maddr))
@@ -293,3 +301,128 @@ def test_cli_volume_verb_joins_the_jax_master(cluster, tmp_path):
             proc.kill()
             proc.wait(timeout=5)
     assert proc.returncode == 0, proc.stdout.read().decode()
+
+
+def _holders(master, fid):
+    return {n.url for n in master.topo.lookup(int(fid.split(",")[0]))}
+
+
+def test_replicated_volume_spans_jax_and_port_servers(cluster):
+    from seaweedfs_tpu.utils import retry as ref_retry
+    from seaweedfs_tpu_torch.stats import BULK_PUT_NEEDLES, BULK_READ_NEEDLES
+    master, maddr, ref, (p1, p2), mc = cluster
+    rng = np.random.default_rng(11)
+    blobs = {}
+    for _ in range(12):
+        data = rng.bytes(int(rng.integers(1, 5000)))
+        blobs[operation.submit(mc, data, collection="rep",
+                               replication="001").fid] = data
+    vid = int(next(iter(blobs)).split(",")[0])
+    # writes with either holder as the primary
+    for i, primary in enumerate((p1, ref, p1, ref)):
+        fid = file_id(vid, (1 << 40) + i, 0xABC0 + i)
+        blobs[fid] = rng.bytes(700 + i)
+        r = requests.post(f"http://{primary.url}/{fid}", data=blobs[fid],
+                          timeout=10)
+        assert r.status_code == 201, r.text
+    bulk0 = BULK_PUT_NEEDLES.count()
+    batch = [rng.bytes(int(rng.integers(0, 3000))) for _ in range(150)]
+    for res, data in zip(operation.submit_batch(
+            mc, batch, collection="rep", replication="001"), batch):
+        blobs[res.fid] = data
+    assert BULK_PUT_NEEDLES.count() > bulk0  # frames or hops on p1
+    for fid in blobs:
+        assert _holders(master, fid) == {ref.url, p1.url}, fid
+    # every fid from both holders, and by proxy from the third server
+    for fid, data in blobs.items():
+        for vs in (ref, p1, p2):
+            r = requests.get(f"http://{vs.url}/{fid}", timeout=10)
+            assert (r.status_code, r.content) == (200, data), (fid, vs.url)
+    r = requests.get(f"http://{p2.url}/{fid}", timeout=10,
+                     headers={"Range": "bytes=1-10"})
+    assert (r.status_code, r.content) == (206, data[1:11])
+
+    # read_batch through the port holder: the JAX holder's breaker open
+    fids = list(blobs)
+    ref_retry.breaker(ref.url).trip()
+    try:
+        n0 = BULK_READ_NEEDLES.count()
+        assert operation.read_batch(mc, fids) == [blobs[f] for f in fids]
+        assert BULK_READ_NEEDLES.count() > n0
+    finally:
+        ref_retry.reset_breakers()
+
+    # deletes fan out: through the port server to the JAX server, and back
+    for primary, other in ((p1, ref), (ref, p1)):
+        fid = fids.pop()
+        r = requests.delete(f"http://{primary.url}/{fid}", timeout=10)
+        assert r.status_code == 202
+        assert requests.get(f"http://{other.url}/{fid}",
+                            timeout=10).status_code == 404
+        assert requests.get(f"http://{p2.url}/{fid}",
+                            timeout=10).status_code == 404
+
+
+@pytest.fixture(scope="module")
+def secure_cluster(tmp_path_factory):
+    """A JAX master started with a signing key and one port server with
+    the same key; the process's cluster keys are cleared after."""
+    from seaweedfs_tpu.security import Guard as RefGuard
+    from seaweedfs_tpu.utils import rpc as ref_rpc
+    from seaweedfs_tpu_torch.security import Guard
+    from seaweedfs_tpu_torch.utils import rpc as port_rpc
+    key = "interop-signing-key"
+    mport = free_port_pair()
+    maddr = f"127.0.0.1:{mport}"
+    master = MasterServer(port=mport, volume_size_limit_mb=64,
+                          pulse_seconds=0.5, guard=RefGuard(signing_key=key))
+    master.start()
+    served = None
+    try:
+        port = free_port_pair()
+        store = Store("127.0.0.1", port, f"127.0.0.1:{port}",
+                      [DiskLocation(str(tmp_path_factory.mktemp("secure")),
+                                    max_volume_count=10)],
+                      coder_name="torch", device="cpu")
+        vs = VolumeServer(store, "127.0.0.1", port, pulse_seconds=0.5,
+                          guard=Guard(signing_key=key))
+        served = serve_volume(vs, port + 10000, master=maddr)
+        wait_cluster_up(master, [vs], timeout=20)
+        mc = MasterClient(maddr).start()
+        try:
+            yield master, vs, mc, key
+        finally:
+            mc.stop()
+    finally:
+        if served is not None:
+            served.stop()
+        master.stop()
+        ref_rpc.set_cluster_key("")
+        port_rpc.set_cluster_key("")
+
+
+def test_port_server_joins_a_signed_cluster(secure_cluster):
+    """The port server registers by heartbeat through the cluster token,
+    takes a write with the master-minted token, refuses one without it
+    with 401, and refuses a gRPC call without the cluster token."""
+    import grpc
+    from seaweedfs_tpu.utils import rpc as ref_rpc
+    master, vs, mc, key = secure_cluster
+    assert vs.url in master.topo.nodes
+    data = b"a write the master signed" * 40
+    res = operation.submit(mc, data)
+    assert _holders(master, res.fid) == {vs.url}
+    assert operation.read(mc, res.fid) == data
+    vid = int(res.fid.split(",")[0])
+    fid = file_id(vid, 1 << 40, 0x5157)
+    r = requests.post(f"http://{vs.url}/{fid}", data=b"unsigned", timeout=10)
+    assert r.status_code == 401
+    ref_rpc.set_cluster_key("")  # a caller without the cluster token
+    try:
+        with pytest.raises(grpc.RpcError) as e:
+            _call(vs, "Ping", vpb.PingRequest(), vpb.PingResponse, timeout=10)
+        assert e.value.code() == grpc.StatusCode.UNAUTHENTICATED
+    finally:
+        ref_rpc.set_cluster_key(key)
+    assert _call(vs, "Ping", vpb.PingRequest(), vpb.PingResponse,
+                 timeout=10).remote_time_ns > 0

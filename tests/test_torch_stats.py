@@ -165,7 +165,9 @@ def test_encode_and_rebuild_hooks_move_counters_like_reference(tmp_path, path):
             (ref_stats, ref_stream, ref_encoder, REF_GEO, ref_coder,
              ref_tracing, "ref")):
         trc.configure(sample=1.0)
-        n0 = len(trc.BUFFER.snapshot(limit=5000))
+        # the spans already buffered, by id: a ring buffer left full by
+        # earlier tests keeps its length while the new spans go in
+        seen = {d["span_id"] for d in trc.BUFFER.snapshot(limit=5000)}
         before = _snap(mod)
         strm.encode_volumes(_jobs(tmp_path, tag, srcs), geo, coder, batch=4)
         base = str(tmp_path / f"{tag}1")
@@ -173,8 +175,8 @@ def test_encode_and_rebuild_hooks_move_counters_like_reference(tmp_path, path):
             os.unlink(base + files.shard_ext(s))
         assert enc.rebuild_shards(base, geo, coder, chunk=512, batch=4) == [0, 5]
         deltas.append(_delta(before, _snap(mod)))
-        snap = trc.BUFFER.snapshot(limit=5000)  # newest first
-        new = snap[:len(snap) - n0]
+        new = [d for d in trc.BUFFER.snapshot(limit=5000)
+               if d["span_id"] not in seen]
         spans.append({s["name"]: sorted(s["attrs"]) for s in new
                       if s["name"] in ("ec.encode", "ec.rebuild")})
     got, want = deltas

@@ -498,3 +498,413 @@ def test_native_coder_server_encodes_like_torch(tmp_path):
     finally:
         torch_vs.stop()
         native_vs.stop()
+
+
+# -- the replicated data plane --------------------------------------------------
+
+def _ref_alloc(ref, vid, replication=""):
+    _stub(ref).call("AllocateVolume", vpb.AllocateVolumeRequest(
+        volume_id=vid, replication=replication), vpb.AllocateVolumeResponse)
+
+
+def test_replica_hop_lands_locally_like_reference(tmp_path):
+    """A `?type=replicate` POST and DELETE on a "001" volume write and
+    delete the hop's copy and fan out no further: 201 and 202 from both
+    servers (the port refused them with 501 before)."""
+    vs = _port(tmp_path / "port")
+    ref = _ref(tmp_path / "ref")
+    try:
+        vs.allocate_volume(VID, replication="001")
+        _ref_alloc(ref, VID, "001")
+        fid = file_id(VID, 0x51, 0x1234ABCD)
+        body = b"one replica hop" * 30
+        for u in (vs.url, ref.url):
+            r = requests.post(f"http://{u}/{fid}?type=replicate&name=h.bin",
+                              data=body, timeout=10)
+            assert r.status_code == 201, (u, r.text)
+            assert r.json()["size"] == len(body)
+        assert _get(vs.url, fid) == _get(ref.url, fid)
+        assert _get(vs.url, fid)[:2] == (200, body)
+        for u in (vs.url, ref.url):
+            r = requests.delete(f"http://{u}/{fid}?type=replicate", timeout=10)
+            assert (r.status_code, r.json()) == (202, {"size": 1}), u
+        assert _get(vs.url, fid)[0] == _get(ref.url, fid)[0] == 404
+    finally:
+        vs.stop()
+        ref.stop()
+
+
+@pytest.mark.parametrize("method,path", [
+    ("POST", "/not-a-fid"), ("GET", "/not-a-fid"), ("DELETE", "/3,zz"),
+    ("GET", "/3")])
+def test_malformed_fid_answers_500_like_reference(tmp_path, method, path):
+    """The reference's handler has no ValueError branch: a fid that does
+    not parse answers 500 there, and now here too (it was 400)."""
+    vs = _port(tmp_path / "port")
+    ref = _ref(tmp_path / "ref")
+    try:
+        got = [requests.request(method, f"http://{u}{path}", data=b"x",
+                                timeout=10).status_code
+               for u in (vs.url, ref.url)]
+        assert got == [500, 500]
+    finally:
+        vs.stop()
+        ref.stop()
+
+
+def _frame(vid, n, seed, cookie=0x5EED0001, start=1, gzip_every=4):
+    from seaweedfs_tpu_torch.storage import bulk
+    rng = np.random.default_rng(seed)
+    entries = [(start + i, cookie, rng.bytes(int(rng.integers(0, 1500))),
+                1 if gzip_every and i % gzip_every == 1 else 0)
+               for i in range(n)]
+    return bulk.pack_frame(vid, entries), entries
+
+
+def _both(urls, method, path, body=b""):
+    return [requests.request(method, f"http://{u}{path}", data=body,
+                             timeout=30) for u in urls]
+
+
+def test_bulk_and_bulk_read_against_reference(tmp_path, monkeypatch):
+    """/bulk and /bulk-read: the same statuses, JSON and response frames
+    from both servers for the same frames, the overflow under a small
+    byte budget, and the same refusals (400, 404, 405)."""
+    from seaweedfs_tpu_torch.storage import bulk
+    vs = _port(tmp_path / "port")
+    ref = _ref(tmp_path / "ref")
+    urls = (vs.url, ref.url)
+    try:
+        vs.allocate_volume(VID)
+        _ref_alloc(ref, VID)
+        frame, entries = _frame(VID, 40, seed=8)
+        got = _both(urls, "PUT", f"/bulk?vid={VID}", frame)
+        assert [r.status_code for r in got] == [201, 201]
+        assert got[0].json() == got[1].json()
+        assert got[0].json()["count"] == 40
+        # a second frame by POST, overwriting half of the first
+        frame2, entries2 = _frame(VID, 20, seed=9, start=21)
+        got = _both(urls, "POST", "/bulk", frame2)
+        assert [r.status_code for r in got] == [201, 201]
+        assert got[0].json() == got[1].json()
+        want = {k: d for k, _, d, _ in entries}
+        want.update({k: d for k, _, d, _ in entries2})
+
+        pairs = ([(k, 0x5EED0001) for k in range(1, 41)]
+                 + [(99, 0x5EED0001), (5, 0x1)])  # missing, wrong cookie
+        req = bulk.pack_read_request(VID, pairs)
+        for _ in range(2):  # the second pass comes from the read cache
+            got = _both(urls, "POST", f"/bulk-read?vid={VID}", req)
+            assert [r.status_code for r in got] == [200, 200]
+            assert got[0].content == got[1].content
+        _, results = bulk.unpack_read_response(got[0].content)
+        assert [bytes(r.data) for r in results[:40]] == \
+            [want[k] for k in range(1, 41)]
+        assert [r.status for r in results[40:]] == [bulk.READ_NOT_FOUND,
+                                                    bulk.READ_ERROR]
+        # a small frame budget: found needles past it come back overflowed
+        monkeypatch.setenv("SWTPU_BULK_READ_FRAME_BYTES", "3000")
+        got = _both(urls, "PUT", "/bulk-read", req)
+        assert got[0].content == got[1].content
+        statuses = [r.status for r in
+                    bulk.unpack_read_response(got[0].content)[1]]
+        assert bulk.READ_OVERFLOW in statuses and statuses[0] == bulk.READ_OK
+        monkeypatch.delenv("SWTPU_BULK_READ_FRAME_BYTES")
+
+        mixed = bulk.pack_frame(VID, [(1, 1, b"a", 0), (2, 2, b"b", 0)])
+        other, _ = _frame(VID + 40, 3, seed=10)
+        for method, path, body, status in (
+                ("PUT", f"/bulk?vid={VID + 1}", frame, 400),
+                ("PUT", "/bulk?vid=x", frame, 400),
+                ("PUT", "/bulk", mixed, 400),
+                ("PUT", "/bulk", frame[:-3], 400),
+                ("PUT", "/bulk", other, 404),
+                ("GET", "/bulk", b"", 405),
+                ("POST", f"/bulk-read?vid={VID + 1}", req, 400),
+                ("POST", "/bulk-read", req[:-1], 400),
+                ("POST", "/bulk-read",
+                 bulk.pack_read_request(VID + 40, [(1, 1)]), 404),
+                ("GET", "/bulk-read", b"", 405)):
+            got = _both(urls, method, path, body)
+            assert [r.status_code for r in got] == [status, status], \
+                (method, path)
+    finally:
+        vs.stop()
+        ref.stop()
+
+
+
+@pytest.mark.parametrize("name,path,written", [
+    ("volume.bulk.put", "/bulk", False), ("volume.bulk.ack", "/bulk", True),
+    ("volume.bulk.read", "/bulk-read", True)])
+def test_bulk_failpoints(tmp_path, name, path, written):
+    """volume.bulk.put fails a frame before anything lands, volume.bulk.ack
+    after it is durable (the needles stay readable), volume.bulk.read fails
+    a read frame: each answers 500 once, then the route serves again."""
+    from seaweedfs_tpu_torch.storage import bulk
+    from seaweedfs_tpu_torch.utils import failpoints
+    vs = _port(tmp_path / "port")
+    try:
+        vs.allocate_volume(VID)
+        frame, entries = _frame(VID, 5, seed=14, gzip_every=0)
+        req = bulk.pack_read_request(VID, [(k, c) for k, c, _, _ in entries])
+        if path == "/bulk-read":
+            assert requests.put(f"http://{vs.url}/bulk", data=frame,
+                                timeout=10).status_code == 201
+        body = frame if path == "/bulk" else req
+        failpoints.configure(name, "times:1:error")
+        try:
+            assert requests.post(f"http://{vs.url}{path}", data=body,
+                                 timeout=10).status_code == 500
+        finally:
+            failpoints.clear(name)
+        k, c, d, _ = entries[0]
+        status, got, _ = _get(vs.url, file_id(VID, k, c))
+        assert (status, got) == (200, d) if written else status == 404
+        assert requests.post(f"http://{vs.url}{path}", data=body,
+                             timeout=10).status_code == (
+            201 if path == "/bulk" else 200)
+    finally:
+        vs.stop()
+
+def _hits():
+    from seaweedfs_tpu_torch.stats import READ_CACHE_HITS
+    return READ_CACHE_HITS.value()
+
+
+def test_read_cache_on_gets(tmp_path):
+    """A second GET of a plain-volume needle is a cache hit; a DELETE, an
+    overwrite and a /bulk frame over the same key drop the entry; EC GETs
+    never fill the cache."""
+    from seaweedfs_tpu_torch.storage import bulk
+    vs = _port(tmp_path / "port")
+    try:
+        assert vs.read_cache is not None
+        vs.allocate_volume(VID)
+        fid = file_id(VID, 7, 0x77)
+        for body in (b"first" * 40, b"second" * 40):
+            assert requests.post(f"http://{vs.url}/{fid}", data=body,
+                                 timeout=10).status_code == 201
+            h0 = _hits()
+            assert _get(vs.url, fid)[:2] == (200, body)  # miss, then fill
+            assert _get(vs.url, fid)[:2] == (200, body)
+            assert _get(vs.url, fid, Range="bytes=2-9")[:2] == (206,
+                                                              body[2:10])
+            assert _hits() - h0 == 2  # the overwrite dropped the old entry
+        frame = bulk.pack_frame(VID, [(7, 0x77, b"framed" * 9, 0)])
+        assert requests.put(f"http://{vs.url}/bulk", data=frame,
+                            timeout=10).status_code == 201
+        h0 = _hits()
+        assert _get(vs.url, fid)[:2] == (200, b"framed" * 9)
+        assert _hits() == h0
+        assert _get(vs.url, fid)[:2] == (200, b"framed" * 9)
+        assert _hits() == h0 + 1
+        assert requests.delete(f"http://{vs.url}/{fid}",
+                               timeout=10).status_code == 202
+        h0 = _hits()
+        assert _get(vs.url, fid)[0] == 404
+        assert _hits() == h0
+
+        uploads = [(f, d, {}, "") for f, d, _, _ in _needles(20, seed=2)]
+        for f, d, _, _ in uploads:
+            assert requests.post(f"http://{vs.url}/{f}", data=d,
+                                 timeout=10).status_code == 201
+        vs.volume_mark_readonly(VID)
+        vs.volume_ec_shards_generate(VID)
+        vs.volume_ec_shards_mount(VID)
+        vs.volume_delete(VID)
+        assert vs.store.find_ec_volume(VID) is not None
+        h0, entries = _hits(), len(vs.read_cache)
+        for _ in range(2):
+            for f, d, _, _ in uploads:
+                assert _get(vs.url, f)[:2] == (200, d)
+        assert (_hits(), len(vs.read_cache)) == (h0, entries)
+    finally:
+        vs.stop()
+
+
+def _pair(tmp_path, guard=None, b_guard=None, **kw):
+    """Port servers A and B joined by LocalPeers, a "001" volume on both."""
+    a = _port(tmp_path / "a", guard=guard, **kw)
+    b = _port(tmp_path / "b", guard=b_guard if b_guard is not None else guard,
+              **kw)
+    peers = LocalPeers({s.peer_address: s for s in (a, b)})
+    for s in (a, b):
+        s.allocate_volume(VID, replication="001")
+    return a, b, peers
+
+
+def test_replicated_pair_writes_bulk_and_deletes(tmp_path):
+    """Two port servers over LocalPeers holding a "001" volume: a POST and
+    a /bulk frame on A read back from B, a DELETE on B reaches A, and a
+    transient failure of the hop (replicate.peer, twice) is retried."""
+    from seaweedfs_tpu_torch.storage import bulk
+    from seaweedfs_tpu_torch.utils import failpoints
+    a, b, peers = _pair(tmp_path)
+    try:
+        assert peers.lookup_volume(VID) == [a.url, b.url]
+        uploads = _needles(12, seed=6)
+        for fid, data, headers, query in uploads:
+            r = requests.post(f"http://{a.url}/{fid}{query}", data=data,
+                              headers=headers, timeout=10)
+            assert r.status_code == 201, r.text
+        for fid, _, _, _ in uploads:
+            assert _get(b.url, fid) == _get(a.url, fid)
+            assert _get(b.url, fid, **{"Accept-Encoding": "gzip"}) == \
+                _get(a.url, fid, **{"Accept-Encoding": "gzip"})
+        frame, entries = _frame(VID, 64, seed=11, start=1000)
+        r = requests.put(f"http://{a.url}/bulk?vid={VID}&ttl=3d", data=frame,
+                         timeout=10)
+        assert r.status_code == 201
+        req = bulk.pack_read_request(VID, [(k, c) for k, c, _, _ in entries])
+        got = [requests.post(f"http://{s.url}/bulk-read", data=req,
+                             timeout=10).content for s in (a, b)]
+        assert got[0] == got[1]
+        assert [bytes(x.data) for x in bulk.unpack_read_response(got[1])[1]] \
+            == [d for _, _, d, _ in entries]
+        assert str(b.store.read_needle(VID, 1000).ttl) == "3d"
+        # a DELETE through B reaches A
+        gone = uploads[0][0]
+        assert requests.delete(f"http://{b.url}/{gone}",
+                               timeout=10).status_code == 202
+        assert _get(a.url, gone)[0] == _get(b.url, gone)[0] == 404
+        # two failed hop attempts, then the third lands: the write acks
+        failpoints.configure("replicate.peer", "times:2:error")
+        try:
+            fid = file_id(VID, 0x900, 0x42)
+            assert requests.post(f"http://{a.url}/{fid}", data=b"retried",
+                                 timeout=30).status_code == 201
+            assert failpoints.fired("replicate.peer") >= 2
+        finally:
+            failpoints.clear("replicate.peer")
+        assert _get(b.url, fid)[:2] == (200, b"retried")
+        # a hop on B itself never fans back out
+        fid = file_id(VID, 0x901, 0x42)
+        assert requests.post(f"http://{b.url}/{fid}?type=replicate",
+                             data=b"b only", timeout=10).status_code == 201
+        assert _get(b.url, fid)[0] == 200 and _get(a.url, fid)[0] == 404
+    finally:
+        a.stop()
+        b.stop()
+
+
+def test_peer_4xx_fails_the_write_at_once(tmp_path):
+    """A peer that answers 4xx (here 401: B checks tokens, A mints none)
+    fails the write without a retry or a breaker charge; one that cannot
+    be reached at all is retried and then fails it."""
+    from seaweedfs_tpu_torch.security import Guard
+    from seaweedfs_tpu_torch.stats import RETRY_ATTEMPTS
+    a, b, peers = _pair(tmp_path, b_guard=Guard(signing_key="k"))
+    try:
+        r0 = RETRY_ATTEMPTS.value("replicate.peer")
+        fid = file_id(VID, 0x31, 0x99)
+        r = requests.post(f"http://{a.url}/{fid}", data=b"x" * 100,
+                          timeout=30)
+        assert r.status_code == 500 and "HTTP 401" in r.text
+        assert RETRY_ATTEMPTS.value("replicate.peer") == r0
+        assert retry.breaker(b.url).state == "closed"
+        assert _get(b.url, fid)[0] == 404
+        b.stop()  # B still listed as a holder, but gone
+        r = requests.post(f"http://{a.url}/{fid}", data=b"y", timeout=60)
+        assert r.status_code == 500
+        assert RETRY_ATTEMPTS.value("replicate.peer") > r0
+    finally:
+        a.stop()
+        b.stop()
+
+
+def test_proxy_and_redirect_reads(tmp_path):
+    """A third server without the volume proxies GETs to a holder (bodies,
+    Range and its Content-Range, gzip) and, in redirect mode, answers 301
+    to a holder; a proxied hop is never forwarded again."""
+    a, b, peers = _pair(tmp_path)
+    c = _port(tmp_path / "c")
+    d = _port(tmp_path / "d", read_mode="redirect")
+    e = _port(tmp_path / "e", read_mode="local")
+    peers = LocalPeers({s.peer_address: s for s in (a, b, c, d, e)})
+    try:
+        uploads = _needles(16, seed=12)
+        for fid, data, headers, query in uploads:
+            assert requests.post(f"http://{a.url}/{fid}{query}", data=data,
+                                 headers=headers,
+                                 timeout=10).status_code == 201
+        for fid, _, _, _ in uploads:
+            for hdr in ({}, {"Accept-Encoding": "gzip"},
+                        {"Range": "bytes=3-200"}, {"Range": "bytes=999999-"}):
+                assert _get(c.url, fid, **hdr) == _get(a.url, fid, **hdr), \
+                    (fid, hdr)
+        fid = uploads[0][0]
+        r = requests.get(f"http://{d.url}/{fid}?x=1", allow_redirects=False,
+                         timeout=10)
+        assert r.status_code == 301
+        assert r.headers["Location"] in (f"http://{s.url}/{fid}?x=1&proxied=1"
+                                         for s in (a, b))
+        assert requests.get(f"http://{d.url}/{fid}",
+                            timeout=10).content == uploads[0][1]
+        assert _get(e.url, fid)[0] == 404
+        assert _get(c.url, f"{fid}")[0] == 200
+        assert requests.get(f"http://{c.url}/{fid}?proxied=1",
+                            timeout=10).status_code == 404
+        missing = file_id(VID + 9, 1, 1)
+        assert _get(c.url, missing)[0] == 404
+    finally:
+        for s in (a, b, c, d, e):
+            s.stop()
+
+
+def test_guarded_pair_writes_with_master_tokens(tmp_path):
+    """With a guard on both servers: a write without a token gets 401, one
+    with the master-style single-fid token 201, and its replica hop
+    carries a re-minted token B accepts; a /bulk frame takes a range
+    token; reads stay open without a read key."""
+    from seaweedfs_tpu_torch.security import (Guard, gen_jwt_for_fid_range,
+                                              gen_jwt_for_volume_server)
+    from seaweedfs_tpu_torch.storage import bulk
+    key = "cluster-signing-key"
+    a, b, peers = _pair(tmp_path, guard=Guard(signing_key=key))
+    try:
+        fid = file_id(VID, 0x77, 0xC0FFEE)
+        url = f"http://{a.url}/{fid}"
+        assert requests.post(url, data=b"nope", timeout=10).status_code == 401
+        tok = gen_jwt_for_volume_server(key, 10, fid)
+        wrong = gen_jwt_for_volume_server(key, 10, file_id(VID, 0x78, 1))
+        assert requests.post(f"{url}?jwt={wrong}", data=b"nope",
+                             timeout=10).status_code == 401
+        assert requests.post(f"{url}?jwt={tok}", data=b"signed",
+                             timeout=10).status_code == 201
+        assert _get(b.url, fid)[:2] == (200, b"signed")
+        assert b._peer_jwt_param(fid).startswith("&jwt=")
+        frame, entries = _frame(VID, 8, seed=13, cookie=0xC0FFEE, start=0x100,
+                                gzip_every=0)
+        assert requests.put(f"http://{a.url}/bulk", data=frame,
+                            timeout=10).status_code == 401
+        rtok = gen_jwt_for_fid_range(key, 10, VID, 0x100, 8, 0xC0FFEE)
+        assert requests.put(f"http://{a.url}/bulk?jwt={rtok}", data=frame,
+                            timeout=10).status_code == 201
+        for k, c, d, _ in entries:
+            assert _get(b.url, file_id(VID, k, c))[:2] == (200, d)
+        assert requests.delete(url, timeout=10).status_code == 401
+        assert requests.delete(f"{url}?jwt={tok}",
+                               timeout=10).status_code == 202
+        assert _get(b.url, fid)[0] == 404
+    finally:
+        a.stop()
+        b.stop()
+
+
+def test_replica_round_trip_of_chip_smoke_on_cpu(tmp_path):
+    """chip_smoke.py's phase 14 (the replicated data plane: /bulk frames
+    replicated to B with equal .idx, POSTs and DELETEs fanned out, GETs
+    through the read cache, proxied and redirected GETs, /bulk-read healthy
+    and degraded after the seal, VolumeScrub of the replica) on the CPU at
+    a small size, its checks as fatal as on the card."""
+    import chip_smoke
+    geo = EcGeometry(10, 4, large_block=8192, small_block=1024)
+    res = chip_smoke.replica_round_trip(
+        np, str(tmp_path), 29, "cpu", geo, needles=1280, frame=128, posts=40,
+        deletes=8, gets=160, proxied=40, bulk_sample=500, bulk_frame=64,
+        device="cpu")
+    assert len(res["post"]) == 40 and [len(p) for p in res["get"]] == [160, 160]
+    assert len(res["proxy"]) == 40 and res["reconstructs"] > 0
+    assert res["bulk_read"] > 0 and res["degraded_bulk_read"] > 0
+    assert res["scrub"] > 0 and res["ingest"] > 0
