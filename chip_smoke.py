@@ -5,7 +5,7 @@
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result). `--phases` runs a subset (default: all); phase 1 always runs, and
-the kernels line needs phases 3, 4 and 6 to 14. The kernels of the
+the kernels line needs phases 3, 4 and 6 to 15. The kernels of the
 phases asked for are built first, all at once (one nvcc per source).
 
 1. device: card name, count, `nvidia-smi` name and power limit;
@@ -74,8 +74,9 @@ phases asked for are built first, all at once (one nvcc per source).
    [10, ~1 KB] are timed;
 10. tiered volumes, on one Store with an `ssd` and an `hdd` location and a
    remote tier `local:<workdir>/tier` (storage/backend.LocalDirRemote, its
-   object reads counted): half the write set of phase 13 (524,288 needles
-   of 1024 + 0..63 B; depth cut to keep the whole within its time)
+   object reads counted): a quarter of the write set of phase 13 (262,144
+   needles of 1024 + 0..63 B; depth cut to keep the whole within its time,
+   from half when phase 15 came)
    written on `ssd`, 64 needles deleted and 64 overwritten,
    VacuumVolumeCompact + Commit through the RPC bodies of a
    server/volume_server.VolumeServer over that Store (garbage 0, the .dat
@@ -98,7 +99,8 @@ phases asked for are built first, all at once (one nvcc per source).
    the EC steps and read after; then K1 at one stripe [1, 14, ~1 KB] is
    timed;
 11. the layered codecs at deployment size, on one Store on the card: the
-   write set of phase 9 written once and encoded twice. (a) msr at the
+   write set of phase 9 (524,288 needles; the full 1,048,576 until phase 15
+   took the time) written once and encoded twice. (a) msr at the
    fork's RS(14,2) (1 GiB / 1 MiB blocks, alpha 256): generate_ec_shards
    (plain-RS slabs through K1 encode, then the msr overlay through K1's
    apply entry), a seeded sample of sub-symbol columns against the plain
@@ -165,10 +167,11 @@ phases asked for are built first, all at once (one nvcc per source).
    client/http_util.py, storage/bulk.py and the read cache): servers A, B
    and C, each a VolumeServer over a Store on the card, joined by one
    LocalPeers that answers lookup_volume from their heartbeats; the replica
-   hops are HTTP over loopback. A fresh "001" volume on A and B; the full
-   write set (1,048,576 needles of 1024 + 0..63 B, `weed benchmark -n
-   1048576 -size 1024`) PUT to A by one client as /bulk frames of 1,024
-   needles, each frame replicated to B in one hop; A's and B's .idx equal by
+   hops are HTTP over loopback. A fresh "001" volume on A and B; half the
+   write set (524,288 needles of 1024 + 0..63 B, `weed benchmark -size
+   1024`'s needles; the full 1,048,576 until phase 15 took the time) PUT to
+   A by one client as /bulk frames of 1,024 needles, each frame replicated
+   to B in one hop; A's and B's .idx equal by
    sha256. 4,096 POSTs through A, each read back from B; 256 DELETEs, 404 on
    both; one ?type=replicate POST on B lands on B alone. 4,096 sampled GETs
    from A twice: 0 read-cache hits in the first pass, 4,096 in the second.
@@ -181,10 +184,35 @@ phases asked for are built first, all at once (one nvcc per source).
    again, every body equal and the reconstructs (K1 at one stripe)
    numbering the sampled intervals on lost shards. K1's and K3's counts are
    zeroed just before the phase and read just after;
-15. summary: one JSON line of every kernel with its launches (K1's from
-   phases 6, 9, 10, 11, 12, 13 and 14, K3's from phases 8, 10, 12, 13 and
-   14), error against the plain version, times and bound; then the result
-   line.
+15. the maintenance plane (server/volume_server.py with qos/, query/ and
+   the gRPC binding): servers A, B and C on the card, each served over gRPC
+   under mTLS (a CA and a cluster certificate made with openssl; a
+   plaintext stub must be refused), their peer plane gRPC with the holder
+   lookups from their heartbeats. The full write set (1,048,576 needles of
+   1024 + 0..63 B) on A through Store.write_needles_bulk; VolumeCopy A -> C
+   (.dat and .idx sha256 equal); 65,536 needles more on A, then
+   VolumeSyncStatus of A, VolumeIncrementalCopy since the copy (== A's .dat
+   tail) and VolumeTailReceiver on C from A (C's .dat, .idx and live
+   needles == A's); BatchDelete of 4,096 fids on C (202 each, then 404
+   each), VolumeNeedleStatus of 1,024 sampled needles (size, CRC, cookie ==
+   written), VolumeConfigure "001" (super-block byte and heartbeat);
+   VolumeScrub of C's copy through K3 (0 corrupt); VolumeEcShardsGenerate
+   of it at RS(10,4) (K1 encode), its parity shards 10-13 copied to B,
+   (0, 5, 10, 13) lost, a QoS policy POSTed to every /debug/qos (the maintenance class
+   at 256 MB/s), VolumeEcShardsRebuild on C (maintenance class: B admits
+   its survivor reads) while one keep-alive client GETs from A: the four
+   shards to their hashes, the maintenance wait non-zero; Query (a filter
+   and a projection) of 4,096 JSON-lines needles of 1-4 KiB in a volume
+   sealed at RS(10,4) with (0, 5, 10, 13) lost, the records == the written
+   ones filtered here, the K1 reconstructs == the intervals on lost
+   shards; a tenant with a tiny bucket shed with 503 and Retry-After;
+   VolumeServerLeave on C: out of the lookups within two pulses, a direct
+   GET still 200. K1's and K3's counts are zeroed just before the phase and
+   read just after;
+16. summary: one JSON line of every kernel with its launches (K1's from
+   phases 6, 9, 10, 11, 12, 13, 14 and 15, K3's from phases 8, 10, 12, 13,
+   14 and 15), error against the plain version, times and bound; then the
+   result line.
 
 Needs CUDA and the repository beside it; without either it exits 2.
 """
@@ -208,7 +236,7 @@ MAIN_SHAPE = (32, 10, 1 << 20)  # [batch, d, chunk] of one encode call
 LOST_10_4 = (0, 5, 10, 13)
 LOST_14_2 = (3, 15)
 WIDTHS = (16, 48, 100, 384, 4112, 65536, 65552)
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15)
 PALLAS = "seaweedfs_tpu/ops/rs_pallas.py"
 K1_SOURCE = "seaweedfs_tpu_torch/csrc/rs_gf.cu"
 K3_SOURCE = "seaweedfs_tpu_torch/csrc/crc32c.cu"
@@ -216,7 +244,7 @@ K3_REPLACES = "seaweedfs_tpu/ops/crc32c.py:183"  # device_crc_states
 KERNELS = {2: ("rs_gf",), 7: ("crc32c",), 9: ("rs_gf",),  # phase -> csrc
            10: ("rs_gf", "crc32c"), 11: ("rs_gf",),    # sources it builds
            12: ("rs_gf", "crc32c"), 13: ("rs_gf", "crc32c"),
-           14: ("rs_gf", "crc32c")}
+           14: ("rs_gf", "crc32c"), 15: ("rs_gf", "crc32c")}
 K3_SHAPES = ((4096, 2048), (16384, 4096), (64, 1 << 20))  # first: the scrub's
 K3_ROWS = (1, 3, 4096, 4225)  # 4225 = 132 SMs x 32 warps + 1
 K3_LENGTHS = (0, 512, 1024, 2048, 4096, 65536, 1 << 20)
@@ -229,7 +257,8 @@ EC_SAMPLE = 16384      # needles read back per pass
 EC_VID = 1
 A_LOST, B_LOST = (0, 5), (10, 13)
 TIER_LOST = (0, 5)     # phase 10's lost shards at RS(14,2)
-TIER_NEEDLES = 1 << 19  # phase 10: half the write set, to keep the whole in time
+TIER_NEEDLES = 1 << 18  # phase 10: a quarter of the write set (half until
+                        # phase 15 took the time), to keep the whole in time
 TIER_CHURN = 64        # phase 10: needles deleted, and needles overwritten
 CODEC_SAMPLE = 4096    # phase 11: needles read back per pass
 MSR_LOST, MSR_LOST2 = 5, (0, 14)  # phase 11(a) at RS(14,2)
@@ -245,12 +274,24 @@ SERVER_SCRUB_NEEDLES = 1 << 18  # phase 13: the regular volume VolumeScrub check
 SERVER_SAMPLE = 4096   # phase 13: needles GET per pass (cut from 16,384 to
                        # make room for phase 14)
 REPLICA_VID = 21       # phase 14's "001" volume
+REPLICA_NEEDLES = 1 << 19  # phase 14: half the write set as /bulk frames (the
+                           # whole until phase 15 took the time)
 REPLICA_FRAME = 1024   # phase 14: needles a /bulk frame (the JAX client's
                        # BULK_MAX_FRAME_NEEDLES)
 REPLICA_DELETES = 256  # phase 14: DELETEs fanned out
 REPLICA_GETS = 4096    # phase 14: GETs on A per pass, twice
 REPLICA_PROXIED = 1024  # phase 14: of them, GETs proxied by C
 REPLICA_READ_FRAME = 256  # phase 14: needles a /bulk-read frame
+MAINT_MORE = 1 << 16   # phase 15: needles written on A after the copy
+MAINT_DELETES = 4096   # phase 15: fids in C's BatchDelete
+MAINT_STATUSES = 1024  # phase 15: VolumeNeedleStatus calls (sampled needles)
+MAINT_QUERY_NEEDLES = 4096  # phase 15: JSON-lines needles queried
+MAINT_QUERY_VID, MAINT_TINY_VID = 31, 32  # phase 15's other volumes
+# phase 15: the maintenance class's byte rate, below the ~160 MB/s at which
+# an unthrottled rebuild reads B's half of the survivors, so it binds
+MAINT_BYTES_PER_S = "128MB"
+MAINT_BURST_BYTES = "32MB"   # and burst, on every server
+MAINT_QUANTUM = 64 << 20     # phase 15's round-robin quantum (>= a read)
 # `python3 -c "import grpc, google.protobuf"` on the card's machine found
 # grpc 1.80.0 and protobuf 6.33.6 (PERF.md), so phase 13 also reads its
 # degraded sample over gRPC
@@ -2049,7 +2090,7 @@ def phase_codecs(torch, np, workdir: str, seed: int, card: str) -> "dict[str, in
     rs_cuda.reset_launches()
     t0 = time.perf_counter()
     res = codec_round_trip(np, workdir, seed + 19, card, (GiB, MiB),
-                           EC_NEEDLES, CODEC_SAMPLE)
+                           EC_STORE_NEEDLES, CODEC_SAMPLE)
     torch.cuda.synchronize()
     launches = dict(rs_cuda.launches_by_entry)
     log(f"[codec] K1 launches on the codec path: {json.dumps(launches)}; "
@@ -2995,7 +3036,7 @@ def phase_replica(torch, np, workdir: str, seed: int, card: str) -> dict:
     rs_cuda.reset_launches()
     crc_cuda.reset_launches()
     res = replica_round_trip(np, workdir, seed + 29, card, EcGeometry(10, 4),
-                             EC_NEEDLES, REPLICA_FRAME, SERVER_HTTP_NEEDLES,
+                             REPLICA_NEEDLES, REPLICA_FRAME, SERVER_HTTP_NEEDLES,
                              REPLICA_DELETES, REPLICA_GETS, REPLICA_PROXIED,
                              EC_SAMPLE, REPLICA_READ_FRAME)
     torch.cuda.synchronize()
@@ -3008,6 +3049,604 @@ def phase_replica(torch, np, workdir: str, seed: int, card: str) -> dict:
             raise AssertionError(f"K1 {entry} never launched on the replica")
     if not k3:
         raise AssertionError("K3 never launched on the replica")
+    return {"k1": k1, "k3": k3}
+
+
+# -- phase 15 ---------------------------------------------------------------
+def make_certs(dirname: str) -> "tuple[str, str, str]":
+    """(ca, cert, key) paths: a CA and one cluster certificate (CN=swtpu,
+    the TlsConfig's server name) made with openssl."""
+    os.makedirs(dirname, exist_ok=True)
+    ca_key, ca_crt = (os.path.join(dirname, n) for n in ("ca.key", "ca.crt"))
+    key, csr, crt = (os.path.join(dirname, n)
+                     for n in ("node.key", "node.csr", "node.crt"))
+    for cmd in (["req", "-x509", "-newkey", "rsa:2048", "-nodes", "-keyout",
+                 ca_key, "-out", ca_crt, "-days", "1", "-subj", "/CN=swtpu-ca"],
+                ["req", "-newkey", "rsa:2048", "-nodes", "-keyout", key,
+                 "-out", csr, "-subj", "/CN=swtpu"],
+                ["x509", "-req", "-in", csr, "-CA", ca_crt, "-CAkey", ca_key,
+                 "-CAcreateserial", "-out", crt, "-days", "1"]):
+        subprocess.run(["openssl", *cmd], check=True, capture_output=True,
+                       timeout=60)
+    return ca_crt, crt, key
+
+
+def json_lines_set(np, store, vid: int, rng, n: int) -> "dict[int, list]":
+    """n JSON-lines needles of 1-4 KiB each in volume `vid` of `store`
+    (through write_needles_bulk); returns each needle's records."""
+    from seaweedfs_tpu_torch.storage.needle import Needle
+    docs: "dict[int, list]" = {}
+    batch = []
+    for nid in range(1, n + 1):
+        target = int(rng.integers(1024, 4097))
+        recs, body = [], b""
+        while True:
+            rec = {"id": nid * 1000 + len(recs),
+                   "kind": str(rng.choice(["a", "b", "c"])),
+                   "size": int(rng.integers(0, 1 << 20)),
+                   "pad": "x" * int(rng.integers(8, 120))}
+            line = (json.dumps(rec) + "\n").encode()
+            if len(body) + len(line) > target:
+                break
+            recs.append(rec)
+            body += line
+        body += b" " * (target - len(body))  # a blank tail line, 1-4 KiB
+        docs[nid] = recs
+        batch.append(Needle(id=nid, cookie=0xD0C0 + nid, data=body))
+    store.write_needles_bulk(vid, batch)
+    return docs
+
+
+def maintenance_round_trip(np, workdir: str, seed: int, card: str, geo,
+                           needles: int, more: int, deletes: int,
+                           statuses: int, gets: int, query_needles: int,
+                           device: str = "cuda", pulse_seconds: float = 2.0,
+                           maint_rate: str = MAINT_BYTES_PER_S,
+                           maint_burst: str = MAINT_BURST_BYTES) -> dict:
+    """Phase 15's path through three volume servers served over gRPC under
+    mTLS (certificates made with openssl), each heartbeating to a sink that
+    stands in for the master, every check fatal: VolumeCopy A -> C, the
+    catch-up by VolumeSyncStatus, VolumeTailReceiver and
+    VolumeIncrementalCopy, BatchDelete, VolumeNeedleStatus, VolumeConfigure,
+    VolumeScrub of the copy (K3), its seal (K1 encode) and a
+    maintenance-class rebuild (K1) that reads half its survivors from B
+    under a QoS policy while a client GETs from B, Query over an EC volume
+    with lost shards (K1 at one stripe), a shed write, and leave. Logs the
+    measured numbers and returns them."""
+    import threading
+
+    import grpc
+
+    from seaweedfs_tpu_torch.ec import files
+    from seaweedfs_tpu_torch.ops import crc_cuda
+    from seaweedfs_tpu_torch.pb import master_pb2 as mpb
+    from seaweedfs_tpu_torch.pb import volume_server_pb2 as vpb
+    from seaweedfs_tpu_torch.server.grpc_service import (GrpcPeers,
+                                                         Heartbeater,
+                                                         build_service)
+    from seaweedfs_tpu_torch.server.volume_server import LocalPeers, VolumeServer
+    from seaweedfs_tpu_torch.stats import (QOS_BYTES, QOS_REQUESTS,
+                                           QOS_WAIT_SECONDS)
+    from seaweedfs_tpu_torch.ops.crc32c import crc32c
+    from seaweedfs_tpu_torch.storage.disk_location import DiskLocation
+    from seaweedfs_tpu_torch.storage.needle import Needle
+    from seaweedfs_tpu_torch.storage.store import Store
+    from seaweedfs_tpu_torch.storage.types import file_id
+    from seaweedfs_tpu_torch.utils import retry, rpc
+
+    vid, qvid, tiny_vid = EC_VID, MAINT_QUERY_VID, MAINT_TINY_VID
+    out: dict = {}
+    t = time.perf_counter()
+    rpc.set_tls_config(rpc.TlsConfig(*make_certs(
+        os.path.join(workdir, "tls"))))
+    log(f"[maint] a CA and a cluster certificate made with openssl in "
+        f"{time.perf_counter() - t:.2f} s: every gRPC plane under mTLS")
+    servers = {}
+    for x in "abc":
+        port = _free_port()
+        store = Store("127.0.0.1", port, "", [DiskLocation(os.path.join(
+            workdir, f"maint_{x}"))], ec_geometry=geo, coder_name="torch",
+            device=device)
+        servers[x] = VolumeServer(store, "127.0.0.1", port,
+                                  pulse_seconds=pulse_seconds)
+    a, b, c = servers["a"], servers["b"], servers["c"]
+    local = LocalPeers({vs.peer_address: vs for vs in servers.values()})
+    sink_address = f"127.0.0.1:{_free_port()}"
+
+    class Sink:
+        """The master's end of SendHeartbeat and nothing more: it acks
+        each heartbeat as a master does, keeps each server's last one and
+        its count, and notes when a server's stream ends."""
+
+        def __init__(self):
+            self.last: dict = {}
+            self.count: collections.Counter = collections.Counter()
+            self.ended: dict = {}
+            self.service = rpc.RpcService(rpc.MASTER_SERVICE)
+            self.service.stream_stream("SendHeartbeat", mpb.Heartbeat,
+                                       mpb.HeartbeatResponse)(self._stream)
+
+        def _stream(self, request_iter, context):
+            port = None
+            try:
+                for hb in request_iter:
+                    port = hb.port
+                    self.last[port] = hb
+                    self.count[port] += 1
+                    self.ended.pop(port, None)
+                    yield mpb.HeartbeatResponse()
+            finally:
+                if port is not None:
+                    self.ended[port] = time.perf_counter()
+
+    class Peers(GrpcPeers):
+        """The peer plane over gRPC; the holder lookups a master answers
+        come from the servers themselves (no master runs here)."""
+
+        def __init__(self):
+            super().__init__(sink_address)
+
+        def lookup_volume(self, v):
+            return local.lookup_volume(v)
+
+        def lookup_ec(self, v):
+            return local.lookup_ec(v)
+
+    peers = Peers()
+    sink = Sink()
+    grpc_servers, clients, beats = [], [], {}
+    stop_gets = threading.Event()
+    retry.reset_breakers()
+
+    def stub(vs):
+        return rpc.Stub(vs.peer_address, rpc.VOLUME_SERVICE)
+
+    def ms(xs, q):
+        return _pct(np, xs, q) * 1e3
+
+    try:
+        grpc_servers.append(rpc.serve(sink_address, [sink.service]))
+        for vs in servers.values():
+            vs.peers = peers
+            vs.start()
+            grpc_servers.append(rpc.serve(vs.peer_address,
+                                          [build_service(vs)]))
+            beats[vs] = Heartbeater(vs, peers)
+            vs.heartbeat_flush = beats[vs].flush
+            beats[vs].start()
+        ca = _Client(a.url)
+        clients.append(ca)
+
+        # 1. mTLS: a TLS stub is served, a plaintext one refused; every
+        # server's heartbeat stream acked
+        stub(a).call("Ping", vpb.PingRequest(), vpb.PingResponse, timeout=10)
+        ch = grpc.insecure_channel(a.peer_address)
+        try:
+            ch.unary_unary(
+                f"/{rpc.VOLUME_SERVICE}/Ping",
+                request_serializer=vpb.PingRequest.SerializeToString,
+                response_deserializer=vpb.PingResponse.FromString)(
+                vpb.PingRequest(), timeout=5)
+            raise AssertionError("a plaintext stub was served under mTLS")
+        except grpc.RpcError:
+            pass
+        finally:
+            ch.close()
+        for vs in servers.values():
+            if not vs.flush_heartbeat():
+                raise AssertionError(f"no heartbeat of {vs.url} acked")
+        log("[maint] Ping over mTLS answered; a plaintext stub refused; "
+            "three heartbeat streams acked over mTLS")
+
+        # 2. the write set on A, VolumeCopy onto C
+        rng = np.random.default_rng(seed)
+        sizes = 1024 + rng.integers(0, 64, needles)
+        cookies = rng.integers(0, 1 << 32, needles, dtype=np.uint64)
+        sample = sorted(int(i) for i in rng.choice(needles, statuses,
+                                                   replace=False) + 1)
+        a.allocate_volume(vid)
+        t = time.perf_counter()
+        want = write_set(np, a.store, rng, sizes, cookies, set(sample))
+        bulk_s = time.perf_counter() - t
+        va = a.store.find_volume(vid)
+        va.sync()
+        base_a = va.file_name()
+        t = time.perf_counter()
+        stub(c).call("VolumeCopy", vpb.VolumeCopyRequest(
+            volume_id=vid, source_data_node=a.peer_address),
+            vpb.VolumeCopyResponse, timeout=600)
+        copy_s = time.perf_counter() - t
+        vc = c.store.find_volume(vid)
+        base_c = vc.file_name()
+        for ext in (".dat", ".idx"):
+            if _sha256(base_a + ext) != _sha256(base_c + ext):
+                raise AssertionError(f"VolumeCopy: C's {ext} != A's")
+        copied = sum(os.path.getsize(base_c + e) for e in (".dat", ".idx"))
+        out["copy"] = copied / copy_s / 1e9
+        log(f"[maint] A: {needles} needles through Store.write_needles_bulk "
+            f"in {bulk_s:.1f} s; VolumeCopy A -> C over gRPC: {copied} B in "
+            f"{copy_s:.3f} s = {out['copy']:.3f} GB/s, .dat and .idx sha256 "
+            f"equal [{card}]")
+
+        # 3. A moves on; C catches up
+        old_size = os.path.getsize(base_c + ".dat")
+        since = vc.last_record_append_ns()
+        msizes = 1024 + rng.integers(0, 64, more)
+        mcookies = rng.integers(0, 1 << 32, more, dtype=np.uint64)
+        buf = rng.bytes(int(msizes.sum()))
+        ends = np.cumsum(msizes)
+        a.store.write_needles_bulk(vid, [
+            Needle(id=needles + i + 1, cookie=int(mcookies[i]),
+                   data=buf[int(e - msizes[i]):int(e)])
+            for i, e in enumerate(ends)])
+        st = stub(a).call("VolumeSyncStatus",
+                          vpb.VolumeSyncStatusRequest(volume_id=vid),
+                          vpb.VolumeSyncStatusResponse)
+        if st.tail_offset != os.path.getsize(base_a + ".dat") or \
+                st.tail_offset <= old_size:
+            raise AssertionError(f"VolumeSyncStatus of A: {st}")
+        t = time.perf_counter()
+        raw = b"".join(r.file_content for r in stub(a).call_stream(
+            "VolumeIncrementalCopy", vpb.VolumeIncrementalCopyRequest(
+                volume_id=vid, since_ns=since),
+            vpb.VolumeIncrementalCopyResponse))
+        inc_s = time.perf_counter() - t
+        with open(base_a + ".dat", "rb") as f:
+            f.seek(old_size)
+            if raw != f.read():
+                raise AssertionError("VolumeIncrementalCopy != A's .dat tail")
+        t = time.perf_counter()
+        got = stub(c).call("VolumeTailReceiver", vpb.VolumeTailReceiverRequest(
+            volume_id=vid, since_ns=since, idle_timeout_seconds=1,
+            source_volume_server=a.peer_address),
+            vpb.VolumeTailReceiverResponse, timeout=600).received
+        tail_s = time.perf_counter() - t
+        stub(c).call("VolumeSyncStatus",
+                     vpb.VolumeSyncStatusRequest(volume_id=vid),
+                     vpb.VolumeSyncStatusResponse)  # flushes C's .idx
+        if got != more or _sha256(base_a + ".idx") != _sha256(base_c + ".idx") \
+                or _sha256(base_a + ".dat") != _sha256(base_c + ".dat") \
+                or vc.file_count != a.store.find_volume(vid).file_count:
+            raise AssertionError(f"the tail: {got} records of {more}; C's "
+                                 ".idx, .dat or live needles differ from A's")
+        out["tail"] = more / tail_s
+        log(f"[maint] {more} needles more on A; VolumeSyncStatus tail "
+            f"{st.tail_offset}; VolumeIncrementalCopy since the copy: {len(raw)} "
+            f"B == A's .dat tail in {inc_s:.3f} s; VolumeTailReceiver on C from "
+            f"A: {got} records in {tail_s:.3f} s = {out['tail']:.0f} records/s "
+            f"(one idle second included), C's .dat, .idx and live needles == "
+            f"A's [{card}]")
+
+        # 4. BatchDelete, VolumeNeedleStatus, VolumeConfigure on C
+        live_ids = [n for n in range(1, needles + 1) if n not in set(sample)]
+        doomed = sorted(int(i) for i in rng.choice(live_ids, deletes,
+                                                   replace=False))
+        fids = [file_id(vid, n, int(cookies[n - 1])) for n in doomed]
+        t = time.perf_counter()
+        res = stub(c).call("BatchDelete", vpb.BatchDeleteRequest(file_ids=fids),
+                           vpb.BatchDeleteResponse, timeout=120).results
+        del_s = time.perf_counter() - t
+        if [r.status for r in res] != [202] * deletes:
+            raise AssertionError("BatchDelete statuses: " + str(
+                collections.Counter(r.status for r in res)))
+        again = stub(c).call("BatchDelete", vpb.BatchDeleteRequest(
+            file_ids=fids), vpb.BatchDeleteResponse, timeout=120).results
+        if [r.status for r in again] != [404] * deletes:
+            raise AssertionError("deleted fids were not all 404")
+        cc = _Client(c.url)
+        clients.append(cc)
+        for fid in fids[:256]:
+            if cc.request("GET", f"/{fid}")[0] != 404:
+                raise AssertionError(f"GET of deleted {fid} on C is not 404")
+        t = time.perf_counter()
+        for n in sample:
+            r = stub(c).call("VolumeNeedleStatus", vpb.VolumeNeedleStatusRequest(
+                volume_id=vid, needle_id=n), vpb.VolumeNeedleStatusResponse)
+            if (r.needle_id, r.size, r.cookie, r.crc) != (
+                    n, len(want[n]), int(cookies[n - 1]), crc32c(want[n])):
+                raise AssertionError(f"VolumeNeedleStatus of {n}: {r}")
+        stat_s = time.perf_counter() - t
+        err = stub(c).call("VolumeConfigure", vpb.VolumeConfigureRequest(
+            volume_id=vid, replication="001"),
+            vpb.VolumeConfigureResponse).error
+        with open(base_c + ".dat", "rb") as f:
+            sb = f.read(2)
+        # VolumeConfigure returns once a heartbeat covering it is acked
+        hb = {v.id: v for v in sink.last[c.port].volumes}
+        if err or sb[1] != 1 or hb[vid].replica_placement != 1:
+            raise AssertionError(f"VolumeConfigure: {err!r}, super block "
+                                 f"{sb[1]}, heartbeat "
+                                 f"{hb[vid].replica_placement}")
+        log(f"[maint] BatchDelete of {deletes} fids on C in one request (the "
+            f"JAX client's group for one server): {deletes} x 202 in "
+            f"{del_s:.3f} s, then {deletes} x 404 (and {len(fids[:256])} GETs "
+            f"404); "
+            f"VolumeNeedleStatus of {statuses} sampled needles: size, CRC and "
+            f"cookie == written, {statuses / stat_s:.0f} calls/s; "
+            f"VolumeConfigure \"001\": super-block byte 1, the acked "
+            f"heartbeat's replica_placement 1 [{card}]")
+
+        # 5. VolumeScrub of C's copy through K3
+        live = needles + more - deletes
+        k0 = crc_cuda.launches
+        (r,) = stub(c).call("VolumeScrub", vpb.VolumeScrubRequest(
+            volume_id=vid), vpb.VolumeScrubResponse, timeout=600).results
+        k3 = crc_cuda.launches - k0
+        if (r.scanned, list(r.corrupt_needle_ids), r.mode, r.error) != (
+                live, [], "device", "") or (device == "cuda" and not k3):
+            raise AssertionError(f"VolumeScrub of C: {r}; {live} live, {k3} "
+                                 "K3 launches")
+        out["scrub"] = r.scanned / r.elapsed_s
+        log(f"[maint] VolumeScrub of C's copy: {r.scanned} needles, 0 corrupt, "
+            f"{out['scrub']:.0f} needles/s, {k3} K3 launches [{card}]")
+
+        # 6. C's copy sealed (K1 encode), shards 7-13 copied to B, four
+        # lost, so B holds half the survivors; a maintenance-class rebuild
+        # on C under a policy while a tenant GETs from B
+        stub(c).call("VolumeMarkReadonly", vpb.VolumeMarkReadonlyRequest(
+            volume_id=vid), vpb.VolumeMarkReadonlyResponse)
+        t = time.perf_counter()
+        stub(c).call("VolumeEcShardsGenerate",
+                     vpb.VolumeEcShardsGenerateRequest(volume_id=vid),
+                     vpb.VolumeEcShardsGenerateResponse, timeout=600)
+        gen_s = time.perf_counter() - t
+        sealed = _shard_hashes(base_c, geo.n)
+        moved = list(range(geo.n // 2, geo.n))
+        stub(b).call("VolumeEcShardsCopy", vpb.VolumeEcShardsCopyRequest(
+            volume_id=vid, shard_ids=moved, copy_ecx_file=True,
+            copy_vif_file=True, source_data_node=c.peer_address),
+            vpb.VolumeEcShardsCopyResponse, timeout=600)
+        for vs in (b, c):
+            stub(vs).call("VolumeEcShardsMount", vpb.VolumeEcShardsMountRequest(
+                volume_id=vid), vpb.VolumeEcShardsMountResponse)
+        stub(c).call("VolumeEcShardsDelete", vpb.VolumeEcShardsDeleteRequest(
+            volume_id=vid, shard_ids=moved), vpb.VolumeEcShardsDeleteResponse)
+        stub(c).call("VolumeDelete", vpb.VolumeDeleteRequest(volume_id=vid),
+                     vpb.VolumeDeleteResponse)
+        for vs in (b, c):
+            lost = [s for s in LOST_10_4 if s in
+                    vs.store.find_ec_volume(vid).shards]
+            stub(vs).call("VolumeEcShardsDelete",
+                          vpb.VolumeEcShardsDeleteRequest(
+                              volume_id=vid, shard_ids=lost),
+                          vpb.VolumeEcShardsDeleteResponse)
+        evb = b.store.find_ec_volume(vid)
+        on_b = set(evb.shards)
+        if 2 * len(on_b) < geo.d:
+            raise AssertionError(f"B holds {sorted(on_b)}: under half the "
+                                 "survivors")
+        # the tenant reads needles that B serves from its own shards
+        ids = [n for n in sample
+               if all(s in on_b for s, _ in _intervals(evb, geo, n))][:gets]
+        if not ids:
+            raise AssertionError(f"no sampled needle lies on B's shards "
+                                 f"{sorted(on_b)}")
+        policy = {"classes": {"maintenance": {
+                      "bytes_per_s": maint_rate, "burst_bytes": maint_burst,
+                      "max_wait_s": 60.0}},
+                  "tenants": {"tiny": {"rps": 0.01, "burst": 1}},
+                  # a plain-RS rebuild's survivor read costs up to chunk x
+                  # batch = 32 MiB (ec/encoder.py): a smaller round-robin
+                  # quantum would make the queued read wait pump ticks
+                  # (0.5 s each) for deficit the byte bucket does not ask
+                  # for
+                  "quantum_bytes": MAINT_QUANTUM}
+        for vs in servers.values():  # the operator's retune path
+            cl = _Client(vs.url)
+            try:
+                st_, body, _ = cl.request("POST", "/debug/qos",
+                                          json.dumps(policy).encode())
+            finally:
+                cl.close()
+            if st_ != 200 or not json.loads(body)["enabled"]:
+                raise AssertionError(f"POST /debug/qos on {vs.url}: {st_}")
+
+        def qos_now():
+            return {"maint_admitted": QOS_REQUESTS.value(
+                        "default", "maintenance", "admitted"),
+                    "maint_queued": QOS_REQUESTS.value(
+                        "default", "maintenance", "queued"),
+                    "maint_bytes": QOS_BYTES.value("default", "maintenance"),
+                    "maint_waits": QOS_WAIT_SECONDS.count("maintenance"),
+                    "maint_wait_s": QOS_WAIT_SECONDS._sums.get(
+                        ("maintenance",), 0.0),
+                    "interactive": QOS_REQUESTS.value(
+                        "default", "interactive", "admitted"),
+                    "interactive_queued": QOS_REQUESTS.value(
+                        "default", "interactive", "queued")}
+        get_lat: list = []
+        get_err: list = []
+
+        cb = _Client(b.url)
+        clients.append(cb)
+
+        def getter():
+            i = 0
+            try:
+                while not stop_gets.is_set():
+                    n = ids[i % len(ids)]
+                    i += 1
+                    t0 = time.perf_counter()
+                    st_, body, _ = cb.request(
+                        "GET", f"/{file_id(vid, n, int(cookies[n - 1]))}")
+                    get_lat.append(time.perf_counter() - t0)
+                    if (st_, body) != (200, want[n]):
+                        raise AssertionError(f"GET of {n} on B: {st_}")
+            except Exception as e:  # noqa: BLE001 — reported below
+                get_err.append(e)
+
+        q0 = qos_now()
+        th = threading.Thread(target=getter, name="maint-gets", daemon=True)
+        th.start()
+        t = time.perf_counter()
+        rb = stub(c).call("VolumeEcShardsRebuild",
+                          vpb.VolumeEcShardsRebuildRequest(volume_id=vid),
+                          vpb.VolumeEcShardsRebuildResponse, timeout=900)
+        rb_s = time.perf_counter() - t
+        stop_gets.set()
+        th.join(timeout=30)
+        q1 = qos_now()
+        dq = {k: q1[k] - q0[k] for k in q0}
+        if get_err:
+            raise get_err[0]
+        if sorted(rb.rebuilt_shard_ids) != list(LOST_10_4):
+            raise AssertionError(f"rebuilt {list(rb.rebuilt_shard_ids)}")
+        for s in LOST_10_4:  # all four rebuilt on C
+            if _sha256(base_c + files.shard_ext(s)) != sealed[s]:
+                raise AssertionError(f"rebuilt shard {s} differs")
+        if dq["maint_waits"] <= 0 or dq["maint_wait_s"] <= 0 or \
+                dq["maint_bytes"] <= 0 or dq["interactive"] <= 0 or \
+                len(get_lat) < 10:
+            raise AssertionError(f"QoS deltas {dq}; {len(get_lat)} GETs")
+        out["rebuild"] = rb.bytes_read / rb_s / 1e9
+        out["gets_during_rebuild"] = get_lat
+        out["qos"] = dq
+        out["gen"] = os.path.getsize(base_c + files.shard_ext(1)) * geo.d \
+            / gen_s / 1e9
+        log(f"[maint] VolumeEcShardsGenerate of C's copy RS({geo.d},{geo.p}) in "
+            f"{gen_s:.3f} s = {out['gen']:.3f} GB/s; shards {moved[0]}-"
+            f"{moved[-1]} to B by VolumeEcShardsCopy; shards "
+            f"{list(LOST_10_4)} lost; VolumeEcShardsRebuild on C "
+            f"(maintenance class, B's survivor reads of shards "
+            f"{sorted(on_b)} admitted at {maint_rate}/s): {rb.bytes_read} B "
+            f"read in {rb_s:.3f} s = {out['rebuild']:.3f} GB/s, the four "
+            f"shards == their hashes; meanwhile {len(get_lat)} GETs from B "
+            f"of {len(ids)} needles on its own shards: p50 "
+            f"{ms(get_lat, 50):.4f} ms, p99 {ms(get_lat, 99):.4f} ms; QoS "
+            f"deltas "
+            f"{json.dumps({k: round(v, 6) for k, v in dq.items()})} [{card}]")
+
+        # 7. Query over an EC volume with four lost shards
+        a.allocate_volume(qvid)
+        docs = json_lines_set(np, a.store, qvid, rng, query_needles)
+        for method, req, resp in (
+                ("VolumeMarkReadonly",
+                 vpb.VolumeMarkReadonlyRequest(volume_id=qvid),
+                 vpb.VolumeMarkReadonlyResponse),
+                ("VolumeEcShardsGenerate",
+                 vpb.VolumeEcShardsGenerateRequest(volume_id=qvid),
+                 vpb.VolumeEcShardsGenerateResponse),
+                ("VolumeEcShardsMount",
+                 vpb.VolumeEcShardsMountRequest(volume_id=qvid),
+                 vpb.VolumeEcShardsMountResponse),
+                ("VolumeDelete", vpb.VolumeDeleteRequest(volume_id=qvid),
+                 vpb.VolumeDeleteResponse),
+                ("VolumeEcShardsDelete", vpb.VolumeEcShardsDeleteRequest(
+                    volume_id=qvid, shard_ids=list(LOST_10_4)),
+                 vpb.VolumeEcShardsDeleteResponse)):
+            stub(a).call(method, req, resp, timeout=600)
+        ev = a.store.find_ec_volume(qvid)
+        gone = set(LOST_10_4)
+        expected = sum(1 for n in docs for s, _ in _intervals(ev, geo, n)
+                       if s in gone)
+        qfids = [file_id(qvid, n, 0xD0C0 + n) for n in docs]
+        req = vpb.QueryRequest(from_file_ids=qfids)
+        req.filter.field, req.filter.operand, req.filter.value = \
+            "kind", "=", "b"
+        req.projections.extend(["id", "size"])
+        r0 = a.read_stats.get("reconstructs", 0)
+        t = time.perf_counter()
+        got_q = b"".join(s.records for s in stub(a).call_stream(
+            "Query", req, vpb.QueriedStripe, timeout=600))
+        query_s = time.perf_counter() - t
+        got_rec = a.read_stats.get("reconstructs", 0) - r0
+        # the written records filtered and projected here, without query/
+        direct = [[rec["id"], rec["size"]] for n in docs for rec in docs[n]
+                  if rec["kind"] == "b"]
+        if [json.loads(ln) for ln in got_q.decode().splitlines()] != direct \
+                or not direct:
+            raise AssertionError("Query records != the direct evaluation")
+        if got_rec != expected or not expected:
+            raise AssertionError(f"{got_rec} reconstructs in Query; the "
+                                 f"intervals on lost shards number {expected}")
+        out["query"] = query_needles / query_s
+        out["reconstructs"] = got_rec
+        log(f"[maint] Query (kind = \"b\", projecting id and size) of "
+            f"{query_needles} JSON-lines needles of 1-4 KiB in a volume sealed "
+            f"at RS({geo.d},{geo.p}) with shards {sorted(gone)} lost: "
+            f"{len(direct)} records == the direct evaluation, {got_rec} K1 "
+            f"reconstructs == the intervals on lost shards, "
+            f"{out['query']:.0f} needles/s [{card}]")
+
+        # 8. a tenant with a tiny ingest bucket is shed
+        a.allocate_volume(tiny_vid, collection="tiny")
+        shed = [ca.request("POST", f"/{file_id(tiny_vid, i, 0x71)}",
+                           b"t" * 512) for i in (1, 2)]
+        if shed[0][0] != 201 or shed[1][0] != 503 or \
+                not shed[1][2].get("Retry-After"):
+            raise AssertionError(f"shedding: {[s[0] for s in shed]} "
+                                 f"{shed[1][2]}")
+        log(f"[maint] tenant \"tiny\" (rps 0.01, burst 1): 201, then 503 with "
+            f"Retry-After {shed[1][2]['Retry-After']} s")
+
+        # 9. C leaves: its heartbeat stream ends within two pulses and no
+        # heartbeat follows; out of the lookups; a direct GET still served
+        if not c.flush_heartbeat() or c.port in sink.ended:
+            raise AssertionError("C's heartbeat stream is not live")
+        stub(c).call("VolumeServerLeave", vpb.VolumeServerLeaveRequest(),
+                     vpb.VolumeServerLeaveResponse)
+        t = time.perf_counter()
+        while c.port not in sink.ended:
+            if time.perf_counter() - t > 2 * pulse_seconds:
+                raise AssertionError("C's heartbeat stream still open two "
+                                     "pulses after leave")
+            time.sleep(0.01)
+        ended_s = sink.ended[c.port] - t
+        beats[c]._thread.join(timeout=pulse_seconds)
+        if beats[c]._thread.is_alive() or c.flush_heartbeat() or \
+                c.port not in sink.ended:
+            raise AssertionError("C's heartbeater runs on after leave")
+        if any(c.peer_address in h for h in peers.lookup_ec(vid).values()):
+            raise AssertionError("C still in the EC lookups after leave")
+        n = sample[0]
+        st_, body, _ = cc.request("GET", f"/{file_id(vid, n, int(cookies[n - 1]))}")
+        if (st_, body) != (200, want[n]):
+            raise AssertionError(f"a direct GET on C after leave: {st_}")
+        if a.port in sink.ended or b.port in sink.ended:
+            raise AssertionError("A's or B's heartbeat stream ended")
+        log(f"[maint] VolumeServerLeave on C: its heartbeat stream ended "
+            f"{ended_s:.3f} s later after {sink.count[c.port]} heartbeats "
+            f"and its heartbeater stopped (flush false); out of the EC "
+            f"lookups; a direct GET on C still 200")
+        return out
+    finally:
+        stop_gets.set()
+        retry.reset_breakers()
+        for cl in clients:
+            cl.close()
+        for vs, hb in beats.items():
+            vs.heartbeat_flush = None
+            hb.stop()
+        for g in grpc_servers:
+            g.stop(grace=0.5).wait(timeout=10)
+        for vs in servers.values():
+            vs.stop()
+        rpc.set_tls_config(None)
+
+
+def phase_maintenance(torch, np, workdir: str, seed: int, card: str) -> dict:
+    from seaweedfs_tpu_torch.ec.locate import EcGeometry
+    from seaweedfs_tpu_torch.ops import crc_cuda, rs_cuda
+    os.makedirs(workdir, exist_ok=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rs_cuda.reset_launches()
+    crc_cuda.reset_launches()
+    res = maintenance_round_trip(np, workdir, seed + 31, card,
+                                 EcGeometry(10, 4), EC_NEEDLES, MAINT_MORE,
+                                 MAINT_DELETES, MAINT_STATUSES, REPLICA_GETS,
+                                 MAINT_QUERY_NEEDLES)
+    torch.cuda.synchronize()
+    k1 = dict(rs_cuda.launches_by_entry)
+    k3 = crc_cuda.launches
+    log(f"[maint] launches on the maintenance plane: K1 {json.dumps(k1)}, "
+        f"K3 {k3}; phase wall {time.perf_counter() - t0:.1f} s [{card}]")
+    for entry in ("encode", "reconstruct"):
+        if not k1.get(entry):
+            raise AssertionError(f"K1 {entry} never launched on the "
+                                 "maintenance plane")
+    if not k3:
+        raise AssertionError("K3 never launched on the maintenance plane")
     return {"k1": k1, "k3": k3}
 
 
@@ -3097,10 +3736,17 @@ def main(argv=None) -> int:
             replica = phase_replica(torch, np, args.workdir, args.seed, card)
         finally:
             shutil.rmtree(args.workdir, ignore_errors=True)
+    maint = None
+    if 15 in phases:
+        try:
+            maint = phase_maintenance(torch, np, args.workdir, args.seed, card)
+        finally:
+            shutil.rmtree(args.workdir, ignore_errors=True)
     log(f"[done] phases {sorted(phases | {1})} passed in "
         f"{time.perf_counter() - t0:.1f} s [{card}]")
     if None not in (errs, times, launches, k3_err, k3_times, k3_launches,
-                    ec_launches, tier, codec_launches, mesh, server, replica):
+                    ec_launches, tier, codec_launches, mesh, server, replica,
+                    maint):
         kernels = [dict(name=f"rs_gf_apply:{entry}", route="cuda",
                         source=K1_SOURCE, replaces=replaces,
                         launches=launches.get(entry, 0)
@@ -3109,7 +3755,8 @@ def main(argv=None) -> int:
                         + codec_launches.get(entry, 0)
                         + mesh["launches"]["k1"].get(entry, 0)
                         + server["k1"].get(entry, 0)
-                        + replica["k1"].get(entry, 0),
+                        + replica["k1"].get(entry, 0)
+                        + maint["k1"].get(entry, 0),
                         max_abs_err=errs[entry], ms=times[entry]["ms"],
                         plain_ms=times[entry]["plain_ms"],
                         bound_ms=times[entry]["bound_ms"],
@@ -3120,7 +3767,7 @@ def main(argv=None) -> int:
                             source=K3_SOURCE, replaces=K3_REPLACES,
                             launches=k3_launches + tier["k3_scrub"]
                             + mesh["launches"]["k3"] + server["k3"]
-                            + replica["k3"],
+                            + replica["k3"] + maint["k3"],
                             max_abs_err=k3_err,
                             ms=k3["ms"], plain_ms=k3["plain_ms"],
                             bound_ms=k3["bound_ms"], bound_by=k3["bound_by"],

@@ -5,8 +5,12 @@ The counterpart of the JAX package's `run_volume` with `_add_volume_flags`
 gRPC and heartbeats to `-mserver`. It runs on the card unless `-device cpu`
 is asked for, and exits non-zero on a host without one. `-jwtSigningKey`,
 `-jwtReadSigningKey` and `-whiteList` build its security guard (reference
-`_add_security_flags` and `_make_guard`, :87-96) from the flags alone: the
-security.toml tier waits for a port of utils/config.
+`_add_security_flags` and `_make_guard`, :87-114): flags win, and an absent
+flag falls back to security.toml on the config tier chain (utils/config).
+The `[grpc]` section of that file (ca, cert, key) puts every gRPC server and
+stub of the process under mTLS before any starts (reference `_init_tls`,
+:1366); a partial section refuses to start. `-qosPolicy` (a JSON file,
+reloaded when it changes) turns on QoS admission.
 """
 
 from __future__ import annotations
@@ -52,6 +56,10 @@ def _volume_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("-ecShards", default="",
                    help="default EC geometry as 'd,p' (e.g. 14,2 or 10,4)")
     p.add_argument("-pulseSeconds", type=float, default=2.0)
+    p.add_argument("-qosPolicy", default="",
+                   help="QoS policy JSON file (tenant/class token buckets, "
+                        "weights), reloaded when it changes; empty = "
+                        "admission off")
     # empty keys keep security off, as in the reference's default
     p.add_argument("-jwtSigningKey", default="")
     p.add_argument("-jwtReadSigningKey", default="")
@@ -60,13 +68,38 @@ def _volume_flags(p: argparse.ArgumentParser) -> None:
 
 
 def _make_guard(opt):
-    """The security guard of the flags, or None when every one is empty."""
+    """The security guard, or None when nothing configures one: flags win;
+    absent flags fall back to security.toml on the config tier chain
+    (reference util/config.go:37-48 with the security/jwt wiring)."""
     from .security import Guard
-    if not (opt.jwtSigningKey or opt.jwtReadSigningKey or opt.whiteList):
+    from .utils import config as cfg
+    sec = cfg.load_config("security")
+    sign = opt.jwtSigningKey or cfg.get_dotted(
+        sec, "jwt.signing.key", "") or ""
+    read = opt.jwtReadSigningKey or cfg.get_dotted(
+        sec, "jwt.signing.read.key", "") or ""
+    wl = opt.whiteList or cfg.get_dotted(sec, "guard.white_list", "") or ""
+    if isinstance(wl, list):
+        wl = ",".join(wl)
+    if not (sign or read or wl):
         return None
-    return Guard(white_list=[s for s in opt.whiteList.split(",") if s],
-                 signing_key=opt.jwtSigningKey,
-                 read_signing_key=opt.jwtReadSigningKey)
+    return Guard(white_list=[s for s in wl.split(",") if s],
+                 signing_key=sign, read_signing_key=read)
+
+
+def _init_tls() -> None:
+    """Install cluster mTLS from security.toml [grpc] before any server or
+    stub starts; a configured but unusable section exits non-zero (fail
+    closed, never plaintext)."""
+    try:
+        from .utils.rpc import load_tls_from_security_toml, set_tls_config
+        tls = load_tls_from_security_toml()
+    except Exception as e:  # noqa: BLE001 — fail closed
+        print(f"fatal: mTLS configured but unusable: {e}", file=sys.stderr)
+        sys.exit(1)
+    if tls is not None:
+        set_tls_config(tls)
+        print("gRPC mTLS enabled (security.toml [grpc])", file=sys.stderr)
 
 
 def run_volume(argv) -> int:
@@ -89,7 +122,8 @@ def run_volume(argv) -> int:
     vs = VolumeServer(store, ip=opt.ip, port=opt.port,
                       data_center=opt.dataCenter, rack=opt.rack,
                       pulse_seconds=opt.pulseSeconds,
-                      guard=_make_guard(opt))
+                      guard=_make_guard(opt),
+                      qos_policy=opt.qosPolicy or None)
     served = serve_volume(vs, opt.grpcPort, master=opt.mserver)
     print(f"volume server {vs.url} (grpc :{vs.grpc_port}, {vs.device}) "
           f"heartbeating to {opt.mserver}", flush=True)
@@ -110,6 +144,7 @@ def main(argv=None) -> int:
         print(f"usage: python -m seaweedfs_tpu_torch {{{','.join(VERBS)}}} "
               "[flags]", file=sys.stderr)
         return 2
+    _init_tls()
     return VERBS[argv[0]](argv[1:])
 
 

@@ -11,9 +11,9 @@ It plays the role the reference's shared Go `http.Client` transport does
 All cluster-internal callers (operation.py, master_client assigns,
 bench_tool) share it via the module-level request()/get()/post() helpers.
 
-The port's copy of the JAX package's client/http_util.py. Two differences:
-the QoS class header is left out until the `qos` package is ported (ROADMAP
-Queue 1), and `send()` is one round trip without the envelope, for callers
+The port's copy of the JAX package's client/http_util.py, with the QoS
+class of the calling flow on every request as the `x-swtpu-qos` header.
+One addition: `send()` is one round trip without the envelope, for callers
 that run their own (the volume server's replica fan-out and proxy read,
 which the JAX package makes with aiohttp, a package the port does not use).
 """
@@ -229,8 +229,12 @@ def _request_bytes(method: str, netloc: str, path: str, body: bytes,
     traceparent = tracing.injectable()
     if traceparent:
         head += f"{tracing.TRACEPARENT_HEADER}: {traceparent}\r\n"
-    # the QoS class header (x-swtpu-qos) waits for the qos package
-    # (ROADMAP Queue 1)
+    # QoS class tag: a maintenance-tagged flow stays maintenance-class
+    # across the hop (the serving node's admission reads it)
+    from .. import qos as _qos
+    qos_class = _qos.injectable()
+    if qos_class:
+        head += f"{_qos.QOS_HEADER}: {qos_class}\r\n"
     if body or method in ("POST", "PUT"):
         head += f"Content-Length: {len(body)}\r\n"
     return head.encode("latin1") + b"\r\n" + body

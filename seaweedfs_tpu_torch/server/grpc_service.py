@@ -50,6 +50,17 @@ def _aborting_stream(fn):
     return wrapped
 
 
+def _aborting_subscription(fn):
+    """_aborting_stream for a body that also needs the call's context (to
+    stop when the client goes away)."""
+    def wrapped(req, context):
+        try:
+            yield from fn(req, context)
+        except RpcAbort as e:
+            context.abort(_STATUS[e.code], e.message)
+    return wrapped
+
+
 def build_service(vs: VolumeServer) -> RpcService:
     """The volume service over core `vs`: pb requests in, core methods
     called, pb responses out."""
@@ -130,6 +141,80 @@ def build_service(vs: VolumeServer) -> RpcService:
                                  req.time_budget_s):
             resp.results.add(**r)
         return resp
+
+    # -- the maintenance plane -------------------------------------------------
+    @unary("VolumeCopy", vpb.VolumeCopyRequest, vpb.VolumeCopyResponse)
+    def volume_copy(req):
+        return vpb.VolumeCopyResponse(last_append_at_ns=vs.volume_copy(
+            req.volume_id, req.collection, req.source_data_node,
+            req.disk_type))
+
+    @unary("VolumeSyncStatus", vpb.VolumeSyncStatusRequest,
+           vpb.VolumeSyncStatusResponse)
+    def volume_sync_status(req):
+        return vpb.VolumeSyncStatusResponse(
+            **vs.volume_sync_status(req.volume_id))
+
+    @stream("VolumeIncrementalCopy", vpb.VolumeIncrementalCopyRequest,
+            vpb.VolumeIncrementalCopyResponse)
+    def volume_incremental_copy(req):
+        for chunk in vs.volume_incremental_copy(req.volume_id, req.since_ns):
+            yield vpb.VolumeIncrementalCopyResponse(file_content=chunk)
+
+    def tail_sender(req, context):
+        for rec, ts in vs.volume_tail_sender(
+                req.volume_id, req.since_ns, req.idle_timeout_seconds,
+                alive=context.is_active):
+            yield vpb.VolumeTailSenderResponse(needle_record=rec,
+                                               append_at_ns=ts)
+    svc.unary_stream("VolumeTailSender", vpb.VolumeTailSenderRequest,
+                     vpb.VolumeTailSenderResponse)(
+        _aborting_subscription(tail_sender))
+
+    @unary("VolumeTailReceiver", vpb.VolumeTailReceiverRequest,
+           vpb.VolumeTailReceiverResponse)
+    def tail_receiver(req):
+        return vpb.VolumeTailReceiverResponse(
+            received=vs.volume_tail_receiver(
+                req.volume_id, req.since_ns, req.idle_timeout_seconds,
+                req.source_volume_server))
+
+    @unary("BatchDelete", vpb.BatchDeleteRequest, vpb.BatchDeleteResponse)
+    def batch_delete(req):
+        resp = vpb.BatchDeleteResponse()
+        for r in vs.batch_delete(list(req.file_ids)):
+            resp.results.add(**r)
+        return resp
+
+    @unary("VolumeConfigure", vpb.VolumeConfigureRequest,
+           vpb.VolumeConfigureResponse)
+    def volume_configure(req):
+        return vpb.VolumeConfigureResponse(
+            error=vs.volume_configure(req.volume_id, req.replication))
+
+    @unary("VolumeServerLeave", vpb.VolumeServerLeaveRequest,
+           vpb.VolumeServerLeaveResponse)
+    def volume_server_leave(req):
+        vs.volume_server_leave()
+        return vpb.VolumeServerLeaveResponse()
+
+    @unary("VolumeNeedleStatus", vpb.VolumeNeedleStatusRequest,
+           vpb.VolumeNeedleStatusResponse)
+    def volume_needle_status(req):
+        return vpb.VolumeNeedleStatusResponse(
+            **vs.volume_needle_status(req.volume_id, req.needle_id))
+
+    @stream("Query", vpb.QueryRequest, vpb.QueriedStripe)
+    def query(req):
+        for records in vs.query(
+                list(req.from_file_ids), req.filter.field,
+                req.filter.operand, req.filter.value, list(req.projections),
+                req.input_serialization.format,
+                req.input_serialization.csv_delimiter,
+                req.input_serialization.csv_has_header,
+                req.output_serialization.format,
+                req.output_serialization.csv_delimiter):
+            yield vpb.QueriedStripe(records=records)
 
     # -- vacuum ----------------------------------------------------------------
     @unary("VacuumVolumeCheck", vpb.VacuumVolumeCheckRequest,
@@ -380,6 +465,16 @@ class GrpcPeers:
                 vpb.CopyFileResponse):
             yield r.file_content
 
+    def tail_sender(self, addr: str, vid: int, since_ns: int,
+                    idle_timeout_seconds: int):
+        for r in Stub(addr, VOLUME_SERVICE).call_stream(
+                "VolumeTailSender",
+                vpb.VolumeTailSenderRequest(
+                    volume_id=vid, since_ns=since_ns,
+                    idle_timeout_seconds=idle_timeout_seconds),
+                vpb.VolumeTailSenderResponse):
+            yield r.needle_record, r.append_at_ns
+
     def ec_shards_info(self, addr: str, vid: int, collection: str) -> dict:
         r = Stub(addr, VOLUME_SERVICE).call(
             "VolumeEcShardsInfo",
@@ -407,7 +502,9 @@ class Heartbeater:
     every pulse and on `trigger()`. `flush()` blocks until the master has
     answered a heartbeat covering every change made before the call (the
     master answers 1:1 after ingesting each one). Leader hints move the
-    stream; failures rotate through the master list."""
+    stream; failures rotate through the master list. After
+    VolumeServerLeave (`vs.left`) the stream ends within a pulse and is
+    not reopened, so the master forgets the server."""
 
     def __init__(self, vs: VolumeServer, peers: GrpcPeers):
         self.vs = vs
@@ -426,8 +523,11 @@ class Heartbeater:
     def start(self) -> None:
         self._thread.start()
 
+    def _gone(self) -> bool:
+        return self._stop.is_set() or self.vs.left.is_set()
+
     def _messages(self):
-        while not self._stop.is_set():
+        while not self._gone():
             # the seq is read before the snapshot: acking it proves the
             # master saw every mutation that bumped it before this point
             snap_seq = self._state_seq
@@ -450,7 +550,7 @@ class Heartbeater:
             self._wake.clear()
 
     def _loop(self) -> None:
-        while not self._stop.is_set():
+        while not self._gone():
             try:
                 stream = Stub(self.peers.leader, MASTER_SERVICE).stream_stream(
                     "SendHeartbeat", self._messages(), mpb.Heartbeat,
@@ -492,7 +592,7 @@ class Heartbeater:
         self._wake.set()
 
     def flush(self, timeout: float = 3.0) -> bool:
-        if self._stop.is_set():
+        if self._gone():
             return False
         with self._cond:
             self._state_seq += 1
@@ -502,7 +602,7 @@ class Heartbeater:
         with self._cond:
             while self._acked_seq < target:
                 remaining = deadline - time.monotonic()
-                if remaining <= 0 or self._stop.is_set():
+                if remaining <= 0 or self._gone():
                     return False
                 self._cond.wait(min(remaining, 0.25))
         return True

@@ -28,16 +28,23 @@ redirected there (`read_mode`); `/bulk` and `/bulk-read` take the framed
 batches of storage/bulk.py; plain-volume GETs go through the hot-needle
 read cache; a `security.Guard` checks every request.
 
-Not ported yet: QoS admission, the profiling monitors, the debug routes
-and status UI, image resize, and the Query, tail, sync, VolumeCopy,
-BatchDelete, VolumeConfigure, VolumeServerLeave and VolumeNeedleStatus
-RPCs (ROADMAP Queue 1).
+The maintenance plane: a `qos.QosScheduler` admits every HTTP request per
+tenant (the volume's collection), answering a shed with 503 and
+Retry-After, and is read and retuned at `/debug/qos`; the repair RPCs run
+maintenance-class, so their CopyFile pulls and shard reads admit against
+the serving node's maintenance budget. VolumeCopy, the tail and
+incremental sync, BatchDelete, VolumeConfigure, VolumeServerLeave,
+VolumeNeedleStatus and Query are RPC bodies here like the others.
+
+Not ported yet: the profiling monitors, the other debug routes and the
+status UI, and image resize (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
 import contextvars
+import functools
 import gzip
 import json
 import os
@@ -48,7 +55,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from .. import tracing
+from .. import qos, tracing
 from ..ec import files as ec_files
 from ..ec import repair as ec_repair
 from ..ec.encoder import rebuild_shards
@@ -58,7 +65,7 @@ from ..ops.coder import host_result
 from ..stats import DEGRADED_EC_READS
 from ..storage.needle import Needle
 from ..storage.store import TIER_TRASH
-from ..storage.types import TTL, parse_file_id
+from ..storage.types import TTL, ReplicaPlacement, parse_file_id
 from ..storage.vacuum import commit_compact, compact
 from ..utils import failpoints, fsutil, retry
 from ..utils.log import logger
@@ -325,12 +332,16 @@ def make_shard_reader(store, vid: int, fetch: Fetch,
 # -- the volume server core ---------------------------------------------------
 
 # gRPC status codes the RPC bodies abort with (grpc.StatusCode values)
-INVALID_ARGUMENT, NOT_FOUND = 3, 5
+INVALID_ARGUMENT, NOT_FOUND, ALREADY_EXISTS = 3, 5, 6
 FAILED_PRECONDITION, INTERNAL, UNAVAILABLE = 9, 13, 14
 
 # "local": a volume this server lacks reads 404; "proxy": the GET is
 # forwarded to a holder; "redirect": answered with a 301 to a holder
 READ_MODES = ("local", "proxy", "redirect")
+
+# VolumeTailSender polls the volume for new records this often; its idle
+# timeout counts these ticks
+TAIL_TICK_SECONDS = 1.0
 
 
 class RpcAbort(Exception):
@@ -341,6 +352,19 @@ class RpcAbort(Exception):
         super().__init__(message)
         self.code = code
         self.message = message
+
+
+def _maintenance_tagged(fn):
+    """Run an RPC body maintenance-class: these RPCs exist only as repair,
+    replication and rebalance machinery, so their nested reads (survivor
+    fetches, CopyFile pulls from peers) carry the tag and yield to
+    foreground work wherever they land, even when an operator drives them
+    by hand."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kw):
+        with qos.tagged(qos.CLASS_MAINTENANCE):
+            return fn(*args, **kw)
+    return wrapped
 
 
 def _ec_stage_fields(stats: dict) -> dict:
@@ -411,7 +435,9 @@ class VolumeServer:
     or grpc_service.GrpcPeers); `peer_address` is the address peers know
     this server by (ip:grpc_port, the master's convention). `guard` (a
     security.Guard) checks writes, reads and bulk frames; `read_mode` is
-    one of READ_MODES."""
+    one of READ_MODES. `qos_policy` (a policy document, or the path of a
+    JSON file that is reloaded when it changes) turns on QoS admission;
+    without one admission is off and costs nothing."""
 
     # shard-location cache staleness tiers (store_ec.go:256-267): complete
     # location sets refresh every 37 min, incomplete every 7 min, and a
@@ -424,7 +450,7 @@ class VolumeServer:
     def __init__(self, store, ip: str = "127.0.0.1", port: int = 8080,
                  data_center: str = "", rack: str = "", peers=None,
                  pulse_seconds: float = 2.0, read_mode: str = "proxy",
-                 guard=None):
+                 guard=None, qos_policy: "dict | str | None" = None):
         if read_mode not in READ_MODES:
             raise ValueError(f"read mode {read_mode!r}: one of "
                              f"{', '.join(READ_MODES)}")
@@ -471,6 +497,16 @@ class VolumeServer:
             max_workers=16, thread_name_prefix=f"vs-hop-{port}")
         self._scrub_cursor = 0
         self._gauge_keys: dict[str, set] = {}
+        # multi-tenant QoS (qos/): tenant = the volume's collection;
+        # None or an empty policy = admission off
+        self.qos = qos.QosScheduler(name=f"volume-{port}")
+        if isinstance(qos_policy, str) and qos_policy:
+            self.qos.attach_file(qos_policy)
+        elif qos_policy:
+            self.qos.load(qos_policy)
+        # set by VolumeServerLeave: the heartbeat stops, so the master and
+        # LocalPeers forget this server; the HTTP plane keeps serving
+        self.left = threading.Event()
 
     @property
     def url(self) -> str:
@@ -513,13 +549,16 @@ class VolumeServer:
             self._http_thread.join(timeout=5.0)
         for pool in (self._ec_read_pool, self._read_pool, self._hop_pool):
             pool.shutdown(wait=True, cancel_futures=True)
+        self.qos.close()
         self.store.close()
 
     def flush_heartbeat(self) -> bool:
         """Make a mutation visible to the master before the RPC returns
         (the binding's flush); False when no heartbeat stream is bound."""
         fn = self.heartbeat_flush
-        return fn() if fn is not None else False
+        if fn is None or self.left.is_set():
+            return False  # no heartbeat stream to ack (or it has left)
+        return fn()
 
     # -- heartbeat ------------------------------------------------------------
     def heartbeat(self) -> dict:
@@ -606,7 +645,23 @@ class VolumeServer:
                     child_of=tracing.extract(request.headers),
                     attrs={"fid": request.path.lstrip("/"),
                            "server": self.url}) as sp:
+                grant = qos_token = None
                 try:
+                    # admission: tenant = the fid's collection, class from
+                    # the verb unless the hop is tagged lower; reads
+                    # post-charge their response bytes, replica hops
+                    # charge but never shed
+                    is_read = request.method in ("GET", "HEAD")
+                    try:
+                        grant, qos_token = await self._qos_admit(
+                            request, sp,
+                            qos.CLASS_INTERACTIVE if is_read
+                            else qos.CLASS_INGEST,
+                            cost=len(request.body or b""))
+                    except qos.QosShed as e:
+                        status = 503
+                        sp.set_attr("qos", "shed")
+                        return self._qos_shed_response(e)
                     try:
                         if request.method in ("POST", "PUT"):
                             resp = await self._handle_write(request)
@@ -629,8 +684,11 @@ class VolumeServer:
                         log.error("http error: %s", e)
                         resp = json_response({"error": str(e)}, status=500)
                     status = resp.status
+                    if grant is not None and is_read and resp.body:
+                        grant.charge(len(resp.body))
                     return resp
                 finally:
+                    self._qos_done(grant, qos_token)
                     sp.set_attr("status", status)
                     if status >= 500:
                         sp.set_error(f"HTTP {status}")
@@ -648,10 +706,13 @@ class VolumeServer:
             body, ctype = scrape_payload(request.headers.get("Accept", ""))
             return fastweb.Response(body.encode(), content_type=ctype)
 
-        def framed(kind: str, span: str, handler):
+        def framed(kind: str, span: str, handler, klass: str):
             """The envelope of a bulk route: the default handler's, with
-            its own request kind and span. QoS admission waits for the qos
-            package (ROADMAP Queue 1)."""
+            its own request kind and span, admitted as `klass`: /bulk is
+            charged its frame's bytes up front, /bulk-read the response
+            frame's once it is known."""
+            is_read = klass == qos.CLASS_INTERACTIVE
+
             async def handle_frame(request: fastweb.Request):
                 t0 = time.perf_counter()
                 status = 500
@@ -660,7 +721,18 @@ class VolumeServer:
                         child_of=tracing.extract(request.headers),
                         attrs={"server": self.url,
                                "bytes": len(request.body or b"")}) as sp:
+                    grant = qos_token = None
                     try:
+                        try:
+                            grant, qos_token = await self._qos_admit(
+                                request, sp, klass,
+                                cost=0 if is_read
+                                else len(request.body or b""),
+                                by_query=True)
+                        except qos.QosShed as e:
+                            status = 503
+                            sp.set_attr("qos", "shed")
+                            return self._qos_shed_response(e)
                         try:
                             resp = await handler(request, sp)
                         except KeyError as e:
@@ -674,8 +746,11 @@ class VolumeServer:
                             resp = json_response({"error": str(e)},
                                                  status=500)
                         status = resp.status
+                        if grant is not None and is_read and resp.body:
+                            grant.charge(len(resp.body))
                         return resp
                     finally:
+                        self._qos_done(grant, qos_token)
                         sp.set_attr("status", status)
                         if status >= 500:
                             sp.set_error(f"HTTP {status}")
@@ -684,15 +759,125 @@ class VolumeServer:
                             kind, value=time.perf_counter() - t0)
             return handle_frame
 
+        def debug_qos(request):
+            """GET dumps the scheduler's live state; POST with a JSON
+            policy document retunes it, and GET ?reload=1 re-reads the
+            attached policy file. On a guarded server the mutating forms
+            need write admission: a throttled tenant must not be able to
+            switch its own throttle off."""
+            if (request.method == "POST" or request.query.get("reload")) \
+                    and self.guard is not None:
+                ok, why = self.guard.check_write(request.remote or "",
+                                                 request.query,
+                                                 request.headers)
+                if not ok:
+                    return json_response({"error": why}, status=401)
+            if request.method == "POST":
+                try:
+                    self.qos.load(json.loads(request.body or b"{}"))
+                except (ValueError, TypeError) as e:
+                    return json_response({"error": str(e)}, status=400)
+                return json_response({"ok": True,
+                                      "enabled": self.qos.enabled})
+            if request.query.get("reload"):
+                self.qos._reload_file(initial=True)
+            return json_response(self.qos.debug_payload())
+
         app = fastweb.FastApp()
         app.route("/status", status)
-        app.route("/bulk", framed("bulk", "bulk.put", self._handle_bulk))
+        app.route("/bulk", framed("bulk", "bulk.put", self._handle_bulk,
+                                  qos.CLASS_INGEST))
         app.route("/bulk-read", framed("bulk-read", "bulk.read",
-                                       self._handle_bulk_read))
+                                       self._handle_bulk_read,
+                                       qos.CLASS_INTERACTIVE))
         app.route("/metrics", metrics)
+        app.route("/debug/qos", debug_qos)
         app.default(handle)
         fastweb.serve_fast_app(app, self.ip, self.port, self._stop,
                                client_max_size=256 << 20, logger=log)
+
+    # -- QoS admission (qos/) ---------------------------------------------------
+    async def _qos_admit(self, request, sp, klass: str, cost: int = 0,
+                         by_query: bool = False):
+        """(grant, class token) of one admitted request, or (None, None)
+        when admission is off; raises qos.QosShed. The tenant is the
+        collection of the path's fid, or of the query's vid for the bulk
+        routes (`by_query`). The class is `klass` unless the request's
+        x-swtpu-qos header tags it lower; the handler runs under it, so its
+        hops carry it on."""
+        if not self.qos.enabled:
+            return None, None
+        tenant = (self._qos_tenant_of_query(request.query) if by_query
+                  else self._qos_tenant_of_path(request.path))
+        klass = qos.class_from_headers(request.headers, klass)
+        grant = await self.qos.admit(
+            tenant, klass, cost=cost,
+            no_shed=request.query.get("type") == "replicate")
+        sp.set_attr("qos_class", klass)
+        return grant, qos.set_class(klass)
+
+    @staticmethod
+    def _qos_done(grant, token) -> None:
+        if token is not None:
+            qos.reset_class(token)
+        if grant is not None:
+            grant.release()
+
+    def _qos_tenant(self, vid: int) -> str:
+        """Tenant identity at the volume tier: the vid's collection
+        ('default' for the unnamed collection and unknown vids)."""
+        v = self.store.find_volume(vid)
+        if v is None:
+            ev = self.store.find_ec_volume(vid)
+            return (ev.collection or "default") if ev is not None \
+                else "default"
+        return v.collection or "default"
+
+    def _qos_tenant_of_path(self, path: str) -> str:
+        try:
+            vid = int(path.lstrip("/").split(",", 1)[0])
+        except ValueError:
+            return "default"
+        return self._qos_tenant(vid)
+
+    def _qos_tenant_of_query(self, query: dict) -> str:
+        try:
+            vid = int(query.get("vid", ""))
+        except ValueError:
+            return "default"
+        return self._qos_tenant(vid)
+
+    @staticmethod
+    def _qos_shed_response(e):
+        """503 with Retry-After, the volume tier's mirror of S3's
+        SlowDown: the client backs off for the bucket's ETA."""
+        from ..utils.fastweb import Response
+        return Response(
+            json.dumps({"error": str(e), "qos": "shed",
+                        "retryAfterSeconds": e.retry_after_header}).encode(),
+            status=503, content_type="application/json",
+            headers={"Retry-After": e.retry_after_header})
+
+    def _maintenance_grant(self, collection: str, cost: int = 0):
+        """A maintenance-class grant of this server's scheduler when the
+        calling flow is maintenance-tagged and admission is on, else
+        None (untagged reads are the data path and stay admission-free)."""
+        if self.qos.enabled and \
+                qos.current_class() == qos.CLASS_MAINTENANCE:
+            return self.qos.admit_sync(collection or "default",
+                                       qos.CLASS_MAINTENANCE, cost=cost)
+        return None
+
+    def _admitted(self, collection: str, chunks, cost: int = 0):
+        """`chunks` (an iterator) under _maintenance_grant: a repair's
+        pull admits before its first byte leaves this server's disks and
+        releases when the stream ends or fails."""
+        grant = self._maintenance_grant(collection, cost)
+        try:
+            yield from chunks
+        finally:
+            if grant is not None:
+                grant.release()
 
     async def _off_loop(self, pool, fn, *args):
         """Run blocking storage work on `pool`, keeping the trace context."""
@@ -1667,7 +1852,10 @@ class VolumeServer:
                   is_ec_volume: bool = False):
         """The file's bytes in chunks of up to 1 MiB (an iterator). A live
         volume's buffered appends are flushed first: the stream reads
-        through a fresh handle."""
+        through a fresh handle. A maintenance-tagged pull (VolumeCopy, a
+        shard copy for a repair) admits against this server's maintenance
+        budget before it streams: repair storms must not out-read the
+        tenants this server serves."""
         v = self.store.find_volume(volume_id)
         if v is not None and ext in (".dat", ".idx"):
             v.sync()
@@ -1677,7 +1865,7 @@ class VolumeServer:
                 break
         else:
             raise RpcAbort(NOT_FOUND, f"file vol={volume_id}{ext} not found")
-        return self._stream_file(path)
+        return self._admitted(collection, self._stream_file(path))
 
     @staticmethod
     def _stream_file(path: str):
@@ -1891,10 +2079,12 @@ class VolumeServer:
                             int(k) for k in rem.get("keys", {}))}
         raise KeyError(f"ec volume {volume_id} not found")
 
+    @_maintenance_tagged
     def volume_ec_shards_rebuild(self, volume_id: int,
                                  collection: str = "") -> dict:
         """Rebuild every shard no server holds, here, with the survivors on
-        other servers read by range through the peer plane."""
+        other servers read by range through the peer plane
+        (maintenance-class)."""
         failpoints.check("ec.rebuild")
         events.emit("ec.rebuild.start", vid=volume_id, collection=collection,
                     node=self.url)
@@ -1925,6 +2115,7 @@ class VolumeServer:
                 "bytes_written": stats.get("bytes_written", 0),
                 "stats": stats}
 
+    @_maintenance_tagged
     def volume_ec_shards_copy(self, volume_id: int, collection: str = "",
                               shard_ids=(), copy_ecx_file: bool = False,
                               copy_ecj_file: bool = False,
@@ -1954,6 +2145,7 @@ class VolumeServer:
                 for pc in parts:
                     f.write(pc)
 
+    @_maintenance_tagged
     def volume_ec_shards_copy_by_rebuild(self, volume_id: int,
                                          collection: str = "",
                                          shard_ids=()) -> dict:
@@ -2081,12 +2273,16 @@ class VolumeServer:
             raise RpcAbort(INVALID_ARGUMENT,
                            "fragment_offsets/lengths length mismatch")
         frag_ranges = list(zip(fragment_offsets, fragment_lengths))
+        # a maintenance-tagged survivor read (a rebuild's ranged fetches)
+        # admits and yields to queued foreground work; untagged shard
+        # reads are the degraded-read data path and stay admission-free
+        cost = sum(ln for _, ln in frag_ranges) if frag_ranges else size
         if frag_ranges:
-            return self._serve_fragment(volume_id, sh, frag_ranges,
-                                        combine_rows, combine_matrix,
-                                        list(gather_shard_ids),
-                                        list(gather_sources))
-        return self._serve_range(sh, offset, size)
+            return self._admitted(ev.collection, self._serve_fragment(
+                volume_id, sh, frag_ranges, combine_rows, combine_matrix,
+                list(gather_shard_ids), list(gather_sources)), cost)
+        return self._admitted(ev.collection,
+                              self._serve_range(sh, offset, size), cost)
 
     @staticmethod
     def _serve_range(sh, offset: int, size: int):
@@ -2262,12 +2458,17 @@ class VolumeServer:
         return {"processed": remote.get("size", 0),
                 "processedPercentage": 100.0}
 
+    @_maintenance_tagged
     def volume_ec_shards_tier_move_to_remote(self, volume_id: int,
                                              collection: str = "",
                                              destination_backend_name: str = ""
                                              ) -> dict:
         """Offload this holder's local shard payloads of an EC volume to
-        the remote tier; the volume keeps serving through ranged reads."""
+        the remote tier; the volume keeps serving through ranged reads.
+        The bytes admit maintenance-class, so a lifecycle sweep cannot
+        out-read the tenants this server serves."""
+        grant = self._maintenance_grant(collection)
+        moved = 0
         try:
             moved = self.store.offload_ec_shards(
                 volume_id, destination_backend_name, collection=collection)
@@ -2277,17 +2478,25 @@ class VolumeServer:
             raise RpcAbort(INVALID_ARGUMENT, str(e)) from e
         except Exception as e:
             raise RpcAbort(INTERNAL, f"ec tier offload: {e}") from e
+        finally:
+            if grant is not None:
+                grant.charge(moved)
+                grant.release()
         if moved:
             events.emit("lifecycle.transition", kind="offload",
                         vid=volume_id, node=self.url, collection=collection,
                         **{"from": "ec", "to": "remote"}, bytes_moved=moved)
         return {"processed": moved, "processedPercentage": 100.0}
 
+    @_maintenance_tagged
     def volume_ec_shards_tier_move_from_remote(self, volume_id: int,
                                                collection: str = "",
                                                keep_remote_dat_file: bool = False
                                                ) -> dict:
-        """Pull this holder's offloaded shard payloads back to local disk."""
+        """Pull this holder's offloaded shard payloads back to local disk
+        (maintenance-class, admitted like the offload)."""
+        grant = self._maintenance_grant(collection)
+        moved = 0
         try:
             moved = self.store.promote_ec_shards(
                 volume_id, collection=collection,
@@ -2296,11 +2505,232 @@ class VolumeServer:
             raise RpcAbort(NOT_FOUND, str(e)) from e
         except Exception as e:
             raise RpcAbort(INTERNAL, f"ec tier promote: {e}") from e
+        finally:
+            if grant is not None:
+                grant.charge(moved)
+                grant.release()
         if moved:
             events.emit("lifecycle.transition", kind="promote",
                         vid=volume_id, node=self.url, collection=collection,
                         **{"from": "remote", "to": "ec"}, bytes_moved=moved)
         return {"processed": moved, "processedPercentage": 100.0}
+
+    # -- the maintenance plane: copy, sync, tail, deletes, configure, leave ------
+    @_maintenance_tagged
+    def volume_copy(self, volume_id: int, collection: str = "",
+                    source_data_node: str = "", disk_type: str = "") -> int:
+        """Pull a whole volume (.dat, then .idx) from `source_data_node`
+        through CopyFile on the peer plane (maintenance-class, so the
+        source admits the pulls); returns the copy's last append time in
+        ns. A partial clone is removed on failure: left on disk it would
+        mount as a truncated live volume and refuse every retry. A volume
+        already here with a different `disk_type` asked for is a tier move
+        on this server (Store.move_volume_local); without one the request
+        is refused with ALREADY_EXISTS."""
+        from ..storage.volume import Volume
+        v_here = self.store.find_volume(volume_id)
+        if v_here is not None:
+            if disk_type and not any(
+                    loc.volumes.get(volume_id) is v_here
+                    and loc.disk_type == disk_type
+                    for loc in self.store.locations):
+                try:
+                    self.store.move_volume_local(volume_id, disk_type)
+                except (KeyError, OSError) as e:
+                    raise RpcAbort(FAILED_PRECONDITION,
+                                   f"local tier move: {e}") from e
+                self.flush_heartbeat()
+                return self.store.find_volume(volume_id).last_append_at_ns
+            raise RpcAbort(ALREADY_EXISTS,
+                           f"volume {volume_id} already here")
+        loc = self.store._location_for(disk_type or None)
+        base = loc.base_name(collection, volume_id)
+        try:
+            for ext in (".dat", ".idx"):
+                with open(base + ext, "wb") as f:
+                    for chunk in self.peers.copy_file(
+                            source_data_node, volume_id, collection, ext):
+                        f.write(chunk)
+        except Exception:
+            for ext in (".dat", ".idx"):
+                try:
+                    os.remove(base + ext)
+                except OSError:
+                    pass
+            raise
+        v = Volume(loc.directory, collection, volume_id,
+                   create_if_missing=False)
+        with loc.lock:
+            loc.volumes[volume_id] = v
+        self.flush_heartbeat()
+        return v.last_append_at_ns
+
+    def volume_sync_status(self, volume_id: int) -> dict:
+        """Where the volume's tail stands: the fields of
+        VolumeSyncStatusResponse a follower needs to catch up."""
+        v = self._volume(volume_id)
+        v.sync()
+        return {"volume_id": v.id, "collection": v.collection,
+                "tail_offset": v._append_offset,
+                "compact_revision": v.super_block.compaction_revision,
+                "last_append_at_ns": v.last_append_at_ns}
+
+    def volume_incremental_copy(self, volume_id: int, since_ns: int = 0):
+        """The raw .dat bytes of every record appended after `since_ns`,
+        in chunks of up to 2 MiB (an iterator)."""
+        v = self._volume(volume_id)
+        start = v.offset_by_append_ns(since_ns)
+        with v._lock:
+            end = v._append_offset
+        return self._raw_chunks(v, start, end)
+
+    @staticmethod
+    def _raw_chunks(v, start: int, end: int, chunk: int = 2 << 20):
+        for off in range(start, end, chunk):
+            yield v.read_raw(off, min(chunk, end - off))
+
+    def volume_tail_sender(self, volume_id: int, since_ns: int = 0,
+                           idle_timeout_seconds: int = 0,
+                           alive: "Callable[[], bool] | None" = None):
+        """(record bytes, append_at_ns) of every record newer than
+        `since_ns`, then of new ones as they land (an iterator). Idle for
+        `idle_timeout_seconds` ticks of TAIL_TICK_SECONDS it ends; with 0
+        it follows for as long as `alive()` holds (the caller's stream is
+        open) and this server runs."""
+        v = self._volume(volume_id)
+        return self._tail(v, since_ns, idle_timeout_seconds,
+                          alive or (lambda: True), TAIL_TICK_SECONDS)
+
+    def _tail(self, v, since_ns: int, idle_timeout: int, alive, tick: float):
+        last_ns = since_ns
+        draining = idle_timeout
+        while alive() and not self._stop.is_set():
+            progressed = False
+            for rec, ts, _nsize in v.read_records_since(last_ns):
+                yield rec, ts
+                last_ns = max(last_ns, ts)
+                progressed = True
+            if idle_timeout:
+                if progressed:
+                    draining = idle_timeout
+                else:
+                    draining -= 1
+                    if draining <= 0:
+                        return
+            self._stop.wait(tick)
+
+    def volume_tail_receiver(self, volume_id: int, since_ns: int = 0,
+                             idle_timeout_seconds: int = 0,
+                             source_volume_server: str = "") -> int:
+        """Pull the records of `source_volume_server`'s tail newer than
+        `since_ns` into this server's copy of the volume (through the peer
+        plane's tail_sender) until the source is idle for
+        `idle_timeout_seconds` (2 when 0); returns the records received."""
+        v = self._volume(volume_id)
+        received = 0
+        for rec, _ts in self.peers.tail_sender(
+                source_volume_server, volume_id, since_ns,
+                idle_timeout_seconds or 2):
+            v.append_records(rec)
+            received += 1
+        return received
+
+    def batch_delete(self, file_ids) -> "list[dict]":
+        """Delete each fid here: per fid a DeleteResult's fields with
+        status 202 (deleted), 404 (no such needle) or 500 (the fid does
+        not parse, or the volume is not here)."""
+        out = []
+        for fid in file_ids:
+            r = {"file_id": fid}
+            try:
+                vid, key, _cookie = parse_file_id(fid)
+                if self.store.delete_needle(vid, key):
+                    r["status"] = 202
+                else:
+                    r.update(status=404, error="not found")
+            except Exception as e:  # noqa: BLE001 — a status per fid
+                r.update(status=500, error=str(e))
+            out.append(r)
+        return out
+
+    def volume_configure(self, volume_id: int, replication: str) -> str:
+        """Rewrite the super block's replica placement; the error text, ""
+        on success (VolumeConfigureResponse reports, never aborts)."""
+        v = self.store.find_volume(volume_id)
+        if v is None:
+            return f"volume {volume_id} not found"
+        try:
+            rp = ReplicaPlacement.parse(replication)
+        except Exception as e:  # noqa: BLE001 — reported, as the reference
+            return str(e)
+        with v._lock:
+            v.super_block.replica_placement = rp
+            if v.remote_spec is None:
+                v._dat.seek(0)
+                v._dat.write(v.super_block.to_bytes())
+                v._dat.flush()
+        self._replica_cache.pop(volume_id, None)
+        self.flush_heartbeat()
+        return ""
+
+    def volume_server_leave(self) -> None:
+        """Stop heartbeating so the master (and LocalPeers) forget this
+        server; its HTTP and gRPC planes keep serving direct reads."""
+        self.left.set()
+
+    def volume_needle_status(self, volume_id: int, needle_id: int) -> dict:
+        try:
+            n = self.store.read_needle(volume_id, needle_id)
+        except KeyError as e:
+            raise RpcAbort(NOT_FOUND, str(e)) from e
+        return {"needle_id": n.id, "cookie": n.cookie, "size": len(n.data),
+                "last_modified": n.last_modified, "crc": n.checksum,
+                "ttl": str(n.ttl)}
+
+    def query(self, from_file_ids, field: str = "", op: str = "",
+              value: str = "", projections=(), input_format: str = "",
+              csv_delimiter: str = "", csv_has_header: bool = False,
+              output_format: str = "", output_delimiter: str = ""):
+        """S3-Select-lite over needles (query/): one QueriedStripe's
+        records (bytes) per fid with matches, an iterator. A needle of an
+        EC volume is read through this server's shard reader, so one on
+        lost shards is reconstructed (K1 at one stripe on the card). A fid
+        that does not parse or is not found aborts with NOT_FOUND."""
+        import csv
+        import io
+
+        from ..query import Query, query_csv_lines, query_json_lines
+        q = Query(field=field, op=op, value=value)
+        projections = list(projections)
+        in_fmt, out_fmt = input_format or "json", output_format or "json"
+        for fid in from_file_ids:
+            try:
+                vid, key, cookie = parse_file_id(fid)
+                n = self._store_read(vid, key, cookie)
+            except (KeyError, ValueError) as e:
+                raise RpcAbort(NOT_FOUND, f"query {fid}: {e}") from e
+            data = gzip.decompress(n.data) if n.is_gzipped else n.data
+            if in_fmt == "csv":
+                rows = query_csv_lines(data, projections, q,
+                                       delimiter=csv_delimiter or ",",
+                                       has_header=csv_has_header)
+            else:
+                rows = query_json_lines(data, projections, q)
+            if not rows:
+                continue
+            if out_fmt == "csv":
+                sio = io.StringIO()
+                wr = csv.writer(sio, delimiter=output_delimiter or ",",
+                                lineterminator="\n")
+                for row in rows:
+                    wr.writerow(["" if v is None else v for v in row])
+                yield sio.getvalue().encode()
+                continue
+            # a whole document when nothing is projected from JSON input
+            whole = in_fmt != "csv" and not projections
+            yield ("\n".join(json.dumps(row[0] if whole and len(row) == 1
+                                         else row) for row in rows)
+                   + "\n").encode()
 
 
 class LocalPeers:
@@ -2308,8 +2738,9 @@ class LocalPeers:
     through their methods (the way storage/backend.LocalDirRemote stands in
     for a cloud tier). `lookup_volume` and `lookup_ec` assemble a volume's
     holders from the servers' heartbeat()s, which is what the master
-    answers. A server
-    marked down raises ConnectionError, like a dead peer.
+    answers; a server that has left (VolumeServerLeave) is no longer
+    listed, though its methods still answer. A server marked down raises
+    ConnectionError, like a dead peer.
 
     Joining sets each server's `peers` and `peer_address`."""
 
@@ -2333,13 +2764,13 @@ class LocalPeers:
         """HTTP urls (ip:port) of the servers whose heartbeat holds volume
         `vid`: the master's LookupVolume answer."""
         return [vs.url for addr, vs in self.servers.items()
-                if addr not in self.down
+                if addr not in self.down and not vs.left.is_set()
                 and any(v["id"] == vid for v in vs.heartbeat()["volumes"])]
 
     def lookup_ec(self, vid: int) -> "dict[int, list[str]]":
         locs: dict[int, list[str]] = {}
         for addr, vs in self.servers.items():
-            if addr in self.down:
+            if addr in self.down or vs.left.is_set():
                 continue
             for s in vs.heartbeat()["ec_shards"]:
                 if s["id"] != vid:
@@ -2368,6 +2799,11 @@ class LocalPeers:
                   is_ec_volume: bool = False):
         return self._server(addr).copy_file(vid, collection, ext,
                                             is_ec_volume)
+
+    def tail_sender(self, addr: str, vid: int, since_ns: int,
+                    idle_timeout_seconds: int):
+        return self._server(addr).volume_tail_sender(
+            vid, since_ns, idle_timeout_seconds)
 
     def ec_shards_info(self, addr: str, vid: int, collection: str) -> dict:
         return self._server(addr).volume_ec_shards_info(vid, collection)

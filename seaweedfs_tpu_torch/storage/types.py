@@ -41,11 +41,11 @@ def is_tombstone(size: int) -> bool:
     return size == TOMBSTONE_SIZE or size < 0
 
 
-def actual_record_size(data_block_size: int) -> int:
-    """Total bytes a needle occupies on disk including header+crc+ts+padding."""
+def actual_record_size(data_block_size):
+    """Total bytes a needle occupies on disk including header+crc+ts+padding:
+    of one body size, or element-wise of a numpy int64 array of them."""
     raw = NEEDLE_HEADER_SIZE + data_block_size + NEEDLE_CHECKSUM_SIZE + TIMESTAMP_SIZE
-    rem = raw % NEEDLE_PADDING
-    return raw + (NEEDLE_PADDING - rem if rem else 0)
+    return raw + (-raw) % NEEDLE_PADDING
 
 
 class DiskType(str, enum.Enum):

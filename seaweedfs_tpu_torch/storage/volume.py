@@ -174,17 +174,15 @@ class Volume:
             _, offs, sizes = idx_entries_numpy(self.idx_path)
             live = sizes != t.TOMBSTONE_SIZE
             if live.any():
-                starts = offs[live].astype("int64") * t.NEEDLE_PADDING
+                starts = t.stored_to_offset(offs[live].astype("int64"))
                 # resume the record walk after the highest entry whose
                 # WHOLE record fits the .dat. A torn BULK frame can
                 # leave many indexed entries past EOF (the batched .idx
                 # append landed, the .dat write tore mid-frame), so
                 # anchoring on the max offset alone would skip the
                 # truncation repair entirely.
-                raw = (t.NEEDLE_HEADER_SIZE + t.NEEDLE_CHECKSUM_SIZE
-                       + t.TIMESTAMP_SIZE + sizes[live].astype("int64"))
-                pad = (-raw) % t.NEEDLE_PADDING
-                ends = starts + raw + pad
+                ends = starts + t.actual_record_size(
+                    sizes[live].astype("int64"))
                 fits = ends <= dat_size
                 if fits.any():
                     start = int(ends[fits].max())
@@ -229,15 +227,14 @@ class Volume:
         live entries in the raw .idx — filter those out)."""
         if not os.path.exists(self.idx_path):
             return []
-        keys, offs, sizes = idx_entries_numpy(self.idx_path)
-        probes = []
-        for i in range(len(keys)):
-            if int(offs[i]) <= 0:
-                continue
-            off = t.stored_to_offset(int(offs[i]))
-            if off + record_size_from_header(int(sizes[i])) <= end:
-                probes.append((off, int(sizes[i])))
-        return probes
+        import numpy as np
+        _keys, offs, sizes = idx_entries_numpy(self.idx_path)
+        # record_size_from_header over the whole .idx at once: a tail or
+        # incremental copy of a million-needle volume probes it per pass
+        body = np.where(sizes == t.TOMBSTONE_SIZE, 0, sizes).astype(np.int64)
+        off = t.stored_to_offset(offs.astype(np.int64))
+        ok = (offs > 0) & (off + t.actual_record_size(body) <= end)
+        return list(zip(off[ok].tolist(), sizes[ok].tolist()))
 
     def offset_by_append_ns(self, since_ns: int) -> int:
         """First .dat offset whose record has append_at_ns > since_ns.

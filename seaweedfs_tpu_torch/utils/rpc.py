@@ -7,13 +7,17 @@ client side wraps channel.unary_unary etc. with cached channels. The
 service strings are the JAX package's, so its stubs reach the port's
 servers and the other way round.
 
-The cluster key is ported: a process given the signing key
-(`set_cluster_key`) attaches a bearer token to every Stub call, and a
-server started with `serve(..., auth_key=...)` checks it before dispatch,
-so a port server joins a JAX-package cluster started with -jwtSigningKey.
-Not ported yet: mTLS (`TlsConfig`, `set_tls_config`). This module and `pb/`
-are the only ones of the port, with `server/grpc_service.py`, that import
-`grpc` or `google.protobuf`; the volume server's core never does.
+The cluster key: a process given the signing key (`set_cluster_key`)
+attaches a bearer token to every Stub call, and a server started with
+`serve(..., auth_key=...)` checks it before dispatch, so a port server joins
+a JAX-package cluster started with -jwtSigningKey. mTLS: one process-wide
+`TlsConfig` (`set_tls_config`, or `load_tls_from_security_toml` for the
+`[grpc]` section of security.toml) makes every `serve` bind a secure port
+and every channel dial one, both sides presenting the cluster certificate.
+The QoS class of the calling flow rides every call as `x-swtpu-qos`
+metadata, and a served handler runs under the class it carries. This module
+and `pb/` are the only ones of the port, with `server/grpc_service.py`, that
+import `grpc` or `google.protobuf`; the volume server's core never does.
 """
 
 from __future__ import annotations
@@ -35,6 +39,67 @@ import grpc
 _cluster_key: str = ""
 _cluster_key_lock = threading.Lock()
 
+# -- optional mTLS -----------------------------------------------------------
+# The reference's security.toml [grpc] section configures per-component
+# ca/cert/key (weed/security/tls.go:26 NewServerTLS, :92 NewClientTLS);
+# here one process-wide TlsConfig covers every serve() and Stub channel.
+# Both peers verify each other (require_client_auth) — configure it with
+# set_tls_config() before starting servers/clients. None = plaintext.
+
+
+class TlsConfig:
+    def __init__(self, ca_path: str, cert_path: str, key_path: str,
+                 server_name: str = "swtpu"):
+        self.server_name = server_name
+        with open(ca_path, "rb") as f:
+            self.ca = f.read()
+        with open(cert_path, "rb") as f:
+            self.cert = f.read()
+        with open(key_path, "rb") as f:
+            self.key = f.read()
+
+    def server_credentials(self):
+        return grpc.ssl_server_credentials(
+            [(self.key, self.cert)], root_certificates=self.ca,
+            require_client_auth=True)
+
+    def channel_credentials(self):
+        return grpc.ssl_channel_credentials(
+            root_certificates=self.ca, private_key=self.key,
+            certificate_chain=self.cert)
+
+
+_tls_config: "TlsConfig | None" = None
+
+
+def set_tls_config(tls: "TlsConfig | None") -> None:
+    """Install process-wide mTLS; drops cached plaintext channels so new
+    stubs dial securely."""
+    global _tls_config
+    with _channel_lock:
+        _tls_config = tls
+        for ch in _channel_cache.values():
+            ch.close()
+        _channel_cache.clear()
+
+
+def load_tls_from_security_toml() -> "TlsConfig | None":
+    """[grpc] ca / cert / key on the config tier chain (tls.go analogue).
+    A PARTIAL [grpc] section raises rather than silently running plaintext
+    (fail closed — the operator clearly intended TLS)."""
+    from . import config as cfg
+    sec = cfg.load_config("security")
+    ca = cfg.get_dotted(sec, "grpc.ca", "")
+    cert = cfg.get_dotted(sec, "grpc.cert", "")
+    key = cfg.get_dotted(sec, "grpc.key", "")
+    name = cfg.get_dotted(sec, "grpc.server_name", "swtpu")
+    if not (ca or cert or key):
+        return None
+    if not (ca and cert and key):
+        raise ValueError("security.toml [grpc] must set all of ca/cert/key "
+                         "(or none)")
+    return TlsConfig(ca, cert, key, server_name=name)
+
 
 def set_cluster_key(key: str) -> None:
     """Accepts the configured signing key; stores the DERIVED gRPC-plane
@@ -53,8 +118,13 @@ def _outgoing_metadata() -> list[tuple[str, str]]:
     tp = tracing.injectable()
     if tp:
         md.append((tracing.TRACEPARENT_HEADER, tp))
-    # the QoS class metadata (x-swtpu-qos) waits for the qos package
-    # (ROADMAP Queue 1)
+    # QoS class tag: maintenance-tagged flows (rebuild readers, volume
+    # copies) stay maintenance-class across every gRPC hop so remote
+    # survivor reads and file pulls yield to foreground work there
+    from .. import qos
+    qc = qos.injectable()
+    if qc:
+        md.append((qos.QOS_HEADER, qc))
     if not _cluster_key:
         return md
     from ..security.jwt import gen_jwt_for_filer_server
@@ -120,18 +190,38 @@ def _extract_trace_context(context):
     return None
 
 
+def _extract_qos_class(context) -> str:
+    """Inbound x-swtpu-qos metadata -> class name ('' = untagged)."""
+    from .. import qos
+    try:
+        for k, v in context.invocation_metadata() or ():
+            if k == qos.QOS_HEADER and v in qos.CLASSES:
+                return v
+    except Exception:  # noqa: BLE001  # swtpu-lint: disable=silent-except (qos tagging must never break dispatch)
+        pass
+    return ""
+
+
 def _component_of(service: str) -> str:
     # "swtpu.master.Master" -> "master"
     parts = service.split(".")
     return parts[1] if len(parts) > 1 else service
 
 
+# Server-streaming methods that are subscriptions, not requests: the
+# stream lives as long as its subscriber, so a span around it would be a
+# root of giant duration on every routine disconnect.
+_LONG_LIVED_STREAMS = frozenset({"VolumeTailSender"})
+
+
 class RpcService:
     """Declarative service: register handlers, then mount on a grpc.Server.
 
-    Unary and server-streaming handlers run inside a tracing span
-    (`rpc/<Method>`) parented on the caller's traceparent metadata;
-    bidirectional streams (heartbeats) are not spanned."""
+    Unary and bounded server-streaming handlers run inside a tracing span
+    (`rpc/<Method>`) parented on the caller's traceparent metadata, and
+    under the QoS class of the caller's `x-swtpu-qos` metadata;
+    bidirectional streams (heartbeats) and the subscriptions of
+    _LONG_LIVED_STREAMS are not spanned."""
 
     def __init__(self, name: str):
         self.name = name  # e.g. "swtpu.volume.VolumeServer"
@@ -143,14 +233,21 @@ class RpcService:
         comp = self._component
 
         def wrapped(request, context):
-            with tracing.start_span(
-                    f"rpc/{method}", component=comp,
-                    child_of=_extract_trace_context(context)) as sp:
-                try:
-                    return fn(request, context)
-                except Exception as e:  # noqa: BLE001 — incl. grpc aborts
-                    sp.set_error(e)
-                    raise
+            from .. import qos as qos_mod
+            qc = _extract_qos_class(context)
+            token = qos_mod.set_class(qc) if qc else None
+            try:
+                with tracing.start_span(
+                        f"rpc/{method}", component=comp,
+                        child_of=_extract_trace_context(context)) as sp:
+                    try:
+                        return fn(request, context)
+                    except Exception as e:  # noqa: BLE001 — incl. grpc aborts
+                        sp.set_error(e)
+                        raise
+            finally:
+                if token is not None:
+                    qos_mod.reset_class(token)
         return wrapped
 
     def _traced_stream(self, method: str, fn: Callable) -> Callable:
@@ -158,19 +255,26 @@ class RpcService:
         comp = self._component
 
         def wrapped(request, context):
-            with tracing.start_span(
-                    f"rpc/{method}", component=comp,
-                    child_of=_extract_trace_context(context)) as sp:
-                try:
-                    yield from fn(request, context)
-                except GeneratorExit:
-                    # client cancelled / stopped consuming: routine
-                    # teardown, not a stream failure
-                    sp.status = "cancelled"
-                    raise
-                except Exception as e:  # noqa: BLE001
-                    sp.set_error(e)
-                    raise
+            from .. import qos as qos_mod
+            qc = _extract_qos_class(context)
+            token = qos_mod.set_class(qc) if qc else None
+            try:
+                with tracing.start_span(
+                        f"rpc/{method}", component=comp,
+                        child_of=_extract_trace_context(context)) as sp:
+                    try:
+                        yield from fn(request, context)
+                    except GeneratorExit:
+                        # client cancelled / stopped consuming: routine
+                        # teardown, not a stream failure
+                        sp.status = "cancelled"
+                        raise
+                    except Exception as e:  # noqa: BLE001
+                        sp.set_error(e)
+                        raise
+            finally:
+                if token is not None:
+                    qos_mod.reset_class(token)
         return wrapped
 
     def unary(self, method: str, req_cls, resp_cls):
@@ -184,8 +288,10 @@ class RpcService:
 
     def unary_stream(self, method: str, req_cls, resp_cls):
         def deco(fn: Callable):
+            handler = (fn if method in _LONG_LIVED_STREAMS
+                       else self._traced_stream(method, fn))
             self._handlers[method] = grpc.unary_stream_rpc_method_handler(
-                self._traced_stream(method, fn),
+                handler,
                 request_deserializer=req_cls.FromString,
                 response_serializer=resp_cls.SerializeToString)
             return fn
@@ -206,7 +312,9 @@ class RpcService:
 def serve(bind: str, services: list[RpcService], max_workers: int = 16,
           auth_key: str = "") -> grpc.Server:
     """Serve `services` on `bind`; with `auth_key` (the signing key) every
-    call must carry a cluster token derived from it."""
+    call must carry a cluster token derived from it; under a TlsConfig the
+    port is secure and every caller must present a certificate of the
+    cluster's CA."""
     from ..security.jwt import derive_cluster_key
     port = int(bind.rsplit(":", 1)[1])
     if not 0 < port < 65536:
@@ -223,7 +331,12 @@ def serve(bind: str, services: list[RpcService], max_workers: int = 16,
                  ("grpc.max_send_message_length", 256 << 20)])
     for s in services:
         server.add_generic_rpc_handlers((s.generic_handler(),))
-    if server.add_insecure_port(bind) == 0:
+    if _tls_config is not None:
+        bound = server.add_secure_port(bind,
+                                       _tls_config.server_credentials())
+    else:
+        bound = server.add_insecure_port(bind)
+    if bound == 0:
         # grpc signals bind failure by returning port 0, not raising
         raise OSError(f"failed to bind gRPC server at {bind}")
     server.start()
@@ -238,10 +351,17 @@ def channel(address: str) -> grpc.Channel:
     with _channel_lock:
         ch = _channel_cache.get(address)
         if ch is None:
-            ch = _channel_cache[address] = grpc.insecure_channel(
-                address,
-                options=[("grpc.max_receive_message_length", 256 << 20),
-                         ("grpc.max_send_message_length", 256 << 20)])
+            opts = [("grpc.max_receive_message_length", 256 << 20),
+                    ("grpc.max_send_message_length", 256 << 20)]
+            if _tls_config is not None:
+                # cluster certs share one CN; targets are raw IPs
+                opts.append(("grpc.ssl_target_name_override",
+                             _tls_config.server_name))
+                ch = grpc.secure_channel(
+                    address, _tls_config.channel_credentials(), options=opts)
+            else:
+                ch = grpc.insecure_channel(address, options=opts)
+            _channel_cache[address] = ch
         return ch
 
 

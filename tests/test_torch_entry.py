@@ -55,6 +55,10 @@ print("MESH", all(f"seaweedfs_tpu_torch.{m}" in sys.modules
                             "stats.parse", "stats.expo_lint", "tracing.trace",
                             "utils.profiling")))
 from seaweedfs_tpu_torch.ops import coder
+print("MAINT", all(f"seaweedfs_tpu_torch.{m}" in sys.modules
+                   for m in ("qos", "qos.policy", "qos.scheduler", "query",
+                             "query.json_query", "query.csv_query",
+                             "utils.config")))
 print("CODERS", sorted(n for n in ("mesh", "native") if coder._resolve(n)))
 print("BAD", bad)
 """
@@ -67,6 +71,7 @@ def test_import_hygiene_no_jax_no_reference_package():
     assert "BAD []" in out.stdout, out.stdout
     assert "TIER True" in out.stdout, out.stdout
     assert "MESH True" in out.stdout, out.stdout
+    assert "MAINT True" in out.stdout, out.stdout
     assert "CODERS ['mesh', 'native']" in out.stdout, out.stdout
     assert int(out.stdout.split("LOADED ")[1].split()[0]) >= 15
 
@@ -118,6 +123,8 @@ import seaweedfs_tpu_torch.server.volume_server
 import seaweedfs_tpu_torch.utils.retry, seaweedfs_tpu_torch.utils.fastweb
 import seaweedfs_tpu_torch.ops.events, seaweedfs_tpu_torch.storage.bulk
 import seaweedfs_tpu_torch.client.http_util, seaweedfs_tpu_torch.security
+import seaweedfs_tpu_torch.qos, seaweedfs_tpu_torch.query
+import seaweedfs_tpu_torch.utils.config
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("grpc", "jax", "seaweedfs_tpu", "aiohttp")
              or n.startswith("google.protobuf"))
@@ -127,8 +134,8 @@ print("BAD", bad)
 
 def test_volume_server_core_loads_no_grpc_protobuf_jax_or_reference():
     """The server core, and the retry, fastweb, events, bulk-frame,
-    http_util and security copies it uses, run where there is no grpcio
-    or protobuf: only the gRPC binding (server/grpc_service.py),
+    http_util, security, qos, query and config copies it uses, run where
+    there is no grpcio or protobuf: only the gRPC binding (server/grpc_service.py),
     utils/rpc.py and pb/ import them. None imports aiohttp."""
     out = subprocess.run([sys.executable, "-c", _CORE_HYGIENE],
                          capture_output=True, text=True, timeout=120,

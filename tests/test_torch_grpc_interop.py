@@ -426,3 +426,175 @@ def test_port_server_joins_a_signed_cluster(secure_cluster):
         ref_rpc.set_cluster_key(key)
     assert _call(vs, "Ping", vpb.PingRequest(), vpb.PingResponse,
                  timeout=10).remote_time_ns > 0
+
+
+# -- the maintenance plane: the JAX shell and client against port servers ----
+
+def _shell(maddr, *commands):
+    out = io.StringIO()
+    env = CommandEnv(maddr, out=out)
+    try:
+        run_command(env, "lock")
+        for c in commands:
+            run_command(env, c)
+        run_command(env, "unlock")
+    finally:
+        env.mc.stop()
+    return out.getvalue()
+
+
+def _fill(vs, vid, n, seed, collection="", replication=""):
+    """Allocate `vid` on `vs` (any package) and POST n needles to it."""
+    _call(vs, "AllocateVolume", vpb.AllocateVolumeRequest(
+        volume_id=vid, collection=collection, replication=replication),
+        vpb.AllocateVolumeResponse)
+    rng = np.random.default_rng(seed)
+    blobs = {}
+    for i in range(1, n + 1):
+        fid = file_id(vid, i, int(rng.integers(1, 1 << 32)))
+        blobs[fid] = rng.bytes(int(rng.integers(1, 6000)))
+        r = requests.post(f"http://{vs.url}/{fid}", data=blobs[fid],
+                          timeout=10)
+        assert r.status_code == 201, r.text
+    return blobs
+
+
+def _volume_info(master, url, vid):
+    node = master.topo.nodes.get(url)
+    return {v.id: v for v in node.all_volumes()}.get(vid) if node else None
+
+
+def test_shell_volume_move_and_fix_replication_onto_port_servers(cluster):
+    """volume.move from one port server to the other (VolumeCopy on the
+    port target, CopyFile on the port source), then volume.fix.replication
+    of a "001" volume held by the JAX server alone: the new copy lands on a
+    port server through its VolumeCopy."""
+    master, maddr, ref, (p1, p2), mc = cluster
+    vid = 911
+    blobs = _fill(p1, vid, 20, seed=91, collection="mv")
+    wait_until(lambda: _holders(master, next(iter(blobs))) == {p1.url},
+               timeout=10, msg="the volume on p1")
+    out = _shell(maddr, f"volume.move -volumeId {vid} -source {p1.url} "
+                        f"-target {p2.url}")
+    assert f"moved volume {vid} {p1.url} -> {p2.url}" in out, out
+    assert p1.store.find_volume(vid) is None
+    wait_until(lambda: _holders(master, next(iter(blobs))) == {p2.url},
+               timeout=10, msg="the volume moved to p2")
+    for fid, data in blobs.items():
+        r = requests.get(f"http://{p2.url}/{fid}", timeout=10)
+        assert (r.status_code, r.content) == (200, data)
+
+    vid = 912
+    blobs = _fill(ref, vid, 12, seed=92, collection="fix", replication="001")
+    wait_until(lambda: _holders(master, next(iter(blobs))) == {ref.url},
+               timeout=10, msg="the volume on the JAX server")
+    out = _shell(maddr, f"volume.fix.replication -volumeId {vid}")
+    assert "replicated 1 volume copies" in out, out
+    copies = [vs for vs in (p1, p2) if vs.store.find_volume(vid) is not None]
+    assert len(copies) == 1
+    wait_until(lambda: len(_holders(master, next(iter(blobs)))) == 2,
+               timeout=10, msg="two holders")
+    new = copies[0]
+    ref.store.find_volume(vid).sync()
+    assert _sha(ref.store.find_volume(vid).file_name() + ".dat") == \
+        _sha(new.store.find_volume(vid).file_name() + ".dat")
+    for fid, data in blobs.items():
+        r = requests.get(f"http://{new.url}/{fid}", timeout=10)
+        assert (r.status_code, r.content) == (200, data)
+
+
+def test_shell_configure_replication_on_a_port_server(cluster):
+    """volume.configure.replication rewrites a port holder's super block
+    (VolumeConfigure) and the master sees the new placement by heartbeat."""
+    master, maddr, ref, (p1, p2), mc = cluster
+    vid = 913
+    _fill(p1, vid, 3, seed=93, collection="cfg")
+    wait_until(lambda: _volume_info(master, p1.url, vid) is not None,
+               timeout=10, msg="the volume on p1")
+    out = _shell(maddr, f"volume.configure.replication -volumeId {vid} "
+                        "-replication 010")
+    assert f"{p1.url}: ok" in out, out
+    with open(p1.store.find_volume(vid).file_name() + ".dat", "rb") as f:
+        assert f.read(2)[1] == 10
+    wait_until(lambda: str(_volume_info(master, p1.url, vid)
+                           .replica_placement) == "010",
+               timeout=10, msg="the master sees the new placement")
+
+
+def test_backup_batch_delete_and_query_against_a_port_server(cluster,
+                                                             tmp_path):
+    """The JAX client's incremental backup (VolumeSyncStatus, CopyFile,
+    VolumeIncrementalCopy) of a port server's volume, its batched delete
+    (BatchDelete) and its query (Query) with a filter and a projection."""
+    import json as _json
+
+    from seaweedfs_tpu.client.backup import backup_volume
+    master, maddr, ref, (p1, p2), mc = cluster
+    vid = 914
+    rng = np.random.default_rng(94)
+    _call(p2, "AllocateVolume", vpb.AllocateVolumeRequest(
+        volume_id=vid, collection="bk"), vpb.AllocateVolumeResponse)
+    docs = {}
+
+    def post(i):
+        fid = file_id(vid, i, 0xB0B0 + i)
+        lines = [{"n": i * 10 + j, "even": (i + j) % 2 == 0,
+                  "w": int(rng.integers(0, 100))} for j in range(6)]
+        docs[fid] = lines
+        body = "".join(_json.dumps(x) + "\n" for x in lines).encode()
+        assert requests.post(f"http://{p2.url}/{fid}", data=body,
+                             timeout=10).status_code == 201
+
+    for i in range(1, 16):
+        post(i)
+    wait_until(lambda: mc.lookup(vid), timeout=10, msg="the volume known")
+    dest = tmp_path / "backup"
+    dest.mkdir()
+    first = backup_volume(mc, vid, str(dest), collection="bk")
+    assert first["mode"] == "full"
+    for i in range(16, 24):
+        post(i)
+    second = backup_volume(mc, vid, str(dest), collection="bk")
+    assert (second["mode"], second["records_applied"]) == ("incremental", 8)
+    v = p2.store.find_volume(vid)
+    v.sync()
+    assert _sha(str(dest / f"bk_{vid}.dat")) == _sha(v.file_name() + ".dat")
+
+    fids = list(docs)
+    got = operation.query(mc, fids, field="w", op=">=", value="50",
+                          projections=["n", "even"])
+    want = "".join(_json.dumps([x["n"], x["even"]]) + "\n"
+                   for fid in fids for x in docs[fid] if x["w"] >= 50)
+    assert got.decode() == want and want
+
+    assert operation.delete_batch(mc, fids[:5]) == 5
+    for fid in fids[:5]:
+        assert requests.get(f"http://{p2.url}/{fid}",
+                            timeout=10).status_code == 404
+    assert operation.delete_batch(mc, fids[:2]) == 0  # already gone: 404s
+
+
+def test_shell_volume_server_leave_of_a_port_server(cluster, tmp_path):
+    """volume.server.leave on a port server: its heartbeat stream ends, the
+    master forgets it, and it still answers a direct GET."""
+    master, maddr, ref, _, mc = cluster
+    port = free_port_pair()
+    store = Store("127.0.0.1", port, f"127.0.0.1:{port}",
+                  [DiskLocation(str(tmp_path / "leaver"),
+                                max_volume_count=4)],
+                  coder_name="torch", device="cpu")
+    vs = VolumeServer(store, "127.0.0.1", port, pulse_seconds=0.5,
+                      rack="rack9")
+    served = serve_volume(vs, port + 10000, master=maddr)
+    try:
+        wait_cluster_up(master, [vs], timeout=20)
+        blobs = _fill(vs, 915, 2, seed=95)
+        out = _shell(maddr, f"volume.server.leave -node {vs.url}")
+        assert "left the cluster" in out, out
+        wait_until(lambda: vs.url not in master.topo.nodes, timeout=15,
+                   msg="the master forgot the server")
+        for fid, data in blobs.items():
+            r = requests.get(f"http://{vs.url}/{fid}", timeout=10)
+            assert (r.status_code, r.content) == (200, data)
+    finally:
+        served.stop()

@@ -196,10 +196,15 @@ def test_tail_readers_match_reference(tmp_path, clock):
         follower = (applied, torn, f.content_size, f.file_count, f.last_append_at_ns,
                     _files(os.path.join(d, "follower")))
         f.close()
-        out[pkg] = (first, last, offsets, batches, follower)
+        # the probes of the whole .idx and of a cut end (the port's are
+        # computed in one numpy pass)
+        probes = [v._probe_entries(end) for end in
+                  (v._append_offset, v._append_offset // 2, SUPER_BLOCK_SIZE)]
+        out[pkg] = (first, last, offsets, batches, follower, probes)
         v.close()
     assert out[PORT] == out[REF]
-    first, last, offsets, batches, follower = out[PORT]
+    first, last, offsets, batches, follower, probes = out[PORT]
+    assert len(probes[0]) > len(probes[1]) > 0 and probes[2] == []
     assert offsets[0] == SUPER_BLOCK_SIZE and offsets[-1] == offsets[-2] > offsets[0]
     assert len(batches[0]) > len(batches[2]) > 0 and follower[1] == 0
 

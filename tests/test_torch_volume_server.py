@@ -908,3 +908,455 @@ def test_replica_round_trip_of_chip_smoke_on_cpu(tmp_path):
     assert len(res["proxy"]) == 40 and res["reconstructs"] > 0
     assert res["bulk_read"] > 0 and res["degraded_bulk_read"] > 0
     assert res["scrub"] > 0 and res["ingest"] > 0
+
+
+# -- the maintenance plane against the JAX server -----------------------------
+
+def _twins(tmp_path, uploads, name="src"):
+    """A port server and a JAX server holding byte-equal copies of volume
+    VID: the uploads POSTed to the port's, its files copied to the JAX
+    server's (the two .dat would differ in append timestamps otherwise)."""
+    vs = _port(tmp_path / f"port_{name}")
+    ref = _ref(tmp_path / f"ref_{name}")
+    vs.allocate_volume(VID)
+    for fid, data, headers, query in uploads:
+        r = requests.post(f"http://{vs.url}/{fid}{query}", data=data,
+                          headers=headers, timeout=10)
+        assert r.status_code == 201
+    _mirror(vs, ref, tmp_path / f"ref_{name}", fresh=True)
+    return vs, ref
+
+
+def _mirror(vs, ref, ref_dir, fresh=False):
+    """Copy the port server's files of VID over the JAX server's."""
+    vs.store.find_volume(VID).sync()
+    stub = _stub(ref)
+    if not fresh:
+        stub.call("VolumeUnmount", vpb.VolumeUnmountRequest(volume_id=VID),
+                  vpb.VolumeUnmountResponse)
+    src = vs.store.find_volume(VID).file_name()
+    for ext in (".dat", ".idx"):
+        shutil.copy(src + ext, ref_dir / f"{VID}{ext}")
+    stub.call("VolumeMount", vpb.VolumeMountRequest(volume_id=VID),
+              vpb.VolumeMountResponse)
+
+
+def _files(base):
+    return {ext: _sha(base + ext) for ext in (".dat", ".idx")}
+
+
+def test_volume_copy_tail_and_incremental_against_reference(tmp_path):
+    """VolumeCopy onto a second server of each package, byte-equal to the
+    source; the "already here" refusal with the same code; after more
+    writes, VolumeSyncStatus, VolumeTailReceiver (the copies' .dat and .idx
+    equal the source's again) and VolumeIncrementalCopy (the source's tail
+    bytes) alike."""
+    import grpc
+    uploads = _needles(40, seed=11)
+    vs, ref = _twins(tmp_path, uploads)
+    vs2, ref2 = _port(tmp_path / "port_dst"), _ref(tmp_path / "ref_dst")
+    LocalPeers({vs.peer_address: vs, vs2.peer_address: vs2})
+    stub2 = _stub(ref2)
+    ref_src = f"127.0.0.1:{ref.grpc_port}"
+    try:
+        base = vs.store.find_volume(VID).file_name()
+        ref_base = str(tmp_path / "ref_src" / str(VID))
+        assert _files(base) == _files(ref_base)
+        got = vs2.volume_copy(VID, "", vs.peer_address)
+        want = stub2.call("VolumeCopy", vpb.VolumeCopyRequest(
+            volume_id=VID, source_data_node=ref_src), vpb.VolumeCopyResponse,
+            timeout=60)
+        assert got == want.last_append_at_ns
+        copy_base = vs2.store.find_volume(VID).file_name()
+        ref_copy_base = str(tmp_path / "ref_dst" / str(VID))
+        assert _files(copy_base) == _files(ref_copy_base) == _files(base)
+        with pytest.raises(RpcAbort) as e:
+            vs2.volume_copy(VID, "", vs.peer_address)
+        with pytest.raises(grpc.RpcError) as ref_e:
+            stub2.call("VolumeCopy", vpb.VolumeCopyRequest(
+                volume_id=VID, source_data_node=ref_src),
+                vpb.VolumeCopyResponse)
+        # the JAX package passes the bare int 6 to context.abort, which
+        # grpc sends as UNKNOWN: the same refusal, the port's with its code
+        assert e.value.code == 6 and e.value.message == ref_e.value.details()
+        assert _gets_equal((vs2.url, ref2.url), uploads)
+
+        # the sources move on; the copies catch up by the tail
+        since = vs2.store.find_volume(VID).last_record_append_ns()
+        more = _needles(24, seed=12)
+        for fid, data, headers, query in more:
+            assert requests.post(f"http://{vs.url}/{fid}{query}", data=data,
+                                 headers=headers, timeout=10).status_code == 201
+        gone = uploads[3][0]  # deleted on the source alone: no fan-out
+        assert requests.delete(f"http://{vs.url}/{gone}?type=replicate",
+                               timeout=10).status_code == 202
+        _mirror(vs, ref, tmp_path / "ref_src")
+        assert _files(base) == _files(ref_base)
+        status = vs.volume_sync_status(VID)
+        ref_status = _stub(ref).call(
+            "VolumeSyncStatus", vpb.VolumeSyncStatusRequest(volume_id=VID),
+            vpb.VolumeSyncStatusResponse)
+        for k, v in status.items():
+            if k != "last_append_at_ns":  # a loaded volume's is 0 in the
+                # JAX package, the port's source kept its POSTs' stamp
+                assert getattr(ref_status, k) == v, k
+
+        raw = b"".join(vs.volume_incremental_copy(VID, since))
+        ref_raw = b"".join(r.file_content for r in _stub(ref).call_stream(
+            "VolumeIncrementalCopy", vpb.VolumeIncrementalCopyRequest(
+                volume_id=VID, since_ns=since),
+            vpb.VolumeIncrementalCopyResponse))
+        with open(base + ".dat", "rb") as f:
+            tail = f.read()[os.path.getsize(copy_base + ".dat"):]
+        assert raw == ref_raw == tail and raw
+
+        got = vs2.volume_tail_receiver(VID, since, 1, vs.peer_address)
+        want = stub2.call("VolumeTailReceiver", vpb.VolumeTailReceiverRequest(
+            volume_id=VID, since_ns=since, idle_timeout_seconds=1,
+            source_volume_server=ref_src), vpb.VolumeTailReceiverResponse,
+            timeout=60)
+        assert got == want.received == len(more) + 1  # + the tombstone
+        vs2.volume_sync_status(VID)  # both flush the copy's .idx
+        stub2.call("VolumeSyncStatus", vpb.VolumeSyncStatusRequest(
+            volume_id=VID), vpb.VolumeSyncStatusResponse)
+        assert _files(copy_base) == _files(ref_copy_base) == _files(base)
+        assert _gets_equal((vs2.url, ref2.url), more + uploads)
+    finally:
+        for s in (vs, ref, vs2, ref2):
+            s.stop()
+
+
+def test_tail_sender_stops_when_the_client_goes():
+    """With no idle timeout the tail follows while the caller's stream
+    lives; `alive()` turning false ends it at the next tick."""
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer as VS
+    calls = []
+
+    class _V:
+        def read_records_since(self, ns):
+            calls.append(ns)
+            return iter(())
+
+    vs = VS.__new__(VS)
+    vs._stop = __import__("threading").Event()
+    alive = iter([True, True, True, False])
+    assert list(vs._tail(_V(), 5, 0, lambda: next(alive), 0.001)) == []
+    assert calls == [5, 5, 5]
+
+
+def test_batch_delete_needle_status_and_configure_against_reference(
+        tmp_path):
+    """BatchDelete statuses (202, 404 and 500), VolumeNeedleStatus fields
+    and its NOT_FOUND, and VolumeConfigure's super block and errors, alike
+    on byte-equal volumes."""
+    import grpc
+    uploads = _needles(30, seed=21)
+    vs, ref = _twins(tmp_path, uploads)
+    stub = _stub(ref)
+    try:
+        for fid, data, headers, _ in uploads[:12]:
+            key = int(fid.split(",")[1][:-8], 16)
+            got = vs.volume_needle_status(VID, key)
+            r = stub.call("VolumeNeedleStatus", vpb.VolumeNeedleStatusRequest(
+                volume_id=VID, needle_id=key), vpb.VolumeNeedleStatusResponse)
+            assert got == {f: getattr(r, f) for f in got}
+            assert got["size"] == len(data)
+        with pytest.raises(RpcAbort) as e:
+            vs.volume_needle_status(VID, 1 << 50)
+        with pytest.raises(grpc.RpcError) as ref_e:
+            stub.call("VolumeNeedleStatus", vpb.VolumeNeedleStatusRequest(
+                volume_id=VID, needle_id=1 << 50),
+                vpb.VolumeNeedleStatusResponse)
+        assert e.value.code == 5 and e.value.message == ref_e.value.details()
+
+        fids = ([u[0] for u in uploads[:10]]
+                + [file_id(VID, 1 << 45, 7), "not-a-fid", file_id(99, 1, 2),
+                   uploads[0][0]])
+        got = vs.batch_delete(fids)
+        resp = stub.call("BatchDelete", vpb.BatchDeleteRequest(file_ids=fids),
+                         vpb.BatchDeleteResponse)
+        want = [{"file_id": r.file_id, "status": r.status,
+                 **({"error": r.error} if r.error else {})}
+                for r in resp.results]
+        assert got == want
+        assert [r["status"] for r in got] == [202] * 10 + [404, 500, 500,
+                                                           404]
+        for fid, *_ in uploads[:10]:
+            assert _get(vs.url, fid)[0] == _get(ref.url, fid)[0] == 404
+
+        for rep in ("001", "210", "0x1"):
+            err = vs.volume_configure(VID, rep)
+            ref_err = stub.call("VolumeConfigure", vpb.VolumeConfigureRequest(
+                volume_id=VID, replication=rep),
+                vpb.VolumeConfigureResponse).error
+            assert err == ref_err, rep
+            vs.store.find_volume(VID).sync()
+            with open(vs.store.find_volume(VID).file_name() + ".dat",
+                      "rb") as f, \
+                    open(tmp_path / "ref_src" / f"{VID}.dat", "rb") as g:
+                assert f.read(8) == g.read(8)
+        hb = {v["id"]: v for v in vs.heartbeat()["volumes"]}
+        assert hb[VID]["replica_placement"] == 210  # the byte is xyz decimal
+        assert vs.volume_configure(77, "001") == stub.call(
+            "VolumeConfigure", vpb.VolumeConfigureRequest(
+                volume_id=77, replication="001"),
+            vpb.VolumeConfigureResponse).error != ""
+    finally:
+        vs.stop()
+        ref.stop()
+
+
+def _json_uploads(n=24, seed=31):
+    """JSON-lines needles (a few gzip-stored) and one CSV needle."""
+    import json as _json
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(1, n + 1):
+        lines = [_json.dumps({"id": i * 100 + j,
+                              "kind": str(rng.choice(["a", "b", "c"])),
+                              "size": int(rng.integers(0, 5000)),
+                              "user": {"age": int(rng.integers(1, 99))}})
+                 for j in range(int(rng.integers(5, 60)))]
+        data = ("\n".join(lines) + "\n").encode()
+        headers = {}
+        if i % 5 == 0:
+            data = gzip.compress(data)
+            headers["Content-Encoding"] = "gzip"
+        out.append((file_id(VID, i, int(rng.integers(1, 1 << 32))), data,
+                    headers, ""))
+    csv_rows = "\n".join(f"{j},{rng.choice(['x', 'y'])},{j * 7 % 13}"
+                         for j in range(40))
+    out.append((file_id(VID, n + 1, 0xC5C5), ("id,tag,v\n" + csv_rows
+                                               + "\n").encode(), {}, ""))
+    return out
+
+
+_QUERIES = [
+    dict(field="kind", op="=", value="b", projections=["id", "user.age"]),
+    dict(field="size", op=">", value="2500", projections=[]),
+    dict(field="user.age", op="<=", value="30", projections=["kind"],
+         output_format="csv", output_delimiter=";"),
+    dict(field="", op="", value="", projections=["id"]),
+]
+
+
+def _ref_query(stub, fids, q, input_format="json", has_header=False):
+    req = vpb.QueryRequest(from_file_ids=fids)
+    req.filter.field, req.filter.operand, req.filter.value = \
+        q["field"], q["op"], q["value"]
+    req.projections.extend(q["projections"])
+    req.input_serialization.format = input_format
+    req.input_serialization.csv_has_header = has_header
+    req.output_serialization.format = q.get("output_format", "")
+    req.output_serialization.csv_delimiter = q.get("output_delimiter", "")
+    return [s.records for s in stub.call_stream("Query", req,
+                                                vpb.QueriedStripe)]
+
+
+def _port_query(vs, fids, q, input_format="json", has_header=False):
+    return list(vs.query(fids, q["field"], q["op"], q["value"],
+                         q["projections"], input_format, "", has_header,
+                         q.get("output_format", ""),
+                         q.get("output_delimiter", "")))
+
+
+def test_query_against_reference_plain_and_degraded_ec(tmp_path):
+    """Query over JSON-lines needles (gzip-stored ones too) and a CSV one,
+    with filters, projections and CSV output: the same stripes as the JAX
+    server, on the plain volume and again once it is sealed at RS(4,2)
+    with two shards lost, where the port reconstructs the needles on lost
+    shards; an unknown fid is refused alike."""
+    import grpc
+    uploads = _json_uploads()
+    vs, ref = _twins(tmp_path, uploads)
+    stub = _stub(ref)
+    fids = [u[0] for u in uploads[:-1]]
+    csv_fid = [uploads[-1][0]]
+
+    def all_equal(tag):
+        n = 0
+        for q in _QUERIES:
+            got = _port_query(vs, fids, q)
+            assert got == _ref_query(stub, fids, q), (tag, q)
+            n += len(got)
+            got = _port_query(vs, csv_fid, q, "csv", True)
+            assert got == _ref_query(stub, csv_fid, q, "csv", True), (tag, q)
+        return n
+
+    try:
+        assert all_equal("plain") > 10
+        with pytest.raises(RpcAbort) as e:
+            list(vs.query(fids[:2] + [file_id(VID, 999, 1)]))
+        with pytest.raises(grpc.RpcError) as ref_e:
+            _ref_query(stub, fids[:2] + [file_id(VID, 999, 1)], _QUERIES[3])
+        assert e.value.code == 5 and e.value.message == ref_e.value.details()
+
+        vs.volume_mark_readonly(VID)
+        vs.volume_ec_shards_generate(VID)
+        vs.volume_ec_shards_mount(VID)
+        vs.volume_delete(VID)
+        vs.volume_ec_shards_delete(VID, shard_ids=list(LOST))
+        for method, req, resp in (
+                ("VolumeMarkReadonly",
+                 vpb.VolumeMarkReadonlyRequest(volume_id=VID),
+                 vpb.VolumeMarkReadonlyResponse),
+                ("VolumeEcShardsGenerate",
+                 vpb.VolumeEcShardsGenerateRequest(volume_id=VID),
+                 vpb.VolumeEcShardsGenerateResponse),
+                ("VolumeEcShardsMount",
+                 vpb.VolumeEcShardsMountRequest(volume_id=VID),
+                 vpb.VolumeEcShardsMountResponse),
+                ("VolumeDelete", vpb.VolumeDeleteRequest(volume_id=VID),
+                 vpb.VolumeDeleteResponse),
+                ("VolumeEcShardsDelete", vpb.VolumeEcShardsDeleteRequest(
+                    volume_id=VID, shard_ids=list(LOST)),
+                 vpb.VolumeEcShardsDeleteResponse)):
+            stub.call(method, req, resp, timeout=60)
+        before = vs.read_stats.get("reconstructs", 0)
+        assert all_equal("degraded ec") > 10
+        assert vs.read_stats["reconstructs"] > before
+    finally:
+        vs.stop()
+        ref.stop()
+
+
+def test_leave_against_reference(tmp_path):
+    """VolumeServerLeave: the heartbeat is no longer flushed, LocalPeers
+    stops listing the server, and a direct GET still answers, as on the
+    JAX server."""
+    uploads = _needles(6, seed=41)
+    vs, ref = _twins(tmp_path, uploads)
+    other = _port(tmp_path / "other")
+    peers = LocalPeers({vs.peer_address: vs, other.peer_address: other})
+    try:
+        vs.heartbeat_flush = lambda: True  # a bound heartbeat stream
+        assert vs.flush_heartbeat()
+        assert peers.lookup_volume(VID) == [vs.url]
+        vs.volume_server_leave()
+        assert not vs.flush_heartbeat()
+        assert peers.lookup_volume(VID) == []
+        # the JAX server left in _ref(): it answers, and heartbeats no more
+        assert ref._leave.is_set() and not ref.flush_heartbeat()
+        for fid, *_ in uploads:
+            got = _get(vs.url, fid)
+            assert got[0] == 200 and got == _get(ref.url, fid)
+    finally:
+        for s in (vs, ref, other):
+            s.stop()
+
+
+_POLICY = {"tenants": {"tiny": {"rps": 0.01, "burst": 1}},
+           "classes": {"maintenance": {"bytes_per_s": "64KB",
+                                       "burst_bytes": "16KB"}}}
+
+
+def test_qos_shed_and_debug_qos_against_reference(tmp_path):
+    """Under one policy: a tenant's second write sheds with 503 and the
+    same Retry-After from both servers; /debug/qos dumps alike; on a
+    guarded server its POST needs write admission (401 without) in both."""
+    from seaweedfs_tpu.security import Guard as RefGuard
+    from seaweedfs_tpu_torch.security import Guard
+    vs = _port(tmp_path / "port", qos_policy=_POLICY,
+               guard=Guard(signing_key="k"))
+    store = RefStore("127.0.0.1", 0, "", [RefLocation(str(tmp_path / "ref"))],
+                     coder_name="numpy")
+    port = free_port_pair()
+    store.port, store.public_url = port, f"127.0.0.1:{port}"
+    ref = RefServer(store, f"127.0.0.1:{free_port_pair()}", port=port,
+                    grpc_port=port + 10000, pulse_seconds=0.5,
+                    read_mode="local", qos_policy=_POLICY,
+                    guard=RefGuard(signing_key="k"))
+    ref.start()
+    _stub(ref).call("VolumeServerLeave", vpb.VolumeServerLeaveRequest(),
+                    vpb.VolumeServerLeaveResponse)
+    try:
+        from seaweedfs_tpu_torch.security import gen_jwt_for_volume_server
+        vs.allocate_volume(VID, collection="tiny")
+        _stub(ref).call("AllocateVolume", vpb.AllocateVolumeRequest(
+            volume_id=VID, collection="tiny"), vpb.AllocateVolumeResponse)
+        answers = []
+        for url in (vs.url, ref.url):
+            got = []
+            for i in (1, 2):
+                fid = file_id(VID, i, 0x77)
+                tok = gen_jwt_for_volume_server("k", 10, fid)
+                r = requests.post(f"http://{url}/{fid}?jwt={tok}",
+                                  data=b"x" * 100, timeout=10)
+                got.append((r.status_code, r.headers.get("Retry-After"),
+                            r.json().get("qos")))
+            answers.append(got)
+        assert answers[0] == answers[1] == [(201, None, None),
+                                            (503, "100", "shed")]
+        dumps = [requests.get(f"http://{u}/debug/qos", timeout=10).json()
+                 for u in (vs.url, ref.url)]
+        for d in dumps:  # byte-token levels refill between the two reads
+            for c in d["classes"].values():
+                c.pop("byte_tokens", None)
+        assert dumps[0]["totals"] == dumps[1]["totals"] == \
+            {"admitted": 1, "shed": 1}
+        assert dumps[0]["classes"] == dumps[1]["classes"]
+        assert [t["tenant"] for t in dumps[0]["tenants"]] == \
+            [t["tenant"] for t in dumps[1]["tenants"]]
+        for u in (vs.url, ref.url):
+            r = requests.post(f"http://{u}/debug/qos", json={}, timeout=10)
+            assert r.status_code == 401
+            tok = gen_jwt_for_volume_server("k", 10, "")
+            r = requests.post(f"http://{u}/debug/qos?jwt={tok}",
+                              json={"enabled": False}, timeout=10)
+            assert (r.status_code, r.json()) == (200, {"ok": True,
+                                                       "enabled": False})
+    finally:
+        vs.stop()
+        ref.stop()
+
+
+def test_maintenance_pulls_admit_on_the_serving_server(tmp_path):
+    """VolumeCopy runs maintenance-class: its CopyFile pulls admit against
+    the source server's maintenance budget (queued behind a small byte
+    bucket, so the wait histogram moves), while the same server's GETs stay
+    interactive; an untagged CopyFile stays admission-free."""
+    from seaweedfs_tpu_torch.stats import QOS_REQUESTS, QOS_WAIT_SECONDS
+    policy = {"classes": {"maintenance": {"rps": 2, "burst": 1}}}
+    src = _port(tmp_path / "src", qos_policy=policy)
+    dst = _port(tmp_path / "dst")
+    LocalPeers({src.peer_address: src, dst.peer_address: dst})
+    uploads = _needles(8, seed=51)
+    try:
+        src.allocate_volume(VID)
+        for fid, data, headers, query in uploads:
+            assert requests.post(f"http://{src.url}/{fid}{query}", data=data,
+                                 headers=headers, timeout=10).status_code \
+                == 201
+
+        def maint():
+            return sum(QOS_REQUESTS.value("default", "maintenance", o)
+                       for o in ("admitted", "queued"))
+        m0, w0 = maint(), QOS_WAIT_SECONDS.count("maintenance")
+        list(src.copy_file(VID, "", ".idx"))  # untagged: not admitted
+        assert maint() == m0
+        dst.volume_copy(VID, "", src.peer_address)
+        assert maint() - m0 == 2  # .dat and .idx
+        assert QOS_WAIT_SECONDS.count("maintenance") > w0  # one queued
+        assert _gets_equal((dst.url, src.url), uploads)
+        assert QOS_REQUESTS.value("default", "interactive", "admitted") > 0
+    finally:
+        src.stop()
+        dst.stop()
+
+
+def test_maintenance_round_trip_of_chip_smoke_on_cpu(tmp_path):
+    """chip_smoke.py's phase 15 (the maintenance plane over gRPC under mTLS:
+    VolumeCopy, the tail, incremental copy, BatchDelete, VolumeNeedleStatus,
+    VolumeConfigure, VolumeScrub, the seal and a maintenance-class rebuild
+    under a QoS policy with GETs from B alongside, Query over a degraded EC
+    volume, a shed write and leave with its heartbeat stream ending) on the
+    CPU at a small size, its checks as fatal as on the card."""
+    import chip_smoke
+    geo = EcGeometry(10, 4, large_block=8192, small_block=1024)
+    res = chip_smoke.maintenance_round_trip(
+        np, str(tmp_path), 31, "cpu", geo, needles=3000, more=300,
+        deletes=128, statuses=64, gets=64, query_needles=120, device="cpu",
+        pulse_seconds=0.5, maint_rate="2MB", maint_burst="64KB")
+    assert res["copy"] > 0 and res["tail"] > 0 and res["scrub"] > 0
+    assert res["reconstructs"] > 0 and res["gets_during_rebuild"]
+    assert res["qos"]["maint_waits"] > 0 and res["qos"]["maint_wait_s"] > 0
