@@ -5,7 +5,7 @@
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result). `--phases` runs a subset (default: all); phase 1 always runs, and
-the kernels line needs phases 3, 4 and 6 to 15. The kernels of the
+the kernels line needs phases 3, 4 and 6 to 16. The kernels of the
 phases asked for are built first, all at once (one nvcc per source).
 
 1. device: card name, count, `nvidia-smi` name and power limit;
@@ -167,9 +167,10 @@ phases asked for are built first, all at once (one nvcc per source).
    client/http_util.py, storage/bulk.py and the read cache): servers A, B
    and C, each a VolumeServer over a Store on the card, joined by one
    LocalPeers that answers lookup_volume from their heartbeats; the replica
-   hops are HTTP over loopback. A fresh "001" volume on A and B; half the
-   write set (524,288 needles of 1024 + 0..63 B, `weed benchmark -size
-   1024`'s needles; the full 1,048,576 until phase 15 took the time) PUT to
+   hops are HTTP over loopback. A fresh "001" volume on A and B; a quarter
+   of the write set (262,144 needles of 1024 + 0..63 B, `weed benchmark
+   -size 1024`'s needles; the full 1,048,576 until phase 15 took the time,
+   half until phase 16 did) PUT to
    A by one client as /bulk frames of 1,024 needles, each frame replicated
    to B in one hop; A's and B's .idx equal by
    sha256. 4,096 POSTs through A, each read back from B; 256 DELETEs, 404 on
@@ -190,7 +191,8 @@ phases asked for are built first, all at once (one nvcc per source).
    plaintext stub must be refused), their peer plane gRPC with the holder
    lookups from their heartbeats. The full write set (1,048,576 needles of
    1024 + 0..63 B) on A through Store.write_needles_bulk; VolumeCopy A -> C
-   (.dat and .idx sha256 equal); 65,536 needles more on A, then
+   (.dat and .idx sha256 equal); 16,384 needles more on A (65,536 until
+   phase 16 took the time), then
    VolumeSyncStatus of A, VolumeIncrementalCopy since the copy (== A's .dat
    tail) and VolumeTailReceiver on C from A (C's .dat, .idx and live
    needles == A's); BatchDelete of 4,096 fids on C (202 each, then 404
@@ -208,11 +210,46 @@ phases asked for are built first, all at once (one nvcc per source).
    shards; a tenant with a tiny bucket shed with 503 and Retry-After;
    VolumeServerLeave on C: out of the lookups within two pulses, a direct
    GET still 200. K1's and K3's counts are zeroed just before the phase and
-   read just after;
-16. summary: one JSON line of every kernel with its launches (K1's from
-   phases 6, 9, 10, 11, 12, 13, 14 and 15, K3's from phases 8, 10, 12, 13,
-   14 and 15), error against the plain version, times and bound; then the
-   result line.
+   read just after; then, outside them, K1 at the Query's one-stripe widths
+   is timed;
+16. the rest of the volume server (the profiling plane, telemetry, the
+   debug routes and /ui, image resize, the azure: and gcs-json: tiers and
+   storage/ref_format.py): (a) a Go SeaweedFS v3 volume written here field
+   by field (262,144 needles of 1024 + 0..63 B, a quarter of the write set
+   to keep the whole in time, 1,024 tombstones, raw and
+   scrambled CRCs, aligned records padded by 8), walk_dat, read_idx and
+   every CRC; write_sorted_ecx; its .dat EC-encoded at RS(14,2) (1 GiB /
+   1 MiB blocks, K1); shards (3, 15) lost and 16,384 needles re-read through
+   the stripe locator with the lost intervals reconstructed (K1 at one
+   stripe), parsed by ref_format.parse_needle; the rebuild (K1) to the
+   shards' bytes; every live needle re-read; the decode == the Go .dat.
+   Then servers A and B on the card joined by LocalPeers: (b) 262,144
+   needles on A tiered to azure: (the port's MiniAzure on localhost), GETs
+   cold and warm from the remote copy, VolumeScrub "skipped-tiered", the
+   .dat brought back byte-equal and scrubbed through K3; the same for
+   65,536 needles on gcs-json:; (c) 512 PNGs of 640x480 (made with zlib
+   and struct) and, with Pillow, 128 JPEGs with EXIF orientation 6, on an
+   RS(10,4) volume laid out as in phase 13 with shards (0, 5, 10, 13)
+   lost, each GET as a 128x128 thumbnail and half at width 200 "fit",
+   every answer == images.resized on the host (the stored bytes without
+   Pillow), the degraded ones through K1; (d) after that traffic
+   /debug/profile?mode=summary has read_pool and ec_read samples (and
+   ?hz=abc is a 400), /debug/flight the slowest GETs with stages and queue
+   depths, /debug/traces and /debug/events are not empty, the failpoint
+   ec.shard.read armed on B fires once on a degraded GET from A and is
+   disarmed, /debug/lifecycle counts the EC volume's reads and its POST
+   stamps a destroy_time (401 when guarded), /ui lists the volumes,
+   /metrics has the EC volume's SeaweedFS_hot_requests, a
+   /debug/jax-profiler capture around 64 degraded GETs names K1's kernel,
+   and a server run in a subprocess under SWTPU_LOCKCHECK=1 reports zero
+   lock cycles at /debug/locks; (e) 4,096 healthy GETs with the sampler at
+   its rate (two halves) and 4,096 after /debug/profile?hz=0, p50 and p99
+   of each. K1's and K3's counts are zeroed just before the phase and read
+   just after;
+17. summary: one JSON line of every kernel with its launches (K1's from
+   phases 6, 9, 10, 11, 12, 13, 14, 15 and 16, K3's from phases 8, 10, 12,
+   13, 14, 15 and 16), error against the plain version, times and bound;
+   then the result line.
 
 Needs CUDA and the repository beside it; without either it exits 2.
 """
@@ -236,7 +273,7 @@ MAIN_SHAPE = (32, 10, 1 << 20)  # [batch, d, chunk] of one encode call
 LOST_10_4 = (0, 5, 10, 13)
 LOST_14_2 = (3, 15)
 WIDTHS = (16, 48, 100, 384, 4112, 65536, 65552)
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16)
 PALLAS = "seaweedfs_tpu/ops/rs_pallas.py"
 K1_SOURCE = "seaweedfs_tpu_torch/csrc/rs_gf.cu"
 K3_SOURCE = "seaweedfs_tpu_torch/csrc/crc32c.cu"
@@ -244,7 +281,8 @@ K3_REPLACES = "seaweedfs_tpu/ops/crc32c.py:183"  # device_crc_states
 KERNELS = {2: ("rs_gf",), 7: ("crc32c",), 9: ("rs_gf",),  # phase -> csrc
            10: ("rs_gf", "crc32c"), 11: ("rs_gf",),    # sources it builds
            12: ("rs_gf", "crc32c"), 13: ("rs_gf", "crc32c"),
-           14: ("rs_gf", "crc32c"), 15: ("rs_gf", "crc32c")}
+           14: ("rs_gf", "crc32c"), 15: ("rs_gf", "crc32c"),
+           16: ("rs_gf", "crc32c")}
 K3_SHAPES = ((4096, 2048), (16384, 4096), (64, 1 << 20))  # first: the scrub's
 K3_ROWS = (1, 3, 4096, 4225)  # 4225 = 132 SMs x 32 warps + 1
 K3_LENGTHS = (0, 512, 1024, 2048, 4096, 65536, 1 << 20)
@@ -274,15 +312,18 @@ SERVER_SCRUB_NEEDLES = 1 << 18  # phase 13: the regular volume VolumeScrub check
 SERVER_SAMPLE = 4096   # phase 13: needles GET per pass (cut from 16,384 to
                        # make room for phase 14)
 REPLICA_VID = 21       # phase 14's "001" volume
-REPLICA_NEEDLES = 1 << 19  # phase 14: half the write set as /bulk frames (the
-                           # whole until phase 15 took the time)
+REPLICA_NEEDLES = 1 << 18  # phase 14: a quarter of the write set as /bulk
+                           # frames (the whole until phase 15 took the time,
+                           # half until phase 16 did)
 REPLICA_FRAME = 1024   # phase 14: needles a /bulk frame (the JAX client's
                        # BULK_MAX_FRAME_NEEDLES)
 REPLICA_DELETES = 256  # phase 14: DELETEs fanned out
 REPLICA_GETS = 4096    # phase 14: GETs on A per pass, twice
 REPLICA_PROXIED = 1024  # phase 14: of them, GETs proxied by C
 REPLICA_READ_FRAME = 256  # phase 14: needles a /bulk-read frame
-MAINT_MORE = 1 << 16   # phase 15: needles written on A after the copy
+MAINT_MORE = 1 << 14   # phase 15: needles written on A after the copy and
+                       # caught up by the tail (65,536 until phase 16 took
+                       # the time)
 MAINT_DELETES = 4096   # phase 15: fids in C's BatchDelete
 MAINT_STATUSES = 1024  # phase 15: VolumeNeedleStatus calls (sampled needles)
 MAINT_QUERY_NEEDLES = 4096  # phase 15: JSON-lines needles queried
@@ -296,6 +337,23 @@ MAINT_QUANTUM = 64 << 20     # phase 15's round-robin quantum (>= a read)
 # grpc 1.80.0 and protobuf 6.33.6 (PERF.md), so phase 13 also reads its
 # degraded sample over gRPC
 GRPC_ON_CARD = True
+GO_NEEDLES = 1 << 18   # phase 16(a): the Go volume, a quarter of weed
+                       # benchmark's write set (depth cut from half, which
+                       # took 35 s of the phase, to keep the whole in time)
+GO_DELETES = 1024      # phase 16(a): needles deleted by tombstones
+GO_SAMPLE = 16384      # phase 16(a): needles read with shards (3, 15) lost
+AZURE_NEEDLES = 1 << 18  # phase 16(b): the volume tiered to azure:
+GCS_NEEDLES = 1 << 16    # and the one tiered to gcs-json:
+TIER_GETS = 1024       # phase 16(b): needles GET cold, then warm (a quarter
+                       # of them on gcs-json:)
+IMAGE_COUNT = 512      # phase 16(c): PNG needles (depth cut from 1,024 to
+                       # keep the whole in time)
+IMAGE_JPEGS = 128      # phase 16(c): JPEGs with EXIF orientation 6 (Pillow;
+                       # cut from 256 alike)
+IMAGE_SIZE = (640, 480)
+TRACE_GETS = 64        # phase 16(d): degraded GETs under the device trace
+HOOK_GETS = 4096       # phase 16(e): healthy GETs each way
+GO_VID, AZURE_VID, GCS_VID, IMAGE_VID, HOOK_VID = 41, 42, 43, 44, 45
 K1_ENTRIES = {  # wrapper entry -> the TPU function it replaces
     "encode": f"{PALLAS}:156",
     "encode_seeded": f"{PALLAS}:164",
@@ -1044,9 +1102,10 @@ def _pct(np, xs, q: float) -> float:
     return float(np.percentile(np.asarray(xs), q))
 
 
-def write_set(np, store, rng, sizes, cookies, in_sample) -> "dict[int, bytes]":
+def write_set(np, store, rng, sizes, cookies, in_sample,
+              vid: int = EC_VID) -> "dict[int, bytes]":
     """Write needles 1..len(sizes) of `sizes` random bytes each into
-    volume EC_VID of `store` through write_needles_bulk, one frame per 4096;
+    volume `vid` of `store` through write_needles_bulk, one frame per 4096;
     returns the payloads of the ids in `in_sample`."""
     from seaweedfs_tpu_torch.storage.needle import Needle
     needles = len(sizes)
@@ -1062,7 +1121,7 @@ def write_set(np, store, rng, sizes, cookies, in_sample) -> "dict[int, bytes]":
             batch.append(Needle(id=nid, cookie=int(cookies[lo + i]), data=data))
             if nid in in_sample:
                 want[nid] = data
-        store.write_needles_bulk(EC_VID, batch)
+        store.write_needles_bulk(vid, batch)
     return want
 
 
@@ -1277,7 +1336,7 @@ def ec_store_round_trip(np, workdir: str, seed: int, card: str, geo,
 
 def one_stripe_costs(torch, np, lengths, seed: int, card: str, d: int = 10,
                      p: int = 4, present=(1, 2, 3, 4, 6, 7, 8, 9, 11, 12),
-                     split: bool = True) -> dict:
+                     split: bool = True, tag: "str | None" = None) -> dict:
     """One degraded interval's GF step at the path's typical length: K1 at
     [d, L] -> shard 0 (CUDA events), its bound and plain version; with
     `split`, also on the host clock the coder call the degraded read makes
@@ -1296,7 +1355,8 @@ def one_stripe_costs(torch, np, lengths, seed: int, card: str, d: int = 10,
     rec = rs_torch.decode_rows(d, p, present, lost)
     plain_ms = _time_ms(torch, lambda s: rs_torch.gf_apply(rec, x), iters=50)
     bound_ms, bound_by = _bound(1, d, 1, L)
-    log(f"[{'ec' if split else 'tier'}] K1 reconstruct one stripe RS({d},{p}) "
+    tag = tag or ("ec" if split else "tier")
+    log(f"[{tag}] K1 reconstruct one stripe RS({d},{p}) "
         f"[1, {d}, {L}] -> [1, 1, {L}]: {ms:.5f} ms, bound {bound_ms:.7f} ms "
         f"({bound_by}), {bound_ms / ms:.3%} of bound; plain version "
         f"{plain_ms:.4f} ms [{card}]")
@@ -3561,6 +3621,8 @@ def maintenance_round_trip(np, workdir: str, seed: int, card: str, geo,
                                  f"intervals on lost shards number {expected}")
         out["query"] = query_needles / query_s
         out["reconstructs"] = got_rec
+        out["query_lengths"] = [ln for n in docs for s, ln in
+                                _intervals(ev, geo, n) if s in gone]
         log(f"[maint] Query (kind = \"b\", projecting id and size) of "
             f"{query_needles} JSON-lines needles of 1-4 KiB in a volume sealed "
             f"at RS({geo.d},{geo.p}) with shards {sorted(gone)} lost: "
@@ -3647,6 +3709,798 @@ def phase_maintenance(torch, np, workdir: str, seed: int, card: str) -> dict:
                                  "maintenance plane")
     if not k3:
         raise AssertionError("K3 never launched on the maintenance plane")
+    # K1 alone at the Query's one-stripe widths, outside the counts
+    lengths = res["query_lengths"]
+    stripe = one_stripe_costs(torch, np, lengths, seed, card, split=False,
+                              tag="maint")
+    log(f"[maint] the Query's {len(lengths)} degraded intervals: widths "
+        f"{min(lengths)}-{max(lengths)} B, median {stripe['L']} B (% 16 = "
+        f"{stripe['L'] % 16}); K1 there {stripe['ms']:.5f} ms, bound "
+        f"{stripe['bound_ms']:.7f} ms, plain {stripe['plain_ms']:.4f} ms "
+        f"[{card}]")
+    return {"k1": k1, "k3": k3}
+
+
+# -- phase 16 ---------------------------------------------------------------
+def write_go_volume(np, base: str, n: int, deletes: int, seed: int,
+                    version: int = 3) -> "tuple[dict, set]":
+    """A volume in the Go reference's big-endian layout, written here field
+    by field (independent of storage/ref_format.py): the super block of
+    `version`; `n` needles of 1024 + seeded 0-63 B (every 16th named, every
+    32nd with a mime, every 64th with a last-modified), each CRC32C stored
+    raw or, on every third needle, in the legacy scrambled `Value()` form;
+    every record padded to 8 bytes, an aligned one by a whole 8; then
+    `deletes` seeded needles deleted by tombstone records (size 0) and
+    .idx entries of size 0xFFFFFFFF. Writes `base`.dat and .idx; returns
+    ({id: (cookie, data)} of the n needles, the deleted ids)."""
+    import struct
+
+    from seaweedfs_tpu_torch.ops.crc32c import crc32c
+    rng = np.random.default_rng(seed)
+    sizes = 1024 + rng.integers(0, 64, n)
+    cookies = rng.integers(0, 1 << 32, n, dtype=np.uint64)
+    payload = rng.bytes(int(sizes.sum()))
+    ends = np.cumsum(sizes)
+    tail = 4 + (8 if version == 3 else 0)  # CRC, then v3's append time
+    dat = bytearray(bytes([version, 0, 0, 0, 0, 0, 0, 0]))
+    idx = bytearray()
+
+    def record(nid: int, cookie: int, body: bytes, crc: int) -> int:
+        off = len(dat)
+        dat.extend(struct.pack(">IQI", cookie, nid, len(body)))
+        dat.extend(body)
+        dat.extend(struct.pack(">I", crc))
+        if version == 3:
+            dat.extend(struct.pack(">Q", 1_700_000_000_000_000_000 + nid))
+        dat.extend(bytes(8 - (16 + len(body) + tail) % 8))
+        return off
+
+    want = {}
+    for i in range(n):
+        nid, cookie = i + 1, int(cookies[i])
+        data = payload[int(ends[i] - sizes[i]):int(ends[i])]
+        flags, extra = 0, b""
+        if nid % 16 == 0:
+            name = f"go{nid}.bin".encode()
+            flags |= 0x02
+            extra += bytes([len(name)]) + name
+        if nid % 32 == 0:
+            flags |= 0x04
+            extra += b"\x18application/octet-stream"
+        if nid % 64 == 0:
+            flags |= 0x08
+            extra += (1_700_000_000 + nid).to_bytes(5, "big")
+        raw = crc32c(data)
+        crc = ((((raw >> 15) | (raw << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+               if nid % 3 == 0 else raw)
+        body = struct.pack(">I", len(data)) + data + bytes([flags]) + extra
+        off = record(nid, cookie, body, crc)
+        idx.extend(struct.pack(">QII", nid, off // 8, len(body)))
+        want[nid] = (cookie, data)
+    deleted = {int(x) + 1 for x in rng.choice(n, deletes, replace=False)}
+    for nid in sorted(deleted):
+        off = record(nid, want[nid][0], b"", 0)
+        idx.extend(struct.pack(">QII", nid, off // 8, 0xFFFFFFFF))
+    with open(base + ".dat", "wb") as f:
+        f.write(dat)
+    with open(base + ".idx", "wb") as f:
+        f.write(idx)
+    return want, deleted
+
+
+def go_import(np, workdir: str, seed: int, card: str, geo, n: int,
+              deletes: int, sample: int, device: str = "cuda") -> dict:
+    """Phase 16(a): a Go volume migrated onto this fork. walk_dat, read_idx
+    and every needle's CRC; write_sorted_ecx; the .dat EC-encoded at
+    `geo` (K1 encode); shards LOST_14_2 lost, `sample` needles re-read
+    through the stripe locator with the lost intervals reconstructed (K1 at
+    one stripe) and parsed by ref_format.parse_needle; the lost shards
+    rebuilt (K1) to their bytes; every live needle re-read from the shard
+    files; the decode byte-identical to the Go .dat."""
+    import concurrent.futures as cf
+
+    from seaweedfs_tpu_torch.ec import encoder, files
+    from seaweedfs_tpu_torch.ec.locate import locate
+    from seaweedfs_tpu_torch.ec.volume import EcVolume
+    from seaweedfs_tpu_torch.ops.coder import TorchCoder
+    from seaweedfs_tpu_torch.ops.crc32c import crc32c
+    from seaweedfs_tpu_torch.server.volume_server import make_shard_reader
+    from seaweedfs_tpu_torch.storage import ref_format
+    from seaweedfs_tpu_torch.storage.disk_location import DiskLocation
+    from seaweedfs_tpu_torch.storage.store import Store
+
+    gdir = os.path.join(workdir, "go")
+    os.makedirs(gdir, exist_ok=True)
+    src = os.path.join(gdir, "weed_volume")
+    t = time.perf_counter()
+    want, deleted = write_go_volume(np, src, n, deletes, seed)
+    dat_size = os.path.getsize(src + ".dat")
+    log(f"[rest] a Go v3 volume written field by field: {n} needles of 1024 "
+        f"+ 0..63 B and {deletes} tombstones, .dat {dat_size} B, in "
+        f"{time.perf_counter() - t:.1f} s")
+
+    # the walk, the .idx and every CRC
+    t = time.perf_counter()
+    sb, recs = ref_format.walk_dat(src + ".dat")
+    walk_s = time.perf_counter() - t
+    tombs = [r for r in recs if r.is_tombstone]
+    live = [r for r in recs if not r.is_tombstone]
+    bad = [r.id for r in live if not r.crc_ok]
+    if (sb.version, len(recs), len(tombs), len(live), bad) != \
+            (3, n + deletes, deletes, n, []):
+        raise AssertionError(f"walk_dat: v{sb.version}, {len(recs)} records, "
+                             f"{len(tombs)} tombstones, CRC failures {bad[:5]}")
+    if any((r.cookie, r.data) != want[r.id] for r in live):
+        raise AssertionError("walk_dat: a needle's cookie or data differs")
+    named = sum(1 for r in live if r.name)
+    aligned = sum(1 for r in live if ref_format.padding_length(r.size, 3) == 8)
+    # both stored CRC forms occur (crc_ok above accepts either)
+    scrambled = sum(1 for r in live[:65536] if r.checksum != crc32c(r.data))
+    if not 0 < scrambled < min(len(live), 65536) or not aligned or not named:
+        raise AssertionError(f"{scrambled} scrambled CRCs, {aligned} aligned "
+                             f"records, {named} named: a case is missing")
+    entries = ref_format.read_idx(src + ".idx")
+    if (len(entries), sum(e[2] == ref_format.TOMBSTONE for e in entries)) != \
+            (n + deletes, deletes):
+        raise AssertionError(f"read_idx: {len(entries)} entries")
+    log(f"[rest] walk_dat: {len(recs)} records ({n} needles, {deletes} "
+        f"tombstones, {named} named, {aligned} aligned records padded by 8, "
+        f"{scrambled} of the first 65,536 with the scrambled CRC form) "
+        f"in {walk_s:.3f} s = {len(recs) / walk_s:.0f} needles/s, every "
+        f"CRC32C good in raw or scrambled form; read_idx {len(entries)} "
+        f"entries, {deletes} of them tombstones")
+
+    # the migration: .ecx from the .idx, the .dat EC-encoded
+    base = os.path.join(gdir, str(GO_VID))
+    t = time.perf_counter()
+    count = ref_format.write_sorted_ecx(src + ".idx", base + ".ecx")
+    ecx_s = time.perf_counter() - t
+    coder = TorchCoder(geo.d, geo.p, device=device)
+    stats: dict = {}
+    encoder.encode_volume(src + ".dat", base, geo, coder, stats=stats)
+    enc_gbs = dat_size / stats["wall_s"] / 1e9
+    loc = {}
+    for key, off, size in ref_format.read_idx(base + ".ecx"):
+        if size != ref_format.TOMBSTONE and key not in deleted:
+            loc[key] = (off * 8, size)
+    if count != n + deletes or len(loc) != n - deletes:
+        raise AssertionError(f"write_sorted_ecx: {count} entries, "
+                             f"{len(loc)} live")
+    log(f"[rest] write_sorted_ecx {count} entries in {ecx_s:.3f} s; RS("
+        f"{geo.d},{geo.p}) encode of the Go .dat {dat_size} B in "
+        f"{stats['wall_s']:.3f} s = {enc_gbs:.3f} GB/s [{card}]")
+
+    def reread(ev, nid, reader):
+        off, size = loc[nid]
+        buf = ev.read_logical(off, ref_format.record_size(size, 3), reader)
+        r = ref_format.parse_needle(buf, 0, 3)
+        if (r.id, r.cookie, r.data, r.crc_ok) != (nid, *want[nid], True):
+            raise AssertionError(f"needle {nid} re-read from the shards "
+                                 "differs")
+
+    # shards lost, a sample read with the lost intervals reconstructed
+    for s in LOST_14_2:
+        os.replace(base + files.shard_ext(s), base + files.shard_ext(s)
+                   + ".orig")
+    store = Store("127.0.0.1", 0, "", [DiskLocation(gdir)], ec_geometry=geo,
+                  coder_name="torch", device=device)
+    pool = cf.ThreadPoolExecutor(4)
+    try:
+        ev = store.find_ec_volume(GO_VID)
+        if ev is None or sorted(ev.shards) != [
+                s for s in range(geo.n) if s not in LOST_14_2]:
+            raise AssertionError("the Go volume's shards did not mount")
+        rstats: dict = {}
+        reader = make_shard_reader(store, GO_VID, lambda *a: None, pool,
+                                   stats=rstats)
+        rng = np.random.default_rng(seed + 1)
+        ids = sorted(int(x) for x in rng.choice(sorted(loc), min(sample,
+                                                                 len(loc)),
+                                                replace=False))
+        expected = sum(
+            1 for nid in ids for iv in locate(geo, ev.dat_size, loc[nid][0],
+                                              ref_format.record_size(
+                                                  loc[nid][1], 3))
+            if iv.shard_and_offset(geo)[0] in LOST_14_2)
+        lat = []
+        for nid in ids:
+            t = time.perf_counter()
+            reread(ev, nid, reader)
+            lat.append(time.perf_counter() - t)
+        if rstats.get("reconstructs") != expected or not expected:
+            raise AssertionError(f"{rstats.get('reconstructs')} reconstructs;"
+                                 f" the intervals on lost shards number "
+                                 f"{expected}")
+        log(f"[rest] {len(ids)} sampled needles re-read through the stripe "
+            f"locator with shards {LOST_14_2} lost and parsed by "
+            f"ref_format.parse_needle == written; {expected} reconstructs == "
+            f"the intervals on lost shards; p50 {_pct(np, lat, 50) * 1e3:.4f}"
+            f" ms, p99 {_pct(np, lat, 99) * 1e3:.4f} ms [{card}]")
+    finally:
+        pool.shutdown(wait=True)
+        store.close()
+
+    # the rebuild, every live needle re-read, the decode
+    bstats: dict = {}
+    t = time.perf_counter()
+    got = encoder.rebuild_shards(base, geo, coder, stats=bstats)
+    reb_s = time.perf_counter() - t
+    if got != sorted(LOST_14_2):
+        raise AssertionError(f"rebuilt {got}")
+    for s in LOST_14_2:
+        orig = base + files.shard_ext(s) + ".orig"
+        if not files_equal(np, base + files.shard_ext(s), orig):
+            raise AssertionError(f"rebuilt shard {s} differs")
+        os.unlink(orig)
+    ev = EcVolume(base, GO_VID)
+    t = time.perf_counter()
+    try:
+        for nid in loc:
+            reread(ev, nid, None)
+    finally:
+        ev.close()
+    reread_s = time.perf_counter() - t
+    out_dat = base + ".decoded.dat"
+    t = time.perf_counter()
+    encoder.decode_volume(base, out_dat, geo, coder)
+    dec_s = time.perf_counter() - t
+    if not files_equal(np, out_dat, src + ".dat"):
+        raise AssertionError("the decoded .dat differs from the Go .dat")
+    log(f"[rest] rebuild of shards {LOST_14_2}: {bstats['bytes_read']} B read "
+        f"in {reb_s:.3f} s = {bstats['bytes_read'] / reb_s / 1e9:.3f} GB/s; "
+        f"every live needle ({len(loc)}) re-read from the shard files and "
+        f"parsed == written in {reread_s:.2f} s = {len(loc) / reread_s:.0f} "
+        f"needles/s; decode in {dec_s:.3f} s == the Go .dat byte for byte "
+        f"[{card}]")
+    shutil.rmtree(gdir, ignore_errors=True)
+    return dict(walk=len(recs) / walk_s, encode=enc_gbs,
+                rebuild=bstats["bytes_read"] / reb_s / 1e9,
+                reread=len(loc) / reread_s)
+
+
+def remote_tier_round_trip(np, a, arg: str, kind: str, vid: int, n: int,
+                           gets: int, seed: int, card: str,
+                           device: str = "cuda") -> dict:
+    """Phase 16(b) on one tier: `n` needles written on server A, its .dat
+    moved to the `kind` tier by VolumeTierMoveDatToRemote, `gets` sampled
+    needles GET cold, then again warm, from the remote copy; VolumeScrub
+    "skipped-tiered"; VolumeTierMoveDatFromRemote, the .dat byte-equal, and
+    VolumeScrub through K3 (on the card) of every needle, all clean."""
+    from seaweedfs_tpu_torch.ops import crc_cuda
+    from seaweedfs_tpu_torch.storage.backend import open_remote
+    from seaweedfs_tpu_torch.storage.types import file_id
+
+    spec = f"{kind}:{arg}"
+    rng = np.random.default_rng(seed)
+    sizes = 1024 + rng.integers(0, 64, n)
+    cookies = rng.integers(0, 1 << 32, n, dtype=np.uint64)
+    order = sorted(int(i) + 1 for i in rng.choice(n, gets, replace=False))
+    a.allocate_volume(vid)
+    want = write_set(np, a.store, rng, sizes, cookies, set(order), vid=vid)
+    v = a.store.find_volume(vid)
+    v.sync()
+    dat_size = os.path.getsize(v.dat_path)
+    dat_hash = _sha256(v.dat_path)
+    t = time.perf_counter()
+    a.volume_tier_move_dat_to_remote(vid, spec)
+    up_s = time.perf_counter() - t
+    tiered = a.store.find_volume(vid)
+    if tiered.remote_spec is None or os.path.exists(tiered.dat_path) or \
+            open_remote(spec).object_size(f"{vid}.dat") != dat_size:
+        raise AssertionError(f"{kind}: the .dat is not on the tier")
+    cl = _Client(a.url)
+    cold, warm = [], []
+    try:
+        for nid in order:
+            path = f"/{file_id(vid, nid, int(cookies[nid - 1]))}"
+            for lat in (cold, warm):
+                t = time.perf_counter()
+                st, got, _ = cl.request("GET", path)
+                lat.append(time.perf_counter() - t)
+                if (st, got) != (200, want[nid]):
+                    raise AssertionError(f"{kind}: GET of needle {nid} from "
+                                         f"the tier: {st}")
+    finally:
+        cl.close()
+    res = a.volume_scrub(vid, device="")[0]
+    if res["mode"] != "skipped-tiered" or res["scanned"]:
+        raise AssertionError(f"{kind}: VolumeScrub of the tiered volume {res}")
+    t = time.perf_counter()
+    a.volume_tier_move_dat_from_remote(vid)
+    down_s = time.perf_counter() - t
+    back = a.store.find_volume(vid)
+    if back.remote_spec is not None or _sha256(back.dat_path) != dat_hash:
+        raise AssertionError(f"{kind}: the .dat brought back differs")
+    k3 = crc_cuda.launches
+    t = time.perf_counter()
+    res = a.volume_scrub(vid, device="")[0]
+    scrub_s = time.perf_counter() - t
+    k3 = crc_cuda.launches - k3
+    if (res["scanned"], res["corrupt_needle_ids"]) != (n, []) or \
+            (device == "cuda" and not k3):
+        raise AssertionError(f"{kind}: VolumeScrub after the promotion {res}, "
+                             f"K3 launches {k3}")
+    log(f"[rest] {kind}: {n} needles on A, .dat {dat_size} B tiered up in "
+        f"{up_s:.3f} s = {dat_size / up_s / 1e9:.3f} GB/s; {len(order)} GETs "
+        f"from the remote copy == written, cold p50 "
+        f"{_pct(np, cold, 50) * 1e3:.4f} ms p99 {_pct(np, cold, 99) * 1e3:.4f}"
+        f" ms, warm p50 {_pct(np, warm, 50) * 1e3:.4f} ms; VolumeScrub "
+        f"skipped-tiered; back in {down_s:.3f} s = "
+        f"{dat_size / down_s / 1e9:.3f} GB/s, sha256 equal; VolumeScrub "
+        f"{res['mode']} {res['scanned']} needles clean in {scrub_s:.3f} s = "
+        f"{n / scrub_s:.0f} needles/s, K3 {k3} launches [{card}]")
+    return dict(up=dat_size / up_s / 1e9, down=dat_size / down_s / 1e9,
+                cold=cold, warm=warm)
+
+
+def smooth_rgb(np, seed: int, w: int, h: int):
+    """Seeded smooth content [h, w, 3] uint8: one plane wave a channel,
+    sin(fx x + fy y + ph) built from outer products of 1-D terms."""
+    rng = np.random.default_rng(seed)
+    x = np.arange(w, dtype=np.float32) * (2 * np.pi / w)
+    y = np.arange(h, dtype=np.float32) * (2 * np.pi / h)
+    out = np.empty((h, w, 3), np.uint8)
+    for c in range(3):
+        fx, fy, ph = rng.uniform(0.5, 4.0), rng.uniform(0.5, 4.0), \
+            rng.uniform(0.0, 6.3)
+        plane = (np.outer(np.cos(fy * y), np.sin(fx * x + ph))
+                 + np.outer(np.sin(fy * y), np.cos(fx * x + ph)))
+        out[..., c] = (127.5 + 127.5 * plane).astype(np.uint8)
+    return out
+
+
+def png_bytes(np, rgb) -> bytes:
+    """An 8-bit RGB PNG of `rgb`, made with zlib and struct (no Pillow)."""
+    import struct
+    import zlib
+    h, w, _ = rgb.shape
+    raw = np.zeros((h, 1 + 3 * w), np.uint8)  # filter byte 0 a row
+    raw[:, 1:] = rgb.reshape(h, 3 * w)
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + chunk(b"IEND", b""))
+
+
+def jpeg_bytes(np, rgb, orientation: int) -> bytes:
+    """A JPEG of `rgb` with the EXIF orientation tag (needs Pillow)."""
+    import io
+
+    from PIL import Image
+    exif = Image.Exif()
+    exif[0x0112] = orientation
+    buf = io.BytesIO()
+    Image.fromarray(rgb).save(buf, format="JPEG", exif=exif.tobytes())
+    return buf.getvalue()
+
+
+# the lock check's server workload, run in a subprocess whose environment
+# sets SWTPU_LOCKCHECK=1: the detector patches threading before any lock of
+# the package exists, which it cannot do in this process
+LOCK_SCRIPT = r'''
+import http.client, json, os, socket, sys
+workdir, device = sys.argv[1], sys.argv[2]
+import seaweedfs_tpu_torch
+from seaweedfs_tpu_torch.ec.locate import EcGeometry
+from seaweedfs_tpu_torch.server.volume_server import LocalPeers, VolumeServer
+from seaweedfs_tpu_torch.storage.disk_location import DiskLocation
+from seaweedfs_tpu_torch.storage.store import Store
+from seaweedfs_tpu_torch.storage.types import file_id
+from seaweedfs_tpu_torch.utils import locktrack
+assert locktrack.installed()
+with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+store = Store("127.0.0.1", port, "", [DiskLocation(workdir)],
+              ec_geometry=EcGeometry(10, 4), coder_name="torch", device=device)
+vs = VolumeServer(store, "127.0.0.1", port)
+vs.peers = LocalPeers({vs.peer_address: vs})
+vs.start()
+try:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+
+    def req(method, path, body=None):
+        conn.request(method, path, body=body)
+        r = conn.getresponse()
+        return r.status, r.read()
+    vs.allocate_volume(7)
+    bodies = {}
+    for i in range(1, 129):
+        fid = file_id(7, i, 0x1000 + i)
+        bodies[fid] = os.urandom(1000 + i)
+        assert req("POST", "/" + fid, bodies[fid])[0] == 201
+    for fid, body in bodies.items():
+        assert req("GET", "/" + fid) == (200, body)
+    vs.volume_mark_readonly(7)
+    vs.volume_ec_shards_generate(7)
+    vs.volume_ec_shards_mount(7)
+    vs.volume_delete(7)
+    vs.volume_ec_shards_delete(7, shard_ids=[0])
+    for fid, body in bodies.items():  # all on shard 0: each reconstructs
+        assert req("GET", "/" + fid) == (200, body)
+    status, raw = req("GET", "/debug/locks")
+    print(json.dumps({"status": status, "locks": json.loads(raw),
+                      "reconstructs": vs.read_stats.get("reconstructs", 0)}))
+finally:
+    vs.stop()
+'''
+
+
+def lock_check(workdir: str, device: str) -> dict:
+    """LOCK_SCRIPT in a subprocess under SWTPU_LOCKCHECK=1: 128 POSTs and
+    GETs, a seal, 128 degraded GETs; its /debug/locks must report the
+    detector on and zero cycles."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    wd = os.path.join(workdir, "lockcheck")
+    os.makedirs(wd, exist_ok=True)
+    env = dict(os.environ, SWTPU_LOCKCHECK="1",
+               PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", LOCK_SCRIPT, wd, device],
+                          cwd=here, env=env, capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the lock check's server failed: "
+                             f"{proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    locks = out["locks"]
+    if out["status"] != 200 or not locks["enabled"] or locks["cycles"] or \
+            not locks["locks_tracked"] or out["reconstructs"] != 128:
+        raise AssertionError(f"/debug/locks under SWTPU_LOCKCHECK=1: "
+                             f"{json.dumps(out)[:2000]}")
+    log(f"[rest] /debug/locks of a server run under SWTPU_LOCKCHECK=1 (128 "
+        f"POSTs and GETs, a seal, 128 degraded GETs): {len(locks['cycles'])}"
+        f" cycles over {locks['locks_tracked']} tracked locks and "
+        f"{locks['edges']} orderings, {len(locks['long_holds'])} long holds "
+        f"over {locks['hold_threshold_ms']} ms; {time.perf_counter() - t:.1f}"
+        f" s with the subprocess's start")
+    return locks
+
+
+def rest_round_trip(np, workdir: str, seed: int, card: str, go_geo, geo,
+                    go_needles: int, go_deletes: int, go_sample: int,
+                    azure_needles: int, gcs_needles: int, tier_gets: int,
+                    images: int, jpegs: int, image_size, trace_gets: int,
+                    hook_gets: int, device: str = "cuda") -> dict:
+    """Phase 16's path, every check fatal: (a) the Go-format import; then
+    servers A and B (VolumeServers over Stores on `device`, joined by
+    LocalPeers) for (b) the `azure:` and `gcs-json:` tiers against the
+    port's stand-ins, (c) image needles on a degraded RS(10,4) volume GET
+    resized, (d) the debug plane after that traffic and (e) the hooks'
+    cost. Logs the measured numbers and returns them."""
+    import concurrent.futures as cf
+
+    from seaweedfs_tpu_torch import images as img_ops
+    from seaweedfs_tpu_torch.images import resize
+    from seaweedfs_tpu_torch.profiling import sampler
+    from seaweedfs_tpu_torch.security import Guard
+    from seaweedfs_tpu_torch.server.volume_server import LocalPeers, VolumeServer
+    from seaweedfs_tpu_torch.storage.disk_location import DiskLocation
+    from seaweedfs_tpu_torch.storage.needle import Needle
+    from seaweedfs_tpu_torch.storage.store import Store
+    from seaweedfs_tpu_torch.storage.types import file_id
+    from seaweedfs_tpu_torch.utils import failpoints, retry
+    from seaweedfs_tpu_torch.utils.mini_azure import MiniAzure
+    from seaweedfs_tpu_torch.utils.mini_gcs import MiniGcs
+
+    out: dict = {}
+    out["go"] = go_import(np, workdir, seed, card, go_geo, go_needles,
+                          go_deletes, go_sample, device=device)
+
+    # the servers of earlier phases have released the process's sampler:
+    # what it holds from here on is this phase's own
+    if sampler._refs:
+        raise AssertionError(f"{sampler._refs} servers still hold the sampler")
+    if sampler.default_sampler() is not None:
+        sampler.default_sampler().reset()
+    servers = {}
+    for x in "ab":
+        port = _free_port()
+        store = Store("127.0.0.1", port, "", [DiskLocation(os.path.join(
+            workdir, f"rest_{x}"))], ec_geometry=geo, coder_name="torch",
+            device=device)
+        servers[x] = VolumeServer(store, "127.0.0.1", port)
+    a, b = servers["a"], servers["b"]
+    LocalPeers({vs.peer_address: vs for vs in servers.values()})
+    stand_ins = []
+    client = None
+    retry.reset_breakers()
+    try:
+        for vs in servers.values():
+            vs.start()
+        if sampler._refs != 2:
+            raise AssertionError(f"the sampler has {sampler._refs} holders")
+        client = _Client(a.url)
+
+        # (b) the azure: and gcs-json: tiers
+        az = MiniAzure().start()
+        gcs = MiniGcs().start()
+        stand_ins += [az, gcs]
+        from seaweedfs_tpu_torch.remote import parse_azure_spec
+        azure_arg = f"{az.endpoint}/tier?{az.account}:{az.key_b64}"
+        parse_azure_spec(azure_arg).ensure_container()
+        out["azure"] = remote_tier_round_trip(
+            np, a, azure_arg, "azure", AZURE_VID, azure_needles, tier_gets,
+            seed + 2, card, device)
+        out["gcs"] = remote_tier_round_trip(
+            np, a, f"{gcs.endpoint}/tier?{gcs.token}", "gcs-json", GCS_VID,
+            gcs_needles, max(1, tier_gets // 4), seed + 3, card, device)
+
+        # (c) image needles on a degraded EC volume, GET resized
+        pil = resize.HAVE_PIL
+        w, h = image_size
+        t = time.perf_counter()
+
+        def make(i: int) -> Needle:
+            rgb = smooth_rgb(np, seed * 100003 + i, w, h)
+            if i > images:  # the JPEGs, with EXIF orientation 6
+                return Needle(id=i, cookie=0x1A6E + i, data=jpeg_bytes(
+                    np, rgb, 6), name=f"pic{i}.jpg".encode(),
+                    mime=b"image/jpeg")
+            return Needle(id=i, cookie=0x1A6E + i, data=png_bytes(np, rgb),
+                          name=f"pic{i}.png".encode(), mime=b"image/png")
+        count = images + (jpegs if pil else 0)
+        with cf.ThreadPoolExecutor(8) as pool:
+            pics = list(pool.map(make, range(1, count + 1)))
+        make_s = time.perf_counter() - t
+        a.allocate_volume(IMAGE_VID)
+        for lo in range(0, count, 256):
+            a.store.write_needles_bulk(IMAGE_VID, pics[lo:lo + 256])
+        a.volume_mark_readonly(IMAGE_VID)
+        a.volume_ec_shards_generate(IMAGE_VID)
+        b.volume_ec_shards_copy(IMAGE_VID, shard_ids=list(range(7, geo.n)),
+                                copy_ecx_file=True, copy_vif_file=True,
+                                source_data_node=a.peer_address)
+        a.volume_ec_shards_mount(IMAGE_VID)
+        b.volume_ec_shards_mount(IMAGE_VID)
+        a.volume_ec_shards_delete(IMAGE_VID, shard_ids=list(range(7, geo.n)))
+        a.volume_delete(IMAGE_VID)
+        a.volume_ec_shards_delete(IMAGE_VID, shard_ids=list(A_LOST))
+        b.volume_ec_shards_delete(IMAGE_VID, shard_ids=list(B_LOST))
+        ev = a.store.find_ec_volume(IMAGE_VID)
+        gone = set(A_LOST + B_LOST)
+        on_lost = [n.id for n in pics
+                   if any(s in gone for s, _ in _intervals(ev, geo, n.id))]
+        queries = [(n, "?width=128&height=128") for n in pics] + \
+            [(n, "?width=200&mode=fit") for n in pics[::2]]
+
+        def host(job):
+            """images.resized on the host, on the stored bytes."""
+            n, q = job
+            params = dict(kv.split("=") for kv in q[1:].split("&"))
+            ext = os.path.splitext(n.name.decode())[1]
+            wd, ht, mode, _ = img_ops.should_resize(ext, params)
+            data = n.data
+            if ext == ".jpg":
+                data = img_ops.fix_jpeg_orientation(data)
+            return img_ops.resized(ext, data, wd, ht, mode)
+        with cf.ThreadPoolExecutor(8) as pool:
+            wants = list(pool.map(host, queries))
+        r0 = a.read_stats.get("reconstructs", 0)
+        lat, resized_bytes = [], 0
+        for (n, q), want in zip(queries, wants):
+            t = time.perf_counter()
+            st, got, _ = client.request(
+                "GET", f"/{file_id(IMAGE_VID, n.id, n.cookie)}{q}")
+            lat.append(time.perf_counter() - t)
+            if (st, got) != (200, want):
+                raise AssertionError(f"resized GET of image {n.id}{q}: {st}, "
+                                     f"{len(got)} B against {len(want)}")
+            if not pil and got != n.data:
+                raise AssertionError("without Pillow a resize must serve "
+                                     "the stored bytes")
+            resized_bytes += len(got)
+        recs = a.read_stats.get("reconstructs", 0) - r0
+        if not recs or not on_lost:
+            raise AssertionError("no resized GET read a lost shard")
+        out["images"] = dict(pil=pil, gets=lat, reconstructs=recs)
+        stored = sum(len(n.data) for n in pics)
+        log(f"[rest] images: Pillow {'present' if pil else 'ABSENT'} on this "
+            f"host; {images} PNGs of {w}x{h}"
+            + (f" and {jpegs} JPEGs with EXIF orientation 6" if pil else "")
+            + f" ({stored} B, made in {make_s:.2f} s) sealed at RS({geo.d},"
+            f"{geo.p}) on A and B, shards {sorted(gone)} lost, {len(on_lost)}"
+            f" of them with an interval on a lost shard; {len(queries)} "
+            f"resized GETs (every one 128x128, half 200 fit) == images.resized"
+            f" on the host{'' if pil else ' (the stored bytes)'}, {recs} "
+            f"reconstructs; p50 {_pct(np, lat, 50) * 1e3:.4f} ms, p99 "
+            f"{_pct(np, lat, 99) * 1e3:.4f} ms, {resized_bytes} B out [{card}]")
+
+        # (d) the debug plane, read after that traffic
+        cb = _Client(b.url)
+        try:
+            def get_json(cl, path, want_status=200):
+                st, body, _ = cl.request("GET", path)
+                if st != want_status:
+                    raise AssertionError(f"GET {path}: {st} {body[:300]!r}")
+                return json.loads(body) if want_status == 200 else body
+
+            summary = get_json(client, "/debug/profile?mode=summary")
+            cls = summary["classes"]
+            for c in ("read_pool", "ec_read"):
+                if sum(cls.get(c, {}).values()) == 0:
+                    raise AssertionError(f"no samples in thread class {c}: "
+                                         f"{cls}")
+            get_json(client, "/debug/profile?hz=abc", 400)
+            flight = get_json(client, "/debug/flight?type=volume.get&limit=5")
+            top = flight["entries"]
+            if not top or any(set(e["queue_depths"]) != {"read", "ec_read"}
+                              or "store" not in e["stages_ms"] for e in top):
+                raise AssertionError(f"/debug/flight: {flight}")
+            traces = get_json(client, "/debug/traces?limit=5")
+            evs = get_json(client, "/debug/events?limit=5")
+            if not traces["count"] or not evs["count"]:
+                raise AssertionError("/debug/traces or /debug/events empty")
+            log(f"[rest] /debug/profile summary: {summary['samples']} thread-"
+                f"samples over {summary['ticks']} ticks at {summary['hz']:g} "
+                f"Hz, by class {json.dumps(cls)}; ?hz=abc 400. /debug/flight "
+                f"(slow >= {flight['slow_ms']} ms, {flight['recorded']} "
+                f"recorded): slowest GETs "
+                + "; ".join(f"{e['path'][:24]} {e['duration_ms']} ms stages "
+                            f"{json.dumps(e['stages_ms'])} depths "
+                            f"{json.dumps(e['queue_depths'])}"
+                            for e in top[:3])
+                + f"; /debug/traces {traces['buffered']} spans, /debug/events "
+                f"{evs['buffered']} events")
+
+            # a failpoint armed on B fires on a degraded GET from A
+            fired0 = failpoints.fired("ec.shard.read")
+            armed = get_json(cb, "/debug/failpoints?name=ec.shard.read"
+                                 "&spec=times:1:error")
+            if "ec.shard.read" not in armed["armed"]:
+                raise AssertionError(f"/debug/failpoints: {armed}")
+            n = next(p for p in pics if p.id in on_lost)
+            st, got, _ = client.request(
+                "GET", f"/{file_id(IMAGE_VID, n.id, n.cookie)}")
+            fired = get_json(cb, "/debug/failpoints")["fired"].get(
+                "ec.shard.read", 0) - fired0
+            disarmed = get_json(cb, "/debug/failpoints?name=ec.shard.read"
+                                    "&spec=off")
+            if (st, got) != (200, n.data) or fired != 1 or \
+                    "ec.shard.read" in disarmed["armed"]:
+                raise AssertionError(f"failpoint: GET {st}, fired {fired}, "
+                                     f"armed {disarmed['armed']}")
+
+            # the lifecycle report and its guarded stamp
+            life = get_json(client, "/debug/lifecycle")
+            reads = life["ec_volumes"][str(IMAGE_VID)]["reads"]
+            if reads < len(queries):
+                raise AssertionError(f"/debug/lifecycle: {reads} reads")
+            at = time.time() + 10 * 365 * 86400
+            doc = json.dumps({"volume": IMAGE_VID, "destroy_time": at})
+            st, _, _ = client.request("POST", "/debug/lifecycle", doc)
+            stamped = get_json(client, "/debug/lifecycle")["ec_volumes"][
+                str(IMAGE_VID)]["destroy_time"]
+            a.guard = Guard(signing_key="phase-16-key",
+                            white_list=["10.9.9.9"])
+            try:
+                refused, _, _ = client.request("POST", "/debug/lifecycle", doc)
+            finally:
+                a.guard = None
+            if (st, stamped, refused) != (200, at, 401):
+                raise AssertionError(f"/debug/lifecycle POST {st}, stamped "
+                                     f"{stamped}, guarded {refused}")
+            st, page, hdrs = client.request("GET", "/ui")
+            page = page.decode()
+            if st != 200 or f"<td>{IMAGE_VID}</td>" not in page or \
+                    f"<td>{AZURE_VID}</td>" not in page:
+                raise AssertionError("/ui does not list the volumes")
+            st, metrics, _ = client.request("GET", "/metrics")
+            hot = f'SeaweedFS_hot_requests{{kind="volume",key="{IMAGE_VID}"}}'
+            if hot not in metrics.decode():
+                raise AssertionError(f"/metrics lacks {hot}")
+            log(f"[rest] /debug/failpoints on B: ec.shard.read armed "
+                f"times:1:error, fired {fired} on a degraded GET from A "
+                f"(200, == written), disarmed; /debug/lifecycle {reads} reads "
+                f"of the EC volume, POST stamped destroy_time, 401 when "
+                f"guarded; /ui lists the volumes; /metrics has {hot}")
+
+            # a device trace around degraded GETs
+            st, text, _ = client.request("GET", "/debug/jax-profiler")
+            if st != 200:
+                raise AssertionError(f"/debug/jax-profiler: {st} {text!r}")
+            r0 = a.read_stats.get("reconstructs", 0)
+            for i in range(trace_gets):
+                n = next(p for p in pics if p.id == on_lost[i % len(on_lost)])
+                st, got, _ = client.request(
+                    "GET", f"/{file_id(IMAGE_VID, n.id, n.cookie)}")
+                if (st, got) != (200, n.data):
+                    raise AssertionError("a degraded GET under the trace")
+            traced = a.read_stats.get("reconstructs", 0) - r0
+            st, text, _ = client.request("GET", "/debug/jax-profiler?stop=1")
+            path = text.decode().split("written to ")[-1].strip()
+            with open(path) as f:
+                tev = json.load(f).get("traceEvents", [])
+            os.unlink(path)
+            k1 = [e for e in tev if e.get("ph") == "X" and e.get("cat") ==
+                  "kernel" and "rs_gf_apply" in e.get("name", "")]
+            if st != 200 or (device == "cuda" and not k1):
+                raise AssertionError(f"the device trace of {trace_gets} "
+                                     f"degraded GETs names no K1 kernel "
+                                     f"({len(tev)} events)")
+            out["trace_k1"] = len(k1)
+            log(f"[rest] /debug/jax-profiler around {trace_gets} degraded "
+                f"GETs ({traced} reconstructs): {len(tev)} trace events, "
+                f"{len(k1)} K1 kernels ({k1[0]['name'][:60] if k1 else '-'}), "
+                f"{sum(e.get('dur', 0) for e in k1):.1f} us of device time "
+                f"[{card}]")
+        finally:
+            cb.close()
+        out["locks"] = lock_check(workdir, device)
+
+        # (e) the hooks' cost: healthy GETs with the sampler on, paused, on
+        a.allocate_volume(HOOK_VID)
+        rng = np.random.default_rng(seed + 5)
+        total = 2 * hook_gets
+        sizes = 1024 + rng.integers(0, 64, total)
+        cookies = rng.integers(0, 1 << 32, total, dtype=np.uint64)
+        want = write_set(np, a.store, rng, sizes, cookies,
+                         set(range(1, total + 1)), vid=HOOK_VID)
+        hz = sampler.default_sampler().hz
+
+        def gets(ids) -> list:
+            lat = []
+            for nid in ids:
+                t = time.perf_counter()
+                st, got, _ = client.request(
+                    "GET", f"/{file_id(HOOK_VID, nid, int(cookies[nid - 1]))}")
+                lat.append(time.perf_counter() - t)
+                if (st, got) != (200, want[nid]):
+                    raise AssertionError(f"GET of needle {nid}: {st}")
+            return lat
+        half = hook_gets // 2
+        on = gets(range(1, half + 1))
+        get_json(client, "/debug/profile?hz=0")
+        off = gets(range(half + 1, half + hook_gets + 1))
+        get_json(client, f"/debug/profile?hz={hz:g}")
+        on += gets(range(half + hook_gets + 1, total + 1))
+        out["hooks"] = dict(on=on, off=off)
+        log(f"[rest] the hooks' cost, {len(on)} + {len(off)} healthy GETs on "
+            f"A, one keep-alive client: sampler at {hz:g} Hz with the flight "
+            f"recorder, stage histograms and hot keys (two halves, before and "
+            f"after) p50 {_pct(np, on, 50) * 1e3:.4f} ms p99 "
+            f"{_pct(np, on, 99) * 1e3:.4f} ms; after /debug/profile?hz=0 p50 "
+            f"{_pct(np, off, 50) * 1e3:.4f} ms p99 "
+            f"{_pct(np, off, 99) * 1e3:.4f} ms [{card}]")
+        return out
+    finally:
+        failpoints.clear("ec.shard.read")
+        retry.reset_breakers()
+        if client is not None:
+            client.close()
+        for vs in servers.values():
+            vs.stop()
+        for s in stand_ins:
+            s.stop()
+
+
+def phase_rest(torch, np, workdir: str, seed: int, card: str) -> dict:
+    from seaweedfs_tpu_torch.ec.locate import EcGeometry
+    from seaweedfs_tpu_torch.ops import crc_cuda, rs_cuda
+    os.makedirs(workdir, exist_ok=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rs_cuda.reset_launches()
+    crc_cuda.reset_launches()
+    rest_round_trip(np, workdir, seed + 41, card, EcGeometry(14, 2),
+                    EcGeometry(10, 4), GO_NEEDLES, GO_DELETES, GO_SAMPLE,
+                    AZURE_NEEDLES, GCS_NEEDLES, TIER_GETS, IMAGE_COUNT,
+                    IMAGE_JPEGS, IMAGE_SIZE, TRACE_GETS, HOOK_GETS)
+    torch.cuda.synchronize()
+    k1 = dict(rs_cuda.launches_by_entry)
+    k3 = crc_cuda.launches
+    log(f"[rest] launches on the rest of the volume server: K1 "
+        f"{json.dumps(k1)}, K3 {k3}; phase wall "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    for entry in ("encode", "reconstruct"):
+        if not k1.get(entry):
+            raise AssertionError(f"K1 {entry} never launched in phase 16")
+    if not k3:
+        raise AssertionError("K3 never launched in phase 16")
     return {"k1": k1, "k3": k3}
 
 
@@ -3742,11 +4596,17 @@ def main(argv=None) -> int:
             maint = phase_maintenance(torch, np, args.workdir, args.seed, card)
         finally:
             shutil.rmtree(args.workdir, ignore_errors=True)
+    rest = None
+    if 16 in phases:
+        try:
+            rest = phase_rest(torch, np, args.workdir, args.seed, card)
+        finally:
+            shutil.rmtree(args.workdir, ignore_errors=True)
     log(f"[done] phases {sorted(phases | {1})} passed in "
         f"{time.perf_counter() - t0:.1f} s [{card}]")
     if None not in (errs, times, launches, k3_err, k3_times, k3_launches,
                     ec_launches, tier, codec_launches, mesh, server, replica,
-                    maint):
+                    maint, rest):
         kernels = [dict(name=f"rs_gf_apply:{entry}", route="cuda",
                         source=K1_SOURCE, replaces=replaces,
                         launches=launches.get(entry, 0)
@@ -3756,7 +4616,8 @@ def main(argv=None) -> int:
                         + mesh["launches"]["k1"].get(entry, 0)
                         + server["k1"].get(entry, 0)
                         + replica["k1"].get(entry, 0)
-                        + maint["k1"].get(entry, 0),
+                        + maint["k1"].get(entry, 0)
+                        + rest["k1"].get(entry, 0),
                         max_abs_err=errs[entry], ms=times[entry]["ms"],
                         plain_ms=times[entry]["plain_ms"],
                         bound_ms=times[entry]["bound_ms"],
@@ -3767,7 +4628,7 @@ def main(argv=None) -> int:
                             source=K3_SOURCE, replaces=K3_REPLACES,
                             launches=k3_launches + tier["k3_scrub"]
                             + mesh["launches"]["k3"] + server["k3"]
-                            + replica["k3"] + maint["k3"],
+                            + replica["k3"] + maint["k3"] + rest["k3"],
                             max_abs_err=k3_err,
                             ms=k3["ms"], plain_ms=k3["plain_ms"],
                             bound_ms=k3["bound_ms"], bound_by=k3["bound_by"],

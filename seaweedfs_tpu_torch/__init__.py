@@ -11,3 +11,14 @@ over a ('data', 'shard') mesh of ``torch.distributed`` ranks
 there is no card. An explicit ``device="cpu"`` selects the plain PyTorch
 versions.
 """
+
+import os as _os
+
+# Opt-in runtime lock-order detector (utils/locktrack.py): patching here
+# means any entry point — pytest, `python -m seaweedfs_tpu_torch`, a server
+# started in a subprocess — gets tracked locks by exporting one env var,
+# before any module of the package creates its first lock.
+if _os.environ.get("SWTPU_LOCKCHECK") == "1":  # pragma: no cover
+    from .utils import locktrack as _locktrack
+
+    _locktrack.install()

@@ -55,6 +55,9 @@ def _volume_flags(p: argparse.ArgumentParser) -> None:
                    help="erasure codec for new encodes: rs | piggyback | msr")
     p.add_argument("-ecShards", default="",
                    help="default EC geometry as 'd,p' (e.g. 14,2 or 10,4)")
+    p.add_argument("-index", default="memory",
+                   help="needle map kind: memory|leveldb|sorted_file "
+                        "(reference -index flag)")
     p.add_argument("-pulseSeconds", type=float, default=2.0)
     p.add_argument("-qosPolicy", default="",
                    help="QoS policy JSON file (tenant/class token buckets, "
@@ -116,7 +119,8 @@ def run_volume(argv) -> int:
     resolve_device(opt.device)  # no card and no -device cpu: refuse
     geo = EcGeometry(*_parse_ec_shards(opt.ecShards)) if opt.ecShards else None
     store = Store(opt.ip, opt.port, f"{opt.ip}:{opt.port}",
-                  [DiskLocation(opt.dir, opt.disk, opt.max)],
+                  [DiskLocation(opt.dir, opt.disk, opt.max,
+                                needle_map_kind=opt.index)],
                   ec_geometry=geo, coder_name=opt.coder, ec_codec=opt.codec,
                   device=opt.device)
     vs = VolumeServer(store, ip=opt.ip, port=opt.port,

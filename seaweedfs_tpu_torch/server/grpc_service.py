@@ -653,6 +653,7 @@ def serve_volume(vs: VolumeServer, grpc_port: "int | None" = None,
     heartbeater = None
     try:
         if master:
+            vs.masters = [m for m in master.split(",") if m]
             peers = GrpcPeers(master)
             if vs.peers is None:
                 vs.peers = peers

@@ -36,8 +36,17 @@ the serving node's maintenance budget. VolumeCopy, the tail and
 incremental sync, BatchDelete, VolumeConfigure, VolumeServerLeave,
 VolumeNeedleStatus and Query are RPC bodies here like the others.
 
-Not ported yet: the profiling monitors, the other debug routes and the
-status UI, and image resize (ROADMAP Queue 1).
+The profiling plane: the read pools are `profiling.MonitoredPool`s and a
+`LoopLagMonitor` probes the HTTP loop; the process-wide sampler is held from
+`start` to `stop`; every request's stages go to VOLUME_STAGE_SECONDS, the
+slow and failed ones to the flight recorder with the loop lag and queue
+depths at admit, and every request to the hot-key sketches
+(`telemetry.hot`) behind the `SeaweedFS_hot_*` gauges. The debug routes
+(`/debug/profile`, `/debug/flight`, `/debug/traces`, `/debug/events`,
+`/debug/locks`, `/debug/failpoints`, `/debug/lifecycle`,
+`/debug/jax-profiler`, which captures through torch.profiler) and the
+status page `/ui` answer as the reference's do. A GET with `width` /
+`height` of an image needle is resized on the host (`images/`).
 """
 
 from __future__ import annotations
@@ -63,6 +72,7 @@ from ..ec.locate import EcGeometry
 from ..ops import events
 from ..ops.coder import host_result
 from ..stats import DEGRADED_EC_READS
+from ..telemetry.hot import record as hot_record
 from ..storage.needle import Needle
 from ..storage.store import TIER_TRASH
 from ..storage.types import TTL, ReplicaPlacement, parse_file_id
@@ -354,6 +364,37 @@ class RpcAbort(Exception):
         self.message = message
 
 
+def _observe_stages(kind: str, t_recv: float, t_parsed: float, t0: float,
+                    t_admit, t_done, t_end: float) -> dict:
+    """Per-stage timing of one request into VOLUME_STAGE_SECONDS: recv/parse
+    (first wire byte -> request parsed), queue_wait (parsed -> handler
+    entry), auth/admit (QoS admission), store (the handler itself) and
+    serialize/flush (response build and accounting). The five cover the
+    whole wire-to-wire interval. t_admit/t_done may be None on shed and
+    error paths (the stage collapses to zero and the tail lands in
+    serialize_flush). Returns the stage dict for the flight recorder."""
+    from ..stats import VOLUME_STAGE_SECONDS
+    a = t_admit if t_admit is not None else t0
+    d = t_done if t_done is not None else a
+    r = t_recv or t_parsed or t0
+    p = t_parsed or r
+    stages = {
+        "recv_parse": max(0.0, p - r),
+        "queue_wait": max(0.0, t0 - p),
+        "auth_admit": max(0.0, a - t0),
+        "store": max(0.0, d - a),
+        "serialize_flush": max(0.0, t_end - d),
+    }
+    for stage, v in stages.items():
+        VOLUME_STAGE_SECONDS.observe(kind, stage, value=v)
+    return stages
+
+
+def _vid_of_path(path: str) -> "str | None":
+    head = path.lstrip("/").split(",", 1)[0]
+    return head if head.isdigit() else None
+
+
 def _maintenance_tagged(fn):
     """Run an RPC body maintenance-class: these RPCs exist only as repair,
     replication and rebalance machinery, so their nested reads (survivor
@@ -454,7 +495,9 @@ class VolumeServer:
         if read_mode not in READ_MODES:
             raise ValueError(f"read mode {read_mode!r}: one of "
                              f"{', '.join(READ_MODES)}")
+        from ..profiling import LoopLagMonitor, MonitoredPool
         from ..storage import read_cache
+        from ..utils.env import env_int
         self.store = store
         self.device = store.device
         self.ip = ip
@@ -467,6 +510,8 @@ class VolumeServer:
         self.pulse_seconds = pulse_seconds
         self.read_mode = read_mode
         self.guard = guard
+        # the master quorum, set by the gRPC binding (shown by /ui)
+        self.masters: "list[str]" = []
         # the hot-needle cache under plain-volume GETs and bulk reads
         # (SWTPU_READ_CACHE_MB=0 disables it)
         self.read_cache = read_cache.default_cache()
@@ -486,15 +531,26 @@ class VolumeServer:
         # read's fan-out pool (store_ec.go:367)
         self._ec_loc_cache: dict[int, tuple[dict, float, bool]] = {}
         self._ec_loc_lock = threading.Lock()
-        self._ec_read_pool = cf.ThreadPoolExecutor(
-            max_workers=16, thread_name_prefix=f"ec-read-{port}")
-        self._read_pool = cf.ThreadPoolExecutor(
-            max_workers=8, thread_name_prefix=f"vs-read-{port}")
+        # (queue-accounted: depth and wait per {pool} label, the depths at
+        # admit in flight entries)
+        self._ec_read_pool = MonitoredPool(
+            "ec_read", max_workers=16, thread_name_prefix=f"ec-read-{port}")
+        self._read_pool = MonitoredPool(
+            "read", max_workers=max(1, env_int("SWTPU_READ_THREADS", 8)),
+            thread_name_prefix=f"vs-read-{port}")
         # blocking HTTP hops to peers (replica fan-out, proxy reads): a
         # pool of their own, so a hop never waits on a worker that the
         # peer's handler needs in the same process
         self._hop_pool = cf.ThreadPoolExecutor(
             max_workers=16, thread_name_prefix=f"vs-hop-{port}")
+        # the profiling plane: the loop-lag probe (installed on the HTTP
+        # loop by serve_fast_app's on_loop hook) and the process-shared
+        # sampler (held from start() to stop())
+        self._loop_lag = LoopLagMonitor("volume")
+        self._sampler = None
+        # the lifecycle heat epoch: read counters live in memory, so this
+        # server can attest "quiet for <= uptime" only
+        self._started_mono = time.monotonic()
         self._scrub_cursor = 0
         self._gauge_keys: dict[str, set] = {}
         # multi-tenant QoS (qos/): tenant = the volume's collection;
@@ -520,6 +576,8 @@ class VolumeServer:
     def start(self, timeout: float = 10.0) -> None:
         """Serve the HTTP plane on a thread; returns once it accepts."""
         import socket
+
+        from ..profiling import acquire_sampler
         self._http_thread = threading.Thread(
             target=self._run_http, daemon=True, name=f"vs-http-{self.port}")
         self._http_thread.start()
@@ -538,10 +596,12 @@ class VolumeServer:
                     raise TimeoutError(f"volume server {self.url}: HTTP plane "
                                        f"not up within {timeout} s")
                 time.sleep(0.02)
+        self._sampler = acquire_sampler()
         log.info("volume server %s up on %s", self.url, self.device)
 
     def stop(self) -> None:
-        """Join the HTTP thread, shut the pools down, close the Store."""
+        """Join the HTTP thread, shut the pools down, release the sampler,
+        close the Store."""
         if self._stop.is_set():
             return
         self._stop.set()
@@ -549,6 +609,11 @@ class VolumeServer:
             self._http_thread.join(timeout=5.0)
         for pool in (self._ec_read_pool, self._read_pool, self._hop_pool):
             pool.shutdown(wait=True, cancel_futures=True)
+        self._loop_lag.close()
+        if self._sampler is not None:
+            from ..profiling import release_sampler
+            release_sampler()
+            self._sampler = None
         self.qos.close()
         self.store.close()
 
@@ -637,6 +702,8 @@ class VolumeServer:
         async def handle(request: fastweb.Request):
             kind = kinds.get(request.method, "other")
             t0 = time.perf_counter()
+            t_admit = t_done = None
+            resp = None
             status = 500
             # the server span continues the caller's trace; a GET's span
             # parents the EC shard fetches
@@ -662,6 +729,7 @@ class VolumeServer:
                         status = 503
                         sp.set_attr("qos", "shed")
                         return self._qos_shed_response(e)
+                    t_admit = time.perf_counter()
                     try:
                         if request.method in ("POST", "PUT"):
                             resp = await self._handle_write(request)
@@ -683,6 +751,7 @@ class VolumeServer:
                     except Exception as e:  # noqa: BLE001 — answer, keep serving
                         log.error("http error: %s", e)
                         resp = json_response({"error": str(e)}, status=500)
+                    t_done = time.perf_counter()
                     status = resp.status
                     if grant is not None and is_read and resp.body:
                         grant.charge(len(resp.body))
@@ -692,9 +761,18 @@ class VolumeServer:
                     sp.set_attr("status", status)
                     if status >= 500:
                         sp.set_error(f"HTTP {status}")
+                    t_end = time.perf_counter()
                     VOLUME_REQUEST_COUNTER.inc(kind, str(status))
-                    VOLUME_REQUEST_SECONDS.observe(
-                        kind, value=time.perf_counter() - t0)
+                    VOLUME_REQUEST_SECONDS.observe(kind, value=t_end - t0)
+                    # heavy hitters: bytes moved = payload in + body out
+                    self._account(
+                        kind, request, status, sp,
+                        (t0, t_admit, t_done, t_end),
+                        volume=_vid_of_path(request.path),
+                        tenant=self._qos_tenant_of_path(request.path),
+                        nbytes=len(request.body or b"") + (
+                            len(resp.body) if resp is not None and resp.body
+                            else 0))
 
         def status(request):
             return json_response({"version": "swtpu",
@@ -715,6 +793,8 @@ class VolumeServer:
 
             async def handle_frame(request: fastweb.Request):
                 t0 = time.perf_counter()
+                t_admit = t_done = None
+                resp = None
                 status = 500
                 with tracing.start_span(
                         span, component="volume",
@@ -733,6 +813,7 @@ class VolumeServer:
                             status = 503
                             sp.set_attr("qos", "shed")
                             return self._qos_shed_response(e)
+                        t_admit = time.perf_counter()
                         try:
                             resp = await handler(request, sp)
                         except KeyError as e:
@@ -745,6 +826,7 @@ class VolumeServer:
                             log.error("%s http error: %s", kind, e)
                             resp = json_response({"error": str(e)},
                                                  status=500)
+                        t_done = time.perf_counter()
                         status = resp.status
                         if grant is not None and is_read and resp.body:
                             grant.charge(len(resp.body))
@@ -754,10 +836,32 @@ class VolumeServer:
                         sp.set_attr("status", status)
                         if status >= 500:
                             sp.set_error(f"HTTP {status}")
+                        t_end = time.perf_counter()
                         VOLUME_REQUEST_COUNTER.inc(kind, str(status))
-                        VOLUME_REQUEST_SECONDS.observe(
-                            kind, value=time.perf_counter() - t0)
+                        VOLUME_REQUEST_SECONDS.observe(kind,
+                                                       value=t_end - t0)
+                        # a /bulk frame moves its body in, /bulk-read its
+                        # response frame out
+                        if is_read:
+                            nbytes = len(resp.body or b"") if resp else 0
+                        else:
+                            nbytes = len(request.body or b"")
+                        self._account(
+                            kind, request, status, sp,
+                            (t0, t_admit, t_done, t_end),
+                            volume=request.query.get("vid") or None,
+                            tenant=self._qos_tenant_of_query(request.query),
+                            nbytes=nbytes)
             return handle_frame
+
+        def guarded_write(request):
+            """401 response when the guard refuses write admission (the
+            mutating debug forms), else None."""
+            if self.guard is None:
+                return None
+            ok, why = self.guard.check_write(request.remote or "",
+                                             request.query, request.headers)
+            return None if ok else json_response({"error": why}, status=401)
 
         def debug_qos(request):
             """GET dumps the scheduler's live state; POST with a JSON
@@ -765,13 +869,10 @@ class VolumeServer:
             attached policy file. On a guarded server the mutating forms
             need write admission: a throttled tenant must not be able to
             switch its own throttle off."""
-            if (request.method == "POST" or request.query.get("reload")) \
-                    and self.guard is not None:
-                ok, why = self.guard.check_write(request.remote or "",
-                                                 request.query,
-                                                 request.headers)
-                if not ok:
-                    return json_response({"error": why}, status=401)
+            if request.method == "POST" or request.query.get("reload"):
+                refused = guarded_write(request)
+                if refused is not None:
+                    return refused
             if request.method == "POST":
                 try:
                     self.qos.load(json.loads(request.body or b"{}"))
@@ -783,18 +884,242 @@ class VolumeServer:
                 self.qos._reload_file(initial=True)
             return json_response(self.qos.debug_payload())
 
+        def debug_lifecycle(request):
+            """GET: this server's per-volume heat and tier state (the
+            lifecycle planner's input). POST {"volume": N, "destroy_time":
+            T} stamps a DestroyTime onto a local EC volume's .vif; guarded
+            like /debug/qos: a tenant must not schedule its own data's
+            reaping."""
+            if request.method != "POST":
+                return json_response(self._lifecycle_payload())
+            refused = guarded_write(request)
+            if refused is not None:
+                return refused
+            try:
+                doc = json.loads(request.body or b"{}")
+                vid = int(doc["volume"])
+                at = float(doc["destroy_time"])
+            except (KeyError, TypeError, ValueError) as e:
+                return json_response({"error": str(e)}, status=400)
+            if not self._set_destroy_time(vid, at):
+                return json_response({"error": f"no ec volume {vid}"},
+                                     status=404)
+            return json_response({"ok": True, "volume": vid,
+                                  "destroy_time": at})
+
+        def operator_gate(request):
+            """The gate of the operator routes: GET only, and the guard's
+            IP white list (stacks and flight entries leak fids, paths and
+            peer addresses). An error response, or None."""
+            if request.method != "GET":
+                return json_response({"error": "method not allowed"},
+                                     status=405)
+            if self.guard is not None:
+                ok, why = self.guard.check_ip(request.remote or "")
+                if not ok:
+                    return json_response({"error": why}, status=401)
+            return None
+
+        async def debug_profile(request):
+            from .. import profiling
+            denied = operator_gate(request)
+            if denied is not None:
+                return denied
+            # the shared contract (profiling.handle_profile_query), off the
+            # loop: a capture blocks for `seconds`
+            code, ctype, body = await self._off_loop(
+                None, profiling.handle_profile_query, request.query)
+            return fastweb.Response(body.encode(), status=code,
+                                    content_type=ctype)
+
+        def debug_flight(request):
+            from .. import profiling
+            denied = operator_gate(request)
+            if denied is not None:
+                return denied
+            code, payload = profiling.debug_flight_payload(request.query)
+            return json_response(payload, status=code)
+
+        def debug_jax_profiler(request):
+            """The reference's device-profiler trigger, kept at its path
+            for operators' scripts: starts one torch.profiler capture
+            (utils/profiling.start_device_trace) and answers where its
+            Chrome trace will be written; `stop=1` ends the capture and
+            answers where it was written. On a server whose coder runs on
+            the card the capture must hold the card's activity: without
+            it the route answers 500 rather than a trace that lacks the
+            kernels. Starting while a capture runs answers its path."""
+            from ..utils import profiling
+            try:
+                if request.query.get("stop"):
+                    return fastweb.text_response(
+                        f"device trace written to "
+                        f"{profiling.stop_device_trace()}\n")
+                running = profiling.device_trace_path()
+                if running is not None:
+                    return fastweb.text_response(
+                        f"device trace already capturing to {running}\n")
+                path = profiling.start_device_trace(
+                    cuda=self.device == "cuda")
+            except RuntimeError as e:
+                code = 400 if request.query.get("stop") else 500
+                return fastweb.text_response(f"{e}\n", status=code)
+            return fastweb.text_response(
+                f"device trace capturing to {path} (stop with ?stop=1)\n")
+
+        def debug_failpoints(request):
+            """GET: the armed failpoints; ?name=X&spec=Y arms or updates one
+            at runtime (spec "off" disarms). A bare ?name=X is a read."""
+            name = request.query.get("name")
+            spec = request.query.get("spec")
+            if name and spec is not None:
+                try:
+                    failpoints.configure(name, spec)
+                except ValueError as e:
+                    return fastweb.text_response(f"bad spec: {e}",
+                                                 status=400)
+            return json_response({"armed": failpoints.active(),
+                                  "fired": failpoints.fired_counts()})
+
+        def debug_traces(request):
+            return json_response(tracing.debug_traces_payload(request.query))
+
+        def debug_events(request):
+            return json_response(events.debug_events_payload(request.query))
+
+        def debug_locks(request):
+            from ..utils import locktrack
+            return json_response(locktrack.debug_locks_payload(request.query))
+
+        def status_ui(request):
+            """The human status page (reference weed/server/volume_server_ui)."""
+            from ..utils.ui import render_page
+            st = self.store.status()
+            rows, ec_rows = [], []
+            for loc in self.store.locations:
+                with loc.lock:  # allocate and mount mutate these dicts
+                    vols = sorted(loc.volumes.items())
+                    ecs = sorted(loc.ec_volumes.items())
+                for vid, v in vols:
+                    rows.append([vid, v.collection or "-", loc.disk_type,
+                                 f"{v.content_size >> 20} MB",
+                                 v.file_count, v.deleted_count,
+                                 "ro" if v.read_only else "rw"])
+                for vid, ev in ecs:
+                    ec_rows.append([vid, ev.collection or "-",
+                                    sorted(ev.shards)])
+            page = render_page(
+                f"swtpu volume server {self.url}",
+                {"Master": ", ".join(self.masters),
+                 "Volumes": st["volumes"], "EC volumes": len(ec_rows),
+                 "Rack": self.rack or "-",
+                 "Data center": self.data_center or "-"},
+                [("Volumes", ["id", "collection", "disk", "size", "files",
+                              "deleted", "mode"], rows),
+                 ("EC volumes", ["id", "collection", "shards"], ec_rows)])
+            return fastweb.html_response(page)
+
         app = fastweb.FastApp()
         app.route("/status", status)
+        app.route("/ui", status_ui)
         app.route("/bulk", framed("bulk", "bulk.put", self._handle_bulk,
                                   qos.CLASS_INGEST))
         app.route("/bulk-read", framed("bulk-read", "bulk.read",
                                        self._handle_bulk_read,
                                        qos.CLASS_INTERACTIVE))
         app.route("/metrics", metrics)
+        # pprof-style triggers (reference -debug.port net/http/pprof)
+        app.route("/debug/profile", debug_profile)
+        app.route("/debug/flight", debug_flight)
+        app.route("/debug/jax-profiler", debug_jax_profiler)
+        app.route("/debug/failpoints", debug_failpoints)
+        app.route("/debug/traces", debug_traces)
+        app.route("/debug/events", debug_events)
+        app.route("/debug/locks", debug_locks)
         app.route("/debug/qos", debug_qos)
+        app.route("/debug/lifecycle", debug_lifecycle)
         app.default(handle)
         fastweb.serve_fast_app(app, self.ip, self.port, self._stop,
-                               client_max_size=256 << 20, logger=log)
+                               client_max_size=256 << 20, logger=log,
+                               on_loop=self._loop_lag.attach)
+
+    # -- per-request accounting and the lifecycle report ------------------------
+    def _account(self, kind: str, request, status: int, sp, times,
+                 volume, tenant: str, nbytes: int) -> None:
+        """After a response: its stages into VOLUME_STAGE_SECONDS, the
+        flight recorder's offer with the at-admit context a postmortem
+        needs to tell "this request was slow" from "the node was
+        drowning" (loop lag, pool queue depths; below the threshold two
+        float compares), and the hot-key sketches. `times` is (t0,
+        t_admit, t_done, t_end) of the handler."""
+        from ..profiling import record_flight
+        t0, t_admit, t_done, t_end = times
+        stages = _observe_stages(kind, request.t_recv, request.t_parsed, t0,
+                                 t_admit, t_done, t_end)
+        record_flight(
+            f"volume.{kind}", t_end - (request.t_recv or t0), status=status,
+            path=request.path, stages=stages,
+            qos_class=str(sp.attrs.get("qos_class", "")),
+            cache=sp.attrs.get("cache"),
+            loop_lag_s=self._loop_lag.last_lag_s,
+            queue_depths={"read": self._read_pool.queued(),
+                          "ec_read": self._ec_read_pool.queued()},
+            node=self.url)
+        hot_record(volume=volume, tenant=tenant, method=kind, nbytes=nbytes)
+
+    def _lifecycle_payload(self) -> dict:
+        """The lifecycle planner's per-server input (/debug/lifecycle):
+        heat as ages, never absolute clocks, so the planner compares
+        across processes."""
+        access = self.store.access_snapshot()
+        now_wall = time.time()  # swtpu-lint: disable=wallclock-duration (needle timestamps are persisted wall-clock)
+        vols: dict = {}
+        ecs: dict = {}
+        for loc in self.store.locations:
+            for vid, v in list(loc.volumes.items()):
+                a = access.get(vid, {})
+                if v.last_append_at_ns:
+                    write_age = max(0.0,
+                                    now_wall - v.last_append_at_ns / 1e9)
+                else:  # loaded sealed: the .dat's mtime is the last write
+                    try:
+                        write_age = max(0.0, now_wall - os.path.getmtime(
+                            v.dat_path))
+                    except OSError:
+                        write_age = None
+                vols[str(vid)] = {
+                    "collection": v.collection,
+                    "size": v.content_size,
+                    "read_only": v.read_only,
+                    "tiered": v.remote_spec is not None,
+                    "last_write_age_s": (round(write_age, 3)
+                                         if write_age is not None else None),
+                    "reads": a.get("reads", 0),
+                    "last_read_age_s": a.get("last_read_age_s"),
+                }
+            for vid, ev in list(loc.ec_volumes.items()):
+                a = access.get(vid, {})
+                # the .vif's last-read stamp carries the quiet period across
+                # restarts; the store's counter can only shorten it
+                ages = [ev.read_age_s()]
+                if a.get("last_read_age_s") is not None:
+                    ages.append(a["last_read_age_s"])
+                remote = ev.remote_shard_ids()
+                ecs[str(vid)] = {
+                    "collection": ev.collection,
+                    "local_shards": sorted(set(ev.shards) - set(remote)),
+                    "remote_shards": remote,
+                    "remote_spec": (ev.remote_spec or {}).get("spec", ""),
+                    "remote_reads": ev.remote_reads(),
+                    "reads": ev.reads,
+                    "last_read_age_s": round(min(ages), 3),
+                    "destroy_time": ev.destroy_time,
+                    "shard_size": ev.shard_size,
+                    "dat_size": ev.dat_size,
+                }
+        return {"server": self.url,
+                "uptime_s": round(time.monotonic() - self._started_mono, 3),
+                "volumes": vols, "ec_volumes": ecs}
 
     # -- QoS admission (qos/) ---------------------------------------------------
     async def _qos_admit(self, request, sp, klass: str, cost: int = 0,
@@ -1354,17 +1679,36 @@ class VolumeServer:
             return json_response({"error": str(e)}, status=503)
         body = n.data
         headers = {}
-        if n.name:
-            headers["Content-Disposition"] = \
-                f'inline; filename="{n.name.decode(errors="replace")}"'
+        name = n.name.decode(errors="replace") if n.name else ""
+        if name:
+            headers["Content-Disposition"] = f'inline; filename="{name}"'
+        # an image needle asked for with width/height is resized on the
+        # host (reference conditionallyResizeImages,
+        # volume_server_handlers_read.go:321): the resize needs the
+        # identity bytes and turns Range off
+        ext = os.path.splitext(name)[1].lower()
+        w = h = 0
+        mode, do_resize = "", False
+        if ext:
+            from ..images import should_resize
+            w, h, mode, do_resize = should_resize(ext, request.query)
         # Range works on the identity bytes: a ranged read of a gzip
         # needle, or one whose client does not take gzip, is decompressed
-        rng_spec = _parse_range(request.headers.get("Range"))
+        rng_spec = None if do_resize else _parse_range(
+            request.headers.get("Range"))
         gzip_ok = "gzip" in (request.headers.get("Accept-Encoding") or "")
-        if n.is_gzipped and (rng_spec is not None or not gzip_ok):
+        if n.is_gzipped and (do_resize or rng_spec is not None
+                             or not gzip_ok):
             body = gzip.decompress(body)
         elif n.is_gzipped:
             headers["Content-Encoding"] = "gzip"
+        if do_resize:
+            from ..images import fix_jpeg_orientation, resized
+            if ext in (".jpg", ".jpeg"):
+                # the EXIF rotation is baked in only when re-encoding
+                # anyway: a plain read serves the stored bytes untouched
+                body = fix_jpeg_orientation(body)
+            body = resized(ext, body, w, h, mode)
         status = 200
         if rng_spec is not None:
             window = _resolve_range(rng_spec, len(body))

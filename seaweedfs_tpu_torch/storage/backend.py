@@ -12,9 +12,8 @@ the volume stays readable through ranged reads).
   for reads — needs only HTTP. `requests` is imported inside its methods, so
   this module imports on a host that does not have it.
 
-The `azure:` and `gcs-json:` kinds (native Blob REST and GCS JSON clients of
-the JAX package's remote/) are not ported: `open_remote` raises for them and
-never serves another kind in their place.
+- `azure:` and `gcs-json:`: the native Blob REST (SharedKey) and GCS
+  JSON-API clients of remote/, over client/http_util.
 
 `RemoteDatFile` adapts a remote object to the seek/read file interface
 Volume uses for its `.dat`, with an LRU block cache so point reads of
@@ -253,11 +252,6 @@ def bucket_spec(remote: str, bucket: str) -> str:
     return f"{kind}:{url.rstrip('/')}/{bucket}" + (q + cred if q else "")
 
 
-# remote kinds whose clients live in the JAX package's remote/ and are not
-# ported (they need its HTTP utilities and replication sinks)
-UNPORTED_KINDS = ("azure", "gcs-json")
-
-
 def open_remote(spec: str) -> RemoteStorageClient:
     """spec: 'local:/dir' or 's3:http://host:port/bucket[?ak:sk]'
     (reference configures backends via master.toml [storage.backend])."""
@@ -280,11 +274,16 @@ def open_remote(spec: str) -> RemoteStorageClient:
             base, _, bucket = url.rpartition("/")
         ak, _, sk = cred.partition(":")
         return S3Remote(base, bucket, ak, sk)
-    if kind in UNPORTED_KINDS:
-        raise NotImplementedError(
-            f"remote tier kind {kind!r} is not yet ported to "
-            f"seaweedfs_tpu_torch (ROADMAP.md Queue 1, services on top); "
-            f"refusing {spec!r}")
+    if kind == "azure":
+        # native Blob REST + SharedKey (not the s3-compat path):
+        # 'azure:https://{acct}.blob.core.windows.net/container?acct:key'
+        from ..remote.azure import parse_azure_spec
+        return parse_azure_spec(arg)
+    if kind == "gcs-json":
+        # native GCS JSON API with a bearer token (HMAC users can keep
+        # the s3-compat 'gcs:' spec above)
+        from ..remote.gcs import parse_gcs_spec
+        return parse_gcs_spec(arg)
     raise ValueError(f"unknown remote backend {spec!r}")
 
 

@@ -8,8 +8,10 @@ status server to wire in:
   and return hottest lines/stacks (pprof's /debug/pprof/profile analogue).
 * `start_device_trace()` — the counterpart of the reference's
   `start_jax_profiler`: one torch.profiler capture (CPU activity, and the
-  card's kernels and copies through CUPTI where CUDA is present); returns
-  where the Chrome trace is written when `stop_device_trace()` ends it.
+  card's kernels and copies through CUPTI where CUDA is present, or
+  required with `cuda=True`); returns where the Chrome trace is written
+  when `stop_device_trace()` ends it. The volume server's
+  `/debug/jax-profiler` route drives the pair.
 """
 
 from __future__ import annotations
@@ -74,18 +76,26 @@ def cpu_profile(seconds: float = 5.0, top: int = 60,
         _lock.release()
 
 
-def start_device_trace(out_dir: "str | None" = None) -> str:
+def start_device_trace(out_dir: "str | None" = None,
+                       cuda: bool = False) -> str:
     """Start one torch.profiler capture (CPU activity, and the card's
     kernels and copies where CUDA is present) in the calling thread and
     return the path of the Chrome trace that stop_device_trace writes.
-    A second start while one capture runs raises: the profiler is one per
-    process."""
+    With `cuda`, a capture that cannot hold the card's activity (no card,
+    or a profiler without CUDA activity) raises instead of starting one
+    that would lack the kernels. A second start while one capture runs
+    raises: the profiler is one per process."""
     global _trace
     import torch
 
     activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    cuda_activity = torch.profiler.ProfilerActivity.CUDA
+    if torch.cuda.is_available() and \
+            cuda_activity in torch.profiler.supported_activities():
+        activities.append(cuda_activity)
+    elif cuda:
+        raise RuntimeError("a device trace of the card was asked for, but "
+                           "the profiler cannot capture CUDA activity here")
     path = os.path.join(out_dir or tempfile.gettempdir(),
                         f"device_trace_{os.getpid()}_{time.time_ns()}.json")
     with _trace_lock:
@@ -95,6 +105,12 @@ def start_device_trace(out_dir: "str | None" = None) -> str:
         prof.start()
         _trace = (prof, path)
     return path
+
+
+def device_trace_path() -> "str | None":
+    """Where the running capture will write its trace; None when idle."""
+    with _trace_lock:
+        return _trace[1] if _trace is not None else None
 
 
 def stop_device_trace() -> str:

@@ -218,8 +218,9 @@ def test_destroy_matches_reference(tmp_path, trash):
 
 
 def test_remote_tier_vif_raises(tmp_path):
-    """Offloaded shards open on a ported remote kind and raise on one that
-    is not ported (no other kind serves in its place)."""
+    """Offloaded shards open on the remote kind their .vif names (an
+    `azure:` tier through the port's Blob client, no request made at open)
+    and raise on a kind no client serves (no other kind in its place)."""
     base, _ = _encoded(tmp_path)
     files.update_vif(base + ".vif", {"remote_shards": {
         "spec": f"local:{tmp_path / 'tier'}", "keys": {"3": "k3"},
@@ -228,8 +229,17 @@ def test_remote_tier_vif_raises(tmp_path):
     ev = ec_volume.EcVolume(base, 7)
     assert ev.remote_shard_ids() == [3] and ev.shards[3].size == 10
     files.update_vif(base + ".vif", {"remote_shards": {
-        "spec": "azure:https://a.example/c?k:s", "keys": {"3": "k3"}}})
-    with pytest.raises(NotImplementedError, match="remote tier kind 'azure'"):
+        "spec": "azure:http://127.0.0.1:9/c?acct:a2V5", "keys": {"3": "k3"},
+        "sizes": {"3": 10}}})
+    ev = ec_volume.EcVolume(base, 7)
+    client = ev.shards[3]._f.client
+    assert (type(client).__name__, client.endpoint, client.container,
+            client.account) == ("AzureBlobClient", "http://127.0.0.1:9", "c",
+                                "acct")
+    ev.close()
+    files.update_vif(base + ".vif", {"remote_shards": {
+        "spec": "ftp:whatever", "keys": {"3": "k3"}}})
+    with pytest.raises(ValueError, match="unknown remote backend"):
         ec_volume.EcVolume(base, 7)
 
 

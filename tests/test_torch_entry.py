@@ -59,6 +59,14 @@ print("MAINT", all(f"seaweedfs_tpu_torch.{m}" in sys.modules
                    for m in ("qos", "qos.policy", "qos.scheduler", "query",
                              "query.json_query", "query.csv_query",
                              "utils.config")))
+print("REST", all(f"seaweedfs_tpu_torch.{m}" in sys.modules
+                  for m in ("profiling", "profiling.flight", "profiling.lag",
+                            "profiling.sampler", "telemetry",
+                            "telemetry.topk", "telemetry.hot",
+                            "utils.locktrack", "utils.ui", "images",
+                            "images.resize", "remote", "remote.azure",
+                            "remote.gcs", "utils.mini_azure",
+                            "utils.mini_gcs", "storage.ref_format")))
 print("CODERS", sorted(n for n in ("mesh", "native") if coder._resolve(n)))
 print("BAD", bad)
 """
@@ -72,6 +80,7 @@ def test_import_hygiene_no_jax_no_reference_package():
     assert "TIER True" in out.stdout, out.stdout
     assert "MESH True" in out.stdout, out.stdout
     assert "MAINT True" in out.stdout, out.stdout
+    assert "REST True" in out.stdout, out.stdout
     assert "CODERS ['mesh', 'native']" in out.stdout, out.stdout
     assert int(out.stdout.split("LOADED ")[1].split()[0]) >= 15
 
@@ -166,3 +175,51 @@ def test_volume_verb_refuses_without_a_card(tmp_path, flags, refused):
         capture_output=True, text=True, timeout=120, cwd=str(_repo_root()))
     assert out.returncode != 0
     assert refused in out.stderr, out.stderr
+
+
+def test_volume_verb_takes_the_index_flag(tmp_path):
+    """`python -m seaweedfs_tpu_torch volume -index sorted_file` hands the
+    needle-map kind to its DiskLocation, as the reference's -index does: a
+    volume written beforehand loads through a sorted-file map (its .sdx
+    sidecar appears) and serves its needles."""
+    import os
+    import time
+
+    import requests
+
+    from conftest import free_port_pair
+    from seaweedfs_tpu_torch.storage.disk_location import DiskLocation
+    from seaweedfs_tpu_torch.storage.needle import Needle
+    from seaweedfs_tpu_torch.storage.store import Store
+    from seaweedfs_tpu_torch.storage.types import file_id
+    store = Store("127.0.0.1", 0, "", [DiskLocation(str(tmp_path))],
+                  coder_name="torch", device="cpu")
+    store.add_volume(6)
+    body = b"read through a sorted-file needle map" * 30
+    store.find_volume(6).write_needle(Needle(id=9, cookie=0xC0DE, data=body))
+    store.close()
+    assert not os.path.exists(tmp_path / "6.sdx")
+    port = free_port_pair()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "seaweedfs_tpu_torch", "volume", "-dir",
+         str(tmp_path), "-port", str(port), "-mserver",
+         f"127.0.0.1:{free_port_pair()}", "-device", "cpu",
+         "-index", "sorted_file"],
+        cwd=str(_repo_root()), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT)
+    try:
+        deadline = time.monotonic() + 60
+        while True:
+            assert proc.poll() is None, proc.stdout.read().decode()
+            try:
+                r = requests.get(f"http://127.0.0.1:{port}/"
+                                 f"{file_id(6, 9, 0xC0DE)}", timeout=5)
+                break
+            except requests.ConnectionError:
+                assert time.monotonic() < deadline
+                time.sleep(0.1)
+        assert (r.status_code, r.content) == (200, body)
+        assert os.path.getsize(tmp_path / "6.sdx") > 0
+    finally:
+        proc.terminate()
+        proc.wait(timeout=15)

@@ -284,12 +284,19 @@ def test_closed_volume_and_read_only(tmp_path):
 
 
 def test_tiered_volume_not_yet_ported(tmp_path):
-    """A tiered volume on a remote kind that is not ported raises at open;
-    with its .dat kept local it opens read-only without touching the tier."""
-    (tmp_path / "9.vif").write_text(
-        '{"remote": {"spec": "gcs-json:https://g.example/b", "key": "9.dat"}}')
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        volume.Volume(str(tmp_path), "", 9)
+    """A tiered volume whose `gcs-json:` tier lacks its object raises at
+    open (the port's GCS client against its stand-in on localhost); with its
+    .dat kept local it opens read-only without touching the tier."""
+    from seaweedfs_tpu_torch.utils.mini_gcs import MiniGcs
+    gcs = MiniGcs().start()
+    try:
+        (tmp_path / "9.vif").write_text(
+            '{"remote": {"spec": "gcs-json:%s/b?dev-token", "key": "9.dat"}}'
+            % gcs.endpoint)
+        with pytest.raises(OSError, match="gcs stat 9.dat: HTTP 404"):
+            volume.Volume(str(tmp_path), "", 9)
+    finally:
+        gcs.stop()
     (tmp_path / "9.dat").write_bytes(super_block.SuperBlock().to_bytes())
     v = volume.Volume(str(tmp_path), "", 9)
     assert v.read_only and v.remote_spec["key"] == "9.dat"

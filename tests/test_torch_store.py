@@ -434,7 +434,7 @@ def test_volume_lifecycle(pair, tmp_path):
 
 def test_disk_location_skips_tiered_volumes(tmp_path, caplog):
     """A tiered volume the port can open is loaded; one on a remote kind
-    that is not ported is logged and skipped, and the scan goes on."""
+    that no client serves is logged and skipped, and the scan goes on."""
     d = tmp_path / "loc"
     d.mkdir()
     (tmp_path / "tier").mkdir()
@@ -443,13 +443,13 @@ def test_disk_location_skips_tiered_volumes(tmp_path, caplog):
     files.write_vif(str(d / "8.vif"), remote={
         "spec": f"local:{tmp_path / 'tier'}", "key": "8.dat"})
     files.write_vif(str(d / "9.vif"), remote={
-        "spec": "azure:https://a.example/c?k:s", "key": "9.dat"})
+        "spec": "ftp:whatever", "key": "9.dat"})
     loc = DiskLocation(str(d))
     loc.load_existing()
     assert sorted(loc.volumes) == [8] and loc.ec_volumes == {}
     assert loc.volumes[8].remote_spec["key"] == "8.dat" and loc.volumes[8].read_only
     assert "load tiered volume 9.vif" in caplog.text
-    assert "not yet ported" in caplog.text
+    assert "unknown remote backend" in caplog.text
     loc.volumes[8].close()
 
 

@@ -128,8 +128,22 @@ def test_open_remote_and_bucket_spec_match_reference(tmp_path, spec):
 
 @pytest.mark.parametrize("kind", ["azure", "gcs-json"])
 def test_unported_remote_kinds_raise(kind):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        backend.open_remote(f"{kind}:https://acct.example/container?k:s")
+    """The `azure:` and `gcs-json:` kinds open the port's native clients
+    with the reference's fields (no request is made at construction), and
+    a spec without an endpoint URL or credentials raises like the
+    reference's."""
+    spec = f"{kind}:https://acct.example/container?acct:a2V5"
+    got, want = backend.open_remote(spec), ref_backend.open_remote(spec)
+    fields = (("endpoint", "container", "account", "key_b64")
+              if kind == "azure" else ("endpoint", "bucket", "token"))
+    assert type(got).__name__ == type(want).__name__ and got.name == want.name
+    assert [getattr(got, f) for f in fields] == \
+        [getattr(want, f) for f in fields]
+    for bad in (f"{kind}:acct.example/container?acct:a2V5",
+                f"{kind}:https://acct.example/container"):
+        for mod in (backend, ref_backend):
+            with pytest.raises(ValueError):
+                mod.open_remote(bad)
 
 
 def test_unknown_remote_kind_raises_like_reference():
@@ -365,7 +379,15 @@ def test_scrub_skips_tiered_volume_without_a_read(tiered, monkeypatch, device):
 
 
 def test_unported_remote_kind_volume_raises(tmp_path):
-    files.write_vif(str(tmp_path / f"{VID}.vif"),
-                    remote={"spec": "azure:https://a.example/c?k:s", "key": "x"})
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        volume.Volume(str(tmp_path), "", VID)
+    """A volume tiered to an `azure:` container that lacks its blob raises
+    at open, through the port's client and its stand-in on localhost."""
+    from seaweedfs_tpu_torch.utils.mini_azure import MiniAzure
+    az = MiniAzure().start()
+    try:
+        files.write_vif(str(tmp_path / f"{VID}.vif"), remote={
+            "spec": f"azure:{az.endpoint}/c?{az.account}:{az.key_b64}",
+            "key": "x"})
+        with pytest.raises(OSError, match="azure HEAD x: HTTP 404"):
+            volume.Volume(str(tmp_path), "", VID)
+    finally:
+        az.stop()

@@ -11,6 +11,7 @@ shards. The port's Stores run with device="cpu"."""
 
 import gzip
 import hashlib
+import json
 import os
 import shutil
 
@@ -1360,3 +1361,243 @@ def test_maintenance_round_trip_of_chip_smoke_on_cpu(tmp_path):
     assert res["copy"] > 0 and res["tail"] > 0 and res["scrub"] > 0
     assert res["reconstructs"] > 0 and res["gets_during_rebuild"]
     assert res["qos"]["maint_waits"] > 0 and res["qos"]["maint_wait_s"] > 0
+
+
+# -- the profiling plane, the debug routes and the status UI -----------------
+
+def _route(url, path, method="GET", **kw):
+    r = requests.request(method, f"http://{url}{path}", timeout=30, **kw)
+    ctype = r.headers.get("Content-Type", "")
+    body = r.json() if ctype.startswith("application/json") else r.text
+    return r.status_code, body
+
+
+def _keys(body):
+    return sorted(body) if isinstance(body, dict) else type(body).__name__
+
+
+_DEBUG_REQUESTS = [
+    ("GET", "/debug/profile?mode=summary"),
+    ("GET", "/debug/profile?mode=continuous"),
+    ("GET", "/debug/profile?hz=abc"), ("GET", "/debug/profile?hz=-1"),
+    ("GET", "/debug/profile?mode=bogus"),
+    ("GET", "/debug/profile?seconds=nan"),
+    ("GET", "/debug/profile?mode=summary&top=x"),
+    ("POST", "/debug/profile?mode=summary"),
+    ("GET", "/debug/flight"), ("GET", "/debug/flight?min_ms=abc"),
+    ("GET", "/debug/flight?limit=3&type=volume.get"),
+    ("DELETE", "/debug/flight"),
+    ("GET", "/debug/traces"), ("GET", "/debug/traces?limit=2"),
+    ("GET", "/debug/events"), ("GET", "/debug/events?type=ec."),
+    ("GET", "/debug/locks"), ("GET", "/debug/locks?edges=1"),
+    ("GET", "/debug/failpoints"),
+    ("GET", "/debug/failpoints?name=ec.shard.read"),
+    ("GET", "/debug/failpoints?name=ec.shard.read&spec=bogus"),
+    ("GET", "/debug/lifecycle"), ("GET", "/debug/qos"),
+    ("GET", "/ui"), ("GET", "/status"),
+]
+
+
+def test_debug_routes_answer_like_reference(tmp_path):
+    """Every debug route the reference registers, and /ui, on twin servers
+    after the same reads: the same status codes and the same payload keys
+    (the values are each process's own)."""
+    uploads = _needles(12, seed=71)
+    vs, ref = _twins(tmp_path, uploads)
+    try:
+        _gets_equal((vs.url, ref.url), uploads)
+        for method, path in _DEBUG_REQUESTS:
+            (code, body), (ref_code, ref_body) = (
+                _route(u, path, method) for u in (vs.url, ref.url))
+            assert code == ref_code, (method, path, body, ref_body)
+            if isinstance(body, dict) and path != "/status":
+                assert _keys(body) == _keys(ref_body), (method, path)
+        # the per-volume heat report: the same keys and counts
+        (_, life), (_, ref_life) = (_route(u, "/debug/lifecycle")
+                                    for u in (vs.url, ref.url))
+        mine, theirs = life["volumes"][str(VID)], ref_life["volumes"][str(VID)]
+        assert sorted(mine) == sorted(theirs)
+        for k in ("collection", "size", "read_only", "tiered", "reads"):
+            assert mine[k] == theirs[k], k
+        assert mine["reads"] > 0
+        # the sampler's summary carries the port's ec_read class beside
+        # the reference's
+        _, summary = _route(vs.url, "/debug/profile?mode=summary")
+        assert set(summary) == {"hz", "ticks", "samples", "classes",
+                                "stacks"}
+    finally:
+        vs.stop()
+        ref.stop()
+
+
+def _ui_tables(html):
+    import re
+    rows = re.findall(r"<tr>(.*?)</tr>", html)
+    return [re.findall(r"<t[dh]>(.*?)</t[dh]>", r) for r in rows]
+
+
+def test_ui_rows_equal_reference(tmp_path):
+    uploads = _needles(20, seed=72)
+    vs, ref = _twins(tmp_path, uploads)
+    try:
+        (code, page), (ref_code, ref_page) = (_route(u, "/ui")
+                                              for u in (vs.url, ref.url))
+        assert code == ref_code == 200
+        got, want = _ui_tables(page), _ui_tables(ref_page)
+        # the facts differ only in the master each server names
+        facts = [r for r in got if r and r[0] == "Master"]
+        assert facts == [["Master", ""]]
+        assert [r for r in got if r[0] != "Master"] == \
+            [r for r in want if r[0] != "Master"]
+        assert [str(VID), "-", "hdd"] == got[[r[0] for r in got].index(
+            str(VID))][:3]
+    finally:
+        vs.stop()
+        ref.stop()
+
+
+def test_lifecycle_post_and_guard_like_reference(tmp_path):
+    """POST /debug/lifecycle: 400 on a malformed body, 404 for a volume that
+    is not EC here, 200 stamping the .vif on an EC volume; on a guarded
+    server an unauthorised POST gets 401, as on the JAX server."""
+    import time as _time
+
+    from seaweedfs_tpu.security import Guard as RefGuard
+    from seaweedfs_tpu_torch.security import Guard
+    uploads = _needles(6, seed=73)
+    vs, ref = _twins(tmp_path, uploads)
+    try:
+        for body in (b"not json", b'{"volume": "x"}', b'{"volume": 9}'):
+            (code, _), (ref_code, _) = (
+                _route(u, "/debug/lifecycle", "POST", data=body)
+                for u in (vs.url, ref.url))
+            assert code == ref_code and code == 400, body
+        doc = json.dumps({"volume": 77, "destroy_time": 1e10}).encode()
+        assert [_route(u, "/debug/lifecycle", "POST", data=doc)[0]
+                for u in (vs.url, ref.url)] == [404, 404]
+        vs.volume_mark_readonly(VID)
+        vs.volume_ec_shards_generate(VID)
+        vs.volume_ec_shards_mount(VID)
+        at = _time.time() + 10 * 365 * 86400
+        doc = json.dumps({"volume": VID, "destroy_time": at}).encode()
+        code, body = _route(vs.url, "/debug/lifecycle", "POST", data=doc)
+        assert (code, body) == (200, {"ok": True, "volume": VID,
+                                      "destroy_time": at})
+        _, life = _route(vs.url, "/debug/lifecycle")
+        assert life["ec_volumes"][str(VID)]["destroy_time"] == at
+        assert vs.store.find_ec_volume(VID).destroy_time == at
+    finally:
+        vs.stop()
+        ref.stop()
+    guarded = _port(tmp_path / "guarded", guard=Guard(signing_key="k"))
+    ref_store = RefStore("127.0.0.1", 0, "", [RefLocation(
+        str(tmp_path / "ref_guarded"))], coder_name="numpy")
+    port = free_port_pair()
+    ref_guarded = RefServer(ref_store, f"127.0.0.1:{free_port_pair()}",
+                            port=port, grpc_port=port + 10000,
+                            guard=RefGuard(signing_key="k"))
+    ref_guarded.start()
+    try:
+        doc = json.dumps({"volume": 1, "destroy_time": 1.0}).encode()
+        for path in ("/debug/lifecycle", "/debug/qos"):
+            got = [_route(u, path, "POST", data=doc)[0]
+                   for u in (guarded.url, f"127.0.0.1:{port}")]
+            assert got == [401, 401], path
+        assert _route(guarded.url, "/debug/lifecycle")[0] == 200
+    finally:
+        guarded.stop()
+        ref_guarded.stop()
+
+
+def test_failpoints_route_arms_and_disarms_like_reference(tmp_path):
+    from seaweedfs_tpu.utils import failpoints as ref_failpoints
+    from seaweedfs_tpu_torch.utils import failpoints
+    uploads = _needles(4, seed=74)
+    vs, ref = _twins(tmp_path, uploads)
+    try:
+        for u in (vs.url, ref.url):
+            code, body = _route(
+                u, "/debug/failpoints?name=ec.shard.read&spec=times:1:error")
+            assert code == 200 and "ec.shard.read" in body["armed"]
+        assert failpoints.active() and ref_failpoints.active()
+        for u in (vs.url, ref.url):
+            code, body = _route(u, "/debug/failpoints?name=ec.shard.read"
+                                   "&spec=off")
+            assert code == 200 and "ec.shard.read" not in body["armed"]
+    finally:
+        failpoints.clear_all()
+        ref_failpoints.clear_all()
+        vs.stop()
+        ref.stop()
+
+
+def test_requests_feed_stages_flight_and_hot_keys(tmp_path, monkeypatch):
+    """Each request lands in VOLUME_STAGE_SECONDS by stage, the slow and
+    failed ones in the flight recorder with the queue depths at admit, and
+    every one in the hot-key sketches behind SeaweedFS_hot_requests."""
+    from seaweedfs_tpu_torch import profiling
+    from seaweedfs_tpu_torch.stats import VOLUME_STAGE_SECONDS
+    from seaweedfs_tpu_torch.telemetry import hot
+    fr = profiling.FlightRecorder(capacity=64, slow_ms=0.0)
+    monkeypatch.setattr(profiling.flight, "FLIGHT", fr)
+    hot.HOT.clear()
+    vs = _port(tmp_path / "p")
+    try:
+        vs.allocate_volume(VID)
+        uploads = _needles(5, seed=75)
+        for fid, data, headers, query in uploads:
+            requests.post(f"http://{vs.url}/{fid}{query}", data=data,
+                          headers=headers, timeout=10)
+        before = VOLUME_STAGE_SECONDS.count("get", "store")
+        for fid, *_ in uploads:
+            assert _get(vs.url, fid)[0] == 200
+        assert _get(vs.url, file_id(VID, 999, 1))[0] == 404
+        assert VOLUME_STAGE_SECONDS.count("get", "store") == before + 6
+        entries = fr.snapshot(kind="volume.get", limit=100)
+        assert len(entries) == 6 and {e["status"] for e in entries} == \
+            {200, 404}
+        for e in entries:
+            assert set(e["stages_ms"]) == {"recv_parse", "queue_wait",
+                                           "auth_admit", "store",
+                                           "serialize_flush"}
+            assert set(e["queue_depths"]) == {"read", "ec_read"}
+            assert e["node"] == vs.url and e["loop_lag_ms"] is not None
+        body = requests.get(f"http://{vs.url}/metrics", timeout=10).text
+        assert f'SeaweedFS_hot_requests{{kind="volume",key="{VID}"}} 11' \
+            in body
+        assert 'SeaweedFS_hot_requests{kind="method",key="get"} 6' in body
+        assert vs._read_pool.pool_label == "read"
+        assert vs._ec_read_pool.pool_label == "ec_read"
+        assert vs._loop_lag.probes >= 0 and vs._sampler is not None
+    finally:
+        vs.stop()
+    assert vs._sampler is None
+
+
+def test_device_trace_route_on_a_cpu_server(tmp_path):
+    """/debug/jax-profiler keeps the reference's path: it starts one
+    torch.profiler capture and answers where its trace goes; a second start
+    answers the running capture; ?stop=1 writes it; a stop with nothing
+    running is a 400. A capture that must hold the card's activity raises
+    where the profiler cannot capture CUDA."""
+    from seaweedfs_tpu_torch.utils import profiling
+    vs = _port(tmp_path / "p")
+    try:
+        code, text = _route(vs.url, "/debug/jax-profiler")
+        assert code == 200 and "capturing to" in text
+        path = text.split("capturing to ")[1].split()[0]
+        assert _route(vs.url, "/debug/jax-profiler")[1] == \
+            f"device trace already capturing to {path}\n"
+        vs.allocate_volume(VID)
+        code, text = _route(vs.url, "/debug/jax-profiler?stop=1")
+        assert (code, text) == (200, f"device trace written to {path}\n")
+        assert json.load(open(path))["traceEvents"] is not None
+        os.unlink(path)
+        assert _route(vs.url, "/debug/jax-profiler?stop=1")[0] == 400
+    finally:
+        vs.stop()
+    import torch
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cannot capture CUDA"):
+            profiling.start_device_trace(cuda=True)
+        assert profiling.device_trace_path() is None
