@@ -5,7 +5,7 @@
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result). `--phases` runs a subset (default: all); phase 1 always runs, and
-the kernels line needs phases 3, 4 and 6 to 16. The kernels of the
+the kernels line needs phases 3, 4 and 6 to 17. The kernels of the
 phases asked for are built first, all at once (one nvcc per source).
 
 1. device: card name, count, `nvidia-smi` name and power limit;
@@ -55,8 +55,8 @@ phases asked for are built first, all at once (one nvcc per source).
    and read just after; K3 must have launched;
 9. EC volumes served from a Store: servers A and B, each a Store on the
    card (coder "torch", kernel K1); 524,288 needles of 1024 + 0..63 B
-   (half of weed benchmark's write set: phase 13 runs the same flow at
-   full size) written on A through Store.write_needles_bulk,
+   (half of weed benchmark's write set: phase 13 runs the same flow
+   behind the server) written on A through Store.write_needles_bulk,
    Store.generate_ec_shards at RS(10,4) (1 GiB / 1 MiB blocks), shards 7-13
    with copies of the .ecx and .vif moved to B, the source volume deleted,
    both mounted. A seeded sample of 16,384 needles read on A through
@@ -136,8 +136,9 @@ phases asked for are built first, all at once (one nvcc per source).
 13. the volume server on the card (server/volume_server.py): servers A, B
    and C, each a VolumeServer over a Store on the card (coder "torch",
    RS(10,4), 1 GiB / 1 MiB blocks) with its HTTP plane on a localhost
-   port, joined by one LocalPeers. Phase 9's write set on A through
-   Store.write_needles_bulk, then 4,096 needles POSTed over HTTP, each
+   port, joined by one LocalPeers. A quarter of the write set (262,144
+   needles of 1024 + 0..63 B; the whole until phase 17 took the time) on A
+   through Store.write_needles_bulk, then 4,096 needles POSTed over HTTP, each
    acknowledged and read back by GET; VolumeMarkReadonly and
    VolumeEcShardsGenerate (K1 encode); VolumeEcShardsCopy of shards 7-13
    with the .ecx and .vif to B through CopyFile on the peer plane, both
@@ -149,7 +150,8 @@ phases asked for are built first, all at once (one nvcc per source).
    and (10, 13) on B: every body equal, the reconstructs (K1 at one
    stripe) numbering the sampled intervals on lost shards; then the
    degraded reads again with A's shard reads over gRPC (grpc_service on A
-   and B; the holder lookup from the heartbeats, as no master runs). Shard
+   and B; the holder lookup from the heartbeats: no master runs here, phase
+   17 runs one). Shard
    8 moved B -> C by VolumeEcShardsMove on C behind A's location cache:
    its reads refresh the stale locations and fetch from C without a
    reconstruct. B rebuilds (10, 13) by VolumeEcShardsCopyByRebuild and A
@@ -246,10 +248,37 @@ phases asked for are built first, all at once (one nvcc per source).
    its rate (two halves) and 4,096 after /debug/profile?hz=0, p50 and p99
    of each. K1's and K3's counts are zeroed just before the phase and read
    just after;
-17. summary: one JSON line of every kernel with its launches (K1's from
-   phases 6, 9, 10, 11, 12, 13, 14, 15 and 16, K3's from phases 8, 10, 12,
-   13, 14, 15 and 16), error against the plain version, times and bound;
-   then the result line.
+17. a cluster of the port alone: a master started as a user starts it
+   (`python -m seaweedfs_tpu_torch master -volumeSizeLimitMB 1024 -ecShards
+   10,4 -maintenanceIntervalS 10 -maintenanceScripts ec.rebuild`, a
+   subprocess, health-driven repair on), four volume servers on the card in
+   this process, one in each of racks r1-r4 of dc1, heartbeating to it over
+   gRPC, and the port's shell as subprocesses (`python -m
+   seaweedfs_tpu_torch shell -master M -c ...`). (a) Collection ec17: two
+   volumes grown on r1 (/dir/assign?rack=r1), 16,384 needles of 1024 +
+   0..63 B through Assign(count=1024) leases and /bulk frames, then blobs
+   of 1 MiB + 0..4 KiB through MasterClient.assign and POSTs until each
+   volume holds at least 95% of its 1 GiB limit; a damaged regular volume
+   of 262,144 needles (collection scrub17, 17 damaged) on r4, written
+   before its server starts. (b) `lock; ec.encode -collection ec17
+   -fullPercent 95; unlock` (VolumeEcShardsGenerateBatch, K1 encode, then
+   the spread by VolumeEcShardsCopy): no rack holds more than 4 shards of
+   a stripe; every shard's sha256 kept. (c) 2,048 healthy GETs of small
+   needles through master lookups, each == written. (d) With the admin
+   lock held in this process, r1's server stopped: /cluster/health
+   DEGRADED with exactly r1's shards missing; the 2,048 GETs again, each
+   == written, the reconstructs (K1) == the sampled intervals on lost
+   shards. (e) The lock released: the master's cron rebuilds onto the
+   three surviving racks (K1) and the verdict returns to OK; each rebuilt
+   shard == the original's sha256. (f) `volume.scrub -volumeId V` of
+   scrub17 finds exactly the 17 through K3 (the shell exits 2 naming
+   them). (g) `lock; ec.decode -volumeId V; unlock` of one ec17 volume,
+   every needle of it read back == written. K1's and K3's counts are
+   zeroed just before the phase and read just after;
+18. summary: one JSON line of every kernel with its launches (K1's from
+   phases 6, 9, 10, 11, 12, 13, 14, 15, 16 and 17, K3's from phases 8, 10,
+   12, 13, 14, 15, 16 and 17), error against the plain version, times and
+   bound; then the result line.
 
 Needs CUDA and the repository beside it; without either it exits 2.
 """
@@ -259,6 +288,7 @@ from __future__ import annotations
 import argparse
 import collections
 import hashlib
+import io
 import json
 import os
 import re
@@ -273,7 +303,7 @@ MAIN_SHAPE = (32, 10, 1 << 20)  # [batch, d, chunk] of one encode call
 LOST_10_4 = (0, 5, 10, 13)
 LOST_14_2 = (3, 15)
 WIDTHS = (16, 48, 100, 384, 4112, 65536, 65552)
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17)
 PALLAS = "seaweedfs_tpu/ops/rs_pallas.py"
 K1_SOURCE = "seaweedfs_tpu_torch/csrc/rs_gf.cu"
 K3_SOURCE = "seaweedfs_tpu_torch/csrc/crc32c.cu"
@@ -282,7 +312,7 @@ KERNELS = {2: ("rs_gf",), 7: ("crc32c",), 9: ("rs_gf",),  # phase -> csrc
            10: ("rs_gf", "crc32c"), 11: ("rs_gf",),    # sources it builds
            12: ("rs_gf", "crc32c"), 13: ("rs_gf", "crc32c"),
            14: ("rs_gf", "crc32c"), 15: ("rs_gf", "crc32c"),
-           16: ("rs_gf", "crc32c")}
+           16: ("rs_gf", "crc32c"), 17: ("rs_gf", "crc32c")}
 K3_SHAPES = ((4096, 2048), (16384, 4096), (64, 1 << 20))  # first: the scrub's
 K3_ROWS = (1, 3, 4096, 4225)  # 4225 = 132 SMs x 32 warps + 1
 K3_LENGTHS = (0, 512, 1024, 2048, 4096, 65536, 1 << 20)
@@ -290,7 +320,7 @@ NEEDLE_LENGTHS = (0, 1, 511, 512, 513, 1087, 9000)
 SCRUB_NEEDLES = 1 << 20
 EC_NEEDLES = 1 << 20   # weed benchmark's default write set, as phase 8
 EC_STORE_NEEDLES = 1 << 19  # phase 9: half of it (phase 13 runs the same
-                            # flow at full size behind the server)
+                            # flow behind the server)
 EC_SAMPLE = 16384      # needles read back per pass
 EC_VID = 1
 A_LOST, B_LOST = (0, 5), (10, 13)
@@ -306,6 +336,8 @@ MESH_DAT = 1_145_031_680  # phase 12: the .dat size of 1,048,576 needles
 MESH_SCRUB_NEEDLES = 1 << 20  # phase 12: weed benchmark's default write set
 MESH_SCRUB_BATCH = (4096, 2048)
 MESH_DAMAGED = 17
+SERVER_NEEDLES = 1 << 18  # phase 13: a quarter of the write set (the
+                          # whole until phase 17 took the time)
 SERVER_HTTP_NEEDLES = 4096  # phase 13: needles POSTed over HTTP after the
                             # bulk set; phase 14: POSTs fanned out to B
 SERVER_SCRUB_NEEDLES = 1 << 18  # phase 13: the regular volume VolumeScrub checks
@@ -354,6 +386,17 @@ IMAGE_SIZE = (640, 480)
 TRACE_GETS = 64        # phase 16(d): degraded GETs under the device trace
 HOOK_GETS = 4096       # phase 16(e): healthy GETs each way
 GO_VID, AZURE_VID, GCS_VID, IMAGE_VID, HOOK_VID = 41, 42, 43, 44, 45
+CONTROL_LIMIT_MB = 1024  # phase 17: the master's -volumeSizeLimitMB (a
+                         # depth cut from the 30,000 default, master.go:73)
+CONTROL_FILL = 0.95      # phase 17: each ec17 volume filled past this share
+                         # of the limit (ec.encode -fullPercent 95)
+CONTROL_SMALL = 16384    # phase 17: needles of 1024 + 0..63 B, leased
+CONTROL_LEASE = 1024     # phase 17: keys an Assign(count=...) leases
+CONTROL_FRAME = 256      # phase 17: needles a /bulk frame (four a lease,
+                         # written among the blobs)
+CONTROL_GETS = 2048      # phase 17: GETs healthy, then with r1 lost
+CONTROL_SCRUB_NEEDLES = 1 << 18  # phase 17: the scrub17 volume
+SCRUB17_VID = 71         # phase 17's damaged regular volume on r4
 K1_ENTRIES = {  # wrapper entry -> the TPU function it replaces
     "encode": f"{PALLAS}:156",
     "encode_seeded": f"{PALLAS}:164",
@@ -956,7 +999,7 @@ def phase_k3_timing(torch, np, seed: int, card: str) -> "dict[tuple, dict]":
 
 # -- phase 8 ----------------------------------------------------------------
 def make_scrub_volume(np, vdir: str, seed: int, n: int = SCRUB_NEEDLES,
-                      vid: int = 1):
+                      vid: int = 1, collection: str = "", card: str = ""):
     """Volume `vid` of `n` needles (1,048,576 by default), damaged; returns
     (volume, the 17 ids whose live bytes were damaged, the 64 deleted ids)."""
     from seaweedfs_tpu_torch.storage.needle import Needle
@@ -964,7 +1007,7 @@ def make_scrub_volume(np, vdir: str, seed: int, n: int = SCRUB_NEEDLES,
     rng = np.random.default_rng(seed)
     sizes = 1024 + rng.integers(0, 64, n)
     cookies = rng.integers(0, 1 << 32, n, dtype=np.uint64)
-    v = Volume(vdir, "", vid)
+    v = Volume(vdir, collection, vid)
     t0 = time.perf_counter()
     frame = 4096
     for lo in range(0, n, frame):
@@ -976,7 +1019,7 @@ def make_scrub_volume(np, vdir: str, seed: int, n: int = SCRUB_NEEDLES,
                          for i, e in enumerate(ends)])
     log(f"[scrub] wrote {n} needles ({os.path.getsize(v.dat_path)} B of "
         f".dat) through Volume.write_needles in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s" + (f" [{card}]" if card else ""))
     pick = rng.choice(n, 16 + 1 + 64 + 64, replace=False) + 1
     flipped, crc_hit = pick[:16], int(pick[16])
     overwritten, deleted = pick[17:81], pick[81:]
@@ -2813,7 +2856,7 @@ def phase_server(torch, np, workdir: str, seed: int, card: str) -> dict:
     rs_cuda.reset_launches()
     crc_cuda.reset_launches()
     res = server_round_trip(np, workdir, seed + 23, card, EcGeometry(10, 4),
-                            EC_NEEDLES, SERVER_SAMPLE, SERVER_HTTP_NEEDLES,
+                            SERVER_NEEDLES, SERVER_SAMPLE, SERVER_HTTP_NEEDLES,
                             SERVER_SCRUB_NEEDLES)
     torch.cuda.synchronize()
     k1 = dict(rs_cuda.launches_by_entry)
@@ -4504,6 +4547,501 @@ def phase_rest(torch, np, workdir: str, seed: int, card: str) -> dict:
     return {"k1": k1, "k3": k3}
 
 
+# -- phase 17 ---------------------------------------------------------------
+def _port_cli(*args) -> "list[str]":
+    return [sys.executable, "-m", "seaweedfs_tpu_torch", *args]
+
+
+def _shell(maddr: str, script: str, expect_rc: int = 0,
+           tries: int = 5) -> "tuple[str, str, float]":
+    """`python -m seaweedfs_tpu_torch shell -master M -c script` as a user
+    runs it; (stdout, stderr, wall s). A `lock` refused because the
+    master's cron holds the admin lock for its sweep is tried again."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    for attempt in range(tries):
+        t = time.perf_counter()
+        proc = subprocess.run(_port_cli("shell", "-master", maddr, "-c",
+                                        script), cwd=here,
+                              capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t
+        if proc.returncode == expect_rc:
+            return proc.stdout, proc.stderr, wall
+        if "held by" not in proc.stderr or attempt == tries - 1:
+            raise AssertionError(
+                f"shell -c {script!r}: rc {proc.returncode} (wanted "
+                f"{expect_rc}); stdout {proc.stdout[-3000:]!r} stderr "
+                f"{proc.stderr[-3000:]!r}")
+        time.sleep(1.0)
+    raise AssertionError("unreachable")
+
+
+def _wait(cond, timeout: float, what: str, interval: float = 0.1):
+    deadline = time.monotonic() + timeout
+    while True:
+        got = cond()
+        if got:
+            return got
+        if time.monotonic() > deadline:
+            raise AssertionError(f"timed out after {timeout} s waiting for "
+                                 f"{what}")
+        time.sleep(interval)
+
+
+def _blob(np, seed: int, i: int, size: int) -> bytes:
+    """Phase 17's i-th large blob, made again from its seed to check it."""
+    return np.random.default_rng((seed, i)).bytes(size)
+
+
+def control_round_trip(np, workdir: str, seed: int, card: str,
+                       limit_mb: int, fill: float, small: int, lease: int,
+                       frame: int, gets: int, scrub_needles: int,
+                       device: str = "cuda") -> dict:
+    """Phase 17's path, every check fatal: a master of the port in a
+    subprocess, four volume servers of the port in this process (racks
+    r1-r4 of dc1) heartbeating to it over gRPC, the port's shell in
+    subprocesses. Returns the measured numbers."""
+    import http.client
+
+    from seaweedfs_tpu_torch.client.master_client import MasterClient
+    from seaweedfs_tpu_torch.ec import files
+    from seaweedfs_tpu_torch.ec.locate import EcGeometry
+    from seaweedfs_tpu_torch.ops import crc_cuda, events
+    from seaweedfs_tpu_torch.server.grpc_service import serve_volume
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.shell.commands import CommandEnv
+    from seaweedfs_tpu_torch.storage import bulk
+    from seaweedfs_tpu_torch.storage.disk_location import DiskLocation
+    from seaweedfs_tpu_torch.storage.store import Store
+    from seaweedfs_tpu_torch.storage.types import parse_file_id
+    from seaweedfs_tpu_torch.utils import retry
+
+    geo = EcGeometry(10, 4)
+    limit = limit_mb << 20
+    racks = ("r1", "r2", "r3", "r4")
+    here = os.path.dirname(os.path.abspath(__file__))
+    out: dict = {}
+    served: dict = {}
+    master = mc = None
+    clients: dict = {}
+    retry.reset_breakers()
+    mport, hport = _free_port(), _free_port()
+    maddr = f"127.0.0.1:{mport}"
+    mlog = open(os.path.join(workdir, "master.log"), "w")
+
+    def client(url: str) -> "_Client":
+        if url not in clients:
+            clients[url] = _Client(url)
+        return clients[url]
+
+    def http_json(path: str):
+        c = http.client.HTTPConnection("127.0.0.1", hport, timeout=30)
+        try:
+            c.request("GET", path)
+            r = c.getresponse()
+            return r.status, json.loads(r.read() or b"{}")
+        finally:
+            c.close()
+
+    try:
+        # the damaged regular volume on r4, written before its server starts
+        dirs = {r: os.path.join(workdir, r) for r in racks}
+        for d in dirs.values():
+            os.makedirs(d)
+        v, damaged, _ = make_scrub_volume(np, dirs["r4"], seed + 5,
+                                          n=scrub_needles, vid=SCRUB17_VID,
+                                          collection="scrub17", card=card)
+        v.close()
+
+        # the master, as a user starts it
+        t0 = time.perf_counter()
+        master = subprocess.Popen(_port_cli(
+            "master", "-ip", "127.0.0.1", "-port", str(mport), "-httpPort",
+            str(hport), "-volumeSizeLimitMB", str(limit_mb), "-ecShards",
+            "10,4", "-maintenanceIntervalS", "10", "-maintenanceScripts",
+            "ec.rebuild"), cwd=here, stdout=mlog, stderr=subprocess.STDOUT)
+
+        def master_up():
+            if master.poll() is not None:
+                raise AssertionError(f"the master exited rc {master.poll()}")
+            try:
+                return http_json("/cluster/status")[0] == 200
+            except OSError:
+                return False
+
+        _wait(master_up, 120, "the master's HTTP API")
+        for r in racks:
+            port = _free_port()
+            store = Store("127.0.0.1", port, "", [DiskLocation(
+                dirs[r], max_volume_count=32)], ec_geometry=geo,
+                coder_name="torch", device=device)
+            vs = VolumeServer(store, "127.0.0.1", port, data_center="dc1",
+                              rack=r, pulse_seconds=1.0)
+            served[r] = serve_volume(vs, port + 10000, master=maddr)
+        vss = {r: s.vs for r, s in served.items()}
+        rack_of = {vs.url: r for r, vs in vss.items()}
+        mc = MasterClient(maddr).start()
+        _wait(lambda: len(mc.volume_list().topology_info.data_center_infos)
+              and sum(len(rk.data_node_infos) for dc in
+                      mc.volume_list().topology_info.data_center_infos
+                      for rk in dc.rack_infos) == 4, 60,
+              "four servers registered")
+        log(f"[control] master (a subprocess of python -m seaweedfs_tpu_torch"
+            f" master -volumeSizeLimitMB {limit_mb} -ecShards 10,4 "
+            f"-maintenanceIntervalS 10 -maintenanceScripts ec.rebuild) and "
+            f"four volume servers on {device} in racks r1-r4 of dc1 up in "
+            f"{time.perf_counter() - t0:.1f} s [{card}]")
+
+        # (a) writes: two ec17 volumes grown on r1, leased /bulk frames of
+        # small needles, then 1 MiB blobs through single assigns and POSTs
+        st, body = http_json("/dir/assign?collection=ec17&rack=r1"
+                             "&writableVolumeCount=2")
+        if st != 200:
+            raise AssertionError(f"/dir/assign?rack=r1: {st} {body}")
+        rng = np.random.default_rng(seed)
+        small_want: "dict[str, bytes]" = {}
+        r1 = vss["r1"]
+        vids: "set[int]" = set()
+        lease_lat, put_s, small_bytes = [], 0.0, 0
+        leased = []
+
+        def lease_frame() -> None:
+            """One /bulk frame of `frame` small needles off the current
+            Assign(count=lease) lease, leasing the next when it is used up."""
+            nonlocal put_s, small_bytes
+            if not leased or not leased[-1].remaining():
+                t = time.perf_counter()
+                leased.append(mc.lease_fids(lease, collection="ec17"))
+                lease_lat.append(time.perf_counter() - t)
+            fl = leased[-1]
+            first, n = fl.take(frame)
+            sizes = 1024 + rng.integers(0, 64, n)
+            buf = rng.bytes(int(sizes.sum()))
+            ends = np.cumsum(sizes)
+            entries = []
+            for i, e in enumerate(ends):
+                data = buf[int(e - sizes[i]):int(e)]
+                entries.append((first + i, fl.cookie, data, 0))
+                small_want[f"{fl.vid},{first + i:x}{fl.cookie:08x}"] = data
+            body = bulk.pack_frame(fl.vid, entries)
+            t = time.perf_counter()
+            st, resp, _ = client(fl.url).request(
+                "PUT", f"/bulk?vid={fl.vid}", body)
+            put_s += time.perf_counter() - t
+            if st != 201 or json.loads(resp)["count"] != n:
+                raise AssertionError(f"/bulk frame: {st} {resp[:200]!r}")
+            small_bytes += len(buf)
+            vids.add(fl.vid)
+
+        def dat_size(vid: int) -> int:
+            return r1.store.find_volume(vid).content_size
+
+        # the frames go in among the blobs, so small needles lie in every
+        # part of both volumes, on every data shard
+        frames = small // frame
+        every = max(1, int(2 * fill * limit) // (1 << 20) // frames)
+        big: "dict[str, tuple[int, int]]" = {}
+        assign_lat, post_s, big_bytes, skipped = [], 0.0, 0, 0
+        lease_frame()
+        frames -= 1
+        while not vids or any(dat_size(vid) < fill * limit for vid in vids):
+            if frames and len(big) % every == every - 1:
+                lease_frame()
+                frames -= 1
+            t = time.perf_counter()
+            a = mc.assign(collection="ec17")
+            assign_lat.append(time.perf_counter() - t)
+            vid = int(a.fid.split(",")[0])
+            vids.add(vid)
+            if len(vids) > 2:
+                raise AssertionError(f"ec17 has volumes {sorted(vids)}")
+            if dat_size(vid) >= fill * limit:
+                skipped += 1  # full enough: this fid stays unused
+                continue
+            i = len(big)
+            size = (1 << 20) + int(rng.integers(0, 4097))
+            data = _blob(np, seed, i, size)
+            t = time.perf_counter()
+            st, resp, _ = client(a.location.url).request(
+                "POST", f"/{a.fid}", data)
+            post_s += time.perf_counter() - t
+            if st != 201:
+                raise AssertionError(f"POST {a.fid}: {st} {resp[:200]!r}")
+            big[a.fid] = (i, size)
+            big_bytes += size
+        while frames:
+            lease_frame()
+            frames -= 1
+        vids = sorted(vids)
+        if len(vids) != 2 or {rack_of[loc["url"]] for vid in vids
+                              for loc in mc.lookup(vid)} != {"r1"}:
+            raise AssertionError(f"ec17 volumes {vids} not both on r1")
+        sizes_now = {vid: dat_size(vid) for vid in vids}
+        if any(not fill * limit <= s < limit for s in sizes_now.values()):
+            raise AssertionError(f"volume sizes {sizes_now} against the "
+                                 f"limit {limit}")
+        out["write"] = (small_bytes + big_bytes) / (put_s + post_s) / 1e9
+        out["assign_p50"] = _pct(np, assign_lat, 50) * 1e3
+        out["lease_p50"] = _pct(np, lease_lat, 50) * 1e3
+        log(f"[control] (a) collection ec17, volumes {vids} on r1: {small} "
+            f"needles of 1024 + 0..63 B through {len(leased)} leases of "
+            f"Assign(count={lease}) as {small // frame} /bulk frames of "
+            f"{frame} among the blobs ({small_bytes} B, "
+            f"{small_bytes / put_s / 1e9:.3f} GB/s), then {len(big)} blobs "
+            f"of 1 MiB + 0..4 KiB through single assigns and POSTs "
+            f"({big_bytes} B, {big_bytes / post_s / 1e9:.3f} GB/s; {skipped}"
+            f" assigns to a volume already full enough left unused); "
+            f"written {out['write']:.3f} GB/s one client; .dat sizes "
+            f"{sizes_now} = {[round(s / limit, 4) for s in sizes_now.values()]}"
+            f" of the limit; Assign p50 single {out['assign_p50']:.3f} ms "
+            f"({len(assign_lat)}), leased {out['lease_p50']:.3f} ms "
+            f"({len(lease_lat)}) [{card}]")
+
+        # (b) ec.encode from the shell
+        r1.heartbeat_flush()
+        dat_bytes = sum(sizes_now.values())
+        _, _, enc_s = _shell(maddr, "lock; ec.encode -collection ec17 "
+                             "-fullPercent 95; unlock")
+        before: "dict[int, dict[int, str]]" = {}
+
+        def spread_of(vid: int) -> "dict[int, list[str]]":
+            return {sid: [rack_of[u] for u in urls]
+                    for sid, urls in mc.lookup_ec(vid).items() if urls}
+
+        for vid in vids:
+            spread = _wait(lambda: (lambda s: s if len(s) == geo.n else None)(
+                spread_of(vid)), 60, f"volume {vid}'s 14 shards registered")
+            per_rack = collections.Counter(r for rs in spread.values()
+                                           for r in rs)
+            if max(per_rack.values()) > geo.p or len(per_rack) != 4:
+                raise AssertionError(f"volume {vid}: shards per rack "
+                                     f"{dict(per_rack)} (cap {geo.p})")
+            before[vid] = {}
+            for sid, rs in spread.items():
+                base = os.path.join(dirs[rs[0]], f"ec17_{vid}")
+                before[vid][sid] = _sha256(base + files.shard_ext(sid))
+            out.setdefault("spread", {})[vid] = {
+                r: sorted(s for s, rs in spread.items() if r in rs)
+                for r in racks}
+        out["encode"] = dat_bytes / enc_s / 1e9
+        log(f"[control] (b) shell ec.encode -collection ec17 -fullPercent "
+            f"95: {dat_bytes} B of .dat in {enc_s:.2f} s (the shell "
+            f"process, VolumeEcShardsGenerateBatch and the spread by "
+            f"VolumeEcShardsCopy) = {out['encode']:.3f} GB/s; shards by "
+            f"rack {json.dumps(out['spread'])}: at most {geo.p} a rack; "
+            f"every shard's sha256 kept [{card}]")
+
+        # (c) healthy GETs through master lookups
+        sample = sorted(small_want)[::max(1, len(small_want) // gets)][:gets]
+
+        def read_pass(tag: str) -> "list[float]":
+            """GET each sampled needle from one of the holders the master
+            names, in turn."""
+            lat = []
+            for k, fid in enumerate(sample):
+                vid = int(fid.split(",")[0])
+                locs = sorted(loc["url"] for loc in mc.lookup(vid))
+                url = locs[k % len(locs)]
+                t = time.perf_counter()
+                st, got, _ = client(url).request("GET", f"/{fid}")
+                lat.append(time.perf_counter() - t)
+                if (st, got) != (200, small_want[fid]):
+                    raise AssertionError(f"{tag} GET {fid} from {url}: {st}")
+            return lat
+
+        def reconstructs() -> int:
+            return sum(vs.read_stats.get("reconstructs", 0)
+                       for r, vs in vss.items() if r in served)
+
+        r0 = reconstructs()
+        healthy = read_pass("healthy")
+        if reconstructs() != r0:
+            raise AssertionError("healthy GETs reconstructed")
+        log(f"[control] (c) {len(sample)} healthy GETs of small needles "
+            f"through master lookups, each == written: p50 "
+            f"{_pct(np, healthy, 50) * 1e3:.4f} ms, p99 "
+            f"{_pct(np, healthy, 99) * 1e3:.4f} ms [{card}]")
+        out["healthy"] = healthy
+
+        # (d) rack r1 lost; the smoke holds the admin lock (an operator
+        # reading degraded) so the cron's repair waits for the GETs
+        lost = {vid: out["spread"][vid]["r1"] for vid in vids}
+        env = CommandEnv(maddr, mc=mc, out=io.StringIO())
+        env.acquire_lock()
+        t_stop = time.perf_counter()
+        served.pop("r1").stop()
+
+        def degraded():
+            st, rep = http_json("/cluster/health")
+            items = {it["id"]: it for it in rep.get("items", ())
+                     if it.get("kind") == "ec"}
+            if st == 200 and rep.get("verdict") == "DEGRADED" and all(
+                    vid in items and items[vid]["shards_missing"] == lost[vid]
+                    for vid in vids):
+                return rep
+            return None
+
+        rep = _wait(degraded, 60, "a DEGRADED verdict with r1's shards "
+                    "missing")
+        t_deg = time.perf_counter() - t_stop
+        log(f"[control] (d) r1's server stopped: /cluster/health "
+            f"{rep['verdict']} after {t_deg:.2f} s, missing "
+            f"{json.dumps(lost)} exactly (RS(10,4), {json.dumps(rep['counts'])})"
+            f" [{card}]")
+        ivs = {}
+        holder = next(vs for r, vs in vss.items() if r in served)
+        for vid in vids:
+            ev = holder.store.find_ec_volume(vid)
+            for fid in sample:
+                if int(fid.split(",")[0]) == vid:
+                    ivs[fid] = _intervals(ev, geo, parse_file_id(fid)[1])
+        expected = sum(1 for fid in sample for s, _ in ivs[fid]
+                       if s in lost[int(fid.split(",")[0])])
+        for vid in vids:
+            mc.vid_map.invalidate(vid)
+        r0 = reconstructs()
+        deg = read_pass("degraded")
+        got_rec = reconstructs() - r0
+        if got_rec != expected or not expected:
+            raise AssertionError(f"{got_rec} reconstructs; the sample's "
+                                 f"intervals on lost shards number {expected}")
+        out["degraded"] = deg
+        log(f"[control] (d) {len(sample)} GETs with r1 lost, through master "
+            f"lookups and LookupEcVolume, each == written: p50 "
+            f"{_pct(np, deg, 50) * 1e3:.4f} ms, p99 "
+            f"{_pct(np, deg, 99) * 1e3:.4f} ms; {got_rec} reconstructs == "
+            f"the sampled intervals on lost shards [{card}]")
+
+        # (e) the cron's health-driven repair, once the lock is released
+        seq = events.JOURNAL.last_seq
+        env.release_lock()
+        t_rel = time.perf_counter()
+
+        def healthy_again():
+            st, rep = http_json("/cluster/health")
+            return rep if st == 200 and rep.get("verdict") == "OK" else None
+
+        _wait(healthy_again, 300, "the verdict back to OK", interval=0.2)
+        t_ok = time.perf_counter()
+        fin = [e["attrs"] for e in events.JOURNAL.snapshot(
+            since=seq, etype="ec.rebuild.finish")]
+        if not fin or not all(a.get("ok") for a in fin):
+            raise AssertionError(f"rebuild events {fin}")
+        rb_read = sum(a["bytes_read"] for a in fin)
+        rb_s = sum(a["duration_ms"] for a in fin) / 1e3
+        after = {}
+        for vid in vids:
+            spread = spread_of(vid)
+            if sorted(spread) != list(range(geo.n)) or any(
+                    "r1" in rs for rs in spread.values()):
+                raise AssertionError(f"volume {vid} after repair: {spread}")
+            for sid in lost[vid]:
+                base = os.path.join(dirs[spread[sid][0]], f"ec17_{vid}")
+                if _sha256(base + files.shard_ext(sid)) != before[vid][sid]:
+                    raise AssertionError(f"rebuilt shard {vid}.{sid} differs")
+            after[vid] = {r: sorted(s for s, rs in spread.items() if r in rs)
+                          for r in racks[1:]}
+        out["repair_s"] = t_ok - t_stop
+        out["rebuild"] = rb_read / rb_s / 1e9
+        log(f"[control] (e) the master's cron (health-driven, every 10 s) "
+            f"rebuilt {sum(len(a['rebuilt_shard_ids']) for a in fin)} shards"
+            f" in {len(fin)} VolumeEcShardsRebuild calls: {rb_read} B read "
+            f"in {rb_s:.2f} s = {out['rebuild']:.3f} GB/s read; time to "
+            f"repair from the stop to OK {out['repair_s']:.2f} s ({t_rel - t_stop:.2f}"
+            f" s of it the lock held for the degraded GETs, "
+            f"{t_ok - t_rel:.2f} s from its release); each rebuilt shard =="
+            f" the original's sha256; shards by rack now {json.dumps(after)}"
+            f" (3 racks cannot cap 14 shards at {geo.p}) [{card}]")
+
+        # (f) volume.scrub of scrub17 through K3
+        k0 = crc_cuda.launches
+        so, se, sc_s = _shell(maddr, f"volume.scrub -volumeId "
+                              f"{SCRUB17_VID}", expect_rc=2)
+        k3 = crc_cuda.launches - k0
+        m = re.search(r"\[(\w+)\] ([\d,]+) needles/s CORRUPT: (\[.*?\])", so)
+        if (not m or m.group(1) != "device" or
+                m.group(3) != str([hex(n) for n in damaged]) or
+                f"{len(damaged)} corrupt" not in se or
+                (device == "cuda" and not k3)):
+            raise AssertionError(f"volume.scrub: {so!r} {se!r}; damaged "
+                                 f"{damaged}; {k3} K3 launches")
+        out["scrub"] = float(m.group(2).replace(",", ""))
+        log(f"[control] (f) shell volume.scrub -volumeId {SCRUB17_VID} "
+            f"({scrub_needles} needles): exactly the {len(damaged)} damaged "
+            f"found, {out['scrub']:.0f} needles/s on the server, {k3} K3 "
+            f"launches; the shell's rc 2 and error name them; "
+            f"{sc_s:.2f} s with the shell [{card}]")
+
+        # (g) ec.decode of the first volume, every needle read back
+        dvid = vids[0]
+        _, _, dec_s = _shell(maddr, f"lock; ec.decode -volumeId {dvid}; "
+                             "unlock")
+        mc.vid_map.invalidate(dvid)
+        _wait(lambda: not mc.lookup_ec(dvid) and mc.lookup(dvid), 60,
+              f"volume {dvid} a regular volume again")
+        mc.vid_map.invalidate(dvid)
+        n_read = 0
+        for fid, data in small_want.items():
+            if int(fid.split(",")[0]) == dvid:
+                url = mc.lookup(dvid)[0]["url"]
+                st, got, _ = client(url).request("GET", f"/{fid}")
+                if (st, got) != (200, data):
+                    raise AssertionError(f"GET {fid} after the decode: {st}")
+                n_read += 1
+        for fid, (i, size) in big.items():
+            if int(fid.split(",")[0]) == dvid:
+                url = mc.lookup(dvid)[0]["url"]
+                st, got, _ = client(url).request("GET", f"/{fid}")
+                if (st, got) != (200, _blob(np, seed, i, size)):
+                    raise AssertionError(f"GET {fid} after the decode: {st}")
+                n_read += 1
+        out["decode_s"] = dec_s
+        log(f"[control] (g) shell ec.decode -volumeId {dvid}: "
+            f"{dec_s:.2f} s with the shell (gather and "
+            f"VolumeEcShardsToVolume); all {n_read} needles of it GET == "
+            f"written [{card}]")
+        return out
+    finally:
+        for c in clients.values():
+            c.close()
+        if mc is not None:
+            mc.stop()
+        for s in served.values():
+            s.stop()
+        if master is not None:
+            master.terminate()
+            try:
+                master.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                master.kill()
+                master.wait(timeout=10)
+        mlog.close()
+        retry.reset_breakers()
+
+
+def phase_control(torch, np, workdir: str, seed: int, card: str) -> dict:
+    from seaweedfs_tpu_torch.ops import crc_cuda, rs_cuda
+    os.makedirs(workdir, exist_ok=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rs_cuda.reset_launches()
+    crc_cuda.reset_launches()
+    control_round_trip(np, workdir, seed + 71, card, CONTROL_LIMIT_MB,
+                       CONTROL_FILL, CONTROL_SMALL, CONTROL_LEASE,
+                       CONTROL_FRAME, CONTROL_GETS, CONTROL_SCRUB_NEEDLES)
+    torch.cuda.synchronize()
+    k1 = dict(rs_cuda.launches_by_entry)
+    k3 = crc_cuda.launches
+    log(f"[control] launches on the cluster of the port: K1 "
+        f"{json.dumps(k1)}, K3 {k3}; phase wall "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    for entry in ("encode", "reconstruct"):
+        if not k1.get(entry):
+            raise AssertionError(f"K1 {entry} never launched in phase 17")
+    if not k3:
+        raise AssertionError("K3 never launched in phase 17")
+    return {"k1": k1, "k3": k3}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4602,11 +5140,17 @@ def main(argv=None) -> int:
             rest = phase_rest(torch, np, args.workdir, args.seed, card)
         finally:
             shutil.rmtree(args.workdir, ignore_errors=True)
+    control = None
+    if 17 in phases:
+        try:
+            control = phase_control(torch, np, args.workdir, args.seed, card)
+        finally:
+            shutil.rmtree(args.workdir, ignore_errors=True)
     log(f"[done] phases {sorted(phases | {1})} passed in "
         f"{time.perf_counter() - t0:.1f} s [{card}]")
     if None not in (errs, times, launches, k3_err, k3_times, k3_launches,
                     ec_launches, tier, codec_launches, mesh, server, replica,
-                    maint, rest):
+                    maint, rest, control):
         kernels = [dict(name=f"rs_gf_apply:{entry}", route="cuda",
                         source=K1_SOURCE, replaces=replaces,
                         launches=launches.get(entry, 0)
@@ -4617,7 +5161,8 @@ def main(argv=None) -> int:
                         + server["k1"].get(entry, 0)
                         + replica["k1"].get(entry, 0)
                         + maint["k1"].get(entry, 0)
-                        + rest["k1"].get(entry, 0),
+                        + rest["k1"].get(entry, 0)
+                        + control["k1"].get(entry, 0),
                         max_abs_err=errs[entry], ms=times[entry]["ms"],
                         plain_ms=times[entry]["plain_ms"],
                         bound_ms=times[entry]["bound_ms"],
@@ -4628,7 +5173,8 @@ def main(argv=None) -> int:
                             source=K3_SOURCE, replaces=K3_REPLACES,
                             launches=k3_launches + tier["k3_scrub"]
                             + mesh["launches"]["k3"] + server["k3"]
-                            + replica["k3"] + maint["k3"] + rest["k3"],
+                            + replica["k3"] + maint["k3"] + rest["k3"]
+                            + control["k3"],
                             max_abs_err=k3_err,
                             ms=k3["ms"], plain_ms=k3["plain_ms"],
                             bound_ms=k3["bound_ms"], bound_by=k3["bound_by"],

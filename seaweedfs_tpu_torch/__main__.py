@@ -1,16 +1,31 @@
-"""Command line of the port: ``python -m seaweedfs_tpu_torch volume ...``.
+"""Command line of the port: ``python -m seaweedfs_tpu_torch <verb> ...``.
 
-The counterpart of the JAX package's `run_volume` with `_add_volume_flags`
-(seaweedfs_tpu/__main__.py:115, :203): a volume server that serves HTTP and
-gRPC and heartbeats to `-mserver`. It runs on the card unless `-device cpu`
-is asked for, and exits non-zero on a host without one. `-jwtSigningKey`,
-`-jwtReadSigningKey` and `-whiteList` build its security guard (reference
-`_add_security_flags` and `_make_guard`, :87-114): flags win, and an absent
-flag falls back to security.toml on the config tier chain (utils/config).
-The `[grpc]` section of that file (ca, cert, key) puts every gRPC server and
-stub of the process under mTLS before any starts (reference `_init_tls`,
-:1366); a partial section refuses to start. `-qosPolicy` (a JSON file,
-reloaded when it changes) turns on QoS admission.
+Verbs, the counterparts of the JAX package's (seaweedfs_tpu/__main__.py):
+
+* ``master`` (`run_master`, :162, with `_add_master_flags`, :25): the
+  master server, its HTTP API with `-httpPort`, the health engine and the
+  admin cron. `-peers` with more than one master, `-sloPolicy`,
+  `-telemetryIntervalS` and `-lifecyclePolicy` refuse to start: their
+  modules are not ported yet (ROADMAP Queue 1 item 3).
+* ``volume`` (`run_volume` with `_add_volume_flags`, :115, :203): a volume
+  server that serves HTTP and gRPC and heartbeats to `-mserver`. It runs
+  on the card unless `-device cpu` is asked for, and exits non-zero on a
+  host without one. `-qosPolicy` (a JSON file, reloaded when it changes)
+  turns on QoS admission.
+* ``server`` (`run_server`, :224): a master and one volume server in one
+  process, the volume server on the card unless `-device cpu`. `-filer`,
+  `-s3`, `-webdav` and `-iam` refuse to start (ROADMAP Queue 1 item 3).
+* ``shell`` (`run_shell`, :291): the admin shell over the ported command
+  tables (shell/commands.py, ec_commands.py, volume_commands.py); `-c`
+  runs semicolon-separated lines and exits non-zero when one fails.
+
+`-jwtSigningKey`, `-jwtReadSigningKey` and `-whiteList` build a daemon's
+security guard (reference `_add_security_flags` and `_make_guard`,
+:87-114): flags win, and an absent flag falls back to security.toml on the
+config tier chain (utils/config). The `[grpc]` section of that file (ca,
+cert, key) puts every gRPC server and stub of the process under mTLS
+before any starts (reference `_init_tls`, :1366); a partial section
+refuses to start.
 """
 
 from __future__ import annotations
@@ -32,6 +47,71 @@ def _parse_ec_shards(spec: str) -> "tuple[int, int]":
     if d <= 0 or p <= 0 or d + p > 256:
         raise ValueError(f"invalid RS geometry ({d},{p})")
     return d, p
+
+
+def _master_flags(p: argparse.ArgumentParser) -> None:
+    """The reference's `_add_master_flags`, flag for flag."""
+    p.add_argument("-ip", default="127.0.0.1")
+    p.add_argument("-port", type=int, default=9333)
+    p.add_argument("-httpPort", type=int, default=0,
+                   help="HTTP status/metrics API port (0 = off)")
+    p.add_argument("-volumeSizeLimitMB", type=int, default=30_000)
+    p.add_argument("-defaultReplication", default="000")
+    p.add_argument("-peers", default="",
+                   help="comma-separated master quorum incl. self; more "
+                        "than one needs raft, not ported yet")
+    p.add_argument("-raftDir", default="",
+                   help="directory for persistent raft state")
+    p.add_argument("-maintenanceScripts", default="default",
+                   help="semicolon-separated shell lines the master cron runs "
+                        "(reference master.toml scripts); 'default' = "
+                        "fix.replication/ec.rebuild/ec.balance/volume.balance, "
+                        "'' disables")
+    p.add_argument("-maintenanceIntervalS", type=float, default=0,
+                   help="cron interval seconds (0 = reference default 17 min)")
+    p.add_argument("-maintenanceHealthDriven", default="on",
+                   choices=["on", "off"],
+                   help="on (default): cron sweeps repair from the health "
+                        "plane's report, most-at-risk first under the "
+                        "admission budget; off: the script list")
+    p.add_argument("-maintenanceMaxConcurrentRepairs", type=int, default=2,
+                   help="repairs in flight per health-driven sweep")
+    p.add_argument("-ecParityShards", type=int, default=0,
+                   help="parity shard count of the cluster's EC geometry, "
+                        "used by the health engine to derive k = n - parity "
+                        "(0 = fork default 2)")
+    p.add_argument("-ecShards", default="",
+                   help="cluster EC geometry as 'd,p' (e.g. 14,2 or 10,4); "
+                        "the p half feeds the health engine like "
+                        "-ecParityShards")
+    p.add_argument("-lifecyclePolicy", default="",
+                   help="lifecycle policy JSON file (needs lifecycle/, not "
+                        "ported yet)")
+    p.add_argument("-sloPolicy", default="",
+                   help="SLO policy (needs the fleet telemetry, not ported "
+                        "yet)")
+    p.add_argument("-telemetryIntervalS", type=float, default=0,
+                   help="fleet telemetry scrape interval (needs the fleet "
+                        "telemetry, not ported yet)")
+    p.add_argument("-linkCosts", default="",
+                   help="geo link-cost policy: JSON file path or inline "
+                        "JSON doc; served at /cluster/linkcosts")
+    _security_flags(p)
+
+
+def _security_flags(p: argparse.ArgumentParser) -> None:
+    # empty keys keep security off, as in the reference's default
+    p.add_argument("-jwtSigningKey", default="")
+    p.add_argument("-jwtReadSigningKey", default="")
+    p.add_argument("-whiteList", default="",
+                   help="comma-separated IPs/CIDRs allowed without jwt")
+
+
+def _ec_parity(opt) -> "int | None":
+    """-ecShards d,p wins over the older -ecParityShards spelling."""
+    if opt.ecShards:
+        return _parse_ec_shards(opt.ecShards)[1]
+    return opt.ecParityShards or None
 
 
 def _volume_flags(p: argparse.ArgumentParser) -> None:
@@ -63,11 +143,7 @@ def _volume_flags(p: argparse.ArgumentParser) -> None:
                    help="QoS policy JSON file (tenant/class token buckets, "
                         "weights), reloaded when it changes; empty = "
                         "admission off")
-    # empty keys keep security off, as in the reference's default
-    p.add_argument("-jwtSigningKey", default="")
-    p.add_argument("-jwtReadSigningKey", default="")
-    p.add_argument("-whiteList", default="",
-                   help="comma-separated IPs/CIDRs allowed without jwt")
+    _security_flags(p)
 
 
 def _make_guard(opt):
@@ -105,7 +181,74 @@ def _init_tls() -> None:
         print("gRPC mTLS enabled (security.toml [grpc])", file=sys.stderr)
 
 
-def run_volume(argv) -> int:
+def _wait_for_signal() -> None:
+    done = threading.Event()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        signal.signal(sig, lambda *_: done.set())
+    done.wait()
+
+
+def _master_server(opt, **kw):
+    """A MasterServer from master flags; an option whose modules are not
+    ported exits with the constructor's message."""
+    from .master.master_server import MasterServer
+    try:
+        return MasterServer(
+            ip=opt.ip, port=opt.port,
+            volume_size_limit_mb=opt.volumeSizeLimitMB,
+            default_replication=opt.defaultReplication,
+            guard=_make_guard(opt), http_port=opt.httpPort or None,
+            peers=[p for p in opt.peers.split(",") if p],
+            ec_parity_shards=_ec_parity(opt),
+            lifecycle_policy=opt.lifecyclePolicy,
+            slo_policy=opt.sloPolicy, link_costs=opt.linkCosts,
+            telemetry_interval_s=opt.telemetryIntervalS or None, **kw)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        sys.exit(2)
+
+
+def run_master(argv) -> int:
+    import os
+
+    from .utils import config as cfg
+
+    p = argparse.ArgumentParser(prog="master")
+    _master_flags(p)
+    opt = p.parse_args(argv)
+    raft_state = None
+    if opt.raftDir:
+        os.makedirs(opt.raftDir, exist_ok=True)
+        raft_state = os.path.join(opt.raftDir, f"raft-{opt.port}.json")
+    mconf = cfg.load_config("master")
+    if opt.maintenanceScripts == "default":
+        toml_scripts = cfg.get_dotted(mconf, "master.maintenance.scripts", "")
+        scripts = ([ln.strip() for ln in toml_scripts.splitlines()
+                    if ln.strip()] if toml_scripts else None)
+    else:
+        scripts = [s for s in opt.maintenanceScripts.split(";") if s.strip()]
+    if not opt.maintenanceIntervalS:
+        mins = cfg.get_dotted(mconf, "master.maintenance.sleep_minutes", 0)
+        opt.maintenanceIntervalS = float(mins) * 60 if mins else 0
+    ms = _master_server(
+        opt, raft_state_path=raft_state, maintenance_scripts=scripts,
+        maintenance_interval_s=opt.maintenanceIntervalS or None,
+        maintenance_health_driven=opt.maintenanceHealthDriven == "on")
+    ms.admin_cron.repair_max_concurrent = opt.maintenanceMaxConcurrentRepairs
+    ms.start()
+    print(f"master {ms.address} up (http :{opt.httpPort or '-'})",
+          flush=True)
+    _wait_for_signal()
+    ms.stop()
+    return 0
+
+
+def _serve_volume_server(opt, port: int, master: str, grpc_port: int = 0,
+                         disk: str = "hdd", index: str = "memory",
+                         data_center: str = "", rack: str = "",
+                         pulse_seconds: float = 2.0, qos_policy: str = ""):
+    """A volume server on the card (or `-device cpu`) over one directory,
+    served over gRPC and heartbeating to `master`."""
     from .ec.locate import EcGeometry
     from .ops.coder import resolve_device
     from .server.grpc_service import serve_volume
@@ -113,33 +256,115 @@ def run_volume(argv) -> int:
     from .storage.disk_location import DiskLocation
     from .storage.store import Store
 
+    resolve_device(opt.device)  # no card and no -device cpu: refuse
+    geo = EcGeometry(*_parse_ec_shards(opt.ecShards)) if opt.ecShards else None
+    store = Store(opt.ip, port, f"{opt.ip}:{port}",
+                  [DiskLocation(opt.dir, disk, opt.max,
+                                needle_map_kind=index)],
+                  ec_geometry=geo, coder_name=opt.coder, ec_codec=opt.codec,
+                  device=opt.device)
+    vs = VolumeServer(store, ip=opt.ip, port=port, data_center=data_center,
+                      rack=rack, pulse_seconds=pulse_seconds,
+                      guard=_make_guard(opt), qos_policy=qos_policy or None)
+    served = serve_volume(vs, grpc_port, master=master)
+    print(f"volume server {vs.url} (grpc :{vs.grpc_port}, {vs.device}) "
+          f"heartbeating to {master}", flush=True)
+    return served
+
+
+def run_volume(argv) -> int:
     p = argparse.ArgumentParser(prog="volume")
     _volume_flags(p)
     opt = p.parse_args(argv)
-    resolve_device(opt.device)  # no card and no -device cpu: refuse
-    geo = EcGeometry(*_parse_ec_shards(opt.ecShards)) if opt.ecShards else None
-    store = Store(opt.ip, opt.port, f"{opt.ip}:{opt.port}",
-                  [DiskLocation(opt.dir, opt.disk, opt.max,
-                                needle_map_kind=opt.index)],
-                  ec_geometry=geo, coder_name=opt.coder, ec_codec=opt.codec,
-                  device=opt.device)
-    vs = VolumeServer(store, ip=opt.ip, port=opt.port,
-                      data_center=opt.dataCenter, rack=opt.rack,
-                      pulse_seconds=opt.pulseSeconds,
-                      guard=_make_guard(opt),
-                      qos_policy=opt.qosPolicy or None)
-    served = serve_volume(vs, opt.grpcPort, master=opt.mserver)
-    print(f"volume server {vs.url} (grpc :{vs.grpc_port}, {vs.device}) "
-          f"heartbeating to {opt.mserver}", flush=True)
-    done = threading.Event()
-    for sig in (signal.SIGINT, signal.SIGTERM):
-        signal.signal(sig, lambda *_: done.set())
-    done.wait()
+    served = _serve_volume_server(
+        opt, opt.port, opt.mserver, grpc_port=opt.grpcPort, disk=opt.disk,
+        index=opt.index, data_center=opt.dataCenter, rack=opt.rack,
+        pulse_seconds=opt.pulseSeconds, qos_policy=opt.qosPolicy)
+    _wait_for_signal()
     served.stop()
     return 0
 
 
-VERBS = {"volume": run_volume}
+def run_server(argv) -> int:
+    """A master and one volume server in one process (reference
+    command/server.go:176)."""
+    p = argparse.ArgumentParser(prog="server")
+    _master_flags(p)
+    p.add_argument("-volumePort", type=int, default=8080)
+    p.add_argument("-dir", default="./data")
+    p.add_argument("-max", type=int, default=8)
+    p.add_argument("-coder", default="torch", choices=("torch", "native"))
+    p.add_argument("-device", default="cuda", choices=("cuda", "cpu"))
+    p.add_argument("-codec", default="rs",
+                   help="erasure codec for new encodes: rs | piggyback | msr")
+    p.add_argument("-filer", action="store_true")
+    p.add_argument("-filerPort", type=int, default=8888)
+    p.add_argument("-s3", action="store_true")
+    p.add_argument("-s3Port", type=int, default=8333)
+    p.add_argument("-webdav", action="store_true")
+    p.add_argument("-webdavPort", type=int, default=7333)
+    p.add_argument("-iam", action="store_true")
+    p.add_argument("-iamPort", type=int, default=8111)
+    opt = p.parse_args(argv)
+    asked = [f"-{n}" for n in ("filer", "s3", "webdav", "iam")
+             if getattr(opt, n)]
+    if asked:
+        print(f"error: server {' '.join(asked)}: the filer, S3, WebDAV and "
+              "IAM gateways are not ported yet (ROADMAP Queue 1 item 3)",
+              file=sys.stderr)
+        return 2
+    ms = _master_server(opt)
+    ms.start()
+    try:
+        served = _serve_volume_server(opt, opt.volumePort,
+                                      f"{opt.ip}:{opt.port}")
+    except BaseException:
+        ms.stop()
+        raise
+    _wait_for_signal()
+    served.stop()
+    ms.stop()
+    return 0
+
+
+def run_shell(argv) -> int:
+    from .shell import ec_commands, volume_commands  # noqa: F401 (register)
+    from .shell.commands import CommandEnv, repl, run_command
+
+    p = argparse.ArgumentParser(prog="shell")
+    p.add_argument("-master", default="127.0.0.1:9333")
+    p.add_argument("-filer", default="",
+                   help="default filer host:port for fs.* commands")
+    p.add_argument("-jwtSigningKey", default="",
+                   help="cluster signing key for gRPC auth")
+    p.add_argument("-c", dest="script", default="",
+                   help="run semicolon-separated commands and exit")
+    opt = p.parse_args(argv)
+    if opt.jwtSigningKey:
+        from .utils.rpc import set_cluster_key
+        set_cluster_key(opt.jwtSigningKey)
+    env = CommandEnv(opt.master)
+    if opt.filer:
+        env.option["filer"] = opt.filer
+    if not opt.script:
+        repl(env)
+        return 0
+    # scripted mode: a failing command is a non-zero exit, as in the
+    # reference, not a printed-and-swallowed error as in the REPL
+    try:
+        for line in opt.script.split(";"):
+            if not run_command(env, line):
+                break
+    except Exception as e:  # noqa: BLE001
+        print(f"error: {e}", file=sys.stderr)
+        env.release_lock()
+        return 2
+    env.release_lock()
+    return 0
+
+
+VERBS = {"master": run_master, "volume": run_volume, "server": run_server,
+         "shell": run_shell}
 
 
 def main(argv=None) -> int:

@@ -1,0 +1,1075 @@
+"""volume.* and cluster admin commands (reference weed/shell/command_volume_*).
+
+The port's copy of seaweedfs_tpu/shell/volume_commands.py, every command
+but cluster.check (its filer and broker pings need pb/filer_pb2, pb/mq_pb2
+and mq_commands; ROADMAP Queue 1 item 3). volume.check.disk re-copies
+needles through client/http_util instead of requests.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from ..pb import master_pb2 as mpb
+from ..pb import volume_server_pb2 as vpb
+from ..utils.rpc import MASTER_SERVICE, Stub, VOLUME_SERVICE
+from .commands import CommandEnv, command
+
+
+def _vs_stub(env: CommandEnv, node_id: str, grpc_port: int) -> Stub:
+    return Stub(env.grpc_addr(node_id, grpc_port), VOLUME_SERVICE)
+
+
+def _volume_holders(env: CommandEnv, vid: int) -> list[dict]:
+    out = []
+    for srv in env.collect_volume_servers():
+        for disk in srv["disks"].values():
+            for v in disk.volume_infos:
+                if v.id == vid:
+                    out.append({**srv, "info": v})
+    return out
+
+
+@command("lock", "acquire the exclusive cluster admin lock")
+def cmd_lock(env: CommandEnv, args):
+    env.acquire_lock()
+    env.println("locked")
+
+
+@command("unlock", "release the cluster admin lock")
+def cmd_unlock(env: CommandEnv, args):
+    env.release_lock()
+    env.println("unlocked")
+
+
+@command("volume.list", "list topology: servers, volumes, ec shards")
+def cmd_volume_list(env: CommandEnv, args):
+    topo = env.topology()
+    for dc in topo.data_center_infos:
+        env.println(f"DataCenter {dc.id}")
+        for rack in dc.rack_infos:
+            env.println(f"  Rack {rack.id}")
+            for node in rack.data_node_infos:
+                env.println(f"    DataNode {node.id} (grpc :{node.grpc_port})")
+                for dtype, disk in sorted(node.disk_infos.items()):
+                    env.println(f"      Disk {dtype} "
+                                f"{disk.volume_count}/{disk.max_volume_count} slots")
+                    for v in disk.volume_infos:
+                        env.println(
+                            f"        volume {v.id} col={v.collection!r} "
+                            f"size={v.size} files={v.file_count} "
+                            f"del={v.delete_count} ro={v.read_only} "
+                            f"rp={v.replica_placement:03d}")
+                    for s in disk.ec_shard_infos:
+                        bits = [i for i in range(32) if s.ec_index_bits >> i & 1]
+                        env.println(f"        ec volume {s.id} "
+                                    f"col={s.collection!r} shards={bits}")
+
+
+@command("volume.scrub", "CRC-verify live needles (device-batched kernel)")
+def cmd_volume_scrub(env: CommandEnv, args):
+    """BASELINE config 4 as an operational surface: every volume server
+    streams its .dat needles through the batched CRC kernel
+    (storage/scrub.py; K3 on a server of the card, the host loop on the CPU)
+    and reports corrupt needles + needles/s. Exceeds the reference —
+    command_volume_fsck.go:81 walks needles but never hardware-verifies
+    CRCs."""
+    import argparse
+
+    from ..pb import volume_server_pb2 as vpb
+
+    p = argparse.ArgumentParser(prog="volume.scrub")
+    p.add_argument("-volumeId", type=int, default=0,
+                   help="scrub one volume (default: all)")
+    p.add_argument("-device", choices=["auto", "on", "off"], default="auto")
+    p.add_argument("-timeBudget", type=float, default=0,
+                   help="per-server seconds; servers keep a rotating "
+                        "cursor so budgeted sweeps cover everything "
+                        "across runs (admin cron uses this)")
+    opt = p.parse_args(args)
+    if opt.volumeId:
+        # only the holders have the volume; fanning out to every server
+        # would print spurious not-found failures
+        servers = _volume_holders(env, opt.volumeId)
+    else:
+        servers = env.collect_volume_servers()
+    total = corrupt = troubled = 0
+    t_sum = 0.0
+    for srv in servers:
+        try:
+            resp = _vs_stub(env, srv["id"], srv["grpc_port"]).call(
+                "VolumeScrub",
+                vpb.VolumeScrubRequest(volume_id=opt.volumeId,
+                                       device=opt.device,
+                                       time_budget_s=opt.timeBudget),
+                vpb.VolumeScrubResponse, timeout=600)
+        except Exception as e:  # noqa: BLE001
+            env.println(f"{srv['id']}: scrub failed: {e}")
+            troubled += 1
+            continue
+        for r in resp.results:
+            rate = r.scanned / r.elapsed_s if r.elapsed_s else 0.0
+            env.println(
+                f"{srv['id']} volume {r.volume_id}: {r.scanned} needles "
+                f"({r.bytes_checked >> 20} MB) in {r.elapsed_s:.2f}s "
+                f"[{r.mode}] {rate:,.0f} needles/s"
+                + (f" CORRUPT: {[hex(n) for n in r.corrupt_needle_ids]}"
+                   if r.corrupt_needle_ids else "")
+                + (f" ERROR: {r.error}" if r.error else ""))
+            total += r.scanned
+            corrupt += len(r.corrupt_needle_ids)
+            troubled += 1 if (r.error and r.mode != "skipped-tiered") else 0
+            t_sum += r.elapsed_s
+    env.println(f"scrubbed {total} needles, {corrupt} corrupt"
+                + (f", {total / t_sum:,.0f} needles/s overall"
+                   if t_sum else ""))
+    if corrupt or troubled:
+        # RuntimeError, not SystemExit: the admin cron catches Exception
+        # to survive failing scripts, and SystemExit would kill its thread
+        raise RuntimeError(
+            f"{corrupt} corrupt needles, {troubled} troubled volumes/servers")
+
+
+@command("cluster.repair",
+         "[-url http://master:port] [-dryRun] [-maxConcurrent 2] "
+         "[-failOn AT_RISK]: plan and run prioritized repairs from the "
+         "health report")
+def cmd_cluster_repair(env: CommandEnv, args):
+    """The heal half of detect-and-heal (cluster.check detects): score
+    the cluster (same fetch-or-recompute path as cluster.check), build a
+    deterministic repair plan — most-at-risk items first, DATA_LOSS
+    reported but never 'repaired' — and execute it under the admission
+    budget (maintenance/executor.py). -dryRun prints the exact plan and
+    performs zero mutating RPCs; -failOn raises (shell: error; `-c`
+    scripts: exit 2) when the cluster is still at/above that severity
+    AFTER repairs (or, in -dryRun, at plan time) — the CI tripwire
+    shape cluster.check established."""
+    import time as _time
+
+    from ..maintenance import RepairExecutor, build_plan, make_probes
+    from ..master.health import _RANK
+    from .health_util import fetch_link_costs, fetch_or_compute_health
+
+    p = argparse.ArgumentParser(prog="cluster.repair")
+    p.add_argument("-url", default="",
+                   help="master HTTP base URL; fetch /cluster/health "
+                        "instead of recomputing from a topology dump")
+    p.add_argument("-dryRun", action="store_true",
+                   help="print the plan, mutate nothing")
+    p.add_argument("-maxConcurrent", type=int, default=2,
+                   help="repairs in flight at once (admission budget)")
+    p.add_argument("-maxRepairs", type=int, default=64,
+                   help="repairs admitted this run; the rest journal "
+                        "repair.skipped reason=budget")
+    p.add_argument("-linkCosts", default="",
+                   help="geo link-cost policy (inline JSON or file); "
+                        "default: the master's /cluster/linkcosts")
+    p.add_argument("-failOn", default="AT_RISK",
+                   choices=["DEGRADED", "AT_RISK", "DATA_LOSS", "never"])
+    opt = p.parse_args(args)
+
+    report = fetch_or_compute_health(env, opt.url)
+    remount_probe, geometry_probe = make_probes(env)
+    plan = build_plan(report, probe_remountable=remount_probe,
+                      probe_geometry=geometry_probe,
+                      costs=fetch_link_costs(opt.url, opt.linkCosts))
+    plan.render(env.println)
+
+    def check_verdict(verdict):
+        if opt.failOn != "never" and \
+                _RANK.get(verdict, 0) >= _RANK[opt.failOn]:
+            raise RuntimeError(
+                f"cluster verdict {verdict} (failing at {opt.failOn}+)")
+
+    if opt.dryRun:
+        # journals repair.plan (dry_run=true) and dispatches nothing —
+        # operators see planned-but-not-executed in /debug/events too
+        RepairExecutor(env).execute(plan, dry_run=True)
+        env.println("dry run: nothing executed")
+        check_verdict(report.get("verdict", "OK"))
+        return
+
+    # mutating mode needs the exclusive cluster lock (renews if the
+    # caller — e.g. the admin cron — already holds it; released only
+    # if this command took it fresh)
+    had_lock = bool(env.lock_token)
+    env.acquire_lock()
+    try:
+        executor = RepairExecutor(env, max_concurrent=opt.maxConcurrent,
+                                  max_repairs=opt.maxRepairs)
+        res = executor.execute(plan)
+    finally:
+        if not had_lock:
+            try:
+                env.release_lock()
+            except Exception:  # noqa: BLE001  # swtpu-lint: disable=silent-except (lease already expired/released)
+                pass
+    env.println(f"repairs: {len(res['done'])} done, "
+                f"{len(res['failed'])} failed, "
+                f"{len(res['skipped'])} skipped")
+    for f in res["failed"]:
+        env.println(f"  FAILED {f['action']} volume {f['vid']}: "
+                    f"{f['error']}")
+    if opt.failOn == "never":
+        return
+    # repairs mount/copy synchronously but the master's view is
+    # heartbeat-propagated: give the verdict a short settle window
+    # before declaring failure
+    deadline = _time.monotonic() + 15
+    verdict = report.get("verdict", "OK")
+    while _time.monotonic() < deadline:
+        try:
+            verdict = fetch_or_compute_health(env, opt.url).get(
+                "verdict", "OK")
+        except Exception as e:  # noqa: BLE001 — a blip mid-settle must
+            env.println(f"  (health re-check failed: {e}; retrying)")
+            _time.sleep(0.5)  # not fail a repair that already landed
+            continue
+        if _RANK.get(verdict, 0) < _RANK[opt.failOn]:
+            break
+        _time.sleep(0.5)
+    env.println(f"post-repair verdict: {verdict}")
+    check_verdict(verdict)
+
+
+@command("collection.list", "list collections")
+def cmd_collection_list(env: CommandEnv, args):
+    for c in env.mc.collection_list():
+        env.println(f"  collection {c!r}")
+
+
+@command("volume.vacuum", "-garbageThreshold 0.3 [-volumeId N]: compact garbage",
+         needs_lock=True)
+def cmd_volume_vacuum(env: CommandEnv, args):
+    p = argparse.ArgumentParser(prog="volume.vacuum")
+    p.add_argument("-garbageThreshold", type=float, default=0.3)
+    p.add_argument("-volumeId", type=int, default=0)
+    opt = p.parse_args(args)
+    vacuumed = 0
+    for srv in env.collect_volume_servers():
+        stub = _vs_stub(env, srv["id"], srv["grpc_port"])
+        for disk in srv["disks"].values():
+            for v in disk.volume_infos:
+                if opt.volumeId and v.id != opt.volumeId:
+                    continue
+                chk = stub.call("VacuumVolumeCheck",
+                                vpb.VacuumVolumeCheckRequest(volume_id=v.id),
+                                vpb.VacuumVolumeCheckResponse)
+                if chk.garbage_ratio < opt.garbageThreshold:
+                    continue
+                env.println(f"  vacuuming volume {v.id} on {srv['id']} "
+                            f"(garbage {chk.garbage_ratio:.0%})")
+                stub.call("VacuumVolumeCompact",
+                          vpb.VacuumVolumeCompactRequest(volume_id=v.id),
+                          vpb.VacuumVolumeCompactResponse, timeout=600)
+                stub.call("VacuumVolumeCommit",
+                          vpb.VacuumVolumeCommitRequest(volume_id=v.id),
+                          vpb.VacuumVolumeCommitResponse, timeout=600)
+                vacuumed += 1
+    env.println(f"vacuumed {vacuumed} volumes")
+
+
+@command("volume.delete", "-volumeId N [-node ip:port]: delete a volume",
+         needs_lock=True)
+def cmd_volume_delete(env: CommandEnv, args):
+    p = argparse.ArgumentParser(prog="volume.delete")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-node", default="")
+    opt = p.parse_args(args)
+    for h in _volume_holders(env, opt.volumeId):
+        if opt.node and h["id"] != opt.node:
+            continue
+        _vs_stub(env, h["id"], h["grpc_port"]).call(
+            "VolumeDelete", vpb.VolumeDeleteRequest(volume_id=opt.volumeId),
+            vpb.VolumeDeleteResponse)
+        env.println(f"  deleted volume {opt.volumeId} on {h['id']}")
+
+
+@command("volume.mark", "-volumeId N -readonly|-writable", needs_lock=True)
+def cmd_volume_mark(env: CommandEnv, args):
+    p = argparse.ArgumentParser(prog="volume.mark")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-readonly", action="store_true")
+    p.add_argument("-writable", action="store_true")
+    opt = p.parse_args(args)
+    for h in _volume_holders(env, opt.volumeId):
+        stub = _vs_stub(env, h["id"], h["grpc_port"])
+        if opt.readonly:
+            stub.call("VolumeMarkReadonly",
+                      vpb.VolumeMarkReadonlyRequest(volume_id=opt.volumeId),
+                      vpb.VolumeMarkReadonlyResponse)
+        elif opt.writable:
+            stub.call("VolumeMarkWritable",
+                      vpb.VolumeMarkWritableRequest(volume_id=opt.volumeId),
+                      vpb.VolumeMarkWritableResponse)
+    env.println("done")
+
+
+def _safe_copy_volume(env: CommandEnv, vid: int, collection: str,
+                      src: dict, dst: dict, *, delete_source: bool,
+                      disk_type: str = "") -> None:
+    """Copy a volume src->dst with writes frozen for the duration.
+
+    VolumeCopy streams .dat then .idx through separate CopyFile calls; an
+    append landing in between would pair the clone's longer .idx with a
+    shorter .dat (torn copy) — and move flows then delete the only intact
+    source. Freezes the source (remembering a pre-existing read-only flag
+    so rollback can't clobber a tiered/operator freeze), propagates that
+    flag to the destination, deletes the source only on success, and
+    restores writability for replicate-style copies.
+    Reference: command_volume_move.go LiveMoveVolume's readonly phase."""
+    src_stub = _vs_stub(env, src["id"], src["grpc_port"])
+    dst_stub = _vs_stub(env, dst["id"], dst["grpc_port"])
+    was_ro = src_stub.call(
+        "VolumeStatus", vpb.VolumeStatusRequest(volume_id=vid),
+        vpb.VolumeStatusResponse).is_read_only
+    if not was_ro:
+        src_stub.call("VolumeMarkReadonly",
+                      vpb.VolumeMarkReadonlyRequest(volume_id=vid),
+                      vpb.VolumeMarkReadonlyResponse)
+    try:
+        dst_stub.call("VolumeCopy", vpb.VolumeCopyRequest(
+            volume_id=vid, collection=collection, disk_type=disk_type,
+            source_data_node=env.grpc_addr(src["id"], src["grpc_port"])),
+            vpb.VolumeCopyResponse, timeout=600)
+    except Exception:
+        if not was_ro:
+            src_stub.call("VolumeMarkWritable",
+                          vpb.VolumeMarkWritableRequest(volume_id=vid),
+                          vpb.VolumeMarkWritableResponse)
+        raise
+    if was_ro:
+        # an operator/tier freeze follows the data to its new holder
+        dst_stub.call("VolumeMarkReadonly",
+                      vpb.VolumeMarkReadonlyRequest(volume_id=vid),
+                      vpb.VolumeMarkReadonlyResponse)
+    if delete_source:
+        src_stub.call("VolumeDelete",
+                      vpb.VolumeDeleteRequest(volume_id=vid),
+                      vpb.VolumeDeleteResponse)
+    elif not was_ro:
+        src_stub.call("VolumeMarkWritable",
+                      vpb.VolumeMarkWritableRequest(volume_id=vid),
+                      vpb.VolumeMarkWritableResponse)
+
+
+def _local_tier_move(env: CommandEnv, vid: int, srv: dict,
+                     to_disk_type: str) -> None:
+    """Same-server cross-tier move: freeze writes, then one VolumeCopy
+    addressed to the HOLDER with a differing disk_type — the handler
+    recognizes itself as the source and does a local disk-to-disk copy
+    + retire (store.move_volume_local) instead of a network pull. The
+    read-only flag survives the move inside the store, so only a
+    pre-move writable volume is thawed after."""
+    stub = _vs_stub(env, srv["id"], srv["grpc_port"])
+    was_ro = stub.call(
+        "VolumeStatus", vpb.VolumeStatusRequest(volume_id=vid),
+        vpb.VolumeStatusResponse).is_read_only
+    if not was_ro:
+        stub.call("VolumeMarkReadonly",
+                  vpb.VolumeMarkReadonlyRequest(volume_id=vid),
+                  vpb.VolumeMarkReadonlyResponse)
+    try:
+        stub.call("VolumeCopy", vpb.VolumeCopyRequest(
+            volume_id=vid, disk_type=to_disk_type,
+            source_data_node=env.grpc_addr(srv["id"], srv["grpc_port"])),
+            vpb.VolumeCopyResponse, timeout=600)
+    finally:
+        if not was_ro:
+            stub.call("VolumeMarkWritable",
+                      vpb.VolumeMarkWritableRequest(volume_id=vid),
+                      vpb.VolumeMarkWritableResponse)
+
+
+@command("volume.fix.replication",
+         "[-volumeId N] re-replicate volumes whose replica sets are "
+         "incomplete", needs_lock=True)
+def cmd_fix_replication(env: CommandEnv, args):
+    """Reference command_volume_fix_replication.go: for every volume whose
+    live replica count < replica placement target, copy it from a healthy
+    holder to a server that lacks it. -volumeId limits the sweep to one
+    volume (targeted operator repair)."""
+    p = argparse.ArgumentParser(prog="volume.fix.replication")
+    p.add_argument("-volumeId", type=int, default=0)
+    opt = p.parse_args(args)
+    servers = env.collect_volume_servers()
+    # volume -> holders, and volume -> info
+    holders: dict[int, list[dict]] = {}
+    infos: dict[int, mpb.VolumeInformationMessage] = {}
+    for srv in servers:
+        for disk in srv["disks"].values():
+            for v in disk.volume_infos:
+                if opt.volumeId and v.id != opt.volumeId:
+                    continue
+                holders.setdefault(v.id, []).append(srv)
+                infos[v.id] = v
+    fixed = 0
+    for vid, hs in sorted(holders.items()):
+        from ..storage.types import ReplicaPlacement
+        target = ReplicaPlacement.from_byte(infos[vid].replica_placement).copy_count
+        if len(hs) >= target:
+            continue
+        have = {h["id"] for h in hs}
+        candidates = [s for s in servers if s["id"] not in have]
+        src = hs[0]
+        for dst in candidates[: target - len(hs)]:
+            env.println(f"  replicating volume {vid} {src['id']} -> {dst['id']}")
+            _safe_copy_volume(env, vid, infos[vid].collection, src, dst,
+                              delete_source=False)
+            fixed += 1
+    env.println(f"replicated {fixed} volume copies")
+
+
+@command("volume.move", "-volumeId N -source ip:port -target ip:port",
+         needs_lock=True)
+def cmd_volume_move(env: CommandEnv, args):
+    p = argparse.ArgumentParser(prog="volume.move")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-source", required=True)
+    p.add_argument("-target", required=True)
+    opt = p.parse_args(args)
+    servers = {s["id"]: s for s in env.collect_volume_servers()}
+    src, dst = servers[opt.source], servers[opt.target]
+    info = next(v for d in src["disks"].values() for v in d.volume_infos
+                if v.id == opt.volumeId)
+    _safe_copy_volume(env, opt.volumeId, info.collection, src, dst,
+                      delete_source=True)
+    env.println(f"moved volume {opt.volumeId} {opt.source} -> {opt.target}")
+
+
+@command("volume.balance",
+         "[-dryRun] [-collection C] [-maxMoves 64] [-targetSkew 1.15] "
+         "[-crossRackLimitMB N]: move volumes toward even BYTE load")
+def cmd_volume_balance(env: CommandEnv, args):
+    """Thin shell over the placement plane (seaweedfs_tpu/placement/):
+    one topology snapshot becomes a deterministic byte-costed MovePlan —
+    most-loaded server sheds toward least-loaded until max/min byte
+    skew converges, with EC SHARD BYTES counted in every server's load
+    (the old count-based pass treated a shard-crushed server as empty
+    and piled volumes onto it), intra-rack moves preferred and
+    cross-rack bytes capped per run. Execution is maintenance-class
+    through the QoS plane, every move journals `balance.move` with its
+    byte cost, and -dryRun prints the exact plan with zero mutating
+    RPCs — the cluster.repair shape."""
+    from ..maintenance import make_probes
+    from ..placement import (BalanceExecutor, build_volume_balance_plan,
+                             snapshot_from_servers)
+    from ..placement.plan import (DEFAULT_CROSS_RACK_LIMIT,
+                                  DEFAULT_TARGET_SKEW)
+
+    p = argparse.ArgumentParser(prog="volume.balance")
+    p.add_argument("-dryRun", action="store_true",
+                   help="print the plan, mutate nothing")
+    p.add_argument("-collection", default=None,
+                   help="move only this collection's volumes (load is "
+                        "still scored fleet-wide)")
+    p.add_argument("-maxMoves", type=int, default=64)
+    p.add_argument("-targetSkew", type=float, default=DEFAULT_TARGET_SKEW,
+                   help="stop when max/min per-server bytes <= this")
+    p.add_argument("-crossRackLimitMB", type=int, default=0,
+                   help="cap on cross-rack bytes this run "
+                        "(0 = default 30 GB)")
+    p.add_argument("-url", default="",
+                   help="master HTTP base URL (fetches its -linkCosts "
+                        "policy so plans price moves like the cron)")
+    p.add_argument("-linkCosts", default="",
+                   help="geo link-cost policy (inline JSON or file); "
+                        "overrides the master's")
+    opt = p.parse_args(args)
+
+    from .health_util import fetch_link_costs
+
+    _remount_probe, geometry_probe = make_probes(env)
+
+    def shard_bytes_of(vid: int, collection: str) -> "int | None":
+        g = geometry_probe(vid, collection)
+        return g.get("shard_size") if g else None
+
+    limit_mb = env.mc.volume_list().volume_size_limit_mb or 30_000
+    snap = snapshot_from_servers(
+        env.collect_volume_servers(), shard_bytes_of=shard_bytes_of,
+        default_shard_bytes=(limit_mb << 20) // 10)
+    plan = build_volume_balance_plan(
+        snap, collection=opt.collection, target_skew=opt.targetSkew,
+        max_moves=opt.maxMoves,
+        cross_rack_limit_bytes=(opt.crossRackLimitMB << 20
+                                or DEFAULT_CROSS_RACK_LIMIT),
+        costs=fetch_link_costs(opt.url, opt.linkCosts))
+    plan.render(env.println)
+    if opt.dryRun:
+        BalanceExecutor(env).execute(plan, dry_run=True)
+        env.println("dry run: nothing executed")
+        return
+    had_lock = bool(env.lock_token)
+    env.acquire_lock()
+    try:
+        res = BalanceExecutor(env, max_moves=opt.maxMoves).execute(plan)
+    finally:
+        if not had_lock:
+            try:
+                env.release_lock()
+            except Exception:  # noqa: BLE001  # swtpu-lint: disable=silent-except (lease already expired/released)
+                pass
+    env.println(f"balanced: {len(res['done'])} move(s), "
+                f"{len(res['failed'])} failed, "
+                f"{sum(m['bytes_moved'] for m in res['done']):,} B moved")
+    for f in res["failed"]:
+        env.println(f"  FAILED volume {f['vid']} {f['src']} -> "
+                    f"{f['dst']}: {f['error']}")
+
+
+@command("volume.tier.upload",
+         "move a sealed volume's .dat to a remote backend")
+def cmd_volume_tier_upload(env: CommandEnv, args):
+    """Reference shell/command_volume_tier_upload.go ->
+    VolumeTierMoveDatToRemote."""
+    p = argparse.ArgumentParser(prog="volume.tier.upload")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-collection", default="")
+    p.add_argument("-dest", required=True,
+                   help="backend spec: local:/dir or s3:http://host/bucket?ak:sk")
+    p.add_argument("-keepLocalDatFile", action="store_true")
+    opt = p.parse_args(args)
+    env.confirm_is_locked()
+    holders = _volume_holders(env, opt.volumeId)
+    if not holders:
+        env.println(f"volume {opt.volumeId} not found")
+        return
+    for h in holders:
+        stub = _vs_stub(env, h["id"], h["grpc_port"])
+        resp = stub.call("VolumeTierMoveDatToRemote",
+                         vpb.VolumeTierMoveDatToRemoteRequest(
+                             volume_id=opt.volumeId,
+                             collection=opt.collection,
+                             destination_backend_name=opt.dest,
+                             keep_local_dat_file=opt.keepLocalDatFile),
+                         vpb.VolumeTierMoveDatToRemoteResponse,
+                         timeout=600)
+        env.println(f"{h['id']}: uploaded {resp.processed} bytes")
+
+
+@command("volume.tier.download",
+         "pull a tiered volume's .dat back to local disk")
+def cmd_volume_tier_download(env: CommandEnv, args):
+    """Reference shell/command_volume_tier_download.go ->
+    VolumeTierMoveDatFromRemote."""
+    p = argparse.ArgumentParser(prog="volume.tier.download")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-collection", default="")
+    p.add_argument("-keepRemoteDatFile", action="store_true")
+    opt = p.parse_args(args)
+    env.confirm_is_locked()
+    holders = _volume_holders(env, opt.volumeId)
+    if not holders:
+        env.println(f"volume {opt.volumeId} not found")
+        return
+    for i, h in enumerate(holders):
+        # replicas share the remote key: only the LAST holder may delete
+        # the remote copy, or the remaining downloads lose their source
+        keep = opt.keepRemoteDatFile or i < len(holders) - 1
+        stub = _vs_stub(env, h["id"], h["grpc_port"])
+        resp = stub.call("VolumeTierMoveDatFromRemote",
+                         vpb.VolumeTierMoveDatFromRemoteRequest(
+                             volume_id=opt.volumeId,
+                             collection=opt.collection,
+                             keep_remote_dat_file=keep),
+                         vpb.VolumeTierMoveDatFromRemoteResponse,
+                         timeout=600)
+        env.println(f"{h['id']}: downloaded {resp.processed} bytes")
+
+
+@command("volume.configure.replication",
+         "change a volume's replication setting on all holders")
+def cmd_volume_configure_replication(env: CommandEnv, args):
+    """Reference shell/command_volume_configure_replication.go ->
+    VolumeConfigure RPC."""
+    p = argparse.ArgumentParser(prog="volume.configure.replication")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-replication", required=True)
+    opt = p.parse_args(args)
+    env.confirm_is_locked()
+    holders = _volume_holders(env, opt.volumeId)
+    if not holders:
+        env.println(f"volume {opt.volumeId} not found")
+        return
+    for h in holders:
+        resp = _vs_stub(env, h["id"], h["grpc_port"]).call(
+            "VolumeConfigure", vpb.VolumeConfigureRequest(
+                volume_id=opt.volumeId, replication=opt.replication),
+            vpb.VolumeConfigureResponse)
+        env.println(f"{h['id']}: {resp.error or 'ok'}")
+
+
+@command("collection.delete", "delete a collection and all its volumes",
+         needs_lock=True)
+def cmd_collection_delete(env: CommandEnv, args):
+    p = argparse.ArgumentParser(prog="collection.delete")
+    p.add_argument("-collection", required=True)
+    opt = p.parse_args(args)
+    env.confirm_is_locked()
+    from ..utils.rpc import MASTER_SERVICE
+    Stub(env.mc.leader, MASTER_SERVICE).call(
+        "CollectionDelete", mpb.CollectionDeleteRequest(name=opt.collection),
+        mpb.CollectionDeleteResponse)
+    env.println(f"deleted collection {opt.collection!r}")
+
+
+@command("volume.server.evacuate",
+         "move every volume and EC shard off one server", needs_lock=True, aliases=("volumeServer.evacuate",))
+def cmd_volume_server_evacuate(env: CommandEnv, args):
+    """Reference shell/command_volume_server_evacuate.go: drain a server
+    before decommissioning."""
+    p = argparse.ArgumentParser(prog="volume.server.evacuate")
+    p.add_argument("-node", required=True, help="volume server id ip:port")
+    opt = p.parse_args(args)
+    env.confirm_is_locked()
+    servers = env.collect_volume_servers()
+    src = next((s for s in servers if s["id"] == opt.node), None)
+    if src is None:
+        env.println(f"server {opt.node} not found")
+        return
+    others = [s for s in servers if s["id"] != opt.node]
+    if not others:
+        env.println("no other servers to evacuate to")
+        return
+    src_addr = env.grpc_addr(src["id"], src["grpc_port"])
+    moved = 0
+    rr = 0
+    for disk in src["disks"].values():
+        for v in disk.volume_infos:
+            # pick a destination that does not already hold a replica
+            # (command_volume_server_evacuate.go moveability check)
+            candidates = [
+                s for s in others
+                if not any(ov.id == v.id
+                           for od in s["disks"].values()
+                           for ov in od.volume_infos)]
+            if not candidates:
+                env.println(f"skip volume {v.id}: every other server "
+                            "already holds a replica")
+                continue
+            dst = candidates[rr % len(candidates)]
+            rr += 1
+            _safe_copy_volume(env, v.id, v.collection, src, dst,
+                              delete_source=True)
+            env.println(f"moved volume {v.id} -> {dst['id']}")
+            moved += 1
+        for s in disk.ec_shard_infos:
+            sids = [i for i in range(32) if s.ec_index_bits >> i & 1]
+            # avoid piling shards of one EC volume onto a server that
+            # already holds some — losing that server would then exceed
+            # the parity tolerance (reference moveability check)
+            candidates = [
+                t for t in others
+                if not any(os_.id == s.id and os_.ec_index_bits
+                           for od in t["disks"].values()
+                           for os_ in od.ec_shard_infos)]
+            if not candidates:
+                env.println(f"skip ec shards {sids} of {s.id}: every other "
+                            "server already holds shards of this volume")
+                continue
+            dst = candidates[rr % len(candidates)]
+            rr += 1
+            _vs_stub(env, dst["id"], dst["grpc_port"]).call(
+                "VolumeEcShardsMove", vpb.VolumeEcShardsMoveRequest(
+                    volume_id=s.id, collection=s.collection,
+                    shard_ids=sids, source_data_node=src_addr),
+                vpb.VolumeEcShardsMoveResponse, timeout=600)
+            env.println(f"moved ec shards {sids} of {s.id} -> {dst['id']}")
+            moved += 1
+    env.println(f"evacuated {moved} volumes/shard-groups off {opt.node}")
+
+
+@command("cluster.ps", "show cluster processes")
+def cmd_cluster_ps(env: CommandEnv, args):
+    """Reference shell/command_cluster_ps.go."""
+    conf = Stub(env.mc.leader, MASTER_SERVICE).call(
+        "GetMasterConfiguration", mpb.GetMasterConfigurationRequest(),
+        mpb.GetMasterConfigurationResponse)
+    env.println(f"master {env.mc.leader} (leader: {conf.leader})")
+    for s in env.collect_volume_servers():
+        vols = sum(len(d.volume_infos) for d in s["disks"].values())
+        ecs = sum(len(d.ec_shard_infos) for d in s["disks"].values())
+        env.println(f"  volume server {s['id']} dc={s['dc']} "
+                    f"rack={s['rack']} volumes={vols} ec={ecs}")
+    # filers/brokers registered through KeepConnected (cluster.go:104)
+    for ctype in ("filer", "broker"):
+        try:
+            resp = Stub(env.mc.leader, MASTER_SERVICE).call(
+                "ListClusterNodes",
+                mpb.ListClusterNodesRequest(client_type=ctype),
+                mpb.ListClusterNodesResponse)
+        except Exception:  # noqa: BLE001 — pre-RPC master
+            continue
+        for n in resp.cluster_nodes:
+            env.println(f"  {ctype} {n.address}")
+
+
+@command("volume.check.disk", "sync divergent replicas by needle-map diff",
+         needs_lock=True)
+def cmd_volume_check_disk(env: CommandEnv, args):
+    """Reference shell/command_volume_check_disk.go:110: for each
+    multi-replica volume, diff the replicas' needle sets and re-copy
+    missing needles from the replica that has them."""
+    from ..client import http_util
+
+    p = argparse.ArgumentParser(prog="volume.check.disk")
+    p.add_argument("-volumeId", type=int, default=0,
+                   help="limit to one volume (default: all)")
+    p.add_argument("-fix", action="store_true",
+                   help="copy missing needles to lagging replicas")
+    p.add_argument("-scrub", action="store_true",
+                   help="also CRC-verify each replica's needles through "
+                        "the device-batched kernel before diffing")
+    p.add_argument("-device", choices=["auto", "on", "off"], default="auto",
+                   help="scrub backend (with -scrub)")
+    opt = p.parse_args(args)
+    env.confirm_is_locked()
+    # group volume -> holders
+    holders: dict[int, list[dict]] = {}
+    for srv in env.collect_volume_servers():
+        for disk in srv["disks"].values():
+            for v in disk.volume_infos:
+                if opt.volumeId and v.id != opt.volumeId:
+                    continue
+                holders.setdefault(v.id, []).append(
+                    {**srv, "file_count": v.file_count})
+    fixed = diverged = 0
+    for vid, hs in sorted(holders.items()):
+        if len(hs) < 2:
+            continue
+        if opt.scrub:
+            # CRC pass first: a bit-rotted replica is EXCLUDED from the
+            # diff so it can never be the donor that "repairs" healthy
+            # replicas with corrupt bytes
+            healthy = []
+            for h in hs:
+                ok = True
+                try:
+                    resp = _vs_stub(env, h["id"], h["grpc_port"]).call(
+                        "VolumeScrub",
+                        vpb.VolumeScrubRequest(volume_id=vid,
+                                               device=opt.device),
+                        vpb.VolumeScrubResponse, timeout=600)
+                    for r in resp.results:
+                        if r.corrupt_needle_ids or r.error:
+                            ok = False
+                            env.println(
+                                f"volume {vid} on {h['id']}: excluded "
+                                f"from diff — corrupt "
+                                f"{[hex(n) for n in r.corrupt_needle_ids]}"
+                                f"{' ' + r.error if r.error else ''}")
+                except Exception as e:  # noqa: BLE001
+                    ok = False
+                    env.println(f"volume {vid} on {h['id']}: scrub: {e}")
+                if ok:
+                    healthy.append(h)
+            if len(healthy) < 2:
+                if len(healthy) < len(hs):
+                    env.println(f"volume {vid}: <2 healthy replicas, "
+                                "skipping diff (repair corruption first)")
+                continue
+            hs = healthy
+        needle_sets = []
+        for h in hs:
+            stub = _vs_stub(env, h["id"], h["grpc_port"])
+            keys = set()
+            try:
+                parts = bytearray()
+                for r in stub.call_stream(
+                        "CopyFile", vpb.CopyFileRequest(
+                            volume_id=vid, ext=".idx"),
+                        vpb.CopyFileResponse):
+                    parts += r.file_content
+                for off in range(0, len(parts) - 15, 16):
+                    key = int.from_bytes(parts[off:off + 8], "big")
+                    size = int.from_bytes(parts[off + 12:off + 16], "big",
+                                          signed=True)
+                    if size >= 0:
+                        keys.add(key)
+                    else:
+                        keys.discard(key)
+            except Exception as e:  # noqa: BLE001
+                env.println(f"volume {vid} on {h['id']}: idx fetch: {e}")
+                continue
+            needle_sets.append((h, keys))
+        if len(needle_sets) < 2:
+            continue
+        union: set = set()
+        for _, keys in needle_sets:
+            union |= keys
+        for h, keys in needle_sets:
+            lacking = union - keys
+            if not lacking:
+                continue
+            diverged += 1
+            env.println(f"volume {vid} on {h['id']} lacks "
+                        f"{len(lacking)} needles")
+            if not opt.fix:
+                continue
+            donor = next((d for d, k in needle_sets if lacking <= k), None)
+            if donor is None:
+                donor = max(needle_sets, key=lambda t: len(t[1]))[0]
+            for key in sorted(lacking):
+                try:
+                    st = _vs_stub(env, donor["id"],
+                                  donor["grpc_port"]).call(
+                        "VolumeNeedleStatus",
+                        vpb.VolumeNeedleStatusRequest(volume_id=vid,
+                                                      needle_id=key),
+                        vpb.VolumeNeedleStatusResponse)
+                    fid = f"{vid},{key:x}{st.cookie:08x}"
+                    data = http_util.get(f"http://{donor['id']}/{fid}",
+                                         timeout=30)
+                    if data.status != 200:
+                        continue
+                    http_util.post(f"http://{h['id']}/{fid}?type=replicate",
+                                   data.content, timeout=30)
+                    fixed += 1
+                except Exception as e:  # noqa: BLE001
+                    env.println(f"  fix {vid},{key:x}: {e}")
+    env.println(f"check.disk: {diverged} divergent replicas, "
+                f"{fixed} needles re-copied")
+
+
+@command("volume.mount", "-volumeId N -node ip:port: open an on-disk volume "
+         "into serving", needs_lock=True)
+def cmd_volume_mount(env: CommandEnv, args):
+    p = argparse.ArgumentParser(prog="volume.mount")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-node", required=True)
+    p.add_argument("-collection", default="")
+    opt = p.parse_args(args)
+    srv = {s["id"]: s for s in env.collect_volume_servers()}[opt.node]
+    _vs_stub(env, srv["id"], srv["grpc_port"]).call(
+        "VolumeMount", vpb.VolumeMountRequest(volume_id=opt.volumeId,
+                                              collection=opt.collection),
+        vpb.VolumeMountResponse)
+    env.println(f"mounted volume {opt.volumeId} on {opt.node}")
+
+
+@command("volume.unmount", "-volumeId N -node ip:port: close a volume "
+         "(files stay on disk)", needs_lock=True)
+def cmd_volume_unmount(env: CommandEnv, args):
+    p = argparse.ArgumentParser(prog="volume.unmount")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-node", required=True)
+    opt = p.parse_args(args)
+    srv = {s["id"]: s for s in env.collect_volume_servers()}[opt.node]
+    _vs_stub(env, srv["id"], srv["grpc_port"]).call(
+        "VolumeUnmount", vpb.VolumeUnmountRequest(volume_id=opt.volumeId),
+        vpb.VolumeUnmountResponse)
+    env.println(f"unmounted volume {opt.volumeId} on {opt.node}")
+
+
+@command("volume.copy", "-volumeId N -source ip:port -target ip:port: "
+         "replicate a volume onto another server", needs_lock=True)
+def cmd_volume_copy(env: CommandEnv, args):
+    """Reference command_volume_copy.go (move without source delete)."""
+    p = argparse.ArgumentParser(prog="volume.copy")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-source", required=True)
+    p.add_argument("-target", required=True)
+    opt = p.parse_args(args)
+    servers = {s["id"]: s for s in env.collect_volume_servers()}
+    src_srv, dst_srv = servers[opt.source], servers[opt.target]
+    info = next(v for d in src_srv["disks"].values() for v in d.volume_infos
+                if v.id == opt.volumeId)
+    _safe_copy_volume(env, opt.volumeId, info.collection, src_srv, dst_srv,
+                      delete_source=False)
+    env.println(f"copied volume {opt.volumeId} {opt.source} -> {opt.target}")
+
+
+@command("volume.delete.empty", "[-force]: delete volumes with no live "
+         "needles cluster-wide", needs_lock=True, aliases=("volume.deleteEmpty",))
+def cmd_volume_delete_empty(env: CommandEnv, args):
+    """Reference command_volume_delete_empty.go."""
+    p = argparse.ArgumentParser(prog="volume.delete.empty")
+    p.add_argument("-force", action="store_true")
+    opt = p.parse_args(args)
+    deleted = 0
+    for srv in env.collect_volume_servers():
+        for disk in srv["disks"].values():
+            for v in disk.volume_infos:
+                if v.file_count - v.delete_count > 0:
+                    continue
+                if not opt.force:
+                    env.println(f"  would delete empty volume {v.id} "
+                                f"on {srv['id']} (use -force)")
+                    continue
+                _vs_stub(env, srv["id"], srv["grpc_port"]).call(
+                    "VolumeDelete",
+                    vpb.VolumeDeleteRequest(volume_id=v.id, only_empty=True),
+                    vpb.VolumeDeleteResponse)
+                deleted += 1
+    env.println(f"deleted {deleted} empty volumes")
+
+
+@command("volume.server.leave", "-node ip:port: drain a server from the "
+         "cluster (stops heartbeats)", needs_lock=True,
+         aliases=("volumeServer.leave",))
+def cmd_volume_server_leave(env: CommandEnv, args):
+    """Reference command_volume_server_leave.go."""
+    p = argparse.ArgumentParser(prog="volume.server.leave")
+    p.add_argument("-node", required=True)
+    opt = p.parse_args(args)
+    srv = {s["id"]: s for s in env.collect_volume_servers()}[opt.node]
+    _vs_stub(env, srv["id"], srv["grpc_port"]).call(
+        "VolumeServerLeave", vpb.VolumeServerLeaveRequest(),
+        vpb.VolumeServerLeaveResponse)
+    env.println(f"{opt.node} left the cluster (data service still up)")
+
+
+@command("cluster.raft.ps", "show raft quorum state")
+def cmd_cluster_raft_ps(env: CommandEnv, args):
+    """Reference command_cluster_raft_ps.go."""
+    try:
+        resp = Stub(env.mc.leader, MASTER_SERVICE).call(
+            "RaftListClusterServers", mpb.RaftListClusterServersRequest(),
+            mpb.RaftListClusterServersResponse)
+        env.println(f"leader: {env.mc.leader}")
+        for s in resp.cluster_servers:
+            env.println(f"member: {s.address} {s.suffrage}"
+                        + (" (leader)" if s.is_leader else ""))
+        return
+    except Exception:  # noqa: BLE001  # swtpu-lint: disable=silent-except (pre-membership-RPC master)
+        pass
+    env.println(f"leader: {env.mc.leader}")
+    for m in env.mc.masters:
+        env.println(f"member: {m}" + (" (leader)"
+                                      if m == env.mc.leader else ""))
+
+
+@command("cluster.raft.add", "-id name -address host:port: add a raft voter",
+         needs_lock=True)
+def cmd_cluster_raft_add(env: CommandEnv, args):
+    """Reference command_cluster_raft_add.go — single-server membership
+    change committed through the log; the new master may be started with
+    any seed peer list and learns the real membership from the leader."""
+    p = argparse.ArgumentParser(prog="cluster.raft.add")
+    p.add_argument("-id", dest="id", default="")
+    p.add_argument("-address", required=True)
+    opt = p.parse_args(args)
+    Stub(env.mc.leader, MASTER_SERVICE).call(
+        "RaftAddServer", mpb.RaftAddServerRequest(
+            id=opt.id or opt.address, address=opt.address),
+        mpb.RaftAddServerResponse)
+    env.println(f"added raft server {opt.address}")
+
+
+@command("cluster.raft.remove", "-id host:port: remove a raft member",
+         needs_lock=True)
+def cmd_cluster_raft_remove(env: CommandEnv, args):
+    """Reference command_cluster_raft_remove.go."""
+    p = argparse.ArgumentParser(prog="cluster.raft.remove")
+    p.add_argument("-id", dest="id", required=True)
+    opt = p.parse_args(args)
+    Stub(env.mc.leader, MASTER_SERVICE).call(
+        "RaftRemoveServer", mpb.RaftRemoveServerRequest(id=opt.id, force=True),
+        mpb.RaftRemoveServerResponse)
+    env.println(f"removed raft server {opt.id}")
+
+
+@command("volume.vacuum.disable", "pause the master's automated vacuum",
+         needs_lock=True)
+def cmd_volume_vacuum_disable(env: CommandEnv, args):
+    """Reference command_volume_vacuum_disable.go: stops the maintenance
+    cron's vacuum line; explicit `volume.vacuum` still works."""
+    Stub(env.mc.leader, MASTER_SERVICE).call(
+        "DisableVacuum", mpb.DisableVacuumRequest(), mpb.DisableVacuumResponse)
+    env.println("automated vacuum disabled")
+
+
+@command("volume.vacuum.enable", "resume the master's automated vacuum",
+         needs_lock=True)
+def cmd_volume_vacuum_enable(env: CommandEnv, args):
+    """Reference command_volume_vacuum_enable.go."""
+    Stub(env.mc.leader, MASTER_SERVICE).call(
+        "EnableVacuum", mpb.EnableVacuumRequest(), mpb.EnableVacuumResponse)
+    env.println("automated vacuum enabled")
+
+
+@command("volume.tier.move", "-fromDiskType hdd -toDiskType ssd "
+         "[-collection c] [-volumeId N]: migrate volumes between disk types",
+         needs_lock=True)
+def cmd_volume_tier_move(env: CommandEnv, args):
+    """Reference command_volume_tier_move.go: for every matching volume
+    sitting on a `fromDiskType` disk, move it to a `toDiskType` disk.
+    A server that has BOTH tiers moves its own volumes with a local
+    disk-to-disk copy (VolumeCopy with a differing disk_type on the
+    holder itself — zero network bytes); otherwise the copy streams to
+    the least-loaded other server with a target-tier disk and the
+    source copy is deleted. Either way the copy lands on the target
+    tier because VolumeCopy carries disk_type (volume_server.py handler
+    picks the location by it)."""
+    p = argparse.ArgumentParser(prog="volume.tier.move")
+    p.add_argument("-fromDiskType", required=True)
+    p.add_argument("-toDiskType", required=True)
+    p.add_argument("-collection", default="")
+    p.add_argument("-volumeId", type=int, default=0)
+    opt = p.parse_args(args)
+    if opt.fromDiskType == opt.toDiskType:
+        env.println("source and target disk types are the same; nothing to do")
+        return
+    servers = env.collect_volume_servers()
+    targets = [s for s in servers
+               if any(dt == opt.toDiskType for dt in s["disks"])]
+    if not targets:
+        env.println(f"no server has a {opt.toDiskType!r} disk")
+        return
+    # target-tier volume count per server, updated locally as moves land
+    # (re-collecting topology mid-sweep races heartbeat propagation)
+    load = {s["id"]: len(s["disks"][opt.toDiskType].volume_infos)
+            for s in targets if opt.toDiskType in s["disks"]}
+    moved_to: dict[str, set] = {}  # dst id -> vids landed this sweep
+    moved = 0
+    for src in servers:
+        for dt, disk in src["disks"].items():
+            if dt != opt.fromDiskType:
+                continue
+            for v in list(disk.volume_infos):
+                if opt.volumeId and v.id != opt.volumeId:
+                    continue
+                if opt.collection and v.collection != opt.collection:
+                    continue
+                # a source server that has the target tier itself moves
+                # locally — zero network bytes, no replica-set changes
+                if opt.toDiskType in src["disks"]:
+                    env.println(f"  moving volume {v.id} on {src['id']} "
+                                f"{opt.fromDiskType} -> {opt.toDiskType} "
+                                "(local disk-to-disk)")
+                    try:
+                        _local_tier_move(env, v.id, src, opt.toDiskType)
+                    except Exception as e:  # noqa: BLE001 — keep sweeping
+                        env.println(f"  volume {v.id}: move failed: {e}")
+                        continue
+                    load[src["id"]] = load.get(src["id"], 0) + 1
+                    moved += 1
+                    continue
+                # exclude the source AND any server already holding a copy
+                # of vid on any tier (replicated volumes, or a prior sweep
+                # iteration) — VolumeCopy aborts on "already here"
+                holders = {h["id"] for h in _volume_holders(env, v.id)}
+                holders.update(s_id for s_id, vids in moved_to.items()
+                               if v.id in vids)
+                cands = [s for s in targets
+                         if s["id"] != src["id"] and s["id"] not in holders]
+                if not cands:
+                    env.println(f"  volume {v.id}: no eligible "
+                                f"{opt.toDiskType!r} server; skipped")
+                    continue
+                dst = min(cands, key=lambda s: load.get(s["id"], 0))
+                env.println(f"  moving volume {v.id} {src['id']}"
+                            f"({opt.fromDiskType}) -> {dst['id']}"
+                            f"({opt.toDiskType})")
+                try:
+                    _safe_copy_volume(env, v.id, v.collection, src, dst,
+                                      delete_source=True,
+                                      disk_type=opt.toDiskType)
+                except Exception as e:  # noqa: BLE001 — keep sweeping
+                    env.println(f"  volume {v.id}: move failed: {e}")
+                    continue
+                moved_to.setdefault(dst["id"], set()).add(v.id)
+                load[dst["id"]] = load.get(dst["id"], 0) + 1
+                moved += 1
+    env.println(f"moved {moved} volume(s) to {opt.toDiskType}")

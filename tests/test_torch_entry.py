@@ -1,6 +1,7 @@
 """The port's entry point and pipeline forward against the JAX package's,
-its import hygiene (no jax, nothing of seaweedfs_tpu), and its refusal to
-fall back to the CPU on its own."""
+its import hygiene (no jax, nothing of seaweedfs_tpu), its refusal to
+fall back to the CPU on its own, and its command line: the volume,
+master, server and shell verbs."""
 
 import subprocess
 import sys
@@ -67,6 +68,17 @@ print("REST", all(f"seaweedfs_tpu_torch.{m}" in sys.modules
                             "images.resize", "remote", "remote.azure",
                             "remote.gcs", "utils.mini_azure",
                             "utils.mini_gcs", "storage.ref_format")))
+print("CONTROL", all(f"seaweedfs_tpu_torch.{m}" in sys.modules
+                     for m in ("master.sequencer", "master.topology",
+                               "master.volume_layout", "master.volume_growth",
+                               "master.lease", "master.health",
+                               "master.admin_cron", "master.master_server",
+                               "geo.policy", "placement", "placement.engine",
+                               "placement.plan", "placement.executor",
+                               "maintenance", "maintenance.planner",
+                               "maintenance.executor", "client.master_client",
+                               "shell.commands", "shell.health_util",
+                               "shell.ec_commands", "shell.volume_commands")))
 print("CODERS", sorted(n for n in ("mesh", "native") if coder._resolve(n)))
 print("BAD", bad)
 """
@@ -81,6 +93,7 @@ def test_import_hygiene_no_jax_no_reference_package():
     assert "MESH True" in out.stdout, out.stdout
     assert "MAINT True" in out.stdout, out.stdout
     assert "REST True" in out.stdout, out.stdout
+    assert "CONTROL True" in out.stdout, out.stdout
     assert "CODERS ['mesh', 'native']" in out.stdout, out.stdout
     assert int(out.stdout.split("LOADED ")[1].split()[0]) >= 15
 
@@ -220,6 +233,91 @@ def test_volume_verb_takes_the_index_flag(tmp_path):
                 time.sleep(0.1)
         assert (r.status_code, r.content) == (200, body)
         assert os.path.getsize(tmp_path / "6.sdx") > 0
+    finally:
+        proc.terminate()
+        proc.wait(timeout=15)
+
+
+def _cli(*args, timeout=120):
+    return subprocess.run([sys.executable, "-m", "seaweedfs_tpu_torch", *args],
+                          capture_output=True, text=True, timeout=timeout,
+                          cwd=str(_repo_root()))
+
+
+def test_master_verb_help_lists_the_reference_flags():
+    out = _cli("master", "-h")
+    assert out.returncode == 0, out.stderr
+    for flag in ("-httpPort", "-volumeSizeLimitMB", "-peers",
+                 "-maintenanceScripts", "-maintenanceIntervalS",
+                 "-maintenanceHealthDriven", "-ecParityShards", "-ecShards",
+                 "-lifecyclePolicy", "-sloPolicy", "-telemetryIntervalS",
+                 "-linkCosts", "-jwtSigningKey", "-whiteList"):
+        assert flag in out.stdout, flag
+
+
+def test_shell_help_lists_exactly_the_ported_commands():
+    """`shell -c help` lists the reference's lock, volume.* and ec.*
+    commands (those of its commands, ec_commands and volume_commands
+    modules) and nothing else: cluster.check waits for the filer and
+    broker protos."""
+    from seaweedfs_tpu.shell import commands as ref_commands
+    from seaweedfs_tpu.shell import ec_commands, volume_commands  # noqa: F401
+    ported = {"seaweedfs_tpu.shell.commands", "seaweedfs_tpu.shell.ec_commands",
+              "seaweedfs_tpu.shell.volume_commands"}
+    want = sorted(name for name, c in ref_commands.COMMANDS.items()
+                  if c.fn.__module__ in ported and name != "cluster.check")
+    out = _cli("shell", "-master", "127.0.0.1:1", "-c", "help")
+    assert out.returncode == 0, out.stderr
+    got = [line.split()[0] for line in out.stdout.splitlines()
+           if line.startswith("  ")]
+    assert got == want
+    assert {"lock", "unlock", "ec.encode", "ec.rebuild", "ec.decode",
+            "volume.scrub"} <= set(got)
+
+
+@pytest.mark.parametrize("flag", ["-filer", "-s3", "-webdav", "-iam"])
+def test_server_verb_refuses_the_gateways(tmp_path, flag):
+    out = _cli("server", "-device", "cpu", "-dir", str(tmp_path), flag)
+    assert out.returncode == 2
+    assert "ROADMAP Queue 1 item 3" in out.stderr, out.stderr
+    assert flag in out.stderr
+
+
+@pytest.mark.parametrize("flags,needs", [
+    (["-peers", "127.0.0.1:9333,127.0.0.1:9334"], "master/raft.py"),
+    (["-sloPolicy", '{"objectives": []}'], "telemetry/"),
+    (["-lifecyclePolicy", "policy.json"], "lifecycle/")])
+def test_master_verb_refuses_unported_options(flags, needs):
+    from conftest import free_port_pair
+    out = _cli("master", "-port", str(free_port_pair()), *flags)
+    assert out.returncode == 2
+    assert needs in out.stderr and "ROADMAP Queue 1 item 3" in out.stderr
+
+
+def test_server_verb_and_shell_make_a_cluster_of_the_port(tmp_path):
+    """`server -device cpu` starts a master and a volume server in one
+    process; the port's shell, another process, sees the server in
+    volume.list and takes and gives back the admin lock."""
+    import time
+
+    from conftest import free_port_pair
+    mport, vport = free_port_pair(), free_port_pair()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "seaweedfs_tpu_torch", "server", "-port",
+         str(mport), "-volumePort", str(vport), "-dir", str(tmp_path),
+         "-device", "cpu"], cwd=str(_repo_root()), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT)
+    try:
+        deadline = time.monotonic() + 60
+        while True:
+            assert proc.poll() is None, proc.stdout.read().decode()
+            out = _cli("shell", "-master", f"127.0.0.1:{mport}", "-c",
+                       "lock; volume.list; unlock")
+            if f"DataNode 127.0.0.1:{vport}" in out.stdout:
+                break
+            assert time.monotonic() < deadline, (out.stdout, out.stderr)
+            time.sleep(0.5)
+        assert out.returncode == 0, out.stderr
     finally:
         proc.terminate()
         proc.wait(timeout=15)

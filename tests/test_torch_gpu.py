@@ -452,3 +452,29 @@ def test_degraded_http_read_on_card_launches_k1(cuda, tmp_path):
         assert vs.read_stats["reconstructs"] >= 1
     finally:
         vs.stop()
+
+
+@pytest.mark.gpu
+def test_cluster_of_the_port_on_card(cuda, tmp_path):
+    """A small cluster of the port on the card (tests/torch_cluster.py):
+    the master, four volume servers in racks r1-r4 and the shell run
+    ec.encode (K1 encode), lose rack r1, read degraded (K1 reconstruct),
+    repair through the admin cron, scrub (K3) and decode."""
+    import torch_cluster as tc
+
+    c = tc.start(tmp_path, device="cuda")
+    try:
+        rs_cuda.reset_launches()
+        crc_cuda.reset_launches()
+        tc.write_and_encode(c)
+        tc.lose_rack_and_repair(c)
+        tc.scrub(c)
+        tc.decode(c)
+        torch.cuda.synchronize()
+        k1 = dict(rs_cuda.launches_by_entry)
+        # one generate batch encodes both volumes through one stream
+        assert k1.get("encode", 0) >= 1, k1
+        assert k1.get("reconstruct", 0) >= 1, k1
+        assert crc_cuda.launches >= 1
+    finally:
+        tc.stop(c)

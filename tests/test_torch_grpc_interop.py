@@ -12,7 +12,11 @@ plane: a "001" volume over the JAX server and a port server written by
 operation.submit and submit_batch, read from both holders, through
 read_batch on the port server and by proxy on the server with no copy,
 deletes fanned out both ways; and a port server joining a master started
-with a signing key (the gRPC cluster key and the write tokens)."""
+with a signing key (the gRPC cluster key and the write tokens). Last, the
+control plane both ways: a JAX volume server joins the port's master and
+is read through it, the JAX shell's ec.encode and ec.rebuild drive the
+port's master, and the port's shell encodes and decodes on the JAX
+master."""
 
 import hashlib
 import io
@@ -598,3 +602,168 @@ def test_shell_volume_server_leave_of_a_port_server(cluster, tmp_path):
             assert (r.status_code, r.content) == (200, data)
     finally:
         served.stop()
+
+
+# -- the control plane: the port's master and shell with the JAX package's --
+
+@pytest.fixture(scope="module")
+def port_master_cluster(tmp_path_factory):
+    """The port's MasterServer with a JAX volume server (rack0) and two
+    port servers (rack1, rack2) heartbeating to it."""
+    from seaweedfs_tpu_torch.master.master_server import \
+        MasterServer as PortMaster
+    retry.reset_breakers()
+    mport, hport = free_port_pair(), free_port_pair()
+    master = PortMaster(port=mport, http_port=hport, volume_size_limit_mb=64,
+                        pulse_seconds=0.5, ec_parity_shards=P)
+    master.start()
+    maddr = master.address
+    ref = None
+    served = []
+    try:
+        d = tmp_path_factory.mktemp("pm_jax_vs")
+        port = free_port_pair()
+        store = RefStore("127.0.0.1", port, f"127.0.0.1:{port}",
+                         [RefLocation(str(d), max_volume_count=10)],
+                         ec_geometry=RefGeometry(D, P, large_block=LB,
+                                                 small_block=SB),
+                         coder_name="numpy")
+        ref = RefServer(store, maddr, port=port, grpc_port=port + 10000,
+                        pulse_seconds=0.5, rack="rack0")
+        ref.start()
+        for i in (1, 2):
+            d = tmp_path_factory.mktemp(f"pm_port_vs{i}")
+            port = free_port_pair()
+            store = Store("127.0.0.1", port, f"127.0.0.1:{port}",
+                          [DiskLocation(str(d), max_volume_count=10)],
+                          ec_geometry=EcGeometry(D, P, large_block=LB,
+                                                 small_block=SB),
+                          coder_name="torch", device="cpu")
+            vs = VolumeServer(store, "127.0.0.1", port, rack=f"rack{i}",
+                              pulse_seconds=0.5)
+            served.append(serve_volume(vs, port + 10000, master=maddr))
+        wait_cluster_up(master, [ref] + [s.vs for s in served], timeout=20)
+        mc = MasterClient(maddr).start()
+        try:
+            yield master, maddr, f"127.0.0.1:{hport}", ref, \
+                [s.vs for s in served], mc
+        finally:
+            mc.stop()
+    finally:
+        for s in served:
+            s.stop()
+        if ref is not None:
+            ref.stop()
+        master.stop()
+        retry.reset_breakers()
+
+
+def test_jax_server_joins_the_port_master(port_master_cluster):
+    """Volumes grown on the JAX server's rack by the port's master take
+    the JAX client's writes; the JAX client reads them back through the
+    port's lookups, and a port server proxies a GET to the JAX holder
+    after asking the port's master where the volume lives."""
+    master, maddr, http, ref, (p1, p2), mc = port_master_cluster
+    r = requests.get(f"http://{http}/dir/assign",
+                     params={"collection": "onjax", "rack": "rack0"},
+                     timeout=30)
+    assert r.status_code == 200, r.text
+    rng = np.random.default_rng(21)
+    blobs = {}
+    for _ in range(12):
+        data = rng.bytes(int(rng.integers(100, 9000)))
+        blobs[operation.submit(mc, data, collection="onjax").fid] = data
+    for fid, data in blobs.items():
+        assert _holders(master, fid) == {ref.url}
+        assert operation.read(mc, fid) == data
+        r = requests.get(f"http://{p1.url}/{fid}", timeout=30)
+        assert (r.status_code, r.content) == (200, data)
+
+
+def test_jax_shell_encodes_and_rebuilds_on_the_port_master(
+        port_master_cluster):
+    master, maddr, http, ref, (p1, p2), mc = port_master_cluster
+    rng = np.random.default_rng(22)
+    blobs = {}
+    for _ in range(20):
+        data = rng.bytes(int(rng.integers(100, 9000)))
+        blobs[operation.submit(mc, data, collection="jxec").fid] = data
+    vid = int(next(iter(blobs)).split(",")[0])
+    assert all(int(f.split(",")[0]) == vid for f in blobs)
+    out = _shell(maddr, "ec.encode -collection jxec -fullPercent 0")
+    assert "ec encoded 1 volumes" in out, out
+    wait_until(lambda: sorted(s for s, h in master.topo.lookup_ec(vid).items()
+                              if h) == list(range(D + P)), timeout=15,
+               msg="every shard registered on the port's master")
+    racks = {}
+    for sid, nodes in master.topo.lookup_ec(vid).items():
+        for n in nodes:
+            racks.setdefault(n.rack.id, set()).add(sid)
+    assert len(racks) == 3 and max(len(s) for s in racks.values()) <= P
+    for fid, data in blobs.items():
+        assert operation.read(mc, fid) == data
+
+    # lose a shard on a port server; the JAX shell's ec.rebuild asks the
+    # port's master where the survivors are and restores it
+    victim = next(vs for vs in (p1, p2)
+                  if vs.store.find_ec_volume(vid) is not None)
+    sid = sorted(victim.store.find_ec_volume(vid).shards)[0]
+    sealed = _sha(_base(victim, vid, "jxec") + files.shard_ext(sid))
+    _call(victim, "VolumeEcShardsUnmount", vpb.VolumeEcShardsUnmountRequest(
+        volume_id=vid, shard_ids=[sid]), vpb.VolumeEcShardsUnmountResponse)
+    _call(victim, "VolumeEcShardsDelete", vpb.VolumeEcShardsDeleteRequest(
+        volume_id=vid, collection="jxec", shard_ids=[sid]),
+        vpb.VolumeEcShardsDeleteResponse)
+    wait_until(lambda: not master.topo.lookup_ec(vid).get(sid), timeout=15,
+               msg="lost shard unregistered")
+    out = _shell(maddr, f"ec.rebuild -volumeId {vid}")
+    assert f"missing shards [{sid}]" in out, out
+    wait_until(lambda: master.topo.lookup_ec(vid).get(sid), timeout=15,
+               msg="rebuilt shard registered")
+    host = next(vs for vs in (ref, p1, p2)
+                if os.path.exists(_base(vs, vid, "jxec")
+                                  + files.shard_ext(sid)))
+    assert _sha(_base(host, vid, "jxec") + files.shard_ext(sid)) == sealed
+    for fid, data in blobs.items():
+        assert operation.read(mc, fid) == data
+
+
+def test_port_shell_encodes_and_decodes_on_the_jax_master(cluster):
+    """The port's shell (its CommandEnv and MasterClient) runs ec.encode
+    and ec.decode against the JAX package's master and servers of both
+    packages."""
+    # registers the port's command tables (lock and unlock included)
+    from seaweedfs_tpu_torch.shell import ec_commands as _ec  # noqa: F401
+    from seaweedfs_tpu_torch.shell import volume_commands as _vol  # noqa: F401
+    from seaweedfs_tpu_torch.shell.commands import CommandEnv as PortEnv
+    from seaweedfs_tpu_torch.shell.commands import run_command as port_run
+    master, maddr, ref, (p1, p2), mc = cluster
+    rng = np.random.default_rng(23)
+    blobs = {}
+    for _ in range(20):
+        data = rng.bytes(int(rng.integers(100, 9000)))
+        blobs[operation.submit(mc, data, collection="portsh").fid] = data
+    vid = int(next(iter(blobs)).split(",")[0])
+    out = io.StringIO()
+    env = PortEnv(maddr, out=out)
+    try:
+        for line in ("lock", "ec.encode -collection portsh -fullPercent 0",
+                     "unlock"):
+            port_run(env, line)
+        wait_until(lambda: sorted(
+            s for s, h in master.topo.ec_locations.get(vid, {}).items()
+            if h) == list(range(D + P)), timeout=15,
+            msg="every shard registered on the JAX master")
+        assert master.topo.lookup(vid) == []
+        for fid, data in blobs.items():
+            assert operation.read(mc, fid) == data
+        for line in ("lock", f"ec.decode -volumeId {vid}", "unlock"):
+            port_run(env, line)
+    finally:
+        env.mc.stop()
+    assert f"decoded ec volume {vid}" in out.getvalue(), out.getvalue()
+    wait_until(lambda: master.topo.lookup(vid), timeout=15,
+               msg="decoded volume registered")
+    mc.vid_map.invalidate(vid)
+    for fid, data in blobs.items():
+        assert operation.read(mc, fid) == data
