@@ -5,7 +5,7 @@
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result). `--phases` runs a subset (default: all); phase 1 always runs, and
-the kernels line needs phases 3, 4 and 6 to 17. The kernels of the
+the kernels line needs phases 3, 4 and 6 to 18. The kernels of the
 phases asked for are built first, all at once (one nvcc per source).
 
 1. device: card name, count, `nvidia-smi` name and power limit;
@@ -275,10 +275,40 @@ phases asked for are built first, all at once (one nvcc per source).
    them). (g) `lock; ec.decode -volumeId V; unlock` of one ec17 volume,
    every needle of it read back == written. K1's and K3's counts are
    zeroed just before the phase and read just after;
-18. summary: one JSON line of every kernel with its launches (K1's from
-   phases 6, 9, 10, 11, 12, 13, 14, 15, 16 and 17, K3's from phases 8, 10,
-   12, 13, 14, 15, 16 and 17), error against the plain version, times and
-   bound; then the result line.
+18. the lifecycle under a raft quorum: three masters of the port started
+   as a user starts them (`python -m seaweedfs_tpu_torch master -peers
+   m1,m2,m3 -raftDir D -volumeSizeLimitMB 1024 -ecShards 10,4
+   -maintenanceIntervalS 5 -maintenanceScripts '' -lifecyclePolicy lc.json
+   -sloPolicy slo.json -telemetryIntervalS 2`, subprocesses), four volume
+   servers on the card in racks r1-r4 of this process heartbeating to the
+   quorum, the port's shell as subprocesses. The policy takes collection
+   lc18 to EC after 5 quiet seconds, to a `local:` tier after 15, back on
+   16 remote reads, with a TTL of an hour. (a) One lc18 volume grown on r1
+   and filled past 95% of 1 GiB as phase 17's are. (b) The leader's cron
+   encodes it (K1) and spreads it 4/4/3/3; the 14 shards' sha256 == the
+   plain version's encode of the .dat. (c) The leader is killed with
+   SIGKILL: a new one is elected (timed), cluster.raft.ps names it, the
+   follower answers /dir/lookup from its follower cache, a lease of 4,096
+   keys after the failover lies above every key before it, and the new
+   leader's cron offloads the shards. (d) With the admin lock held, shards
+   (0, 5, 10, 13) unmounted: 2,048 GETs of small needles off the remote
+   tier, each == written, the reconstructs (K1 one stripe) == the sampled
+   intervals on lost shards, and an SLO of "half the GETs within 1 ms"
+   burning on the new leader. (e) 256 more GETs, the lock released: the
+   cron promotes the volume, every shard == its sha256; volume.scrub of
+   the lease's hot18 volume through K3, 0 corrupt. (f) Every holder's .vif
+   carries the TTL's DestroyTime; moved 1 s ahead by POST /debug/lifecycle
+   it is reaped to .trash by the heartbeat ticks and restored, every shard
+   == its sha256. (g) /cluster/telemetry on the new leader has every
+   server live and the merged GET histogram; cluster.top lists the
+   volume's reads. (h) Each leader's journal of transitions == its
+   SeaweedFS_lifecycle_transitions_total; lifecycle.status prints the
+   policy. K1's and K3's counts are zeroed just before the phase and read
+   just after;
+19. summary: one JSON line of every kernel with its launches (K1's from
+   phases 6, 9, 10, 11, 12, 13, 14, 15, 16, 17 and 18, K3's from phases 8,
+   10, 12, 13, 14, 15, 16, 17 and 18), error against the plain version,
+   times and bound; then the result line.
 
 Needs CUDA and the repository beside it; without either it exits 2.
 """
@@ -303,7 +333,7 @@ MAIN_SHAPE = (32, 10, 1 << 20)  # [batch, d, chunk] of one encode call
 LOST_10_4 = (0, 5, 10, 13)
 LOST_14_2 = (3, 15)
 WIDTHS = (16, 48, 100, 384, 4112, 65536, 65552)
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18)
 PALLAS = "seaweedfs_tpu/ops/rs_pallas.py"
 K1_SOURCE = "seaweedfs_tpu_torch/csrc/rs_gf.cu"
 K3_SOURCE = "seaweedfs_tpu_torch/csrc/crc32c.cu"
@@ -312,7 +342,8 @@ KERNELS = {2: ("rs_gf",), 7: ("crc32c",), 9: ("rs_gf",),  # phase -> csrc
            10: ("rs_gf", "crc32c"), 11: ("rs_gf",),    # sources it builds
            12: ("rs_gf", "crc32c"), 13: ("rs_gf", "crc32c"),
            14: ("rs_gf", "crc32c"), 15: ("rs_gf", "crc32c"),
-           16: ("rs_gf", "crc32c"), 17: ("rs_gf", "crc32c")}
+           16: ("rs_gf", "crc32c"), 17: ("rs_gf", "crc32c"),
+           18: ("rs_gf", "crc32c")}
 K3_SHAPES = ((4096, 2048), (16384, 4096), (64, 1 << 20))  # first: the scrub's
 K3_ROWS = (1, 3, 4096, 4225)  # 4225 = 132 SMs x 32 warps + 1
 K3_LENGTHS = (0, 512, 1024, 2048, 4096, 65536, 1 << 20)
@@ -397,6 +428,21 @@ CONTROL_FRAME = 256      # phase 17: needles a /bulk frame (four a lease,
 CONTROL_GETS = 2048      # phase 17: GETs healthy, then with r1 lost
 CONTROL_SCRUB_NEEDLES = 1 << 18  # phase 17: the scrub17 volume
 SCRUB17_VID = 71         # phase 17's damaged regular volume on r4
+LIFE_LIMIT_MB = 1024     # phase 18: the masters' -volumeSizeLimitMB, as 17
+LIFE_FILL = 0.95         # phase 18: the lc18 volume filled past this share
+LIFE_SMALL = 16384       # phase 18: needles of 1024 + 0..63 B, leased
+LIFE_LEASE = 1024        # phase 18: keys an Assign(count=...) leases
+LIFE_FRAME = 256         # phase 18: needles a /bulk frame
+LIFE_GETS = 2048         # phase 18(d): GETs with four shards lost
+LIFE_PROMOTE_GETS = 256  # phase 18(e): GETs past promote_reads (16)
+LIFE_HOT_NEEDLES = 4096  # phase 18(c): the lease after the failover (hot18)
+LIFE_LOST = (0, 5, 10, 13)  # phase 18(d): shards unmounted
+LIFE_EC_AFTER_S = 5.0    # phase 18: the policy's quiet time before EC
+LIFE_REMOTE_AFTER_S = 15.0  # and before the offload: past the kill
+LIFE_TTL_S = 3600.0      # phase 18(f): the policy's TTL (the instant is
+                         # then moved 1 s ahead through /debug/lifecycle)
+LIFE_SLO_THRESHOLD_S = 0.001  # phase 18(g): "half the GETs within 1 ms",
+                              # below the degraded p50 (checked)
 K1_ENTRIES = {  # wrapper entry -> the TPU function it replaces
     "encode": f"{PALLAS}:156",
     "encode_seeded": f"{PALLAS}:164",
@@ -2460,6 +2506,31 @@ def _free_port() -> int:
         except OSError:
             continue
     raise RuntimeError("no free port pair")
+
+
+def _free_low_port(taken=()) -> int:
+    """A free localhost port below the kernel's ephemeral range: no
+    outgoing connection's source port can take it before its server,
+    started later in another process, binds it."""
+    import random
+    import socket
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        low = 32768
+    rng = random.Random()
+    for _ in range(500):
+        port = rng.randrange(10000, low)
+        if port in taken:
+            continue
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        return port
+    raise RuntimeError("no free port below the ephemeral range")
 
 
 class _Client:
@@ -5042,6 +5113,752 @@ def phase_control(torch, np, workdir: str, seed: int, card: str) -> dict:
     return {"k1": k1, "k3": k3}
 
 
+# -- phase 18 ---------------------------------------------------------------
+def lifecycle_round_trip(np, workdir: str, seed: int, card: str,
+                         limit_mb: int, fill: float, small: int, lease: int,
+                         frame: int, gets: int, promote_gets: int,
+                         hot_needles: int, ec_after_s: float,
+                         remote_after_s: float, device: str = "cuda") -> dict:
+    """Phase 18's path, every check fatal: three masters of the port in a
+    raft quorum, each a subprocess started as a user starts it with a
+    lifecycle policy, an SLO policy and fleet telemetry; four volume
+    servers of the port in this process (racks r1-r4 of dc1) heartbeating
+    to the quorum over gRPC; the port's shell in subprocesses. The cron
+    moves collection lc18 hot -> EC -> remote -> EC; the leader is killed
+    between the encode and the offload. Returns the measured numbers."""
+    import http.client
+
+    from seaweedfs_tpu_torch.client.master_client import MasterClient
+    from seaweedfs_tpu_torch.ec import encoder, files
+    from seaweedfs_tpu_torch.ec.locate import EcGeometry
+    from seaweedfs_tpu_torch.ops import crc_cuda, events, rs_torch
+    from seaweedfs_tpu_torch.ops.coder import TorchCoder
+    from seaweedfs_tpu_torch.pb import master_pb2 as mpb
+    from seaweedfs_tpu_torch.server.grpc_service import serve_volume
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.shell.commands import CommandEnv
+    from seaweedfs_tpu_torch.stats import LIFECYCLE_TRANSITIONS
+    from seaweedfs_tpu_torch.storage import bulk
+    from seaweedfs_tpu_torch.storage.disk_location import DiskLocation
+    from seaweedfs_tpu_torch.storage.store import Store
+    from seaweedfs_tpu_torch.storage.types import parse_file_id
+    from seaweedfs_tpu_torch.utils import retry
+    from seaweedfs_tpu_torch.utils.rpc import MASTER_SERVICE, Stub
+
+    class PlainCoder(TorchCoder):
+        """K1's plain PyTorch version behind the coder interface."""
+
+        def encode(self, data):
+            return self._finish(rs_torch.encode(self._to_device(data),
+                                                self.d, self.p))
+
+    geo = EcGeometry(10, 4)
+    limit = limit_mb << 20
+    racks = ("r1", "r2", "r3", "r4")
+    here = os.path.dirname(os.path.abspath(__file__))
+    out: dict = {}
+    served: dict = {}
+    procs: dict = {}
+    logs: list = []
+    clients: dict = {}
+    mc = env = None
+    retry.reset_breakers()
+    picked: "list[int]" = []
+    for _ in range(6):
+        picked.append(_free_low_port(picked))
+    ports = list(zip(picked[::2], picked[1::2]))
+    peers = [f"127.0.0.1:{p}" for p, _ in ports]
+    http_of = {f"127.0.0.1:{p}": h for p, h in ports}
+    remote_dir = os.path.join(workdir, "remote")
+    lc_path = os.path.join(workdir, "lc.json")
+    slo_path = os.path.join(workdir, "slo.json")
+    slo_name = "get-latency"
+
+    def client(url: str) -> "_Client":
+        if url not in clients:
+            clients[url] = _Client(url)
+        return clients[url]
+
+    def http_get(addr: str, path: str, method: str = "GET",
+                 body: "bytes | None" = None):
+        c = http.client.HTTPConnection("127.0.0.1", http_of[addr],
+                                       timeout=30)
+        try:
+            c.request(method, path, body=body)
+            r = c.getresponse()
+            raw = r.read()
+            return r.status, (json.loads(raw) if raw[:1] == b"{" else raw)
+        finally:
+            c.close()
+
+    def leader_of(live):
+        """The master that every live one names, once exactly one leads."""
+        seen = []
+        for a in live:
+            if procs[a].poll() is not None:
+                raise AssertionError(f"master {a} exited rc "
+                                     f"{procs[a].poll()}")
+            try:
+                st, body = http_get(a, "/cluster/status")
+            except OSError:
+                return None
+            if st != 200:
+                return None
+            seen.append((a, body["IsLeader"], body["leader"]))
+        leads = [a for a, is_leader, _ in seen if is_leader]
+        if len(leads) == 1 and all(hint == leads[0] for _, _, hint in seen):
+            return leads[0]
+        return None
+
+    def transitions(addr: str) -> "list[dict]":
+        st, doc = http_get(addr, "/debug/lifecycle?limit=5000")
+        if st != 200:
+            raise AssertionError(f"/debug/lifecycle on {addr}: {st}")
+        return [e["attrs"] for e in doc["recent"]["events"]
+                if e["type"] == "lifecycle.transition"]
+
+    def counted(addr: str) -> "dict[tuple, float]":
+        """SeaweedFS_lifecycle_transitions_total by (from, to) of a master."""
+        st, text = http_get(addr, "/metrics")
+        got = {}
+        for m in re.finditer(r'^SeaweedFS_lifecycle_transitions_total\{(.*?)'
+                             r'\} (\S+)$', text.decode(), re.M):
+            lb = dict(re.findall(r'(\w+)="([^"]*)"', m.group(1)))
+            got[(lb["from"], lb["to"])] = float(m.group(2))
+        return got
+
+    def ec_of(addr: str, vid: int) -> "dict[int, list[str]]":
+        """Shard id -> holders' urls, as master `addr`'s topology has them."""
+        resp = Stub(addr, MASTER_SERVICE).call(
+            "LookupEcVolume", mpb.LookupEcVolumeRequest(volume_id=vid),
+            mpb.LookupEcVolumeResponse, timeout=10)
+        return {e.shard_id: [loc.url for loc in e.locations]
+                for e in resp.shard_id_locations if e.locations}
+
+    def terms(live) -> "dict[str, int]":
+        """Each live master's raft term, from its /metrics."""
+        got = {}
+        for a in live:
+            _, text = http_get(a, "/metrics")
+            m = re.search(r"^SeaweedFS_raft_term (\S+)$", text.decode(), re.M)
+            got[a] = int(float(m.group(1))) if m else 0
+        return got
+
+    def by_edge(trans: "list[dict]") -> "dict[tuple, float]":
+        return dict(collections.Counter(
+            (a["from"], a["to"]) for a in trans if a["from"] != a["to"]))
+
+    def hold_lock() -> None:
+        """The admin lock for this process; the cron's sweep holds it for
+        a moment every 5 s, so a refusal naming its holder is retried."""
+        deadline = time.monotonic() + 120
+        while True:
+            try:
+                env.acquire_lock()
+                return
+            except Exception as e:  # noqa: BLE001 — retried while the cron holds it
+                if "held by" not in str(e) or time.monotonic() > deadline:
+                    raise
+                time.sleep(0.25)
+
+    try:
+        dirs = {r: os.path.join(workdir, r) for r in racks}
+        for d in dirs.values():
+            os.makedirs(d)
+        os.makedirs(remote_dir)
+        with open(lc_path, "w") as f:
+            json.dump({"rules": [{
+                "collection": "lc18", "ec_after_s": ec_after_s,
+                "remote_after_s": remote_after_s,
+                "remote": f"local:{remote_dir}", "promote_reads": 16,
+                "ttl_s": LIFE_TTL_S}]}, f)
+        with open(slo_path, "w") as f:
+            json.dump({"slos": [{
+                "name": slo_name, "kind": "latency", "verb": "get",
+                "threshold_s": LIFE_SLO_THRESHOLD_S, "objective": 0.5}],
+                "windows": [{"name": "fast", "long_s": 20, "short_s": 6,
+                             "burn": 1.0}]}, f)
+
+        # three masters, as a user starts them
+        t0 = time.perf_counter()
+        for (p, h), addr in zip(ports, peers):
+            mlog = open(os.path.join(workdir, f"master-{p}.log"), "w")
+            logs.append(mlog)
+            procs[addr] = subprocess.Popen(_port_cli(
+                "master", "-ip", "127.0.0.1", "-port", str(p), "-httpPort",
+                str(h), "-peers", ",".join(peers), "-raftDir",
+                os.path.join(workdir, "raft"), "-volumeSizeLimitMB",
+                str(limit_mb), "-ecShards", "10,4", "-maintenanceIntervalS",
+                "5", "-maintenanceScripts", "", "-lifecyclePolicy", lc_path,
+                "-sloPolicy", slo_path, "-telemetryIntervalS", "2"),
+                cwd=here, stdout=mlog, stderr=subprocess.STDOUT)
+        lead = _wait(lambda: leader_of(peers), 120,
+                     "one leader among three masters")
+        for r in racks:
+            port = _free_port()
+            store = Store("127.0.0.1", port, "", [DiskLocation(
+                dirs[r], max_volume_count=32)], ec_geometry=geo,
+                coder_name="torch", device=device)
+            vs = VolumeServer(store, "127.0.0.1", port, data_center="dc1",
+                              rack=r, pulse_seconds=1.0)
+            served[r] = serve_volume(vs, port + 10000,
+                                     master=",".join(peers))
+        vss = {r: s.vs for r, s in served.items()}
+        rack_of = {vs.url: r for r, vs in vss.items()}
+        mc = MasterClient(",".join(peers)).start()
+        env = CommandEnv(",".join(peers), mc=mc, out=io.StringIO())
+        _wait(lambda: sum(len(rk.data_node_infos) for dc in
+                          mc.volume_list().topology_info.data_center_infos
+                          for rk in dc.rack_infos) == 4, 60,
+              "four servers registered with the leader")
+        log(f"[lifecycle] three masters (subprocesses of python -m "
+            f"seaweedfs_tpu_torch master -peers m1,m2,m3 -raftDir D "
+            f"-volumeSizeLimitMB {limit_mb} -ecShards 10,4 "
+            f"-maintenanceIntervalS 5 -maintenanceScripts '' "
+            f"-lifecyclePolicy lc.json -sloPolicy slo.json "
+            f"-telemetryIntervalS 2), leader {lead}, and four volume "
+            f"servers on {device} in racks r1-r4 up in "
+            f"{time.perf_counter() - t0:.1f} s; policy lc18: ec_after_s "
+            f"{ec_after_s}, remote_after_s {remote_after_s}, local: tier, "
+            f"promote_reads 16, ttl_s {LIFE_TTL_S} [{card}]")
+
+        # (a) writes: one lc18 volume grown on r1, leased /bulk frames of
+        # small needles among 1 MiB blobs, as phase 17
+        st, body = http_get(lead, "/dir/assign?collection=lc18&rack=r1"
+                                  "&writableVolumeCount=1")
+        if st != 200:
+            raise AssertionError(f"/dir/assign?rack=r1: {st} {body}")
+        rng = np.random.default_rng(seed)
+        r1 = vss["r1"]
+        small_want: "dict[str, bytes]" = {}
+        handed: "list[int]" = []  # every key handed out before the kill
+        vids: "set[int]" = set()
+        lease_lat, put_s, small_bytes = [], 0.0, 0
+        leased = []
+
+        def put_frames(fl, n: int, want: dict) -> int:
+            """n small needles off lease `fl` as one /bulk frame."""
+            first, n = fl.take(n)
+            sizes = 1024 + rng.integers(0, 64, n)
+            buf = rng.bytes(int(sizes.sum()))
+            ends = np.cumsum(sizes)
+            entries = []
+            for i, e in enumerate(ends):
+                data = buf[int(e - sizes[i]):int(e)]
+                entries.append((first + i, fl.cookie, data, 0))
+                want[f"{fl.vid},{first + i:x}{fl.cookie:08x}"] = data
+            st, resp, _ = client(fl.url).request(
+                "PUT", f"/bulk?vid={fl.vid}", bulk.pack_frame(fl.vid,
+                                                              entries))
+            if st != 201 or json.loads(resp)["count"] != n:
+                raise AssertionError(f"/bulk frame: {st} {resp[:200]!r}")
+            return len(buf)
+
+        def lease_frame() -> None:
+            nonlocal put_s, small_bytes
+            if not leased or not leased[-1].remaining():
+                t = time.perf_counter()
+                leased.append(mc.lease_fids(lease, collection="lc18"))
+                lease_lat.append(time.perf_counter() - t)
+                handed.append(leased[-1].end_key - 1)
+            t = time.perf_counter()
+            small_bytes += put_frames(leased[-1], frame, small_want)
+            put_s += time.perf_counter() - t
+            vids.add(leased[-1].vid)
+
+        def dat_size(vid: int) -> int:
+            return r1.store.find_volume(vid).content_size
+
+        frames = small // frame
+        every = max(1, int(fill * limit) // (1 << 20) // frames)
+        big: "dict[str, tuple[int, int]]" = {}
+        assign_lat, post_s, big_bytes = [], 0.0, 0
+        lease_frame()
+        frames -= 1
+        while not vids or dat_size(min(vids)) < fill * limit:
+            if frames and len(big) % every == every - 1:
+                lease_frame()
+                frames -= 1
+            t = time.perf_counter()
+            a = mc.assign(collection="lc18")
+            assign_lat.append(time.perf_counter() - t)
+            handed.append(parse_file_id(a.fid)[1])
+            vids.add(int(a.fid.split(",")[0]))
+            if len(vids) > 1:
+                raise AssertionError(f"lc18 has volumes {sorted(vids)}")
+            size = (1 << 20) + int(rng.integers(0, 4097))
+            data = _blob(np, seed, len(big), size)
+            t = time.perf_counter()
+            st, resp, _ = client(a.location.url).request(
+                "POST", f"/{a.fid}", data)
+            post_s += time.perf_counter() - t
+            if st != 201:
+                raise AssertionError(f"POST {a.fid}: {st} {resp[:200]!r}")
+            big[a.fid] = (len(big), size)
+            big_bytes += size
+        while frames:
+            lease_frame()
+            frames -= 1
+        vid = min(vids)
+        dat_bytes = dat_size(vid)
+        if not fill * limit <= dat_bytes < limit:
+            raise AssertionError(f"volume {vid}: {dat_bytes} B against the "
+                                 f"limit {limit}")
+        # the .dat as written, linked before the cron's encode reads it,
+        # for the plain version's encode
+        v = r1.store.find_volume(vid)
+        plain_dir = os.path.join(workdir, "plain")
+        os.makedirs(plain_dir)
+        plain_dat = os.path.join(plain_dir, f"lc18_{vid}.dat")
+        os.link(v.dat_path, plain_dat)
+        t_written = time.perf_counter()
+        out["write"] = (small_bytes + big_bytes) / (put_s + post_s) / 1e9
+        out["assign_p50"] = _pct(np, assign_lat, 50) * 1e3
+        out["lease_p50"] = _pct(np, lease_lat, 50) * 1e3
+        log(f"[lifecycle] (a) volume {vid} of lc18 on r1: {small} needles "
+            f"of 1024 + 0..63 B through {len(leased)} leases of "
+            f"Assign(count={lease}) as {small // frame} /bulk frames of "
+            f"{frame} among {len(big)} blobs of 1 MiB + 0..4 KiB; "
+            f"{dat_bytes} B = {dat_bytes / limit:.4f} of the limit, written "
+            f"{out['write']:.3f} GB/s one client; Assign p50 single "
+            f"{out['assign_p50']:.3f} ms ({len(assign_lat)}), leased "
+            f"{out['lease_p50']:.3f} ms ({len(lease_lat)}), each a raft "
+            f"commit [{card}]")
+
+        # (b) the leader's cron encodes the quiet volume (K1 encode on the
+        # holder) and spreads it 4/4/3/3
+        def encoded():
+            """The encode event in whichever master ran it, and the spread
+            as that master, still the leader, has it."""
+            now_lead = leader_of(peers)
+            if now_lead is None:
+                return None
+            ev_ = [(a, t) for a in peers for t in transitions(a)
+                   if t["kind"] == "encode" and t["vid"] == vid]
+            spread = {sid: [rack_of[u] for u in urls]
+                      for sid, urls in ec_of(now_lead, vid).items()}
+            if ev_ and len(spread) == geo.n and \
+                    r1.store.find_volume(vid) is None:
+                return now_lead, ev_, spread
+            return None
+
+        lead, enc_events, spread = _wait(
+            encoded, 600, f"the cron's encode of volume {vid}", interval=0.2)
+        t_encoded = time.perf_counter()
+        term_b = terms(peers)
+        per_rack = collections.Counter(r for rs in spread.values()
+                                       for r in rs)
+        if (len(enc_events) != 1 or enc_events[0][0] != lead
+                or any(len(rs) != 1 for rs in spread.values())
+                or sorted(per_rack.values()) != [3, 3, 4, 4]
+                or per_rack["r1"] != 3):
+            raise AssertionError(f"leader {lead}, encode events {enc_events}"
+                                 f", spread {spread}, by rack "
+                                 f"{dict(per_rack)}, raft terms {term_b}")
+        out["spread"] = {r: sorted(s for s, rs in spread.items() if r in rs)
+                         for r in racks}
+        out["encode_s"] = enc_events[0][1]["duration_ms"] / 1e3
+        out["encode"] = dat_bytes / out["encode_s"] / 1e9
+        out["wait_encode_s"] = t_encoded - t_written
+        holders = {r: vss[r] for r in racks if vss[r].store.find_ec_volume(vid)}
+        base_of = {sid: os.path.join(dirs[rs[0]], f"lc18_{vid}")
+                   for sid, rs in spread.items()}
+        hold_lock()  # no offload while the shards are hashed
+        before = {sid: _sha256(base_of[sid] + files.shard_ext(sid))
+                  for sid in range(geo.n)}
+        t = time.perf_counter()
+        encoder.encode_volume(plain_dat, os.path.join(plain_dir,
+                                                      f"lc18_{vid}"),
+                              geo, PlainCoder(10, 4, device=device))
+        plain_s = time.perf_counter() - t
+        plain = {sid: _sha256(os.path.join(plain_dir, f"lc18_{vid}")
+                              + files.shard_ext(sid))
+                 for sid in range(geo.n)}
+        if plain != before:
+            raise AssertionError("the cron's shards differ from the plain "
+                                 "version's encode of the .dat")
+        shutil.rmtree(plain_dir)
+        log(f"[lifecycle] (b) the leader's cron ({lead}) encoded volume "
+            f"{vid} {out['wait_encode_s']:.2f} s after the last write: "
+            f"{dat_bytes} B of .dat in {out['encode_s']:.2f} s (lifecycle."
+            f"apply -> ec.encode: VolumeEcShardsGenerate, K1, the spread) = "
+            f"{out['encode']:.3f} GB/s; shards by rack "
+            f"{json.dumps(out['spread'])}; all 14 sha256 == the plain "
+            f"version's encode of the .dat ({plain_s:.2f} s); raft terms "
+            f"{json.dumps(term_b)} [{card}]")
+
+        # (c) SIGKILL the leader, the admin lock still held on it (so its
+        # cron offloads nothing first); a new one is elected and carries on
+        lead = _wait(lambda: leader_of(peers), 30, "the leader")
+        survivors = [a for a in peers if a != lead]
+        old_trans, old_counted = transitions(lead), counted(lead)
+        t_kill = time.perf_counter()
+        procs[lead].kill()
+        procs[lead].wait(timeout=30)
+        env.lock_token = 0  # the lock lived on the killed leader
+        new = _wait(lambda: leader_of(survivors), 60, "a new leader",
+                    interval=0.02)
+        out["elect_s"] = time.perf_counter() - t_kill
+        follower = next(a for a in survivors if a != new)
+        so, _, _ = _shell(new, "cluster.raft.ps")
+        if (f"leader: {new}" not in so or not re.search(
+                rf"member: {re.escape(new)} .*\(leader\)", so)
+                or not all(f"member: {a}" in so for a in peers)):
+            raise AssertionError(f"cluster.raft.ps: {so!r}")
+        deadline = time.monotonic() + 60
+        while True:
+            try:
+                hot = mc.lease_fids(hot_needles, collection="hot18")
+                break
+            except Exception:  # noqa: BLE001 — the client finds the new leader
+                if time.monotonic() > deadline:
+                    raise
+                time.sleep(0.2)
+        if hot.vid <= vid or hot.next_key <= max(handed):
+            raise AssertionError(f"after the failover volume {hot.vid} keys "
+                                 f"from {hot.next_key}; before: volume {vid},"
+                                 f" keys up to {max(handed)}")
+        hot_want: "dict[str, bytes]" = {}
+        while hot.remaining():
+            put_frames(hot, min(frame, hot.remaining()), hot_want)
+
+        def follower_lookup():
+            st, body = http_get(follower, f"/dir/lookup?volumeId={hot.vid}")
+            return body if st == 200 else None
+
+        body = _wait(follower_lookup, 30, "the follower cache's lookup")
+        if body.get("leader") != new or [loc["url"] for loc in
+                                         body["locations"]] != [hot.url]:
+            raise AssertionError(f"follower /dir/lookup: {body}")
+
+        def offloaded():
+            evs = [vs.store.find_ec_volume(vid) for vs in holders.values()]
+            return all(ev is not None and ev.shards and
+                       ev.remote_shard_ids() == sorted(ev.shards)
+                       for ev in evs)
+
+        _wait(offloaded, 300, "the new leader's offload", interval=0.2)
+        t_offloaded = time.perf_counter()
+        out["offload_wait_s"] = t_offloaded - t_kill
+        off = [a for a in transitions(new)
+               if a["kind"] == "offload" and a["vid"] == vid]
+        objects = sum(len(fs) for _, _, fs in os.walk(remote_dir))
+        if len(off) != 1 or objects != geo.n:
+            raise AssertionError(f"offload events {off}; {objects} objects")
+        out["offload"] = off[0]["bytes_moved"] / off[0]["duration_ms"] / 1e6
+        log(f"[lifecycle] (c) SIGKILL of the leader {lead}: {new} elected "
+            f"in {out['elect_s']:.3f} s; cluster.raft.ps names it; the "
+            f"follower {follower} answers /dir/lookup from its cache with "
+            f"the leader's hint; a lease of {hot_needles} keys on volume "
+            f"{hot.vid} of hot18 from key {hot.next_key - hot_needles} > "
+            f"{max(handed)} (volume {vid}); the new leader's cron offloaded "
+            f"the 14 shards to local: {t_offloaded - t_kill:.2f} s after the"
+            f" kill: {off[0]['bytes_moved']} B in "
+            f"{off[0]['duration_ms'] / 1e3:.2f} s = {out['offload']:.3f} "
+            f"GB/s [{card}]")
+
+        # (d) GETs with shards (0, 5, 10, 13) lost off the remote tier, the
+        # admin lock held so the cron promotes nothing mid-read
+        sample = sorted(small_want)[::max(1, len(small_want) // gets)][:gets]
+        any_ev = next(iter(holders.values())).store.find_ec_volume(vid)
+        ivs = {fid: _intervals(any_ev, geo, parse_file_id(fid)[1])
+               for fid in sample}
+
+        def reconstructs() -> int:
+            return sum(vs.read_stats.get("reconstructs", 0)
+                       for vs in vss.values())
+
+        def read_pass(tag: str, fids) -> "list[float]":
+            lat = []
+            for k, fid in enumerate(fids):
+                if k % 256 == 0:
+                    hold_lock()  # renew the admin lease
+                locs = sorted(loc["url"] for loc in mc.lookup(vid))
+                url = locs[k % len(locs)]
+                t = time.perf_counter()
+                st, got, _ = client(url).request("GET", f"/{fid}")
+                lat.append(time.perf_counter() - t)
+                if (st, got) != (200, small_want[fid]):
+                    raise AssertionError(f"{tag} GET {fid} from {url}: {st}")
+            return lat
+
+        hold_lock()
+        lost_on = {}
+        for r, vs in holders.items():
+            mine = [s for s in LIFE_LOST
+                    if s in vs.store.find_ec_volume(vid).shards]
+            if mine:
+                vs.volume_ec_shards_unmount(vid, mine)
+                lost_on[r] = mine
+
+        def lost_registered():
+            return sorted(ec_of(new, vid)) == sorted(
+                set(range(geo.n)) - set(LIFE_LOST))
+
+        _wait(lost_registered, 30, "the lost shards gone from the leader")
+        expected = sum(1 for fid in sample for s, _ in ivs[fid]
+                       if s in LIFE_LOST)
+        # a telemetry cycle just before the reads: the SLO's windows
+        # then hold a point on each side of them
+        http_get(new, "/cluster/telemetry?trigger=1")
+        r0 = reconstructs()
+        t = time.perf_counter()
+        deg = read_pass("degraded", sample)
+        out["degraded_s"] = time.perf_counter() - t
+        got_rec = reconstructs() - r0
+        if got_rec != expected or not expected:
+            raise AssertionError(f"{got_rec} reconstructs; the sample's "
+                                 f"intervals on lost shards number {expected}")
+
+        seen = {}
+
+        def burning():
+            st, seen["snap"] = http_get(new, "/cluster/telemetry?trigger=1")
+            return seen["snap"] if st == 200 and slo_name in seen["snap"][
+                "slo"]["burning"] else None
+
+        try:
+            snap = _wait(burning, 30, f"SLO {slo_name} burning")
+        except AssertionError as e:
+            raise AssertionError(f"{e}; last /cluster/telemetry: "
+                                 f"{json.dumps(seen.get('snap'))[:3000]}")
+        burn = next(s for s in snap["slo"]["status"] if s["name"] == slo_name)
+        out["degraded"] = deg
+        if not LIFE_SLO_THRESHOLD_S < _pct(np, deg, 50):
+            raise AssertionError(f"the SLO's threshold {LIFE_SLO_THRESHOLD_S}"
+                                 f" s is not below the degraded p50")
+        for r, mine in lost_on.items():
+            holders[r].volume_ec_shards_mount(vid, "lc18")
+
+        def whole():
+            mc.vid_map.invalidate(vid)
+            return sorted(ec_of(new, vid)) == list(range(geo.n))
+
+        _wait(whole, 30, "the shards mounted again")
+        log(f"[lifecycle] (d) {len(sample)} GETs of small needles off the "
+            f"remote tier with shards {list(LIFE_LOST)} unmounted "
+            f"({json.dumps(lost_on)}), each == written: p50 "
+            f"{_pct(np, deg, 50) * 1e3:.4f} ms, p99 "
+            f"{_pct(np, deg, 99) * 1e3:.4f} ms, {out['degraded_s']:.2f} s; "
+            f"{got_rec} reconstructs (K1 one stripe) == the sampled "
+            f"intervals on lost shards; SLO {slo_name} (p50 <= "
+            f"{LIFE_SLO_THRESHOLD_S * 1e3:g} ms) BURNING on the new leader, "
+            f"long burn {burn['windows']['fast']['long']['burn']}, short "
+            f"{burn['windows']['fast']['short']['burn']} [{card}]")
+
+        # (e) reads past promote_reads, the lock still held; once it is
+        # released the cron promotes; volume.scrub
+        # readers whose location cache still misses a remounted shard
+        # reconstruct its intervals (the cache's 7 min tier for an
+        # incomplete stripe, as the reference's)
+        r0 = reconstructs()
+        warm = read_pass("remote", sample[:promote_gets])
+        out["remote_reconstructs"] = reconstructs() - r0
+
+        def promoted():
+            evs = [vs.store.find_ec_volume(vid) for vs in holders.values()]
+            return all(ev is not None and ev.shards and
+                       not ev.remote_shard_ids() for ev in evs)
+
+        t_release = time.perf_counter()
+        env.release_lock()
+        _wait(promoted, 300, "the cron's promote", interval=0.2)
+        out["promote_wall_s"] = time.perf_counter() - t_release
+        hold_lock()  # keep the cron from offloading it again
+        pro = [a for a in transitions(new)
+               if a["kind"] == "promote" and a["vid"] == vid]
+        if len(pro) != 1:
+            raise AssertionError(f"promote events {pro}")
+        out["promote"] = pro[0]["bytes_moved"] / pro[0]["duration_ms"] / 1e6
+        for sid in range(geo.n):
+            if _sha256(base_of[sid] + files.shard_ext(sid)) != before[sid]:
+                raise AssertionError(f"promoted shard {sid} differs")
+        out["remote_get"] = warm
+        k0 = crc_cuda.launches
+        so, se, sc_s = _shell(new, f"volume.scrub -volumeId {hot.vid}")
+        k3 = crc_cuda.launches - k0
+        m = re.search(r"(\d+) needles .*\[(\w+)\] ([\d,]+) needles/s", so)
+        if (not m or int(m.group(1)) != hot_needles or m.group(2) != "device"
+                or "CORRUPT" in so or (device == "cuda" and not k3)):
+            raise AssertionError(f"volume.scrub: {so!r} {se!r}; {k3} K3 "
+                                 "launches")
+        log(f"[lifecycle] (e) {len(warm)} GETs off the remote tier, p50 "
+            f"{_pct(np, warm, 50) * 1e3:.4f} ms, p99 "
+            f"{_pct(np, warm, 99) * 1e3:.4f} ms, "
+            f"{out['remote_reconstructs']} reconstructs by readers whose "
+            f"location cache misses a remounted shard; the cron promoted volume "
+            f"{vid} {out['promote_wall_s']:.2f} s after the lock's release: "
+            f"{pro[0]['bytes_moved']} B in {pro[0]['duration_ms'] / 1e3:.2f}"
+            f" s = {out['promote']:.3f} GB/s; every shard == its sha256; "
+            f"volume.scrub of volume {hot.vid} (hot18): {m.group(1)} needles,"
+            f" 0 corrupt, {m.group(3)} needles/s on the server, {k3} K3 "
+            f"launches, {sc_s:.2f} s with the shell [{card}]")
+
+        # (f) the TTL stamp on every holder's .vif; the reap; the restore
+        stamps = {r: files.read_vif(vs.store.find_ec_volume(vid).base
+                                    + ".vif").get("destroy_time", 0)
+                  for r, vs in holders.items()}
+        wall_now = time.time()  # swtpu-lint: disable=wallclock-duration (DestroyTime is wall-clock)
+        if len(set(stamps.values())) != 1 or not (
+                wall_now - (time.perf_counter() - t_encoded) + LIFE_TTL_S
+                - 30 <= next(iter(stamps.values())) <= wall_now + LIFE_TTL_S):
+            raise AssertionError(f"DestroyTime stamps {stamps}")
+        seq = events.JOURNAL.last_seq
+        reaped0 = LIFECYCLE_TRANSITIONS.value("ec", "trash")
+        t = time.perf_counter()
+        for vs in holders.values():
+            at = time.time() + 1.0  # swtpu-lint: disable=wallclock-duration (DestroyTime is wall-clock)
+            st, resp, _ = client(vs.url).request(
+                "POST", "/debug/lifecycle", json.dumps(
+                    {"volume": vid, "destroy_time": at}).encode())
+            if st != 200:
+                raise AssertionError(f"POST /debug/lifecycle: {st} {resp!r}")
+
+        def reaped():
+            return (all(vs.store.find_ec_volume(vid) is None
+                        for vs in holders.values()) and not ec_of(new, vid))
+
+        _wait(reaped, 60, "the reap on every holder", interval=0.1)
+        out["reap_s"] = time.perf_counter() - t
+        reaps = [e["attrs"] for e in events.JOURNAL.snapshot(
+            since=seq, etype="lifecycle.transition")
+            if e["attrs"].get("kind") == "reap"]
+        if (sorted(a["node"] for a in reaps) != sorted(
+                vs.url for vs in holders.values())
+                or LIFECYCLE_TRANSITIONS.value("ec", "trash") - reaped0
+                != len(holders)):
+            raise AssertionError(f"reap events {reaps}")
+        t = time.perf_counter()
+        for vs in holders.values():
+            trash = os.path.join(vs.store.locations[0].directory, ".trash")
+            files.update_vif(os.path.join(trash, f"lc18_{vid}.vif"),
+                             {"destroy_time": 0})
+            vs.store.restore_ec_volume_from_trash(vid, "lc18")
+            vs.flush_heartbeat()
+        _wait(whole, 30, "the restored shards registered")
+        out["restore_s"] = time.perf_counter() - t
+        for sid in range(geo.n):
+            if _sha256(base_of[sid] + files.shard_ext(sid)) != before[sid]:
+                raise AssertionError(f"restored shard {sid} differs")
+        read_pass("restored", sample[:promote_gets])
+        log(f"[lifecycle] (f) every holder's .vif carries the policy's "
+            f"DestroyTime (ttl_s {LIFE_TTL_S}); set 1 s ahead by POST "
+            f"/debug/lifecycle: reaped to .trash on the {len(holders)} "
+            f"holders by their heartbeat ticks in {out['reap_s']:.2f} s; "
+            f"restored in {out['restore_s']:.2f} s, every shard == its "
+            f"sha256 and {promote_gets} GETs == written [{card}]")
+        env.release_lock()
+
+        # (g) the new leader's fleet telemetry and cluster.top
+        st, snap = http_get(new, "/cluster/telemetry?trigger=1")
+        want_nodes = {f"master@{new}"} | {f"volume@{vs.url}"
+                                          for vs in vss.values()}
+        nodes = {t["node"]: t for t in snap["targets"]}
+        merged = snap["merged"].get(
+            "SeaweedFS_volumeServer_request_seconds", {}).get("type=get", {})
+        if (set(nodes) != want_nodes or any(t["stale"]
+                                            for t in nodes.values())
+                or not merged.get("count")):
+            raise AssertionError(f"/cluster/telemetry: {snap['targets']} "
+                                 f"{merged}")
+        so, _, _ = _shell(new, "cluster.top -url http://127.0.0.1:"
+                               f"{http_of[new]}")
+        if not re.search(rf"^\s+volume\s+.*\b{vid}:", so, re.M):
+            raise AssertionError(f"cluster.top lists no reads of volume "
+                                 f"{vid}: {so!r}")
+        log(f"[lifecycle] (g) /cluster/telemetry on {new}: "
+            f"{len(nodes)} targets live (master and four volume servers), "
+            f"merged GET n={merged['count']:.0f} p50 "
+            f"{merged['p50'] * 1e3:.3f} ms p99 {merged['p99'] * 1e3:.3f} ms;"
+            f" cluster.top lists volume {vid}'s reads [{card}]")
+
+        # (h) every transition on the masters, journal == counter
+        new_trans = transitions(new)
+        mine = [(a["kind"], a["from"], a["to"]) for a in old_trans + new_trans
+                if a["vid"] == vid]
+        kinds = collections.Counter(k for k, _, _ in mine)
+        if (kinds["encode"] != 1 or kinds["offload"] != 1
+                or kinds["promote"] != 1 or not kinds["stamp_ttl"]
+                or [a["kind"] for a in new_trans if a["kind"] == "encode"]
+                or by_edge(old_trans) != old_counted
+                or by_edge(new_trans) != counted(new)):
+            raise AssertionError(f"transitions {mine}; old leader counted "
+                                 f"{old_counted}, new {counted(new)}")
+        so, _, _ = _shell(new, "lifecycle.status -url http://127.0.0.1:"
+                               f"{http_of[new]}")
+        if "policy (" not in so or "'lc18'" not in so or \
+                "tier census" not in so:
+            raise AssertionError(f"lifecycle.status: {so!r}")
+        log(f"[lifecycle] (h) transitions of volume {vid}: old leader "
+            f"{by_edge(old_trans)} == its counter, new leader "
+            f"{by_edge(new_trans)} == its counter ({dict(kinds)}); "
+            f"{len(reaps)} reaps on the servers; lifecycle.status prints the "
+            f"policy and the census [{card}]")
+        log(f"[lifecycle] walls: (b) last write to encoded "
+            f"{out['wait_encode_s']:.2f} s (the encode {out['encode_s']:.2f}"
+            f" s), (c) election {out['elect_s']:.3f} s and kill to offloaded "
+            f"{out['offload_wait_s']:.2f} s, (d) {out['degraded_s']:.2f} s, "
+            f"(e) release to promoted {out['promote_wall_s']:.2f} s, (f) reap "
+            f"{out['reap_s']:.2f} s and restore {out['restore_s']:.2f} s; GET "
+            f"p50/p99 degraded {_pct(np, out['degraded'], 50) * 1e3:.4f}/"
+            f"{_pct(np, out['degraded'], 99) * 1e3:.4f} ms, off the remote "
+            f"tier {_pct(np, out['remote_get'], 50) * 1e3:.4f}/"
+            f"{_pct(np, out['remote_get'], 99) * 1e3:.4f} ms; GB/s encode "
+            f"{out['encode']:.3f}, offload {out['offload']:.3f}, promote "
+            f"{out['promote']:.3f} [{card}]")
+        return out
+    except BaseException:
+        for f in logs:  # what the masters said, for the failure's reader
+            f.flush()
+            with open(f.name, errors="replace") as g:
+                tail = g.readlines()[-120:]
+            log(f"[lifecycle] the end of {os.path.basename(f.name)}:\n"
+                + "".join(tail))
+        raise
+    finally:
+        for c in clients.values():
+            c.close()
+        if mc is not None:
+            mc.stop()
+        for s in served.values():
+            s.stop()
+        for p in procs.values():
+            if p.poll() is None:
+                p.terminate()
+                try:
+                    p.wait(timeout=20)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait(timeout=10)
+        for f in logs:
+            f.close()
+        retry.reset_breakers()
+
+
+def phase_lifecycle(torch, np, workdir: str, seed: int, card: str) -> dict:
+    from seaweedfs_tpu_torch.ops import crc_cuda, rs_cuda
+    os.makedirs(workdir, exist_ok=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rs_cuda.reset_launches()
+    crc_cuda.reset_launches()
+    lifecycle_round_trip(np, workdir, seed + 81, card, LIFE_LIMIT_MB,
+                         LIFE_FILL, LIFE_SMALL, LIFE_LEASE, LIFE_FRAME,
+                         LIFE_GETS, LIFE_PROMOTE_GETS, LIFE_HOT_NEEDLES,
+                         LIFE_EC_AFTER_S, LIFE_REMOTE_AFTER_S)
+    torch.cuda.synchronize()
+    k1 = dict(rs_cuda.launches_by_entry)
+    k3 = crc_cuda.launches
+    log(f"[lifecycle] launches on the lifecycle path: K1 {json.dumps(k1)}, "
+        f"K3 {k3}; phase wall {time.perf_counter() - t0:.1f} s [{card}]")
+    for entry in ("encode", "reconstruct"):
+        if not k1.get(entry):
+            raise AssertionError(f"K1 {entry} never launched in phase 18")
+    if not k3:
+        raise AssertionError("K3 never launched in phase 18")
+    return {"k1": k1, "k3": k3}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5146,11 +5963,17 @@ def main(argv=None) -> int:
             control = phase_control(torch, np, args.workdir, args.seed, card)
         finally:
             shutil.rmtree(args.workdir, ignore_errors=True)
+    life = None
+    if 18 in phases:
+        try:
+            life = phase_lifecycle(torch, np, args.workdir, args.seed, card)
+        finally:
+            shutil.rmtree(args.workdir, ignore_errors=True)
     log(f"[done] phases {sorted(phases | {1})} passed in "
         f"{time.perf_counter() - t0:.1f} s [{card}]")
     if None not in (errs, times, launches, k3_err, k3_times, k3_launches,
                     ec_launches, tier, codec_launches, mesh, server, replica,
-                    maint, rest, control):
+                    maint, rest, control, life):
         kernels = [dict(name=f"rs_gf_apply:{entry}", route="cuda",
                         source=K1_SOURCE, replaces=replaces,
                         launches=launches.get(entry, 0)
@@ -5162,7 +5985,8 @@ def main(argv=None) -> int:
                         + replica["k1"].get(entry, 0)
                         + maint["k1"].get(entry, 0)
                         + rest["k1"].get(entry, 0)
-                        + control["k1"].get(entry, 0),
+                        + control["k1"].get(entry, 0)
+                        + life["k1"].get(entry, 0),
                         max_abs_err=errs[entry], ms=times[entry]["ms"],
                         plain_ms=times[entry]["plain_ms"],
                         bound_ms=times[entry]["bound_ms"],
@@ -5174,7 +5998,7 @@ def main(argv=None) -> int:
                             launches=k3_launches + tier["k3_scrub"]
                             + mesh["launches"]["k3"] + server["k3"]
                             + replica["k3"] + maint["k3"] + rest["k3"]
-                            + control["k3"],
+                            + control["k3"] + life["k3"],
                             max_abs_err=k3_err,
                             ms=k3["ms"], plain_ms=k3["plain_ms"],
                             bound_ms=k3["bound_ms"], bound_by=k3["bound_by"],

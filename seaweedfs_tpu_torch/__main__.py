@@ -4,9 +4,9 @@ Verbs, the counterparts of the JAX package's (seaweedfs_tpu/__main__.py):
 
 * ``master`` (`run_master`, :162, with `_add_master_flags`, :25): the
   master server, its HTTP API with `-httpPort`, the health engine and the
-  admin cron. `-peers` with more than one master, `-sloPolicy`,
-  `-telemetryIntervalS` and `-lifecyclePolicy` refuse to start: their
-  modules are not ported yet (ROADMAP Queue 1 item 3).
+  admin cron; `-peers` with more than one master and `-raftDir` run a raft
+  quorum, `-sloPolicy` and `-telemetryIntervalS` the leader's fleet
+  telemetry, `-lifecyclePolicy` the lifecycle plane in the cron.
 * ``volume`` (`run_volume` with `_add_volume_flags`, :115, :203): a volume
   server that serves HTTP and gRPC and heartbeats to `-mserver`. It runs
   on the card unless `-device cpu` is asked for, and exits non-zero on a
@@ -16,7 +16,8 @@ Verbs, the counterparts of the JAX package's (seaweedfs_tpu/__main__.py):
   process, the volume server on the card unless `-device cpu`. `-filer`,
   `-s3`, `-webdav` and `-iam` refuse to start (ROADMAP Queue 1 item 3).
 * ``shell`` (`run_shell`, :291): the admin shell over the ported command
-  tables (shell/commands.py, ec_commands.py, volume_commands.py); `-c`
+  tables (shell/commands.py, ec_commands.py, volume_commands.py,
+  lifecycle_commands.py, qos_commands.py, telemetry_commands.py); `-c`
   runs semicolon-separated lines and exits non-zero when one fails.
 
 `-jwtSigningKey`, `-jwtReadSigningKey` and `-whiteList` build a daemon's
@@ -58,8 +59,8 @@ def _master_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("-volumeSizeLimitMB", type=int, default=30_000)
     p.add_argument("-defaultReplication", default="000")
     p.add_argument("-peers", default="",
-                   help="comma-separated master quorum incl. self; more "
-                        "than one needs raft, not ported yet")
+                   help="comma-separated master quorum incl. self "
+                        "(enables raft leader election)")
     p.add_argument("-raftDir", default="",
                    help="directory for persistent raft state")
     p.add_argument("-maintenanceScripts", default="default",
@@ -85,14 +86,17 @@ def _master_flags(p: argparse.ArgumentParser) -> None:
                         "the p half feeds the health engine like "
                         "-ecParityShards")
     p.add_argument("-lifecyclePolicy", default="",
-                   help="lifecycle policy JSON file (needs lifecycle/, not "
-                        "ported yet)")
+                   help="tiered-storage lifecycle policy JSON file; wires "
+                        "lifecycle.apply into the maintenance cron "
+                        "(status: /debug/lifecycle)")
     p.add_argument("-sloPolicy", default="",
-                   help="SLO policy (needs the fleet telemetry, not ported "
-                        "yet)")
+                   help="SLO policy: JSON file path or inline JSON doc; the "
+                        "leader's telemetry collector evaluates burn-rate "
+                        "alerts from it (status: /cluster/telemetry)")
     p.add_argument("-telemetryIntervalS", type=float, default=0,
-                   help="fleet telemetry scrape interval (needs the fleet "
-                        "telemetry, not ported yet)")
+                   help="fleet telemetry scrape interval seconds; 0 uses "
+                        "SWTPU_TELEMETRY_INTERVAL_S (default 15), "
+                        "negative disables the collector")
     p.add_argument("-linkCosts", default="",
                    help="geo link-cost policy: JSON file path or inline "
                         "JSON doc; served at /cluster/linkcosts")
@@ -189,9 +193,16 @@ def _wait_for_signal() -> None:
 
 
 def _master_server(opt, **kw):
-    """A MasterServer from master flags; an option whose modules are not
-    ported exits with the constructor's message."""
+    """A MasterServer from master flags; an option the constructor
+    rejects (a malformed SLO policy, link costs) exits with its message.
+    `-raftDir` keeps this master's raft state in raft-<port>.json there."""
+    import os
+
     from .master.master_server import MasterServer
+    raft_state = None
+    if opt.raftDir:
+        os.makedirs(opt.raftDir, exist_ok=True)
+        raft_state = os.path.join(opt.raftDir, f"raft-{opt.port}.json")
     try:
         return MasterServer(
             ip=opt.ip, port=opt.port,
@@ -199,6 +210,7 @@ def _master_server(opt, **kw):
             default_replication=opt.defaultReplication,
             guard=_make_guard(opt), http_port=opt.httpPort or None,
             peers=[p for p in opt.peers.split(",") if p],
+            raft_state_path=raft_state,
             ec_parity_shards=_ec_parity(opt),
             lifecycle_policy=opt.lifecyclePolicy,
             slo_policy=opt.sloPolicy, link_costs=opt.linkCosts,
@@ -209,17 +221,11 @@ def _master_server(opt, **kw):
 
 
 def run_master(argv) -> int:
-    import os
-
     from .utils import config as cfg
 
     p = argparse.ArgumentParser(prog="master")
     _master_flags(p)
     opt = p.parse_args(argv)
-    raft_state = None
-    if opt.raftDir:
-        os.makedirs(opt.raftDir, exist_ok=True)
-        raft_state = os.path.join(opt.raftDir, f"raft-{opt.port}.json")
     mconf = cfg.load_config("master")
     if opt.maintenanceScripts == "default":
         toml_scripts = cfg.get_dotted(mconf, "master.maintenance.scripts", "")
@@ -231,7 +237,7 @@ def run_master(argv) -> int:
         mins = cfg.get_dotted(mconf, "master.maintenance.sleep_minutes", 0)
         opt.maintenanceIntervalS = float(mins) * 60 if mins else 0
     ms = _master_server(
-        opt, raft_state_path=raft_state, maintenance_scripts=scripts,
+        opt, maintenance_scripts=scripts,
         maintenance_interval_s=opt.maintenanceIntervalS or None,
         maintenance_health_driven=opt.maintenanceHealthDriven == "on")
     ms.admin_cron.repair_max_concurrent = opt.maintenanceMaxConcurrentRepairs
@@ -328,7 +334,8 @@ def run_server(argv) -> int:
 
 
 def run_shell(argv) -> int:
-    from .shell import ec_commands, volume_commands  # noqa: F401 (register)
+    from .shell import (ec_commands, lifecycle_commands,  # noqa: F401
+                        qos_commands, telemetry_commands, volume_commands)
     from .shell.commands import CommandEnv, repl, run_command
 
     p = argparse.ArgumentParser(prog="shell")

@@ -6,12 +6,12 @@ Reference: weed/server/master_server.go:83, master_grpc_server.go:62
 
 The port's copy of seaweedfs_tpu/master/master_server.py: the whole gRPC
 service, heartbeats, assign with fid leases, lookups, the admin lock, the
-janitor, the health engine, the admin cron and every HTTP route but
-/cluster/telemetry and /debug/lifecycle. It runs single-leader: `raft`
-stays None. The constructor keeps the reference's arguments and raises
-ValueError for what is not ported yet (ROADMAP Queue 1 item 3): more than
-one peer (raft.py, follower.py), an SLO policy or a telemetry interval
-(the fleet half of telemetry/) and a lifecycle policy (lifecycle/).
+janitor, the health engine, the admin cron, every HTTP route, the raft
+quorum with its follower read cache (`-peers` with more than one master),
+the leader-resident fleet telemetry with SLOs and the lifecycle plane.
+One difference on purpose: a master in a quorum imports the codec
+registry (and torch) before its raft node starts, where the reference's
+cron imports it at its first ec line (see `start`).
 """
 
 from __future__ import annotations
@@ -57,8 +57,6 @@ class MasterServer:
         self.ip = ip
         self.port = port
         self.address = f"{ip}:{port}"
-        _refuse_unported(self.address, peers, slo_policy,
-                         telemetry_interval_s, lifecycle_policy)
         self.topo = Topology(volume_size_limit_mb * 1024 * 1024)
         self.layouts = LayoutRegistry(self.topo)
         self.growth = VolumeGrowth(self.topo, allocate_fn=self._allocate_volume,
@@ -141,6 +139,23 @@ class MasterServer:
             # unregisters dead nodes, this catches wedged-but-connected
             stale_after_s=max(4 * pulse_seconds, 5.0))
         from .admin_cron import DEFAULT_INTERVAL_S, AdminCron
+        # Tiered-storage lifecycle (lifecycle/): a policy FILE path
+        # wires `lifecycle.apply` into the maintenance cron, so cooling
+        # collections EC-encode, offload to the remote tier and promote
+        # back on heat with zero operator commands. Served (with recent
+        # transitions) at /debug/lifecycle.
+        self.lifecycle_policy = lifecycle_policy
+        if lifecycle_policy:
+            import shlex as _shlex
+            from .admin_cron import DEFAULT_SCRIPTS
+            maintenance_scripts = list(
+                DEFAULT_SCRIPTS if maintenance_scripts is None
+                else maintenance_scripts)
+            if not any(s.split()[:1] == ["lifecycle.apply"]
+                       for s in maintenance_scripts):
+                maintenance_scripts.append(
+                    "lifecycle.apply -policy "
+                    + _shlex.quote(lifecycle_policy))
         # health-driven: each sweep consumes the in-process engine's
         # report and runs planner->executor (maintenance/) in place of
         # the blind ec.rebuild / volume.fix.replication lines, falling
@@ -154,6 +169,21 @@ class MasterServer:
             health_fetch=(self.health.scan if maintenance_health_driven
                           else None),
             costs_fn=lambda: self.link_costs)
+        # Fleet telemetry & SLO plane (telemetry/): a leader-resident
+        # collector scrapes every node's exposition into a ring TSDB,
+        # merges histograms into cluster percentiles, tracks heavy
+        # hitters and evaluates burn-rate alerts. Follows raft
+        # leadership exactly like the admin cron. `slo_policy` is a
+        # JSON file path or inline JSON doc of objectives.
+        self.slo_policy_source = slo_policy
+        from ..telemetry import TelemetryCollector, parse_slo_policy
+        policy = None
+        if slo_policy:
+            doc = slo_policy
+            if not slo_policy.lstrip().startswith("{"):
+                with open(slo_policy, encoding="utf-8") as f:
+                    doc = f.read()
+            policy = parse_slo_policy(doc)
         # Geo plane (geo/): the per-link cost model prices replica
         # growth, EC spread, repair fetches and balance moves in
         # cost-weighted bytes (intra_rack < cross_rack < cross_dc).
@@ -164,6 +194,17 @@ class MasterServer:
         from ..geo.policy import LinkCostModel, load_link_costs
         self.link_costs = (load_link_costs(link_costs) if link_costs
                            else LinkCostModel())
+        self.telemetry = TelemetryCollector(
+            node_id=f"master@{self.address}",
+            targets_fn=self._telemetry_targets,
+            is_leader=lambda: self.is_leader,
+            interval_s=telemetry_interval_s,
+            slo_policy=policy,
+            local_scrape=self._local_scrape,
+            health_stale_fn=self._telemetry_stale_nodes)
+        # burning SLOs become health items: the cluster verdict reflects
+        # user-facing objectives, not just structural integrity
+        self.health.extra_items = self.telemetry.health_items
 
     @property
     def is_leader(self) -> bool:
@@ -178,6 +219,119 @@ class MasterServer:
         if self.raft.is_leader:
             return self.address
         return self.raft.leader_address or ""
+
+    # -- telemetry wiring ---------------------------------------------------
+    def _telemetry_targets(self) -> list[dict]:
+        """Scrape targets from live cluster membership: volume servers
+        come from the heartbeat-fed topology, filers from the
+        KeepConnected subscriber metadata (their metrics live under
+        /__metrics__ because / is the filesystem namespace)."""
+        targets = []
+        for n in self.topo.all_nodes():
+            targets.append({"node": f"volume@{n.id}",
+                            "url": f"http://{n.url}/metrics",
+                            "dc": n.rack.dc.id if n.rack else "",
+                            "rack": n.rack.id if n.rack else ""})
+        with self._sub_lock:
+            metas = list(self._sub_meta.values())
+        for address, client_type, _ver, _ts, _grpc in metas:
+            if client_type == "filer" and address:
+                targets.append({"node": f"filer@{address}",
+                                "url": f"http://{address}/__metrics__"})
+        return targets
+
+    def _local_scrape(self) -> str:
+        from ..stats import scrape_payload
+        body, _ctype = scrape_payload()
+        return body
+
+    def _telemetry_stale_nodes(self) -> list[str]:
+        """Health-plane staleness (missed heartbeats) -> telemetry node
+        ids, so dead volume servers drop out of cluster merges even
+        before their scrapes start failing."""
+        report = self.health.last_report()
+        return [f"volume@{nd['id']}" for nd in report.get("nodes", ())
+                if nd.get("stale")]
+
+    def _raft_apply(self, command: dict) -> None:
+        """FSM apply (reference raft_server.go:53 StateMachine.Apply).
+        Runs on every master as entries commit (the leader included), so
+        all replicated control state lives here:
+
+        - max_volume_id: vid allocation stays monotonic across leader
+          changes (the reference FSM's only state).
+        - seq_hwm: the sequencer high-water mark. The leader commits
+          `key + count` BEFORE handing out [key, key+count), so a new
+          leader's sequencer always starts past every range ever acked —
+          zero duplicate fids across failovers, even when the granting
+          leader died mid-lease-window.
+        - lease: fid-range grant bookkeeping, so the leases-active gauge
+          is correct on whichever master is scraped / becomes leader.
+        - volume_new: layout mutations from growth, so a new leader's
+          layout registry is warm before the first heartbeats arrive
+          (locations still come from heartbeats; register is idempotent
+          and the janitor drops locationless vids from writables).
+
+        Lock order here is raft._lock -> {topo.lock, sequencer._lock,
+        fid_leases._lock}; no path takes them in reverse."""
+        mvid = command.get("max_volume_id")
+        if mvid:
+            with self.topo.lock:
+                self.topo.max_volume_id = max(self.topo.max_volume_id, mvid)
+        hwm = command.get("seq_hwm")
+        if hwm:
+            # set_max(seen) bumps past `seen`: next_id() returns >= hwm
+            self.sequencer.set_max(hwm - 1)
+        lease = command.get("lease")
+        if lease:
+            self.fid_leases.grant_replicated(int(lease.get("count", 1)),
+                                             lease.get("ttl_s"))
+        lh = command.get("leader_http")
+        if lh:
+            self._leader_http_hint = (lh.get("grpc", ""), lh.get("http", ""))
+        vol = command.get("volume_new")
+        if vol:
+            v = VolumeInfo(
+                id=int(vol["id"]), collection=vol.get("collection", ""),
+                replica_placement=ReplicaPlacement.parse(
+                    vol.get("replication", "")),
+                ttl=TTL.parse(vol.get("ttl", "")),
+                disk_type=vol.get("disk_type", "hdd") or "hdd")
+            self.layouts.register_volume(v)
+
+    def _on_raft_state(self, role: str, term: int,
+                       leader: "str | None") -> None:
+        """Published from the raft _run loop (outside the raft lock)
+        whenever (role, term, leader) changes: step the maintenance
+        plane up/down and point the follower read cache at the new
+        leader promptly instead of on its next poll."""
+        lead = role == "leader"
+        log.info("%s: raft %s (term %d, leader %s)", self.address, role,
+                 term, leader or "?")
+        if lead:
+            # stale growth backoffs from a previous leadership stint
+            # must not delay this leader's first growth
+            self._want_growth_backoff.clear()
+            if self.http_port:
+                # advertise this leader's HTTP address through the FSM
+                # (propose blocks on commit, so not on the raft loop)
+                threading.Thread(
+                    target=self._advertise_leader_http, daemon=True,
+                    name="leader-http-advertise").start()
+        self.admin_cron.notify_leadership(lead)
+        self.telemetry.notify_leadership(lead)
+        if self._follower is not None:
+            self._follower.poke()
+
+    def _advertise_leader_http(self) -> None:
+        if self.raft is None:
+            return
+        try:
+            self.raft.propose({"leader_http": {
+                "grpc": self.address,
+                "http": f"{self.ip}:{self.http_port}"}})
+        except Exception as e:  # noqa: BLE001 — best-effort hint
+            log.warning("leader http advertise failed: %s", e)
 
     def lookup_locations(self, vid: int) -> "tuple[list[dict] | None, str]":
         """(locations, source) for a vid. The leader answers from its
@@ -206,16 +360,43 @@ class MasterServer:
         self._sampler = acquire_sampler()
         svc = self._build_service()
         services = [svc]
+        if len(self.peers) > 1:
+            from .follower import FollowerVidCache
+            from .raft import RaftNode
+            self.raft = RaftNode(self.address, self.peers,
+                                 self._raft_apply,
+                                 state_path=self._raft_state_path)
+            self.raft.on_state_change = self._on_raft_state
+            # while we are NOT the leader, mirror the leader's vid map so
+            # /dir/lookup can be served here (bounded staleness)
+            self._follower = FollowerVidCache(
+                self.address,
+                leader_of=lambda: (None if self.raft.is_leader
+                                   else self.raft.leader_address))
+            services.append(self.raft.build_service())
         key = self.guard.signing_key if self.guard is not None else ""
         if key:
             from ..utils.rpc import set_cluster_key
             set_cluster_key(key)
         self._grpc = serve(f"{self.ip}:{self.port}", services, auth_key=key)
+        if self.raft is not None:
+            if self.admin_cron.scripts:
+                # the cron's ec lines import the codec registry, and torch
+                # with it, at their first run: torch's first import holds
+                # the GIL for seconds, long enough for this master to miss
+                # its raft heartbeats and be deposed mid-sweep (a new
+                # leader's cron then runs the same line again), so it is
+                # imported before the node joins its quorum
+                from ..ops.coder import registered_codecs
+                registered_codecs()
+            self.raft.start()
+            self._follower.start()
         if self.http_port:
             self._start_http()
         threading.Thread(target=self._janitor, daemon=True,
                          name="master-janitor").start()
         self.admin_cron.start()
+        self.telemetry.start()
         if self.metrics_gateway:
             from ..stats import start_push_loop
             self._metrics_push = start_push_loop(
@@ -226,8 +407,13 @@ class MasterServer:
     def stop(self) -> None:
         self._stop.set()
         self.admin_cron.stop()
+        self.telemetry.stop()
         if self._metrics_push is not None:
             self._metrics_push.stop()
+        if self._follower is not None:
+            self._follower.stop()
+        if self.raft is not None:
+            self.raft.stop()
         if self._grpc:
             self._grpc.stop(grace=0.5)
         if self._http_stop is not None:
@@ -316,6 +502,26 @@ class MasterServer:
             # a fresh scan per request: the operator asking "is data at
             # risk NOW" must not get a stale janitor-tick answer
             return json_response(ms.health.scan())
+
+        def cluster_telemetry(req, q):
+            # leader-resident: only the leader scrapes the fleet, so a
+            # follower redirects (421 + hint) like the write paths
+            if not ms.is_leader:
+                return not_leader_response()
+            if q.get("trigger"):
+                # force one scrape/evaluate cycle now (tests, bench and
+                # `cluster.top -watch` first paint all need fresh data
+                # without waiting out the jittered interval)
+                ms.telemetry.trigger()
+            try:
+                top = int(q.get("top", "10") or 10)
+            except ValueError:
+                top = 10
+            # ?profile=1 folds the fleet-merged flamegraph into the
+            # snapshot (cluster.profile's fetch); off by default — the
+            # folded stacks dwarf the rest of the payload
+            return json_response(ms.telemetry.snapshot(
+                top_limit=top, include_profile=bool(q.get("profile"))))
 
         def dir_status(req, q):
             # leader_address, not ms.address: a follower answering here
@@ -521,6 +727,28 @@ class MasterServer:
             from ..utils import locktrack
             return json_response(locktrack.debug_locks_payload(q))
 
+        def debug_lifecycle(req, q):
+            """Lifecycle plane status: the configured policy (parsed
+            fresh so edits to the file show without a restart) and the
+            recent lifecycle.* journal events — the cron's transitions
+            run in THIS process, so its plan/transition/skip history is
+            one filter away."""
+            from ..ops import events
+            policy = None
+            err = ""
+            if ms.lifecycle_policy:
+                try:
+                    from ..lifecycle import parse_policy
+                    policy = parse_policy(ms.lifecycle_policy).to_doc()
+                except Exception as e:  # noqa: BLE001 — show, don't 500
+                    err = str(e)
+            qq = dict(q)
+            qq["type"] = "lifecycle."
+            return json_response({
+                "policy": policy, "source": ms.lifecycle_policy,
+                "policy_error": err,
+                "recent": events.debug_events_payload(qq)})
+
         def cluster_linkcosts(req, q):
             """The master's parsed link-cost model, as a policy doc —
             shell balance planners fetch it so their cost-weighted plans
@@ -554,8 +782,14 @@ class MasterServer:
                   offloaded(guarded("/debug/locks", debug_locks)))
         app.route("/cluster/health",
                   offloaded(guarded("/cluster/health", cluster_health)))
+        app.route("/cluster/telemetry",
+                  offloaded(guarded("/cluster/telemetry", cluster_telemetry)))
         app.route("/cluster/linkcosts",
                   guarded("/cluster/linkcosts", cluster_linkcosts))
+        # guarded+offloaded like the other /debug routes (the journal
+        # filter walks the whole ring)
+        app.route("/debug/lifecycle",
+                  offloaded(guarded("/debug/lifecycle", debug_lifecycle)))
 
         self._http_stop = threading.Event()
         threading.Thread(
@@ -1187,25 +1421,3 @@ class MasterServer:
                 self.health.scan()
             except Exception as e:  # noqa: BLE001
                 log.warning("health scan: %s", e)
-
-
-def _refuse_unported(address: str, peers, slo_policy: str,
-                     telemetry_interval_s, lifecycle_policy: str) -> None:
-    """Raise for a constructor option whose modules the port lacks, naming
-    the ROADMAP item that ports them; the master never runs without them
-    silently."""
-    quorum = [p for p in (peers or []) if p]
-    if len(quorum) > 1:
-        raise ValueError(
-            f"master {address}: a quorum of {len(quorum)} peers needs "
-            "master/raft.py and master/follower.py, not ported yet "
-            "(ROADMAP Queue 1 item 3)")
-    if slo_policy or telemetry_interval_s is not None:
-        raise ValueError(
-            f"master {address}: -sloPolicy and -telemetryIntervalS need "
-            "the fleet half of telemetry/ (tsdb, merge, slo, collector), "
-            "not ported yet (ROADMAP Queue 1 item 3)")
-    if lifecycle_policy:
-        raise ValueError(
-            f"master {address}: -lifecyclePolicy needs lifecycle/, not "
-            "ported yet (ROADMAP Queue 1 item 3)")

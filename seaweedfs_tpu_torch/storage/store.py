@@ -749,7 +749,10 @@ class Store:
                     "id": vid, "collection": ev.collection,
                     "ec_index_bits": ev.shard_bits().bits,
                     "disk_type": loc.disk_type,
-                    "destroy_time": ev.destroy_time,
+                    # whole seconds: the Heartbeat's field is an int64, and
+                    # a stamped TTL's instant is a float that protobuf
+                    # refuses (the reap itself compares the exact instant)
+                    "destroy_time": int(ev.destroy_time),
                 })
         return {
             "volumes": volumes, "ec_shards": ec_shards,

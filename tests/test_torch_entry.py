@@ -79,6 +79,15 @@ print("CONTROL", all(f"seaweedfs_tpu_torch.{m}" in sys.modules
                                "maintenance.executor", "client.master_client",
                                "shell.commands", "shell.health_util",
                                "shell.ec_commands", "shell.volume_commands")))
+print("PLANES", all(f"seaweedfs_tpu_torch.{m}" in sys.modules
+                    for m in ("master.raft", "master.follower",
+                              "telemetry.tsdb", "telemetry.merge",
+                              "telemetry.slo", "telemetry.collector",
+                              "lifecycle", "lifecycle.policy",
+                              "lifecycle.planner", "lifecycle.executor",
+                              "shell.lifecycle_commands",
+                              "shell.telemetry_commands",
+                              "shell.qos_commands")))
 print("CODERS", sorted(n for n in ("mesh", "native") if coder._resolve(n)))
 print("BAD", bad)
 """
@@ -94,6 +103,7 @@ def test_import_hygiene_no_jax_no_reference_package():
     assert "MAINT True" in out.stdout, out.stdout
     assert "REST True" in out.stdout, out.stdout
     assert "CONTROL True" in out.stdout, out.stdout
+    assert "PLANES True" in out.stdout, out.stdout
     assert "CODERS ['mesh', 'native']" in out.stdout, out.stdout
     assert int(out.stdout.split("LOADED ")[1].split()[0]) >= 15
 
@@ -256,14 +266,20 @@ def test_master_verb_help_lists_the_reference_flags():
 
 
 def test_shell_help_lists_exactly_the_ported_commands():
-    """`shell -c help` lists the reference's lock, volume.* and ec.*
-    commands (those of its commands, ec_commands and volume_commands
-    modules) and nothing else: cluster.check waits for the filer and
-    broker protos."""
+    """`shell -c help` lists the reference's lock, volume.*, ec.*,
+    lifecycle.*, qos.* and cluster.top/profile commands (those of its
+    commands, ec_commands, volume_commands, lifecycle_commands,
+    qos_commands and telemetry_commands modules) and nothing else:
+    cluster.check waits for the filer and broker protos."""
     from seaweedfs_tpu.shell import commands as ref_commands
-    from seaweedfs_tpu.shell import ec_commands, volume_commands  # noqa: F401
+    from seaweedfs_tpu.shell import (ec_commands,  # noqa: F401
+                                     lifecycle_commands, qos_commands,
+                                     telemetry_commands, volume_commands)
     ported = {"seaweedfs_tpu.shell.commands", "seaweedfs_tpu.shell.ec_commands",
-              "seaweedfs_tpu.shell.volume_commands"}
+              "seaweedfs_tpu.shell.volume_commands",
+              "seaweedfs_tpu.shell.lifecycle_commands",
+              "seaweedfs_tpu.shell.qos_commands",
+              "seaweedfs_tpu.shell.telemetry_commands"}
     want = sorted(name for name, c in ref_commands.COMMANDS.items()
                   if c.fn.__module__ in ported and name != "cluster.check")
     out = _cli("shell", "-master", "127.0.0.1:1", "-c", "help")
@@ -272,7 +288,8 @@ def test_shell_help_lists_exactly_the_ported_commands():
            if line.startswith("  ")]
     assert got == want
     assert {"lock", "unlock", "ec.encode", "ec.rebuild", "ec.decode",
-            "volume.scrub"} <= set(got)
+            "volume.scrub", "lifecycle.apply", "lifecycle.status",
+            "qos.status", "cluster.top", "cluster.profile"} <= set(got)
 
 
 @pytest.mark.parametrize("flag", ["-filer", "-s3", "-webdav", "-iam"])
@@ -287,11 +304,60 @@ def test_server_verb_refuses_the_gateways(tmp_path, flag):
     (["-peers", "127.0.0.1:9333,127.0.0.1:9334"], "master/raft.py"),
     (["-sloPolicy", '{"objectives": []}'], "telemetry/"),
     (["-lifecyclePolicy", "policy.json"], "lifecycle/")])
-def test_master_verb_refuses_unported_options(flags, needs):
+def test_master_verb_refuses_unported_options(tmp_path, flags, needs):
+    """The verb takes the options it once refused: the master starts,
+    reports each through its HTTP API (the raft role, /cluster/telemetry,
+    /debug/lifecycle) and stops on SIGTERM with rc 0. The quorum of two
+    unreachable peers elects no one."""
+    import json
+    import time
+    import urllib.error
+    import urllib.request
+
     from conftest import free_port_pair
-    out = _cli("master", "-port", str(free_port_pair()), *flags)
-    assert out.returncode == 2
-    assert needs in out.stderr and "ROADMAP Queue 1 item 3" in out.stderr
+    port, hport = free_port_pair(), free_port_pair()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "seaweedfs_tpu_torch", "master", "-port",
+         str(port), "-httpPort", str(hport), "-raftDir", str(tmp_path),
+         *flags], cwd=str(_repo_root()), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT)
+
+    def get(path):
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{hport}{path}",
+                                        timeout=5) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read() or b"{}")
+
+    try:
+        deadline = time.monotonic() + 60
+        while True:
+            assert proc.poll() is None, proc.stdout.read().decode()
+            try:
+                status, st = get("/cluster/status")
+                break
+            except OSError:
+                assert time.monotonic() < deadline
+                time.sleep(0.2)
+        if needs == "master/raft.py":
+            time.sleep(1.0)  # past two election timeouts
+            status, st = get("/cluster/status")
+            assert (status, st["IsLeader"], st["leader"]) == (200, False, "")
+            assert st["Peers"] == flags[1].split(",")
+            assert get("/cluster/telemetry")[0] == 421
+            assert (tmp_path / f"raft-{port}.json").exists()
+        elif needs == "telemetry/":
+            status, snap = get("/cluster/telemetry?trigger=1")
+            assert status == 200 and snap["leader"] and snap["cycles"] >= 1
+        else:
+            status, doc = get("/debug/lifecycle")
+            assert status == 200 and doc["source"] == "policy.json"
+            assert "policy.json" in doc["policy_error"]
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+    assert proc.returncode == 0, proc.stdout.read().decode()
 
 
 def test_server_verb_and_shell_make_a_cluster_of_the_port(tmp_path):

@@ -335,6 +335,11 @@ def test_replicated_volume_spans_jax_and_port_servers(cluster):
             mc, batch, collection="rep", replication="001"), batch):
         blobs[res.fid] = data
     assert BULK_PUT_NEEDLES.count() > bulk0  # frames or hops on p1
+    # each copy enters the master's topology with its holder's next
+    # heartbeat (0.5 s), which a loaded host can delay past the writes
+    wait_until(lambda: all(_holders(master, fid) == {ref.url, p1.url}
+                           for fid in blobs),
+               timeout=30, msg="both holders of every fid registered")
     for fid in blobs:
         assert _holders(master, fid) == {ref.url, p1.url}, fid
     # every fid from both holders, and by proxy from the third server

@@ -4,10 +4,12 @@ the port's master with four port volume servers in racks r1-r4 over gRPC
 and `lock; ec.encode; unlock` with the rack-capped spread; rack r1 lost,
 DEGRADED with exactly its shards missing, degraded reads, one
 AdminCron.trigger() back to OK with byte-equal rebuilt shards;
-volume.scrub finding exactly the damage; ec.decode. Then the loud
-refusals of what is not ported: a raft quorum, SLO and telemetry options,
-a lifecycle policy, the HTTP routes that need them, and the shell and
-cron lines of unported commands."""
+volume.scrub finding exactly the damage; ec.decode. Then the options
+and routes of the master's last planes (a raft quorum, SLO and telemetry
+options, a lifecycle policy, /cluster/telemetry and /debug/lifecycle),
+and the shell and cron lines of commands still unported."""
+
+import time
 
 import pytest
 
@@ -48,9 +50,38 @@ def test_ec_decode_round_trip(cluster):
     ({"lifecycle_policy": "policy.json"}, "lifecycle/"),
 ])
 def test_unported_master_options_refuse(kwargs, needs):
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 3") as e:
-        MasterServer(port=tc.free_port_pair(), **kwargs)
-    assert needs in str(e.value)
+    """The options the port's master once refused now run: it starts,
+    reports the option through the module it needs, and stops. A quorum
+    whose peers cannot be reached elects no one and says so."""
+    ms = MasterServer(port=tc.free_port_pair(),
+                      http_port=tc.free_port_pair(), **kwargs)
+    ms.start()
+    try:
+        base = f"http://127.0.0.1:{ms.http_port}"
+        if needs == "master/raft.py":
+            assert ms.raft is not None and ms._follower is not None
+            time.sleep(1.0)  # past two election timeouts
+            st = http_util.get(f"{base}/cluster/status").json()
+            assert st["IsLeader"] is False and not st["leader"]
+            assert st["Peers"] == kwargs["peers"]
+            assert http_util.get(f"{base}/cluster/telemetry").status == 421
+        elif needs == "telemetry/":
+            snap = http_util.get(f"{base}/cluster/telemetry?trigger=1").json()
+            assert snap["leader"] is True and snap["cycles"] >= 1
+            assert snap["interval_s"] == kwargs.get("telemetry_interval_s",
+                                                    15.0)
+            assert [(t["node"], t["stale"]) for t in snap["targets"]] == [
+                (f"master@{ms.address}", False)]
+            assert (ms.slo_policy_source or None) == kwargs.get("slo_policy")
+            assert ms.health.extra_items == ms.telemetry.health_items
+        else:
+            assert ms.admin_cron.scripts[-1] == \
+                "lifecycle.apply -policy policy.json"
+            doc = http_util.get(f"{base}/debug/lifecycle").json()
+            assert doc["source"] == "policy.json" and doc["policy"] is None
+            assert "policy.json" in doc["policy_error"]
+    finally:
+        ms.stop()
 
 
 def test_single_peer_quorum_is_a_plain_master():
@@ -59,13 +90,20 @@ def test_single_peer_quorum_is_a_plain_master():
 
 
 def test_unported_routes_and_commands_are_absent(cluster):
+    """/cluster/telemetry and /debug/lifecycle answer on the port's
+    master; the lines of commands still unported (cluster.check, fs.*,
+    mq.*) print "unknown command" in the shell and in the cron."""
     c = cluster
-    for route in ("/cluster/telemetry", "/debug/lifecycle"):
-        assert http_util.get(f"http://{c['http']}{route}").status == 404
+    snap = http_util.get(f"http://{c['http']}/cluster/telemetry").json()
+    assert snap["leader"] is True
+    doc = http_util.get(f"http://{c['http']}/debug/lifecycle").json()
+    assert doc["policy"] is None and "recent" in doc
     assert http_util.get(f"http://{c['http']}/cluster/linkcosts").ok
-    out = tc.shell(c, "cluster.check", "fs.ls /", "lifecycle.apply")
-    for name in ("cluster.check", "fs.ls", "lifecycle.apply"):
+    out = tc.shell(c, "cluster.check", "fs.ls /", "lifecycle.status")
+    for name in ("cluster.check", "fs.ls"):
         assert f"unknown command {name!r}" in out
+    assert "unknown command 'lifecycle.status'" not in out
+    assert "tier census" in out
     # the cron's script lines resolve in the port's tables alike
     cron = c["master"].admin_cron
     saved, fetch = cron.scripts, cron.health_fetch

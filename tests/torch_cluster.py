@@ -40,7 +40,8 @@ from seaweedfs_tpu_torch.ec.locate import EcGeometry
 from seaweedfs_tpu_torch.master.master_server import MasterServer
 from seaweedfs_tpu_torch.server.grpc_service import serve_volume
 from seaweedfs_tpu_torch.server.volume_server import VolumeServer
-from seaweedfs_tpu_torch.shell import ec_commands, volume_commands  # noqa: F401 (register)
+from seaweedfs_tpu_torch.shell import (ec_commands,  # noqa: F401 (register)
+                                       lifecycle_commands, volume_commands)
 from seaweedfs_tpu_torch.shell.commands import CommandEnv, run_command
 from seaweedfs_tpu_torch.storage.disk_location import DiskLocation
 from seaweedfs_tpu_torch.storage.needle import Needle
