@@ -5,7 +5,7 @@
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result). `--phases` runs a subset (default: all); phase 1 always runs, and
-the kernels line needs phases 3, 4 and 6 to 18. The kernels of the
+the kernels line needs phases 3, 4 and 6 to 19. The kernels of the
 phases asked for are built first, all at once (one nvcc per source).
 
 1. device: card name, count, `nvidia-smi` name and power limit;
@@ -191,8 +191,9 @@ phases asked for are built first, all at once (one nvcc per source).
    the gRPC binding): servers A, B and C on the card, each served over gRPC
    under mTLS (a CA and a cluster certificate made with openssl; a
    plaintext stub must be refused), their peer plane gRPC with the holder
-   lookups from their heartbeats. The full write set (1,048,576 needles of
-   1024 + 0..63 B) on A through Store.write_needles_bulk; VolumeCopy A -> C
+   lookups from their heartbeats. Half the write set (524,288 needles of
+   1024 + 0..63 B; the whole until phase 19 took the time) on A through
+   Store.write_needles_bulk; VolumeCopy A -> C
    (.dat and .idx sha256 equal); 16,384 needles more on A (65,536 until
    phase 16 took the time), then
    VolumeSyncStatus of A, VolumeIncrementalCopy since the copy (== A's .dat
@@ -242,7 +243,9 @@ phases asked for are built first, all at once (one nvcc per source).
    disarmed, /debug/lifecycle counts the EC volume's reads and its POST
    stamps a destroy_time (401 when guarded), /ui lists the volumes,
    /metrics has the EC volume's SeaweedFS_hot_requests, a
-   /debug/jax-profiler capture around 64 degraded GETs names K1's kernel,
+   /debug/jax-profiler capture around 64 degraded GETs holds one K1
+   kernel for each of the server's reconstructs between its start and
+   stop, exactly (and K1's count of launches is the same),
    and a server run in a subprocess under SWTPU_LOCKCHECK=1 reports zero
    lock cycles at /debug/locks; (e) 4,096 healthy GETs with the sampler at
    its rate (two halves) and 4,096 after /debug/profile?hz=0, p50 and p99
@@ -254,11 +257,12 @@ phases asked for are built first, all at once (one nvcc per source).
    subprocess, health-driven repair on), four volume servers on the card in
    this process, one in each of racks r1-r4 of dc1, heartbeating to it over
    gRPC, and the port's shell as subprocesses (`python -m
-   seaweedfs_tpu_torch shell -master M -c ...`). (a) Collection ec17: two
-   volumes grown on r1 (/dir/assign?rack=r1), 16,384 needles of 1024 +
-   0..63 B through Assign(count=1024) leases and /bulk frames, then blobs
-   of 1 MiB + 0..4 KiB through MasterClient.assign and POSTs until each
-   volume holds at least 95% of its 1 GiB limit; a damaged regular volume
+   seaweedfs_tpu_torch shell -master M -c ...`). (a) Collection ec17: one
+   volume grown on r1 (/dir/assign?rack=r1; two until phase 19 took the
+   time), 16,384 needles of 1024 + 0..63 B through Assign(count=1024)
+   leases and /bulk frames, then blobs of 1 MiB + 0..4 KiB through
+   MasterClient.assign and POSTs until it holds at least 95% of its 1 GiB
+   limit; a damaged regular volume
    of 262,144 needles (collection scrub17, 17 damaged) on r4, written
    before its server starts. (b) `lock; ec.encode -collection ec17
    -fullPercent 95; unlock` (VolumeEcShardsGenerateBatch, K1 encode, then
@@ -268,13 +272,20 @@ phases asked for are built first, all at once (one nvcc per source).
    lock held in this process, r1's server stopped: /cluster/health
    DEGRADED with exactly r1's shards missing; the 2,048 GETs again, each
    == written, the reconstructs (K1) == the sampled intervals on lost
-   shards. (e) The lock released: the master's cron rebuilds onto the
+   shards; then the port's client, operation.read_batch, reads those
+   needles and 16 of its blobs as /bulk-read frames, each ==
+   written, the servers reconstructing through K1. (e) The lock released: the master's cron rebuilds onto the
    three surviving racks (K1) and the verdict returns to OK; each rebuilt
    shard == the original's sha256. (f) `volume.scrub -volumeId V` of
    scrub17 finds exactly the 17 through K3 (the shell exits 2 naming
-   them). (g) `lock; ec.decode -volumeId V; unlock` of one ec17 volume,
-   every needle of it read back == written. K1's and K3's counts are
-   zeroed just before the phase and read just after;
+   them). (g) `lock; ec.decode -volumeId V; unlock` of the ec17 volume,
+   every needle of it read back == written. (h) The port's `upload` and
+   `download` verbs (subprocesses) round-trip four seeded files byte for
+   byte. (i) Its `backup` of the scrub17 volume: .dat and .idx sha256 ==
+   the holder's. (j) Its `benchmark -n 8192 -size 1024 -c 16` (weed
+   benchmark's 1,048,576 files cut to fit the smoke's time): write and
+   read req/s, p50 and p99, 0 errors. K1's and K3's counts are zeroed
+   just before the phase and read just after;
 18. the lifecycle under a raft quorum: three masters of the port started
    as a user starts them (`python -m seaweedfs_tpu_torch master -peers
    m1,m2,m3 -raftDir D -volumeSizeLimitMB 1024 -ecShards 10,4
@@ -305,10 +316,16 @@ phases asked for are built first, all at once (one nvcc per source).
    SeaweedFS_lifecycle_transitions_total; lifecycle.status prints the
    policy. K1's and K3's counts are zeroed just before the phase and read
    just after;
-19. summary: one JSON line of every kernel with its launches (K1's from
-   phases 6, 9, 10, 11, 12, 13, 14, 15, 16, 17 and 18, K3's from phases 8,
-   10, 12, 13, 14, 15, 16, 17 and 18), error against the plain version,
-   times and bound; then the result line.
+19. the crash plane on the card: the port's crashsim (devtools/crashsim)
+   over its five scenarios (single-put, bulk-frame, ec-seal, raft-commit,
+   vif-stamp) with --min-states 500, ec-seal's streaming encode through
+   K1, 0 violations; its ack-before-fsync mutant caught (exit 1); its
+   swtpu-lint over the seaweedfs_tpu_torch package, 0 findings. K1's and
+   K3's counts are zeroed just before the phase and read just after;
+then the summary: one JSON line of every kernel with its launches (K1's
+   from phases 6, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18 and 19, K3's from
+   phases 8, 10, 12, 13, 14, 15, 16, 17 and 18), error against the plain
+   version, times and bound; then the result line.
 
 Needs CUDA and the repository beside it; without either it exits 2.
 """
@@ -333,7 +350,8 @@ MAIN_SHAPE = (32, 10, 1 << 20)  # [batch, d, chunk] of one encode call
 LOST_10_4 = (0, 5, 10, 13)
 LOST_14_2 = (3, 15)
 WIDTHS = (16, 48, 100, 384, 4112, 65536, 65552)
-PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18)
+PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18,
+          19)
 PALLAS = "seaweedfs_tpu/ops/rs_pallas.py"
 K1_SOURCE = "seaweedfs_tpu_torch/csrc/rs_gf.cu"
 K3_SOURCE = "seaweedfs_tpu_torch/csrc/crc32c.cu"
@@ -343,7 +361,7 @@ KERNELS = {2: ("rs_gf",), 7: ("crc32c",), 9: ("rs_gf",),  # phase -> csrc
            12: ("rs_gf", "crc32c"), 13: ("rs_gf", "crc32c"),
            14: ("rs_gf", "crc32c"), 15: ("rs_gf", "crc32c"),
            16: ("rs_gf", "crc32c"), 17: ("rs_gf", "crc32c"),
-           18: ("rs_gf", "crc32c")}
+           18: ("rs_gf", "crc32c"), 19: ("rs_gf",)}
 K3_SHAPES = ((4096, 2048), (16384, 4096), (64, 1 << 20))  # first: the scrub's
 K3_ROWS = (1, 3, 4096, 4225)  # 4225 = 132 SMs x 32 warps + 1
 K3_LENGTHS = (0, 512, 1024, 2048, 4096, 65536, 1 << 20)
@@ -384,6 +402,8 @@ REPLICA_DELETES = 256  # phase 14: DELETEs fanned out
 REPLICA_GETS = 4096    # phase 14: GETs on A per pass, twice
 REPLICA_PROXIED = 1024  # phase 14: of them, GETs proxied by C
 REPLICA_READ_FRAME = 256  # phase 14: needles a /bulk-read frame
+MAINT_NEEDLES = 1 << 19  # phase 15: the write set VolumeCopy moves (half of
+                         # weed benchmark's until phase 19 took the time)
 MAINT_MORE = 1 << 14   # phase 15: needles written on A after the copy and
                        # caught up by the tail (65,536 until phase 16 took
                        # the time)
@@ -419,6 +439,8 @@ HOOK_GETS = 4096       # phase 16(e): healthy GETs each way
 GO_VID, AZURE_VID, GCS_VID, IMAGE_VID, HOOK_VID = 41, 42, 43, 44, 45
 CONTROL_LIMIT_MB = 1024  # phase 17: the master's -volumeSizeLimitMB (a
                          # depth cut from the 30,000 default, master.go:73)
+CONTROL_VOLUMES = 1      # phase 17: ec17 volumes grown on r1 (two until
+                         # phase 19 took the time)
 CONTROL_FILL = 0.95      # phase 17: each ec17 volume filled past this share
                          # of the limit (ec.encode -fullPercent 95)
 CONTROL_SMALL = 16384    # phase 17: needles of 1024 + 0..63 B, leased
@@ -428,6 +450,10 @@ CONTROL_FRAME = 256      # phase 17: needles a /bulk frame (four a lease,
 CONTROL_GETS = 2048      # phase 17: GETs healthy, then with r1 lost
 CONTROL_SCRUB_NEEDLES = 1 << 18  # phase 17: the scrub17 volume
 SCRUB17_VID = 71         # phase 17's damaged regular volume on r4
+CONTROL_BATCH_BLOBS = 16  # phase 17(d): 1 MiB blobs of each volume in the
+                          # port's operation.read_batch with r1 lost
+CONTROL_BENCH_N = 8192    # phase 17(j): benchmark files (weed benchmark's
+                          # 1,048,576 cut to fit the smoke's time)
 LIFE_LIMIT_MB = 1024     # phase 18: the masters' -volumeSizeLimitMB, as 17
 LIFE_FILL = 0.95         # phase 18: the lc18 volume filled past this share
 LIFE_SMALL = 16384       # phase 18: needles of 1024 + 0..63 B, leased
@@ -443,6 +469,7 @@ LIFE_TTL_S = 3600.0      # phase 18(f): the policy's TTL (the instant is
                          # then moved 1 s ahead through /debug/lifecycle)
 LIFE_SLO_THRESHOLD_S = 0.001  # phase 18(g): "half the GETs within 1 ms",
                               # below the degraded p50 (checked)
+CRASH_MIN_STATES = 500   # phase 19: crashsim's gate, as the reference's
 K1_ENTRIES = {  # wrapper entry -> the TPU function it replaces
     "encode": f"{PALLAS}:156",
     "encode_seeded": f"{PALLAS}:164",
@@ -3809,7 +3836,7 @@ def phase_maintenance(torch, np, workdir: str, seed: int, card: str) -> dict:
     rs_cuda.reset_launches()
     crc_cuda.reset_launches()
     res = maintenance_round_trip(np, workdir, seed + 31, card,
-                                 EcGeometry(10, 4), EC_NEEDLES, MAINT_MORE,
+                                 EcGeometry(10, 4), MAINT_NEEDLES, MAINT_MORE,
                                  MAINT_DELETES, MAINT_STATUSES, REPLICA_GETS,
                                  MAINT_QUERY_NEEDLES)
     torch.cuda.synchronize()
@@ -4513,11 +4540,15 @@ def rest_round_trip(np, workdir: str, seed: int, card: str, go_geo, geo,
                 f"of the EC volume, POST stamped destroy_time, 401 when "
                 f"guarded; /ui lists the volumes; /metrics has {hot}")
 
-            # a device trace around degraded GETs
+            # a device trace around degraded GETs: the capture must hold
+            # every K1 launch the GETs made, the server's reconstructs
+            # between start and stop, each one K1 launch at one stripe
+            from seaweedfs_tpu_torch.ops import rs_cuda
             st, text, _ = client.request("GET", "/debug/jax-profiler")
             if st != 200:
                 raise AssertionError(f"/debug/jax-profiler: {st} {text!r}")
             r0 = a.read_stats.get("reconstructs", 0)
+            l0 = rs_cuda.launches_by_entry.get("reconstruct", 0)
             for i in range(trace_gets):
                 n = next(p for p in pics if p.id == on_lost[i % len(on_lost)])
                 st, got, _ = client.request(
@@ -4525,6 +4556,7 @@ def rest_round_trip(np, workdir: str, seed: int, card: str, go_geo, geo,
                 if (st, got) != (200, n.data):
                     raise AssertionError("a degraded GET under the trace")
             traced = a.read_stats.get("reconstructs", 0) - r0
+            launched = rs_cuda.launches_by_entry.get("reconstruct", 0) - l0
             st, text, _ = client.request("GET", "/debug/jax-profiler?stop=1")
             path = text.decode().split("written to ")[-1].strip()
             with open(path) as f:
@@ -4532,16 +4564,27 @@ def rest_round_trip(np, workdir: str, seed: int, card: str, go_geo, geo,
             os.unlink(path)
             k1 = [e for e in tev if e.get("ph") == "X" and e.get("cat") ==
                   "kernel" and "rs_gf_apply" in e.get("name", "")]
-            if st != 200 or (device == "cuda" and not k1):
-                raise AssertionError(f"the device trace of {trace_gets} "
-                                     f"degraded GETs names no K1 kernel "
-                                     f"({len(tev)} events)")
-            out["trace_k1"] = len(k1)
             log(f"[rest] /debug/jax-profiler around {trace_gets} degraded "
-                f"GETs ({traced} reconstructs): {len(tev)} trace events, "
-                f"{len(k1)} K1 kernels ({k1[0]['name'][:60] if k1 else '-'}), "
-                f"{sum(e.get('dur', 0) for e in k1):.1f} us of device time "
-                f"[{card}]")
+                f"GETs: traced {traced} reconstructs, {launched} K1 "
+                f"launches, the trace holds {len(k1)} K1 kernels "
+                f"({k1[0]['name'][:60] if k1 else '-'}), "
+                f"{sum(e.get('dur', 0) for e in k1):.1f} us of device time, "
+                f"{len(tev)} trace events [{card}]")
+            if st != 200 or not traced or (
+                    device == "cuda" and not len(k1) == launched == traced):
+                # which launches lack their kernel, in launch order
+                held = {e.get("args", {}).get("correlation") for e in k1}
+                order = sorted((float(e["ts"]), e.get("args", {}).get(
+                    "correlation")) for e in tev
+                    if e.get("name") == "cudaLaunchKernel")
+                raise AssertionError(
+                    f"the device trace of {trace_gets} degraded GETs holds "
+                    f"{len(k1)} K1 kernels of {launched} launches for "
+                    f"{traced} reconstructs ({len(tev)} events); launches "
+                    f"without a kernel, in order: "
+                    f"{[i for i, (_, c) in enumerate(order) if c not in held]}")
+            out["trace_k1"] = len(k1)
+            out["traced"] = traced
         finally:
             cb.close()
         out["locks"] = lock_check(workdir, device)
@@ -4663,14 +4706,102 @@ def _blob(np, seed: int, i: int, size: int) -> bytes:
     return np.random.default_rng((seed, i)).bytes(size)
 
 
+def _verb(*args, timeout: float = 300) -> "tuple[str, float]":
+    """`python -m seaweedfs_tpu_torch <verb> ...` as a user runs it, which
+    must exit 0; (stdout, wall s)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t = time.perf_counter()
+    proc = subprocess.run(_port_cli(*args), cwd=here, capture_output=True,
+                          text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"{args[0]}: rc {proc.returncode}; stdout "
+                             f"{proc.stdout[-2000:]!r} stderr "
+                             f"{proc.stderr[-2000:]!r}")
+    return proc.stdout, time.perf_counter() - t
+
+
+def client_verbs(np, workdir: str, seed: int, card: str, maddr: str,
+                 backup_dir: str, backup_vid: int, backup_collection: str,
+                 bench_n: int) -> dict:
+    """Phase 17(h)-(j): the port's client verbs against its cluster.
+    upload and download of seeded files, byte for byte; backup of volume
+    `backup_vid` (its holder's files in `backup_dir`), sha256-equal to
+    them; `weed benchmark` at `bench_n` files of 1 KiB, concurrency 16.
+    Returns the benchmark's numbers as it printed them."""
+    out: dict = {}
+    rng = np.random.default_rng(seed + 17)
+    vdir = os.path.join(workdir, "verbs")
+    os.makedirs(vdir)
+    paths = []
+    for i, ext in enumerate((".bin", ".txt", ".json", ".png")):
+        p = os.path.join(vdir, f"up{i}{ext}")
+        with open(p, "wb") as f:
+            f.write(rng.bytes(int(rng.integers(1 << 10, 1 << 20))))
+        paths.append(p)
+    said, up_s = _verb("upload", "-master", maddr, "-collection", "up17",
+                       *paths)
+    docs = [json.loads(x) for x in said.splitlines()]
+    down_s = 0.0
+    for doc, p in zip(docs, paths):
+        got = p + ".down"
+        _, s = _verb("download", "-master", maddr, "-o", got, doc["fid"])
+        down_s += s
+        if doc["file"] != p or _sha256(got) != _sha256(p):
+            raise AssertionError(f"download of {doc} != {p}")
+    if len(docs) != len(paths):
+        raise AssertionError(f"upload printed {said!r}")
+    log(f"[control] (h) upload of {len(paths)} seeded files "
+        f"({sum(os.path.getsize(p) for p in paths)} B) in {up_s:.2f} s, "
+        f"download of each in {down_s:.2f} s, every file == its upload "
+        f"(sha256), each verb a subprocess [{card}]")
+
+    bdir = os.path.join(workdir, "backup")
+    os.makedirs(bdir)
+    said, bk_s = _verb("backup", "-master", maddr, "-dir", bdir,
+                       "-volumeId", str(backup_vid), "-collection",
+                       backup_collection)
+    name = f"{backup_collection}_{backup_vid}"
+    for ext in (".dat", ".idx"):
+        if _sha256(os.path.join(bdir, name + ext)) != \
+                _sha256(os.path.join(backup_dir, name + ext)):
+            raise AssertionError(f"backup's {name}{ext} != the holder's")
+    size = os.path.getsize(os.path.join(bdir, name + ".dat"))
+    if "full" not in said:
+        raise AssertionError(f"backup said {said!r}")
+    log(f"[control] (i) backup -volumeId {backup_vid} (collection "
+        f"{backup_collection}, {size} B of .dat): {said.strip()!r} in "
+        f"{bk_s:.2f} s = "
+        f"{size / bk_s / 1e9:.3f} GB/s with the process; .dat and .idx "
+        f"sha256 == the holder's [{card}]")
+
+    said, bench_s = _verb("benchmark", "-master", maddr, "-n", str(bench_n),
+                          "-size", "1024", "-c", "16", timeout=600)
+    for kind in ("write", "read"):
+        m = re.search(rf"{kind}: ([\d.]+) req/s avg ([\d.]+) ms p50 "
+                      rf"([\d.]+) ms p99 ([\d.]+) ms", said)
+        if not m:
+            raise AssertionError(f"benchmark printed {said!r}")
+        out[f"bench_{kind}"] = [float(g) for g in m.groups()]
+    if "errors 0" not in said:
+        raise AssertionError(f"benchmark printed {said!r}")
+    w, r = out["bench_write"], out["bench_read"]
+    log(f"[control] (j) benchmark -n {bench_n} -size 1024 -c 16 (weed "
+        f"benchmark's write set cut from 1,048,576 files): write "
+        f"{w[0]:.1f} req/s p50 {w[2]:.3f} ms p99 {w[3]:.3f} ms, read "
+        f"{r[0]:.1f} req/s p50 {r[2]:.3f} ms p99 {r[3]:.3f} ms; "
+        f"{bench_s:.1f} s with the process [{card}]")
+    return out
+
+
 def control_round_trip(np, workdir: str, seed: int, card: str,
                        limit_mb: int, fill: float, small: int, lease: int,
                        frame: int, gets: int, scrub_needles: int,
+                       bench_n: int, volumes: int = 1,
                        device: str = "cuda") -> dict:
     """Phase 17's path, every check fatal: a master of the port in a
     subprocess, four volume servers of the port in this process (racks
-    r1-r4 of dc1) heartbeating to it over gRPC, the port's shell in
-    subprocesses. Returns the measured numbers."""
+    r1-r4 of dc1) heartbeating to it over gRPC, the port's shell and its
+    client verbs in subprocesses. Returns the measured numbers."""
     import http.client
 
     from seaweedfs_tpu_torch.client.master_client import MasterClient
@@ -4762,10 +4893,10 @@ def control_round_trip(np, workdir: str, seed: int, card: str,
             f"four volume servers on {device} in racks r1-r4 of dc1 up in "
             f"{time.perf_counter() - t0:.1f} s [{card}]")
 
-        # (a) writes: two ec17 volumes grown on r1, leased /bulk frames of
+        # (a) writes: ec17 volumes grown on r1, leased /bulk frames of
         # small needles, then 1 MiB blobs through single assigns and POSTs
-        st, body = http_json("/dir/assign?collection=ec17&rack=r1"
-                             "&writableVolumeCount=2")
+        st, body = http_json(f"/dir/assign?collection=ec17&rack=r1"
+                             f"&writableVolumeCount={volumes}")
         if st != 200:
             raise AssertionError(f"/dir/assign?rack=r1: {st} {body}")
         rng = np.random.default_rng(seed)
@@ -4809,7 +4940,7 @@ def control_round_trip(np, workdir: str, seed: int, card: str,
         # the frames go in among the blobs, so small needles lie in every
         # part of both volumes, on every data shard
         frames = small // frame
-        every = max(1, int(2 * fill * limit) // (1 << 20) // frames)
+        every = max(1, int(volumes * fill * limit) // (1 << 20) // frames)
         big: "dict[str, tuple[int, int]]" = {}
         assign_lat, post_s, big_bytes, skipped = [], 0.0, 0, 0
         lease_frame()
@@ -4823,7 +4954,7 @@ def control_round_trip(np, workdir: str, seed: int, card: str,
             assign_lat.append(time.perf_counter() - t)
             vid = int(a.fid.split(",")[0])
             vids.add(vid)
-            if len(vids) > 2:
+            if len(vids) > volumes:
                 raise AssertionError(f"ec17 has volumes {sorted(vids)}")
             if dat_size(vid) >= fill * limit:
                 skipped += 1  # full enough: this fid stays unused
@@ -4843,9 +4974,9 @@ def control_round_trip(np, workdir: str, seed: int, card: str,
             lease_frame()
             frames -= 1
         vids = sorted(vids)
-        if len(vids) != 2 or {rack_of[loc["url"]] for vid in vids
-                              for loc in mc.lookup(vid)} != {"r1"}:
-            raise AssertionError(f"ec17 volumes {vids} not both on r1")
+        if len(vids) != volumes or {rack_of[loc["url"]] for vid in vids
+                                    for loc in mc.lookup(vid)} != {"r1"}:
+            raise AssertionError(f"ec17 volumes {vids} not all on r1")
         sizes_now = {vid: dat_size(vid) for vid in vids}
         if any(not fill * limit <= s < limit for s in sizes_now.values()):
             raise AssertionError(f"volume sizes {sizes_now} against the "
@@ -4982,6 +5113,32 @@ def control_round_trip(np, workdir: str, seed: int, card: str,
             f"{_pct(np, deg, 99) * 1e3:.4f} ms; {got_rec} reconstructs == "
             f"the sampled intervals on lost shards [{card}]")
 
+        # (d) the port's own client, r1 still lost: operation.read_batch
+        # of the sampled small needles and some blobs of each volume, as
+        # /bulk-read frames to the holders the master names
+        from seaweedfs_tpu_torch.client import operation
+        want_batch = {fid: small_want[fid] for fid in sample}
+        for vid in vids:
+            for fid in [f for f in big if int(f.split(",")[0]) == vid][
+                    :CONTROL_BATCH_BLOBS]:
+                want_batch[fid] = _blob(np, seed, *big[fid])
+        fids = list(want_batch)
+        r0 = reconstructs()
+        t = time.perf_counter()
+        got = operation.read_batch(mc, fids)
+        rb_s = time.perf_counter() - t
+        rb_rec = reconstructs() - r0
+        if got != list(want_batch.values()) or not rb_rec:
+            raise AssertionError(
+                f"operation.read_batch with r1 lost: "
+                f"{sum(g == w for g, w in zip(got, want_batch.values()))} of "
+                f"{len(fids)} equal, {rb_rec} reconstructs")
+        out["read_batch_reconstructs"] = rb_rec
+        log(f"[control] (d) operation.read_batch of {len(fids)} ec17 fids "
+            f"({len(sample)} small, {len(fids) - len(sample)} blobs of 1 MiB)"
+            f" with r1 lost, each == written, in {rb_s:.2f} s; the servers "
+            f"reconstructed {rb_rec} intervals (K1 one stripe) [{card}]")
+
         # (e) the cron's health-driven repair, once the lock is released
         seq = events.JOURNAL.last_seq
         env.release_lock()
@@ -5070,6 +5227,8 @@ def control_round_trip(np, workdir: str, seed: int, card: str,
             f"{dec_s:.2f} s with the shell (gather and "
             f"VolumeEcShardsToVolume); all {n_read} needles of it GET == "
             f"written [{card}]")
+        out.update(client_verbs(np, workdir, seed, card, maddr, dirs["r4"],
+                                SCRUB17_VID, "scrub17", bench_n))
         return out
     finally:
         for c in clients.values():
@@ -5098,7 +5257,8 @@ def phase_control(torch, np, workdir: str, seed: int, card: str) -> dict:
     crc_cuda.reset_launches()
     control_round_trip(np, workdir, seed + 71, card, CONTROL_LIMIT_MB,
                        CONTROL_FILL, CONTROL_SMALL, CONTROL_LEASE,
-                       CONTROL_FRAME, CONTROL_GETS, CONTROL_SCRUB_NEEDLES)
+                       CONTROL_FRAME, CONTROL_GETS, CONTROL_SCRUB_NEEDLES,
+                       CONTROL_BENCH_N, CONTROL_VOLUMES)
     torch.cuda.synchronize()
     k1 = dict(rs_cuda.launches_by_entry)
     k3 = crc_cuda.launches
@@ -5859,6 +6019,69 @@ def phase_lifecycle(torch, np, workdir: str, seed: int, card: str) -> dict:
     return {"k1": k1, "k3": k3}
 
 
+# -- phase 19 ---------------------------------------------------------------
+def crash_round_trip(workdir: str, seed: int, card: str, min_states: int,
+                     device: str = "cuda") -> dict:
+    """Phase 19's path, every check fatal: the port's crashsim over its
+    five scenarios with --min-states, ec-seal's coder on `device` (K1 on
+    the card), 0 violations; the seeded ack-before-fsync mutant caught
+    (exit 1); swtpu-lint over the port's package, 0 findings. Returns the
+    states per scenario and the walls."""
+    from seaweedfs_tpu_torch.devtools import crashsim, swtpu_lint
+    art = os.path.join(workdir, "CRASHSIM.json")
+    os.makedirs(workdir, exist_ok=True)
+    t = time.perf_counter()
+    rc = crashsim.main(["--seed", str(seed), "--min-states", str(min_states),
+                        "--artifact", art, "--device", device])
+    sim_s = time.perf_counter() - t
+    with open(art) as f:
+        doc = json.load(f)
+    states = {sc["scenario"]: sc["states"] for sc in doc["scenarios"]}
+    if rc != 0 or doc["total_violations"] or \
+            doc["total_states"] < min_states or len(states) != 5:
+        raise AssertionError(f"crashsim: rc {rc}, states {states}, "
+                             f"{doc['total_violations']} violations")
+    log(f"[crash] crashsim --min-states {min_states} --device {device}: "
+        f"{doc['total_states']} distinct crash states {json.dumps(states)}, "
+        f"0 violations, in {sim_s:.2f} s [{card}]")
+    t = time.perf_counter()
+    mutant = crashsim.main(["--scenario", "mutant-ack-before-fsync",
+                            "--seed", str(seed)])
+    if mutant != 1:
+        raise AssertionError(f"the ack-before-fsync mutant: rc {mutant}")
+    log(f"[crash] crashsim --scenario mutant-ack-before-fsync: caught "
+        f"(rc 1) in {time.perf_counter() - t:.2f} s")
+    pkg = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "seaweedfs_tpu_torch")
+    t = time.perf_counter()
+    findings, nfiles = swtpu_lint.lint_paths([pkg])
+    lint_s = time.perf_counter() - t
+    if findings or nfiles < 100:
+        raise AssertionError("swtpu-lint: " + "; ".join(
+            f.render() for f in findings[:20]) + f" ({nfiles} files)")
+    log(f"[crash] swtpu-lint seaweedfs_tpu_torch: 0 findings in {nfiles} "
+        f"files, {lint_s:.2f} s")
+    return {"states": states, "total": doc["total_states"],
+            "crashsim_s": sim_s, "lint_files": nfiles}
+
+
+def phase_crash(torch, np, workdir: str, seed: int, card: str) -> dict:
+    from seaweedfs_tpu_torch.ops import crc_cuda, rs_cuda
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rs_cuda.reset_launches()
+    crc_cuda.reset_launches()
+    res = crash_round_trip(workdir, seed, card, CRASH_MIN_STATES)
+    torch.cuda.synchronize()
+    k1 = dict(rs_cuda.launches_by_entry)
+    log(f"[crash] launches on the crash plane: K1 {json.dumps(k1)}, K3 "
+        f"{crc_cuda.launches}; phase wall {time.perf_counter() - t0:.1f} s "
+        f"[{card}]")
+    if not k1.get("encode"):
+        raise AssertionError("K1 encode never launched in phase 19")
+    return {"k1": k1, "k3": crc_cuda.launches, **res}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5969,11 +6192,17 @@ def main(argv=None) -> int:
             life = phase_lifecycle(torch, np, args.workdir, args.seed, card)
         finally:
             shutil.rmtree(args.workdir, ignore_errors=True)
+    crash = None
+    if 19 in phases:
+        try:
+            crash = phase_crash(torch, np, args.workdir, args.seed, card)
+        finally:
+            shutil.rmtree(args.workdir, ignore_errors=True)
     log(f"[done] phases {sorted(phases | {1})} passed in "
         f"{time.perf_counter() - t0:.1f} s [{card}]")
     if None not in (errs, times, launches, k3_err, k3_times, k3_launches,
                     ec_launches, tier, codec_launches, mesh, server, replica,
-                    maint, rest, control, life):
+                    maint, rest, control, life, crash):
         kernels = [dict(name=f"rs_gf_apply:{entry}", route="cuda",
                         source=K1_SOURCE, replaces=replaces,
                         launches=launches.get(entry, 0)
@@ -5986,7 +6215,8 @@ def main(argv=None) -> int:
                         + maint["k1"].get(entry, 0)
                         + rest["k1"].get(entry, 0)
                         + control["k1"].get(entry, 0)
-                        + life["k1"].get(entry, 0),
+                        + life["k1"].get(entry, 0)
+                        + crash["k1"].get(entry, 0),
                         max_abs_err=errs[entry], ms=times[entry]["ms"],
                         plain_ms=times[entry]["plain_ms"],
                         bound_ms=times[entry]["bound_ms"],

@@ -10,9 +10,14 @@ over a ('data', 'shard') mesh of ``torch.distributed`` ranks
 (``parallel/``); entry points default to ``device="cuda"`` and raise when
 there is no card. An explicit ``device="cpu"`` selects the plain PyTorch
 versions.
+
+``__version__`` is the JAX package's: the port serves the same formats and
+protocols, and its `version` verb prints it after the port's own name.
 """
 
-import os as _os
+__version__ = "0.4.0"
+
+import os as _os  # noqa: E402
 
 # Opt-in runtime lock-order detector (utils/locktrack.py): patching here
 # means any entry point — pytest, `python -m seaweedfs_tpu_torch`, a server

@@ -19,6 +19,18 @@ Verbs, the counterparts of the JAX package's (seaweedfs_tpu/__main__.py):
   tables (shell/commands.py, ec_commands.py, volume_commands.py,
   lifecycle_commands.py, qos_commands.py, telemetry_commands.py); `-c`
   runs semicolon-separated lines and exits non-zero when one fails.
+* ``upload`` and ``download`` (`run_upload`, :827; `run_download`, :855):
+  blobs through client/operation's submit and read.
+* ``benchmark`` (:889): `weed benchmark`, bench_tool.run.
+* ``backup`` (:330): client/backup.backup_volume of one volume into a
+  local directory, full the first time, incremental after.
+* ``master.follow`` (:509): a lookup-only master follower over the
+  leader's KeepConnected stream.
+* ``export``, ``compact`` and ``fix`` (:747, :779, :876): offline tools
+  over one volume's files (its needles to files, vacuum in place, the
+  `.idx` rebuilt from the `.dat`).
+* ``version`` (:797): the reference's line with the port's package name,
+  ``seaweedfs-tpu-torch 0.4.0``; `__version__` is the reference's.
 
 `-jwtSigningKey`, `-jwtReadSigningKey` and `-whiteList` build a daemon's
 security guard (reference `_add_security_flags` and `_make_guard`,
@@ -370,8 +382,214 @@ def run_shell(argv) -> int:
     return 0
 
 
+def run_upload(argv) -> int:
+    import json
+    import mimetypes
+    import os
+
+    from .client import operation
+    from .client.master_client import MasterClient
+    p = argparse.ArgumentParser(prog="upload")
+    p.add_argument("-master", default="127.0.0.1:9333")
+    p.add_argument("-collection", default="")
+    p.add_argument("-replication", default="")
+    p.add_argument("-jwtSigningKey", default="")
+    p.add_argument("files", nargs="+")
+    opt = p.parse_args(argv)
+    if opt.jwtSigningKey:
+        from .utils.rpc import set_cluster_key
+        set_cluster_key(opt.jwtSigningKey)
+    mc = MasterClient(opt.master)
+    for path in opt.files:
+        with open(path, "rb") as f:
+            data = f.read()
+        mime = mimetypes.guess_type(path)[0] or ""
+        res = operation.submit(mc, data, name=os.path.basename(path),
+                               mime=mime, collection=opt.collection,
+                               replication=opt.replication)
+        print(json.dumps({"file": path, "fid": res.fid, "size": res.size,
+                          "url": f"{res.url}/{res.fid}"}))
+    return 0
+
+
+def run_download(argv) -> int:
+    from .client import operation
+    from .client.master_client import MasterClient
+    p = argparse.ArgumentParser(prog="download")
+    p.add_argument("-master", default="127.0.0.1:9333")
+    p.add_argument("-o", dest="output", default="")
+    p.add_argument("-jwtSigningKey", default="")
+    p.add_argument("fids", nargs="+")
+    opt = p.parse_args(argv)
+    if opt.jwtSigningKey:
+        from .utils.rpc import set_cluster_key
+        set_cluster_key(opt.jwtSigningKey)
+    mc = MasterClient(opt.master)
+    for fid in opt.fids:
+        data = operation.read(mc, fid)
+        out = opt.output or fid.replace(",", "_")
+        with open(out, "wb") as f:
+            f.write(data)
+        print(f"{fid} -> {out} ({len(data)} bytes)")
+    return 0
+
+
+def run_benchmark(argv) -> int:
+    from .bench_tool import run as bench_run
+    bench_run(argv)
+    return 0
+
+
+def run_backup(argv) -> int:
+    """Incrementally back up a volume to a local directory (reference
+    command/backup.go)."""
+    from .client.backup import backup_volume
+    from .client.master_client import MasterClient
+    p = argparse.ArgumentParser(prog="backup")
+    p.add_argument("-master", default="127.0.0.1:9333")
+    p.add_argument("-dir", default=".")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-collection", default="")
+    opt = p.parse_args(argv)
+    mc = MasterClient(opt.master).start()
+    try:
+        mc.wait_connected()
+        res = backup_volume(mc, opt.volumeId, opt.dir, opt.collection)
+        print(f"backup volume {res['volume_id']}: {res['mode']}, "
+              f"{res['records_applied']} records applied, "
+              f"{res['size']} bytes")
+    finally:
+        mc.stop()
+    return 0
+
+
+def run_master_follow(argv) -> int:
+    """Read-only master follower (reference command/master_follower.go):
+    keeps the leader's vid map through the KeepConnected stream and answers
+    LookupVolume locally, without raft membership."""
+    from .client.master_client import MasterClient
+    from .pb import master_pb2 as mpb
+    from .utils.rpc import MASTER_SERVICE, RpcService, serve
+
+    p = argparse.ArgumentParser(prog="master.follow")
+    p.add_argument("-masters", default="127.0.0.1:9333",
+                   help="leader quorum to follow")
+    p.add_argument("-ip", default="127.0.0.1")
+    p.add_argument("-port", type=int, default=9334)
+    opt = p.parse_args(argv)
+    mc = MasterClient(opt.masters, client_type="master-follower").start()
+    mc.wait_connected()
+
+    svc = RpcService(MASTER_SERVICE)
+
+    @svc.unary("LookupVolume", mpb.LookupVolumeRequest,
+               mpb.LookupVolumeResponse)
+    def lookup(req, ctx):
+        resp = mpb.LookupVolumeResponse()
+        for vid_str in req.volume_or_file_ids:
+            e = resp.volume_id_locations.add(volume_or_file_id=vid_str)
+            try:
+                for loc in mc.lookup(int(vid_str.split(",")[0])):
+                    e.locations.add(url=loc["url"],
+                                    public_url=loc["public_url"],
+                                    grpc_port=loc["grpc_port"])
+            except Exception as ex:  # noqa: BLE001 — the error rides the answer
+                e.error = str(ex)
+        return resp
+
+    @svc.unary("GetMasterConfiguration",
+               mpb.GetMasterConfigurationRequest,
+               mpb.GetMasterConfigurationResponse)
+    def conf(req, ctx):
+        return mpb.GetMasterConfigurationResponse(leader=mc.leader)
+
+    server = serve(f"{opt.ip}:{opt.port}", [svc])
+    print(f"master follower on {opt.ip}:{opt.port} tracking {mc.leader} "
+          "(lookup-only)", flush=True)
+    _wait_for_signal()
+    server.stop(grace=None)
+    mc.stop()
+    return 0
+
+
+def run_export(argv) -> int:
+    """Dump a volume's live needles to local files (reference
+    command/export.go)."""
+    import os
+
+    from .storage.volume import Volume
+    p = argparse.ArgumentParser(prog="export")
+    p.add_argument("-dir", default=".", help="directory holding .dat/.idx")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-collection", default="")
+    p.add_argument("-o", dest="output", default="export",
+                   help="output directory")
+    opt = p.parse_args(argv)
+    v = Volume(opt.dir, opt.collection, opt.volumeId,
+               create_if_missing=False)
+    os.makedirs(opt.output, exist_ok=True)
+    keys, _offs, _sizes = v.nm.map.items_arrays()
+    n = 0
+    for i in range(keys.size):
+        needle = v.read_needle(int(keys[i]), cookie=None)
+        raw = (needle.name.decode(errors="replace")
+               if needle.name else f"{int(keys[i]):x}")
+        name = os.path.basename(raw.replace("\\", "/"))  # no traversal
+        if not name or name in (".", ".."):
+            name = f"{int(keys[i]):x}"
+        with open(os.path.join(opt.output, name), "wb") as f:
+            f.write(needle.data)
+        n += 1
+    v.close()
+    print(f"exported {n} needles from volume {opt.volumeId} to {opt.output}")
+    return 0
+
+
+def run_compact(argv) -> int:
+    """Offline-vacuum a volume in place (reference command/compact.go)."""
+    from .storage.vacuum import commit_compact, compact
+    from .storage.volume import Volume
+    p = argparse.ArgumentParser(prog="compact")
+    p.add_argument("-dir", default=".")
+    p.add_argument("-volumeId", type=int, required=True)
+    p.add_argument("-collection", default="")
+    opt = p.parse_args(argv)
+    v = Volume(opt.dir, opt.collection, opt.volumeId,
+               create_if_missing=False)
+    live, reclaimed = compact(v)
+    v = commit_compact(v)
+    v.close()
+    print(f"compacted volume {opt.volumeId}: {live} live needles, "
+          f"{reclaimed} bytes reclaimed")
+    return 0
+
+
+def run_version(argv) -> int:
+    from . import __version__
+    print(f"seaweedfs-tpu-torch {__version__}")
+    return 0
+
+
+def run_fix(argv) -> int:
+    """Rebuild .idx by scanning the .dat (reference command/fix.go:74)."""
+    from .storage.volume import rebuild_idx_from_dat
+    p = argparse.ArgumentParser(prog="fix")
+    p.add_argument("dat_path")
+    opt = p.parse_args(argv)
+    if not opt.dat_path.endswith(".dat"):
+        p.error(f"{opt.dat_path!r} is not a .dat file")
+    idx = opt.dat_path[:-4] + ".idx"
+    n = rebuild_idx_from_dat(opt.dat_path, idx)
+    print(f"wrote {n} entries to {idx}")
+    return 0
+
+
 VERBS = {"master": run_master, "volume": run_volume, "server": run_server,
-         "shell": run_shell}
+         "shell": run_shell, "upload": run_upload, "backup": run_backup,
+         "master.follow": run_master_follow, "export": run_export,
+         "compact": run_compact, "version": run_version,
+         "download": run_download, "fix": run_fix,
+         "benchmark": run_benchmark}
 
 
 def main(argv=None) -> int:

@@ -723,11 +723,11 @@ def _encode_volumes_sync(jobs, geo: EcGeometry, coder: ErasureCoder,
                         arr = (inp[:, i, :] if contiguous
                                else view[row, i, ch:ch + k].reshape(-1))
                         plan.note_write()
-                        pool.submit(i, plan.fds[i], shard_off, arr,
+                        pool.submit(i, plan.fds[i], shard_off, arr,  # swtpu-lint: disable=executor-no-context (WriterPool is an io plane: its threads never read the trace context)
                                     plan.write_done)
                     for j in range(p):
                         plan.note_write()
-                        pool.submit(d + j, plan.fds[d + j], shard_off,
+                        pool.submit(d + j, plan.fds[d + j], shard_off,  # swtpu-lint: disable=executor-no-context (WriterPool is an io plane: its threads never read the trace context)
                                     parity[:, j, :], plan.write_done)
                     r0 += k
             EC_ENCODE_BYTES.inc(type(coder).__name__, amount=plan.dat_size)
@@ -866,7 +866,7 @@ def _encode_volumes_async(jobs, geo: EcGeometry, coder: ErasureCoder,
                     for i in range(d):
                         pipe.retain(buf)
                         plan.note_write()
-                        pool.submit(i, plan.fds[i], shard_off,
+                        pool.submit(i, plan.fds[i], shard_off,  # swtpu-lint: disable=executor-no-context (WriterPool is an io plane: its threads never read the trace context)
                                     buf[b0:b0 + k, i], done)
                     b0 += k
             fill_s += time.perf_counter() - t0

@@ -210,7 +210,8 @@ class EcVolume:
         period across restarts (no stamp: the mount instant is the floor)."""
         mono_age = time.monotonic() - self.last_read_at
         if self.reads == 0 and self._last_read_wall:
-            return max(mono_age, time.time() - self._last_read_wall)
+            wall_age = time.time() - self._last_read_wall  # swtpu-lint: disable=wallclock-duration (stamp is persisted wall-clock)
+            return max(mono_age, wall_age)
         return mono_age
 
     def close_idle(self, idle_s: float) -> bool:
@@ -235,7 +236,8 @@ class EcVolume:
             return False
         if not self._idle_stamped:
             try:
-                last_wall = time.time() - (time.monotonic() - self.last_read_at)
+                last_wall = time.time() - (  # swtpu-lint: disable=wallclock-duration (persisting a wall-clock stamp)
+                    time.monotonic() - self.last_read_at)
                 files.update_vif(self.base + ".vif",
                                  {"last_read_wall": last_wall})
                 self._last_read_wall = last_wall
@@ -338,6 +340,6 @@ class EcVolume:
                     os.makedirs(to_trash, exist_ok=True)
                     # a crash resurrecting the un-trashed file is harmless:
                     # the destroy re-runs
-                    os.replace(p, os.path.join(to_trash, os.path.basename(p)))
+                    os.replace(p, os.path.join(to_trash, os.path.basename(p)))  # swtpu-lint: disable=rename-no-dir-fsync (destroy path: a rolled-back move re-runs)
                 else:
                     os.remove(p)

@@ -19,6 +19,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from ..utils.fsutil import fsync_dir
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
@@ -98,13 +100,14 @@ def _compile(key: str, src: Path, cmd: "list[str]", flags) -> Built:
         log_path = so.with_suffix(".log")
         if not so.exists():
             tmp = so.with_suffix(f".so.tmp{os.getpid()}")
-            proc = subprocess.run([*cmd, *flags, "-o", str(tmp), str(src)],
+            proc = subprocess.run([*cmd, *flags, "-o", str(tmp), str(src)],  # swtpu-lint: disable=io-under-lock (the per-library build lock: one build of a library at a time)
                                   capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(f"{Path(cmd[0]).name} failed to build {src} "
                                    f"(exit {proc.returncode}):\n{proc.stderr}")
             log_path.write_text(proc.stdout + proc.stderr)
             os.replace(tmp, so)
+            fsync_dir(str(so))
         ptxas_log = log_path.read_text() if log_path.exists() else ""
         built = Built(ctypes.CDLL(str(so)), so, ptxas_log)
         with _lock:

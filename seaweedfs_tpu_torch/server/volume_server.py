@@ -119,6 +119,8 @@ def make_shard_reader(store, vid: int, fetch: Fetch,
     `fetch` joined over the ranges) for msr. Fewer survivors than the
     decode needs raises OSError (an availability failure, not a lookup
     miss). The GF steps run on `store.coder` (kernel K1 on the card).
+    A reconstruct is one `ec.reconstruct` span, and the pool's fetches run
+    in the caller's context, so their spans sit under it.
 
     Every degraded interval counts one SeaweedFS_degraded_ec_reads_total.
     `stats`, when given, accumulates `reconstructs` (degraded intervals),
@@ -138,7 +140,17 @@ def make_shard_reader(store, vid: int, fetch: Fetch,
         data = direct(shard_id, offset, length)
         if data is not None:
             return data
-        return _reconstruct(shard_id, offset, length)
+        with tracing.start_span(
+                "ec.reconstruct", component="volume",
+                attrs={"vid": vid, "shard": shard_id, "offset": offset,
+                       "length": length}):
+            return _reconstruct(shard_id, offset, length)
+
+    def _submit(fn, *args) -> cf.Future:
+        # copy_context per submit: the pool threads' fetch spans land under
+        # the reconstruct span, not as orphan roots (ThreadPoolExecutor
+        # does not propagate contextvars)
+        return pool.submit(contextvars.copy_context().run, fn, *args)
 
     def _count(t0: float, t1: float, fetched: int, **kinds) -> None:
         DEGRADED_EC_READS.inc()  # one logical degraded read
@@ -198,7 +210,7 @@ def make_shard_reader(store, vid: int, fetch: Fetch,
                 continue
             # fetched concurrently: sequential fetches would stack one
             # round trip per shard onto the degraded latency
-            futs = {pool.submit(fetch, sid, offset, length): sid
+            futs = {_submit(fetch, sid, offset, length): sid
                     for sid in wave}
             for fut in cf.as_completed(futs):
                 data = fut.result()
@@ -244,7 +256,7 @@ def make_shard_reader(store, vid: int, fetch: Fetch,
             def fetch_map(fn, reqs):
                 # fanned out like the gather: one serial round trip per
                 # paired range would stack onto the degraded latency
-                futs = [pool.submit(fn, *r) for r in reqs]
+                futs = [_submit(fn, *r) for r in reqs]
                 return [f.result() for f in futs]
             out_b = ec_repair.reconstruct_interval(
                 coder, {s: gathered[s] for s in present}, shard_id, offset,
@@ -274,7 +286,7 @@ def make_shard_reader(store, vid: int, fetch: Fetch,
                 log.warning("msr fragment %d.%d: %s", vid, sid, e)
                 return None
 
-        futs = {pool.submit(one, sid): sid for sid in plan.fetch}
+        futs = {_submit(one, sid): sid for sid in plan.fetch}
         return {futs[f]: f.result() for f in cf.as_completed(futs)}
 
     def _reconstruct_msr(ev, shard_id: int, offset: int, length: int,

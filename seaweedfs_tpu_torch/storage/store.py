@@ -683,7 +683,7 @@ class Store:
         to trash)}. An offloaded volume's remote objects are kept, so a
         restore remounts its remote tier intact."""
         if now is None:
-            now = time.time()
+            now = time.time()  # swtpu-lint: disable=wallclock-duration (destroy_time is persisted wall-clock)
         reaped = []
         for loc in self.locations:
             for vid, ev in list(loc.ec_volumes.items()):
@@ -716,7 +716,7 @@ class Store:
                 if stem == base:
                     # a crash rolling the move back leaves the file in
                     # .trash, restorable by re-running
-                    os.replace(os.path.join(trash, fn),
+                    os.replace(os.path.join(trash, fn),  # swtpu-lint: disable=rename-no-dir-fsync (trash restore: a rolled-back move re-runs)
                                os.path.join(loc.directory, fn))
                     moved = True
             if moved:

@@ -36,7 +36,7 @@ class _JsonFormatter(logging.Formatter):
             if trace_id:
                 obj["trace_id"] = trace_id
                 obj["span_id"] = span_id
-        except Exception:  # noqa: BLE001 — logging must never raise
+        except Exception:  # noqa: BLE001  # swtpu-lint: disable=silent-except (logging must never raise)
             pass
         if record.exc_info:
             obj["exc"] = self.formatException(record.exc_info)

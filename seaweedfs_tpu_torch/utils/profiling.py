@@ -24,7 +24,7 @@ import time
 
 _lock = threading.Lock()
 _trace_lock = threading.Lock()
-_trace = None  # (profiler, trace path) of the running capture
+_trace = None  # (profiler, trace path, holds the card's activity) if running
 
 
 def cpu_profile(seconds: float = 5.0, top: int = 60,
@@ -76,15 +76,28 @@ def cpu_profile(seconds: float = 5.0, top: int = 60,
         _lock.release()
 
 
+# Kernels a capture of the card launches first, before it is handed to the
+# caller. In a process that has run much work on the card, about half the
+# captures hold every launch's API record but lose the card's records of
+# their first launches (the first 40 of 64 one-stripe K1 kernels in
+# scripts/trace_probe.py --smoke-phases, the first 19-20 of 64 degraded
+# GETs in chip_smoke.py phase 16), whichever thread starts, stops or
+# launches, and with or without a second's wait after the start. These
+# kernels take that loss in place of the caller's.
+TRACE_WARMUP_KERNELS = 256
+
+
 def start_device_trace(out_dir: "str | None" = None,
                        cuda: bool = False) -> str:
     """Start one torch.profiler capture (CPU activity, and the card's
     kernels and copies where CUDA is present) in the calling thread and
     return the path of the Chrome trace that stop_device_trace writes.
-    With `cuda`, a capture that cannot hold the card's activity (no card,
-    or a profiler without CUDA activity) raises instead of starting one
-    that would lack the kernels. A second start while one capture runs
-    raises: the profiler is one per process."""
+    A capture of the card first runs TRACE_WARMUP_KERNELS tiny kernels of
+    its own (they show in the trace). With `cuda`, a capture that cannot
+    hold the card's activity (no card, or a profiler without CUDA
+    activity) raises instead of starting one that would lack the kernels.
+    A second start while one capture runs raises: the profiler is one per
+    process."""
     global _trace
     import torch
 
@@ -103,7 +116,12 @@ def start_device_trace(out_dir: "str | None" = None,
             raise RuntimeError("a device trace is already being captured")
         prof = torch.profiler.profile(activities=activities)
         prof.start()
-        _trace = (prof, path)
+        _trace = (prof, path, cuda_activity in activities)
+    if cuda_activity in activities:
+        x = torch.zeros(1, device="cuda")
+        for _ in range(TRACE_WARMUP_KERNELS):
+            x.add_(1)
+        torch.cuda.synchronize()
     return path
 
 
@@ -114,13 +132,19 @@ def device_trace_path() -> "str | None":
 
 
 def stop_device_trace() -> str:
-    """End the running capture, write its Chrome trace and return where."""
+    """End the running capture, write its Chrome trace and return where.
+    A capture of the card first waits for every kernel and copy queued on
+    it, from any thread: a launch still running at the stop would be
+    missing from the trace."""
     global _trace
     with _trace_lock:
         if _trace is None:
             raise RuntimeError("no device trace is being captured")
-        prof, path = _trace
+        prof, path, on_card = _trace
         _trace = None
+    if on_card:
+        import torch
+        torch.cuda.synchronize()
     prof.stop()
     prof.export_chrome_trace(path)
     return path

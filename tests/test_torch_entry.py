@@ -13,6 +13,7 @@ import torch
 import __graft_entry__
 from seaweedfs_tpu.models.ec_pipeline import ECPipeline as RefPipeline
 from seaweedfs_tpu_torch import entry as port_entry
+from seaweedfs_tpu_torch.devtools import crashsim
 from seaweedfs_tpu_torch.models.ec_pipeline import ECPipeline
 from seaweedfs_tpu_torch.ops import coder
 
@@ -88,6 +89,10 @@ print("PLANES", all(f"seaweedfs_tpu_torch.{m}" in sys.modules
                               "shell.lifecycle_commands",
                               "shell.telemetry_commands",
                               "shell.qos_commands")))
+print("DATA", all(f"seaweedfs_tpu_torch.{m}" in sys.modules
+                  for m in ("client.operation", "client.backup", "bench_tool",
+                            "utils.fstrack", "devtools", "devtools.crashsim",
+                            "devtools.swtpu_lint")))
 print("CODERS", sorted(n for n in ("mesh", "native") if coder._resolve(n)))
 print("BAD", bad)
 """
@@ -104,6 +109,7 @@ def test_import_hygiene_no_jax_no_reference_package():
     assert "REST True" in out.stdout, out.stdout
     assert "CONTROL True" in out.stdout, out.stdout
     assert "PLANES True" in out.stdout, out.stdout
+    assert "DATA True" in out.stdout, out.stdout
     assert "CODERS ['mesh', 'native']" in out.stdout, out.stdout
     assert int(out.stdout.split("LOADED ")[1].split()[0]) >= 15
 
@@ -141,7 +147,8 @@ def test_no_silent_cpu_fallback(monkeypatch):
                  lambda: coder.get_coder("torch", 10, 4),
                  lambda: ECPipeline(),
                  lambda: port_entry.entry(),
-                 lambda: port_entry.dryrun_multichip(1)):
+                 lambda: port_entry.dryrun_multichip(1),
+                 lambda: crashsim.run_matrix(["ec-seal"], max_states=10)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
     # the explicit CPU device is the only way to the plain version

@@ -478,3 +478,16 @@ def test_cluster_of_the_port_on_card(cuda, tmp_path):
         assert crc_cuda.launches >= 1
     finally:
         tc.stop(c)
+
+
+@pytest.mark.gpu
+def test_crashsim_ec_seal_on_card(cuda):
+    """crashsim's ec-seal scenario with its coder on the card: the
+    streaming encode runs through K1, and every crash state of its seal
+    recovers clean."""
+    from seaweedfs_tpu_torch.devtools import crashsim
+    sc = next(s for s in crashsim.scenarios("cuda") if s.name == "ec-seal")
+    before = rs_cuda.launches_by_entry.get("encode", 0)
+    rep = crashsim.run_scenario(sc, seed=0, max_states=2000)
+    assert rs_cuda.launches_by_entry.get("encode", 0) > before
+    assert rep["violations"] == [] and rep["states"] >= 500

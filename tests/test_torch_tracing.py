@@ -192,3 +192,99 @@ def test_device_trace_writes_a_chrome_trace(tmp_path):
     with open(path) as f:
         trace = json.load(f)
     assert any(ev.get("cat") == "cpu_op" for ev in trace["traceEvents"])
+
+
+def _degraded_span_tree(mod, store, server, saved, sid=0, length=1024):
+    """Read `length` bytes of lost shard `sid` through `server`'s shard
+    reader under a root span: shards 2 and 3 answer from `saved` through
+    the server's fetch (holders listed, 50 ms a fetch), 0 and 5 have no
+    holder, 1 and 4 are local. Returns the bytes and the span tree as
+    sorted (name, parent's name, shard, status) rows."""
+    import time as _time
+
+    locs = {2: ["holder-a:1"], 3: ["holder-b:1"]}
+
+    def inner(vid, s, offset, ln, holders, include_open, sp):
+        if not holders:
+            return None
+        _time.sleep(0.05)  # the holderless fetch of shard 5 ends first
+        return saved[s][offset:offset + ln]
+
+    server._lookup_ec_shards = lambda vid, failed=False: locs
+    server._fetch_remote_shard_inner = inner
+    mod.BUFFER.clear()
+    with mod.start_span("test.read", component="test") as root:
+        data = server._make_shard_reader(7)(sid, 0, length)
+    spans = mod.BUFFER.snapshot(trace_id=root.context.trace_id, limit=100)
+    names = {s["span_id"]: s["name"] for s in spans}
+    rows = sorted((s["name"], names.get(s["parent_id"], ""),
+                   s["attrs"].get("shard", -1), s["status"]) for s in spans)
+    server._ec_read_pool.shutdown(wait=True)
+    return data, rows
+
+
+def test_degraded_read_span_tree_matches_reference(tmp_path):
+    """One degraded EC read at RS(4,2) through each package's volume
+    server, same seeded volume and same lost shards: equal bytes and the
+    same span tree, every shard fetch under the read's ec.reconstruct
+    span (the pool threads run in the submitter's context)."""
+    import shutil
+
+    import numpy as np
+
+    from seaweedfs_tpu.ec.locate import EcGeometry as RefGeometry
+    from seaweedfs_tpu.server.volume_server import VolumeServer as RefServer
+    from seaweedfs_tpu.storage.disk_location import DiskLocation as RefLocation
+    from seaweedfs_tpu.storage.store import Store as RefStore
+    from seaweedfs_tpu_torch.ec import files
+    from seaweedfs_tpu_torch.ec.locate import EcGeometry
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.storage.disk_location import DiskLocation
+    from seaweedfs_tpu_torch.storage.needle import Needle
+    from seaweedfs_tpu_torch.storage.store import Store
+
+    geo = dict(large_block=8192, small_block=1024)
+    src = tmp_path / "src"
+    src.mkdir()
+    store = Store("127.0.0.1", 0, "", [DiskLocation(str(src))],
+                  ec_geometry=EcGeometry(4, 2, **geo), coder_name="torch",
+                  device="cpu")
+    rng = np.random.default_rng(11)
+    store.add_volume(7)
+    for k in range(1, 41):
+        store.write_needle(7, Needle(id=k, cookie=0x5EED, data=rng.bytes(
+            int(rng.integers(100, 3000)))))
+    base = store.generate_ec_shards(7)
+    saved = {s: open(base + files.shard_ext(s), "rb").read()
+             for s in range(6)}
+    store.delete_volume(7)
+    store.close()
+    for name in ("port", "ref"):
+        shutil.copytree(src, tmp_path / name)
+        for s in (0, 2, 3, 5):
+            os.unlink(str(tmp_path / name / os.path.basename(base))
+                      + files.shard_ext(s))
+
+    port_store = Store("127.0.0.1", 0, "", [DiskLocation(str(tmp_path / "port"))],
+                       ec_geometry=EcGeometry(4, 2, **geo),
+                       coder_name="torch", device="cpu")
+    ref_store = RefStore("127.0.0.1", 0, "",
+                         [RefLocation(str(tmp_path / "ref"))],
+                         ec_geometry=RefGeometry(4, 2, **geo),
+                         coder_name="numpy")
+    try:
+        port_store.mount_ec_shards(7)
+        ref_store.mount_ec_shards(7)
+        got, got_tree = _degraded_span_tree(
+            tracing, port_store, VolumeServer(port_store), saved)
+        want, want_tree = _degraded_span_tree(
+            ref_tracing, ref_store, RefServer(ref_store, "127.0.0.1:1"),
+            saved)
+    finally:
+        port_store.close()
+        ref_store.close()
+    assert got == want == saved[0][:1024]
+    assert got_tree == want_tree
+    fetches = [r for r in got_tree if r[0] == "ec.shard.fetch"]
+    assert sorted(r[2] for r in fetches) == [0, 2, 3, 5]
+    assert [r[1] for r in fetches if r[2] != 0] == ["ec.reconstruct"] * 3

@@ -54,21 +54,44 @@ RACKS = ("r1", "r2", "r3", "r4")
 SCRUB_VID, SCRUB_NEEDLES, SCRUB_DAMAGED = 90, 300, 3
 
 
+def _ephemeral_low() -> int:
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            return int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        return 32768
+
+
 def free_port_pair() -> int:
-    """A free port whose +10000 gRPC sibling is free and valid."""
+    """A free port whose +10000 gRPC sibling is free, both below the
+    kernel's ephemeral range where it leaves room: no outgoing connection's
+    source port can take either before its server binds it (the hazard of
+    picking a port and binding it later, under many test workers). Where
+    the range starts too low for that, any free pair."""
+    import random
+    rng = random.Random()
+    top = _ephemeral_low() - 10000
+    lo = 10000 if top > 11000 else 1024
+    for _ in range(500 if top > lo + 100 else 0):
+        port = rng.randrange(lo, top)
+        if _bindable(port) and _bindable(port + 10000):
+            return port
     for _ in range(100):
         with socket.socket() as s:
             s.bind(("127.0.0.1", 0))
             port = s.getsockname()[1]
-        if port + 10000 >= 65536:
-            continue
-        try:
-            with socket.socket() as s:
-                s.bind(("127.0.0.1", port + 10000))
+        if port + 10000 < 65536 and _bindable(port + 10000):
             return port
-        except OSError:
-            continue
     raise RuntimeError("no free port pair")
+
+
+def _bindable(port: int) -> bool:
+    with socket.socket() as s:
+        try:
+            s.bind(("127.0.0.1", port))
+        except OSError:
+            return False
+    return True
 
 
 def wait_until(cond, timeout: float = 10.0, msg: str = "condition") -> None:
