@@ -5,7 +5,7 @@
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result). `--phases` runs a subset (default: all); phase 1 always runs, and
-the kernels line needs phases 3, 4 and 6 to 19. The kernels of the
+the kernels line needs phases 3, 4 and 6 to 20. The kernels of the
 phases asked for are built first, all at once (one nvcc per source).
 
 1. device: card name, count, `nvidia-smi` name and power limit;
@@ -54,9 +54,9 @@ phases asked for are built first, all at once (one nvcc per source).
    device="off". Every launch count is zeroed just before the cuda scrub
    and read just after; K3 must have launched;
 9. EC volumes served from a Store: servers A and B, each a Store on the
-   card (coder "torch", kernel K1); 524,288 needles of 1024 + 0..63 B
-   (half of weed benchmark's write set: phase 13 runs the same flow
-   behind the server) written on A through Store.write_needles_bulk,
+   card (coder "torch", kernel K1); 262,144 needles of 1024 + 0..63 B
+   (a quarter of weed benchmark's write set, half until phase 20 took the
+   time: phase 13 runs the same flow behind the server) written on A through Store.write_needles_bulk,
    Store.generate_ec_shards at RS(10,4) (1 GiB / 1 MiB blocks), shards 7-13
    with copies of the .ecx and .vif moved to B, the source volume deleted,
    both mounted. A seeded sample of 16,384 needles read on A through
@@ -99,8 +99,8 @@ phases asked for are built first, all at once (one nvcc per source).
    the EC steps and read after; then K1 at one stripe [1, 14, ~1 KB] is
    timed;
 11. the layered codecs at deployment size, on one Store on the card: the
-   write set of phase 9 (524,288 needles; the full 1,048,576 until phase 15
-   took the time) written once and encoded twice. (a) msr at the
+   write set of phase 9 (262,144 needles; the full 1,048,576 until phase 15
+   took the time, 524,288 until phase 20 did) written once and encoded twice. (a) msr at the
    fork's RS(14,2) (1 GiB / 1 MiB blocks, alpha 256): generate_ec_shards
    (plain-RS slabs through K1 encode, then the msr overlay through K1's
    apply entry), a seeded sample of sub-symbol columns against the plain
@@ -136,8 +136,9 @@ phases asked for are built first, all at once (one nvcc per source).
 13. the volume server on the card (server/volume_server.py): servers A, B
    and C, each a VolumeServer over a Store on the card (coder "torch",
    RS(10,4), 1 GiB / 1 MiB blocks) with its HTTP plane on a localhost
-   port, joined by one LocalPeers. A quarter of the write set (262,144
-   needles of 1024 + 0..63 B; the whole until phase 17 took the time) on A
+   port, joined by one LocalPeers. An eighth of the write set (131,072
+   needles of 1024 + 0..63 B; the whole until phase 17 took the time, a
+   quarter until phase 20 did) on A
    through Store.write_needles_bulk, then 4,096 needles POSTed over HTTP, each
    acknowledged and read back by GET; VolumeMarkReadonly and
    VolumeEcShardsGenerate (K1 encode); VolumeEcShardsCopy of shards 7-13
@@ -160,7 +161,8 @@ phases asked for are built first, all at once (one nvcc per source).
    breaker open, reads of its shards succeed through the last probe.
    VolumeEcBlobDelete then GET 404; the data shards copied to A and
    VolumeEcShardsToVolume to the .dat's hash, the sample by GET. A regular
-   volume of 262,144 needles on C damaged as phase 8 does: VolumeScrub
+   volume of 131,072 needles (262,144 until phase 20) on C damaged as phase
+   8 does: VolumeScrub
    with device "" reports exactly the 17 through K3, "auto" the same,
    "off" the same counts in mode cpu. K1's and K3's counts are zeroed just
    before the phase and read just after; then K1 at the degraded reads'
@@ -169,10 +171,10 @@ phases asked for are built first, all at once (one nvcc per source).
    client/http_util.py, storage/bulk.py and the read cache): servers A, B
    and C, each a VolumeServer over a Store on the card, joined by one
    LocalPeers that answers lookup_volume from their heartbeats; the replica
-   hops are HTTP over loopback. A fresh "001" volume on A and B; a quarter
-   of the write set (262,144 needles of 1024 + 0..63 B, `weed benchmark
+   hops are HTTP over loopback. A fresh "001" volume on A and B; an eighth
+   of the write set (131,072 needles of 1024 + 0..63 B, `weed benchmark
    -size 1024`'s needles; the full 1,048,576 until phase 15 took the time,
-   half until phase 16 did) PUT to
+   half until phase 16 did, a quarter until phase 20 did) PUT to
    A by one client as /bulk frames of 1,024 needles, each frame replicated
    to B in one hop; A's and B's .idx equal by
    sha256. 4,096 POSTs through A, each read back from B; 256 DELETEs, 404 on
@@ -191,8 +193,9 @@ phases asked for are built first, all at once (one nvcc per source).
    the gRPC binding): servers A, B and C on the card, each served over gRPC
    under mTLS (a CA and a cluster certificate made with openssl; a
    plaintext stub must be refused), their peer plane gRPC with the holder
-   lookups from their heartbeats. Half the write set (524,288 needles of
-   1024 + 0..63 B; the whole until phase 19 took the time) on A through
+   lookups from their heartbeats. A quarter of the write set (262,144
+   needles of 1024 + 0..63 B; the whole until phase 19 took the time, half
+   until phase 20 did) on A through
    Store.write_needles_bulk; VolumeCopy A -> C
    (.dat and .idx sha256 equal); 16,384 needles more on A (65,536 until
    phase 16 took the time), then
@@ -218,20 +221,21 @@ phases asked for are built first, all at once (one nvcc per source).
 16. the rest of the volume server (the profiling plane, telemetry, the
    debug routes and /ui, image resize, the azure: and gcs-json: tiers and
    storage/ref_format.py): (a) a Go SeaweedFS v3 volume written here field
-   by field (262,144 needles of 1024 + 0..63 B, a quarter of the write set
-   to keep the whole in time, 1,024 tombstones, raw and
+   by field (131,072 needles of 1024 + 0..63 B, an eighth of the write set
+   to keep the whole in time, a quarter until phase 20; 1,024 tombstones, raw and
    scrambled CRCs, aligned records padded by 8), walk_dat, read_idx and
    every CRC; write_sorted_ecx; its .dat EC-encoded at RS(14,2) (1 GiB /
    1 MiB blocks, K1); shards (3, 15) lost and 16,384 needles re-read through
    the stripe locator with the lost intervals reconstructed (K1 at one
    stripe), parsed by ref_format.parse_needle; the rebuild (K1) to the
    shards' bytes; every live needle re-read; the decode == the Go .dat.
-   Then servers A and B on the card joined by LocalPeers: (b) 262,144
-   needles on A tiered to azure: (the port's MiniAzure on localhost), GETs
+   Then servers A and B on the card joined by LocalPeers: (b) 131,072
+   needles on A (262,144 until phase 20) tiered to azure: (the port's MiniAzure on localhost), GETs
    cold and warm from the remote copy, VolumeScrub "skipped-tiered", the
    .dat brought back byte-equal and scrubbed through K3; the same for
-   65,536 needles on gcs-json:; (c) 512 PNGs of 640x480 (made with zlib
-   and struct) and, with Pillow, 128 JPEGs with EXIF orientation 6, on an
+   65,536 needles on gcs-json:; (c) 256 PNGs of 640x480 (made with zlib
+   and struct) and, with Pillow, 64 JPEGs with EXIF orientation 6 (512 and
+   128 until phase 20), on an
    RS(10,4) volume laid out as in phase 13 with shards (0, 5, 10, 13)
    lost, each GET as a 128x128 thumbnail and half at width 200 "fit",
    every answer == images.resized on the host (the stored bytes without
@@ -252,7 +256,7 @@ phases asked for are built first, all at once (one nvcc per source).
    of each. K1's and K3's counts are zeroed just before the phase and read
    just after;
 17. a cluster of the port alone: a master started as a user starts it
-   (`python -m seaweedfs_tpu_torch master -volumeSizeLimitMB 1024 -ecShards
+   (`python -m seaweedfs_tpu_torch master -volumeSizeLimitMB 256 -ecShards
    10,4 -maintenanceIntervalS 10 -maintenanceScripts ec.rebuild`, a
    subprocess, health-driven repair on), four volume servers on the card in
    this process, one in each of racks r1-r4 of dc1, heartbeating to it over
@@ -261,9 +265,9 @@ phases asked for are built first, all at once (one nvcc per source).
    volume grown on r1 (/dir/assign?rack=r1; two until phase 19 took the
    time), 16,384 needles of 1024 + 0..63 B through Assign(count=1024)
    leases and /bulk frames, then blobs of 1 MiB + 0..4 KiB through
-   MasterClient.assign and POSTs until it holds at least 95% of its 1 GiB
-   limit; a damaged regular volume
-   of 262,144 needles (collection scrub17, 17 damaged) on r4, written
+   MasterClient.assign and POSTs until it holds at least 95% of its 256 MB
+   limit (1 GiB until phase 20 took the time); a damaged regular volume
+   of 131,072 needles (collection scrub17, 17 damaged) on r4, written
    before its server starts. (b) `lock; ec.encode -collection ec17
    -fullPercent 95; unlock` (VolumeEcShardsGenerateBatch, K1 encode, then
    the spread by VolumeEcShardsCopy): no rack holds more than 4 shards of
@@ -282,20 +286,20 @@ phases asked for are built first, all at once (one nvcc per source).
    every needle of it read back == written. (h) The port's `upload` and
    `download` verbs (subprocesses) round-trip four seeded files byte for
    byte. (i) Its `backup` of the scrub17 volume: .dat and .idx sha256 ==
-   the holder's. (j) Its `benchmark -n 8192 -size 1024 -c 16` (weed
+   the holder's. (j) Its `benchmark -n 4096 -size 1024 -c 16` (weed
    benchmark's 1,048,576 files cut to fit the smoke's time): write and
    read req/s, p50 and p99, 0 errors. K1's and K3's counts are zeroed
    just before the phase and read just after;
 18. the lifecycle under a raft quorum: three masters of the port started
    as a user starts them (`python -m seaweedfs_tpu_torch master -peers
-   m1,m2,m3 -raftDir D -volumeSizeLimitMB 1024 -ecShards 10,4
+   m1,m2,m3 -raftDir D -volumeSizeLimitMB 256 -ecShards 10,4
    -maintenanceIntervalS 5 -maintenanceScripts '' -lifecyclePolicy lc.json
    -sloPolicy slo.json -telemetryIntervalS 2`, subprocesses), four volume
    servers on the card in racks r1-r4 of this process heartbeating to the
    quorum, the port's shell as subprocesses. The policy takes collection
    lc18 to EC after 5 quiet seconds, to a `local:` tier after 15, back on
    16 remote reads, with a TTL of an hour. (a) One lc18 volume grown on r1
-   and filled past 95% of 1 GiB as phase 17's are. (b) The leader's cron
+   and filled past 95% of 256 MB (1 GiB until phase 20) as phase 17's are. (b) The leader's cron
    encodes it (K1) and spreads it 4/4/3/3; the 14 shards' sha256 == the
    plain version's encode of the .dat. (c) The leader is killed with
    SIGKILL: a new one is elected (timed), cluster.raft.ps names it, the
@@ -317,15 +321,45 @@ phases asked for are built first, all at once (one nvcc per source).
    policy. K1's and K3's counts are zeroed just before the phase and read
    just after;
 19. the crash plane on the card: the port's crashsim (devtools/crashsim)
-   over its five scenarios (single-put, bulk-frame, ec-seal, raft-commit,
-   vif-stamp) with --min-states 500, ec-seal's streaming encode through
-   K1, 0 violations; its ack-before-fsync mutant caught (exit 1); its
-   swtpu-lint over the seaweedfs_tpu_torch package, 0 findings. K1's and
-   K3's counts are zeroed just before the phase and read just after;
+   over its six scenarios (single-put, bulk-frame, ec-seal, raft-commit,
+   vif-stamp, meta-log) with --min-states 500, ec-seal's streaming encode
+   through K1, 0 violations; its ack-before-fsync mutant caught (exit 1);
+   its swtpu-lint over the seaweedfs_tpu_torch package, 0 findings. K1's
+   and K3's counts are zeroed just before the phase and read just after;
+20. the filer on the card: a master of the port (`-volumeSizeLimitMB 128
+   -ecShards 10,4`, its cron idle) and a filer of the port (`python -m
+   seaweedfs_tpu_torch filer -store sqlite:... -maxMB 4 -collection f20`)
+   as subprocesses, four volume servers on the card in racks r1-r4 of this
+   process, the filer's verbs and the shell as subprocesses. (1)
+   filer.meta.tail in the background. (2) fs.configure puts /f20/keep/
+   in collection f20keep at replication 010 and 32 small files land
+   there; then filer.copy of a seeded tree: 512 files of 1-64 KiB
+   (log-uniform), 8 of 1-16 MiB and one of 64 MiB (depth cut from 2,048
+   and 48 to keep the whole in time; the file sizes stay). (3) fs.du, fs.ls -l
+   and fs.tree agree with the tree; filer.cat of four files sha256 ==
+   written; fs.mv of 16 files and fs.rm of 16 take effect. (4) ec.encode
+   -volumeId of every f20 volume with data (K1 encode), at most 4 shards
+   a rack. (5) r1's server stopped. (6) Through the filer's HTTP GET with
+   r1 lost, every large file, 256 small ones and 16 Range GETs across
+   4 MiB chunk boundaries, sha256 == written; the servers' reconstructs
+   (K1 at one stripe) > 0, the one-stripe widths (min, median, max, how
+   many not a multiple of 16) and the read's GB/s. (7) fs.verify -scrub:
+   0 broken chunks, 0 corrupt needles (K3 on the f20keep volumes);
+   volume.fsck: 0 missing; cluster.check -failOn never: the filer ok, the
+   verdict with r1 lost. (8) The tail saw one create per file written and
+   one delete per file removed; the filer killed with SIGKILL and started
+   on the same store and meta log: fs.du and fs.tree as before, every file
+   sha256 == written; filer.meta.backup holds the filer's entries. (9)
+   With the cryptography package, a filer with -encryptVolumeData writes
+   and reads one file, the volume servers holding ciphertext; a line says
+   whether the step ran. K1's and K3's counts are zeroed just before the
+   phase and read just after; then (10), outside them, K1 reconstruct at
+   [1, 10, W] (W the widest one-stripe width of (6)) and at the aligned
+   width below it, each against its plain version and timed;
 then the summary: one JSON line of every kernel with its launches (K1's
-   from phases 6, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18 and 19, K3's from
-   phases 8, 10, 12, 13, 14, 15, 16, 17 and 18), error against the plain
-   version, times and bound; then the result line.
+   from phases 6, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19 and 20, K3's
+   from phases 8, 10, 12, 13, 14, 15, 16, 17, 18 and 20), error against
+   the plain version, times and bound; then the result line.
 
 Needs CUDA and the repository beside it; without either it exits 2.
 """
@@ -351,7 +385,7 @@ LOST_10_4 = (0, 5, 10, 13)
 LOST_14_2 = (3, 15)
 WIDTHS = (16, 48, 100, 384, 4112, 65536, 65552)
 PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18,
-          19)
+          19, 20)
 PALLAS = "seaweedfs_tpu/ops/rs_pallas.py"
 K1_SOURCE = "seaweedfs_tpu_torch/csrc/rs_gf.cu"
 K3_SOURCE = "seaweedfs_tpu_torch/csrc/crc32c.cu"
@@ -361,16 +395,23 @@ KERNELS = {2: ("rs_gf",), 7: ("crc32c",), 9: ("rs_gf",),  # phase -> csrc
            12: ("rs_gf", "crc32c"), 13: ("rs_gf", "crc32c"),
            14: ("rs_gf", "crc32c"), 15: ("rs_gf", "crc32c"),
            16: ("rs_gf", "crc32c"), 17: ("rs_gf", "crc32c"),
-           18: ("rs_gf", "crc32c"), 19: ("rs_gf",)}
+           18: ("rs_gf", "crc32c"), 19: ("rs_gf",),
+           20: ("rs_gf", "crc32c")}
 K3_SHAPES = ((4096, 2048), (16384, 4096), (64, 1 << 20))  # first: the scrub's
 K3_ROWS = (1, 3, 4096, 4225)  # 4225 = 132 SMs x 32 warps + 1
 K3_LENGTHS = (0, 512, 1024, 2048, 4096, 65536, 1 << 20)
 NEEDLE_LENGTHS = (0, 1, 511, 512, 513, 1087, 9000)
 SCRUB_NEEDLES = 1 << 20
 EC_NEEDLES = 1 << 20   # weed benchmark's default write set, as phase 8
-EC_STORE_NEEDLES = 1 << 19  # phase 9: half of it (phase 13 runs the same
+EC_STORE_NEEDLES = 1 << 18  # phases 9 and 11: a quarter of it (half until
+                            # phase 20 took the time; phase 13 runs the same
                             # flow behind the server)
-EC_SAMPLE = 16384      # needles read back per pass
+EC_SAMPLE = 16384      # needles read back per pass (phases 9, 10; a
+                       # /bulk-read sample in 14)
+NEEDLE_STRIPE_W = 1096  # phases 9, 10, 13: the one-stripe width K1 is timed
+                        # at, a needle record of the write set that is not
+                        # a multiple of 16 (the byte loop); the aligned
+                        # 1,088 is timed beside it
 EC_VID = 1
 A_LOST, B_LOST = (0, 5), (10, 13)
 TIER_LOST = (0, 5)     # phase 10's lost shards at RS(14,2)
@@ -385,25 +426,29 @@ MESH_DAT = 1_145_031_680  # phase 12: the .dat size of 1,048,576 needles
 MESH_SCRUB_NEEDLES = 1 << 20  # phase 12: weed benchmark's default write set
 MESH_SCRUB_BATCH = (4096, 2048)
 MESH_DAMAGED = 17
-SERVER_NEEDLES = 1 << 18  # phase 13: a quarter of the write set (the
-                          # whole until phase 17 took the time)
+SERVER_NEEDLES = 1 << 17  # phase 13: an eighth of the write set (the
+                          # whole until phase 17 took the time, a quarter
+                          # until phase 20 did)
 SERVER_HTTP_NEEDLES = 4096  # phase 13: needles POSTed over HTTP after the
                             # bulk set; phase 14: POSTs fanned out to B
-SERVER_SCRUB_NEEDLES = 1 << 18  # phase 13: the regular volume VolumeScrub checks
+SERVER_SCRUB_NEEDLES = 1 << 17  # phase 13: the regular volume VolumeScrub
+                                # checks (262,144 until phase 20)
 SERVER_SAMPLE = 4096   # phase 13: needles GET per pass (cut from 16,384 to
                        # make room for phase 14)
 REPLICA_VID = 21       # phase 14's "001" volume
-REPLICA_NEEDLES = 1 << 18  # phase 14: a quarter of the write set as /bulk
+REPLICA_NEEDLES = 1 << 17  # phase 14: an eighth of the write set as /bulk
                            # frames (the whole until phase 15 took the time,
-                           # half until phase 16 did)
+                           # half until phase 16 did, a quarter until phase
+                           # 20 did)
 REPLICA_FRAME = 1024   # phase 14: needles a /bulk frame (the JAX client's
                        # BULK_MAX_FRAME_NEEDLES)
 REPLICA_DELETES = 256  # phase 14: DELETEs fanned out
 REPLICA_GETS = 4096    # phase 14: GETs on A per pass, twice
 REPLICA_PROXIED = 1024  # phase 14: of them, GETs proxied by C
 REPLICA_READ_FRAME = 256  # phase 14: needles a /bulk-read frame
-MAINT_NEEDLES = 1 << 19  # phase 15: the write set VolumeCopy moves (half of
-                         # weed benchmark's until phase 19 took the time)
+MAINT_NEEDLES = 1 << 18  # phase 15: the write set VolumeCopy moves (a
+                         # quarter of weed benchmark's; the whole until phase
+                         # 19 took the time, half until phase 20 did)
 MAINT_MORE = 1 << 14   # phase 15: needles written on A after the copy and
                        # caught up by the tail (65,536 until phase 16 took
                        # the time)
@@ -420,25 +465,28 @@ MAINT_QUANTUM = 64 << 20     # phase 15's round-robin quantum (>= a read)
 # grpc 1.80.0 and protobuf 6.33.6 (PERF.md), so phase 13 also reads its
 # degraded sample over gRPC
 GRPC_ON_CARD = True
-GO_NEEDLES = 1 << 18   # phase 16(a): the Go volume, a quarter of weed
+GO_NEEDLES = 1 << 17   # phase 16(a): the Go volume, an eighth of weed
                        # benchmark's write set (depth cut from half, which
-                       # took 35 s of the phase, to keep the whole in time)
+                       # took 35 s of the phase, then from a quarter when
+                       # phase 20 came, to keep the whole in time)
 GO_DELETES = 1024      # phase 16(a): needles deleted by tombstones
 GO_SAMPLE = 16384      # phase 16(a): needles read with shards (3, 15) lost
-AZURE_NEEDLES = 1 << 18  # phase 16(b): the volume tiered to azure:
+AZURE_NEEDLES = 1 << 17  # phase 16(b): the volume tiered to azure: (1 << 18
+                         # until phase 20)
 GCS_NEEDLES = 1 << 16    # and the one tiered to gcs-json:
 TIER_GETS = 1024       # phase 16(b): needles GET cold, then warm (a quarter
                        # of them on gcs-json:)
-IMAGE_COUNT = 512      # phase 16(c): PNG needles (depth cut from 1,024 to
-                       # keep the whole in time)
-IMAGE_JPEGS = 128      # phase 16(c): JPEGs with EXIF orientation 6 (Pillow;
-                       # cut from 256 alike)
+IMAGE_COUNT = 256      # phase 16(c): PNG needles (depth cut from 1,024 to
+                       # keep the whole in time, from 512 when phase 20 came)
+IMAGE_JPEGS = 64       # phase 16(c): JPEGs with EXIF orientation 6 (Pillow;
+                       # cut from 256 and 128 alike)
 IMAGE_SIZE = (640, 480)
 TRACE_GETS = 64        # phase 16(d): degraded GETs under the device trace
 HOOK_GETS = 4096       # phase 16(e): healthy GETs each way
 GO_VID, AZURE_VID, GCS_VID, IMAGE_VID, HOOK_VID = 41, 42, 43, 44, 45
-CONTROL_LIMIT_MB = 1024  # phase 17: the master's -volumeSizeLimitMB (a
-                         # depth cut from the 30,000 default, master.go:73)
+CONTROL_LIMIT_MB = 256   # phase 17: the master's -volumeSizeLimitMB (a
+                         # depth cut from the 30,000 default, master.go:73;
+                         # 1,024 until phase 20 took the time)
 CONTROL_VOLUMES = 1      # phase 17: ec17 volumes grown on r1 (two until
                          # phase 19 took the time)
 CONTROL_FILL = 0.95      # phase 17: each ec17 volume filled past this share
@@ -448,13 +496,15 @@ CONTROL_LEASE = 1024     # phase 17: keys an Assign(count=...) leases
 CONTROL_FRAME = 256      # phase 17: needles a /bulk frame (four a lease,
                          # written among the blobs)
 CONTROL_GETS = 2048      # phase 17: GETs healthy, then with r1 lost
-CONTROL_SCRUB_NEEDLES = 1 << 18  # phase 17: the scrub17 volume
+CONTROL_SCRUB_NEEDLES = 1 << 17  # phase 17: the scrub17 volume (1 << 18
+                                 # until phase 20)
 SCRUB17_VID = 71         # phase 17's damaged regular volume on r4
 CONTROL_BATCH_BLOBS = 16  # phase 17(d): 1 MiB blobs of each volume in the
                           # port's operation.read_batch with r1 lost
-CONTROL_BENCH_N = 8192    # phase 17(j): benchmark files (weed benchmark's
-                          # 1,048,576 cut to fit the smoke's time)
-LIFE_LIMIT_MB = 1024     # phase 18: the masters' -volumeSizeLimitMB, as 17
+CONTROL_BENCH_N = 4096    # phase 17(j): benchmark files (weed benchmark's
+                          # 1,048,576 cut to fit the smoke's time; 8,192
+                          # until phase 20)
+LIFE_LIMIT_MB = 256      # phase 18: the masters' -volumeSizeLimitMB, as 17
 LIFE_FILL = 0.95         # phase 18: the lc18 volume filled past this share
 LIFE_SMALL = 16384       # phase 18: needles of 1024 + 0..63 B, leased
 LIFE_LEASE = 1024        # phase 18: keys an Assign(count=...) leases
@@ -470,6 +520,12 @@ LIFE_TTL_S = 3600.0      # phase 18(f): the policy's TTL (the instant is
 LIFE_SLO_THRESHOLD_S = 0.001  # phase 18(g): "half the GETs within 1 ms",
                               # below the degraded p50 (checked)
 CRASH_MIN_STATES = 500   # phase 19: crashsim's gate, as the reference's
+FILER_SMALL = 512        # phase 20: files of 1-64 KiB (log-uniform; depth
+                         # cut from 2,048 to keep the whole in time)
+FILER_LARGE = 8          # phase 20: files of 1-16 MiB (cut from 48 alike)
+FILER_HUGE_MB = 64       # phase 20: and one of 64 MiB
+FILER_SAMPLE = 256       # phase 20(6): small files GET with r1 lost
+FILER_RANGES = 16        # phase 20(6): Range GETs across chunk boundaries
 K1_ENTRIES = {  # wrapper entry -> the TPU function it replaces
     "encode": f"{PALLAS}:156",
     "encode_seeded": f"{PALLAS}:164",
@@ -1073,7 +1129,7 @@ def phase_k3_timing(torch, np, seed: int, card: str) -> "dict[tuple, dict]":
 # -- phase 8 ----------------------------------------------------------------
 def make_scrub_volume(np, vdir: str, seed: int, n: int = SCRUB_NEEDLES,
                       vid: int = 1, collection: str = "", card: str = ""):
-    """Volume `vid` of `n` needles (1,048,576 by default), damaged; returns
+    """Volume `vid` of `n` needles (SCRUB_NEEDLES by default), damaged; returns
     (volume, the 17 ids whose live bytes were damaged, the 64 deleted ids)."""
     from seaweedfs_tpu_torch.storage.needle import Needle
     from seaweedfs_tpu_torch.storage.volume import Volume
@@ -1452,16 +1508,21 @@ def ec_store_round_trip(np, workdir: str, seed: int, card: str, geo,
 
 def one_stripe_costs(torch, np, lengths, seed: int, card: str, d: int = 10,
                      p: int = 4, present=(1, 2, 3, 4, 6, 7, 8, 9, 11, 12),
-                     split: bool = True, tag: "str | None" = None) -> dict:
-    """One degraded interval's GF step at the path's typical length: K1 at
-    [d, L] -> shard 0 (CUDA events), its bound and plain version; with
-    `split`, also on the host clock the coder call the degraded read makes
-    (pageable H2D, K1, a fresh pinned buffer and event per call) split into
-    its parts, and the first call of a new survivor set (host GF inversion
-    and table upload)."""
+                     split: bool = True, tag: "str | None" = None,
+                     width: "int | None" = None) -> dict:
+    """One degraded interval's GF step at a width L: `width` where given
+    (so the timed width does not move with the sample's depth), else the
+    median of the path's `lengths`. K1 at [d, L] -> shard 0 (CUDA events),
+    its bound and plain version, and, where L is not a multiple of 16 (the
+    byte loop), K1 at the aligned width just below it; with `split`, also
+    on the host clock the coder call the degraded read makes (pageable H2D,
+    K1, a fresh pinned buffer and event per call) split into its parts, and
+    the first call of a new survivor set (host GF inversion and table
+    upload)."""
     from seaweedfs_tpu_torch.ops import rs_cuda, rs_torch
     from seaweedfs_tpu_torch.ops.coder import TorchCoder, host_result
-    L = int(np.median(lengths))
+    median = int(np.median(lengths))
+    L = width or median
     lost = (0,)
     rng = np.random.default_rng(seed + 9)
     arr = rng.integers(0, 256, (d, L), dtype=np.uint8)
@@ -1475,10 +1536,20 @@ def one_stripe_costs(torch, np, lengths, seed: int, card: str, d: int = 10,
     log(f"[{tag}] K1 reconstruct one stripe RS({d},{p}) "
         f"[1, {d}, {L}] -> [1, 1, {L}]: {ms:.5f} ms, bound {bound_ms:.7f} ms "
         f"({bound_by}), {bound_ms / ms:.3%} of bound; plain version "
-        f"{plain_ms:.4f} ms [{card}]")
+        f"{plain_ms:.4f} ms; the path's median width {median} B [{card}]")
+    costs = dict(L=L, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                 bound_by=bound_by)
+    if L % 16:
+        La = L - L % 16
+        xa = x[:, :La].contiguous()
+        costs["aligned_ms"] = _queued_ms(
+            torch, lambda x: rs_cuda.reconstruct(x, present, lost, d, p),
+            [xa], iters=500)
+        log(f"[{tag}] K1 reconstruct one stripe RS({d},{p}) at the aligned "
+            f"width below, [1, {d}, {La}]: {costs['aligned_ms']:.5f} ms "
+            f"({ms / costs['aligned_ms']:.2f}x at {L} B) [{card}]")
     if not split:
-        return dict(L=L, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                    bound_by=bound_by)
+        return costs
     coder = TorchCoder(d, p)
 
     def host_ms(fn, iters: int = 500) -> float:
@@ -1515,8 +1586,7 @@ def one_stripe_costs(torch, np, lengths, seed: int, card: str, d: int = 10,
         f"copy and event {finish:.4f} ms (each timed alone, synchronized); "
         f"first call of a new survivor set p50 {_pct(np, firsts, 50) * 1e3:.4f} ms, "
         f"of which the GF inversion {inv_ms:.4f} ms [{card}]")
-    return dict(L=L, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, call_ms=call)
+    return dict(costs, call_ms=call)
 
 
 def phase_ec_store(torch, np, workdir: str, seed: int, card: str) -> "dict[str, int]":
@@ -1533,7 +1603,8 @@ def phase_ec_store(torch, np, workdir: str, seed: int, card: str) -> "dict[str, 
     for entry in ("encode", "reconstruct"):
         if not launches.get(entry):
             raise AssertionError(f"K1 {entry} never launched on the EC store path")
-    one_stripe_costs(torch, np, res["lengths"], seed, card)
+    one_stripe_costs(torch, np, res["lengths"], seed, card,
+                     width=NEEDLE_STRIPE_W)
     return launches
 
 
@@ -1896,7 +1967,7 @@ def phase_tier(torch, np, workdir: str, seed: int, card: str) -> dict:
                              "round trip")
     one_stripe_costs(torch, np, res["lengths"], seed, card, d=14, p=2,
                      present=tuple(i for i in range(16) if i not in TIER_LOST),
-                     split=False)
+                     split=False, width=NEEDLE_STRIPE_W)
     return res
 
 
@@ -2967,7 +3038,7 @@ def phase_server(torch, np, workdir: str, seed: int, card: str) -> dict:
     if not k3:
         raise AssertionError("K3 never launched behind the server")
     stripe = one_stripe_costs(torch, np, res["lengths"], seed, card,
-                              split=False)
+                              split=False, width=NEEDLE_STRIPE_W)
     log(f"[server] rates: generate {res['gen']:.3f} GB/s, rebuild "
         f"{' / '.join(f'{x:.3f}' for x in res['rebuild'])} GB/s read, decode "
         f"{res['decode']:.3f} GB/s; GET p50/p99 healthy "
@@ -2975,7 +3046,7 @@ def phase_server(torch, np, workdir: str, seed: int, card: str) -> dict:
         f"{_pct(np, res['healthy'], 99) * 1e3:.4f} ms, degraded "
         f"{_pct(np, res['degraded'], 50) * 1e3:.4f} / "
         f"{_pct(np, res['degraded'], 99) * 1e3:.4f} ms; scrub "
-        f"{res['scrub']:.0f} needles/s; degraded one-stripe width "
+        f"{res['scrub']:.0f} needles/s; one-stripe width timed "
         f"{stripe['L']} B (% 16 = {stripe['L'] % 16}), K1 there "
         f"{stripe['ms']:.5f} ms [{card}]")
     return {"k1": k1, "k3": k3}
@@ -6023,7 +6094,7 @@ def phase_lifecycle(torch, np, workdir: str, seed: int, card: str) -> dict:
 def crash_round_trip(workdir: str, seed: int, card: str, min_states: int,
                      device: str = "cuda") -> dict:
     """Phase 19's path, every check fatal: the port's crashsim over its
-    five scenarios with --min-states, ec-seal's coder on `device` (K1 on
+    six scenarios with --min-states, ec-seal's coder on `device` (K1 on
     the card), 0 violations; the seeded ack-before-fsync mutant caught
     (exit 1); swtpu-lint over the port's package, 0 findings. Returns the
     states per scenario and the walls."""
@@ -6038,7 +6109,7 @@ def crash_round_trip(workdir: str, seed: int, card: str, min_states: int,
         doc = json.load(f)
     states = {sc["scenario"]: sc["states"] for sc in doc["scenarios"]}
     if rc != 0 or doc["total_violations"] or \
-            doc["total_states"] < min_states or len(states) != 5:
+            doc["total_states"] < min_states or len(states) != 6:
         raise AssertionError(f"crashsim: rc {rc}, states {states}, "
                              f"{doc['total_violations']} violations")
     log(f"[crash] crashsim --min-states {min_states} --device {device}: "
@@ -6080,6 +6151,622 @@ def phase_crash(torch, np, workdir: str, seed: int, card: str) -> dict:
     if not k1.get("encode"):
         raise AssertionError("K1 encode never launched in phase 19")
     return {"k1": k1, "k3": crc_cuda.launches, **res}
+
+
+# -- phase 20 ---------------------------------------------------------------
+def _free_filer_port(taken=()) -> int:
+    """A port for a filer started in a subprocess, with its +10000 gRPC
+    sibling (the clients' convention) free too; below the ephemeral range
+    where it leaves room."""
+    for _ in range(200):
+        port = _free_low_port(taken)
+        if port + 10000 >= 65536:
+            continue
+        import socket
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port + 10000))
+            except OSError:
+                continue
+        return port
+    raise RuntimeError("no free filer port pair")
+
+
+class K1Widths:
+    """The widths of every one-stripe K1 reconstruct while installed
+    (rs_cuda.gf_apply, which every entry goes through)."""
+
+    def __init__(self):
+        from seaweedfs_tpu_torch.ops import rs_cuda
+        self.rs_cuda = rs_cuda
+        self.widths: "list[int]" = []
+
+    def __enter__(self) -> "K1Widths":
+        real = self._real = self.rs_cuda.gf_apply
+
+        def seen(mat, data, seed=0, entry="apply"):
+            if entry == "reconstruct" and (data.ndim == 2
+                                           or data.shape[0] == 1):
+                self.widths.append(int(data.shape[-1]))
+            return real(mat, data, seed, entry)
+        self.rs_cuda.gf_apply = seen
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.rs_cuda.gf_apply = self._real
+
+
+def _filer_tree(np, root: str, seed: int, small: int, large: int,
+                huge_mb: int) -> "dict[str, bytes]":
+    """The seeded tree phase 20 copies into the filer, written under
+    `root`: `small` files of 1-64 KiB (log-uniform) in 16 directories,
+    `large` files of 1-16 MiB and one of `huge_mb` MiB. Returns filer path
+    (under /f20) -> sha256 hex."""
+    rng = np.random.default_rng(seed)
+    want: "dict[str, str]" = {}
+
+    def put(rel: str, data: bytes) -> None:
+        p = os.path.join(root, rel)
+        os.makedirs(os.path.dirname(p), exist_ok=True)
+        with open(p, "wb") as f:
+            f.write(data)
+        want["/f20/tree/" + rel] = hashlib.sha256(data).hexdigest()
+
+    sizes = np.exp(rng.uniform(np.log(1 << 10), np.log(64 << 10), small))
+    for i, n in enumerate(sizes.astype(np.int64)):
+        put(f"small/d{i % 16:02d}/s{i:05d}.bin", rng.bytes(int(n)))
+    for i in range(large):
+        put(f"large/l{i:03d}.bin",
+            rng.bytes(int(rng.integers(1 << 20, (16 << 20) + 1))))
+    put("huge/h000.bin", rng.bytes(huge_mb << 20))
+    return want
+
+
+def filer_round_trip(np, torch, workdir: str, seed: int, card: str,
+                     small: int, large: int, huge_mb: int, sample: int,
+                     ranges: int, device: str = "cuda",
+                     small_block: int = 1 << 20) -> dict:
+    """Phase 20's path, every check fatal: a master of the port in a
+    subprocess, four volume servers on the card in this process (racks
+    r1-r4), a filer of the port in a subprocess over a sqlite store, its
+    verbs and the port's shell as subprocesses. Returns the measured
+    numbers."""
+    import http.client
+    import signal
+
+    from seaweedfs_tpu_torch.client.filer_client import FilerClient
+    from seaweedfs_tpu_torch.client.master_client import MasterClient
+    from seaweedfs_tpu_torch.ec.locate import EcGeometry
+    from seaweedfs_tpu_torch.filer.store import SqliteStore
+    from seaweedfs_tpu_torch.ops import crc_cuda, rs_cuda
+    from seaweedfs_tpu_torch.server.grpc_service import serve_volume
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.storage.disk_location import DiskLocation
+    from seaweedfs_tpu_torch.storage.store import Store
+    from seaweedfs_tpu_torch.utils import retry
+
+    geo = EcGeometry(10, 4, small_block=small_block)
+    racks = ("r1", "r2", "r3", "r4")
+    here = os.path.dirname(os.path.abspath(__file__))
+    out: dict = {}
+    served: dict = {}
+    procs: "dict[str, subprocess.Popen]" = {}
+    logs: list = []
+    mc = fc = None
+    retry.reset_breakers()
+    mport = _free_low_port()
+    hport = _free_low_port({mport})
+    fport = _free_filer_port({mport, hport})
+    maddr, faddr = f"127.0.0.1:{mport}", f"127.0.0.1:{fport}"
+    fdir = os.path.join(workdir, "filer")
+    os.makedirs(fdir)
+
+    def spawn(name: str, *args) -> subprocess.Popen:
+        f = open(os.path.join(workdir, f"{name}.log"), "w")
+        logs.append(f)
+        procs[name] = subprocess.Popen(_port_cli(*args), cwd=here, stdout=f,
+                                       stderr=subprocess.STDOUT)
+        return procs[name]
+
+    def end(name: str, sig=signal.SIGTERM) -> None:
+        p = procs.pop(name, None)
+        if p is None or p.poll() is not None:
+            return
+        p.send_signal(sig)
+        try:
+            p.wait(timeout=20)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait(timeout=10)
+
+    def log_of(name: str) -> str:
+        with open(os.path.join(workdir, f"{name}.log")) as f:
+            return f.read()
+
+    def fget(path: str, headers=None) -> "tuple[int, bytes, dict]":
+        c = http.client.HTTPConnection("127.0.0.1", fport, timeout=120)
+        try:
+            c.request("GET", path, headers=headers or {})
+            r = c.getresponse()
+            return r.status, r.read(), {k.lower(): v
+                                        for k, v in r.getheaders()}
+        finally:
+            c.close()
+
+    def start_filer(tag: str) -> float:
+        t = time.perf_counter()
+        p = spawn(tag, "filer", "-master", maddr, "-ip", "127.0.0.1",
+                  "-port", str(fport), "-store", f"sqlite:{fdir}/filer.db",
+                  "-maxMB", "4", "-collection", "f20")
+
+        def up():
+            if p.poll() is not None:
+                raise AssertionError(f"the filer exited rc {p.poll()}: "
+                                     f"{log_of(tag)[-2000:]}")
+            try:
+                return fget("/__status__")[0] == 200
+            except OSError:
+                return False
+        _wait(up, 60, "the filer's HTTP plane")
+        return time.perf_counter() - t
+
+    def shell(script: str) -> "tuple[str, float]":
+        so, se, s = _shell(maddr, script)
+        return so + se, s
+
+    def reconstructs() -> int:
+        return sum(vs.read_stats.get("reconstructs", 0)
+                   for r, vs in vss.items() if r in served)
+
+    try:
+        t0 = time.perf_counter()
+        master = spawn("master", "master", "-ip", "127.0.0.1", "-port",
+                       str(mport), "-httpPort", str(hport),
+                       "-volumeSizeLimitMB", "128", "-ecShards", "10,4",
+                       "-maintenanceScripts", "",
+                       "-maintenanceHealthDriven", "off")
+
+        def master_up():
+            if master.poll() is not None:
+                raise AssertionError(f"the master exited rc {master.poll()}")
+            try:
+                c = http.client.HTTPConnection("127.0.0.1", hport, timeout=5)
+                c.request("GET", "/cluster/status")
+                ok = c.getresponse().status == 200
+                c.close()
+                return ok
+            except OSError:
+                return False
+
+        _wait(master_up, 120, "the master's HTTP API")
+        dirs = {r: os.path.join(workdir, r) for r in racks}
+        for r in racks:
+            os.makedirs(dirs[r])
+            port = _free_port()
+            store = Store("127.0.0.1", port, "", [DiskLocation(
+                dirs[r], max_volume_count=32)], ec_geometry=geo,
+                coder_name="torch", device=device)
+            vs = VolumeServer(store, "127.0.0.1", port, data_center="dc1",
+                              rack=r, pulse_seconds=1.0)
+            served[r] = serve_volume(vs, port + 10000, master=maddr)
+        vss = {r: s.vs for r, s in served.items()}
+        rack_of = {vs.url: r for r, vs in vss.items()}
+        mc = MasterClient(maddr).start()
+        _wait(lambda: sum(len(rk.data_node_infos) for dc in
+                          mc.volume_list().topology_info.data_center_infos
+                          for rk in dc.rack_infos) == 4, 60,
+              "four servers registered")
+        up_s = start_filer("filer")
+        log(f"[filer] master (a subprocess, -volumeSizeLimitMB 128 -ecShards "
+            f"10,4), four volume servers on {device} in racks r1-r4, and the "
+            f"filer (a subprocess of python -m seaweedfs_tpu_torch filer "
+            f"-store sqlite: -maxMB 4 -collection f20; up in {up_s:.2f} s) "
+            f"in {time.perf_counter() - t0:.1f} s [{card}]")
+
+        # (1) the meta tail, from now on
+        tail = spawn("tail", "filer.meta.tail", "-filer", faddr,
+                     "-pathPrefix", "/f20")
+        time.sleep(1.0)
+        if tail.poll() is not None:
+            raise AssertionError(f"filer.meta.tail exited: {log_of('tail')}")
+
+        # (2) the seeded tree through filer.copy; a small replicated
+        # subtree first, kept out of the encode, for the scrub to check
+        t = time.perf_counter()
+        local = os.path.join(workdir, "tree")
+        want = _filer_tree(np, local, seed, small, large, huge_mb)
+        written = set(want) | {f"/f20/keep/k{i:02d}.bin" for i in range(32)}
+        tree_bytes = sum(os.path.getsize(os.path.join(dp, f))
+                         for dp, _, fs in os.walk(local) for f in fs)
+        gen_s = time.perf_counter() - t
+        said, _ = shell(f"fs.configure -filer {faddr} -locationPrefix "
+                        "/f20/keep/ -collection f20keep -replication 010 "
+                        "-apply")
+        if "applied." not in said:
+            raise AssertionError(f"fs.configure: {said!r}")
+        keep_dir = os.path.join(workdir, "keep")
+        os.makedirs(keep_dir)
+        rng = np.random.default_rng(seed + 1)
+        for i in range(32):
+            with open(os.path.join(keep_dir, f"k{i:02d}.bin"), "wb") as f:
+                f.write(rng.bytes(int(rng.integers(1 << 10, 64 << 10))))
+        _verb("filer.copy", "-filer", faddr, keep_dir, "/f20")
+        said, copy_s = _verb("filer.copy", "-filer", faddr,
+                             *[os.path.join(local, d) for d in
+                               ("small", "large", "huge")], "/f20/tree",
+                             timeout=600)
+        if f"copied {len(want)} files" not in said:
+            raise AssertionError(f"filer.copy said {said!r}")
+        out["write"] = tree_bytes / copy_s / 1e9
+        log(f"[filer] (2) the seeded tree ({small} files of 1-64 KiB, "
+            f"{large} of 1-16 MiB, one of {huge_mb} MiB: {tree_bytes} B, "
+            f"made in {gen_s:.2f} s) through filer.copy in {copy_s:.2f} s "
+            f"= {out['write']:.3f} GB/s with the process; 32 files under "
+            f"/f20/keep/ (fs.configure: collection f20keep, replication "
+            f"010) [{card}]")
+
+        # (3) the namespace
+        said, ns_s = shell(f"fs.du -filer {faddr} /f20/tree; fs.ls -l "
+                           f"-filer {faddr} /f20/tree/large; fs.tree -filer "
+                           f"{faddr} /f20/tree")
+        m = re.search(r"(\d+) bytes, (\d+) files, (\d+) dirs under "
+                      r"/f20/tree", said)
+        if not m or (int(m.group(1)), int(m.group(2)), int(m.group(3))) != (
+                tree_bytes, len(want), 3 + 16):
+            raise AssertionError(f"fs.du: {said[:500]!r}")
+        ls = {ln.split()[-1]: int(ln.split()[1]) for ln in said.splitlines()
+              if re.match(r"^- +\d+ l\d{3}\.bin$", ln)}
+        want_ls = {os.path.basename(p): os.path.getsize(os.path.join(
+            local, "large", os.path.basename(p))) for p in want
+            if "/large/" in p}
+        if ls != want_ls:
+            raise AssertionError(f"fs.ls -l of /f20/tree/large: {ls}")
+        tree_names = {ln.strip() for ln in said.splitlines()}
+        if not all(os.path.basename(p) in tree_names for p in want):
+            raise AssertionError("fs.tree lacks files of the tree")
+        cat_paths = [p for p in sorted(want) if "/large/" in p][:2] + [
+            "/f20/tree/huge/h000.bin",
+            sorted(p for p in want if "/small/" in p)[7]]
+        for p in cat_paths:
+            proc = subprocess.run(_port_cli("filer.cat", "-filer", faddr, p),
+                                  cwd=here, capture_output=True, timeout=300)
+            if proc.returncode or \
+                    hashlib.sha256(proc.stdout).hexdigest() != want[p]:
+                raise AssertionError(f"filer.cat {p}: rc {proc.returncode}")
+        smalls = sorted(p for p in want if "/small/" in p)
+        moved = smalls[1::64][:16]
+        removed = smalls[2::64][:16]
+        said, _ = shell("; ".join(
+            [f"fs.mkdir -filer {faddr} /f20/tree/moved"]
+            + [f"fs.mv -filer {faddr} {p} /f20/tree/moved" for p in moved]
+            + [f"fs.rm -filer {faddr} {p}" for p in removed]))
+        for p in moved:
+            want["/f20/tree/moved/" + os.path.basename(p)] = want.pop(p)
+        for p in removed:
+            want.pop(p)
+        for p in moved + removed:
+            if fget(p)[0] != 404:
+                raise AssertionError(f"{p} still there after mv/rm")
+        for p in moved:
+            np_ = "/f20/tree/moved/" + os.path.basename(p)
+            st, body, _ = fget(np_)
+            if st != 200 or hashlib.sha256(body).hexdigest() != want[np_]:
+                raise AssertionError(f"GET {np_} after fs.mv: {st}")
+        log(f"[filer] (3) fs.du, fs.ls -l and fs.tree (one shell, "
+            f"{ns_s:.2f} s) agree with the tree; filer.cat of {cat_paths} "
+            f"sha256 == written; fs.mv of {len(moved)} files and fs.rm of "
+            f"{len(removed)} took effect [{card}]")
+
+        # (4) ec.encode of every f20 volume with data (K1 encode)
+        for r in racks:
+            vss[r].heartbeat_flush()
+        time.sleep(1.5)
+        f20 = {}
+        for dc in mc.volume_list().topology_info.data_center_infos:
+            for rk in dc.rack_infos:
+                for dn in rk.data_node_infos:
+                    for disk in dn.disk_infos.values():
+                        for v in disk.volume_infos:
+                            if v.collection == "f20" and v.size > 8:
+                                f20[v.id] = v.size
+        if not f20:
+            raise AssertionError("no f20 volume holds data")
+        k0 = rs_cuda.launches_by_entry.get("encode", 0)
+        said, enc_s = shell("lock; " + "; ".join(
+            f"ec.encode -volumeId {vid}" for vid in sorted(f20)) + "; unlock")
+        enc_k1 = rs_cuda.launches_by_entry.get("encode", 0) - k0
+        lost: "dict[int, list[int]]" = {}
+        for vid in f20:
+            spread = _wait(lambda: (lambda s: s if len(s) == geo.n else None)(
+                {sid: [rack_of[u] for u in urls]
+                 for sid, urls in mc.lookup_ec(vid).items() if urls}),
+                60, f"volume {vid}'s 14 shards registered")
+            per_rack = collections.Counter(r for rs in spread.values()
+                                           for r in rs)
+            if max(per_rack.values()) > geo.p:
+                raise AssertionError(f"volume {vid}: {dict(per_rack)}")
+            lost[vid] = sorted(s for s, rs in spread.items() if "r1" in rs)
+        out["encode"] = sum(f20.values()) / enc_s / 1e9
+        log(f"[filer] (4) ec.encode -volumeId of the {len(f20)} f20 volumes "
+            f"({sum(f20.values())} B of .dat: {json.dumps(f20)}) in "
+            f"{enc_s:.2f} s with the shell = {out['encode']:.3f} GB/s; K1 "
+            f"encode launches {enc_k1}; shards on r1 {json.dumps(lost)} "
+            f"[{card}]")
+
+        # (5) rack r1 lost
+        served.pop("r1").stop()
+        _wait(lambda: sum(len(rk.data_node_infos) for dc in
+                          mc.volume_list().topology_info.data_center_infos
+                          for rk in dc.rack_infos) == 3, 60,
+              "r1's server gone from the topology")
+
+        # (6) reads through the filer with r1 lost
+        large_paths = sorted(p for p in want if "/small/" not in p
+                             and "/moved/" not in p)
+        small_paths = sorted(p for p in want if "/small/" in p)
+        pick = small_paths[::max(1, len(small_paths) // sample)][:sample]
+        r0, k0 = reconstructs(), rs_cuda.launches_by_entry.get(
+            "reconstruct", 0)
+        read_bytes = 0
+        t = time.perf_counter()
+        with K1Widths() as kw:
+            for p in large_paths + pick:
+                st, body, hd = fget(p)
+                if st != 200 or hashlib.sha256(body).hexdigest() != want[p]:
+                    raise AssertionError(f"GET {p} with r1 lost: {st}")
+                read_bytes += len(body)
+            rrng = np.random.default_rng(seed + 2)
+            big = [p for p in large_paths if os.path.getsize(os.path.join(
+                local, p[len("/f20/tree/"):])) > 4 << 20]
+            for i in range(ranges):
+                p = big[i % len(big)]
+                with open(os.path.join(local, p[len("/f20/tree/"):]),
+                          "rb") as f:
+                    data = f.read()
+                nchunks = (len(data) - 1) >> 22
+                b = int(rrng.integers(1, nchunks + 1)) << 22
+                a = b - int(rrng.integers(1, 1 << 20))
+                z = min(len(data), b + int(rrng.integers(1, 6 << 20)))
+                st, body, hd = fget(p, {"Range": f"bytes={a}-{z - 1}"})
+                if st != 206 or body != data[a:z] or hd.get(
+                        "content-range") != f"bytes {a}-{z - 1}/{len(data)}":
+                    raise AssertionError(f"Range {a}-{z - 1} of {p}: {st}")
+                read_bytes += len(body)
+        read_s = time.perf_counter() - t
+        got_rec = reconstructs() - r0
+        k1_rec = rs_cuda.launches_by_entry.get("reconstruct", 0) - k0
+        widths = sorted(kw.widths)
+        if not got_rec or not widths or (device == "cuda" and not k1_rec):
+            raise AssertionError(f"{got_rec} reconstructs, {k1_rec} K1 "
+                                 f"launches, {len(widths)} widths")
+        ragged = sum(1 for w in widths if w % 16)
+        out.update(read=read_bytes / read_s / 1e9, reconstructs=got_rec,
+                   k1_reconstruct=k1_rec, widths=widths, ragged=ragged)
+        log(f"[filer] (6) with r1 lost, GETs through the filer of "
+            f"{len(large_paths)} large files and {len(pick)} small ones and "
+            f"{ranges} Range GETs across 4 MiB chunk boundaries, each "
+            f"sha256 == written: {read_bytes} B in {read_s:.2f} s = "
+            f"{out['read']:.3f} GB/s; the servers reconstructed {got_rec} "
+            f"intervals, K1 reconstruct launches {k1_rec}; one-stripe widths"
+            f" min {widths[0]} median {widths[len(widths) // 2]} max "
+            f"{widths[-1]}, {ragged} of {len(widths)} not a multiple of 16 "
+            f"[{card}]")
+
+        # (7) the cluster's checks
+        k3_0 = crc_cuda.launches
+        said, ver_s = shell(f"fs.verify -filer {faddr} -scrub /f20")
+        k3 = crc_cuda.launches - k3_0
+        m = re.search(r"verified (\d+) chunks ok, (\d+) broken", said)
+        m2 = re.search(r"scrubbed (\d+) needles, (\d+) corrupt", said)
+        if (not m or m.group(2) != "0" or not m2 or m2.group(2) != "0"
+                or not int(m2.group(1)) or (device == "cuda" and not k3)):
+            raise AssertionError(f"fs.verify -scrub: {said[-2000:]!r}; "
+                                 f"{k3} K3 launches")
+        said, fsck_s = shell(f"volume.fsck -filer {faddr}")
+        m3 = re.search(r"fsck: (\d+) refs checked, (\d+) missing", said)
+        if not m3 or m3.group(2) != "0":
+            raise AssertionError(f"volume.fsck: {said[-2000:]!r}")
+        said, cc_s = shell("cluster.check -failOn never")
+        m4 = re.search(r"cluster verdict: (\w+)", said)
+        if f"filer {faddr}: ok" not in said or not m4 or \
+                m4.group(1) not in ("DEGRADED", "AT_RISK"):
+            raise AssertionError(f"cluster.check: {said[-2000:]!r}")
+        out["k3"], out["verdict"] = k3, m4.group(1)
+        log(f"[filer] (7) fs.verify -scrub: {m.group(1)} chunks ok, 0 "
+            f"broken, {m2.group(1)} needles scrubbed, 0 corrupt, {k3} K3 "
+            f"launches ({ver_s:.2f} s); volume.fsck: {m3.group(1)} refs, 0 "
+            f"missing ({fsck_s:.2f} s); cluster.check: the filer ok, "
+            f"verdict {m4.group(1)} with r1 lost ({cc_s:.2f} s) [{card}]")
+
+        # (8) the tail saw the writes and the removals; kill -9 the filer
+        # and start it again on the same store and meta log
+        def tail_events(kind: str) -> "list[str]":
+            return [ln.split()[2] for ln in log_of("tail").splitlines()
+                    if ln.split()[1:2] == [kind]]
+
+        _wait(lambda: len(tail_events("delete")) >= len(removed), 30,
+              "the tail's deletes")
+        end("tail", signal.SIGINT)
+        creates = collections.Counter(tail_events("create"))
+        deletes = tail_events("delete")
+        if any(creates[p] != 1 for p in written) or \
+                sorted(deletes) != sorted(removed):
+            raise AssertionError(
+                f"filer.meta.tail: {sum(creates[p] != 1 for p in written)} "
+                f"files not created once; deletes {deletes[:5]}")
+        du_tree = (f"fs.du -filer {faddr} /f20; fs.tree -filer {faddr} "
+                   "/f20")
+        before = _shell(maddr, du_tree)[0]
+        procs["filer"].kill()
+        procs["filer"].wait(timeout=20)
+        procs.pop("filer")
+        restart_s = start_filer("filer2")
+        if _shell(maddr, du_tree)[0] != before:
+            raise AssertionError("fs.du / fs.tree differ after the restart")
+        t = time.perf_counter()
+        for p in sorted(want):
+            st, body, _ = fget(p)
+            if st != 200 or hashlib.sha256(body).hexdigest() != want[p]:
+                raise AssertionError(f"GET {p} after the restart: {st}")
+        back_s = time.perf_counter() - t
+        bk = os.path.join(workdir, "meta_backup.db")
+        mb = spawn("backup", "filer.meta.backup", "-filer", faddr, "-store",
+                   bk, "-path", "/f20")
+        _wait(lambda: "tailing" in log_of("backup"), 120, "the backup's scan")
+        end("backup", signal.SIGINT)
+        fc = FilerClient(faddr, client_name="smoke")
+        store = SqliteStore(bk)
+
+        def listing(lister, d):
+            rows = {}
+            for e in lister(d):
+                path = d.rstrip("/") + "/" + e.name
+                rows[path] = (e.is_directory, e.attributes.file_size,
+                              [c.file_id for c in e.chunks])
+                if e.is_directory:
+                    rows.update(listing(lister, path))
+            return rows
+
+        live = listing(lambda d: fc.filer.list_entries(d), "/f20")
+        saved = listing(lambda d: store.list_entries(d, limit=1 << 30),
+                        "/f20")
+        store.close()
+        if live != saved or len(live) < len(want):
+            raise AssertionError(f"meta backup: {len(saved)} entries, the "
+                                 f"filer {len(live)}")
+        log(f"[filer] (8) filer.meta.tail saw {len(written)} creates (one a "
+            f"file written) and {len(deletes)} deletes (one a file "
+            f"removed); the filer killed with SIGKILL and started again on "
+            f"its store and meta log in {restart_s:.2f} s: fs.du and "
+            f"fs.tree == before, all {len(want)} files GET sha256 == "
+            f"written ({back_s:.2f} s); filer.meta.backup holds the same "
+            f"{len(saved)} entries [{card}]")
+
+        # (9) one encrypted file, if the optional package is there
+        try:
+            import cryptography  # noqa: F401
+            have_crypto = True
+        except ImportError:
+            have_crypto = False
+        if have_crypto:
+            eport = _free_filer_port({mport, hport, fport})
+            p = spawn("efiler", "filer", "-master", maddr, "-ip",
+                      "127.0.0.1", "-port", str(eport), "-store", "memory",
+                      "-noPeerMeta", "-encryptVolumeData", "-maxMB", "1",
+                      "-collection", "f20enc")
+
+            def eup():
+                if p.poll() is not None:
+                    raise AssertionError(f"the encrypting filer exited: "
+                                         f"{log_of('efiler')[-2000:]}")
+                try:
+                    c = http.client.HTTPConnection("127.0.0.1", eport,
+                                                   timeout=5)
+                    c.request("GET", "/__status__")
+                    return c.getresponse().status == 200
+                except OSError:
+                    return False
+            _wait(eup, 60, "the encrypting filer")
+            secret = np.random.default_rng(seed + 3).bytes(3 << 20)
+            c = http.client.HTTPConnection("127.0.0.1", eport, timeout=60)
+            c.request("PUT", "/sealed/s.bin", body=secret)
+            r = c.getresponse()
+            if r.status != 201:
+                raise AssertionError(f"PUT to the encrypting filer: "
+                                     f"{r.status} {r.read()[:200]!r}")
+            r.read()
+            c.request("GET", "/sealed/s.bin")
+            r = c.getresponse()
+            body = r.read()
+            c.close()
+            efc = FilerClient(f"127.0.0.1:{eport}", client_name="smoke")
+            ent = efc.filer.find_entry("/sealed", "s.bin")
+            raw = b"".join(efc._fetch_blob_upstream(ch.file_id)
+                           for ch in ent.chunks)
+            efc.close()
+            end("efiler")
+            if r.status != 200 or body != secret or not all(
+                    ch.cipher_key for ch in ent.chunks) or secret[:4096] in raw:
+                raise AssertionError("the encrypted file's round trip")
+            log(f"[filer] (9) encryption step ran: a filer with "
+                f"-encryptVolumeData wrote and read back {len(secret)} B in "
+                f"{len(ent.chunks)} chunks, each with its key, the volume "
+                f"servers holding ciphertext only [{card}]")
+        else:
+            log(f"[filer] (9) encryption step skipped: the cryptography "
+                f"package does not import here [{card}]")
+        out["encryption_ran"] = have_crypto
+        return out
+    finally:
+        if fc is not None:
+            fc.close()
+        for name in list(procs):
+            end(name, signal.SIGKILL if name.startswith("filer")
+                else signal.SIGTERM)
+        if mc is not None:
+            mc.stop()
+        for s in served.values():
+            s.stop()
+        for f in logs:
+            f.close()
+        retry.reset_breakers()
+
+
+def phase_filer(torch, np, workdir: str, seed: int, card: str) -> dict:
+    from seaweedfs_tpu_torch.ops import crc_cuda, rs_cuda, rs_torch
+    os.makedirs(workdir, exist_ok=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rs_cuda.reset_launches()
+    crc_cuda.reset_launches()
+    res = filer_round_trip(np, torch, workdir, seed + 20, card, FILER_SMALL,
+                           FILER_LARGE, FILER_HUGE_MB, FILER_SAMPLE,
+                           FILER_RANGES)
+    torch.cuda.synchronize()
+    k1 = dict(rs_cuda.launches_by_entry)
+    k3 = crc_cuda.launches
+    log(f"[filer] launches under the filer: K1 {json.dumps(k1)}, K3 {k3}; "
+        f"phase wall {time.perf_counter() - t0:.1f} s [{card}]")
+    for entry in ("encode", "reconstruct"):
+        if not k1.get(entry):
+            raise AssertionError(f"K1 {entry} never launched in phase 20")
+    if not k3:
+        raise AssertionError("K3 never launched in phase 20")
+    # (10) K1 alone at the widest one-stripe width the reads saw, and at
+    # the aligned width just below it; when that width is aligned, also at
+    # the widest ragged one and the aligned width below that (outside the
+    # counted run)
+    d, p_ = 10, 4
+    present, lost = (1, 2, 3, 4, 6, 7, 8, 9, 11, 12), (0,)
+    w = res["widths"][-1]
+    ragged = [x for x in res["widths"] if x % 16]
+    widths = [w, (w - 1) // 16 * 16]
+    if w % 16 == 0 and ragged:
+        widths += [ragged[-1], ragged[-1] // 16 * 16]
+    rows = rs_torch.decode_rows(d, p_, present, lost)
+    times = {}
+    for width in widths:
+        rng = np.random.default_rng(seed + width)
+        xs = [torch.from_numpy(rng.integers(0, 256, (d, width),
+                                            dtype=np.uint8)).cuda()
+              for _ in range(4)]
+        ms = _queued_ms(torch, lambda x: rs_cuda.reconstruct(
+            x, present, lost, d, p_), xs, iters=500)
+        plain = _time_ms(torch, lambda s: rs_torch.gf_apply(
+            rows, xs[s % 4]), iters=50)
+        got = rs_cuda.reconstruct(xs[0], present, lost, d, p_)
+        err = _max_err(got, rs_torch.gf_apply(rows, xs[0]))
+        if err:
+            raise AssertionError(f"K1 at [1, {d}, {width}]: max err {err}")
+        bound_ms, bound_by = _bound(1, d, 1, width)
+        times[width] = dict(ms=ms, plain_ms=plain, bound_ms=bound_ms,
+                            bound_by=bound_by)
+        log(f"[filer] (10) K1 reconstruct one stripe [1, {d}, {width}] "
+            f"({'ragged, the byte loop' if width % 16 else 'aligned'}): "
+            f"{ms:.5f} ms, bound {bound_ms:.7f} ms ({bound_by}), "
+            f"{bound_ms / ms:.3%} of bound; plain version {plain:.4f} ms; "
+            f"max err 0 [{card}]")
+    return {"k1": k1, "k3": k3, "k1_times": times, **res}
 
 
 def main(argv=None) -> int:
@@ -6198,11 +6885,17 @@ def main(argv=None) -> int:
             crash = phase_crash(torch, np, args.workdir, args.seed, card)
         finally:
             shutil.rmtree(args.workdir, ignore_errors=True)
+    filer = None
+    if 20 in phases:
+        try:
+            filer = phase_filer(torch, np, args.workdir, args.seed, card)
+        finally:
+            shutil.rmtree(args.workdir, ignore_errors=True)
     log(f"[done] phases {sorted(phases | {1})} passed in "
         f"{time.perf_counter() - t0:.1f} s [{card}]")
     if None not in (errs, times, launches, k3_err, k3_times, k3_launches,
                     ec_launches, tier, codec_launches, mesh, server, replica,
-                    maint, rest, control, life, crash):
+                    maint, rest, control, life, crash, filer):
         kernels = [dict(name=f"rs_gf_apply:{entry}", route="cuda",
                         source=K1_SOURCE, replaces=replaces,
                         launches=launches.get(entry, 0)
@@ -6216,7 +6909,8 @@ def main(argv=None) -> int:
                         + rest["k1"].get(entry, 0)
                         + control["k1"].get(entry, 0)
                         + life["k1"].get(entry, 0)
-                        + crash["k1"].get(entry, 0),
+                        + crash["k1"].get(entry, 0)
+                        + filer["k1"].get(entry, 0),
                         max_abs_err=errs[entry], ms=times[entry]["ms"],
                         plain_ms=times[entry]["plain_ms"],
                         bound_ms=times[entry]["bound_ms"],
@@ -6228,7 +6922,7 @@ def main(argv=None) -> int:
                             launches=k3_launches + tier["k3_scrub"]
                             + mesh["launches"]["k3"] + server["k3"]
                             + replica["k3"] + maint["k3"] + rest["k3"]
-                            + control["k3"] + life["k3"],
+                            + control["k3"] + life["k3"] + filer["k3"],
                             max_abs_err=k3_err,
                             ms=k3["ms"], plain_ms=k3["plain_ms"],
                             bound_ms=k3["bound_ms"], bound_by=k3["bound_by"],

@@ -13,12 +13,20 @@ Verbs, the counterparts of the JAX package's (seaweedfs_tpu/__main__.py):
   host without one. `-qosPolicy` (a JSON file, reloaded when it changes)
   turns on QoS admission.
 * ``server`` (`run_server`, :224): a master and one volume server in one
-  process, the volume server on the card unless `-device cpu`. `-filer`,
-  `-s3`, `-webdav` and `-iam` refuse to start (ROADMAP Queue 1 item 3).
+  process, the volume server on the card unless `-device cpu`; `-filer`
+  adds a filer on `-filerPort` over a sqlite store in `-dir`/filer. `-s3`
+  and `-iam` refuse to start (ROADMAP Queue 1 item 4), and so does
+  `-webdav` (item 5).
 * ``shell`` (`run_shell`, :291): the admin shell over the ported command
   tables (shell/commands.py, ec_commands.py, volume_commands.py,
-  lifecycle_commands.py, qos_commands.py, telemetry_commands.py); `-c`
-  runs semicolon-separated lines and exits non-zero when one fails.
+  fs_commands.py, lifecycle_commands.py, qos_commands.py,
+  telemetry_commands.py); `-c` runs semicolon-separated lines and exits
+  non-zero when one fails.
+* ``filer`` (`run_filer`, :352): the filer daemon (HTTP on the port's
+  fastweb, gRPC, the meta log, the peer mesh unless `-noPeerMeta`); it
+  loads no torch. ``filer.copy``, ``filer.cat``, ``filer.meta.tail`` and
+  ``filer.meta.backup`` (:679, :959, :720, :981) are its clients; the
+  tail flushes each line as it prints it.
 * ``upload`` and ``download`` (`run_upload`, :827; `run_download`, :855):
   blobs through client/operation's submit and read.
 * ``benchmark`` (:889): `weed benchmark`, bench_tool.run.
@@ -197,11 +205,17 @@ def _init_tls() -> None:
         print("gRPC mTLS enabled (security.toml [grpc])", file=sys.stderr)
 
 
-def _wait_for_signal() -> None:
+def _signals() -> threading.Event:
+    """An event SIGINT or SIGTERM sets; caught from now on, so a daemon
+    stopped while it starts still stops cleanly."""
     done = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
         signal.signal(sig, lambda *_: done.set())
-    done.wait()
+    return done
+
+
+def _wait_for_signal() -> None:
+    _signals().wait()
 
 
 def _master_server(opt, **kw):
@@ -324,30 +338,47 @@ def run_server(argv) -> int:
     p.add_argument("-iam", action="store_true")
     p.add_argument("-iamPort", type=int, default=8111)
     opt = p.parse_args(argv)
-    asked = [f"-{n}" for n in ("filer", "s3", "webdav", "iam")
-             if getattr(opt, n)]
+    waits = {"s3": "ROADMAP Queue 1 item 4, S3 and IAM",
+             "iam": "ROADMAP Queue 1 item 4, S3 and IAM",
+             "webdav": "ROADMAP Queue 1 item 5, WebDAV"}
+    asked = [n for n in waits if getattr(opt, n)]
     if asked:
-        print(f"error: server {' '.join(asked)}: the filer, S3, WebDAV and "
-              "IAM gateways are not ported yet (ROADMAP Queue 1 item 3)",
-              file=sys.stderr)
+        print("error: server " + "; ".join(
+            f"-{n}: not ported yet ({waits[n]})" for n in asked),
+            file=sys.stderr)
         return 2
+    import os
+
+    stopped = _signals()
     ms = _master_server(opt)
     ms.start()
+    fs = None
     try:
         served = _serve_volume_server(opt, opt.volumePort,
                                       f"{opt.ip}:{opt.port}")
+        if opt.filer:
+            filer_dir = os.path.join(opt.dir, "filer")
+            os.makedirs(filer_dir, exist_ok=True)
+            fs = _filer_server(opt, f"{opt.ip}:{opt.port}",
+                               f"sqlite:{filer_dir}/filer.db",
+                               os.path.join(filer_dir, "meta.log"),
+                               port=opt.filerPort)
+            print(f"filer {fs.url} (grpc :{fs.grpc_port})", flush=True)
     except BaseException:
         ms.stop()
         raise
-    _wait_for_signal()
+    stopped.wait()
+    if fs is not None:
+        fs.stop()
     served.stop()
     ms.stop()
     return 0
 
 
 def run_shell(argv) -> int:
-    from .shell import (ec_commands, lifecycle_commands,  # noqa: F401
-                        qos_commands, telemetry_commands, volume_commands)
+    from .shell import (ec_commands, fs_commands,  # noqa: F401
+                        lifecycle_commands, qos_commands, telemetry_commands,
+                        volume_commands)
     from .shell.commands import CommandEnv, repl, run_command
 
     p = argparse.ArgumentParser(prog="shell")
@@ -584,12 +615,287 @@ def run_fix(argv) -> int:
     return 0
 
 
+def _filer_server(opt, master: str, store: str, meta_log: str, **kw):
+    """A FilerServer from filer flags, started; one whose port cannot be
+    bound exits with its message."""
+    from .filer.filer_server import FilerServer
+    try:
+        return FilerServer(master, store_spec=store, ip=opt.ip,
+                           meta_log_path=meta_log, **kw).start()
+    except (OSError, ValueError) as e:
+        print(f"error: filer: {e}", file=sys.stderr)
+        sys.exit(2)
+
+
+def run_filer(argv) -> int:
+    """The standalone filer daemon (reference command/filer.go and
+    `run_filer`, :352). It does no device work and loads no torch. `-s3`
+    refuses: the S3 gateway waits for ROADMAP Queue 1 item 4."""
+    import os
+    import tempfile
+
+    p = argparse.ArgumentParser(prog="filer")
+    p.add_argument("-master", default="127.0.0.1:9333")
+    p.add_argument("-ip", default="127.0.0.1")
+    p.add_argument("-port", type=int, default=8888)
+    p.add_argument("-grpcPort", type=int, default=0)
+    p.add_argument("-store", default="",
+                   help="memory | sqlite:/path.db | logdb:/path.logdb | lsm:/dir "
+                        "(default: filer.toml or sqlite ./filer.db)")
+    p.add_argument("-collection", default="")
+    p.add_argument("-replication", default="")
+    p.add_argument("-maxMB", type=int, default=4)
+    p.add_argument("-encryptVolumeData", action="store_true",
+                   help="AES-256-GCM encrypt chunks; keys live in filer "
+                        "metadata (reference filer -encryptVolumeData)")
+    p.add_argument("-noPeerMeta", action="store_true",
+                   help="disable the multi-filer metadata mesh (reference "
+                        "filers aggregate peer metadata by default)")
+    p.add_argument("-chunkCacheMB", type=int, default=64,
+                   help="in-memory chunk-cache bound on the read path")
+    p.add_argument("-chunkCacheDir", default="",
+                   help="optional disk tier for the chunk cache")
+    p.add_argument("-s3", action="store_true",
+                   help="embed an S3 gateway over this filer "
+                        "(not ported yet)")
+    p.add_argument("-s3Port", type=int, default=8333)
+    opt = p.parse_args(argv)
+    if opt.s3:
+        print("error: filer -s3: the S3 gateway is not ported yet (ROADMAP "
+              "Queue 1 item 4, S3 and IAM)", file=sys.stderr)
+        return 2
+    store = opt.store
+    if not store:
+        from .utils import config as cfg
+        # legacy single-filer layouts keep working, but only on the
+        # default port: a second filer on another port never adopts them
+        legacy = "./filer.db"
+        fallback = (f"sqlite:{legacy}"
+                    if opt.port == 8888 and os.path.exists(legacy)
+                    else f"sqlite:./filer-{opt.port}.db")
+        store = cfg.get_dotted(cfg.load_config("filer"),
+                               "filer.options.store", fallback)
+    # per-port defaults: the meta log lives next to the store's db file,
+    # so two filers started from one directory never share one
+    spec_path = store.partition(":")[2]
+    meta_dir = (os.path.dirname(os.path.abspath(spec_path)) if spec_path
+                else tempfile.mkdtemp(prefix=f"swtpu-filer-{opt.port}-"))
+    meta_log = ("./filer-meta.log"
+                if opt.port == 8888 and os.path.exists("./filer-meta.log")
+                else os.path.join(meta_dir, f"filer-meta-{opt.port}.log"))
+    stopped = _signals()
+    fs = _filer_server(
+        opt, opt.master, store, meta_log, port=opt.port,
+        grpc_port=opt.grpcPort or None, collection=opt.collection,
+        replication=opt.replication, chunk_size_mb=opt.maxMB,
+        encrypt_data=opt.encryptVolumeData,
+        meta_aggregate=not opt.noPeerMeta, chunk_cache_mb=opt.chunkCacheMB,
+        chunk_cache_dir=opt.chunkCacheDir or None)
+    print(f"filer {fs.url} (grpc :{fs.grpc_port}, store {store}) on master "
+          f"{opt.master}", flush=True)
+    stopped.wait()
+    fs.stop()
+    return 0
+
+
+def run_filer_copy(argv) -> int:
+    """Copy local files and directories into the filer (reference
+    command/filer_copy.go and `run_filer_copy`, :679)."""
+    import mimetypes
+    import os
+
+    from .client.filer_client import FilerClient
+    p = argparse.ArgumentParser(prog="filer.copy")
+    p.add_argument("-filer", default="127.0.0.1:8888")
+    p.add_argument("files", nargs="+",
+                   help="local files/dirs, last arg = filer dest dir")
+    opt = p.parse_args(argv)
+    *srcs, dest = opt.files
+    if not dest.startswith("/"):
+        print("destination must be an absolute filer path")
+        return 1
+    fc = FilerClient(opt.filer)
+    n = 0
+    for src in srcs:
+        if os.path.isdir(src):
+            base = os.path.basename(src.rstrip("/"))
+            for root, _dirs, names in os.walk(src):
+                rel = os.path.relpath(root, src)
+                for name in names:
+                    local = os.path.join(root, name)
+                    remote = "/".join(filter(
+                        lambda s: s not in ("", "."),
+                        [dest.rstrip("/"), base, rel, name]))
+                    with open(local, "rb") as f:
+                        fc.write_file("/" + remote.lstrip("/"), f.read(),
+                                      mime=mimetypes.guess_type(name)[0] or "")
+                    n += 1
+        else:
+            name = os.path.basename(src)
+            with open(src, "rb") as f:
+                fc.write_file(f"{dest.rstrip('/')}/{name}", f.read(),
+                              mime=mimetypes.guess_type(name)[0] or "")
+            n += 1
+    print(f"copied {n} files to {opt.filer}{dest}")
+    return 0
+
+
+def _follow(events, apply, ready: str = "") -> None:
+    """Apply each event of a filer subscription on a daemon thread until
+    SIGINT or SIGTERM; `ready` is printed once the signals are caught. The
+    signal never interrupts the stream's gRPC call: an interrupt raised
+    inside grpc's wait leaves the channel unable to close, and the process
+    then hangs at exit collecting it."""
+    done = threading.Event()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        signal.signal(sig, lambda *_: done.set())
+    if ready:
+        print(ready, flush=True)
+
+    failed: list = []
+
+    def pump():
+        try:
+            for resp in events:
+                apply(resp)
+        except Exception as e:  # noqa: BLE001 — raised again below
+            failed.append(e)
+        finally:
+            done.set()
+
+    threading.Thread(target=pump, daemon=True, name="filer-follow").start()
+    done.wait()
+    if failed:
+        raise failed[0]
+
+
+def run_filer_meta_tail(argv) -> int:
+    """Follow the filer's metadata events (reference
+    command/filer_meta_tail.go and `run_filer_meta_tail`, :720), one line
+    an event, flushed as it comes; SIGINT or SIGTERM ends it."""
+    import time
+
+    from .client.filer_client import FilerClient
+    p = argparse.ArgumentParser(prog="filer.meta.tail")
+    p.add_argument("-filer", default="127.0.0.1:8888")
+    p.add_argument("-pathPrefix", default="/")
+    p.add_argument("-timeAgo", type=float, default=0,
+                   help="start N seconds in the past (0 = now)")
+    opt = p.parse_args(argv)
+    fc = FilerClient(opt.filer, client_name="meta-tail")
+    since = time.time_ns() - int(opt.timeAgo * 1e9)  # swtpu-lint: disable=wallclock-duration (wire cursor: filer events carry wall-clock ts_ns)
+    stop = threading.Event()
+
+    def show(resp):
+        ev = resp.event_notification
+        kind = ("delete" if not ev.new_entry.name
+                else "create" if not ev.old_entry.name else "update")
+        name = ev.new_entry.name or ev.old_entry.name
+        print(f"{resp.ts_ns} {kind:7s} {resp.directory}/{name}", flush=True)
+
+    _follow(fc.filer.subscribe(since, stop, path_prefix=opt.pathPrefix),
+            show)
+    stop.set()
+    return 0
+
+
+def run_filer_cat(argv) -> int:
+    """Print a filer file's bytes, read straight from the volume servers
+    (reference command/filer_cat.go and `run_filer_cat`, :959)."""
+    from .client.filer_client import FilerClient
+    from .filer.filer import split_path
+    p = argparse.ArgumentParser(prog="filer.cat")
+    p.add_argument("-filer", default="127.0.0.1:8888")
+    p.add_argument("path", help="absolute filer path")
+    opt = p.parse_args(argv)
+    fc = FilerClient(opt.filer, client_name="filer-cat")
+    d, n = split_path(opt.path)
+    entry = fc.filer.find_entry(d, n)
+    if entry is None:
+        print(f"{opt.path}: not found", file=sys.stderr)
+        return 1
+    if entry.is_directory:
+        print(f"{opt.path}: is a directory", file=sys.stderr)
+        return 1
+    sys.stdout.buffer.write(fc.read_entry_bytes(entry))
+    sys.stdout.buffer.flush()
+    return 0
+
+
+def run_filer_meta_backup(argv) -> int:
+    """Back up the filer's metadata into a local sqlite store (reference
+    command/filer_meta_backup.go and `run_filer_meta_backup`, :981): a
+    full scan on the first run or with -restart, then the event stream
+    from the offset kept in the backup store; SIGINT or SIGTERM ends it
+    (every applied event is committed as it lands)."""
+    import struct
+
+    from .client.filer_client import FilerClient
+    from .filer.store import SqliteStore
+    p = argparse.ArgumentParser(prog="filer.meta.backup")
+    p.add_argument("-filer", default="127.0.0.1:8888")
+    p.add_argument("-store", default="meta_backup.db",
+                   help="sqlite backup store path")
+    p.add_argument("-path", default="/", help="subtree to back up")
+    p.add_argument("-restart", action="store_true",
+                   help="discard the stored offset and re-scan the tree")
+    opt = p.parse_args(argv)
+    fc = FilerClient(opt.filer, client_name="meta-backup")
+    store = SqliteStore(opt.store)
+    offset_key = b"meta.backup.offset"
+    raw = None if opt.restart else store.kv_get(offset_key)
+    since = struct.unpack("<q", raw)[0] if raw else 0
+    if since == 0:
+        t0 = fc.filer.server_now_ns()  # filer clock (skew-safe offset)
+        n = 0
+
+        def join_dir(d, name):
+            return (d.rstrip("/") + "/" + name) if d != "/" else "/" + name
+
+        def scan(directory):
+            nonlocal n
+            for e in fc.filer.list_entries(directory):
+                store.delete_entry(directory, e.name)
+                store.insert_entry(directory, e)
+                n += 1
+                if e.is_directory:
+                    scan(join_dir(directory, e.name))
+
+        scan(opt.path)
+        since = t0
+        store.kv_put(offset_key, struct.pack("<q", since))
+        print(f"full scan: {n} entries into {opt.store}", flush=True)
+    stop = threading.Event()
+
+    def apply(resp):
+        ev = resp.event_notification
+        try:
+            if ev.HasField("old_entry") and ev.old_entry.name:
+                store.delete_entry(resp.directory, ev.old_entry.name)
+            if ev.HasField("new_entry") and ev.new_entry.name:
+                d = ev.new_parent_path or resp.directory
+                store.delete_entry(d, ev.new_entry.name)
+                store.insert_entry(d, ev.new_entry)
+        except Exception as e:  # noqa: BLE001
+            print(f"apply {resp.directory}: {e}", file=sys.stderr)
+        if resp.ts_ns:
+            store.kv_put(offset_key, struct.pack("<q", resp.ts_ns))
+
+    _follow(fc.filer.subscribe(since, stop, path_prefix=opt.path), apply,
+            ready=f"tailing {opt.filer}{opt.path} metadata -> {opt.store} "
+                  f"(since {since})")
+    stop.set()
+    return 0
+
+
 VERBS = {"master": run_master, "volume": run_volume, "server": run_server,
          "shell": run_shell, "upload": run_upload, "backup": run_backup,
          "master.follow": run_master_follow, "export": run_export,
          "compact": run_compact, "version": run_version,
          "download": run_download, "fix": run_fix,
-         "benchmark": run_benchmark}
+         "benchmark": run_benchmark, "filer": run_filer,
+         "filer.copy": run_filer_copy, "filer.meta.tail": run_filer_meta_tail,
+         "filer.cat": run_filer_cat, "filer.meta.backup": run_filer_meta_backup}
 
 
 def main(argv=None) -> int:

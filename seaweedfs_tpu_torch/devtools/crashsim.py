@@ -61,8 +61,8 @@ streaming encoder, `ec/stream.encode_volumes`, with the port's TorchCoder
 `ec/encoder.encode_volume` with NumpyCoder: the port's shard files come
 from the streaming encoder, so that is the seal to hold. Its coder runs on
 `--device` (default "cuda"; with no card it raises, and `--device cpu`
-selects the plain PyTorch version). And the reference's `meta-log`
-scenario waits for the port's filer.
+selects the plain PyTorch version). And `meta-log` appends through the
+port's filer/meta_log.MetaLog.
 """
 from __future__ import annotations
 
@@ -596,6 +596,51 @@ class VifStampScenario:
         return []
 
 
+class MetaLogScenario:
+    """Filer meta-log appends (flush, no fsync): recovery must read an
+    exact PREFIX of the appended events — a torn or dropped tail is
+    fine, a gap, phantom or parse crash is not."""
+
+    name = "meta-log"
+    surface = "filer"
+
+    def setup(self, work, ctx, rng):
+        ctx["names"] = [f"f{k:02d}" for k in range(16)]
+
+    def run(self, work, ctx, rng):
+        from ..filer.meta_log import MetaLog
+        from ..pb import filer_pb2 as fpb
+        ml = MetaLog(os.path.join(work, "filer", "meta.log"))
+        try:
+            for name in ctx["names"]:
+                ev = fpb.EventNotification()
+                ev.new_entry.name = name
+                ml.append("/d", ev)
+        finally:
+            ml.close()
+
+    def check(self, sdir, ctx, acked):
+        from ..filer.meta_log import MetaLog
+        from ..pb import filer_pb2 as fpb
+        ml = MetaLog(None)
+        ml._path = os.path.join(sdir, "filer", "meta.log")
+        try:
+            events, _pos = ml._read_persisted(0)
+        except Exception as e:  # noqa: BLE001
+            return [f"meta-log recovery crashed: {e!r}"]
+        names = []
+        for _ts, blob in events:
+            resp = fpb.SubscribeMetadataResponse()
+            try:
+                resp.ParseFromString(blob)
+            except Exception as e:  # noqa: BLE001
+                return [f"meta-log replayed a torn record: {e!r}"]
+            names.append(resp.event_notification.new_entry.name)
+        if names != ctx["names"][:len(names)]:
+            return [f"meta-log replay is not a prefix: {names}"]
+        return []
+
+
 class AckBeforeFsyncMutant(_VolumeScenarioBase):
     """Seeded bug: acks every PUT immediately, fsyncs once at the end —
     the exact ordering inversion the `ack-before-fsync` lint rule
@@ -623,7 +668,7 @@ class AckBeforeFsyncMutant(_VolumeScenarioBase):
 def scenarios(device="cuda") -> list:
     """The default matrix, with ec-seal's coder on `device`."""
     return [SinglePutScenario(), BulkFrameScenario(), EcSealScenario(device),
-            RaftCommitScenario(), VifStampScenario()]
+            RaftCommitScenario(), VifStampScenario(), MetaLogScenario()]
 
 
 SCENARIOS = scenarios()

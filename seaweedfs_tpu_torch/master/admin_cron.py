@@ -149,7 +149,8 @@ class AdminCron:
             # port's: a script line of an unported command prints
             # "unknown command", as run_command does for any name)
             from ..shell import (commands, ec_commands,  # noqa: F401
-                                 lifecycle_commands, volume_commands)
+                                 fs_commands, lifecycle_commands,
+                                 volume_commands)
             from ..client.master_client import MasterClient
             mc = MasterClient(self.master_address,
                               client_type="admin-cron").start()

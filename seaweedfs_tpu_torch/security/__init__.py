@@ -7,8 +7,8 @@ before accepting writes (and optionally reads). The guard also supports an
 IP white list and basic auth, checked in that order (guard.go:27-28).
 
 The port's copy of the JAX package's security/ (jwt.py and guard.py): the
-same tokens byte for byte, the same guard decisions. security/cipher.py is
-not copied: only the filer uses it.
+same tokens byte for byte, the same guard decisions; security/cipher.py
+is the filer's per-chunk AES-GCM (imported by the filer, not here).
 """
 
 from .jwt import (

@@ -3035,8 +3035,12 @@ class VolumeServer:
         self.left.set()
 
     def volume_needle_status(self, volume_id: int, needle_id: int) -> dict:
+        # a needle of an EC volume is read through this server's shard
+        # reader, so volume.fsck finds needles whose intervals lie on other
+        # servers' or lost shards (the reference reads local shards only
+        # and reports them missing)
         try:
-            n = self.store.read_needle(volume_id, needle_id)
+            n = self._store_read(volume_id, needle_id, None)
         except KeyError as e:
             raise RpcAbort(NOT_FOUND, str(e)) from e
         return {"needle_id": n.id, "cookie": n.cookie, "size": len(n.data),

@@ -1,9 +1,10 @@
 """volume.* and cluster admin commands (reference weed/shell/command_volume_*).
 
-The port's copy of seaweedfs_tpu/shell/volume_commands.py, every command
-but cluster.check (its filer and broker pings need pb/filer_pb2, pb/mq_pb2
-and mq_commands; ROADMAP Queue 1 item 3). volume.check.disk re-copies
-needles through client/http_util instead of requests.
+The port's copy of seaweedfs_tpu/shell/volume_commands.py, every command.
+cluster.check pings filers and brokers too; the broker service name comes
+from the port's utils/rpc (MQ_SERVICE), since shell/mq_commands is not
+ported yet. volume.check.disk re-copies needles through client/http_util
+instead of requests.
 """
 
 from __future__ import annotations
@@ -128,6 +129,132 @@ def cmd_volume_scrub(env: CommandEnv, args):
         # to survive failing scripts, and SystemExit would kill its thread
         raise RuntimeError(
             f"{corrupt} corrupt needles, {troubled} troubled volumes/servers")
+
+
+@command("cluster.check",
+         "[-url http://master:port] [-failOn AT_RISK]: ping every node, "
+         "score data redundancy, report cluster health")
+def cmd_cluster_check(env: CommandEnv, args):
+    """The reference's volume.fsck/cluster.check workflow: liveness pings
+    PLUS the data-at-risk report (master/health.py). With -url the report
+    is fetched from the master's live /cluster/health engine (accurate
+    staleness + stripe-width high-water marks); without it the same
+    scoring runs locally over a VolumeList topology dump, probing one
+    holder per EC volume for its true RS(k,m). Raises (shell: prints
+    error; `-c` scripts: non-zero exit) when the verdict reaches
+    -failOn (default AT_RISK) — wire it into cron/CI as a tripwire."""
+    from ..master.health import _RANK
+    from .health_util import fetch_or_compute_health
+
+    p = argparse.ArgumentParser(prog="cluster.check")
+    p.add_argument("-url", default="",
+                   help="master HTTP base URL; fetch /cluster/health "
+                        "instead of recomputing from a topology dump")
+    p.add_argument("-failOn", default="AT_RISK",
+                   choices=["DEGRADED", "AT_RISK", "DATA_LOSS", "never"])
+    p.add_argument("-verbose", action="store_true",
+                   help="also print per-node slot usage")
+    opt = p.parse_args(args)
+
+    ok = 0
+    for srv in env.collect_volume_servers():
+        try:
+            _vs_stub(env, srv["id"], srv["grpc_port"]).call(
+                "Ping", vpb.PingRequest(), vpb.PingResponse, timeout=5)
+            env.println(f"  volume server {srv['id']}: ok")
+            ok += 1
+        except Exception as e:  # noqa: BLE001
+            env.println(f"  volume server {srv['id']}: UNREACHABLE ({e})")
+    env.println(f"{ok} volume servers healthy")
+    # filers and brokers answer Ping too (reference: every service has a
+    # Ping RPC, master.proto:50)
+    from ..pb import filer_pb2 as fpb
+    from ..pb import mq_pb2 as mqpb
+    from ..utils.rpc import FILER_SERVICE, MQ_SERVICE
+    for ctype, svc_name, req, resp in (
+            ("filer", FILER_SERVICE, fpb.PingRequest(), fpb.PingResponse),
+            ("broker", MQ_SERVICE, mqpb.PingRequest(), mqpb.PingResponse)):
+        try:
+            nodes = Stub(env.mc.leader, MASTER_SERVICE).call(
+                "ListClusterNodes",
+                mpb.ListClusterNodesRequest(client_type=ctype),
+                mpb.ListClusterNodesResponse).cluster_nodes
+        except Exception:  # noqa: BLE001
+            continue
+        for n in nodes:
+            try:
+                addr = n.address
+                if ctype == "filer":
+                    # filer registers its http address; dial the
+                    # advertised grpc port (else +10000 convention)
+                    host, _, port = addr.rpartition(":")
+                    addr = f"{host}:{n.grpc_port or int(port) + 10000}"
+                Stub(addr, svc_name).call("Ping", req, resp, timeout=5)
+                env.println(f"  {ctype} {n.address}: ok")
+            except Exception as e:  # noqa: BLE001
+                env.println(f"  {ctype} {n.address}: UNREACHABLE ({e})")
+
+    # -- data-at-risk report (shared fetch-or-recompute helper) --------------
+    report = fetch_or_compute_health(env, opt.url)
+
+    totals = report.get("totals", {})
+    env.println(f"cluster verdict: {report.get('verdict', '?')}  "
+                f"(replica deficit {totals.get('replica_deficit', 0)}, "
+                f"ec shards missing {totals.get('ec_shards_missing', 0)}, "
+                f"stale nodes {totals.get('nodes_stale', 0)}, "
+                f"read-only volumes {totals.get('volumes_read_only', 0)})")
+    # DC annotations (geo plane): which site still holds copies of a
+    # degraded item, and which site a stale node sits in — only shown
+    # when the report actually carries topology (multi-DC fleet or a
+    # master new enough to report it)
+    def _dcs(it) -> str:
+        dcs = it.get("dcs") or ()
+        return f" dcs={','.join(dcs)}" if dcs else ""
+
+    for it in report.get("items", ()):
+        if it["severity"] == "OK":
+            continue
+        if it["kind"] == "volume":
+            env.println(
+                f"  [{it['severity']}] volume {it['id']} "
+                f"col={it.get('collection', '')!r}: "
+                f"{it['replicas_present']}/{it['replicas_expected']} "
+                f"replicas, distance_to_data_loss="
+                f"{it['distance_to_data_loss']}{_dcs(it)}")
+        elif it["kind"] == "ec":
+            rs = it.get("rs", {})
+            env.println(
+                f"  [{it['severity']}] ec volume {it['id']} "
+                f"col={it.get('collection', '')!r}: "
+                f"{len(it['shards_present'])}/{rs.get('n', '?')} shards "
+                f"(missing {it['shards_missing']}), "
+                f"distance_to_data_loss={it['distance_to_data_loss']}"
+                f"{_dcs(it)}")
+        elif it["kind"] == "node":
+            where = f" dc={it['dc']}" if it.get("dc") else ""
+            env.println(f"  [{it['severity']}] node {it['id']}: stale "
+                        f"(last heartbeat {it.get('age_s', '?')}s "
+                        f"ago){where}")
+        else:
+            where = f" dc={it['dc']}" if it.get("dc") else ""
+            env.println(f"  [{it['severity']}] {it['kind']} {it['id']}: "
+                        f"{it.get('used_slots')}/{it.get('max_slots')} "
+                        f"slots used{where}")
+    if opt.verbose:
+        for nd in report.get("nodes", ()):
+            where = f" dc={nd['dc']}" if nd.get("dc") else ""
+            env.println(f"  node {nd['id']}: {nd['used_slots']}/"
+                        f"{nd['max_slots']} slots{where}"
+                        + (" STALE" if nd.get("stale") else ""))
+    verdict = report.get("verdict", "OK")
+    if opt.failOn != "never" and _RANK.get(verdict, 0) >= _RANK[opt.failOn]:
+        # RuntimeError, not SystemExit: the admin cron catches Exception
+        # to survive failing scripts; `swtpu shell -c` maps it to a
+        # non-zero process exit for scripting
+        raise RuntimeError(
+            f"cluster verdict {verdict} (failing at {opt.failOn}+): "
+            f"replica deficit {totals.get('replica_deficit', 0)}, "
+            f"ec shards missing {totals.get('ec_shards_missing', 0)}")
 
 
 @command("cluster.repair",

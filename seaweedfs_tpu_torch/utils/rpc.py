@@ -211,7 +211,8 @@ def _component_of(service: str) -> str:
 # Server-streaming methods that are subscriptions, not requests: the
 # stream lives as long as its subscriber, so a span around it would be a
 # root of giant duration on every routine disconnect.
-_LONG_LIVED_STREAMS = frozenset({"VolumeTailSender"})
+_LONG_LIVED_STREAMS = frozenset({
+    "SubscribeMetadata", "SubscribeLocalMetadata", "VolumeTailSender"})
 
 
 class RpcService:
@@ -405,3 +406,7 @@ class Stub:
 
 MASTER_SERVICE = "swtpu.master.Master"
 VOLUME_SERVICE = "swtpu.volume.VolumeServer"
+FILER_SERVICE = "swtpu.filer.Filer"
+# the message-queue broker's service (reference shell/mq_commands.py:13);
+# the port has no broker yet, but cluster.check pings any that registered
+MQ_SERVICE = "swtpu.mq.Broker"

@@ -4,7 +4,11 @@ files byte for byte through a cluster of the port alone
 (tests/torch_cluster.py, device="cpu"); benchmark writes and reads a small
 set; fix's .idx, export's files and compact's .dat/.idx equal what the JAX
 package's verbs make of a copy of the same volume; version prints the
-reference's version after the port's name."""
+reference's version after the port's name. The filer's verbs: a `filer`
+daemon over a sqlite store, `filer.copy` of a directory tree and a file,
+`filer.cat` of each, `filer.meta.tail` seeing one create a file and one
+delete a removal, `filer.meta.backup` holding the filer's entries, and
+`server -filer` serving the same verbs."""
 
 import hashlib
 import json
@@ -74,7 +78,9 @@ def test_usage_lists_the_new_verbs():
                        capture_output=True, text=True, timeout=60, cwd=REPO)
     assert r.returncode == 2
     for verb in ("upload", "download", "benchmark", "backup",
-                 "master.follow", "export", "compact", "version", "fix"):
+                 "master.follow", "export", "compact", "version", "fix",
+                 "filer", "filer.copy", "filer.cat", "filer.meta.tail",
+                 "filer.meta.backup"):
         assert verb in r.stderr
 
 
@@ -171,3 +177,202 @@ def test_client_verbs_of_chip_smoke_on_cpu(cluster, tmp_path):
                                   cluster["dirs"]["r4"], tc.SCRUB_VID,
                                   "scrub", 64)
     assert res["bench_write"][0] > 0 and res["bench_read"][0] > 0
+
+
+def _spawn(*args, log=None):
+    return subprocess.Popen([sys.executable, "-m", "seaweedfs_tpu_torch",
+                             *args], cwd=REPO, stdout=log or subprocess.PIPE,
+                            stderr=subprocess.STDOUT)
+
+
+def _wait_http(port: int, proc, timeout: float = 60) -> None:
+    from seaweedfs_tpu_torch.client import http_util
+
+    def up():
+        assert proc.poll() is None, "the daemon exited"
+        try:
+            return http_util.get(f"http://127.0.0.1:{port}/__status__",
+                                 max_attempts=1, timeout=2).status == 200
+        except OSError:
+            return False
+    tc.wait_until(up, timeout=timeout, msg="the filer's HTTP plane")
+
+
+def _local_tree(root, seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    want = {}
+    for rel in ("a.txt", "sub/b.bin", "sub/deeper/c.json", "sub/d.bin"):
+        p = root / "tree" / rel
+        p.parent.mkdir(parents=True, exist_ok=True)
+        p.write_bytes(rng.bytes(int(rng.integers(1, 300_000))))
+        want[f"/dst/tree/{rel}"] = p.read_bytes()
+    single = root / "single.png"
+    single.write_bytes(rng.bytes(4321))
+    want["/dst/single.png"] = single.read_bytes()
+    return want
+
+
+@pytest.fixture(scope="module")
+def filer_verb(cluster, tmp_path_factory):
+    """`python -m seaweedfs_tpu_torch filer` over a sqlite store, with
+    `filer.meta.tail` following it from before the first write."""
+    root = tmp_path_factory.mktemp("filer-verb")
+    port = tc.free_port_pair()
+    log = open(root / "filer.log", "w")
+    proc = _spawn("filer", "-master", cluster["master"].address, "-port",
+                  str(port), "-store", f"sqlite:{root}/filer.db", "-maxMB",
+                  "1", "-noPeerMeta", log=log)
+    tail = None
+    try:
+        _wait_http(port, proc)
+        tail = _spawn("filer.meta.tail", "-filer", f"127.0.0.1:{port}",
+                      "-pathPrefix", "/dst")
+        import threading
+        import time
+        tail_lines = []
+        threading.Thread(target=lambda: tail_lines.extend(
+            iter(lambda: tail.stdout.readline().decode().split(), [])),
+            daemon=True).start()
+        time.sleep(1.5)
+        want = _local_tree(root, 41)
+        said = _verb("filer.copy", "-filer", f"127.0.0.1:{port}",
+                     str(root / "tree"), str(root / "single.png"), "/dst")
+        assert said.strip() == f"copied {len(want)} files to " \
+            f"127.0.0.1:{port}/dst"
+        yield {"port": port, "proc": proc, "tail_lines": tail_lines,
+               "want": want, "root": root}
+    finally:
+        for p in (tail, proc):
+            if p is not None and p.poll() is None:
+                p.terminate()
+                p.wait(timeout=30)
+        log.close()
+
+
+def test_filer_copy_then_cat(filer_verb):
+    """filer.cat prints each copied file byte for byte; a directory and a
+    missing path exit 1."""
+    addr = f"127.0.0.1:{filer_verb['port']}"
+    for path, data in filer_verb["want"].items():
+        r = subprocess.run([sys.executable, "-m", "seaweedfs_tpu_torch",
+                            "filer.cat", "-filer", addr, path],
+                           capture_output=True, timeout=120, cwd=REPO)
+        assert r.returncode == 0 and r.stdout == data, path
+    for path, why in (("/dst/tree", b"is a directory"),
+                      ("/dst/none", b"not found")):
+        r = subprocess.run([sys.executable, "-m", "seaweedfs_tpu_torch",
+                            "filer.cat", "-filer", addr, path],
+                           capture_output=True, timeout=120, cwd=REPO)
+        assert r.returncode == 1 and why in r.stderr
+
+
+def test_filer_meta_tail_sees_each_create_and_delete(filer_verb):
+    """filer.meta.tail prints one create a file copied in and one delete
+    a file removed, as `<ts> <kind> <path>` lines flushed as they come."""
+    from seaweedfs_tpu_torch.client import http_util
+    port = filer_verb["port"]
+    r = http_util.delete(f"http://127.0.0.1:{port}/dst/tree/a.txt")
+    assert r.status == 204
+    lines = filer_verb["tail_lines"]
+    tc.wait_until(lambda: any(x[1] == "delete" for x in lines), timeout=30,
+                  msg="the tail's delete")
+    creates = [x[2] for x in lines if x[1] == "create"]
+    for path in filer_verb["want"]:
+        assert creates.count(path) == 1, path
+    assert [x[2] for x in lines if x[1] == "delete"] == ["/dst/tree/a.txt"]
+    assert all(int(x[0]) > 0 for x in lines)
+
+
+def test_filer_meta_backup_holds_the_entries(filer_verb, tmp_path):
+    """filer.meta.backup scans the filer into a sqlite store and then
+    tails it; the store lists what the filer lists; SIGINT ends it."""
+    import signal
+
+    from seaweedfs_tpu_torch.client.filer_client import FilerClient
+    from seaweedfs_tpu_torch.filer.store import SqliteStore
+    addr = f"127.0.0.1:{filer_verb['port']}"
+    db = tmp_path / "backup.db"
+    proc = _spawn("filer.meta.backup", "-filer", addr, "-store", str(db))
+    out = b""
+    try:
+        while b"tailing" not in out:
+            line = proc.stdout.readline()
+            assert line, out
+            out += line
+        assert b"full scan: " in out
+    finally:
+        proc.send_signal(signal.SIGINT)
+        proc.wait(timeout=30)
+    assert proc.returncode == 0
+
+    def listing(lister, d):
+        rows = {}
+        for e in lister(d):
+            path = d.rstrip("/") + "/" + e.name
+            rows[path] = (e.is_directory, e.attributes.file_size,
+                          [c.file_id for c in e.chunks])
+            if e.is_directory:
+                rows.update(listing(lister, path))
+        return rows
+
+    fc = FilerClient(addr)
+    store = SqliteStore(str(db))
+    try:
+        live = listing(lambda d: fc.filer.list_entries(d), "/")
+        assert listing(lambda d: store.list_entries(d), "/") == live
+        assert "/dst/tree/sub/deeper/c.json" in live
+    finally:
+        store.close()
+        fc.close()
+
+
+def test_filer_verb_refuses_s3_and_stops_cleanly(cluster, tmp_path):
+    """`filer -s3` refuses and names the slice the gateway waits for; a
+    filer on a memory store stops on SIGTERM with rc 0."""
+    r = subprocess.run([sys.executable, "-m", "seaweedfs_tpu_torch", "filer",
+                        "-master", cluster["master"].address, "-s3"],
+                       capture_output=True, text=True, timeout=60, cwd=REPO)
+    assert r.returncode == 2 and "ROADMAP Queue 1 item 4" in r.stderr
+    port = tc.free_port_pair()
+    proc = _spawn("filer", "-master", cluster["master"].address, "-port",
+                  str(port), "-store", "memory", "-noPeerMeta")
+    try:
+        _wait_http(port, proc)
+    finally:
+        proc.terminate()
+        out = proc.communicate(timeout=30)[0].decode()
+    assert proc.returncode == 0, out
+    assert f"filer 127.0.0.1:{port} (grpc :{port + 10000}" in out
+
+
+def test_server_verb_with_a_filer_serves_the_filer_verbs(tmp_path):
+    """`server -filer -device cpu`: filer.copy into it and filer.cat out
+    of it, byte for byte."""
+    port, vport, fport = (tc.free_port_pair(), tc.free_port_pair(),
+                          tc.free_port_pair())
+    proc = _spawn("server", "-device", "cpu", "-dir", str(tmp_path / "d"),
+                  "-port", str(port), "-volumePort", str(vport), "-filer",
+                  "-filerPort", str(fport))
+    try:
+        _wait_http(fport, proc, timeout=90)
+        src = tmp_path / "one.bin"
+        src.write_bytes(np.random.default_rng(6).bytes(123_456))
+        import time
+        deadline = time.monotonic() + 60
+        while True:  # the volume server's first heartbeat makes it writable
+            r = subprocess.run([sys.executable, "-m", "seaweedfs_tpu_torch",
+                                "filer.copy", "-filer", f"127.0.0.1:{fport}",
+                                str(src), "/s"], capture_output=True,
+                               timeout=120, cwd=REPO)
+            if r.returncode == 0 or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+        assert r.returncode == 0, r.stderr[-2000:]
+        r = subprocess.run([sys.executable, "-m", "seaweedfs_tpu_torch",
+                            "filer.cat", "-filer", f"127.0.0.1:{fport}",
+                            "/s/one.bin"], capture_output=True, timeout=120,
+                           cwd=REPO)
+        assert r.returncode == 0 and r.stdout == src.read_bytes()
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)

@@ -3,9 +3,10 @@ crashsim.py) against the JAX package's: the reference's hand-built traces
 give equal crash states from both enumerators, and the same semantics
 (fsync pins a prefix, un-fsynced suffixes drop, only the final write
 tears, un-pinned renames roll back, acked marks follow the prefix); the
-port's five scenarios (single-put, bulk-frame, ec-seal, raft-commit,
-vif-stamp, over the port's Volume, streaming encoder, raft and .vif) are
-clean and reach 500 states together, ec-seal with its coder on the CPU;
+port's six scenarios (single-put, bulk-frame, ec-seal, raft-commit,
+vif-stamp, meta-log, over the port's Volume, streaming encoder, raft, .vif
+and filer meta log) are clean and reach 500 states together, ec-seal with
+its coder on the CPU; meta-log's states equal the reference's;
 the ec-seal trace holds the writer pool's pwrites and the shard files'
 truncates; the seeded ack-before-fsync mutant trips both the simulator and
 the port's lint; the CLI's artifact and exit codes are the reference's."""
@@ -126,7 +127,7 @@ def _scenario(name):
 
 
 @pytest.mark.parametrize("name", ["single-put", "bulk-frame", "ec-seal",
-                                  "raft-commit", "vif-stamp"])
+                                  "raft-commit", "vif-stamp", "meta-log"])
 def test_port_scenarios_clean(name):
     rep = crashsim.run_scenario(_scenario(name), seed=1, max_states=150)
     assert rep["violations"] == []
@@ -139,7 +140,8 @@ def test_matrix_reaches_500_states_and_cli_artifact(tmp_path, capsys):
                           "--artifact", str(art)]) == 0
     doc = json.loads(art.read_text())
     assert [s["scenario"] for s in doc["scenarios"]] == [
-        "single-put", "bulk-frame", "ec-seal", "raft-commit", "vif-stamp"]
+        "single-put", "bulk-frame", "ec-seal", "raft-commit", "vif-stamp",
+        "meta-log"]
     assert doc["total_states"] >= 500 and doc["total_violations"] == 0
     assert doc["total_states"] == sum(s["states"] for s in doc["scenarios"])
     ref_art = tmp_path / "REF.json"
@@ -149,13 +151,26 @@ def test_matrix_reaches_500_states_and_cli_artifact(tmp_path, capsys):
     assert crashsim.main(["--scenario", "vif-stamp", "--artifact",
                           str(got_art), "--max-states", "120"]) == 0
     assert json.loads(got_art.read_text()) == json.loads(ref_art.read_text())
+    # the filer meta log: the port's log over the same seed gives the
+    # reference's states (98 at seed 0), every one a clean prefix
+    for seed in (0, 3):
+        ref_art = tmp_path / f"REF-ML{seed}.json"
+        assert ref_crashsim.main(["--scenario", "meta-log", "--artifact",
+                                  str(ref_art), "--seed", str(seed)]) == 0
+        got_art = tmp_path / f"GOT-ML{seed}.json"
+        assert crashsim.main(["--scenario", "meta-log", "--artifact",
+                              str(got_art), "--seed", str(seed)]) == 0
+        got = json.loads(got_art.read_text())
+        assert got == json.loads(ref_art.read_text())
+        assert got["total_violations"] == 0
+        assert seed or got["total_states"] == 98
     capsys.readouterr()
     assert crashsim.main(["--scenario", "no-such"]) == 2
     assert ref_crashsim.main(["--scenario", "no-such"]) == 2
     assert crashsim.main(["--list"]) == 0
     listed = capsys.readouterr().out
     assert "ec-seal" in listed and "mutant-ack-before-fsync" in listed
-    assert "meta-log" not in listed
+    assert "meta-log" in listed
 
 
 def test_ec_seal_trace_holds_pool_pwrites_and_truncates(tmp_path):
@@ -213,9 +228,11 @@ def test_mutant_caught_by_crashsim_and_lint(tmp_path):
 
 def test_crash_round_trip_of_chip_smoke_on_cpu(tmp_path):
     """Phase 19 of chip_smoke.py with ec-seal's coder on the CPU: the
-    matrix past 500 states clean, the mutant caught, the lint clean."""
+    matrix of six scenarios past 500 states clean, the mutant caught, the
+    lint clean."""
     import chip_smoke
     res = chip_smoke.crash_round_trip(str(tmp_path), 0, "cpu", 500,
                                       device="cpu")
-    assert res["total"] >= 500 and len(res["states"]) == 5
+    assert res["total"] >= 500 and len(res["states"]) == 6
+    assert res["states"]["meta-log"] == 98
     assert res["lint_files"] > 130

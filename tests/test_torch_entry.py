@@ -1,7 +1,8 @@
 """The port's entry point and pipeline forward against the JAX package's,
-its import hygiene (no jax, nothing of seaweedfs_tpu), its refusal to
-fall back to the CPU on its own, and its command line: the volume,
-master, server and shell verbs."""
+its import hygiene (no jax, nothing of seaweedfs_tpu, no aiohttp; the
+filer server without torch), its refusal to fall back to the CPU on its
+own, and its command line: the volume, master, server (with -filer) and
+shell verbs."""
 
 import subprocess
 import sys
@@ -93,6 +94,14 @@ print("DATA", all(f"seaweedfs_tpu_torch.{m}" in sys.modules
                   for m in ("client.operation", "client.backup", "bench_tool",
                             "utils.fstrack", "devtools", "devtools.crashsim",
                             "devtools.swtpu_lint")))
+print("FILER", all(f"seaweedfs_tpu_torch.{m}" in sys.modules
+                   for m in ("filer", "filer.chunks", "filer.store",
+                             "filer.sql_store", "filer.meta_log",
+                             "filer.filer", "filer.filer_conf",
+                             "filer.chunk_cache", "filer.meta_aggregator",
+                             "filer.filer_server", "client.filer_client",
+                             "shell.fs_commands", "security.cipher",
+                             "pb.filer_pb2", "pb.mq_pb2")))
 print("CODERS", sorted(n for n in ("mesh", "native") if coder._resolve(n)))
 print("BAD", bad)
 """
@@ -110,6 +119,7 @@ def test_import_hygiene_no_jax_no_reference_package():
     assert "CONTROL True" in out.stdout, out.stdout
     assert "PLANES True" in out.stdout, out.stdout
     assert "DATA True" in out.stdout, out.stdout
+    assert "FILER True" in out.stdout, out.stdout
     assert "CODERS ['mesh', 'native']" in out.stdout, out.stdout
     assert int(out.stdout.split("LOADED ")[1].split()[0]) >= 15
 
@@ -169,6 +179,34 @@ bad = sorted(n for n in sys.modules
              or n.startswith("google.protobuf"))
 print("BAD", bad)
 """
+
+
+_FILER_HYGIENE = r"""
+import sys
+sys.modules["jax"] = None
+import seaweedfs_tpu_torch.filer.filer_server
+import seaweedfs_tpu_torch.client.filer_client
+import seaweedfs_tpu_torch.shell.fs_commands
+import seaweedfs_tpu_torch.security.cipher
+import seaweedfs_tpu_torch.__main__
+bad = sorted(n for n in sys.modules
+             if n.split(".")[0] in ("torch", "seaweedfs_tpu", "aiohttp",
+                                    "cryptography")
+             or (n.startswith("jax") and sys.modules[n] is not None))
+print("BAD", bad)
+"""
+
+
+def test_filer_server_loads_no_torch():
+    """The filer does no device work: its server, client, fs commands,
+    cipher and the CLI load no torch (nor jax, the JAX package, aiohttp,
+    or cryptography before a chunk is sealed), so `filer` starts without
+    loading CUDA, as the `upload`/`download` verbs do."""
+    out = subprocess.run([sys.executable, "-c", _FILER_HYGIENE],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=str(_repo_root()))
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
 
 
 def test_volume_server_core_loads_no_grpc_protobuf_jax_or_reference():
@@ -273,22 +311,25 @@ def test_master_verb_help_lists_the_reference_flags():
 
 
 def test_shell_help_lists_exactly_the_ported_commands():
-    """`shell -c help` lists the reference's lock, volume.*, ec.*,
-    lifecycle.*, qos.* and cluster.top/profile commands (those of its
-    commands, ec_commands, volume_commands, lifecycle_commands,
-    qos_commands and telemetry_commands modules) and nothing else:
-    cluster.check waits for the filer and broker protos."""
+    """`shell -c help` lists the reference's lock, volume.*, ec.*, fs.*,
+    lifecycle.*, qos.*, cluster.check and cluster.top/profile commands
+    (those of its commands, ec_commands, volume_commands, fs_commands,
+    lifecycle_commands, qos_commands and telemetry_commands modules) and
+    nothing else: the s3.* commands of fs_commands wait for the S3 slice,
+    fs.meta.notify for notification/."""
     from seaweedfs_tpu.shell import commands as ref_commands
-    from seaweedfs_tpu.shell import (ec_commands,  # noqa: F401
+    from seaweedfs_tpu.shell import (ec_commands, fs_commands,  # noqa: F401
                                      lifecycle_commands, qos_commands,
                                      telemetry_commands, volume_commands)
     ported = {"seaweedfs_tpu.shell.commands", "seaweedfs_tpu.shell.ec_commands",
               "seaweedfs_tpu.shell.volume_commands",
+              "seaweedfs_tpu.shell.fs_commands",
               "seaweedfs_tpu.shell.lifecycle_commands",
               "seaweedfs_tpu.shell.qos_commands",
               "seaweedfs_tpu.shell.telemetry_commands"}
     want = sorted(name for name, c in ref_commands.COMMANDS.items()
-                  if c.fn.__module__ in ported and name != "cluster.check")
+                  if c.fn.__module__ in ported
+                  and not name.startswith("s3.") and name != "fs.meta.notify")
     out = _cli("shell", "-master", "127.0.0.1:1", "-c", "help")
     assert out.returncode == 0, out.stderr
     got = [line.split()[0] for line in out.stdout.splitlines()
@@ -296,15 +337,63 @@ def test_shell_help_lists_exactly_the_ported_commands():
     assert got == want
     assert {"lock", "unlock", "ec.encode", "ec.rebuild", "ec.decode",
             "volume.scrub", "lifecycle.apply", "lifecycle.status",
-            "qos.status", "cluster.top", "cluster.profile"} <= set(got)
+            "qos.status", "cluster.top", "cluster.profile", "cluster.check",
+            "fs.ls", "fs.verify", "volume.fsck"} <= set(got)
 
 
-@pytest.mark.parametrize("flag", ["-filer", "-s3", "-webdav", "-iam"])
-def test_server_verb_refuses_the_gateways(tmp_path, flag):
-    out = _cli("server", "-device", "cpu", "-dir", str(tmp_path), flag)
+@pytest.mark.parametrize("flag,waits", [
+    ("-s3", "ROADMAP Queue 1 item 4, S3 and IAM"),
+    ("-webdav", "ROADMAP Queue 1 item 5, WebDAV"),
+    ("-iam", "ROADMAP Queue 1 item 4, S3 and IAM")])
+def test_server_verb_refuses_the_gateways(tmp_path, flag, waits):
+    """`server` runs a filer with -filer; the S3, WebDAV and IAM gateways
+    still refuse, naming the slice each waits for."""
+    out = _cli("server", "-device", "cpu", "-dir", str(tmp_path), "-filer",
+               flag)
     assert out.returncode == 2
-    assert "ROADMAP Queue 1 item 3" in out.stderr, out.stderr
-    assert flag in out.stderr
+    assert f"{flag}: not ported yet ({waits})" in out.stderr, out.stderr
+
+
+def test_server_verb_runs_a_filer(tmp_path):
+    """`server -filer -device cpu`: a master, a volume server and a filer
+    in one process; a file PUT through the filer reads back, and the
+    filer keeps its sqlite store and meta log under -dir/filer."""
+    import os
+    import time
+
+    from seaweedfs_tpu_torch.client import http_util
+
+    from torch_cluster import free_port_pair
+    port, vport, fport = free_port_pair(), free_port_pair(), free_port_pair()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "seaweedfs_tpu_torch", "server", "-device",
+         "cpu", "-dir", str(tmp_path), "-port", str(port), "-volumePort",
+         str(vport), "-filer", "-filerPort", str(fport)],
+        cwd=str(_repo_root()), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT)
+    body = np.random.default_rng(8).bytes(300_000)
+    try:
+        deadline = time.monotonic() + 90
+        while True:
+            assert proc.poll() is None, proc.stdout.read().decode()
+            try:
+                r = http_util.request(
+                    "PUT", f"http://127.0.0.1:{fport}/s/one.bin", body=body,
+                    max_attempts=1)
+                if r.status == 201:
+                    break
+            except OSError:
+                pass
+            assert time.monotonic() < deadline, "no filer write in 90 s"
+            time.sleep(0.3)
+        r = http_util.get(f"http://127.0.0.1:{fport}/s/one.bin")
+        assert (r.status, r.content) == (200, body)
+        assert os.path.exists(tmp_path / "filer" / "filer.db")
+        assert os.path.getsize(tmp_path / "filer" / "meta.log") > 0
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+    assert proc.returncode == 0
 
 
 @pytest.mark.parametrize("flags,needs", [

@@ -1221,6 +1221,62 @@ def test_query_against_reference_plain_and_degraded_ec(tmp_path):
         ref.stop()
 
 
+def test_needle_status_of_ec_needles_on_lost_shards(tmp_path):
+    """VolumeNeedleStatus of needles of a volume sealed at RS(4,2) with
+    shards LOST deleted: the JAX server reads local shards only and fails
+    ("shard N ... not local") for every needle with an interval on a lost
+    shard (volume.fsck then reports it missing); the port reads it through its
+    shard reader, reconstructing, with the fields the plain volume gave."""
+    import grpc
+    uploads = _needles(30, seed=23)
+    vs, ref = _twins(tmp_path, uploads)
+    stub = _stub(ref)
+    keys = [int(fid.split(",")[1][:-8], 16) for fid, *_ in uploads]
+    try:
+        plain = {k: vs.volume_needle_status(VID, k) for k in keys}
+        vs.volume_mark_readonly(VID)
+        vs.volume_ec_shards_generate(VID)
+        vs.volume_ec_shards_mount(VID)
+        vs.volume_delete(VID)
+        vs.volume_ec_shards_delete(VID, shard_ids=list(LOST))
+        for method, req, resp in (
+                ("VolumeMarkReadonly",
+                 vpb.VolumeMarkReadonlyRequest(volume_id=VID),
+                 vpb.VolumeMarkReadonlyResponse),
+                ("VolumeEcShardsGenerate",
+                 vpb.VolumeEcShardsGenerateRequest(volume_id=VID),
+                 vpb.VolumeEcShardsGenerateResponse),
+                ("VolumeEcShardsMount",
+                 vpb.VolumeEcShardsMountRequest(volume_id=VID),
+                 vpb.VolumeEcShardsMountResponse),
+                ("VolumeDelete", vpb.VolumeDeleteRequest(volume_id=VID),
+                 vpb.VolumeDeleteResponse),
+                ("VolumeEcShardsDelete", vpb.VolumeEcShardsDeleteRequest(
+                    volume_id=VID, shard_ids=list(LOST)),
+                 vpb.VolumeEcShardsDeleteResponse)):
+            stub.call(method, req, resp, timeout=60)
+        lost = [k for (fid, *_), k in zip(uploads, keys)
+                if any(_on_shard(vs, fid, sid) for sid in LOST)]
+        assert 0 < len(lost) < len(keys)
+        before = vs.read_stats.get("reconstructs", 0)
+        for k in keys:
+            assert vs.volume_needle_status(VID, k) == plain[k]
+            req = vpb.VolumeNeedleStatusRequest(volume_id=VID, needle_id=k)
+            if k in lost:
+                with pytest.raises(grpc.RpcError) as e:
+                    stub.call("VolumeNeedleStatus", req,
+                              vpb.VolumeNeedleStatusResponse)
+                assert "not local" in e.value.details()
+            else:
+                r = stub.call("VolumeNeedleStatus", req,
+                              vpb.VolumeNeedleStatusResponse)
+                assert plain[k] == {f: getattr(r, f) for f in plain[k]}
+        assert vs.read_stats["reconstructs"] > before
+    finally:
+        vs.stop()
+        ref.stop()
+
+
 def test_leave_against_reference(tmp_path):
     """VolumeServerLeave: the heartbeat is no longer flushed, LocalPeers
     stops listing the server, and a direct GET still answers, as on the

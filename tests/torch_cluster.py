@@ -129,12 +129,14 @@ def make_damaged_volume(dirname: str, collection: str, vid: int, n: int,
     return bad
 
 
-def start(root, device: str = "cpu") -> dict:
+def start(root, device: str = "cpu", volume_size_limit_mb: int = 1,
+          small_block: int = 1 << 12) -> dict:
     """The master and the four volume servers; `stop` ends them all."""
     retry.reset_breakers()
-    geo = EcGeometry(D, P, large_block=1 << 20, small_block=1 << 12)
+    geo = EcGeometry(D, P, large_block=1 << 20, small_block=small_block)
     mport, hport = free_port_pair(), free_port_pair()
-    master = MasterServer(port=mport, http_port=hport, volume_size_limit_mb=1,
+    master = MasterServer(port=mport, http_port=hport,
+                          volume_size_limit_mb=volume_size_limit_mb,
                           pulse_seconds=0.5, ec_parity_shards=P,
                           maintenance_scripts=["ec.rebuild"],
                           maintenance_interval_s=3600)
