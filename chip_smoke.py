@@ -5,7 +5,7 @@
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result). `--phases` runs a subset (default: all); phase 1 always runs, and
-the kernels line needs phases 3, 4 and 6 to 20. The kernels of the
+the kernels line needs phases 3, 4 and 6 to 21. The kernels of the
 phases asked for are built first, all at once (one nvcc per source).
 
 1. device: card name, count, `nvidia-smi` name and power limit;
@@ -45,8 +45,9 @@ phases asked for are built first, all at once (one nvcc per source).
    HBM bound, the plain version's time and a device copy of the input at
    [4096, 2048] (the scrub's batch), [16384, 4096] and [64, 1 MiB]; the SM
    clock and power around;
-8. the scrub main path at deployment size: one Volume of 1,048,576
-   needles of 1024 + 0..63 B (weed benchmark's default write set) written
+8. the scrub main path: one Volume of 524,288 needles of 1024 + 0..63 B
+   (half of weed benchmark's default write set, the whole until phase 21
+   took the time) written
    through Volume.write_needles; 16 data bytes and one stored CRC of live
    needles flipped, 64 needles overwritten (8 of their old records then
    flipped), 64 deleted; scrub_volume(device="cuda") must report exactly
@@ -271,10 +272,10 @@ phases asked for are built first, all at once (one nvcc per source).
    before its server starts. (b) `lock; ec.encode -collection ec17
    -fullPercent 95; unlock` (VolumeEcShardsGenerateBatch, K1 encode, then
    the spread by VolumeEcShardsCopy): no rack holds more than 4 shards of
-   a stripe; every shard's sha256 kept. (c) 2,048 healthy GETs of small
+   a stripe; every shard's sha256 kept. (c) 1,024 healthy GETs of small
    needles through master lookups, each == written. (d) With the admin
    lock held in this process, r1's server stopped: /cluster/health
-   DEGRADED with exactly r1's shards missing; the 2,048 GETs again, each
+   DEGRADED with exactly r1's shards missing; the 1,024 GETs again, each
    == written, the reconstructs (K1) == the sampled intervals on lost
    shards; then the port's client, operation.read_batch, reads those
    needles and 16 of its blobs as /bulk-read frames, each ==
@@ -306,7 +307,7 @@ phases asked for are built first, all at once (one nvcc per source).
    follower answers /dir/lookup from its follower cache, a lease of 4,096
    keys after the failover lies above every key before it, and the new
    leader's cron offloads the shards. (d) With the admin lock held, shards
-   (0, 5, 10, 13) unmounted: 2,048 GETs of small needles off the remote
+   (0, 5, 10, 13) unmounted: 1,024 GETs of small needles off the remote
    tier, each == written, the reconstructs (K1 one stripe) == the sampled
    intervals on lost shards, and an SLO of "half the GETs within 1 ms"
    burning on the new leader. (e) 256 more GETs, the lock released: the
@@ -333,14 +334,15 @@ phases asked for are built first, all at once (one nvcc per source).
    process, the filer's verbs and the shell as subprocesses. (1)
    filer.meta.tail in the background. (2) fs.configure puts /f20/keep/
    in collection f20keep at replication 010 and 32 small files land
-   there; then filer.copy of a seeded tree: 512 files of 1-64 KiB
+   there; then filer.copy of a seeded tree: 256 files of 1-64 KiB
    (log-uniform), 8 of 1-16 MiB and one of 64 MiB (depth cut from 2,048
-   and 48 to keep the whole in time; the file sizes stay). (3) fs.du, fs.ls -l
+   and 48 to keep the whole in time, the small files from 512 when phase
+   21 came; the file sizes stay). (3) fs.du, fs.ls -l
    and fs.tree agree with the tree; filer.cat of four files sha256 ==
    written; fs.mv of 16 files and fs.rm of 16 take effect. (4) ec.encode
    -volumeId of every f20 volume with data (K1 encode), at most 4 shards
    a rack. (5) r1's server stopped. (6) Through the filer's HTTP GET with
-   r1 lost, every large file, 256 small ones and 16 Range GETs across
+   r1 lost, every large file, the 256 small ones and 16 Range GETs across
    4 MiB chunk boundaries, sha256 == written; the servers' reconstructs
    (K1 at one stripe) > 0, the one-stripe widths (min, median, max, how
    many not a multiple of 16) and the read's GB/s. (7) fs.verify -scrub:
@@ -356,9 +358,34 @@ phases asked for are built first, all at once (one nvcc per source).
    phase and read just after; then (10), outside them, K1 reconstruct at
    [1, 10, W] (W the widest one-stripe width of (6)) and at the aligned
    width below it, each against its plain version and timed;
+21. S3 on the card (BASELINE config 5, the S3 multipart write path into
+   EC): a master of the port (`-volumeSizeLimitMB 128 -ecShards 10,4`, its
+   cron idle) and a filer with the S3 gateway and the IAM API (`python -m
+   seaweedfs_tpu_torch filer -store sqlite:... -maxMB 4 -s3 -iam`) as
+   subprocesses, four volume servers on the card in racks r1-r4 of this
+   process; fs.configure maps bucket s21 to collection s21 and s21keep to
+   s21keep (replication 010), s3.configure sets the admin identity, and
+   every S3 and IAM request is signed by the port's SigV4 signer over
+   http.client. (a) Three objects of 96 MiB by multipart (8 MiB parts, 4
+   in flight), one of 24 MiB by a signed PUT streamed and hashed as it
+   arrives, one of 9 MiB aws-chunked (STREAMING-AWS4-HMAC-SHA256-PAYLOAD),
+   256 PutObjects of 1-64 KiB (p50/p99), 32 into s21keep; every ETag ==
+   the md5 (multipart: md5 of the part md5s, -parts). (b) ListObjectsV2 in
+   pages of 100 == the keys written; CopyObject of a 96 MiB object moves
+   no byte (the servers' needle counts unchanged). (c) IAM CreateUser,
+   PutUserPolicy and CreateAccessKey: the new key signs a GET (timed); an
+   unsigned GET 403; a bucket over its quota after s3.bucket.quota.check
+   refuses a PUT. (d) ec.encode of every s21 volume (K1 encode), at most
+   4 shards a rack. (e) r1's server stopped: every object GET through S3
+   and 16 Range GETs at seeded offsets, each == its source; the servers'
+   reconstructs == K1's one-stripe launches, the widths. (f) volume.scrub
+   of the s21keep volumes, 0 corrupt (K3). (g) The filer+S3 process
+   killed with SIGKILL and started again: ListObjectsV2 == before, the
+   IAM-made key still signs, the time to serving. K1's and K3's counts
+   are zeroed just before the phase and read just after;
 then the summary: one JSON line of every kernel with its launches (K1's
-   from phases 6, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19 and 20, K3's
-   from phases 8, 10, 12, 13, 14, 15, 16, 17, 18 and 20), error against
+   from phases 6, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20 and 21,
+   K3's from phases 8, 10, 12, 13, 14, 15, 16, 17, 18, 20 and 21), error against
    the plain version, times and bound; then the result line.
 
 Needs CUDA and the repository beside it; without either it exits 2.
@@ -385,7 +412,7 @@ LOST_10_4 = (0, 5, 10, 13)
 LOST_14_2 = (3, 15)
 WIDTHS = (16, 48, 100, 384, 4112, 65536, 65552)
 PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18,
-          19, 20)
+          19, 20, 21)
 PALLAS = "seaweedfs_tpu/ops/rs_pallas.py"
 K1_SOURCE = "seaweedfs_tpu_torch/csrc/rs_gf.cu"
 K3_SOURCE = "seaweedfs_tpu_torch/csrc/crc32c.cu"
@@ -396,12 +423,13 @@ KERNELS = {2: ("rs_gf",), 7: ("crc32c",), 9: ("rs_gf",),  # phase -> csrc
            14: ("rs_gf", "crc32c"), 15: ("rs_gf", "crc32c"),
            16: ("rs_gf", "crc32c"), 17: ("rs_gf", "crc32c"),
            18: ("rs_gf", "crc32c"), 19: ("rs_gf",),
-           20: ("rs_gf", "crc32c")}
+           20: ("rs_gf", "crc32c"), 21: ("rs_gf", "crc32c")}
 K3_SHAPES = ((4096, 2048), (16384, 4096), (64, 1 << 20))  # first: the scrub's
 K3_ROWS = (1, 3, 4096, 4225)  # 4225 = 132 SMs x 32 warps + 1
 K3_LENGTHS = (0, 512, 1024, 2048, 4096, 65536, 1 << 20)
 NEEDLE_LENGTHS = (0, 1, 511, 512, 513, 1087, 9000)
-SCRUB_NEEDLES = 1 << 20
+SCRUB_NEEDLES = 1 << 19  # phase 8: half of weed benchmark's write set (the
+                         # whole until phase 21 took the time)
 EC_NEEDLES = 1 << 20   # weed benchmark's default write set, as phase 8
 EC_STORE_NEEDLES = 1 << 18  # phases 9 and 11: a quarter of it (half until
                             # phase 20 took the time; phase 13 runs the same
@@ -495,7 +523,8 @@ CONTROL_SMALL = 16384    # phase 17: needles of 1024 + 0..63 B, leased
 CONTROL_LEASE = 1024     # phase 17: keys an Assign(count=...) leases
 CONTROL_FRAME = 256      # phase 17: needles a /bulk frame (four a lease,
                          # written among the blobs)
-CONTROL_GETS = 2048      # phase 17: GETs healthy, then with r1 lost
+CONTROL_GETS = 1024      # phase 17: GETs healthy, then with r1 lost (2,048
+                         # until phase 21 took the time)
 CONTROL_SCRUB_NEEDLES = 1 << 17  # phase 17: the scrub17 volume (1 << 18
                                  # until phase 20)
 SCRUB17_VID = 71         # phase 17's damaged regular volume on r4
@@ -509,7 +538,8 @@ LIFE_FILL = 0.95         # phase 18: the lc18 volume filled past this share
 LIFE_SMALL = 16384       # phase 18: needles of 1024 + 0..63 B, leased
 LIFE_LEASE = 1024        # phase 18: keys an Assign(count=...) leases
 LIFE_FRAME = 256         # phase 18: needles a /bulk frame
-LIFE_GETS = 2048         # phase 18(d): GETs with four shards lost
+LIFE_GETS = 1024         # phase 18(d): GETs with four shards lost (2,048
+                         # until phase 21 took the time)
 LIFE_PROMOTE_GETS = 256  # phase 18(e): GETs past promote_reads (16)
 LIFE_HOT_NEEDLES = 4096  # phase 18(c): the lease after the failover (hot18)
 LIFE_LOST = (0, 5, 10, 13)  # phase 18(d): shards unmounted
@@ -520,12 +550,23 @@ LIFE_TTL_S = 3600.0      # phase 18(f): the policy's TTL (the instant is
 LIFE_SLO_THRESHOLD_S = 0.001  # phase 18(g): "half the GETs within 1 ms",
                               # below the degraded p50 (checked)
 CRASH_MIN_STATES = 500   # phase 19: crashsim's gate, as the reference's
-FILER_SMALL = 512        # phase 20: files of 1-64 KiB (log-uniform; depth
-                         # cut from 2,048 to keep the whole in time)
+FILER_SMALL = 256        # phase 20: files of 1-64 KiB (log-uniform; depth
+                         # cut from 2,048 to keep the whole in time, from
+                         # 512 when phase 21 came)
 FILER_LARGE = 8          # phase 20: files of 1-16 MiB (cut from 48 alike)
 FILER_HUGE_MB = 64       # phase 20: and one of 64 MiB
 FILER_SAMPLE = 256       # phase 20(6): small files GET with r1 lost
 FILER_RANGES = 16        # phase 20(6): Range GETs across chunk boundaries
+S3_BIG = 3               # phase 21(a): objects written by multipart,
+S3_BIG_MB = 96           # of 96 MiB each,
+S3_PART_MB = 8           # in 8 MiB parts (the AWS CLI's multipart_chunksize)
+S3_IN_FLIGHT = 4         # with 4 parts in flight
+S3_SINGLE_MB = 24        # phase 21(a): one signed PUT, hashed as it streams
+S3_CHUNKED_MB = 9        # and one aws-chunked (STREAMING-...-PAYLOAD) PUT
+S3_SMALL = 256           # phase 21(a): PutObjects of 1-64 KiB
+S3_KEEP = 32             # phase 21(f): objects of the plain s21keep bucket
+S3_RANGES = 16           # phase 21(e): Range GETs at seeded offsets
+S3_PAGE = 100            # phase 21(b): ListObjectsV2 max-keys
 K1_ENTRIES = {  # wrapper entry -> the TPU function it replaces
     "encode": f"{PALLAS}:156",
     "encode_seeded": f"{PALLAS}:164",
@@ -6769,6 +6810,641 @@ def phase_filer(torch, np, workdir: str, seed: int, card: str) -> dict:
     return {"k1": k1, "k3": k3, "k1_times": times, **res}
 
 
+class _S3:
+    """A signed S3 client of the port's own SigV4 signer over http.client
+    (it needs no boto3): one keep-alive connection."""
+
+    def __init__(self, url: str, key: "tuple[str, str] | None"):
+        import http.client
+        host, port = url.rsplit(":", 1)
+        self.url, self.key = url, key
+        self.conn = http.client.HTTPConnection(host, int(port), timeout=300)
+
+    def request(self, method: str, target: str, body=b"",
+                headers: "dict | None" = None, payload_hash: str = "",
+                sign_path: str = "") -> "tuple[int, bytes, dict]":
+        """`body` is bytes or an iterator of bytes (then `payload_hash`,
+        its sha256, is signed and a Content-Length must be in headers)."""
+        from seaweedfs_tpu_torch.s3 import auth
+        headers = dict(headers or {})
+        if self.key is not None:
+            path, _, query = target.partition("?")
+            url = f"http://{self.url}{sign_path or path}" + (
+                f"?{query}" if query else "")
+            sha = payload_hash or hashlib.sha256(body).hexdigest()
+            headers.setdefault("host", self.url)
+            headers = auth._client_sign(method, url, headers, sha,
+                                        self.key[0], self.key[1],
+                                        "us-east-1", "s3", None)[0]
+        self.conn.request(method, target, body=body if body else None,
+                          headers=headers)
+        r = self.conn.getresponse()
+        return r.status, r.read(), {k.lower(): v for k, v in r.getheaders()}
+
+    def close(self) -> None:
+        self.conn.close()
+
+
+def _xml_all(body: bytes, tag: str) -> "list[str]":
+    return [m.decode() for m in re.findall(
+        rb"<" + tag.encode() + rb">([^<]*)</" + tag.encode() + rb">", body)]
+
+
+def s3_round_trip(np, torch, workdir: str, seed: int, card: str, big: int,
+                  big_mb: int, part_mb: int, in_flight: int, single_mb: int,
+                  chunked_mb: int, small: int, keep: int, ranges: int,
+                  max_mb: int = 4, cache_mb: int = 64, device: str = "cuda",
+                  small_block: int = 1 << 20) -> dict:
+    """Phase 21's path, every check fatal: a master of the port and a filer
+    with the S3 gateway and the IAM API (`filer -s3 -iam`) in subprocesses,
+    four volume servers on the card in this process (racks r1-r4), the
+    port's shell as a subprocess; every S3 and IAM request signed by the
+    port's SigV4 signer over http.client. `cache_mb` is the filer's chunk
+    cache (-chunkCacheMB; 64, its default, on the card), which the writes
+    fill. Returns the measured numbers."""
+    import base64
+    import signal
+    import urllib.parse
+    from concurrent.futures import ThreadPoolExecutor
+
+    from seaweedfs_tpu_torch.client.master_client import MasterClient
+    from seaweedfs_tpu_torch.ec.locate import EcGeometry
+    from seaweedfs_tpu_torch.ops import crc_cuda, rs_cuda
+    from seaweedfs_tpu_torch.s3 import auth, chunked
+    from seaweedfs_tpu_torch.server.grpc_service import serve_volume
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.storage.disk_location import DiskLocation
+    from seaweedfs_tpu_torch.storage.store import Store
+    from seaweedfs_tpu_torch.utils import retry
+
+    geo = EcGeometry(10, 4, small_block=small_block)
+    racks = ("r1", "r2", "r3", "r4")
+    here = os.path.dirname(os.path.abspath(__file__))
+    out: dict = {}
+    served: dict = {}
+    procs: "dict[str, subprocess.Popen]" = {}
+    logs: list = []
+    clients: list = []
+    mc = None
+    retry.reset_breakers()
+    mport = _free_low_port()
+    hport = _free_low_port({mport})
+    fport = _free_filer_port({mport, hport})
+    sport = _free_low_port({mport, hport, fport, fport + 10000})
+    iport = _free_low_port({mport, hport, fport, fport + 10000, sport})
+    maddr, faddr = f"127.0.0.1:{mport}", f"127.0.0.1:{fport}"
+    saddr, iaddr = f"127.0.0.1:{sport}", f"127.0.0.1:{iport}"
+    fdir = os.path.join(workdir, "filer")
+    os.makedirs(fdir)
+    rng = np.random.default_rng(seed)
+    admin = ("AKSMOKE21ADMIN", base64.b32encode(rng.bytes(25)).decode())
+
+    def spawn(name: str, *args) -> subprocess.Popen:
+        f = open(os.path.join(workdir, f"{name}.log"), "w")
+        logs.append(f)
+        procs[name] = subprocess.Popen(_port_cli(*args), cwd=here, stdout=f,
+                                       stderr=subprocess.STDOUT)
+        return procs[name]
+
+    def log_of(name: str) -> str:
+        with open(os.path.join(workdir, f"{name}.log")) as f:
+            return f.read()
+
+    def client(key=admin) -> _S3:
+        c = _S3(saddr, key)
+        clients.append(c)
+        return c
+
+    def start_filer(tag: str) -> float:
+        """The filer with the gateway and the IAM API; seconds until the
+        gateway answers a signed ListBuckets (before the identities exist:
+        any answer)."""
+        t = time.perf_counter()
+        p = spawn(tag, "filer", "-master", maddr, "-ip", "127.0.0.1",
+                  "-port", str(fport), "-store", f"sqlite:{fdir}/filer.db",
+                  "-maxMB", str(max_mb), "-chunkCacheMB", str(cache_mb),
+                  "-s3", "-s3Port", str(sport),
+                  "-iam", "-iamPort", str(iport))
+
+        def up():
+            if p.poll() is not None:
+                raise AssertionError(f"the filer exited rc {p.poll()}: "
+                                     f"{log_of(tag)[-2000:]}")
+            try:
+                c = _S3(saddr, admin)
+                try:
+                    return c.request("GET", "/")[0] in (200, 403)
+                finally:
+                    c.close()
+            except OSError:
+                return False
+        _wait(up, 60, "the S3 gateway")
+        return time.perf_counter() - t
+
+    def shell(script: str) -> "tuple[str, float]":
+        so, se, s = _shell(maddr, script)
+        return so + se, s
+
+    def reconstructs() -> int:
+        return sum(vs.read_stats.get("reconstructs", 0)
+                   for r, vs in vss.items() if r in served)
+
+    def live_needles() -> int:
+        return sum(v.file_count for srv in served.values()
+                   for loc in srv.vs.store.locations
+                   for v in list(loc.volumes.values()))
+
+    def list_all(c: _S3, bucket: str) -> "tuple[list[str], list, int]":
+        """Every key of `bucket` by ListObjectsV2 pages of S3_PAGE keys:
+        (keys, (key, etag, size) rows, pages)."""
+        keys, rows, token, pages = [], [], "", 0
+        while True:
+            q = f"list-type=2&max-keys={S3_PAGE}" + (
+                f"&continuation-token={urllib.parse.quote(token, safe='')}"
+                if token else "")
+            st, body, _ = c.request("GET", f"/{bucket}?{q}")
+            if st != 200:
+                raise AssertionError(f"ListObjectsV2 {bucket}: {st} {body!r}")
+            pages += 1
+            ks = _xml_all(body, "Key")
+            if len(ks) > S3_PAGE:
+                raise AssertionError(f"a page of {len(ks)} keys")
+            keys += ks
+            rows += list(zip(ks, _xml_all(body, "ETag"),
+                             _xml_all(body, "Size")))
+            if b"<IsTruncated>true</IsTruncated>" not in body:
+                return keys, rows, pages
+            token = _xml_all(body, "NextContinuationToken")[0]
+
+    try:
+        t0 = time.perf_counter()
+        master = spawn("master", "master", "-ip", "127.0.0.1", "-port",
+                       str(mport), "-httpPort", str(hport),
+                       "-volumeSizeLimitMB", "128", "-ecShards", "10,4",
+                       "-maintenanceScripts", "",
+                       "-maintenanceHealthDriven", "off")
+
+        def master_up():
+            if master.poll() is not None:
+                raise AssertionError(f"the master exited rc {master.poll()}")
+            try:
+                import http.client
+                c = http.client.HTTPConnection("127.0.0.1", hport, timeout=5)
+                c.request("GET", "/cluster/status")
+                ok = c.getresponse().status == 200
+                c.close()
+                return ok
+            except OSError:
+                return False
+
+        _wait(master_up, 120, "the master's HTTP API")
+        dirs = {r: os.path.join(workdir, r) for r in racks}
+        for r in racks:
+            os.makedirs(dirs[r])
+            port = _free_port()
+            store = Store("127.0.0.1", port, "", [DiskLocation(
+                dirs[r], max_volume_count=32)], ec_geometry=geo,
+                coder_name="torch", device=device)
+            vs = VolumeServer(store, "127.0.0.1", port, data_center="dc1",
+                              rack=r, pulse_seconds=1.0)
+            served[r] = serve_volume(vs, port + 10000, master=maddr)
+        vss = {r: s.vs for r, s in served.items()}
+        rack_of = {vs.url: r for r, vs in vss.items()}
+        mc = MasterClient(maddr).start()
+        _wait(lambda: sum(len(rk.data_node_infos) for dc in
+                          mc.volume_list().topology_info.data_center_infos
+                          for rk in dc.rack_infos) == 4, 60,
+              "four servers registered")
+        up_s = start_filer("filer")
+        # the buckets' collections, and the identities, as an operator
+        # sets them: fs.configure path rules and s3.configure, both kept
+        # in the filer; the gateway reloads /etc when it changes
+        said, _ = shell(
+            f"fs.configure -filer {faddr} -locationPrefix /buckets/s21/ "
+            f"-collection s21 -apply; fs.configure -filer {faddr} "
+            f"-locationPrefix /buckets/s21keep/ -collection s21keep "
+            f"-replication 010 -apply")
+        if said.count("applied.") != 2:
+            raise AssertionError(f"fs.configure: {said!r}")
+        t = time.perf_counter()
+        said, _ = shell(f"s3.configure -filer {faddr} -user admin21 "
+                        f"-access_key {admin[0]} -secret_key {admin[1]} "
+                        f"-actions Admin -apply")
+        if "saved /etc/iam/identity.json" not in said:
+            raise AssertionError(f"s3.configure: {said!r}")
+        anon, c = client(None), client()
+        _wait(lambda: anon.request("GET", "/")[0] == 403
+              and c.request("GET", "/")[0] == 200, 30,
+              "the gateway to load s3.configure's identities")
+        reload_s = time.perf_counter() - t
+        for b in ("s21", "s21keep", "q21"):
+            st, body, _ = c.request("PUT", f"/{b}")
+            if st != 200:
+                raise AssertionError(f"PUT bucket {b}: {st} {body!r}")
+        log(f"[s3] master (a subprocess, -volumeSizeLimitMB 128 -ecShards "
+            f"10,4), four volume servers on {device} in racks r1-r4, the "
+            f"filer with the S3 gateway and the IAM API (a subprocess of "
+            f"python -m seaweedfs_tpu_torch filer -store sqlite: -maxMB "
+            f"{max_mb} -s3 -iam; up in {up_s:.2f} s) in "
+            f"{time.perf_counter() - t0:.1f} s; fs.configure maps bucket "
+            f"s21 to collection s21 and s21keep to s21keep (replication "
+            f"010); s3.configure's admin identity loaded {reload_s:.2f} s "
+            f"after the shell began (unsigned GET / then 403) [{card}]")
+
+        # (a) the writes
+        want: "dict[str, tuple[str, str]]" = {}  # key -> (sha256, etag)
+        part = part_mb << 20
+        t = time.perf_counter()
+        big_bytes = 0
+        for i in range(big):
+            data = np.random.default_rng((seed, 21, i)).bytes(big_mb << 20)
+            key = f"big/b{i}.bin"
+            st, body, _ = c.request("POST", f"/s21/{key}?uploads")
+            up = _xml_all(body, "UploadId")
+            if st != 200 or not up:
+                raise AssertionError(f"CreateMultipartUpload {key}: {st}")
+            n = (len(data) + part - 1) // part
+
+            def put_part(j, data=data, key=key, up=up[0]):
+                pc = _S3(saddr, admin)
+                try:
+                    piece = data[j * part:(j + 1) * part]
+                    st, body, hd = pc.request(
+                        "PUT", f"/s21/{key}?partNumber={j + 1}&uploadId={up}",
+                        piece)
+                    if st != 200:
+                        raise AssertionError(f"UploadPart {j + 1} of {key}: "
+                                             f"{st} {body[:300]!r}")
+                    return hd["etag"].strip('"')
+                finally:
+                    pc.close()
+            with ThreadPoolExecutor(in_flight) as pool:
+                etags = list(pool.map(put_part, range(n)))
+            xml = ("<CompleteMultipartUpload>" + "".join(
+                f"<Part><PartNumber>{j + 1}</PartNumber><ETag>\"{e}\"</ETag>"
+                f"</Part>" for j, e in enumerate(etags))
+                + "</CompleteMultipartUpload>").encode()
+            st, body, _ = c.request("POST", f"/s21/{key}?uploadId={up[0]}",
+                                    xml)
+            md5s = hashlib.md5(b"".join(bytes.fromhex(e) for e in etags),
+                               usedforsecurity=False)
+            etag = f"{md5s.hexdigest()}-{n}"
+            if st != 200 or _xml_all(body, "ETag") != [f'"{etag}"']:
+                raise AssertionError(f"CompleteMultipartUpload {key}: {st} "
+                                     f"{body[:300]!r} (want {etag})")
+            if etags != [hashlib.md5(data[j * part:(j + 1) * part],
+                                     usedforsecurity=False).hexdigest()
+                         for j in range(n)]:
+                raise AssertionError(f"part ETags of {key}")
+            want[key] = (hashlib.sha256(data).hexdigest(), etag)
+            big_bytes += len(data)
+        mp_s = time.perf_counter() - t
+        out["multipart"] = big_bytes / mp_s / 1e9
+        single = np.random.default_rng((seed, 21, 100)).bytes(single_mb << 20)
+        sha = hashlib.sha256(single).hexdigest()
+        t = time.perf_counter()
+        st, body, hd = c.request(
+            "PUT", "/s21/single.bin",
+            (single[o:o + (1 << 20)] for o in range(0, len(single), 1 << 20)),
+            {"Content-Length": str(len(single))}, payload_hash=sha)
+        single_s = time.perf_counter() - t
+        md5 = hashlib.md5(single, usedforsecurity=False).hexdigest()
+        if st != 200 or hd.get("etag") != f'"{md5}"':
+            raise AssertionError(f"the single PUT: {st} {body[:300]!r}")
+        want["single.bin"] = (sha, md5)
+        out["single"] = len(single) / single_s / 1e9
+        data = np.random.default_rng((seed, 21, 101)).bytes(chunked_mb << 20)
+        hdrs, ctx = auth.sign_streaming_request_v4(
+            "PUT", f"http://{saddr}/s21/chunked.bin", {"host": saddr},
+            len(data), admin[0], admin[1])
+        framed = chunked.encode_chunked_payload(data, ctx,
+                                                chunk_size=64 << 10)
+        c.conn.request("PUT", "/s21/chunked.bin", body=framed, headers=hdrs)
+        r = c.conn.getresponse()
+        body = r.read()
+        md5 = hashlib.md5(data, usedforsecurity=False).hexdigest()
+        if r.status != 200 or r.getheader("ETag") != f'"{md5}"':
+            raise AssertionError(f"the aws-chunked PUT: {r.status} "
+                                 f"{body[:300]!r}")
+        want["chunked.bin"] = (hashlib.sha256(data).hexdigest(), md5)
+        lat = []
+        srng = np.random.default_rng((seed, 21, 102))
+        sizes = np.exp(srng.uniform(np.log(1 << 10), np.log(64 << 10),
+                                    small)).astype(np.int64)
+        for i, n in enumerate(sizes):
+            data = srng.bytes(int(n))
+            key = f"small/d{i % 16:02d}/s{i:04d}.bin"
+            t = time.perf_counter()
+            st, body, hd = c.request("PUT", f"/s21/{key}", data)
+            lat.append(time.perf_counter() - t)
+            md5 = hashlib.md5(data, usedforsecurity=False).hexdigest()
+            if st != 200 or hd.get("etag") != f'"{md5}"':
+                raise AssertionError(f"PUT {key}: {st} {body[:300]!r}")
+            want[key] = (hashlib.sha256(data).hexdigest(), md5)
+        kept = {}
+        for i in range(keep):
+            data = srng.bytes(int(srng.integers(1 << 10, 64 << 10)))
+            st, _, _ = c.request("PUT", f"/s21keep/k{i:02d}.bin", data)
+            if st != 200:
+                raise AssertionError(f"PUT s21keep/k{i:02d}.bin: {st}")
+            kept[f"k{i:02d}.bin"] = hashlib.sha256(data).hexdigest()
+        out["small_p50_ms"] = _pct(np, lat, 50) * 1e3
+        out["small_p99_ms"] = _pct(np, lat, 99) * 1e3
+        log(f"[s3] (a) {big} objects of {big_mb} MiB by multipart "
+            f"({part_mb} MiB parts, {in_flight} in flight; each ETag the md5 "
+            f"of the part md5s -{(big_mb << 20) // part}) in {mp_s:.2f} s = "
+            f"{out['multipart']:.3f} GB/s; one signed PUT of {single_mb} MiB "
+            f"streamed (hashed as it arrives) in {single_s:.2f} s = "
+            f"{out['single']:.3f} GB/s; one aws-chunked PUT of {chunked_mb} "
+            f"MiB (64 KiB signed chunks); {small} PutObjects of 1-64 KiB "
+            f"p50 {out['small_p50_ms']:.3f} ms p99 "
+            f"{out['small_p99_ms']:.3f} ms; {keep} into s21keep [{card}]")
+
+        # (b) the namespace
+        t = time.perf_counter()
+        keys, rows, pages = list_all(c, "s21")
+        list_s = time.perf_counter() - t
+        if keys != sorted(want):
+            raise AssertionError(f"ListObjectsV2: {len(keys)} keys, "
+                                 f"{len(want)} written")
+        for key, etag, _size in rows:
+            if etag != f'"{want[key][1]}"':
+                raise AssertionError(f"listed ETag of {key}: {etag}")
+        needles = live_needles()
+        t = time.perf_counter()
+        st, body, _ = c.request("PUT", "/s21/copy/b0.bin", b"",
+                                {"x-amz-copy-source": "/s21/big/b0.bin"})
+        copy_s = time.perf_counter() - t
+        if st != 200 or _xml_all(body, "ETag") != [f'"{want["big/b0.bin"][1]}"']:
+            raise AssertionError(f"CopyObject: {st} {body[:300]!r}")
+        if live_needles() != needles:
+            raise AssertionError(f"CopyObject moved bytes: needles "
+                                 f"{needles} -> {live_needles()}")
+        want["copy/b0.bin"] = want["big/b0.bin"]
+        log(f"[s3] (b) ListObjectsV2 of s21 in {pages} pages of at most "
+            f"{S3_PAGE} ({list_s:.2f} s): the {len(keys)} keys written, "
+            f"each ETag == its md5 (multipart: md5 of the part md5s, "
+            f"-parts); CopyObject of a {big_mb} MiB object in "
+            f"{copy_s * 1e3:.1f} ms, the servers' {needles} needles "
+            f"unchanged (no byte moved) [{card}]")
+
+        # (c) identities: a user and key through the IAM API
+        def iam(params: dict) -> "tuple[int, bytes]":
+            import http.client
+            form = urllib.parse.urlencode(
+                {**params, "Version": "2010-05-08"}).encode()
+            h = auth.sign_request_v4(
+                "POST", f"http://{iaddr}/", {"Content-Type":
+                                              "application/x-www-form-"
+                                              "urlencoded"},
+                form, admin[0], admin[1], service="iam")
+            ic = http.client.HTTPConnection("127.0.0.1", iport, timeout=60)
+            try:
+                ic.request("POST", "/", body=form, headers=h)
+                r = ic.getresponse()
+                return r.status, r.read()
+            finally:
+                ic.close()
+        for params in ({"Action": "CreateUser", "UserName": "reader21"},
+                       {"Action": "PutUserPolicy", "UserName": "reader21",
+                        "PolicyName": "read-s21",
+                        "PolicyDocument": json.dumps({"Statement": [
+                            {"Effect": "Allow",
+                             "Action": ["s3:Get*", "s3:List*"],
+                             "Resource": ["arn:aws:s3:::s21/*"]}]})}):
+            st, body = iam(params)
+            if st != 200:
+                raise AssertionError(f"IAM {params['Action']}: {st} "
+                                     f"{body[:300]!r}")
+        st, body = iam({"Action": "CreateAccessKey", "UserName": "reader21"})
+        t = time.perf_counter()
+        reader = (_xml_all(body, "AccessKeyId") or [""])[0], \
+            (_xml_all(body, "SecretAccessKey") or [""])[0]
+        if st != 200 or not reader[0]:
+            raise AssertionError(f"IAM CreateAccessKey: {st} {body[:300]!r}")
+        rc = client(reader)
+        _wait(lambda: rc.request("GET", "/s21/small/d00/s0000.bin")[0] == 200,
+              10, "the new key to sign a GET")
+        key_s = time.perf_counter() - t
+        if rc.request("PUT", "/s21/nope.bin", b"x")[0] != 403:
+            raise AssertionError("the reader's PUT was not refused")
+        st, body, _ = anon.request("GET", "/s21/small/d00/s0000.bin")
+        if st != 403 or b"AccessDenied" not in body:
+            raise AssertionError(f"an unsigned GET: {st} {body[:300]!r}")
+        qdata = np.random.default_rng((seed, 21, 103)).bytes(2 << 20)
+        if c.request("PUT", "/q21/one.bin", qdata)[0] != 200:
+            raise AssertionError("PUT into q21")
+        said, _ = shell(f"s3.bucket.quota -filer {faddr} -bucket q21 "
+                        f"-sizeMB 1; s3.bucket.quota.check -filer {faddr}")
+        if "q21: 2 / 1 MB READONLY" not in said:
+            raise AssertionError(f"s3.bucket.quota.check: {said!r}")
+        st, body, _ = c.request("PUT", "/q21/two.bin", b"more")
+        if st != 403 or b"QuotaExceeded" not in body:
+            raise AssertionError(f"a PUT over quota: {st} {body[:300]!r}")
+        log(f"[s3] (c) IAM CreateUser + PutUserPolicy + CreateAccessKey: the "
+            f"new key signed a GET {key_s * 1e3:.1f} ms after its answer "
+            f"(and its PUT 403); an unsigned GET 403 AccessDenied; q21 over "
+            f"its 1 MB quota after s3.bucket.quota.check: PUT 403 "
+            f"QuotaExceeded [{card}]")
+
+        # (d) the seal: ec.encode of collection s21 (K1 encode)
+        for r in racks:
+            vss[r].heartbeat_flush()
+        time.sleep(1.5)
+        s21 = {}
+        for dc in mc.volume_list().topology_info.data_center_infos:
+            for rk in dc.rack_infos:
+                for dn in rk.data_node_infos:
+                    for disk in dn.disk_infos.values():
+                        for v in disk.volume_infos:
+                            if v.collection == "s21" and v.size > 8:
+                                s21[v.id] = v.size
+        if not s21:
+            raise AssertionError("no s21 volume holds data")
+        k0 = rs_cuda.launches_by_entry.get("encode", 0)
+        said, enc_s = shell("lock; " + "; ".join(
+            f"ec.encode -volumeId {vid}" for vid in sorted(s21)) + "; unlock")
+        enc_k1 = rs_cuda.launches_by_entry.get("encode", 0) - k0
+        lost: "dict[int, list[int]]" = {}
+        for vid in s21:
+            spread = _wait(lambda: (lambda s: s if len(s) == geo.n else None)(
+                {sid: [rack_of[u] for u in urls]
+                 for sid, urls in mc.lookup_ec(vid).items() if urls}),
+                60, f"volume {vid}'s 14 shards registered")
+            per_rack = collections.Counter(r for rs in spread.values()
+                                           for r in rs)
+            if max(per_rack.values()) > geo.p:
+                raise AssertionError(f"volume {vid}: {dict(per_rack)}")
+            lost[vid] = sorted(s for s, rs in spread.items() if "r1" in rs)
+        out["encode"] = sum(s21.values()) / enc_s / 1e9
+        log(f"[s3] (d) ec.encode -volumeId of the {len(s21)} s21 volumes "
+            f"({sum(s21.values())} B of .dat: {json.dumps(s21)}) in "
+            f"{enc_s:.2f} s with the shell = {out['encode']:.3f} GB/s; K1 "
+            f"encode launches {enc_k1}; shards on r1 {json.dumps(lost)} "
+            f"[{card}]")
+
+        # (e) rack r1 lost: every object through S3, whole and ranged
+        served.pop("r1").stop()
+        _wait(lambda: sum(len(rk.data_node_infos) for dc in
+                          mc.volume_list().topology_info.data_center_infos
+                          for rk in dc.rack_infos) == 3, 60,
+              "r1's server gone from the topology")
+        sources = {f"big/b{i}.bin": (seed, 21, i) for i in range(big)}
+        sources.update({"copy/b0.bin": (seed, 21, 0),
+                        "single.bin": (seed, 21, 100)})
+        r0, read_bytes = reconstructs(), 0
+        t = time.perf_counter()
+        with K1Widths() as kw:
+            k0 = rs_cuda.launches_by_entry.get("reconstruct", 0)
+            for key in sorted(want):
+                st, body, _ = c.request("GET", f"/s21/{key}")
+                if st != 200 or hashlib.sha256(body).hexdigest() != \
+                        want[key][0]:
+                    raise AssertionError(f"GET {key} with r1 lost: {st}")
+                read_bytes += len(body)
+            rrng = np.random.default_rng((seed, 21, 104))
+            srcs: "dict[str, bytes]" = {}
+            for i in range(ranges):
+                key = sorted(sources)[i % len(sources)]
+                seed_of = sources[key]
+                size = (single_mb if key == "single.bin" else big_mb) << 20
+                a = int(rrng.integers(0, size - 1))
+                z = min(size, a + int(rrng.integers(1, 6 << 20)))
+                st, body, hd = c.request("GET", f"/s21/{key}", b"",
+                                         {"Range": f"bytes={a}-{z - 1}"})
+                if key not in srcs:
+                    srcs[key] = np.random.default_rng(seed_of).bytes(size)
+                src = srcs[key]
+                if st != 206 or body != src[a:z] or hd.get(
+                        "content-range") != f"bytes {a}-{z - 1}/{size}":
+                    raise AssertionError(f"Range {a}-{z - 1} of {key}: {st}")
+                read_bytes += len(body)
+            k1_rec = rs_cuda.launches_by_entry.get("reconstruct", 0) - k0
+        read_s = time.perf_counter() - t
+        got_rec = reconstructs() - r0
+        widths = sorted(kw.widths)
+        if not got_rec or len(widths) != got_rec or (
+                device == "cuda" and k1_rec < got_rec):
+            raise AssertionError(f"{got_rec} reconstructs, {len(widths)} K1 "
+                                 f"one-stripe launches, {k1_rec} K1 "
+                                 f"reconstruct launches")
+        ragged = sum(1 for w in widths if w % 16)
+        out.update(read=read_bytes / read_s / 1e9, reconstructs=got_rec,
+                   k1_reconstruct=k1_rec, widths=widths, ragged=ragged)
+        log(f"[s3] (e) with r1 lost, GETs through S3 of all {len(want)} "
+            f"objects and {ranges} Range GETs at seeded offsets, each == "
+            f"its source (sha256): {read_bytes} B in {read_s:.2f} s = "
+            f"{out['read']:.3f} GB/s; the servers reconstructed {got_rec} "
+            f"intervals == K1 one-stripe launches {len(widths)} (K1 "
+            f"reconstruct launches {k1_rec}); widths min {widths[0]} median "
+            f"{widths[len(widths) // 2]} max {widths[-1]}, {ragged} of "
+            f"{len(widths)} not a multiple of 16 [{card}]")
+
+        # (f) the scrub of the plain bucket s21keep (K3)
+        keep_vids = set()
+        for dc in mc.volume_list().topology_info.data_center_infos:
+            for rk in dc.rack_infos:
+                for dn in rk.data_node_infos:
+                    for disk in dn.disk_infos.values():
+                        for v in disk.volume_infos:
+                            if v.collection == "s21keep" and v.size > 8:
+                                keep_vids.add(v.id)
+        if not keep_vids:
+            raise AssertionError("no s21keep volume on a live server")
+        k3_0 = crc_cuda.launches
+        said, scrub_s = shell("; ".join(f"volume.scrub -volumeId {vid}"
+                                        for vid in sorted(keep_vids)))
+        k3 = crc_cuda.launches - k3_0
+        checked = sum(int(m) for m in re.findall(r"scrubbed (\d+) needles, 0 "
+                                                 r"corrupt", said))
+        if not checked or " corrupt" not in said or re.search(
+                r"scrubbed \d+ needles, [1-9]", said) or (
+                device == "cuda" and not k3):
+            raise AssertionError(f"volume.scrub of s21keep: {said[-2000:]!r}"
+                                 f"; {k3} K3 launches")
+        for k, h in kept.items():
+            st, body, _ = c.request("GET", f"/s21keep/{k}")
+            if st != 200 or hashlib.sha256(body).hexdigest() != h:
+                raise AssertionError(f"GET s21keep/{k}: {st}")
+        out["k3"] = k3
+        log(f"[s3] (f) volume.scrub of the s21keep volumes "
+            f"{sorted(keep_vids)}: {checked} needles, 0 corrupt, {k3} K3 "
+            f"launches ({scrub_s:.2f} s); its {keep} objects read back "
+            f"[{card}]")
+
+        # (g) SIGKILL the filer+S3 process and start it again
+        before = list_all(c, "s21")[1]
+        for cl in clients:
+            cl.close()
+        t = time.perf_counter()
+        procs["filer"].kill()
+        procs["filer"].wait(timeout=20)
+        procs.pop("filer")
+        start_filer("filer2")
+        c, rc = client(), client(reader)
+        _wait(lambda: c.request("GET", "/")[0] == 200, 30,
+              "the restarted gateway's identities")
+        restart_s = time.perf_counter() - t
+        after = list_all(c, "s21")[1]
+        if after != before:
+            raise AssertionError(f"ListObjectsV2 after the restart: "
+                                 f"{len(after)} rows, {len(before)} before")
+        st, body, _ = rc.request("GET", "/s21/small/d00/s0000.bin")
+        if st != 200 or hashlib.sha256(body).hexdigest() != \
+                want["small/d00/s0000.bin"][0]:
+            raise AssertionError(f"the IAM key after the restart: {st}")
+        out["restart"] = restart_s
+        log(f"[s3] (g) the filer+S3 process killed with SIGKILL and started "
+            f"again: from the kill to a signed ListBuckets answered 200 "
+            f"{restart_s:.2f} s; ListObjectsV2 == before "
+            f"({len(after)} keys); the IAM-made key still signs (identities "
+            f"from /etc/iam/identity.json) [{card}]")
+        return out
+    finally:
+        for cl in clients:
+            cl.close()
+        for name in list(procs):
+            p = procs.pop(name)
+            if p.poll() is None:
+                p.send_signal(signal.SIGKILL if name.startswith("filer")
+                              else signal.SIGTERM)
+                try:
+                    p.wait(timeout=20)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait(timeout=10)
+        if mc is not None:
+            mc.stop()
+        for s in served.values():
+            s.stop()
+        for f in logs:
+            f.close()
+        retry.reset_breakers()
+
+
+def phase_s3(torch, np, workdir: str, seed: int, card: str) -> dict:
+    from seaweedfs_tpu_torch.ops import crc_cuda, rs_cuda
+    os.makedirs(workdir, exist_ok=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rs_cuda.reset_launches()
+    crc_cuda.reset_launches()
+    res = s3_round_trip(np, torch, workdir, seed + 21, card, S3_BIG,
+                        S3_BIG_MB, S3_PART_MB, S3_IN_FLIGHT, S3_SINGLE_MB,
+                        S3_CHUNKED_MB, S3_SMALL, S3_KEEP, S3_RANGES)
+    torch.cuda.synchronize()
+    k1 = dict(rs_cuda.launches_by_entry)
+    k3 = crc_cuda.launches
+    log(f"[s3] launches under S3: K1 {json.dumps(k1)}, K3 {k3}; phase wall "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    for entry in ("encode", "reconstruct"):
+        if not k1.get(entry):
+            raise AssertionError(f"K1 {entry} never launched in phase 21")
+    if not k3:
+        raise AssertionError("K3 never launched in phase 21")
+    return {"k1": k1, "k3": k3, **res}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6891,11 +7567,17 @@ def main(argv=None) -> int:
             filer = phase_filer(torch, np, args.workdir, args.seed, card)
         finally:
             shutil.rmtree(args.workdir, ignore_errors=True)
+    s3 = None
+    if 21 in phases:
+        try:
+            s3 = phase_s3(torch, np, args.workdir, args.seed, card)
+        finally:
+            shutil.rmtree(args.workdir, ignore_errors=True)
     log(f"[done] phases {sorted(phases | {1})} passed in "
         f"{time.perf_counter() - t0:.1f} s [{card}]")
     if None not in (errs, times, launches, k3_err, k3_times, k3_launches,
                     ec_launches, tier, codec_launches, mesh, server, replica,
-                    maint, rest, control, life, crash, filer):
+                    maint, rest, control, life, crash, filer, s3):
         kernels = [dict(name=f"rs_gf_apply:{entry}", route="cuda",
                         source=K1_SOURCE, replaces=replaces,
                         launches=launches.get(entry, 0)
@@ -6910,7 +7592,8 @@ def main(argv=None) -> int:
                         + control["k1"].get(entry, 0)
                         + life["k1"].get(entry, 0)
                         + crash["k1"].get(entry, 0)
-                        + filer["k1"].get(entry, 0),
+                        + filer["k1"].get(entry, 0)
+                        + s3["k1"].get(entry, 0),
                         max_abs_err=errs[entry], ms=times[entry]["ms"],
                         plain_ms=times[entry]["plain_ms"],
                         bound_ms=times[entry]["bound_ms"],
@@ -6922,7 +7605,8 @@ def main(argv=None) -> int:
                             launches=k3_launches + tier["k3_scrub"]
                             + mesh["launches"]["k3"] + server["k3"]
                             + replica["k3"] + maint["k3"] + rest["k3"]
-                            + control["k3"] + life["k3"] + filer["k3"],
+                            + control["k3"] + life["k3"] + filer["k3"]
+                            + s3["k3"],
                             max_abs_err=k3_err,
                             ms=k3["ms"], plain_ms=k3["plain_ms"],
                             bound_ms=k3["bound_ms"], bound_by=k3["bound_by"],

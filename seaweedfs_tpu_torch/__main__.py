@@ -14,9 +14,10 @@ Verbs, the counterparts of the JAX package's (seaweedfs_tpu/__main__.py):
   turns on QoS admission.
 * ``server`` (`run_server`, :224): a master and one volume server in one
   process, the volume server on the card unless `-device cpu`; `-filer`
-  adds a filer on `-filerPort` over a sqlite store in `-dir`/filer. `-s3`
-  and `-iam` refuse to start (ROADMAP Queue 1 item 4), and so does
-  `-webdav` (item 5).
+  adds a filer on `-filerPort` over a sqlite store in `-dir`/filer, and
+  `-s3`/`-iam` the S3 gateway on `-s3Port` and the IAM API on `-iamPort`
+  over it (each implies the filer). `-webdav` refuses to start (ROADMAP
+  Queue 1 item 5).
 * ``shell`` (`run_shell`, :291): the admin shell over the ported command
   tables (shell/commands.py, ec_commands.py, volume_commands.py,
   fs_commands.py, lifecycle_commands.py, qos_commands.py,
@@ -26,7 +27,14 @@ Verbs, the counterparts of the JAX package's (seaweedfs_tpu/__main__.py):
   fastweb, gRPC, the meta log, the peer mesh unless `-noPeerMeta`); it
   loads no torch. ``filer.copy``, ``filer.cat``, ``filer.meta.tail`` and
   ``filer.meta.backup`` (:679, :959, :720, :981) are its clients; the
-  tail flushes each line as it prints it.
+  tail flushes each line as it prints it. `-s3 -s3Port` embeds the S3
+  gateway (:376-420) and `-iam -iamPort` the IAM API, a port-only flag.
+  An embedded gateway loads identities, the circuit breaker and the QoS
+  policy from the filer's /etc and reloads them when /etc changes, as the
+  standalone ``s3`` verb does; the reference's embedded gateway runs open.
+* ``s3`` (`run_s3`, :422): the standalone S3 gateway over a remote filer
+  (`-filer -ip -port -config`). ``iam`` (`run_iam`, :605): the standalone
+  IAM API over a remote filer. Neither loads torch.
 * ``upload`` and ``download`` (`run_upload`, :827; `run_download`, :855):
   blobs through client/operation's submit and read.
 * ``benchmark`` (:889): `weed benchmark`, bench_tool.run.
@@ -338,14 +346,9 @@ def run_server(argv) -> int:
     p.add_argument("-iam", action="store_true")
     p.add_argument("-iamPort", type=int, default=8111)
     opt = p.parse_args(argv)
-    waits = {"s3": "ROADMAP Queue 1 item 4, S3 and IAM",
-             "iam": "ROADMAP Queue 1 item 4, S3 and IAM",
-             "webdav": "ROADMAP Queue 1 item 5, WebDAV"}
-    asked = [n for n in waits if getattr(opt, n)]
-    if asked:
-        print("error: server " + "; ".join(
-            f"-{n}: not ported yet ({waits[n]})" for n in asked),
-            file=sys.stderr)
+    if opt.webdav:
+        print("error: server -webdav: not ported yet (ROADMAP Queue 1 item "
+              "5, WebDAV)", file=sys.stderr)
         return 2
     import os
 
@@ -353,10 +356,11 @@ def run_server(argv) -> int:
     ms = _master_server(opt)
     ms.start()
     fs = None
+    stop_gateways = None
     try:
         served = _serve_volume_server(opt, opt.volumePort,
                                       f"{opt.ip}:{opt.port}")
-        if opt.filer:
+        if opt.filer or opt.s3 or opt.iam:
             filer_dir = os.path.join(opt.dir, "filer")
             os.makedirs(filer_dir, exist_ok=True)
             fs = _filer_server(opt, f"{opt.ip}:{opt.port}",
@@ -364,10 +368,14 @@ def run_server(argv) -> int:
                                os.path.join(filer_dir, "meta.log"),
                                port=opt.filerPort)
             print(f"filer {fs.url} (grpc :{fs.grpc_port})", flush=True)
+            stop_gateways = _embedded_gateways(opt, fs, opt.s3Port,
+                                               opt.iamPort)
     except BaseException:
         ms.stop()
         raise
     stopped.wait()
+    if stop_gateways is not None:
+        stop_gateways()
     if fs is not None:
         fs.stop()
     served.stop()
@@ -627,10 +635,138 @@ def _filer_server(opt, master: str, store: str, meta_log: str, **kw):
         sys.exit(2)
 
 
+def _started(server, what: str):
+    """`server.start()`; a server whose port cannot be bound exits with
+    its message."""
+    try:
+        return server.start()
+    except OSError as e:
+        print(f"error: {what}: {e}", file=sys.stderr)
+        sys.exit(2)
+
+
+def _s3_config(fs, gw, iam_server=None, identities: bool = True):
+    """The loaders of the gateway's cluster configuration, kept in the
+    filer under /etc (reference `run_s3_standalone`, :422-600): identities
+    from /etc/iam/identity.json (unless `identities` is False, when -config
+    gave them; through the IAM API's own loader when one runs, so its copy
+    stays the file's), the circuit breaker from /etc/s3/circuit_breaker.json
+    and the QoS policy from /etc/qos/policy.json. Returns `load_all(stage)`;
+    each loader fails on its own, so a bad file leaves the others in
+    force."""
+    import json
+
+    def read(d: str, n: str):
+        entry = fs.filer.find_entry(d, n)
+        if entry is None:
+            return None
+        return json.loads(fs.read_entry_bytes(entry))
+
+    def load_identities():
+        if iam_server is not None:
+            with iam_server._mu:
+                iam_server._load_persisted()
+            return
+        doc = read("/etc/iam", "identity.json")
+        if doc is not None:
+            gw.iam.load(doc)
+            print("s3: identities loaded from filer /etc/iam/identity.json",
+                  file=sys.stderr)
+
+    def load_circuit_breaker():
+        doc = read("/etc/s3", "circuit_breaker.json")
+        if doc is not None:
+            gw.breaker.load(doc)
+            print("s3: circuit breaker loaded from filer "
+                  "/etc/s3/circuit_breaker.json", file=sys.stderr)
+
+    def load_qos_policy():
+        doc = read("/etc/qos", "policy.json")
+        if doc is not None:
+            gw.qos.load(doc)
+            print("s3: qos policy loaded from filer /etc/qos/policy.json",
+                  file=sys.stderr)
+
+    def load_all(stage: str) -> None:
+        loaders = [("identity", load_identities)] if identities else []
+        loaders += [("circuit breaker", load_circuit_breaker),
+                    ("qos policy", load_qos_policy)]
+        for what, load in loaders:
+            try:
+                load()
+            except Exception as e:  # noqa: BLE001
+                print(f"s3: {what} {stage}: {e}", file=sys.stderr)
+
+    return load_all
+
+
+def _watch_etc(fs, load_all, stop: threading.Event) -> None:
+    """Reload the gateway's configuration whenever an entry under /etc
+    changes (reference auth_credentials_subscribe.go): the in-process
+    filer's meta log, or a remote filer's SubscribeMetadata."""
+    import time
+
+    def under_etc(d: str) -> bool:
+        return d == "/etc" or d.startswith("/etc/")
+
+    def run():
+        since = time.time_ns()
+        if hasattr(fs.filer, "subscribe"):  # a remote filer's stream
+            events = fs.filer.subscribe(since, stop, path_prefix="/etc")
+        else:
+            events = fs.filer.meta_log.subscribe(since, stop)
+        try:
+            for resp in events:
+                if under_etc(resp.directory):
+                    load_all("reload")
+        except Exception as e:  # noqa: BLE001 — the daemon keeps serving
+            if not stop.is_set():
+                print(f"s3: /etc watch ended: {e}", file=sys.stderr)
+
+    threading.Thread(target=run, daemon=True, name="s3-conf-watch").start()
+
+
+def _embedded_gateways(opt, fs, s3_port: int, iam_port: int):
+    """`-s3` and `-iam` over an in-process filer (the filer and server
+    verbs): the gateway with its /etc configuration loaded before it
+    serves, and watched after, and the IAM API over its identities.
+    Returns a stop function."""
+    from .iam import IamApiServer
+    from .s3.auth import IdentityAccessManagement
+    from .s3.s3_server import S3Gateway
+    stop = threading.Event()
+    gw = S3Gateway(fs, ip=opt.ip, port=s3_port) if opt.s3 else None
+    iam = None
+    if opt.iam:
+        # loads the filer's identity.json into the gateway's identities
+        iam = IamApiServer(gw.iam if gw is not None
+                           else IdentityAccessManagement(None),
+                           filer_server=fs, ip=opt.ip, port=iam_port)
+    if gw is not None:
+        load_all = _s3_config(fs, gw, iam)
+        load_all("load")
+        _watch_etc(fs, load_all, stop)
+        _started(gw, "s3")
+        print(f"s3 {gw.url} over filer {fs.url}", flush=True)
+    if iam is not None:
+        _started(iam, "iam")
+        print(f"iam {iam.url} over filer {fs.url}", flush=True)
+
+    def stop_all():
+        stop.set()
+        for srv in (iam, gw):
+            if srv is not None:
+                srv.stop()
+    return stop_all
+
+
 def run_filer(argv) -> int:
     """The standalone filer daemon (reference command/filer.go and
     `run_filer`, :352). It does no device work and loads no torch. `-s3`
-    refuses: the S3 gateway waits for ROADMAP Queue 1 item 4."""
+    embeds the S3 gateway and `-iam` (port only) the IAM API over its
+    identities; the gateway loads its /etc configuration from this filer
+    and reloads it when it changes (the reference's embedded gateway runs
+    open and reads no /etc)."""
     import os
     import tempfile
 
@@ -657,13 +793,12 @@ def run_filer(argv) -> int:
                    help="optional disk tier for the chunk cache")
     p.add_argument("-s3", action="store_true",
                    help="embed an S3 gateway over this filer "
-                        "(not ported yet)")
+                        "(reference `weed filer -s3`)")
     p.add_argument("-s3Port", type=int, default=8333)
+    p.add_argument("-iam", action="store_true",
+                   help="embed the IAM API over the gateway's identities")
+    p.add_argument("-iamPort", type=int, default=8111)
     opt = p.parse_args(argv)
-    if opt.s3:
-        print("error: filer -s3: the S3 gateway is not ported yet (ROADMAP "
-              "Queue 1 item 4, S3 and IAM)", file=sys.stderr)
-        return 2
     store = opt.store
     if not store:
         from .utils import config as cfg
@@ -693,8 +828,72 @@ def run_filer(argv) -> int:
         chunk_cache_dir=opt.chunkCacheDir or None)
     print(f"filer {fs.url} (grpc :{fs.grpc_port}, store {store}) on master "
           f"{opt.master}", flush=True)
+    # the embedded gateway rides the in-process filer: S3 GET/PUT go
+    # through the streaming large-object data plane directly
+    stop_gateways = _embedded_gateways(opt, fs, opt.s3Port, opt.iamPort)
     stopped.wait()
+    stop_gateways()
     fs.stop()
+    return 0
+
+
+def run_s3(argv) -> int:
+    """The standalone S3 gateway over a remote filer (reference
+    command/s3.go and `run_s3_standalone`, :422): identities from -config,
+    else from the filer's /etc/iam/identity.json; the circuit breaker and
+    the QoS policy from /etc; all reloaded when /etc changes. It loads no
+    torch."""
+    import json
+
+    from .client.filer_client import FilerClient
+    from .s3.s3_server import S3Gateway
+    p = argparse.ArgumentParser(prog="s3")
+    p.add_argument("-filer", default="127.0.0.1:8888")
+    p.add_argument("-ip", default="127.0.0.1")
+    p.add_argument("-port", type=int, default=8333)
+    p.add_argument("-config", default="", help="identities json file")
+    opt = p.parse_args(argv)
+    iam_config = None
+    if opt.config:
+        with open(opt.config) as f:
+            iam_config = json.load(f)
+    stopped = _signals()
+    fc = FilerClient(opt.filer)
+    gw = S3Gateway(fc, ip=opt.ip, port=opt.port, iam_config=iam_config)
+    load_all = _s3_config(fc, gw, identities=not opt.config)
+    load_all("load")
+    stop = threading.Event()
+    _watch_etc(fc, load_all, stop)
+    _started(gw, "s3")
+    print(f"s3 {gw.url} over filer {opt.filer}", flush=True)
+    stopped.wait()
+    stop.set()
+    gw.stop()
+    fc.close()
+    return 0
+
+
+def run_iam(argv) -> int:
+    """The standalone IAM API over a remote filer (reference
+    command/iam.go and `run_iam_standalone`, :605): identities persist in
+    the filer's /etc/iam/identity.json. It loads no torch."""
+    from .client.filer_client import FilerClient
+    from .iam import IamApiServer
+    from .s3.auth import IdentityAccessManagement
+    p = argparse.ArgumentParser(prog="iam")
+    p.add_argument("-filer", default="127.0.0.1:8888")
+    p.add_argument("-ip", default="127.0.0.1")
+    p.add_argument("-port", type=int, default=8111)
+    opt = p.parse_args(argv)
+    stopped = _signals()
+    fc = FilerClient(opt.filer)
+    iam = _started(IamApiServer(IdentityAccessManagement(None),
+                                filer_server=fc, ip=opt.ip, port=opt.port),
+                   "iam")
+    print(f"iam {iam.url} over filer {opt.filer}", flush=True)
+    stopped.wait()
+    iam.stop()
+    fc.close()
     return 0
 
 
@@ -895,7 +1094,8 @@ VERBS = {"master": run_master, "volume": run_volume, "server": run_server,
          "download": run_download, "fix": run_fix,
          "benchmark": run_benchmark, "filer": run_filer,
          "filer.copy": run_filer_copy, "filer.meta.tail": run_filer_meta_tail,
-         "filer.cat": run_filer_cat, "filer.meta.backup": run_filer_meta_backup}
+         "filer.cat": run_filer_cat, "filer.meta.backup": run_filer_meta_backup,
+         "s3": run_s3, "iam": run_iam}
 
 
 def main(argv=None) -> int:

@@ -17,7 +17,14 @@ matching the in-process server's chunking.
 
 The port's copy of seaweedfs_tpu/client/filer_client.py: it speaks the
 reference's wire, so it drives a filer of either package. The replication
-plane it names comes with a later slice of the port.
+plane it names comes with a later slice of the port. Its differences:
+`write_file` returns the created entry and records the content's md5 in
+it, as FilerServer.write_file does (the reference returns None, so its
+standalone S3 gateway, which reads the entry's md5 for the ETag, fails
+every PutObject); `.filer.store.delete_entry` removes metadata only, as
+a store's does (the reference's deletes the chunks too, so a multipart
+object completed through it lost its parts' bytes); a TTL goes to the
+volume side as filer_server.volume_ttl spells it, not as "<seconds>s".
 """
 
 from __future__ import annotations
@@ -188,11 +195,11 @@ class FilerClient:
 
     def write_file(self, path: str, data: bytes, mime: str = "",
                    ttl_sec: int = 0, mode: int = 0o644,
-                   signatures: "list[int] | None" = None) -> None:
+                   signatures: "list[int] | None" = None) -> fpb.Entry:
         """Chunked upload straight into the blob cluster + CreateEntry,
-        mirroring FilerServer.write_file."""
-        self.write_file_stream(path, (data,), mime=mime, ttl_sec=ttl_sec,
-                               mode=mode, signatures=signatures)
+        mirroring FilerServer.write_file: returns the created entry, which
+        carries the content's md5 as the server's does."""
+        return self._write(path, (data,), mime, ttl_sec, mode, signatures)
 
     def write_file_stream(self, path: str, blocks, mime: str = "",
                           ttl_sec: int = 0, mode: int = 0o644,
@@ -200,10 +207,19 @@ class FilerClient:
         """write_file over an iterable of byte blocks: repacks into
         chunk_size pieces and uploads as they arrive, so a gateway upload
         (FTP STOR) holds at most one chunk in memory. Returns total bytes."""
+        return self._write(path, blocks, mime, ttl_sec, mode,
+                           signatures).attributes.file_size
+
+    def _write(self, path: str, blocks, mime: str, ttl_sec: int, mode: int,
+               signatures: "list[int] | None") -> fpb.Entry:
+        import hashlib
+
         from ..filer.filer import split_path
+        from ..filer.filer_server import volume_ttl
 
         directory, name = split_path(path)
-        ttl = f"{ttl_sec}s" if ttl_sec else ""
+        ttl = volume_ttl(ttl_sec)
+        md5 = hashlib.md5(usedforsecurity=False)
         chunks = []
         uploaded: "list[tuple[str, str]]" = []  # (url, jwt) for rollback
         buf = bytearray()
@@ -223,6 +239,7 @@ class FilerClient:
         try:
             for block in blocks:
                 if block:
+                    md5.update(block)
                     buf += block
                     flush(final=False)
             flush(final=True)
@@ -244,8 +261,28 @@ class FilerClient:
         at.mime = mime
         at.file_mode = mode
         at.ttl_sec = ttl_sec
+        at.md5 = md5.digest()
         self.filer.create_entry(directory, entry, signatures=signatures)
-        return off
+        return entry
+
+
+class _StoreFacade:
+    """`.filer.store`: the store-level calls, remoted. Its delete_entry
+    removes an entry's metadata and never its chunks, as a store's does
+    (the S3 gateway's multipart completion drops the part entries whose
+    chunks the object now owns); the reference's facade deletes the data
+    too, so a completed multipart object through a remote filer lost its
+    bytes."""
+
+    def __init__(self, filer: "_FilerFacade"):
+        self._filer = filer
+
+    def delete_entry(self, directory: str, name: str) -> None:
+        self._filer.delete_entry(directory, name, is_delete_data=False,
+                                 is_recursive=False)
+
+    def __getattr__(self, name):
+        return getattr(self._filer, name)
 
 
 class _FilerFacade:
@@ -254,7 +291,7 @@ class _FilerFacade:
     def __init__(self, fc: FilerClient, signature: int):
         self.fc = fc
         self.signature = signature
-        self.store = self
+        self.store = _StoreFacade(self)
         self.meta_log = self
 
     # -- entries -------------------------------------------------------------

@@ -18,7 +18,7 @@ The port's copy of seaweedfs_tpu/filer/filer_server.py. Its differences:
   catch-all reads its body as a fastweb BodyStream of at most
   fastweb.STREAM_BOUND queued bytes, so the reference's relay between the loop
   and the chunking writer (`stream_write`, :641-728) is a plain reader of
-  that stream; GETs larger than a chunk go out as a fastweb streamed
+  that stream, with the reference's `observer` and `finalize` hooks; GETs larger than a chunk go out as a fastweb streamed
   Response over `read_entry_windows`, so the reference's memory bound,
   O(chunk_size x SWTPU_FILER_UPLOAD_CONC) and not the object's size,
   holds. `stream_peaks` keeps the high-water marks that show it: a PUT
@@ -30,6 +30,11 @@ The port's copy of seaweedfs_tpu/filer/filer_server.py. Its differences:
   fetches after it keep their own filer.blob.read spans in the trace.
 * Remote-mounted entries (remote/remote_mount.py) are not ported yet: a
   read of an uncached remote entry raises (ROADMAP Queue 1).
+* A write with a TTL (`?ttl=`, or a path rule's `ttl`, such as the S3
+  gateway's lifecycle rules) sends it to the volume side in a unit
+  storage/types.TTL.parse reads: the rule's own string, else
+  `volume_ttl(seconds)`. The reference sends "<seconds>s", which TTL.parse
+  refuses, so each such write fails there.
 * The filer does no device work and imports no torch.
 """
 
@@ -450,10 +455,15 @@ class FilerServer:
         directory, name = split_path(path)
         collection, replication, rule_ttl, _disk, _fsync = \
             self._storage_rule(path)
+        ttl = volume_ttl(ttl_sec)
         if not ttl_sec and rule_ttl:
-            # a path rule's ttl applies to entry expiry AND needle ttl
+            # a path rule's ttl applies to entry expiry AND needle ttl;
+            # the rule's own string goes to the volume side, which parses
+            # it (the reference sends "<seconds>s", which TTL.parse
+            # refuses, so every write under a TTL rule failed)
             from ..storage.types import TTL
             ttl_sec = TTL.parse(rule_ttl).seconds
+            ttl = rule_ttl
         md5 = hashlib.md5(usedforsecurity=False)  # content fingerprint
         total = 0
 
@@ -475,7 +485,6 @@ class FilerServer:
             if buf:
                 yield off, bytes(buf)
 
-        ttl = f"{ttl_sec}s" if ttl_sec else ""
         chunks = self._save_chunks_windowed(chunked(), ttl, path)
         data_fids = [c.file_id for c in chunks if c.file_id]
         try:
@@ -660,7 +669,7 @@ class FilerServer:
         return req.path.rstrip("/") or "/"
 
     async def stream_write(self, stream, path: str, mime: str = "",
-                           ttl_sec: int = 0):
+                           ttl_sec: int = 0, observer=None, finalize=None):
         """Write a streamed request body (a fastweb BodyStream) through
         write_file_stream on a worker thread, which reads the body's
         pieces as they arrive. Memory stays O(stream bound + chunk_size x
@@ -668,15 +677,28 @@ class FilerServer:
         body's queue is full, and the upload window pulls pieces only as
         slots free. A client that drops mid-body ends the pieces with an
         error, which aborts the write and deletes the chunks that landed
-        (write_file_stream's no-orphan guarantee); nothing is published."""
+        (write_file_stream's no-orphan guarantee); nothing is published.
+        `observer(piece)` sees every piece as it arrives (e.g. an
+        incremental sha256); `finalize()` runs after the last piece and
+        BEFORE the entry is committed — raising there aborts the write the
+        same way."""
         import asyncio
 
         loop = asyncio.get_running_loop()
         ctx = contextvars.copy_context()
+
+        def pieces():
+            for piece in stream.blocking_iter(loop):
+                if observer is not None:
+                    observer(piece)
+                yield piece
+            if finalize is not None:
+                finalize()
+
         try:
             return await loop.run_in_executor(
                 self._stream_pool, ctx.run, self.write_file_stream, path,
-                stream.blocking_iter(loop), mime, ttl_sec)
+                pieces(), mime, ttl_sec)
         finally:
             peaks = self.stream_peaks
             peaks["queued"] = max(peaks["queued"], stream.max_queued)
@@ -903,8 +925,8 @@ class FilerServer:
                 a = self.mc.assign(count=req.count or 1,
                                    collection=collection,
                                    replication=replication,
-                                   ttl=(f"{req.ttl_sec}s" if req.ttl_sec
-                                        else rule_ttl),
+                                   ttl=(volume_ttl(req.ttl_sec)
+                                        if req.ttl_sec else rule_ttl),
                                    disk_type=req.disk_type or disk)
                 return fpb.AssignVolumeResponse(
                     file_id=a.fid, location_url=a.location.url,
@@ -1068,6 +1090,29 @@ def _http_range(raw: "str | None") -> "tuple[int | None, int | None]":
     if start is None and end is None:
         raise ValueError("No start or end of range specified")
     return start, end
+
+
+_TTL_UNITS = (("y", 31536000), ("M", 2592000), ("w", 604800),
+              ("d", 86400), ("h", 3600), ("m", 60))
+
+
+def volume_ttl(ttl_sec: int) -> str:
+    """A TTL of `ttl_sec` seconds as the volume side's TTL.parse reads it:
+    a count of at most 255 (the needle's one-byte count) in the largest
+    unit that divides it, else rounded up to the smallest unit that fits
+    (the volume side counts no seconds: 90 s keeps a needle 2 minutes).
+    "" for no TTL. The reference sends "<seconds>s", which TTL.parse
+    refuses (ROADMAP Queue 3: a filer write with a TTL failed)."""
+    if ttl_sec <= 0:
+        return ""
+    for suffix, unit in _TTL_UNITS:
+        if ttl_sec % unit == 0 and ttl_sec // unit <= 255:
+            return f"{ttl_sec // unit}{suffix}"
+    for suffix, unit in reversed(_TTL_UNITS):
+        count = -(-ttl_sec // unit)
+        if count <= 255:
+            return f"{count}{suffix}"
+    return "255y"
 
 
 def _parse_ttl_sec(s: str) -> int:

@@ -8,10 +8,12 @@ command_s3_bucket_*.go. Filer discovery: `-filer host:port` per command
 or the shell-wide default (reference resolves filers from the master
 cluster list).
 
-The port's copy of seaweedfs_tpu/shell/fs_commands.py: every fs.* command
-and volume.fsck. The s3.* commands wait for the port's S3 slice and
-fs.meta.notify for its notification/ (ROADMAP Queue 1). HTTP goes through
-client/http_util instead of requests.
+The port's copy of seaweedfs_tpu/shell/fs_commands.py: every fs.* command,
+volume.fsck and every s3.* command (s3.bucket.*, s3.bucket.quota[.check],
+s3.clean.uploads, s3.configure, s3.circuitbreaker). fs.meta.notify waits
+for the port's notification/ (ROADMAP Queue 1). HTTP goes through
+client/http_util instead of requests; the FilerClient that s3.configure and
+s3.circuitbreaker open is closed after use.
 """
 
 from __future__ import annotations
@@ -702,3 +704,283 @@ def cmd_fs_log_purge(env: CommandEnv, args):
         "PurgeMetaLog", fpb.PurgeMetaLogRequest(before_ns=before),
         fpb.PurgeMetaLogResponse)
     env.println(f"purged {resp.purged} meta-log event(s)")
+
+
+# -- s3.* (the buckets, their quotas and multipart staging) -------------
+
+@command("s3.bucket.list", "list buckets")
+def cmd_s3_bucket_list(env: CommandEnv, args):
+    p = _fs_parser("s3.bucket.list")
+    opt = p.parse_args(args)
+    stub = _filer_stub(env, opt.filer)
+    try:
+        for e in _list_entries(stub, BUCKETS_DIR):
+            if e.is_directory and not e.name.startswith("."):
+                env.println(e.name)
+    except Exception:  # noqa: BLE001
+        env.println("(no buckets)")
+
+
+@command("s3.bucket.create", "create a bucket")
+def cmd_s3_bucket_create(env: CommandEnv, args):
+    p = _fs_parser("s3.bucket.create")
+    p.add_argument("-name", required=True)
+    opt = p.parse_args(args)
+    stub = _filer_stub(env, opt.filer)
+    req = fpb.CreateEntryRequest(directory=BUCKETS_DIR)
+    req.entry.name = opt.name
+    req.entry.is_directory = True
+    req.entry.attributes.file_mode = 0o755
+    resp = stub.call("CreateEntry", req, fpb.CreateEntryResponse)
+    env.println(resp.error or f"created bucket {opt.name}")
+
+
+@command("s3.bucket.delete", "delete a bucket and its objects")
+def cmd_s3_bucket_delete(env: CommandEnv, args):
+    p = _fs_parser("s3.bucket.delete")
+    p.add_argument("-name", required=True)
+    opt = p.parse_args(args)
+    env.confirm_is_locked()
+    stub = _filer_stub(env, opt.filer)
+    resp = stub.call("DeleteEntry", fpb.DeleteEntryRequest(
+        directory=BUCKETS_DIR, name=opt.name, is_delete_data=True,
+        is_recursive=True), fpb.DeleteEntryResponse)
+    env.println(resp.error or f"deleted bucket {opt.name}")
+
+
+@command("s3.bucket.quota", "-bucket B [-sizeMB N | -remove]: set or clear "
+         "a bucket size quota")
+def cmd_s3_bucket_quota(env: CommandEnv, args):
+    """Reference command_s3_bucket_quota.go: quota rides the bucket entry's
+    extended attributes."""
+    p = _fs_parser("s3.bucket.quota")
+    p.add_argument("-bucket", required=True)
+    p.add_argument("-sizeMB", type=int, default=0)
+    p.add_argument("-remove", action="store_true")
+    opt = p.parse_args(args)
+    stub = _filer_stub(env, opt.filer)
+    resp = stub.call("LookupDirectoryEntry",
+                     fpb.LookupDirectoryEntryRequest(directory=BUCKETS_DIR,
+                                                     name=opt.bucket),
+                     fpb.LookupDirectoryEntryResponse)
+    entry = fpb.Entry()
+    entry.CopyFrom(resp.entry)
+    if opt.remove:
+        entry.extended.pop("quota_mb", None)
+        entry.extended.pop("quota_readonly", None)
+    else:
+        entry.extended["quota_mb"] = str(opt.sizeMB).encode()
+    stub.call("CreateEntry",
+              fpb.CreateEntryRequest(directory=BUCKETS_DIR, entry=entry),
+              fpb.CreateEntryResponse)
+    env.println(f"bucket {opt.bucket} quota "
+                + ("removed" if opt.remove else f"{opt.sizeMB} MB"))
+
+
+@command("s3.bucket.quota.check", "enforce bucket quotas: over-quota buckets "
+         "become read-only", aliases=("s3.bucket.quota.enforce",))
+def cmd_s3_bucket_quota_check(env: CommandEnv, args):
+    """Reference command_s3_bucket_quota_check.go."""
+    opt = _fs_parser("s3.bucket.quota.check").parse_args(args)
+    stub = _filer_stub(env, opt.filer)
+    for e in _list_entries(stub, BUCKETS_DIR):
+        if not e.is_directory:
+            continue
+        quota_mb = int(e.extended.get("quota_mb", b"0") or b"0")
+        if not quota_mb:
+            continue
+        used = sum(x.attributes.file_size
+                   for _p, x in _walk(stub, f"{BUCKETS_DIR}/{e.name}")
+                   if not x.is_directory)
+        over = used > quota_mb << 20
+        was = e.extended.get("quota_readonly") == b"1"
+        if over != was:
+            upd = fpb.Entry()
+            upd.CopyFrom(e)
+            if over:
+                upd.extended["quota_readonly"] = b"1"
+            else:
+                upd.extended.pop("quota_readonly", None)
+            stub.call("CreateEntry",
+                      fpb.CreateEntryRequest(directory=BUCKETS_DIR,
+                                             entry=upd),
+                      fpb.CreateEntryResponse)
+        env.println(f"  {e.name}: {used >> 20} / {quota_mb} MB"
+                    + (" READONLY" if over else ""))
+    env.println("quota check done")
+
+
+@command("s3.clean.uploads", "[-timeAgo 24h]: purge stale multipart upload "
+         "staging")
+def cmd_s3_clean_uploads(env: CommandEnv, args):
+    """Reference command_s3_clean_uploads.go: multipart staging lives under
+    /buckets/<b>/.uploads/<id>; abandoned ids older than -timeAgo go."""
+    import time as _time
+
+    from ..storage.types import TTL
+
+    p = _fs_parser("s3.clean.uploads")
+    p.add_argument("-timeAgo", default="24h")
+    opt = p.parse_args(args)
+    stub = _filer_stub(env, opt.filer)
+    cutoff = _time.time() - TTL.parse(opt.timeAgo).seconds  # swtpu-lint: disable=wallclock-duration (compared to persisted mtime)
+    removed = 0
+    for b in _list_entries(stub, BUCKETS_DIR):
+        if not b.is_directory:
+            continue
+        updir = f"{BUCKETS_DIR}/{b.name}/.uploads"
+        for u in _list_entries(stub, updir):
+            if (u.attributes.mtime or u.attributes.crtime) < cutoff:
+                stub.call("DeleteEntry",
+                          fpb.DeleteEntryRequest(directory=updir,
+                                                 name=u.name,
+                                                 is_delete_data=True,
+                                                 is_recursive=True),
+                          fpb.DeleteEntryResponse)
+                removed += 1
+                env.println(f"  removed {updir}/{u.name}")
+    env.println(f"cleaned {removed} stale uploads")
+
+
+# -- s3 cluster configuration (stored in the filer, hot-reloaded) ---------
+
+IAM_DIR, IAM_FILE = "/etc/iam", "identity.json"
+CB_DIR, CB_FILE = "/etc/s3", "circuit_breaker.json"
+
+
+def _read_filer_json(env: CommandEnv, opt_filer: str, d: str, n: str) -> dict:
+    import json
+
+    from ..client.filer_client import FilerClient
+    fc = FilerClient(_filer_addr(env, opt_filer))
+    try:
+        entry = fc.filer.find_entry(d, n)
+        if entry is None:
+            return {}
+        return json.loads(fc.read_entry_bytes(entry) or b"{}")
+    finally:
+        fc.close()
+
+
+def _write_filer_json(env: CommandEnv, opt_filer: str, d: str, n: str,
+                      obj: dict) -> None:
+    import json
+
+    from ..client.filer_client import FilerClient
+    fc = FilerClient(_filer_addr(env, opt_filer))
+    try:
+        fc.write_file(f"{d}/{n}", json.dumps(obj, indent=2).encode(),
+                      mime="application/json")
+    finally:
+        fc.close()
+
+
+@command("s3.configure", "[-user u] [-access_key ak -secret_key sk] "
+         "[-actions Read,Write[:bucket]] [-buckets b1,b2] [-delete] "
+         "[-apply]: manage S3 identities stored in the filer")
+def cmd_s3_configure(env: CommandEnv, args):
+    """Reference command_s3_configure.go: edits /etc/iam/identity.json in
+    the filer; running S3 gateways hot-reload it (standalone s3 verb
+    subscribes to /etc). Without -apply, prints the resulting config."""
+    import json
+
+    p = _fs_parser("s3.configure")
+    p.add_argument("-user", default="")
+    p.add_argument("-access_key", default="")
+    p.add_argument("-secret_key", default="")
+    p.add_argument("-actions", default="",
+                   help="comma list: Read,Write,List,Tagging,Admin, "
+                        "optionally scoped Action:bucket")
+    p.add_argument("-buckets", default="",
+                   help="scope every -actions entry to these buckets")
+    p.add_argument("-delete", action="store_true")
+    p.add_argument("-apply", action="store_true")
+    opt = p.parse_args(args)
+    conf = _read_filer_json(env, opt.filer, IAM_DIR, IAM_FILE)
+    idents = conf.setdefault("identities", [])
+    if opt.user:
+        ident = next((i for i in idents if i.get("name") == opt.user), None)
+        if opt.delete:
+            if ident is None:
+                env.println(f"user {opt.user!r} not found")
+                return
+            idents.remove(ident)
+        else:
+            if ident is None:
+                ident = {"name": opt.user, "credentials": [], "actions": []}
+                idents.append(ident)
+            if opt.access_key:
+                ident.setdefault("credentials", [])
+                cred = {"accessKey": opt.access_key,
+                        "secretKey": opt.secret_key}
+                ident["credentials"] = [
+                    c for c in ident["credentials"]
+                    if c.get("accessKey") != opt.access_key] + [cred]
+            if opt.actions:
+                actions = [a.strip() for a in opt.actions.split(",")
+                           if a.strip()]
+                if opt.buckets:
+                    actions = [f"{a}:{b.strip()}"
+                               for a in actions
+                               for b in opt.buckets.split(",") if b.strip()]
+                ident["actions"] = sorted(set(ident.get("actions", []))
+                                          | set(actions))
+    env.println(json.dumps(conf, indent=2))
+    if not opt.apply:
+        env.println("dry run; pass -apply to save")
+        return
+    _write_filer_json(env, opt.filer, IAM_DIR, IAM_FILE, conf)
+    env.println(f"saved {IAM_DIR}/{IAM_FILE}")
+
+
+@command("s3.circuitbreaker", "[-global] [-buckets b1,b2] "
+         "[-actions Read,Write] [-countLimit N] [-disable] [-apply]: "
+         "manage the S3 concurrent-request breaker config")
+def cmd_s3_circuitbreaker(env: CommandEnv, args):
+    """Reference command_s3_circuitbreaker.go: edits
+    /etc/s3/circuit_breaker.json in the filer; gateways hot-reload it.
+    Limits are concurrent in-flight requests per action; exceeding one
+    returns 503 SlowDown (s3/circuit_breaker.py)."""
+    import json
+
+    p = _fs_parser("s3.circuitbreaker")
+    p.add_argument("-global", dest="global_", action="store_true",
+                   help="apply -countLimit to the global scope")
+    p.add_argument("-buckets", default="",
+                   help="apply -countLimit to these buckets")
+    p.add_argument("-actions", default="Read,Write",
+                   help="actions to limit (Read,Write,List,Admin)")
+    p.add_argument("-countLimit", type=int, default=0)
+    p.add_argument("-disable", action="store_true",
+                   help="remove the selected limits")
+    p.add_argument("-apply", action="store_true")
+    opt = p.parse_args(args)
+    conf = _read_filer_json(env, opt.filer, CB_DIR, CB_FILE)
+    actions = [a.strip() for a in opt.actions.split(",") if a.strip()]
+    if opt.global_:
+        g = conf.setdefault("global", {})
+        for a in actions:
+            if opt.disable:
+                g.pop(a, None)
+            elif opt.countLimit:
+                g[a] = opt.countLimit
+    for b in [b.strip() for b in opt.buckets.split(",") if b.strip()]:
+        bl = conf.setdefault("buckets", {}).setdefault(b, {})
+        for a in actions:
+            if opt.disable:
+                bl.pop(a, None)
+            elif opt.countLimit:
+                bl[a] = opt.countLimit
+    # prune empty scopes so 'disabled' really disables
+    conf["buckets"] = {b: v for b, v in (conf.get("buckets") or {}).items()
+                       if v}
+    if not conf.get("buckets"):
+        conf.pop("buckets", None)
+    if not conf.get("global"):
+        conf.pop("global", None)
+    env.println(json.dumps(conf, indent=2) if conf else "(breaker disabled)")
+    if not opt.apply:
+        env.println("dry run; pass -apply to save")
+        return
+    _write_filer_json(env, opt.filer, CB_DIR, CB_FILE, conf)
+    env.println(f"saved {CB_DIR}/{CB_FILE}")

@@ -8,7 +8,10 @@ reference's version after the port's name. The filer's verbs: a `filer`
 daemon over a sqlite store, `filer.copy` of a directory tree and a file,
 `filer.cat` of each, `filer.meta.tail` seeing one create a file and one
 delete a removal, `filer.meta.backup` holding the filer's entries, and
-`server -filer` serving the same verbs."""
+`server -filer` serving the same verbs. The S3 verbs: `filer -s3 -iam`,
+the standalone `s3` and `iam` over a filer with identities from the
+filer's /etc (s3.configure, the IAM API) reloaded while they run, and
+phase 21 of chip_smoke.py at a small size."""
 
 import hashlib
 import json
@@ -80,7 +83,7 @@ def test_usage_lists_the_new_verbs():
     for verb in ("upload", "download", "benchmark", "backup",
                  "master.follow", "export", "compact", "version", "fix",
                  "filer", "filer.copy", "filer.cat", "filer.meta.tail",
-                 "filer.meta.backup"):
+                 "filer.meta.backup", "s3", "iam"):
         assert verb in r.stderr
 
 
@@ -326,23 +329,146 @@ def test_filer_meta_backup_holds_the_entries(filer_verb, tmp_path):
         fc.close()
 
 
+def _s3_call(port: int, method: str, path: str, body: bytes = b"",
+             key=None, service: str = "s3", headers=None):
+    """A request to a gateway or IAM API on `port`, signed with `key`
+    (access, secret) by the port's SigV4 signer; (status, body)."""
+    import http.client
+
+    from seaweedfs_tpu_torch.s3 import auth
+    headers = dict(headers or {})
+    if key is not None:
+        headers = auth.sign_request_v4(method,
+                                       f"http://127.0.0.1:{port}{path}",
+                                       headers, body, key[0], key[1],
+                                       service=service)
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        c.request(method, path, body=body or None, headers=headers)
+        r = c.getresponse()
+        return r.status, r.read()
+    finally:
+        c.close()
+
+
+def _iam_call(port: int, params: dict, key=None):
+    import urllib.parse
+    return _s3_call(port, "POST", "/",
+                    urllib.parse.urlencode(params).encode(), key, "iam",
+                    {"Content-Type": "application/x-www-form-urlencoded"})
+
+
 def test_filer_verb_refuses_s3_and_stops_cleanly(cluster, tmp_path):
-    """`filer -s3` refuses and names the slice the gateway waits for; a
-    filer on a memory store stops on SIGTERM with rc 0."""
-    r = subprocess.run([sys.executable, "-m", "seaweedfs_tpu_torch", "filer",
-                        "-master", cluster["master"].address, "-s3"],
-                       capture_output=True, text=True, timeout=60, cwd=REPO)
-    assert r.returncode == 2 and "ROADMAP Queue 1 item 4" in r.stderr
-    port = tc.free_port_pair()
+    """`filer -s3 -iam` (the gateway once refused) serves S3 and the IAM
+    API over the filer, the gateway open until an identity exists; an
+    identity the IAM API makes signs an S3 request, and the filer stops
+    on SIGTERM with rc 0."""
+    import re
+    port, s3port, iamport = (tc.free_port_pair() for _ in range(3))
     proc = _spawn("filer", "-master", cluster["master"].address, "-port",
-                  str(port), "-store", "memory", "-noPeerMeta")
+                  str(port), "-store", "memory", "-noPeerMeta", "-s3",
+                  "-s3Port", str(s3port), "-iam", "-iamPort", str(iamport))
     try:
         _wait_http(port, proc)
+        tc.wait_until(lambda: _s3_call(s3port, "GET", "/")[0] == 200,
+                      msg="the open gateway")
+        assert _s3_call(s3port, "PUT", "/open")[0] == 200
+        assert _iam_call(iamport, {"Action": "CreateUser",
+                                   "UserName": "u"})[0] == 200
+        assert _iam_call(iamport, {
+            "Action": "PutUserPolicy", "UserName": "u", "PolicyName": "p",
+            "PolicyDocument": json.dumps({"Statement": [{
+                "Effect": "Allow", "Action": ["s3:*"],
+                "Resource": ["arn:aws:s3:::*"]}]})})[0] == 200
+        st, body = _iam_call(iamport, {"Action": "CreateAccessKey",
+                                       "UserName": "u"})
+        assert st == 200
+        key = (re.search(rb"<AccessKeyId>([^<]*)<", body).group(1).decode(),
+               re.search(rb"<SecretAccessKey>([^<]*)<", body).group(1)
+               .decode())
+        assert _s3_call(s3port, "GET", "/")[0] == 403
+        assert _s3_call(s3port, "PUT", "/open/o.bin", b"abc", key)[0] == 200
+        assert _s3_call(s3port, "GET", "/open/o.bin", b"", key) == \
+            (200, b"abc")
     finally:
         proc.terminate()
         out = proc.communicate(timeout=30)[0].decode()
     assert proc.returncode == 0, out
     assert f"filer 127.0.0.1:{port} (grpc :{port + 10000}" in out
+    assert f"s3 127.0.0.1:{s3port} over filer" in out
+    assert f"iam 127.0.0.1:{iamport} over filer" in out
+
+
+def test_s3_and_iam_verbs_over_a_filer(filer_verb, tmp_path):
+    """The standalone `s3 -filer` and `iam -filer` over the filer daemon:
+    s3.configure (the port's shell) stores an identity in the filer's /etc,
+    which the running gateway reloads; the `iam` verb makes a user and key
+    that persist there and that the gateway reloads too; `s3 -config`
+    takes its identities from a file instead."""
+    import re
+    import time
+    faddr = f"127.0.0.1:{filer_verb['port']}"
+    s3port, iamport, cfgport = (tc.free_port_pair() for _ in range(3))
+    cfg = tmp_path / "ids.json"
+    cfg.write_text(json.dumps({"identities": [{
+        "name": "f", "credentials": [{"accessKey": "FILEKEY",
+                                      "secretKey": "filesecret"}],
+        "actions": ["Admin"]}]}))
+    procs = [_spawn("s3", "-filer", faddr, "-port", str(s3port)),
+             _spawn("iam", "-filer", faddr, "-port", str(iamport)),
+             _spawn("s3", "-filer", faddr, "-port", str(cfgport), "-config",
+                    str(cfg))]
+    admin = ("CLIADMIN", "cli-admin-secret")
+    try:
+        for port in (s3port, cfgport):
+            tc.wait_until(lambda port=port: _s3_call(port, "GET", "/")[0]
+                          in (200, 403), msg="the s3 verb")
+        assert _s3_call(cfgport, "GET", "/")[0] == 403
+        assert _s3_call(cfgport, "GET", "/", key=("FILEKEY",
+                                                  "filesecret"))[0] == 200
+        said = _verb("shell", "-master", "127.0.0.1:1", "-c",
+                     f"s3.configure -filer {faddr} -user admin "
+                     f"-access_key {admin[0]} -secret_key {admin[1]} "
+                     "-actions Admin -apply")
+        assert "saved /etc/iam/identity.json" in said
+        tc.wait_until(lambda: _s3_call(s3port, "GET", "/")[0] == 403
+                      and _s3_call(s3port, "GET", "/", key=admin)[0] == 200,
+                      timeout=30, msg="the gateway to reload identity.json")
+        # the iam verb read the filer's identities at its start, before
+        # s3.configure wrote them: restart it so it holds them
+        procs[1].terminate()
+        procs[1].wait(timeout=30)
+        procs[1] = _spawn("iam", "-filer", faddr, "-port", str(iamport))
+        tc.wait_until(lambda: _iam_call(iamport, {"Action": "ListUsers"},
+                                        admin)[0] == 200, timeout=30,
+                      msg="the iam verb")
+        assert _iam_call(iamport, {"Action": "ListUsers"})[0] == 403
+        assert _iam_call(iamport, {"Action": "CreateUser", "UserName": "w"},
+                         admin)[0] == 200
+        assert _iam_call(iamport, {
+            "Action": "PutUserPolicy", "UserName": "w", "PolicyName": "p",
+            "PolicyDocument": json.dumps({"Statement": [{
+                "Effect": "Allow", "Action": ["s3:Put*", "s3:Get*"],
+                "Resource": ["arn:aws:s3:::vb/*"]}]})}, admin)[0] == 200
+        st, body = _iam_call(iamport, {"Action": "CreateAccessKey",
+                                       "UserName": "w"}, admin)
+        assert st == 200
+        key = (re.search(rb"<AccessKeyId>([^<]*)<", body).group(1).decode(),
+               re.search(rb"<SecretAccessKey>([^<]*)<", body).group(1)
+               .decode())
+        assert _s3_call(s3port, "PUT", "/vb", key=admin)[0] == 200
+        t = time.monotonic()
+        tc.wait_until(lambda: _s3_call(s3port, "PUT", "/vb/o.bin", b"xyz",
+                                       key)[0] == 200, timeout=30,
+                      msg="the gateway to reload the iam verb's key")
+        assert time.monotonic() - t < 30
+        assert _s3_call(s3port, "GET", "/vb/o.bin", key=key) == (200, b"xyz")
+        assert _s3_call(s3port, "PUT", "/other", key=key)[0] == 403
+    finally:
+        for p in procs:
+            p.terminate()
+            p.wait(timeout=30)
+    assert [p.returncode for p in procs] == [0, 0, 0]
 
 
 def test_server_verb_with_a_filer_serves_the_filer_verbs(tmp_path):
@@ -376,3 +502,20 @@ def test_server_verb_with_a_filer_serves_the_filer_verbs(tmp_path):
     finally:
         proc.terminate()
         proc.wait(timeout=30)
+
+
+def test_s3_round_trip_of_chip_smoke_on_cpu(tmp_path):
+    """Phase 21 of chip_smoke.py on the CPU at a small size (two objects
+    of 6 MiB by multipart in 3 MiB parts at -maxMB 1, so the parts stream;
+    3 MiB signed and 2 MiB aws-chunked PUTs; 24 small objects; a 1 MB
+    chunk cache, so the reads go to the servers; 16 KiB EC small blocks): every step's checks hold, the reads with r1 lost
+    reconstruct, one K1 one-stripe call each, and the restarted filer+S3
+    process serves the same listing to the same keys."""
+    import chip_smoke
+    import torch
+    res = chip_smoke.s3_round_trip(np, torch, str(tmp_path), 9, "cpu", 2, 6,
+                                   3, 2, 3, 2, 24, 4, 4, max_mb=1,
+                                   cache_mb=1, device="cpu",
+                                   small_block=1 << 14)
+    assert res["reconstructs"] == len(res["widths"]) > 0
+    assert res["multipart"] > 0 and res["restart"] > 0

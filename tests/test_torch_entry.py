@@ -102,6 +102,10 @@ print("FILER", all(f"seaweedfs_tpu_torch.{m}" in sys.modules
                              "filer.filer_server", "client.filer_client",
                              "shell.fs_commands", "security.cipher",
                              "pb.filer_pb2", "pb.mq_pb2")))
+print("S3", all(f"seaweedfs_tpu_torch.{m}" in sys.modules
+                for m in ("s3", "s3.auth", "s3.chunked", "s3.circuit_breaker",
+                          "s3.s3_server", "iam", "iam.iam_server",
+                          "pb.s3_pb2", "pb.iam_pb2")))
 print("CODERS", sorted(n for n in ("mesh", "native") if coder._resolve(n)))
 print("BAD", bad)
 """
@@ -120,6 +124,7 @@ def test_import_hygiene_no_jax_no_reference_package():
     assert "PLANES True" in out.stdout, out.stdout
     assert "DATA True" in out.stdout, out.stdout
     assert "FILER True" in out.stdout, out.stdout
+    assert "S3 True" in out.stdout, out.stdout
     assert "CODERS ['mesh', 'native']" in out.stdout, out.stdout
     assert int(out.stdout.split("LOADED ")[1].split()[0]) >= 15
 
@@ -312,11 +317,10 @@ def test_master_verb_help_lists_the_reference_flags():
 
 def test_shell_help_lists_exactly_the_ported_commands():
     """`shell -c help` lists the reference's lock, volume.*, ec.*, fs.*,
-    lifecycle.*, qos.*, cluster.check and cluster.top/profile commands
-    (those of its commands, ec_commands, volume_commands, fs_commands,
-    lifecycle_commands, qos_commands and telemetry_commands modules) and
-    nothing else: the s3.* commands of fs_commands wait for the S3 slice,
-    fs.meta.notify for notification/."""
+    s3.*, lifecycle.*, qos.*, cluster.check and cluster.top/profile
+    commands (those of its commands, ec_commands, volume_commands,
+    fs_commands, lifecycle_commands, qos_commands and telemetry_commands
+    modules) and nothing else: fs.meta.notify waits for notification/."""
     from seaweedfs_tpu.shell import commands as ref_commands
     from seaweedfs_tpu.shell import (ec_commands, fs_commands,  # noqa: F401
                                      lifecycle_commands, qos_commands,
@@ -328,8 +332,7 @@ def test_shell_help_lists_exactly_the_ported_commands():
               "seaweedfs_tpu.shell.qos_commands",
               "seaweedfs_tpu.shell.telemetry_commands"}
     want = sorted(name for name, c in ref_commands.COMMANDS.items()
-                  if c.fn.__module__ in ported
-                  and not name.startswith("s3.") and name != "fs.meta.notify")
+                  if c.fn.__module__ in ported and name != "fs.meta.notify")
     out = _cli("shell", "-master", "127.0.0.1:1", "-c", "help")
     assert out.returncode == 0, out.stderr
     got = [line.split()[0] for line in out.stdout.splitlines()
@@ -338,7 +341,9 @@ def test_shell_help_lists_exactly_the_ported_commands():
     assert {"lock", "unlock", "ec.encode", "ec.rebuild", "ec.decode",
             "volume.scrub", "lifecycle.apply", "lifecycle.status",
             "qos.status", "cluster.top", "cluster.profile", "cluster.check",
-            "fs.ls", "fs.verify", "volume.fsck"} <= set(got)
+            "fs.ls", "fs.verify", "volume.fsck", "s3.bucket.list",
+            "s3.bucket.quota.check", "s3.configure",
+            "s3.circuitbreaker"} <= set(got)
 
 
 @pytest.mark.parametrize("flag,waits", [
@@ -346,12 +351,86 @@ def test_shell_help_lists_exactly_the_ported_commands():
     ("-webdav", "ROADMAP Queue 1 item 5, WebDAV"),
     ("-iam", "ROADMAP Queue 1 item 4, S3 and IAM")])
 def test_server_verb_refuses_the_gateways(tmp_path, flag, waits):
-    """`server` runs a filer with -filer; the S3, WebDAV and IAM gateways
-    still refuse, naming the slice each waits for."""
-    out = _cli("server", "-device", "cpu", "-dir", str(tmp_path), "-filer",
-               flag)
-    assert out.returncode == 2
-    assert f"{flag}: not ported yet ({waits})" in out.stderr, out.stderr
+    """`server` runs a filer with -filer; of the gateways only WebDAV still
+    refuses, naming the slice it waits for. `-s3` and `-iam` (the slice
+    `waits` names, now ported) start with the filer they imply and serve:
+    the gateway answers ListBuckets, the IAM API ListUsers; the process
+    stops on SIGTERM with rc 0."""
+    import time
+
+    from seaweedfs_tpu_torch.client import http_util
+
+    from torch_cluster import free_port_pair
+    if flag == "-webdav":
+        out = _cli("server", "-device", "cpu", "-dir", str(tmp_path),
+                   "-filer", flag)
+        assert out.returncode == 2
+        assert f"{flag}: not ported yet ({waits})" in out.stderr, out.stderr
+        return
+    assert "S3 and IAM" in waits
+    port, vport, fport, gport = (free_port_pair() for _ in range(4))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "seaweedfs_tpu_torch", "server", "-device",
+         "cpu", "-dir", str(tmp_path), "-port", str(port), "-volumePort",
+         str(vport), "-filerPort", str(fport), flag,
+         "-s3Port" if flag == "-s3" else "-iamPort", str(gport)],
+        cwd=str(_repo_root()), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT)
+    try:
+        deadline = time.monotonic() + 90
+        while True:
+            assert proc.poll() is None, proc.stdout.read().decode()
+            try:
+                if flag == "-s3":
+                    r = http_util.request("GET", f"http://127.0.0.1:{gport}/",
+                                          max_attempts=1)
+                else:
+                    r = http_util.request(
+                        "POST", f"http://127.0.0.1:{gport}/",
+                        body=b"Action=ListUsers", max_attempts=1,
+                        headers={"Content-Type":
+                                 "application/x-www-form-urlencoded"})
+                if r.status == 200:
+                    break
+            except OSError:
+                pass
+            assert time.monotonic() < deadline, "no gateway answer in 90 s"
+            time.sleep(0.3)
+        want = b"ListAllMyBucketsResult" if flag == "-s3" else \
+            b"ListUsersResponse"
+        assert want in r.content
+        r = http_util.get(f"http://127.0.0.1:{fport}/__status__")
+        assert r.status == 200
+    finally:
+        proc.terminate()
+        out = proc.communicate(timeout=30)[0].decode()
+    assert proc.returncode == 0, out
+    assert (f"s3 127.0.0.1:{gport}" if flag == "-s3"
+            else f"iam 127.0.0.1:{gport}") in out
+
+
+_S3_HYGIENE = r"""
+import sys
+sys.modules["jax"] = None
+import seaweedfs_tpu_torch.s3, seaweedfs_tpu_torch.s3.s3_server
+import seaweedfs_tpu_torch.s3.chunked, seaweedfs_tpu_torch.s3.circuit_breaker
+import seaweedfs_tpu_torch.iam, seaweedfs_tpu_torch.iam.iam_server
+print("LOADED", sorted(n for n in sys.modules
+                       if n.split(".")[0] in ("torch", "jax", "seaweedfs_tpu",
+                                              "aiohttp")
+                       and sys.modules[n] is not None))
+"""
+
+
+def test_s3_and_iam_import_no_torch_no_jax_no_reference():
+    """Importing the port's S3 gateway and IAM API (and what they import:
+    the filer, fastweb, qos) loads no torch, no jax, no aiohttp and
+    nothing of the JAX package."""
+    out = subprocess.run([sys.executable, "-c", _S3_HYGIENE],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=str(_repo_root()))
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
 
 
 def test_server_verb_runs_a_filer(tmp_path):
