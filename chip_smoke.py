@@ -145,9 +145,9 @@ phases asked for are built first, all at once (one nvcc per source).
    VolumeEcShardsGenerate (K1 encode); VolumeEcShardsCopy of shards 7-13
    with the .ecx and .vif to B through CopyFile on the peer plane, both
    mounted, 7-13 deleted on A, the source volume deleted. A seeded sample
-   of 4,096 needles (16,384 until the replicated data plane's phase took
-   the time; a smaller depth of this earlier path, the needles' sizes
-   unchanged) GET from A by one keep-alive client, a quarter with a
+   of 2,048 needles (16,384 until the replicated data plane's phase took
+   the time, 4,096 until phase 22 did; a smaller depth of this earlier
+   path, the needles' sizes unchanged) GET from A by one keep-alive client, a quarter with a
    Range header, healthy, then after VolumeEcShardsDelete of (0, 5) on A
    and (10, 13) on B: every body equal, the reconstructs (K1 at one
    stripe) numbering the sampled intervals on lost shards; then the
@@ -179,8 +179,8 @@ phases asked for are built first, all at once (one nvcc per source).
    A by one client as /bulk frames of 1,024 needles, each frame replicated
    to B in one hop; A's and B's .idx equal by
    sha256. 4,096 POSTs through A, each read back from B; 256 DELETEs, 404 on
-   both; one ?type=replicate POST on B lands on B alone. 4,096 sampled GETs
-   from A twice: 0 read-cache hits in the first pass, 4,096 in the second.
+   both; one ?type=replicate POST on B lands on B alone. 2,048 sampled GETs
+   from A twice: 0 read-cache hits in the first pass, 2,048 in the second.
    1,024 of them GET from C (proxied to a holder, a quarter ranged), then C
    in redirect mode answers 301 to a holder. /bulk-read of a 16,384-needle
    sample from B in frames of 256. VolumeScrub of B's copy with device ""
@@ -258,7 +258,7 @@ phases asked for are built first, all at once (one nvcc per source).
    just after;
 17. a cluster of the port alone: a master started as a user starts it
    (`python -m seaweedfs_tpu_torch master -volumeSizeLimitMB 256 -ecShards
-   10,4 -maintenanceIntervalS 10 -maintenanceScripts ec.rebuild`, a
+   10,4 -maintenanceIntervalS 4 -maintenanceScripts ec.rebuild`, a
    subprocess, health-driven repair on), four volume servers on the card in
    this process, one in each of racks r1-r4 of dc1, heartbeating to it over
    gRPC, and the port's shell as subprocesses (`python -m
@@ -272,10 +272,10 @@ phases asked for are built first, all at once (one nvcc per source).
    before its server starts. (b) `lock; ec.encode -collection ec17
    -fullPercent 95; unlock` (VolumeEcShardsGenerateBatch, K1 encode, then
    the spread by VolumeEcShardsCopy): no rack holds more than 4 shards of
-   a stripe; every shard's sha256 kept. (c) 1,024 healthy GETs of small
+   a stripe; every shard's sha256 kept. (c) 512 healthy GETs of small
    needles through master lookups, each == written. (d) With the admin
    lock held in this process, r1's server stopped: /cluster/health
-   DEGRADED with exactly r1's shards missing; the 1,024 GETs again, each
+   DEGRADED with exactly r1's shards missing; the 512 GETs again, each
    == written, the reconstructs (K1) == the sampled intervals on lost
    shards; then the port's client, operation.read_batch, reads those
    needles and 16 of its blobs as /bulk-read frames, each ==
@@ -334,10 +334,11 @@ phases asked for are built first, all at once (one nvcc per source).
    process, the filer's verbs and the shell as subprocesses. (1)
    filer.meta.tail in the background. (2) fs.configure puts /f20/keep/
    in collection f20keep at replication 010 and 32 small files land
-   there; then filer.copy of a seeded tree: 256 files of 1-64 KiB
-   (log-uniform), 8 of 1-16 MiB and one of 64 MiB (depth cut from 2,048
+   there; then filer.copy of a seeded tree: 128 files of 1-64 KiB
+   (log-uniform), 4 of 1-16 MiB and one of 64 MiB (depth cut from 2,048
    and 48 to keep the whole in time, the small files from 512 when phase
-   21 came; the file sizes stay). (3) fs.du, fs.ls -l
+   21 came, both halved when phase 22 came; the file sizes stay). (3)
+   fs.du, fs.ls -l
    and fs.tree agree with the tree; filer.cat of four files sha256 ==
    written; fs.mv of 16 files and fs.rm of 16 take effect. (4) ec.encode
    -volumeId of every f20 volume with data (K1 encode), at most 4 shards
@@ -366,7 +367,7 @@ phases asked for are built first, all at once (one nvcc per source).
    process; fs.configure maps bucket s21 to collection s21 and s21keep to
    s21keep (replication 010), s3.configure sets the admin identity, and
    every S3 and IAM request is signed by the port's SigV4 signer over
-   http.client. (a) Three objects of 96 MiB by multipart (8 MiB parts, 4
+   http.client. (a) Two objects of 96 MiB by multipart (8 MiB parts, 4
    in flight), one of 24 MiB by a signed PUT streamed and hashed as it
    arrives, one of 9 MiB aws-chunked (STREAMING-AWS4-HMAC-SHA256-PAYLOAD),
    256 PutObjects of 1-64 KiB (p50/p99), 32 into s21keep; every ETag ==
@@ -383,9 +384,38 @@ phases asked for are built first, all at once (one nvcc per source).
    killed with SIGKILL and started again: ListObjectsV2 == before, the
    IAM-made key still signs, the time to serving. K1's and K3's counts
    are zeroed just before the phase and read just after;
+22. WebDAV and cross-cluster replication on the card: a master of the
+   port (`-volumeSizeLimitMB 64 -ecShards 10,4`, its cron idle), three
+   filers (`-maxMB 4 -noPeerMeta`; A on `redis:`, B on `mongo:`, C on
+   `etcd:`, the port's MiniRedis, MiniMongo and MiniEtcd in this process),
+   a `webdav -filer A` gateway, all subprocesses, over four volume servers
+   on the card in racks r1-r4 of this process; fs.configure puts each
+   filer's /dav/ in its own collection (a22, b22, c22). One volume cluster
+   serves the three filers: the sinks re-upload through each target
+   filer's own assigns, the path two clusters would run. (a) Through
+   WebDAV: MKCOL of a three-level tree, 128 PUTs of 4 KiB-1 MiB
+   (log-uniform) and 4 of 16 MiB (GB/s, the small PUTs' p50/p99), PROPFIND
+   Depth 1 of every directory, MOVE of a directory, COPY and DELETE of a
+   file, LOCK/UNLOCK. (b) `filer.sync -a A -b B -isActivePassive -path
+   /dav` (a sync of / would carry A's filer.conf, and its collection, to
+   B) and
+   `geo.sync -a A -b C -isActivePassive -path /dav/geo -lagBound 30`: B's
+   tree and C's subtree equal A's in names, sizes and md5 (catch-up s,
+   MB/s). (c) `filer.backup -filer A -path /dav`: the local mirror's bytes
+   == the source's. (d) volume.scrub of the c22 volumes, 0 corrupt (K3).
+   (e) ec.encode of every a22 and b22 volume (K1 encode). (f) r1's server
+   stopped: every file of A through WebDAV and of B through B's HTTP, each
+   == its source (sha256); the servers' reconstructs == K1's one-stripe
+   launches, the widths. (g) Filer A killed with SIGKILL and started on
+   the same redis namespace: PROPFIND as before, the time to serving; the
+   filer.sync process killed and started again, then one PUT: B's meta
+   log gains exactly that file's events, no replay (the offset in B's
+   mongo store). K1's and K3's counts are zeroed just before the phase and
+   read just after;
 then the summary: one JSON line of every kernel with its launches (K1's
-   from phases 6, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20 and 21,
-   K3's from phases 8, 10, 12, 13, 14, 15, 16, 17, 18, 20 and 21), error against
+   from phases 6, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21 and
+   22, K3's from phases 8, 10, 12, 13, 14, 15, 16, 17, 18, 20, 21 and 22),
+   error against
    the plain version, times and bound; then the result line.
 
 Needs CUDA and the repository beside it; without either it exits 2.
@@ -412,7 +442,7 @@ LOST_10_4 = (0, 5, 10, 13)
 LOST_14_2 = (3, 15)
 WIDTHS = (16, 48, 100, 384, 4112, 65536, 65552)
 PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18,
-          19, 20, 21)
+          19, 20, 21, 22)
 PALLAS = "seaweedfs_tpu/ops/rs_pallas.py"
 K1_SOURCE = "seaweedfs_tpu_torch/csrc/rs_gf.cu"
 K3_SOURCE = "seaweedfs_tpu_torch/csrc/crc32c.cu"
@@ -423,7 +453,8 @@ KERNELS = {2: ("rs_gf",), 7: ("crc32c",), 9: ("rs_gf",),  # phase -> csrc
            14: ("rs_gf", "crc32c"), 15: ("rs_gf", "crc32c"),
            16: ("rs_gf", "crc32c"), 17: ("rs_gf", "crc32c"),
            18: ("rs_gf", "crc32c"), 19: ("rs_gf",),
-           20: ("rs_gf", "crc32c"), 21: ("rs_gf", "crc32c")}
+           20: ("rs_gf", "crc32c"), 21: ("rs_gf", "crc32c"),
+           22: ("rs_gf", "crc32c")}
 K3_SHAPES = ((4096, 2048), (16384, 4096), (64, 1 << 20))  # first: the scrub's
 K3_ROWS = (1, 3, 4096, 4225)  # 4225 = 132 SMs x 32 warps + 1
 K3_LENGTHS = (0, 512, 1024, 2048, 4096, 65536, 1 << 20)
@@ -461,8 +492,8 @@ SERVER_HTTP_NEEDLES = 4096  # phase 13: needles POSTed over HTTP after the
                             # bulk set; phase 14: POSTs fanned out to B
 SERVER_SCRUB_NEEDLES = 1 << 17  # phase 13: the regular volume VolumeScrub
                                 # checks (262,144 until phase 20)
-SERVER_SAMPLE = 4096   # phase 13: needles GET per pass (cut from 16,384 to
-                       # make room for phase 14)
+SERVER_SAMPLE = 2048   # phase 13: needles GET per pass (cut from 16,384 to
+                       # make room for phase 14, from 4,096 for phase 22)
 REPLICA_VID = 21       # phase 14's "001" volume
 REPLICA_NEEDLES = 1 << 17  # phase 14: an eighth of the write set as /bulk
                            # frames (the whole until phase 15 took the time,
@@ -471,7 +502,8 @@ REPLICA_NEEDLES = 1 << 17  # phase 14: an eighth of the write set as /bulk
 REPLICA_FRAME = 1024   # phase 14: needles a /bulk frame (the JAX client's
                        # BULK_MAX_FRAME_NEEDLES)
 REPLICA_DELETES = 256  # phase 14: DELETEs fanned out
-REPLICA_GETS = 4096    # phase 14: GETs on A per pass, twice
+REPLICA_GETS = 2048    # phase 14: GETs on A per pass, twice (4,096 until
+                       # phase 22 took the time); phase 15's tenant GETs
 REPLICA_PROXIED = 1024  # phase 14: of them, GETs proxied by C
 REPLICA_READ_FRAME = 256  # phase 14: needles a /bulk-read frame
 MAINT_NEEDLES = 1 << 18  # phase 15: the write set VolumeCopy moves (a
@@ -523,8 +555,12 @@ CONTROL_SMALL = 16384    # phase 17: needles of 1024 + 0..63 B, leased
 CONTROL_LEASE = 1024     # phase 17: keys an Assign(count=...) leases
 CONTROL_FRAME = 256      # phase 17: needles a /bulk frame (four a lease,
                          # written among the blobs)
-CONTROL_GETS = 1024      # phase 17: GETs healthy, then with r1 lost (2,048
-                         # until phase 21 took the time)
+CONTROL_GETS = 512       # phase 17: GETs healthy, then with r1 lost (2,048
+                         # until phase 21 took the time, 1,024 until phase
+                         # 22 did)
+CONTROL_CRON_S = 4       # phase 17: the master's -maintenanceIntervalS, the
+                         # wait from the lock's release to the repair (10
+                         # until phase 22 took the time)
 CONTROL_SCRUB_NEEDLES = 1 << 17  # phase 17: the scrub17 volume (1 << 18
                                  # until phase 20)
 SCRUB17_VID = 71         # phase 17's damaged regular volume on r4
@@ -550,14 +586,16 @@ LIFE_TTL_S = 3600.0      # phase 18(f): the policy's TTL (the instant is
 LIFE_SLO_THRESHOLD_S = 0.001  # phase 18(g): "half the GETs within 1 ms",
                               # below the degraded p50 (checked)
 CRASH_MIN_STATES = 500   # phase 19: crashsim's gate, as the reference's
-FILER_SMALL = 256        # phase 20: files of 1-64 KiB (log-uniform; depth
+FILER_SMALL = 128        # phase 20: files of 1-64 KiB (log-uniform; depth
                          # cut from 2,048 to keep the whole in time, from
-                         # 512 when phase 21 came)
-FILER_LARGE = 8          # phase 20: files of 1-16 MiB (cut from 48 alike)
+                         # 512 when phase 21 came, from 256 for phase 22)
+FILER_LARGE = 4          # phase 20: files of 1-16 MiB (cut from 48 alike,
+                         # from 8 for phase 22)
 FILER_HUGE_MB = 64       # phase 20: and one of 64 MiB
 FILER_SAMPLE = 256       # phase 20(6): small files GET with r1 lost
 FILER_RANGES = 16        # phase 20(6): Range GETs across chunk boundaries
-S3_BIG = 3               # phase 21(a): objects written by multipart,
+S3_BIG = 2               # phase 21(a): objects written by multipart (3
+                         # until phase 22 took the time),
 S3_BIG_MB = 96           # of 96 MiB each,
 S3_PART_MB = 8           # in 8 MiB parts (the AWS CLI's multipart_chunksize)
 S3_IN_FLIGHT = 4         # with 4 parts in flight
@@ -567,6 +605,9 @@ S3_SMALL = 256           # phase 21(a): PutObjects of 1-64 KiB
 S3_KEEP = 32             # phase 21(f): objects of the plain s21keep bucket
 S3_RANGES = 16           # phase 21(e): Range GETs at seeded offsets
 S3_PAGE = 100            # phase 21(b): ListObjectsV2 max-keys
+DAV_SMALL = 128          # phase 22(a): WebDAV PUTs of 4 KiB-1 MiB
+DAV_BIG = 4              # and of 16 MiB
+DAV_BIG_MB = 16
 K1_ENTRIES = {  # wrapper entry -> the TPU function it replaces
     "encode": f"{PALLAS}:156",
     "encode_seeded": f"{PALLAS}:164",
@@ -4971,7 +5012,8 @@ def control_round_trip(np, workdir: str, seed: int, card: str,
         master = subprocess.Popen(_port_cli(
             "master", "-ip", "127.0.0.1", "-port", str(mport), "-httpPort",
             str(hport), "-volumeSizeLimitMB", str(limit_mb), "-ecShards",
-            "10,4", "-maintenanceIntervalS", "10", "-maintenanceScripts",
+            "10,4", "-maintenanceIntervalS", str(CONTROL_CRON_S),
+            "-maintenanceScripts",
             "ec.rebuild"), cwd=here, stdout=mlog, stderr=subprocess.STDOUT)
 
         def master_up():
@@ -5001,7 +5043,8 @@ def control_round_trip(np, workdir: str, seed: int, card: str,
               "four servers registered")
         log(f"[control] master (a subprocess of python -m seaweedfs_tpu_torch"
             f" master -volumeSizeLimitMB {limit_mb} -ecShards 10,4 "
-            f"-maintenanceIntervalS 10 -maintenanceScripts ec.rebuild) and "
+            f"-maintenanceIntervalS {CONTROL_CRON_S} -maintenanceScripts "
+            f"ec.rebuild) and "
             f"four volume servers on {device} in racks r1-r4 of dc1 up in "
             f"{time.perf_counter() - t0:.1f} s [{card}]")
 
@@ -5282,7 +5325,8 @@ def control_round_trip(np, workdir: str, seed: int, card: str,
                           for r in racks[1:]}
         out["repair_s"] = t_ok - t_stop
         out["rebuild"] = rb_read / rb_s / 1e9
-        log(f"[control] (e) the master's cron (health-driven, every 10 s) "
+        log(f"[control] (e) the master's cron (health-driven, every "
+            f"{CONTROL_CRON_S} s) "
             f"rebuilt {sum(len(a['rebuilt_shard_ids']) for a in fin)} shards"
             f" in {len(fin)} VolumeEcShardsRebuild calls: {rb_read} B read "
             f"in {rb_s:.2f} s = {out['rebuild']:.3f} GB/s read; time to "
@@ -7445,6 +7489,573 @@ def phase_s3(torch, np, workdir: str, seed: int, card: str) -> dict:
     return {"k1": k1, "k3": k3, **res}
 
 
+# -- phase 22 ---------------------------------------------------------------
+def _dav_tree(fc, root: str) -> "dict[str, tuple]":
+    """path -> (is_dir, size, md5) of every entry under `root` through a
+    port FilerClient."""
+    out = {}
+
+    def walk(d):
+        for e in fc.filer.list_entries(d):
+            p = d.rstrip("/") + "/" + e.name
+            out[p] = (e.is_directory, e.attributes.file_size,
+                      bytes(e.attributes.md5).hex())
+            if e.is_directory:
+                walk(p)
+    walk(root)
+    return out
+
+
+def _mask_dav(body: bytes) -> bytes:
+    return re.sub(rb"[A-Z][a-z]{2}, \d\d [A-Z][a-z]{2} \d{4} \d\d:\d\d:\d\d "
+                  rb"GMT", b"DATE", body)
+
+
+def replication_round_trip(np, torch, workdir: str, seed: int, card: str,
+                           small: int, big: int, big_mb: int,
+                           max_mb: int = 4, cache_mb: int = 64,
+                           device: str = "cuda",
+                           small_block: int = 1 << 20) -> dict:
+    """Phase 22's path, every check fatal: a master of the port, three
+    filers (A on redis:, B on mongo:, C on etcd:, the port's stand-ins in
+    this process), a WebDAV gateway over A, filer.sync A -> B, geo.sync of
+    A's /dav/geo -> C and filer.backup of A, all subprocesses of the port's
+    CLI, over four volume servers on the card in this process (racks
+    r1-r4); the shell as a subprocess. One volume cluster serves the three
+    filers, each writing its own collection (a22, b22, c22) through its own
+    assigns. Returns the measured numbers."""
+    import http.client
+    import signal
+    import threading
+    import urllib.parse
+
+    from seaweedfs_tpu_torch.client.filer_client import FilerClient
+    from seaweedfs_tpu_torch.client.master_client import MasterClient
+    from seaweedfs_tpu_torch.ec.locate import EcGeometry
+    from seaweedfs_tpu_torch.ops import crc_cuda, rs_cuda
+    from seaweedfs_tpu_torch.server.grpc_service import serve_volume
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.storage.disk_location import DiskLocation
+    from seaweedfs_tpu_torch.storage.store import Store
+    from seaweedfs_tpu_torch.utils import retry
+    from seaweedfs_tpu_torch.utils.mini_etcd import MiniEtcd
+    from seaweedfs_tpu_torch.utils.mini_mongo import MiniMongo
+    from seaweedfs_tpu_torch.utils.mini_redis import MiniRedis
+
+    geo = EcGeometry(10, 4, small_block=small_block)
+    racks = ("r1", "r2", "r3", "r4")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    out: dict = {}
+    served: dict = {}
+    procs: "dict[str, subprocess.Popen]" = {}
+    logs: list = []
+    fcs: list = []
+    minis: list = []
+    mc = None
+    dav = None
+    retry.reset_breakers()
+    taken: set = set()
+
+    def port(filer: bool = False) -> int:
+        p = _free_filer_port(taken) if filer else _free_low_port(taken)
+        taken.update((p, p + 10000))
+        return p
+
+    mport, hport = port(), port()
+    fports = {n: port(filer=True) for n in "ABC"}
+    wport = port()
+    maddr = f"127.0.0.1:{mport}"
+    faddr = {n: f"127.0.0.1:{p}" for n, p in fports.items()}
+
+    def spawn(name: str, *args, cwd: str = here) -> subprocess.Popen:
+        f = open(os.path.join(workdir, f"{name}.log"), "w")
+        logs.append(f)
+        procs[name] = subprocess.Popen(_port_cli(*args), cwd=cwd, stdout=f,
+                                       stderr=subprocess.STDOUT, env=env)
+        return procs[name]
+
+    def log_of(name: str) -> str:
+        with open(os.path.join(workdir, f"{name}.log")) as f:
+            return f.read()
+
+    def alive(name: str) -> None:
+        p = procs[name]
+        if p.poll() is not None:
+            raise AssertionError(f"{name} exited rc {p.poll()}: "
+                                 f"{log_of(name)[-2000:]}")
+
+    def http_up(name: str, hp: int, method: str = "GET", path: str = "/",
+                want=(200,), headers=None) -> bool:
+        alive(name)
+        try:
+            c = http.client.HTTPConnection("127.0.0.1", hp, timeout=5)
+            try:
+                c.request(method, path, headers=headers or {})
+                return c.getresponse().status in want
+            finally:
+                c.close()
+        except OSError:
+            return False
+
+    stores = {}
+
+    def start_filer(n: str, tag: str) -> float:
+        t = time.perf_counter()
+        fdir = os.path.join(workdir, f"filer{n}")
+        os.makedirs(fdir, exist_ok=True)
+        spawn(tag, "filer", "-master", maddr, "-ip", "127.0.0.1", "-port",
+              str(fports[n]), "-store", stores[n], "-maxMB", str(max_mb),
+              "-chunkCacheMB", str(cache_mb), "-noPeerMeta", cwd=fdir)
+        _wait(lambda: http_up(tag, fports[n], path="/__status__"), 60,
+              f"filer {n}")
+        return time.perf_counter() - t
+
+    def shell(script: str) -> "tuple[str, float]":
+        so, se, s = _shell(maddr, script)
+        return so + se, s
+
+    def reconstructs() -> int:
+        return sum(vs.read_stats.get("reconstructs", 0)
+                   for r, vs in vss.items() if r in served)
+
+    def collection_vids(coll: str) -> "dict[int, int]":
+        got = {}
+        for dc in mc.volume_list().topology_info.data_center_infos:
+            for rk in dc.rack_infos:
+                for dn in rk.data_node_infos:
+                    for disk in dn.disk_infos.values():
+                        for v in disk.volume_infos:
+                            if v.collection == coll and v.size > 8:
+                                got[v.id] = v.size
+        return got
+
+    def fc(n: str) -> FilerClient:
+        c = FilerClient(faddr[n], client_name=f"smoke22-{n}")
+        fcs.append(c)
+        return c
+
+    try:
+        t0 = time.perf_counter()
+        spawn("master", "master", "-ip", "127.0.0.1", "-port", str(mport),
+              "-httpPort", str(hport), "-volumeSizeLimitMB", "64",
+              "-ecShards", "10,4", "-maintenanceScripts", "",
+              "-maintenanceHealthDriven", "off")
+        _wait(lambda: http_up("master", hport, path="/cluster/status"), 120,
+              "the master's HTTP API")
+        dirs = {r: os.path.join(workdir, r) for r in racks}
+        for r in racks:
+            os.makedirs(dirs[r])
+            p = port(filer=True)  # with its +10000 gRPC sibling
+            store = Store("127.0.0.1", p, "", [DiskLocation(
+                dirs[r], max_volume_count=32)], ec_geometry=geo,
+                coder_name="torch", device=device)
+            vs = VolumeServer(store, "127.0.0.1", p, data_center="dc1",
+                              rack=r, pulse_seconds=1.0)
+            served[r] = serve_volume(vs, p + 10000, master=maddr)
+        vss = {r: s.vs for r, s in served.items()}
+        rack_of = {vs.url: r for r, vs in vss.items()}
+        mc = MasterClient(maddr).start()
+        _wait(lambda: sum(len(rk.data_node_infos) for dc in
+                          mc.volume_list().topology_info.data_center_infos
+                          for rk in dc.rack_infos) == 4, 60,
+              "four servers registered")
+        redis = MiniRedis(port=port()).start()
+        minis.append(redis)
+        mongo = MiniMongo(port=port()).start()
+        minis.append(mongo)
+        etcd = MiniEtcd(port=port()).start()
+        minis.append(etcd)
+        stores.update(A=f"redis:{redis.address}", B=f"mongo:{mongo.address}",
+                      C=f"etcd:{etcd.address}")
+        ups = {n: start_filer(n, f"filer{n}") for n in "ABC"}
+        said, _ = shell("; ".join(
+            f"fs.configure -filer {faddr[n]} -locationPrefix /dav/ "
+            f"-collection {n.lower()}22 -apply" for n in "ABC"))
+        if said.count("applied.") != 3:
+            raise AssertionError(f"fs.configure: {said!r}")
+        spawn("webdav", "webdav", "-filer", faddr["A"], "-ip", "127.0.0.1",
+              "-port", str(wport))
+        _wait(lambda: http_up("webdav", wport, "OPTIONS"), 60, "WebDAV")
+        dav = _Client(f"127.0.0.1:{wport}")
+        log(f"[replication] master (a subprocess, -volumeSizeLimitMB 64 "
+            f"-ecShards 10,4), four volume servers on {device} in racks "
+            f"r1-r4, the port's MiniRedis {redis.address}, MiniMongo "
+            f"{mongo.address}, MiniEtcd {etcd.address} in this process; "
+            f"filers A (redis:), B (mongo:), C (etcd:) as subprocesses "
+            f"(-maxMB {max_mb} -noPeerMeta; up in "
+            f"{', '.join(f'{v:.2f}' for v in ups.values())} s), each /dav/ "
+            f"in its own collection a22 / b22 / c22 (fs.configure), and "
+            f"`webdav -filer A`, in {time.perf_counter() - t0:.1f} s [{card}]")
+
+        # (a) a document share through WebDAV
+        leaves = [f"/dav/{top}/{top[0]}{i}" for top in ("docs", "media",
+                                                        "geo")
+                  for i in range(2)]
+        dirs_made = ["/dav", "/dav/docs", "/dav/media", "/dav/geo"] + leaves
+        for d in dirs_made:
+            st, body, _ = dav.request("MKCOL", d)
+            if st != 201:
+                raise AssertionError(f"MKCOL {d}: {st} {body[:200]!r}")
+        rng = np.random.default_rng((seed, 22))
+        sizes = np.exp(rng.uniform(np.log(4 << 10), np.log(1 << 20),
+                                   small)).astype(np.int64)
+        want: "dict[str, tuple[str, int]]" = {}  # path -> (sha256, size)
+        srcs: "dict[str, tuple]" = {}  # path -> seed of its bytes
+        lat, put_bytes, put_s = [], 0, 0.0
+        big_leaves = [0, 2, 4, 5]
+        plan = [(f"{leaves[i % len(leaves)]}/s{i:03d}.bin", int(n), (seed, 22,
+                 i)) for i, n in enumerate(sizes)]
+        plan += [(f"{leaves[big_leaves[j % 4]]}/big{j}.bin", big_mb << 20,
+                  (seed, 22, 1000 + j)) for j in range(big)]
+        for path, n, key in plan:
+            data = np.random.default_rng(key).bytes(n)
+            t = time.perf_counter()
+            st, body, _ = dav.request("PUT", urllib.parse.quote(path), data,
+                                      {"Content-Type":
+                                       "application/octet-stream"})
+            dt = time.perf_counter() - t
+            if st != 201:
+                raise AssertionError(f"PUT {path}: {st} {body[:200]!r}")
+            put_s += dt
+            put_bytes += n
+            if n < big_mb << 20:
+                lat.append(dt)
+            want[path] = (hashlib.sha256(data).hexdigest(), n)
+            srcs[path] = (key, n)
+        out["put"] = put_bytes / put_s / 1e9
+        out["small_p50_ms"] = _pct(np, lat, 50) * 1e3
+        out["small_p99_ms"] = _pct(np, lat, 99) * 1e3
+        children: "dict[str, int]" = collections.Counter()
+        for d in dirs_made[1:]:
+            children[d.rsplit("/", 1)[0] or "/"] += 1
+        for p in want:
+            children[p.rsplit("/", 1)[0]] += 1
+        for d in dirs_made:
+            st, body, _ = dav.request("PROPFIND", urllib.parse.quote(d), None,
+                                      {"Depth": "1"})
+            n = body.count(b"<D:response>")
+            if st != 207 or n != 1 + children[d]:
+                raise AssertionError(f"PROPFIND {d}: {st}, {n} responses for "
+                                     f"{children[d]} children")
+        moved_from, moved_to = leaves[3], "/dav/media/moved"
+        st, _, _ = dav.request("MOVE", moved_from, None, {
+            "Destination": f"http://127.0.0.1:{wport}{moved_to}"})
+        if st != 201:
+            raise AssertionError(f"MOVE {moved_from}: {st}")
+        for p in [p for p in want if p.startswith(moved_from + "/")]:
+            q = moved_to + p[len(moved_from):]
+            want[q], srcs[q] = want.pop(p), srcs.pop(p)
+        first = sorted(p for p in want if p.startswith(leaves[0] + "/"))
+        copy_to = f"{leaves[0]}/copy.bin"
+        st, _, _ = dav.request("COPY", first[0], None, {
+            "Destination": f"http://127.0.0.1:{wport}{copy_to}"})
+        if st != 201:
+            raise AssertionError(f"COPY {first[0]}: {st}")
+        want[copy_to], srcs[copy_to] = want[first[0]], srcs[first[0]]
+        gone = sorted(p for p in want if p.startswith(leaves[1] + "/"))[0]
+        if dav.request("DELETE", gone)[0] != 204 or \
+                dav.request("GET", gone)[0] != 404:
+            raise AssertionError(f"DELETE {gone}")
+        want.pop(gone)
+        srcs.pop(gone)
+        st, body, hd = dav.request("LOCK", first[1])
+        token = {k.lower(): v for k, v in hd.items()}.get("lock-token", "")
+        if st != 200 or not token.startswith("<opaquelocktoken:") or \
+                dav.request("UNLOCK", first[1], None,
+                            {"Lock-Token": token})[0] != 204:
+            raise AssertionError(f"LOCK/UNLOCK {first[1]}: {st}")
+        log(f"[replication] (a) WebDAV: MKCOL of {len(dirs_made)} directories "
+            f"in three levels; {len(plan)} PUTs ({small} of 4 KiB-1 MiB "
+            f"log-uniform, {big} of {big_mb} MiB), {put_bytes} B in "
+            f"{put_s:.2f} s = {out['put']:.3f} GB/s, the small PUTs p50 "
+            f"{out['small_p50_ms']:.3f} ms p99 {out['small_p99_ms']:.3f} ms; "
+            f"PROPFIND Depth 1 of every directory == its children; MOVE of "
+            f"{moved_from}, COPY and DELETE of a file, LOCK/UNLOCK [{card}]")
+
+        # (b) replication: filer.sync A -> B, geo.sync of /dav/geo A -> C
+        fa, fb, fcc = fc("A"), fc("B"), fc("C")
+        tree_a = _dav_tree(fa, "/dav")
+        files_a = {p: v for p, v in tree_a.items() if not v[0]}
+        if {p: v[1] for p, v in files_a.items()} != \
+                {p: v[1] for p, v in want.items()}:
+            raise AssertionError("A's tree is not the share written")
+        geo_a = {p: v for p, v in tree_a.items() if p.startswith("/dav/geo/")}
+        t = time.perf_counter()
+        # -path /dav: a sync of / would carry A's /etc/seaweedfs/filer.conf
+        # into B, and with it A's collection rule for B's writes
+        spawn("sync", "filer.sync", "-a", faddr["A"], "-b", faddr["B"],
+              "-isActivePassive", "-path", "/dav")
+        spawn("geo", "geo.sync", "-a", faddr["A"], "-b", faddr["C"],
+              "-isActivePassive", "-path", "/dav/geo", "-lagBound", "30")
+
+        def caught_up():
+            alive("sync")
+            alive("geo")
+            return (_dav_tree(fb, "/dav") == tree_a and {
+                p: v for p, v in _dav_tree(fcc, "/dav").items()
+                if p.startswith("/dav/geo/")} == geo_a)
+        _wait(caught_up, 300, "B's /dav and C's /dav/geo equal to A's",
+              interval=0.25)
+        out["catch_up_s"] = time.perf_counter() - t
+        moved = sum(v[1] for v in files_a.values()) + sum(
+            v[1] for v in geo_a.values() if not v[0])
+        out["replicated_mb_s"] = moved / out["catch_up_s"] / 1e6
+        log(f"[replication] (b) filer.sync -a A -b B -isActivePassive -path "
+            f"/dav and "
+            f"geo.sync -a A -b C -isActivePassive -path /dav/geo -lagBound "
+            f"30: B's /dav ({len(tree_a)} entries) and C's /dav/geo "
+            f"({len(geo_a)}) equal A's in names, sizes and md5 after "
+            f"{out['catch_up_s']:.2f} s; {moved} B replicated = "
+            f"{out['replicated_mb_s']:.1f} MB/s [{card}]")
+
+        # (c) filer.backup of A's /dav into a local mirror
+        mirror = os.path.join(workdir, "mirror")
+        t = time.perf_counter()
+        spawn("backup", "filer.backup", "-filer", faddr["A"], "-dir", mirror,
+              "-path", "/dav")
+
+        def mirrored():
+            alive("backup")
+            local = {"/" + os.path.relpath(os.path.join(d, n), mirror):
+                     os.path.join(d, n)
+                     for d, _ds, ns in os.walk(mirror) for n in ns}
+            try:  # the backup may move or remove a file under the walk
+                if {p: os.path.getsize(f) for p, f in local.items()} != \
+                        {p: n for p, (_h, n) in want.items()}:
+                    return False  # hash only once every file has its size
+                for p, f in local.items():
+                    with open(f, "rb") as fh:
+                        if hashlib.sha256(fh.read()).hexdigest() != \
+                                want[p][0]:
+                            return False
+            except FileNotFoundError:
+                return False
+            return True
+        _wait(mirrored, 300, "the local mirror of /dav", interval=0.2)
+        backup_s = time.perf_counter() - t
+        procs["backup"].send_signal(signal.SIGINT)
+        if procs["backup"].wait(timeout=30) != 0:
+            raise AssertionError(f"filer.backup: {log_of('backup')[-2000:]}")
+        procs.pop("backup")
+        out["backup_s"] = backup_s
+        log(f"[replication] (c) filer.backup -filer A -dir <mirror> -path "
+            f"/dav: every mirrored file's bytes == its source (sha256), "
+            f"{len(want)} files in {backup_s:.2f} s; SIGINT rc 0 [{card}]")
+
+        # (d) the scrub of C's plain c22 volumes (K3)
+        for r in racks:
+            vss[r].heartbeat_flush()
+        time.sleep(1.5)
+        c22 = collection_vids("c22")
+        if not c22:
+            raise AssertionError("no c22 volume holds data")
+        k3_0 = crc_cuda.launches
+        said, scrub_s = shell("; ".join(f"volume.scrub -volumeId {vid}"
+                                        for vid in sorted(c22)))
+        k3 = crc_cuda.launches - k3_0
+        checked = sum(int(m) for m in re.findall(
+            r"scrubbed (\d+) needles, 0 corrupt", said))
+        if not checked or re.search(r"scrubbed \d+ needles, [1-9]", said) \
+                or (device == "cuda" and not k3):
+            raise AssertionError(f"volume.scrub of c22: {said[-2000:]!r}; "
+                                 f"{k3} K3 launches")
+        out["k3"] = k3
+        log(f"[replication] (d) volume.scrub of the c22 volumes "
+            f"{sorted(c22)}: {checked} needles, 0 corrupt, {k3} K3 launches "
+            f"({scrub_s:.2f} s) [{card}]")
+
+        # (e) the seal: ec.encode of every a22 and b22 volume (K1 encode)
+        sealed = {**collection_vids("a22"), **collection_vids("b22")}
+        if not collection_vids("a22") or not collection_vids("b22"):
+            raise AssertionError(f"a22/b22 volumes: {sealed}; all: " + str(
+                [(v.id, v.collection, v.size) for dc in mc.volume_list()
+                 .topology_info.data_center_infos for rk in dc.rack_infos
+                 for dn in rk.data_node_infos
+                 for disk in dn.disk_infos.values()
+                 for v in disk.volume_infos]))
+        k0 = rs_cuda.launches_by_entry.get("encode", 0)
+        said, enc_s = shell("lock; " + "; ".join(
+            f"ec.encode -volumeId {vid}" for vid in sorted(sealed))
+            + "; unlock")
+        enc_k1 = rs_cuda.launches_by_entry.get("encode", 0) - k0
+        for vid in sealed:
+            spread = _wait(lambda: (lambda s: s if len(s) == geo.n else None)(
+                {sid: [rack_of[u] for u in urls]
+                 for sid, urls in mc.lookup_ec(vid).items() if urls}),
+                60, f"volume {vid}'s 14 shards registered")
+            per_rack = collections.Counter(r for rs in spread.values()
+                                           for r in rs)
+            if max(per_rack.values()) > geo.p:
+                raise AssertionError(f"volume {vid}: {dict(per_rack)}")
+        out["encode"] = sum(sealed.values()) / enc_s / 1e9
+        log(f"[replication] (e) ec.encode -volumeId of the a22 and b22 "
+            f"volumes ({sum(sealed.values())} B of .dat: "
+            f"{json.dumps(sealed)}) in {enc_s:.2f} s with the shell = "
+            f"{out['encode']:.3f} GB/s; K1 encode launches {enc_k1}; at most "
+            f"4 shards a rack [{card}]")
+
+        # (f) r1 lost: every file of A through WebDAV, of B through its HTTP
+        served.pop("r1").stop()
+        _wait(lambda: sum(len(rk.data_node_infos) for dc in
+                          mc.volume_list().topology_info.data_center_infos
+                          for rk in dc.rack_infos) == 3, 60,
+              "r1's server gone from the topology")
+        r0, read_bytes = reconstructs(), 0
+        b_http = _Client(faddr["B"])
+        t = time.perf_counter()
+        try:
+            with K1Widths() as kw:
+                k0 = rs_cuda.launches_by_entry.get("reconstruct", 0)
+                for path in sorted(want):
+                    for who, cl in (("A (WebDAV)", dav), ("B", b_http)):
+                        st, body, _ = cl.request("GET",
+                                                 urllib.parse.quote(path))
+                        if st != 200 or hashlib.sha256(body).hexdigest() != \
+                                want[path][0]:
+                            raise AssertionError(f"GET {path} from {who} "
+                                                 f"with r1 lost: {st}")
+                        read_bytes += len(body)
+                k1_rec = rs_cuda.launches_by_entry.get("reconstruct", 0) - k0
+        finally:
+            b_http.close()
+        read_s = time.perf_counter() - t
+        got_rec = reconstructs() - r0
+        widths = sorted(kw.widths)
+        if not got_rec or len(widths) != got_rec or (
+                device == "cuda" and k1_rec < got_rec):
+            raise AssertionError(f"{got_rec} reconstructs, {len(widths)} K1 "
+                                 f"one-stripe launches, {k1_rec} K1 "
+                                 f"reconstruct launches")
+        ragged = sum(1 for w in widths if w % 16)
+        out.update(read=read_bytes / read_s / 1e9, reconstructs=got_rec,
+                   k1_reconstruct=k1_rec, widths=widths, ragged=ragged)
+        log(f"[replication] (f) with r1 lost, every file of A through WebDAV "
+            f"and of B through B's HTTP ({2 * len(want)} GETs), each == its "
+            f"source (sha256): {read_bytes} B in {read_s:.2f} s = "
+            f"{out['read']:.3f} GB/s; the servers reconstructed {got_rec} "
+            f"intervals == K1 one-stripe launches {len(widths)} (K1 "
+            f"reconstruct launches {k1_rec}); widths min {widths[0]} median "
+            f"{widths[len(widths) // 2]} max {widths[-1]}, {ragged} of "
+            f"{len(widths)} not a multiple of 16 [{card}]")
+
+        # (g) SIGKILL filer A and the sync, start both again
+        listed = sorted(set(dirs_made) - {moved_from}) + [moved_to]
+        before = [_mask_dav(dav.request("PROPFIND", d, None,
+                                        {"Depth": "1"})[1]) for d in listed]
+        t = time.perf_counter()
+        procs["filerA"].kill()
+        procs["filerA"].wait(timeout=20)
+        procs.pop("filerA")
+        dav.close()
+        start_filer("A", "filerA2")
+        _wait(lambda: http_up("webdav", wport, "PROPFIND", "/dav", (207,),
+                              {"Depth": "0"}), 60,
+              "WebDAV answering over the restarted filer A")
+        out["restart"] = time.perf_counter() - t
+        dav = _Client(f"127.0.0.1:{wport}")
+        after = [_mask_dav(dav.request("PROPFIND", d, None,
+                                       {"Depth": "1"})[1]) for d in listed]
+        if after != before:
+            raise AssertionError("PROPFIND after A's restart differs")
+        procs["sync"].kill()
+        procs["sync"].wait(timeout=20)
+        procs.pop("sync")
+        since = fb.filer.server_now_ns()
+        spawn("sync2", "filer.sync", "-a", faddr["A"], "-b", faddr["B"],
+              "-isActivePassive", "-path", "/dav")
+        late = f"{leaves[0]}/after-restart.bin"
+        data = np.random.default_rng((seed, 22, 9999)).bytes(300_000)
+        if dav.request("PUT", late, data)[0] != 201:
+            raise AssertionError(f"PUT {late} after the restarts")
+        def arrived():
+            alive("sync2")
+            return fb.filer.find_entry(leaves[0],
+                                       "after-restart.bin") is not None
+        _wait(arrived, 60, "the new file on B")
+        events: list = []
+        stop = threading.Event()
+        sub = fc("B")
+
+        def collect():
+            try:
+                for resp in sub.filer.subscribe(since, stop,
+                                                path_prefix="/dav"):
+                    ev = resp.event_notification
+                    events.append((resp.directory, ev.old_entry.name,
+                                   ev.new_entry.name))
+            except Exception:  # noqa: BLE001 — the channel closes below
+                pass
+        threading.Thread(target=collect, daemon=True).start()
+        time.sleep(3.0)
+        stop.set()
+        sub.close()
+        if not events or any(e != (leaves[0], "", "after-restart.bin")
+                             for e in events):
+            raise AssertionError(f"B's events since the sync's restart: "
+                                 f"{events[:8]} ({len(events)})")
+        if hashlib.sha256(fb.read_entry_bytes(fb.filer.find_entry(
+                leaves[0], "after-restart.bin"))).hexdigest() != \
+                hashlib.sha256(data).hexdigest():
+            raise AssertionError("the new file's bytes on B")
+        log(f"[replication] (g) filer A killed with SIGKILL and started on "
+            f"the same redis namespace: WebDAV answered PROPFIND "
+            f"{out['restart']:.2f} s after the kill, every directory's "
+            f"PROPFIND == before; filer.sync killed and started again, then "
+            f"one PUT: B's meta log since gained exactly that file's "
+            f"{len(events)} event(s), no replay (the offset in B's mongo "
+            f"store, under A's kept signature) [{card}]")
+        return out
+    finally:
+        if dav is not None:
+            dav.close()
+        for c in fcs:
+            c.close()
+        for name in list(procs):
+            p = procs.pop(name)
+            if p.poll() is None:
+                p.send_signal(signal.SIGKILL if name.startswith(
+                    ("filer", "sync", "geo")) else signal.SIGTERM)
+                try:
+                    p.wait(timeout=20)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait(timeout=10)
+        if mc is not None:
+            mc.stop()
+        for s in served.values():
+            s.stop()
+        for m in minis:
+            m.stop()
+        for f in logs:
+            f.close()
+        retry.reset_breakers()
+
+
+def phase_replication(torch, np, workdir: str, seed: int, card: str) -> dict:
+    from seaweedfs_tpu_torch.ops import crc_cuda, rs_cuda
+    os.makedirs(workdir, exist_ok=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rs_cuda.reset_launches()
+    crc_cuda.reset_launches()
+    res = replication_round_trip(np, torch, workdir, seed + 22, card,
+                                 DAV_SMALL, DAV_BIG, DAV_BIG_MB)
+    torch.cuda.synchronize()
+    k1 = dict(rs_cuda.launches_by_entry)
+    k3 = crc_cuda.launches
+    log(f"[replication] launches under WebDAV and replication: K1 "
+        f"{json.dumps(k1)}, K3 {k3}; phase wall "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    for entry in ("encode", "reconstruct"):
+        if not k1.get(entry):
+            raise AssertionError(f"K1 {entry} never launched in phase 22")
+    if not k3:
+        raise AssertionError("K3 never launched in phase 22")
+    return {"k1": k1, "k3": k3, **res}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7573,11 +8184,17 @@ def main(argv=None) -> int:
             s3 = phase_s3(torch, np, args.workdir, args.seed, card)
         finally:
             shutil.rmtree(args.workdir, ignore_errors=True)
+    repl = None
+    if 22 in phases:
+        try:
+            repl = phase_replication(torch, np, args.workdir, args.seed, card)
+        finally:
+            shutil.rmtree(args.workdir, ignore_errors=True)
     log(f"[done] phases {sorted(phases | {1})} passed in "
         f"{time.perf_counter() - t0:.1f} s [{card}]")
     if None not in (errs, times, launches, k3_err, k3_times, k3_launches,
                     ec_launches, tier, codec_launches, mesh, server, replica,
-                    maint, rest, control, life, crash, filer, s3):
+                    maint, rest, control, life, crash, filer, s3, repl):
         kernels = [dict(name=f"rs_gf_apply:{entry}", route="cuda",
                         source=K1_SOURCE, replaces=replaces,
                         launches=launches.get(entry, 0)
@@ -7593,7 +8210,8 @@ def main(argv=None) -> int:
                         + life["k1"].get(entry, 0)
                         + crash["k1"].get(entry, 0)
                         + filer["k1"].get(entry, 0)
-                        + s3["k1"].get(entry, 0),
+                        + s3["k1"].get(entry, 0)
+                        + repl["k1"].get(entry, 0),
                         max_abs_err=errs[entry], ms=times[entry]["ms"],
                         plain_ms=times[entry]["plain_ms"],
                         bound_ms=times[entry]["bound_ms"],
@@ -7606,7 +8224,7 @@ def main(argv=None) -> int:
                             + mesh["launches"]["k3"] + server["k3"]
                             + replica["k3"] + maint["k3"] + rest["k3"]
                             + control["k3"] + life["k3"] + filer["k3"]
-                            + s3["k3"],
+                            + s3["k3"] + repl["k3"],
                             max_abs_err=k3_err,
                             ms=k3["ms"], plain_ms=k3["plain_ms"],
                             bound_ms=k3["bound_ms"], bound_by=k3["bound_by"],

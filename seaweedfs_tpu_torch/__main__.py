@@ -16,8 +16,8 @@ Verbs, the counterparts of the JAX package's (seaweedfs_tpu/__main__.py):
   process, the volume server on the card unless `-device cpu`; `-filer`
   adds a filer on `-filerPort` over a sqlite store in `-dir`/filer, and
   `-s3`/`-iam` the S3 gateway on `-s3Port` and the IAM API on `-iamPort`
-  over it (each implies the filer). `-webdav` refuses to start (ROADMAP
-  Queue 1 item 5).
+  over it (each implies the filer), and `-webdav` the WebDAV gateway on
+  `-webdavPort`.
 * ``shell`` (`run_shell`, :291): the admin shell over the ported command
   tables (shell/commands.py, ec_commands.py, volume_commands.py,
   fs_commands.py, lifecycle_commands.py, qos_commands.py,
@@ -34,7 +34,17 @@ Verbs, the counterparts of the JAX package's (seaweedfs_tpu/__main__.py):
   standalone ``s3`` verb does; the reference's embedded gateway runs open.
 * ``s3`` (`run_s3`, :422): the standalone S3 gateway over a remote filer
   (`-filer -ip -port -config`). ``iam`` (`run_iam`, :605): the standalone
-  IAM API over a remote filer. Neither loads torch.
+  IAM API over a remote filer. ``webdav`` (`run_webdav_standalone`,
+  :496): the WebDAV gateway over a remote filer (`-filer -ip -port`).
+  None loads torch.
+* ``filer.backup`` (`run_filer_backup`, :556): mirrors a filer subtree into
+  a local directory through the replication plane's LocalSink, resuming
+  from the offset kept in the source filer's kv. ``filer.sync``
+  (`run_filer_sync`, :618): FilerSync from `-a` to `-b`, and back unless
+  `-isActivePassive`, its offsets in the target's store. ``geo.sync``
+  (`run_geo_sync`, :639): the same through GeoSync (its own offsets,
+  maintenance-class applies, the lag gauge and `-lagBound`). Each runs
+  until SIGINT or SIGTERM; none loads torch.
 * ``upload`` and ``download`` (`run_upload`, :827; `run_download`, :855):
   blobs through client/operation's submit and read.
 * ``benchmark`` (:889): `weed benchmark`, bench_tool.run.
@@ -346,21 +356,17 @@ def run_server(argv) -> int:
     p.add_argument("-iam", action="store_true")
     p.add_argument("-iamPort", type=int, default=8111)
     opt = p.parse_args(argv)
-    if opt.webdav:
-        print("error: server -webdav: not ported yet (ROADMAP Queue 1 item "
-              "5, WebDAV)", file=sys.stderr)
-        return 2
     import os
 
     stopped = _signals()
     ms = _master_server(opt)
     ms.start()
-    fs = None
+    fs = wd = None
     stop_gateways = None
     try:
         served = _serve_volume_server(opt, opt.volumePort,
                                       f"{opt.ip}:{opt.port}")
-        if opt.filer or opt.s3 or opt.iam:
+        if opt.filer or opt.s3 or opt.iam or opt.webdav:
             filer_dir = os.path.join(opt.dir, "filer")
             os.makedirs(filer_dir, exist_ok=True)
             fs = _filer_server(opt, f"{opt.ip}:{opt.port}",
@@ -370,10 +376,17 @@ def run_server(argv) -> int:
             print(f"filer {fs.url} (grpc :{fs.grpc_port})", flush=True)
             stop_gateways = _embedded_gateways(opt, fs, opt.s3Port,
                                                opt.iamPort)
+            if opt.webdav:
+                from .webdav import WebDavServer
+                wd = _started(WebDavServer(fs, ip=opt.ip,
+                                           port=opt.webdavPort), "webdav")
+                print(f"webdav {wd.url} over filer {fs.url}", flush=True)
     except BaseException:
         ms.stop()
         raise
     stopped.wait()
+    if wd is not None:
+        wd.stop()
     if stop_gateways is not None:
         stop_gateways()
     if fs is not None:
@@ -777,6 +790,7 @@ def run_filer(argv) -> int:
     p.add_argument("-grpcPort", type=int, default=0)
     p.add_argument("-store", default="",
                    help="memory | sqlite:/path.db | logdb:/path.logdb | lsm:/dir "
+                        "| redis:host:port | mongo:host:port | etcd:host:port "
                         "(default: filer.toml or sqlite ./filer.db)")
     p.add_argument("-collection", default="")
     p.add_argument("-replication", default="")
@@ -893,6 +907,27 @@ def run_iam(argv) -> int:
     print(f"iam {iam.url} over filer {opt.filer}", flush=True)
     stopped.wait()
     iam.stop()
+    fc.close()
+    return 0
+
+
+def run_webdav(argv) -> int:
+    """The standalone WebDAV gateway over a remote filer (reference
+    command/webdav.go and `run_webdav_standalone`, :496). It loads no
+    torch."""
+    from .client.filer_client import FilerClient
+    from .webdav import WebDavServer
+    p = argparse.ArgumentParser(prog="webdav")
+    p.add_argument("-filer", default="127.0.0.1:8888")
+    p.add_argument("-ip", default="127.0.0.1")
+    p.add_argument("-port", type=int, default=7333)
+    opt = p.parse_args(argv)
+    stopped = _signals()
+    fc = FilerClient(opt.filer)
+    wd = _started(WebDavServer(fc, ip=opt.ip, port=opt.port), "webdav")
+    print(f"webdav {wd.url} over filer {opt.filer}", flush=True)
+    stopped.wait()
+    wd.stop()
     fc.close()
     return 0
 
@@ -1087,6 +1122,130 @@ def run_filer_meta_backup(argv) -> int:
     return 0
 
 
+def run_filer_backup(argv) -> int:
+    """Continuously mirror a filer subtree into a local directory
+    (reference command/filer_backup.go and `run_filer_backup`, :556):
+    subscribe to the metadata events and apply them through the local
+    replication sink, resuming from the last applied offset kept in the
+    SOURCE filer's kv space; each event is tried five times, then
+    dead-lettered. SIGINT or SIGTERM ends it."""
+    import struct
+    import time
+
+    from .client.filer_client import FilerClient
+    from .replication.replicator import Replicator
+    from .replication.sink import LocalSink
+
+    p = argparse.ArgumentParser(prog="filer.backup")
+    p.add_argument("-filer", default="127.0.0.1:8888")
+    p.add_argument("-dir", required=True, help="local mirror directory")
+    p.add_argument("-path", default="/", help="subtree to mirror")
+    opt = p.parse_args(argv)
+    fc = FilerClient(opt.filer, client_name="filer-backup")
+    repl = Replicator(LocalSink(opt.dir), fc.read_entry_bytes, opt.path)
+    offset_key = f"backup.offset.{opt.dir}".encode()
+    raw = fc.filer.kv_get(offset_key)
+    since = struct.unpack("<q", raw)[0] if raw else 0
+    stop = threading.Event()
+
+    def apply(resp):
+        applied = False
+        for attempt in range(5):  # FilerSync-style retry + dead-letter
+            try:
+                repl.replicate(resp.directory, resp.event_notification)
+                applied = True
+                break
+            except Exception as e:  # noqa: BLE001
+                print(f"apply {resp.directory} (try {attempt + 1}/5): {e}",
+                      file=sys.stderr)
+                time.sleep(0.2 * 2 ** attempt)
+        if not applied:
+            print(f"DEAD-LETTER {resp.directory}: mirror may diverge; "
+                  "re-run with -path to re-scan", file=sys.stderr)
+        if resp.ts_ns:
+            fc.filer.kv_put(offset_key, struct.pack("<q", resp.ts_ns))
+
+    _follow(fc.filer.subscribe(since, stop, path_prefix=opt.path), apply,
+            ready=f"backing up {opt.filer}{opt.path} -> {opt.dir} "
+                  f"(since {since})")
+    stop.set()
+    fc.close()
+    return 0
+
+
+def _run_syncs(syncs) -> int:
+    """Run started sync workers until SIGINT or SIGTERM, then stop them."""
+    stopped = _signals()
+    stopped.wait()
+    for s in syncs:
+        s.stop()
+    return 0
+
+
+def run_filer_sync(argv) -> int:
+    """Continuous filer synchronization (reference command/filer_sync.go
+    and `run_filer_sync`, :618): A -> B, and B -> A unless
+    -isActivePassive, each worker's offset in its target's store."""
+    from .client.filer_client import FilerClient
+    from .replication.filer_sync import FilerSync
+    p = argparse.ArgumentParser(prog="filer.sync")
+    p.add_argument("-a", required=True, help="filer A host:port")
+    p.add_argument("-b", required=True, help="filer B host:port")
+    p.add_argument("-isActivePassive", action="store_true",
+                   help="only sync A -> B")
+    p.add_argument("-path", default="/", help="path prefix to sync")
+    opt = p.parse_args(argv)
+    fa, fb = FilerClient(opt.a), FilerClient(opt.b)
+    syncs = [FilerSync(fa, fb, path_prefix=opt.path).start()]
+    print(f"syncing {opt.a} -> {opt.b} under {opt.path}", flush=True)
+    if not opt.isActivePassive:
+        syncs.append(FilerSync(fb, fa, path_prefix=opt.path).start())
+        print(f"syncing {opt.b} -> {opt.a} under {opt.path}", flush=True)
+    return _run_syncs(syncs)
+
+
+def run_geo_sync(argv) -> int:
+    """Async cross-cluster replication over an expensive link (reference
+    `run_geo_sync`, :639, over geo/replication.py): FilerSync with its own
+    offsets, maintenance-class applies and the lag gauge
+    SeaweedFS_geo_replication_lag_seconds{peer} held to -lagBound (or the
+    link-cost policy's replication_lag_bound_s)."""
+    from .client.filer_client import FilerClient
+    from .geo.policy import LinkCostModel, load_link_costs
+    from .geo.replication import GeoSync
+    p = argparse.ArgumentParser(prog="geo.sync")
+    p.add_argument("-a", required=True, help="local filer host:port")
+    p.add_argument("-b", required=True, help="remote filer host:port")
+    p.add_argument("-isActivePassive", action="store_true",
+                   help="only replicate A -> B")
+    p.add_argument("-path", default="/", help="path prefix to replicate")
+    p.add_argument("-peerA", default="", help="peer label for the A side "
+                   "(defaults to its address)")
+    p.add_argument("-peerB", default="", help="peer label for the B side")
+    p.add_argument("-linkCosts", default="",
+                   help="link-cost policy (inline JSON or file) supplying "
+                   "replication_lag_bound_s; -lagBound overrides")
+    p.add_argument("-lagBound", type=float, default=-1.0,
+                   help="replication lag bound in seconds (<0: use policy)")
+    opt = p.parse_args(argv)
+    costs = (load_link_costs(opt.linkCosts) if opt.linkCosts
+             else LinkCostModel())
+    bound = (opt.lagBound if opt.lagBound >= 0
+             else costs.replication_lag_bound_s)
+    fa, fb = FilerClient(opt.a), FilerClient(opt.b)
+    syncs = [GeoSync(fa, fb, peer=opt.peerA or opt.a, lag_bound_s=bound,
+                     path_prefix=opt.path).start()]
+    print(f"geo-replicating {opt.a} -> {opt.b} under {opt.path} "
+          f"(lag bound {bound}s)", flush=True)
+    if not opt.isActivePassive:
+        syncs.append(GeoSync(fb, fa, peer=opt.peerB or opt.b,
+                             lag_bound_s=bound,
+                             path_prefix=opt.path).start())
+        print(f"geo-replicating {opt.b} -> {opt.a} under {opt.path}",
+              flush=True)
+    return _run_syncs(syncs)
+
+
 VERBS = {"master": run_master, "volume": run_volume, "server": run_server,
          "shell": run_shell, "upload": run_upload, "backup": run_backup,
          "master.follow": run_master_follow, "export": run_export,
@@ -1095,7 +1254,9 @@ VERBS = {"master": run_master, "volume": run_volume, "server": run_server,
          "benchmark": run_benchmark, "filer": run_filer,
          "filer.copy": run_filer_copy, "filer.meta.tail": run_filer_meta_tail,
          "filer.cat": run_filer_cat, "filer.meta.backup": run_filer_meta_backup,
-         "s3": run_s3, "iam": run_iam}
+         "s3": run_s3, "iam": run_iam, "webdav": run_webdav,
+         "filer.backup": run_filer_backup, "filer.sync": run_filer_sync,
+         "geo.sync": run_geo_sync}
 
 
 def main(argv=None) -> int:

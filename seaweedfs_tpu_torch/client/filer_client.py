@@ -16,8 +16,8 @@ Data bytes go straight to the blob cluster (AssignVolume RPC + volume HTTP),
 matching the in-process server's chunking.
 
 The port's copy of seaweedfs_tpu/client/filer_client.py: it speaks the
-reference's wire, so it drives a filer of either package. The replication
-plane it names comes with a later slice of the port. Its differences:
+reference's wire, so it drives a filer of either package, and the port's
+replication plane and WebDAV gateway run over it. Its differences:
 `write_file` returns the created entry and records the content's md5 in
 it, as FilerServer.write_file does (the reference returns None, so its
 standalone S3 gateway, which reads the entry's md5 for the ETag, fails

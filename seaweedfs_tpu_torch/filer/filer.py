@@ -5,11 +5,19 @@ auto-create), :301 UpdateEntry, filer_delete_entry.go (recursive delete with
 chunk GC), filer_rename.go (AtomicRenameEntry as subtree move),
 filechunks.go garbage collection of replaced chunks, TTL expiry on read.
 
-The port's copy of seaweedfs_tpu/filer/filer.py, unchanged.
+The port's copy of seaweedfs_tpu/filer/filer.py, with one difference: a
+filer's signature is its store's, kept in the store's kv under
+"filer.store.id" (4 bytes, big-endian; upstream filer.go
+setOrLoadFilerStoreSignature keeps it the same way), so a filer restarted on
+the same namespace keeps its identity. The reference draws a new signature
+at every start, so a filer.sync restarted after its source filer restarts
+finds no offset under the new signature and replays the source's whole
+meta log.
 """
 
 from __future__ import annotations
 
+import struct
 import threading
 import time
 from typing import Callable, Iterator
@@ -24,6 +32,25 @@ from .store import FilerStore
 log = logger("filer")
 
 ROOT = "/"
+STORE_ID_KEY = b"filer.store.id"
+
+
+def store_signature(store: FilerStore) -> int:
+    """The store's filer signature: the one kept in its kv, else a fresh one
+    that is kept there (a store without kv gets a fresh one each time)."""
+    try:
+        raw = store.kv_get(STORE_ID_KEY)
+    except Exception as e:  # noqa: BLE001
+        log.warning("filer store id unreadable (%s); a fresh signature", e)
+        raw = None
+    if raw and len(raw) == 4 and struct.unpack(">I", raw)[0]:
+        return struct.unpack(">I", raw)[0]
+    sig = (time.time_ns() & 0x7FFFFFFF) or 1
+    try:
+        store.kv_put(STORE_ID_KEY, struct.pack(">I", sig))
+    except Exception as e:  # noqa: BLE001
+        log.warning("filer store id not kept (%s)", e)
+    return sig
 
 
 def split_path(path: str) -> tuple[str, str]:
@@ -44,7 +71,7 @@ class Filer:
                  signature: int = 0, notification_queue=None):
         self.store = store
         self.meta_log = MetaLog(meta_log_path)
-        self.signature = signature or (time.time_ns() & 0x7FFFFFFF)
+        self.signature = signature or store_signature(store)
         # chunk_deleter receives file_ids of unreferenced chunks (wired to
         # operation.delete_batch by the server; no-op in unit tests)
         self.chunk_deleter = chunk_deleter or (lambda fids: None)

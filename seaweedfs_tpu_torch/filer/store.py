@@ -9,9 +9,10 @@ All store serialized filer_pb2.Entry blobs keyed by (directory, name).
 
 The port's copy of seaweedfs_tpu/filer/store.py. The file formats are the
 reference's: a sqlite db, a logdb file or an lsm directory written by either
-package opens in the other. The redis, mongo and etcd stores (and their
-in-repo stand-ins) are not ported yet: `open_store` refuses their specs with
-a ValueError that names the store (ROADMAP Queue 1).
+package opens in the other. `open_store` reaches the redis, mongo and etcd
+stores through the reference's lazy branches (`filer/redis_store.py`,
+`mongo_store.py`, `etcd_store.py`; their local stand-ins are
+`utils/mini_{redis,mongo,etcd}.py`).
 """
 
 from __future__ import annotations
@@ -258,10 +259,15 @@ def open_store(spec: str) -> FilerStore:
         # "leveldb" accepted for reference-flag familiarity: LsmStore is
         # the from-scratch leveldb analogue
         return LsmStore(arg or "filer-lsm")
-    if kind in ("redis", "mongo", "mongodb", "etcd"):
-        raise ValueError(f"filer store {spec!r}: the {kind} store is not "
-                         "ported yet (ROADMAP Queue 1, the slice after the "
-                         "filer); use memory, sqlite:, logdb: or lsm:")
+    if kind == "redis":
+        from .redis_store import RedisStore
+        return RedisStore(arg.lstrip("/") or "127.0.0.1:6379")
+    if kind in ("mongo", "mongodb"):
+        from .mongo_store import MongoStore
+        return MongoStore(arg.lstrip("/") or "127.0.0.1:27017")
+    if kind == "etcd":
+        from .etcd_store import EtcdStore
+        return EtcdStore(arg.lstrip("/") or "127.0.0.1:2379")
     if kind == "mysql":
         from .sql_store import AbstractSqlStore, MysqlDialect
         kw = dict(kv.split("=", 1) for kv in arg.split() if "=" in kv)
@@ -273,6 +279,7 @@ def open_store(spec: str) -> FilerStore:
         return AbstractSqlStore(PostgresDialect(arg or "dbname=seaweedfs"))
     raise ValueError(f"unknown filer store {spec!r} (supported: memory, "
                      f"sqlite:<path>, logdb:<path>, lsm:<dir>, "
+                     f"redis:<host:port>, mongo:<host:port>, etcd:<host:port>, "
                      f"mysql:<k=v ...>, postgres:<dsn>)")
 
 

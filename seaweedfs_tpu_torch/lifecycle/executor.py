@@ -25,7 +25,10 @@ volume, with `SeaweedFS_lifecycle_transitions_total{from,to}` and
 `SeaweedFS_lifecycle_bytes_moved_total{from,to}` metering the flows.
 Dry-run journals the plan and returns without one mutating RPC.
 
-The port's copy of seaweedfs_tpu/lifecycle/executor.py.
+The port's copy of seaweedfs_tpu/lifecycle/executor.py. Port-only: a
+transition whose turn comes after the env's owner was deposed
+(`shell.commands.deposed`, the admin cron's leadership check) is skipped
+with reason "leadership lost"; the reference runs the whole plan.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from .planner import (KIND_ENCODE, KIND_OFFLOAD, KIND_PROMOTE, KIND_STAMP,
 log = logger("lifecycle.executor")
 
 SKIP_COOLDOWN, SKIP_LOCK, SKIP_BUDGET = "cooldown", "lock", "budget"
+SKIP_DEPOSED = "leadership lost"
 
 DEFAULT_MAX_BYTES = 10 << 30  # 10 GB of tier moves per sweep
 
@@ -148,6 +152,10 @@ class LifecycleExecutor:
                  lock: threading.Lock) -> None:
         from .. import qos, tracing
         from ..ops import events
+        from ..shell.commands import deposed
+        if deposed(self.env):
+            self._skip(summary, t, SKIP_DEPOSED, lock=lock)
+            return
         vol_lock = self._lock_for(t.key)
         if not vol_lock.acquire(blocking=False):
             self._skip(summary, t, SKIP_LOCK, lock=lock)

@@ -191,6 +191,9 @@ class AdminCron:
         from ..shell.commands import run_command
         env = self._get_env()
         env.out = out = io.StringIO()
+        # checked between the volumes of a long line: a deposed leader
+        # stops mid-line instead of racing the new leader's cron
+        env.should_stop = lambda: not self.is_leader()
         try:
             env.acquire_lock()
         except Exception as e:  # noqa: BLE001 — operator holds it, or no quorum

@@ -15,7 +15,15 @@ Peer RPCs fan out on a worker pool so one dead peer cannot stall
 heartbeats to the healthy ones. Timing defaults suit tests (sub-second
 failover); production would raise them.
 
-The port's copy of seaweedfs_tpu/master/raft.py.
+The port's copy of seaweedfs_tpu/master/raft.py, with one difference:
+the leader sends each peer's AppendEntries on that peer's own clock. The
+reference's `_broadcast_append` waits on every peer's answer (up to three
+RPC timeouts) before the loop sleeps a heartbeat interval, so one stalled
+peer spaces every heartbeat past the 0.4 s minimum election timeout and
+keeps the healthy followers electing. Here a send is asynchronous: a peer
+with an append in flight is skipped until it answers, each answer is folded
+in as it lands (match/next index, commit advance), and the quorum lease is
+the time the (quorum-1)-th most recent peer answered.
 """
 
 from __future__ import annotations
@@ -130,9 +138,13 @@ class RaftNode:
         self._stop = threading.Event()
         self._commit_cv = threading.Condition(self._lock)
         self._thread: threading.Thread | None = None
+        # one append in flight a peer, plus room for votes and the
+        # config-change courtesy appends
         self._pool = ThreadPoolExecutor(
-            max_workers=max(2, len(self.peers) or 1),
+            max_workers=max(2, 2 * len(self.peers)),
             thread_name_prefix="raft-rpc")
+        self._in_flight: set[str] = set()   # peers with an append out
+        self._last_ack: dict[str, float] = {}  # peer -> last answer time
 
     # -- absolute index helpers ---------------------------------------------
     @property
@@ -450,6 +462,7 @@ class RaftNode:
         self.next_index = {p: n for p in self.peers}
         self.match_index = {p: -1 for p in self.peers}
         self._quorum_seen = time.monotonic()
+        self._last_ack = {}
         # no-op entry: commits all prior-term entries immediately (Raft
         # §8), closing the window where a replicated max_volume_id from
         # the old term sits unapplied on the new leader
@@ -490,66 +503,110 @@ class RaftNode:
         return args
 
     def _broadcast_append(self) -> None:
+        """Send AppendEntries to every peer with none in flight, without
+        waiting on any answer: each peer runs on its own clock, so a
+        stalled peer delays only itself."""
         with self._lock:
             if self.role != LEADER:
                 return
             term = self.current_term
-            per_peer = {p: self._append_args_for(p) for p in self.peers}
-        futs = {}
-        for peer, args in per_peer.items():
-            ni = args.pop("_ni")
-            futs[self._pool.submit(
-                contextvars.copy_context().run, self._call, peer,
-                "AppendEntries", args)] = (peer, ni, len(args["entries"]))
-        reached = 1
-        try:
-            for fut in as_completed(futs, timeout=self.rpc_timeout * 3):
-                peer, ni, n_entries = futs[fut]
-                try:
-                    resp = fut.result()
-                except Exception:  # noqa: BLE001
-                    continue
-                with self._lock:
-                    if resp.get("term", 0) > self.current_term:
-                        self._become_follower(resp["term"], None)
-                        return
-                    reached += 1
-                    if resp.get("success"):
-                        self.match_index[peer] = ni + n_entries - 1
-                        self.next_index[peer] = ni + n_entries
-                    else:
-                        self.next_index[peer] = max(self.log_start - 1,
-                                                    ni - 1)
-        except TimeoutError:
-            pass
-        with self._lock:
+            self._check_quorum_locked()
             if self.role != LEADER:
                 return
-            now = time.monotonic()
-            if reached >= self._quorum:
-                self._quorum_seen = now
-            elif now - self._quorum_seen > self.election_timeout[1] * 2:
-                # leader lease lost: a minority-partitioned leader must
-                # stop serving (split-brain guard)
-                log.warning("%s: lost contact with quorum; stepping down",
-                            self.address)
-                self.role = FOLLOWER
-                self.leader_address = None
-                self._reset_election_timer()
+            for peer in self.peers:
+                self._send_append_locked(peer, term)
+            # a cluster of one commits here; otherwise the answers do
+            self._advance_commit_locked()
+
+    def _send_append_locked(self, peer: str, term: int) -> None:
+        """Queue one AppendEntries to `peer` unless one is in flight
+        (caller holds the lock)."""
+        if peer in self._in_flight:
+            return
+        args = self._append_args_for(peer)
+        ni = args.pop("_ni")
+        self._in_flight.add(peer)
+        try:
+            fut = self._pool.submit(contextvars.copy_context().run,
+                                    self._call, peer, "AppendEntries", args)
+        except RuntimeError:  # pool shut down: the node is stopping
+            self._in_flight.discard(peer)
+            return
+        n_entries = len(args["entries"])
+        fut.add_done_callback(
+            lambda f: self._on_append_done(f, peer, term, ni, n_entries))
+
+    def _on_append_done(self, fut, peer: str, term: int, ni: int,
+                        n_entries: int) -> None:
+        with self._lock:
+            self._in_flight.discard(peer)
+            try:
+                resp = fut.result()
+            except Exception:  # noqa: BLE001  # swtpu-lint: disable=silent-except (an unreachable peer counts as no answer; the lease check sees its silence)
                 return
-            # advance commit: highest index replicated on a quorum with
-            # an entry from the current term (Raft §5.4.2)
-            for idx in range(self._last_index, self.commit_index, -1):
-                if self._term_at(idx) != self.current_term:
-                    break
-                count = 1 + sum(1 for p in self.peers
-                                if self.match_index.get(p, -1) >= idx)
-                if count >= self._quorum:
-                    self.commit_index = idx
-                    self._commit_cv.notify_all()
-                    break
-            self._apply_committed()
-            self._maybe_compact()
+            if resp.get("term", 0) > self.current_term:
+                self._become_follower(resp["term"], None)
+                return
+            if self.role != LEADER or self.current_term != term:
+                return
+            self._last_ack[peer] = time.monotonic()
+            self._refresh_quorum_seen_locked()
+            if resp.get("success"):
+                self.match_index[peer] = max(self.match_index.get(peer, -1),
+                                             ni + n_entries - 1)
+                self.next_index[peer] = max(self.next_index.get(peer, 0),
+                                            ni + n_entries)
+            else:
+                self.next_index[peer] = max(self.log_start - 1, ni - 1)
+            self._advance_commit_locked()
+            if self._stop.is_set() or peer not in self.peers:
+                return
+            if not resp.get("success") or \
+                    self.next_index[peer] <= self._last_index:
+                # entries still to send (or a log to back up): go again
+                # now rather than a heartbeat later
+                self._send_append_locked(peer, term)
+
+    def _refresh_quorum_seen_locked(self) -> None:
+        """A quorum was last reached when the (quorum-1)-th most recent
+        peer answered."""
+        need = self._quorum - 1
+        if need <= 0:
+            self._quorum_seen = time.monotonic()
+            return
+        acks = sorted((self._last_ack.get(p, 0.0) for p in self.peers),
+                      reverse=True)
+        if len(acks) >= need:
+            self._quorum_seen = max(self._quorum_seen, acks[need - 1])
+
+    def _check_quorum_locked(self) -> None:
+        """Leader lease: past twice the longest election timeout without a
+        quorum's answers, a minority-partitioned leader steps down."""
+        self._refresh_quorum_seen_locked()
+        now = time.monotonic()
+        if now - self._quorum_seen > self.election_timeout[1] * 2:
+            # leader lease lost: a minority-partitioned leader must stop
+            # serving (split-brain guard)
+            log.warning("%s: lost contact with quorum; stepping down",
+                        self.address)
+            self.role = FOLLOWER
+            self.leader_address = None
+            self._reset_election_timer()
+
+    def _advance_commit_locked(self) -> None:
+        """Advance commit to the highest index replicated on a quorum with
+        an entry from the current term (Raft §5.4.2), then apply."""
+        for idx in range(self._last_index, self.commit_index, -1):
+            if self._term_at(idx) != self.current_term:
+                break
+            count = 1 + sum(1 for p in self.peers
+                            if self.match_index.get(p, -1) >= idx)
+            if count >= self._quorum:
+                self.commit_index = idx
+                self._commit_cv.notify_all()
+                break
+        self._apply_committed()
+        self._maybe_compact()
 
     def _apply_committed(self) -> None:
         while self.last_applied < self.commit_index:

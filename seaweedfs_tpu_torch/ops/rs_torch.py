@@ -16,7 +16,11 @@ full float32 whatever precision mode the caller had set.
 
 Runs on whatever device its tensors are on (CPU in the tests, CUDA in
 chip_smoke.py's comparison with the kernel). Memory: the unpacked bits of
-a [B, k, L] input take 32x its bytes as float32.
+a [B, k, L] input take 32x its bytes as float32, and the product and its
+packing as much again; on the CPU, where the host's memory is shared with
+everything else, the columns go in slices of at most `CPU_SLICE_BYTES` of
+input (a [32, 10, 1 MiB] batch would otherwise take ~30 GB). The bytes are
+the same either way: each column is independent.
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ import torch
 from . import gf8
 
 _BIT_SHIFTS = tuple(range(8))
+# largest input slice one CPU product takes (its working set ~50x this)
+CPU_SLICE_BYTES = 16 << 20
 
 
 def unpack_bits(data: torch.Tensor) -> torch.Tensor:
@@ -55,9 +61,20 @@ def apply_bitmatrix(bmat: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
         # byte-for-byte comparison with the kernel: full float32 products
         # (0/1 inputs would survive TF32, but nothing here rests on that)
         torch.backends.cuda.matmul.allow_tf32 = False
+    fmat = bmat.to(device=data.device, dtype=torch.float32)
+    length = data.shape[-1]
+    step = length
+    if not data.is_cuda and data.numel():
+        step = max(1, CPU_SLICE_BYTES // (data.numel() // max(length, 1)))
+    if step >= length:
+        return _apply(fmat, data)
+    return torch.cat([_apply(fmat, data[..., s:s + step])
+                      for s in range(0, length, step)], dim=-1)
+
+
+def _apply(fmat: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     bits = unpack_bits(data).to(torch.float32)            # [..., 8k, L]
-    acc = torch.matmul(bmat.to(device=data.device, dtype=torch.float32), bits)
-    return pack_bits(acc.to(torch.int32) & 1)
+    return pack_bits(torch.matmul(fmat, bits).to(torch.int32) & 1)
 
 
 def decode_rows(d: int, p: int, present, wanted) -> np.ndarray:

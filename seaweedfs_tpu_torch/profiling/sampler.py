@@ -2,7 +2,10 @@
 
 The port's copy of seaweedfs_tpu/profiling/sampler.py, with one more
 thread class: `ec_read`, the port volume server's degraded-read pool
-(`ec-read-<port>` threads), which the reference counts under read_pool.
+(`ec-read-<port>` threads), which the reference counts under read_pool,
+and one more waiting frame: an idle ThreadPoolExecutor worker, whose
+innermost Python frame is `thread.py:_worker` (it parks in the C
+`SimpleQueue.get`), samples as waiting; the reference counts it on-CPU.
 
 The reference answers "where is the CPU going?" with `net/http/pprof`
 on -debug.port (command/imports.go:4) — a continuous, low-overhead
@@ -88,10 +91,18 @@ def classify_thread(name: str) -> str:
     return "other"
 
 
+# innermost frames that park in C with no stdlib Python wrapper below them:
+# an idle ThreadPoolExecutor worker blocks in SimpleQueue.get (C) straight
+# from concurrent/futures/thread.py:_worker (a running work item's own
+# frames sit below _worker, so _worker innermost is always the wait)
+_WAIT_FRAMES = {("thread.py", "_worker")}
+
+
 def _is_waiting(frame) -> bool:
     code = frame.f_code
-    return (code.co_name in _WAIT_FUNCS
-            and os.path.basename(code.co_filename) in _WAIT_FILES)
+    base = os.path.basename(code.co_filename)
+    return ((code.co_name in _WAIT_FUNCS and base in _WAIT_FILES)
+            or (base, code.co_name) in _WAIT_FRAMES)
 
 
 def _fold(frame, max_depth: int) -> str:

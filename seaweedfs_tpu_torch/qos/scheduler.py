@@ -1,6 +1,12 @@
 """The shared QoS scheduler core both tiers enforce through (the port's
 copy of seaweedfs_tpu/qos/scheduler.py; its metrics go to the port's
-`stats`, its events to the port's `ops/events`).
+`stats`, its events to the port's `ops/events`). One difference: a pump
+pass that ends with a head waiting only for its tenant's round-robin
+deficit runs the next pass at once. The reference waits its 0.5 s idle tick
+between such passes, so a head costing n quanta waits n ticks (a 32 MiB
+read under the default 64 KiB quantum, ~2 min, alone on the node); the
+deficit still grows a quantum a visit, so the order of grants is the
+reference's.
 
 One `QosScheduler` instance lives on each enforcement point (volume
 server, S3 gateway). Admission of one request walks three mechanisms:
@@ -275,6 +281,8 @@ class QosScheduler:
         self._last_event: dict[tuple[str, str], float] = {}
         self.shed_total = 0
         self.admitted_total = 0
+        # the last pass left a head waiting only for round-robin deficit
+        self._deficit_stalled = False
         if policy is not None:
             self.load(policy)
 
@@ -634,7 +642,7 @@ class QosScheduler:
                 if self._stopping:
                     return
                 grants, sheds, next_dl = self._schedule_locked()
-                if not grants and not sheds:
+                if not grants and not sheds and not self._deficit_stalled:
                     now = self._clock()
                     wait = _IDLE_TICK_S
                     if next_dl is not None:
@@ -657,6 +665,7 @@ class QosScheduler:
         sheds: list = []
         next_dl: "float | None" = None
         quantum = float(self._policy.quantum_bytes)
+        self._deficit_stalled = False
 
         # 1) deadline sheds, every class (expired waiters must clear
         #    even in classes the grant pass won't reach)
@@ -728,6 +737,9 @@ class QosScheduler:
                     w = q[0]
                     unit = max(float(w.cost), 1.0)
                     if unit > t.deficit[klass]:
+                        # another visit credits another quantum: the pump
+                        # runs it now instead of an idle tick later
+                        self._deficit_stalled = True
                         break
                     wait, inflight_blocked = self._eta_locked(
                         t, klass, w.cost, now)

@@ -8,10 +8,12 @@ utils/mini_azure.MiniAzure offline; point it at
 https://{account}.blob.core.windows.net and the same bytes flow to real
 Azure.
 
-The port's copy of the client half of seaweedfs_tpu/remote/azure.py: the
-signer, `AzureBlobClient` and `parse_azure_spec`, which `storage/backend.py`
-opens for an `azure:` tier. The replication sink (`AzureSink`) needs the
-filer's protobufs and the replication package and is ported with them.
+The port's copy of seaweedfs_tpu/remote/azure.py: the signer,
+`AzureBlobClient` and `parse_azure_spec`, which `storage/backend.py` opens
+for an `azure:` tier, and the replication sink `AzureSink`. Unlike the
+reference, the module does not import the replication plane (the filer's
+protobufs) when a tier opens: `AzureSink` is built at its first use, through
+the module's `__getattr__`.
 """
 
 from __future__ import annotations
@@ -168,3 +170,48 @@ def parse_azure_spec(arg: str) -> AzureBlobClient:
         raise ValueError(
             "azure spec: endpoint/container?account:base64key required")
     return AzureBlobClient(f"{scheme}://{host}", account, key, container)
+
+
+def _azure_sink_class():
+    from ..replication.sink import ReplicationSink
+
+    class AzureSink(ReplicationSink):
+        """Replicate filer events into an Azure container (reference
+        sink/azuresink/azure_sink.go semantics: entries become block blobs,
+        directories are skipped, deletes remove the blob)."""
+
+        name = "azure"
+
+        def __init__(self, client: AzureBlobClient, dir_prefix: str = ""):
+            self.client = client
+            self.prefix = dir_prefix.strip("/")
+            client.ensure_container()
+
+        def _key(self, path: str) -> str:
+            key = path.lstrip("/")
+            return f"{self.prefix}/{key}" if self.prefix else key
+
+        def create_entry(self, path: str, entry, read_data,
+                         signatures: "list[int] | None" = None) -> None:
+            if entry.is_directory:
+                return
+            self.client.put_bytes(self._key(path), read_data(entry))
+
+        def update_entry(self, path: str, entry, read_data,
+                         signatures: "list[int] | None" = None) -> None:
+            self.create_entry(path, entry, read_data, signatures)
+
+        def delete_entry(self, path: str, is_directory: bool) -> None:
+            if is_directory:
+                return  # containers are flat; directory markers don't exist
+            self.client.delete_object(self._key(path))
+
+    AzureSink.__module__, AzureSink.__qualname__ = __name__, "AzureSink"
+    return AzureSink
+
+
+def __getattr__(name: str):
+    if name == "AzureSink":
+        cls = globals()["AzureSink"] = _azure_sink_class()
+        return cls
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

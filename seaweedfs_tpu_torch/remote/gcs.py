@@ -9,10 +9,11 @@ utils/mini_gcs.MiniGcs; on GCP, pass a token from the metadata server or
 `gcloud auth print-access-token`. (HMAC-key users can keep using the
 S3-compat path, storage/backend.py S3Remote.)
 
-The port's copy of the client half of seaweedfs_tpu/remote/gcs.py:
-`GcsClient` and `parse_gcs_spec`, which `storage/backend.py` opens for a
-`gcs-json:` tier. The replication sink (`GcsSink`) is ported with the
-filer and the replication package.
+The port's copy of seaweedfs_tpu/remote/gcs.py: `GcsClient` and
+`parse_gcs_spec`, which `storage/backend.py` opens for a `gcs-json:` tier,
+and the replication sink `GcsSink`. Unlike the reference, the module does not
+import the replication plane when a tier opens: `GcsSink` is built at its
+first use, through the module's `__getattr__`.
 """
 
 from __future__ import annotations
@@ -106,3 +107,43 @@ def parse_gcs_spec(arg: str) -> GcsClient:
     if not (bucket and token):
         raise ValueError("gcs-json spec: endpoint/bucket?token required")
     return GcsClient(f"{scheme}://{host}", bucket, token)
+
+
+def _gcs_sink_class():
+    from ..replication.sink import ReplicationSink
+
+    class GcsSink(ReplicationSink):
+        name = "gcs-json"
+
+        def __init__(self, client: GcsClient, dir_prefix: str = ""):
+            self.client = client
+            self.prefix = dir_prefix.strip("/")
+
+        def _key(self, path: str) -> str:
+            key = path.lstrip("/")
+            return f"{self.prefix}/{key}" if self.prefix else key
+
+        def create_entry(self, path: str, entry, read_data,
+                         signatures: "list[int] | None" = None) -> None:
+            if entry.is_directory:
+                return
+            self.client.put_bytes(self._key(path), read_data(entry))
+
+        def update_entry(self, path: str, entry, read_data,
+                         signatures: "list[int] | None" = None) -> None:
+            self.create_entry(path, entry, read_data, signatures)
+
+        def delete_entry(self, path: str, is_directory: bool) -> None:
+            if is_directory:
+                return
+            self.client.delete_object(self._key(path))
+
+    GcsSink.__module__, GcsSink.__qualname__ = __name__, "GcsSink"
+    return GcsSink
+
+
+def __getattr__(name: str):
+    if name == "GcsSink":
+        cls = globals()["GcsSink"] = _gcs_sink_class()
+        return cls
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -5,7 +5,11 @@
 command_ec_encode.go:76). Commands are registered in a table like
 shell/commands.go and exposed through the CLI REPL (weed shell).
 
-The port's copy of seaweedfs_tpu/shell/commands.py.
+The port's copy of seaweedfs_tpu/shell/commands.py. Port-only:
+`CommandEnv.should_stop`, a callable the admin cron sets to "this master
+is no longer the leader"; the long lines (`ec.encode`, the lifecycle
+executor) check it between volumes through `deposed(env)` and stop there,
+where the reference finishes the line a deposed leader started.
 """
 
 from __future__ import annotations
@@ -20,6 +24,13 @@ from ..pb import master_pb2 as mpb
 from ..utils.rpc import MASTER_SERVICE, Stub
 
 COMMANDS: dict[str, "Command"] = {}
+
+
+def deposed(env) -> bool:
+    """True when the env's owner asks a long line to stop between volumes
+    (the cron of a master that lost its leadership)."""
+    stop = getattr(env, "should_stop", None)
+    return bool(stop is not None and stop())
 
 
 @dataclass
@@ -51,6 +62,7 @@ class CommandEnv:
     lock_time: int = 0
     out: TextIO = None
     option: dict = field(default_factory=dict)
+    should_stop: "Callable[[], bool] | None" = None
 
     def __post_init__(self):
         if self.mc is None:

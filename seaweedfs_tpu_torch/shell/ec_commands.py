@@ -16,7 +16,7 @@ import time
 
 from ..pb import volume_server_pb2 as vpb
 from ..utils.rpc import Stub, VOLUME_SERVICE
-from .commands import CommandEnv, command
+from .commands import CommandEnv, command, deposed
 
 
 def _stub(env: CommandEnv, srv: dict) -> Stub:
@@ -161,6 +161,9 @@ def cmd_ec_encode(env: CommandEnv, args):
                           (srv, []))[1].append((vid, collection))
     encoded = 0
     for srv, vols in by_src.values():
+        if deposed(env):
+            env.println("aborting ec.encode: leadership lost")
+            break
         encoded += _encode_on_server(env, srv, vols, opt)
     env.println(f"ec encoded {encoded} volumes")
 

@@ -281,12 +281,12 @@ class FastApp:
 
 
 _REASONS = {200: "OK", 201: "Created", 202: "Accepted", 204: "No Content",
-            206: "Partial Content",
+            206: "Partial Content", 207: "Multi-Status",
             301: "Moved Permanently", 302: "Found", 304: "Not Modified",
             400: "Bad Request", 401: "Unauthorized", 403: "Forbidden",
             404: "Not Found", 405: "Method Not Allowed", 406: "Not Acceptable",
             409: "Conflict",
-            411: "Length Required", 413: "Payload Too Large",
+            411: "Length Required", 412: "Precondition Failed", 413: "Payload Too Large",
             416: "Range Not Satisfiable", 431: "Headers Too Large",
             500: "Internal Server Error", 503: "Service Unavailable"}
 

@@ -11,7 +11,11 @@ delete a removal, `filer.meta.backup` holding the filer's entries, and
 `server -filer` serving the same verbs. The S3 verbs: `filer -s3 -iam`,
 the standalone `s3` and `iam` over a filer with identities from the
 filer's /etc (s3.configure, the IAM API) reloaded while they run, and
-phase 21 of chip_smoke.py at a small size."""
+phase 21 of chip_smoke.py at a small size. The replication verbs:
+`webdav` over the filer daemon, `filer.backup` mirroring its tree into a
+local directory and resuming from its offset, `filer.sync` both ways and
+`geo.sync` one way between port filers, and phase 22 of chip_smoke.py at
+a small size."""
 
 import hashlib
 import json
@@ -519,3 +523,180 @@ def test_s3_round_trip_of_chip_smoke_on_cpu(tmp_path):
                                    small_block=1 << 14)
     assert res["reconstructs"] == len(res["widths"]) > 0
     assert res["multipart"] > 0 and res["restart"] > 0
+
+
+def test_usage_lists_the_replication_verbs():
+    r = subprocess.run([sys.executable, "-m", "seaweedfs_tpu_torch"],
+                       capture_output=True, text=True, timeout=60, cwd=REPO)
+    assert r.returncode == 2
+    for verb in ("webdav", "filer.backup", "filer.sync", "geo.sync"):
+        assert verb in r.stderr
+
+
+def _dav(port: int, method: str, path: str, body: bytes = b"",
+         headers=None):
+    import http.client
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        c.request(method, path, body=body, headers=headers or {})
+        r = c.getresponse()
+        return r.status, r.read()
+    finally:
+        c.close()
+
+
+def _stop(proc, sig=None) -> str:
+    import signal
+    proc.send_signal(sig or signal.SIGTERM)
+    out = proc.communicate(timeout=30)[0]
+    assert proc.returncode == 0, out
+    return out.decode() if isinstance(out, bytes) else out
+
+
+def _live(filer_verb) -> dict:
+    """The copied files the filer still holds (another case of this module
+    deletes one) with their bytes."""
+    from seaweedfs_tpu_torch.client.filer_client import FilerClient
+    fc = FilerClient(f"127.0.0.1:{filer_verb['port']}")
+    try:
+        return {p: d for p, d in filer_verb["want"].items()
+                if fc.filer.find_entry(*p.rsplit("/", 1)) is not None}
+    finally:
+        fc.close()
+
+
+def test_webdav_verb_over_the_filer_daemon(filer_verb):
+    """`webdav -filer` serves the filer daemon's tree through a FilerClient:
+    PROPFIND lists the copied tree, GETs return the copied bytes, a PUT
+    reads back through filer.cat; SIGTERM ends it with rc 0."""
+    import re
+    import time
+    addr = f"127.0.0.1:{filer_verb['port']}"
+    port = tc.free_port_pair()
+    proc = _spawn("webdav", "-filer", addr, "-port", str(port))
+    try:
+        deadline = time.monotonic() + 60
+        while True:
+            assert proc.poll() is None
+            try:
+                if _dav(port, "OPTIONS", "/")[0] == 200:
+                    break
+            except OSError:
+                pass
+            assert time.monotonic() < deadline
+            time.sleep(0.2)
+        st, body = _dav(port, "PROPFIND", "/dst/tree/sub", headers={
+            "Depth": "1"})
+        assert st == 207
+        hrefs = re.findall(rb"<D:href>([^<]*)</D:href>", body)
+        assert hrefs == [b"/dst/tree/sub/", b"/dst/tree/sub/b.bin",
+                         b"/dst/tree/sub/d.bin", b"/dst/tree/sub/deeper/"]
+        live = _live(filer_verb)
+        assert len(live) >= len(filer_verb["want"]) - 1
+        for path, data in live.items():
+            assert _dav(port, "GET", path) == (200, data)
+        assert _dav(port, "PUT", "/dav-put/n.txt", b"through webdav")[0] \
+            == 201
+        assert _verb("filer.cat", "-filer", addr, "/dav-put/n.txt") == \
+            "through webdav"
+    finally:
+        out = _stop(proc)
+    assert f"webdav 127.0.0.1:{port} over filer {addr}" in out
+
+
+def test_filer_backup_verb_mirrors_and_resumes(filer_verb, tmp_path):
+    """`filer.backup -path /dst` mirrors the copied tree into a local
+    directory byte for byte; started again after a new file, it resumes
+    from the offset in the filer's kv and adds just that file."""
+    import signal
+    import time
+    addr = f"127.0.0.1:{filer_verb['port']}"
+    mirror = tmp_path / "mirror"
+
+    def local():
+        return {"/" + os.path.relpath(os.path.join(d, n), mirror): open(
+            os.path.join(d, n), "rb").read()
+            for d, _ds, ns in os.walk(mirror) for n in ns}
+
+    want = _live(filer_verb)
+    proc = _spawn("filer.backup", "-filer", addr, "-dir", str(mirror),
+                  "-path", "/dst")
+    try:
+        tc.wait_until(lambda: local() == want, timeout=60,
+                      msg="the mirror equals the filer's /dst")
+    finally:
+        _stop(proc, signal.SIGINT)
+    src = tmp_path / "late.bin"
+    src.write_bytes(b"late file")
+    _verb("filer.copy", "-filer", addr, str(src), "/dst")
+    want["/dst/late.bin"] = b"late file"
+    t0 = time.time()
+    proc = _spawn("filer.backup", "-filer", addr, "-dir", str(mirror),
+                  "-path", "/dst")
+    try:
+        tc.wait_until(lambda: local() == want, timeout=60,
+                      msg="the resumed mirror gains the late file")
+        first = proc.stdout.readline().decode()
+        assert "(since 0)" not in first and "backing up" in first
+    finally:
+        _stop(proc, signal.SIGINT)
+    # the resumed run rewrote only the late file
+    assert [p for p in want if os.path.getmtime(
+        str(mirror) + p) >= t0] == ["/dst/late.bin"]
+
+
+def test_filer_sync_and_geo_sync_verbs(cluster, tmp_path):
+    """`filer.sync -a A -b B` (both ways) and `geo.sync -a A -b C
+    -isActivePassive -path /g -lagBound 30` between port filers: B gets
+    A's writes and A gets B's, with no echo; C gets A's /g only."""
+    import time
+
+    from seaweedfs_tpu_torch.filer.filer_server import FilerServer
+    fss = [FilerServer(cluster["master"].address, store_spec="memory",
+                       port=tc.free_port_pair(), chunk_size_mb=1).start()
+           for _ in range(3)]
+    a, b, c = fss
+    procs = [_spawn("filer.sync", "-a", a.url, "-b", b.url),
+             _spawn("geo.sync", "-a", a.url, "-b", c.url, "-isActivePassive",
+                    "-path", "/g", "-lagBound", "30")]
+    try:
+        firsts = [p.stdout.readline().decode() for p in procs]
+        assert firsts[0].startswith(f"syncing {a.url} -> {b.url}")
+        assert firsts[1] == f"geo-replicating {a.url} -> {c.url} under /g " \
+            "(lag bound 30.0s)\n"
+        a.write_file("/s/from-a.bin", b"A" * 3000)
+        b.write_file("/s/from-b.bin", b"B" * 4000)
+        a.write_file("/g/geo.bin", b"G" * 5000)
+
+        def tree(fs, d):
+            return {e.name: fs.read_entry_bytes(e)
+                    for e in fs.filer.list_entries(d) if not e.is_directory}
+        want = {"from-a.bin": b"A" * 3000, "from-b.bin": b"B" * 4000}
+        tc.wait_until(lambda: tree(a, "/s") == tree(b, "/s") == want,
+                      timeout=60, msg="filer.sync both ways")
+        tc.wait_until(lambda: tree(c, "/g") == {"geo.bin": b"G" * 5000},
+                      timeout=60, msg="geo.sync of /g")
+        time.sleep(1.0)
+        assert c.filer.find_entry("/", "s") is None
+        assert tree(a, "/s") == tree(b, "/s") == want
+    finally:
+        outs = [_stop(p) for p in procs]
+        for fs in fss:
+            fs.stop()
+    assert f"syncing {b.url} -> {a.url}" in outs[0]  # not -isActivePassive
+
+
+def test_replication_round_trip_of_chip_smoke_on_cpu(tmp_path):
+    """Phase 22 of chip_smoke.py on the CPU at a small size (16 WebDAV PUTs
+    of 4 KiB-1 MiB and two of 2 MiB at -maxMB 1; a 1 MB chunk cache, so
+    the reads go to the servers; 16 KiB EC small blocks): every step's
+    checks hold, the reads with r1 lost reconstruct, one K1 one-stripe call
+    each, and after the restarts B gains only the new file's events."""
+    import chip_smoke
+    import torch
+    res = chip_smoke.replication_round_trip(np, torch, str(tmp_path), 9,
+                                            "cpu", 16, 2, 2, max_mb=1,
+                                            cache_mb=1, device="cpu",
+                                            small_block=1 << 14)
+    assert res["reconstructs"] == len(res["widths"]) > 0
+    assert res["put"] > 0 and res["catch_up_s"] > 0 and res["restart"] > 0

@@ -351,29 +351,24 @@ def test_shell_help_lists_exactly_the_ported_commands():
     ("-webdav", "ROADMAP Queue 1 item 5, WebDAV"),
     ("-iam", "ROADMAP Queue 1 item 4, S3 and IAM")])
 def test_server_verb_refuses_the_gateways(tmp_path, flag, waits):
-    """`server` runs a filer with -filer; of the gateways only WebDAV still
-    refuses, naming the slice it waits for. `-s3` and `-iam` (the slice
-    `waits` names, now ported) start with the filer they imply and serve:
-    the gateway answers ListBuckets, the IAM API ListUsers; the process
-    stops on SIGTERM with rc 0."""
+    """`server` runs a filer with -filer; the gateways (the slices `waits`
+    names, now ported) start with the filer they imply and serve: the S3
+    gateway answers ListBuckets, the IAM API ListUsers, WebDAV a PROPFIND
+    of the root; the process stops on SIGTERM with rc 0. None refuses
+    any more."""
     import time
 
     from seaweedfs_tpu_torch.client import http_util
 
     from torch_cluster import free_port_pair
-    if flag == "-webdav":
-        out = _cli("server", "-device", "cpu", "-dir", str(tmp_path),
-                   "-filer", flag)
-        assert out.returncode == 2
-        assert f"{flag}: not ported yet ({waits})" in out.stderr, out.stderr
-        return
-    assert "S3 and IAM" in waits
+    assert "S3 and IAM" in waits or "WebDAV" in waits
     port, vport, fport, gport = (free_port_pair() for _ in range(4))
+    port_flag = {"-s3": "-s3Port", "-iam": "-iamPort",
+                 "-webdav": "-webdavPort"}[flag]
     proc = subprocess.Popen(
         [sys.executable, "-m", "seaweedfs_tpu_torch", "server", "-device",
          "cpu", "-dir", str(tmp_path), "-port", str(port), "-volumePort",
-         str(vport), "-filerPort", str(fport), flag,
-         "-s3Port" if flag == "-s3" else "-iamPort", str(gport)],
+         str(vport), "-filerPort", str(fport), flag, port_flag, str(gport)],
         cwd=str(_repo_root()), stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT)
     try:
@@ -384,6 +379,12 @@ def test_server_verb_refuses_the_gateways(tmp_path, flag, waits):
                 if flag == "-s3":
                     r = http_util.request("GET", f"http://127.0.0.1:{gport}/",
                                           max_attempts=1)
+                elif flag == "-webdav":
+                    r = http_util.request(
+                        "PROPFIND", f"http://127.0.0.1:{gport}/",
+                        headers={"Depth": "0"}, max_attempts=1)
+                    if r.status == 207:
+                        break
                 else:
                     r = http_util.request(
                         "POST", f"http://127.0.0.1:{gport}/",
@@ -396,8 +397,8 @@ def test_server_verb_refuses_the_gateways(tmp_path, flag, waits):
                 pass
             assert time.monotonic() < deadline, "no gateway answer in 90 s"
             time.sleep(0.3)
-        want = b"ListAllMyBucketsResult" if flag == "-s3" else \
-            b"ListUsersResponse"
+        want = {"-s3": b"ListAllMyBucketsResult", "-iam": b"ListUsersResponse",
+                "-webdav": b"<D:collection />"}[flag]
         assert want in r.content
         r = http_util.get(f"http://127.0.0.1:{fport}/__status__")
         assert r.status == 200
@@ -405,8 +406,7 @@ def test_server_verb_refuses_the_gateways(tmp_path, flag, waits):
         proc.terminate()
         out = proc.communicate(timeout=30)[0].decode()
     assert proc.returncode == 0, out
-    assert (f"s3 127.0.0.1:{gport}" if flag == "-s3"
-            else f"iam 127.0.0.1:{gport}") in out
+    assert f"{flag[1:]} 127.0.0.1:{gport}" in out
 
 
 _S3_HYGIENE = r"""
@@ -562,3 +562,49 @@ def test_server_verb_and_shell_make_a_cluster_of_the_port(tmp_path):
     finally:
         proc.terminate()
         proc.wait(timeout=15)
+
+
+_REPLICATION_HYGIENE = r"""
+import sys
+sys.modules["jax"] = None
+import seaweedfs_tpu_torch.webdav, seaweedfs_tpu_torch.webdav.webdav_server
+import seaweedfs_tpu_torch.replication, seaweedfs_tpu_torch.geo.replication
+import seaweedfs_tpu_torch.replication.sink
+import seaweedfs_tpu_torch.filer.redis_store, seaweedfs_tpu_torch.filer.mongo_store
+import seaweedfs_tpu_torch.filer.etcd_store
+import seaweedfs_tpu_torch.utils.mini_redis, seaweedfs_tpu_torch.utils.mini_mongo
+import seaweedfs_tpu_torch.utils.mini_etcd, seaweedfs_tpu_torch.utils.bson_lite
+from seaweedfs_tpu_torch.remote.azure import AzureSink
+from seaweedfs_tpu_torch.remote.gcs import GcsSink
+print("LOADED", sorted(n for n in sys.modules
+                       if n.split(".")[0] in ("torch", "jax", "seaweedfs_tpu",
+                                              "aiohttp", "requests")
+                       and sys.modules[n] is not None))
+"""
+
+
+def test_webdav_replication_and_stores_import_no_torch_no_jax_no_reference():
+    """Importing the port's WebDAV gateway, the replication plane with
+    GeoSync and the cloud sinks, the redis, mongo and etcd stores and
+    their stand-ins loads no torch, no jax, no aiohttp, no requests and
+    nothing of the JAX package."""
+    out = subprocess.run([sys.executable, "-c", _REPLICATION_HYGIENE],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=str(_repo_root()))
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+@pytest.mark.parametrize("verb", ["webdav", "filer.backup", "filer.sync",
+                                  "geo.sync"])
+def test_replication_verbs_take_the_references_flags(verb):
+    """Each new verb's flags are the reference's (its -h lists them)."""
+    flags = {"webdav": ("-filer", "-ip", "-port"),
+             "filer.backup": ("-filer", "-dir", "-path"),
+             "filer.sync": ("-a", "-b", "-isActivePassive", "-path"),
+             "geo.sync": ("-a", "-b", "-isActivePassive", "-path", "-peerA",
+                          "-peerB", "-linkCosts", "-lagBound")}[verb]
+    out = _cli(verb, "-h")
+    assert out.returncode == 0, out.stderr
+    for flag in flags:
+        assert flag in out.stdout

@@ -248,15 +248,26 @@ def test_store_files_open_in_the_other_package(tmp_path, kind, writer):
 
 
 def test_open_store_specs(tmp_path):
-    """open_store takes the reference's embeddable specs; the redis, mongo
-    and etcd specs name the store that is not ported yet."""
+    """open_store takes the reference's embeddable specs, and its redis,
+    mongo and etcd specs open the port's stores on the port's stand-ins
+    (tests/test_torch_filer_stores.py holds those stores)."""
+    from seaweedfs_tpu_torch.utils.mini_etcd import MiniEtcd
+    from seaweedfs_tpu_torch.utils.mini_mongo import MiniMongo
+    from seaweedfs_tpu_torch.utils.mini_redis import MiniRedis
     assert port_store.open_store("memory").name == "memory"
     assert port_store.open_store(f"sqlite:{tmp_path}/x.db").name == "sqlite"
     assert port_store.open_store(f"lsm:{tmp_path}/l").name == \
         ref_store.open_store(f"lsm:{tmp_path}/l2").name
-    for spec in ("redis:127.0.0.1:1", "mongo:127.0.0.1:1", "etcd:127.0.0.1:1"):
-        with pytest.raises(ValueError, match=spec.split(":")[0]):
-            port_store.open_store(spec)
+    for kind, cls in (("redis", MiniRedis), ("mongo", MiniMongo),
+                      ("etcd", MiniEtcd)):
+        srv = cls().start()
+        try:
+            st = port_store.open_store(f"{kind}:{srv.address}")
+            assert st.name == kind and \
+                type(st).__module__.startswith("seaweedfs_tpu_torch.")
+            st.close()
+        finally:
+            srv.stop()
     with pytest.raises(ValueError):
         port_store.open_store("cassandra:whatever")
 

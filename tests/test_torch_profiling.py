@@ -334,3 +334,27 @@ def test_acquire_and_release_refcount(monkeypatch):
     assert not a.running and prof.default_sampler() is a
     prof.release_sampler()  # an extra release stays at zero
     assert sampler._refs == 0
+
+
+def test_idle_pool_worker_samples_as_waiting():
+    """Idle ThreadPoolExecutor workers park in the C SimpleQueue.get, so
+    their innermost Python frame is thread.py:_worker: the reference's
+    sampler counts them on-CPU, the port's as waiting."""
+    import sys
+    from concurrent.futures import ThreadPoolExecutor
+    pool = ThreadPoolExecutor(max_workers=3, thread_name_prefix="idle-pool")
+    try:
+        list(pool.map(lambda x: x, range(3)))
+        time.sleep(0.2)
+        ids = {t.ident for t in pool._threads}
+        frames = [f for tid, f in sys._current_frames().items() if tid in ids]
+        assert frames and all(f.f_code.co_name == "_worker" for f in frames)
+        counts = {}
+        for name, mod in (("port", sampler), ("jax", ref_sampler)):
+            waiting = sum(mod._is_waiting(f) for f in frames)
+            counts[name] = {"waiting": waiting,
+                            "on_cpu": len(frames) - waiting}
+        assert counts["jax"] == {"waiting": 0, "on_cpu": len(frames)}
+        assert counts["port"] == {"waiting": len(frames), "on_cpu": 0}
+    finally:
+        pool.shutdown()

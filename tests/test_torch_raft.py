@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 
 from conftest import free_port_pair, wait_until
+from torch_cluster import free_port_pair as low_port_pair
 from seaweedfs_tpu.master import raft as ref_raft
 from seaweedfs_tpu.master.master_server import MasterServer as RefMaster
 from seaweedfs_tpu_torch.client import http_util
@@ -402,3 +403,175 @@ def test_quorum_master_imports_the_codec_registry_before_raft_starts():
                          env={**os.environ, "PYTHONPATH": REPO})
     assert out.returncode == 0, out.stderr[-3000:]
     assert "WARM False True True" in out.stdout, out.stdout
+
+
+# -- heartbeats on a per-peer clock (a port-only repair) -------------------
+
+
+def _stalled_pair(mod, monkeypatch):
+    """Two live RaftNodes of one package and a third peer whose every RPC
+    stalls 1 s and then fails; the nodes' append arrivals are recorded."""
+    rpc = __import__(mod.__name__.rsplit(".", 2)[0] + ".utils.rpc",
+                     fromlist=["serve"])
+    ports = [low_port_pair() for _ in range(3)]
+    peers = [f"127.0.0.1:{p}" for p in ports]
+    stalled = peers[2]
+    nodes, servers, arrivals = [], [], {}
+    for addr in peers[:2]:
+        node = mod.RaftNode(addr, peers, apply_fn=lambda c: None)
+        real_call, real_append = node._call, node._on_append_entries
+
+        def call(peer, method, payload, _real=real_call):
+            if peer == stalled:
+                time.sleep(1.0)
+                raise TimeoutError("stalled peer")
+            return _real(peer, method, payload)
+
+        def on_append(p, _real=real_append, _addr=addr):
+            arrivals.setdefault(_addr, []).append(time.monotonic())
+            return _real(p)
+
+        monkeypatch.setattr(node, "_call", call)
+        monkeypatch.setattr(node, "_on_append_entries", on_append)
+        servers.append(rpc.serve(addr, [node.build_service()]))
+        nodes.append(node)
+    for node in nodes:
+        node.start()
+    return nodes, servers, arrivals
+
+
+@pytest.mark.parametrize("package", ["jax", "port"])
+def test_one_stalled_peer_does_not_space_the_heartbeats(package, monkeypatch):
+    """With one peer's AppendEntries stalled 1 s, the reference's leader
+    waits on it before each heartbeat (gaps past the 0.4 s minimum election
+    timeout); the port's healthy pair holds one term for 5 s."""
+    nodes, servers, arrivals = _stalled_pair(RAFT[package], monkeypatch)
+    try:
+        wait_until(lambda: sum(n.is_leader for n in nodes) == 1, timeout=10,
+                   msg="a leader of the live pair")
+        leader = next(n for n in nodes if n.is_leader)
+        follower = next(n for n in nodes if n is not leader)
+        term = leader.current_term
+        t0 = time.monotonic()
+        time.sleep(5.0)
+        times = [t for t in arrivals.get(follower.address, []) if t >= t0]
+        gaps = np.diff(times) if len(times) > 1 else np.array([5.0])
+        if package == "jax":
+            assert gaps.max() > 0.4
+        else:
+            assert (leader.current_term, follower.current_term) == \
+                (term, term) and leader.is_leader
+            assert np.median(gaps) < 0.2 and len(times) >= 20
+    finally:
+        for n in nodes:
+            n.stop()
+        for s in servers:
+            s.stop(grace=0.1)
+
+
+# -- leadership inside long cron lines (a port-only repair) ----------------
+
+def _deposing_env(leader):
+    from types import SimpleNamespace as NS
+    vol = lambda vid: NS(id=vid, collection="c", size=1 << 30)  # noqa: E731
+    servers = [{"id": f"s{i}:8080", "grpc_port": 18080 + i, "dc": "dc1",
+                "rack": f"r{i}", "disks": {"": NS(volume_infos=[vol(i + 1)])}}
+               for i in range(3)]
+    return NS(mc=NS(volume_list=lambda: NS(volume_size_limit_mb=64)),
+              collect_volume_servers=lambda: servers,
+              should_stop=lambda: not leader[0], option={},
+              println=lambda *a: None)
+
+
+@pytest.mark.parametrize("package", ["jax", "port"])
+def test_deposed_leader_runs_no_further_volume_of_its_line(package,
+                                                           monkeypatch):
+    """A cron line (ec.encode over three servers' volumes, a lifecycle plan
+    of three transitions) whose leader is deposed during its first volume:
+    the reference runs the rest of the line, the port none of it."""
+    import importlib
+    root = {"jax": "seaweedfs_tpu", "port": "seaweedfs_tpu_torch"}[package]
+    ec = importlib.import_module(root + ".shell.ec_commands")
+    lc = importlib.import_module(root + ".lifecycle")
+    planner = importlib.import_module(root + ".lifecycle.planner")
+    leader = [True]
+    encoded = []
+
+    def encode_on_server(env, srv, vols, opt):
+        encoded.append(vols[0][0])
+        leader[0] = False  # deposed while the first volume encodes
+        return 1
+
+    monkeypatch.setattr(ec, "_encode_on_server", encode_on_server)
+    ec.cmd_ec_encode(_deposing_env(leader), ["-collection", "c"])
+
+    leader[0] = True
+    moved = []
+    ex = lc.LifecycleExecutor(_deposing_env(leader), max_concurrent=1)
+
+    def dispatch(t):
+        moved.append(t.vid)
+        leader[0] = False
+        return 1
+
+    monkeypatch.setattr(ex, "_dispatch", dispatch)
+    plan = lc.LifecyclePlan(transitions=[
+        lc.Transition(planner.KIND_ENCODE, vid, "c", 1 << 20, "cold")
+        for vid in (1, 2, 3)])
+    summary = ex.execute(plan)
+    if package == "jax":
+        assert encoded == [1, 2, 3] and moved == [1, 2, 3]
+    else:
+        assert encoded == [1] and moved == [1]
+        assert [s["reason"] for s in summary["skipped"]] == \
+            ["leadership lost"] * 2
+
+
+def test_concurrent_proposals_under_per_peer_appends():
+    """Eight threads proposing at once on a port quorum of three, with a
+    short switch interval: every proposal commits, and the three logs hold
+    the same entries, in one order (the per-peer sends and their answers
+    share the leader's indexes under its lock)."""
+    from seaweedfs_tpu_torch.utils import rpc
+    ports = [low_port_pair() for _ in range(3)]
+    peers = [f"127.0.0.1:{p}" for p in ports]
+    applied = {p: [] for p in peers}
+    nodes = [port_raft.RaftNode(p, peers, apply_fn=applied[p].append)
+             for p in peers]
+    servers = [rpc.serve(n.address, [n.build_service()]) for n in nodes]
+    old = sys.getswitchinterval()
+    try:
+        for n in nodes:
+            n.start()
+        wait_until(lambda: sum(n.is_leader for n in nodes) == 1, timeout=10,
+                   msg="a leader")
+        leader = next(n for n in nodes if n.is_leader)
+        sys.setswitchinterval(1e-5)
+        results = []
+
+        def propose(t):
+            for i in range(20):
+                results.append(leader.propose({"k": f"{t}-{i}"}, timeout=10))
+
+        import threading
+        threads = [threading.Thread(target=propose, args=(t,))
+                   for t in range(8)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(60)
+        assert not any(th.is_alive() for th in threads)
+        sys.setswitchinterval(old)
+        assert len(results) == 160 and all(results)
+        wait_until(lambda: all(len(a) == 160 for a in applied.values()),
+                   timeout=20, msg="every node applied the 160 entries")
+        orders = [[c["k"] for c in a] for a in applied.values()]
+        assert orders[0] == orders[1] == orders[2]
+        assert sorted(orders[0]) == sorted(f"{t}-{i}" for t in range(8)
+                                           for i in range(20))
+    finally:
+        sys.setswitchinterval(old)
+        for n in nodes:
+            n.stop()
+        for s in servers:
+            s.stop(grace=0.1)

@@ -28,11 +28,16 @@ from seaweedfs_tpu_torch.utils.mini_gcs import MiniGcs
 
 
 def test_remote_package_exports_the_clients_only():
+    """The package exports the clients; the replication sinks live beside
+    them and are built at their first use (tests/test_torch_replication.py
+    holds them, and shows a tier client's import loads no replication
+    plane)."""
     assert sorted(remote.__all__) == sorted([
         "sign_shared_key", "AzureBlobClient", "parse_azure_spec",
         "GcsClient", "parse_gcs_spec"])
-    assert not hasattr(remote.azure, "AzureSink")
-    assert not hasattr(remote.gcs, "GcsSink")
+    from seaweedfs_tpu_torch.replication.sink import ReplicationSink
+    assert issubclass(remote.azure.AzureSink, ReplicationSink)
+    assert issubclass(remote.gcs.GcsSink, ReplicationSink)
 
 
 @pytest.mark.parametrize("seed", range(6))

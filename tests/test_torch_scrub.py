@@ -248,3 +248,57 @@ def test_pipeline_scrub_count_matches_jax(width):
         pipe.close()
     np.testing.assert_array_equal(ECPipeline._expected(blocks, lengths),
                                   RefPipeline._expected(blocks, lengths))
+
+
+def test_one_long_needle_pads_only_its_own_block(tmp_path, monkeypatch):
+    """One 8 MiB needle among 4,096: the reference pads the whole batch to
+    its width (a [4096, 8 MiB] block, 32 GiB: its shape is recorded and the
+    allocation refused); the port groups the batch by padded width, so its
+    largest block stays within scrub.BLOCK_BYTES, with verdicts equal to
+    the reference's host loop."""
+    v = Volume(str(tmp_path), "", 1)
+    rng = np.random.default_rng(11)
+    for i in range(1, 4096):
+        v.write_needle(Needle(id=i, cookie=1, data=rng.integers(
+            0, 256, int(rng.integers(1, 700)), dtype=np.uint8).tobytes()))
+    v.write_needle(Needle(id=4096, cookie=1, data=rng.integers(
+        0, 256, 8 << 20, dtype=np.uint8).tobytes()))
+    _flip(v, v.nm.get(4096).offset + 20 + (5 << 20))
+    _flip(v, v.nm.get(77).offset + 20)
+    v.sync()
+
+    shapes = []
+
+    class _Np:
+        def __getattr__(self, name):
+            return getattr(np, name)
+
+        @staticmethod
+        def zeros(shape, dtype=float):
+            shapes.append(tuple(shape))
+            raise MemoryError(f"refused a {shape} block")
+
+    rv = ref_volume.Volume(v.dir, v.collection, v.id, create_if_missing=False)
+    try:
+        want = ref_scrub.scrub_volume(rv, device="off")
+        monkeypatch.setattr(ref_scrub, "np", _Np())
+        with pytest.raises(MemoryError):
+            ref_scrub.scrub_volume(rv, device="auto")
+    finally:
+        monkeypatch.undo()
+        rv.close()
+    assert shapes == [(4096, 8 << 20)]  # 32 GiB of host memory
+
+    blocks = []
+    real = scrub._BatchCrc.crcs
+
+    def crcs(self, block, lengths):
+        blocks.append(block.shape)
+        return real(self, block, lengths)
+
+    monkeypatch.setattr(scrub._BatchCrc, "crcs", crcs)
+    got = scrub.scrub_volume(v, device="cpu")
+    assert _result(got) == _result(want) and got.corrupt == [77, 4096]
+    assert max(r * w for r, w in blocks) <= scrub.BLOCK_BYTES
+    assert (1, 8 << 20) in blocks and sum(r for r, _ in blocks) == 4096
+    v.close()
