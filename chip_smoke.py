@@ -5,7 +5,7 @@
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result). `--phases` runs a subset (default: all); phase 1 always runs, and
-the kernels line needs phases 3, 4 and 6 to 21. The kernels of the
+the kernels line needs phases 3, 4 and 6 to 23. The kernels of the
 phases asked for are built first, all at once (one nvcc per source).
 
 1. device: card name, count, `nvidia-smi` name and power limit;
@@ -45,9 +45,9 @@ phases asked for are built first, all at once (one nvcc per source).
    HBM bound, the plain version's time and a device copy of the input at
    [4096, 2048] (the scrub's batch), [16384, 4096] and [64, 1 MiB]; the SM
    clock and power around;
-8. the scrub main path: one Volume of 524,288 needles of 1024 + 0..63 B
-   (half of weed benchmark's default write set, the whole until phase 21
-   took the time) written
+8. the scrub main path: one Volume of 262,144 needles of 1024 + 0..63 B
+   (a quarter of weed benchmark's default write set, the whole until phase
+   21 took the time, half until phase 23 did) written
    through Volume.write_needles; 16 data bytes and one stored CRC of live
    needles flipped, 64 needles overwritten (8 of their old records then
    flipped), 64 deleted; scrub_volume(device="cuda") must report exactly
@@ -55,12 +55,14 @@ phases asked for are built first, all at once (one nvcc per source).
    device="off". Every launch count is zeroed just before the cuda scrub
    and read just after; K3 must have launched;
 9. EC volumes served from a Store: servers A and B, each a Store on the
-   card (coder "torch", kernel K1); 262,144 needles of 1024 + 0..63 B
-   (a quarter of weed benchmark's write set, half until phase 20 took the
-   time: phase 13 runs the same flow behind the server) written on A through Store.write_needles_bulk,
+   card (coder "torch", kernel K1); 131,072 needles of 1024 + 0..63 B
+   (an eighth of weed benchmark's write set, half until phase 20 took the
+   time, a quarter until phase 23 did: phase 13 runs the same flow behind
+   the server) written on A through Store.write_needles_bulk,
    Store.generate_ec_shards at RS(10,4) (1 GiB / 1 MiB blocks), shards 7-13
    with copies of the .ecx and .vif moved to B, the source volume deleted,
-   both mounted. A seeded sample of 16,384 needles read on A through
+   both mounted. A seeded sample of 8,192 needles (16,384 until phase 23)
+   read on A through
    Store.read_needle with the shard reader of server/volume_server.py
    (fetching B's shards from B) healthy, then again after shards (0, 5)
    are lost on A and (10, 13) on B: every payload must equal what was
@@ -75,9 +77,9 @@ phases asked for are built first, all at once (one nvcc per source).
    [10, ~1 KB] are timed;
 10. tiered volumes, on one Store with an `ssd` and an `hdd` location and a
    remote tier `local:<workdir>/tier` (storage/backend.LocalDirRemote, its
-   object reads counted): a quarter of the write set of phase 13 (262,144
+   object reads counted): an eighth of the write set of phase 13 (131,072
    needles of 1024 + 0..63 B; depth cut to keep the whole within its time,
-   from half when phase 15 came)
+   from half when phase 15 came, from a quarter when phase 23 did)
    written on `ssd`, 64 needles deleted and 64 overwritten,
    VacuumVolumeCompact + Commit through the RPC bodies of a
    server/volume_server.VolumeServer over that Store (garbage 0, the .dat
@@ -100,8 +102,9 @@ phases asked for are built first, all at once (one nvcc per source).
    the EC steps and read after; then K1 at one stripe [1, 14, ~1 KB] is
    timed;
 11. the layered codecs at deployment size, on one Store on the card: the
-   write set of phase 9 (262,144 needles; the full 1,048,576 until phase 15
-   took the time, 524,288 until phase 20 did) written once and encoded twice. (a) msr at the
+   write set of phase 9 (131,072 needles; the full 1,048,576 until phase
+   15 took the time, 524,288 until phase 20 did, 262,144 until phase 23)
+   written once and encoded twice. (a) msr at the
    fork's RS(14,2) (1 GiB / 1 MiB blocks, alpha 256): generate_ec_shards
    (plain-RS slabs through K1 encode, then the msr overlay through K1's
    apply entry), a seeded sample of sub-symbol columns against the plain
@@ -137,16 +140,18 @@ phases asked for are built first, all at once (one nvcc per source).
 13. the volume server on the card (server/volume_server.py): servers A, B
    and C, each a VolumeServer over a Store on the card (coder "torch",
    RS(10,4), 1 GiB / 1 MiB blocks) with its HTTP plane on a localhost
-   port, joined by one LocalPeers. An eighth of the write set (131,072
+   port, joined by one LocalPeers. A sixteenth of the write set (65,536
    needles of 1024 + 0..63 B; the whole until phase 17 took the time, a
-   quarter until phase 20 did) on A
-   through Store.write_needles_bulk, then 4,096 needles POSTed over HTTP, each
+   quarter until phase 20 did, an eighth until phase 23) on A
+   through Store.write_needles_bulk, then 2,048 needles (4,096 until phase
+   23) POSTed over HTTP, each
    acknowledged and read back by GET; VolumeMarkReadonly and
    VolumeEcShardsGenerate (K1 encode); VolumeEcShardsCopy of shards 7-13
    with the .ecx and .vif to B through CopyFile on the peer plane, both
    mounted, 7-13 deleted on A, the source volume deleted. A seeded sample
-   of 2,048 needles (16,384 until the replicated data plane's phase took
-   the time, 4,096 until phase 22 did; a smaller depth of this earlier
+   of 1,024 needles (16,384 until the replicated data plane's phase took
+   the time, 4,096 until phase 22 did, 2,048 until phase 23 did; a smaller
+   depth of this earlier
    path, the needles' sizes unchanged) GET from A by one keep-alive client, a quarter with a
    Range header, healthy, then after VolumeEcShardsDelete of (0, 5) on A
    and (10, 13) on B: every body equal, the reconstructs (K1 at one
@@ -172,17 +177,20 @@ phases asked for are built first, all at once (one nvcc per source).
    client/http_util.py, storage/bulk.py and the read cache): servers A, B
    and C, each a VolumeServer over a Store on the card, joined by one
    LocalPeers that answers lookup_volume from their heartbeats; the replica
-   hops are HTTP over loopback. A fresh "001" volume on A and B; an eighth
-   of the write set (131,072 needles of 1024 + 0..63 B, `weed benchmark
-   -size 1024`'s needles; the full 1,048,576 until phase 15 took the time,
-   half until phase 16 did, a quarter until phase 20 did) PUT to
+   hops are HTTP over loopback. A fresh "001" volume on A and B; a
+   sixteenth of the write set (65,536 needles of 1024 + 0..63 B, `weed
+   benchmark -size 1024`'s needles; the full 1,048,576 until phase 15 took
+   the time, half until phase 16 did, a quarter until phase 20 did, an
+   eighth until phase 23) PUT to
    A by one client as /bulk frames of 1,024 needles, each frame replicated
    to B in one hop; A's and B's .idx equal by
-   sha256. 4,096 POSTs through A, each read back from B; 256 DELETEs, 404 on
-   both; one ?type=replicate POST on B lands on B alone. 2,048 sampled GETs
-   from A twice: 0 read-cache hits in the first pass, 2,048 in the second.
-   1,024 of them GET from C (proxied to a holder, a quarter ranged), then C
-   in redirect mode answers 301 to a holder. /bulk-read of a 16,384-needle
+   sha256. 2,048 POSTs (4,096 until phase 23) through A, each read back
+   from B; 256 DELETEs, 404 on
+   both; one ?type=replicate POST on B lands on B alone. 1,024 sampled GETs
+   (2,048 until phase 23) from A twice: 0 read-cache hits in the first
+   pass, 1,024 in the second. 512 of them GET from C (proxied to a
+   holder, a quarter ranged), then C in redirect mode answers 301 to a
+   holder. /bulk-read of an 8,192-needle
    sample from B in frames of 256. VolumeScrub of B's copy with device ""
    (K3): every live needle, 0 corrupt. B's copy sealed by
    VolumeEcShardsGenerate at RS(10,4) (K1 encode), mounted, both plain
@@ -222,16 +230,18 @@ phases asked for are built first, all at once (one nvcc per source).
 16. the rest of the volume server (the profiling plane, telemetry, the
    debug routes and /ui, image resize, the azure: and gcs-json: tiers and
    storage/ref_format.py): (a) a Go SeaweedFS v3 volume written here field
-   by field (131,072 needles of 1024 + 0..63 B, an eighth of the write set
-   to keep the whole in time, a quarter until phase 20; 1,024 tombstones, raw and
+   by field (65,536 needles of 1024 + 0..63 B, a sixteenth of the write
+   set to keep the whole in time, a quarter until phase 20, an eighth until
+   phase 23; 1,024 tombstones, raw and
    scrambled CRCs, aligned records padded by 8), walk_dat, read_idx and
    every CRC; write_sorted_ecx; its .dat EC-encoded at RS(14,2) (1 GiB /
    1 MiB blocks, K1); shards (3, 15) lost and 16,384 needles re-read through
    the stripe locator with the lost intervals reconstructed (K1 at one
    stripe), parsed by ref_format.parse_needle; the rebuild (K1) to the
    shards' bytes; every live needle re-read; the decode == the Go .dat.
-   Then servers A and B on the card joined by LocalPeers: (b) 131,072
-   needles on A (262,144 until phase 20) tiered to azure: (the port's MiniAzure on localhost), GETs
+   Then servers A and B on the card joined by LocalPeers: (b) 65,536
+   needles on A (262,144 until phase 20, 131,072 until phase 23) tiered
+   to azure: (the port's MiniAzure on localhost), GETs
    cold and warm from the remote copy, VolumeScrub "skipped-tiered", the
    .dat brought back byte-equal and scrubbed through K3; the same for
    65,536 needles on gcs-json:; (c) 256 PNGs of 640x480 (made with zlib
@@ -266,16 +276,17 @@ phases asked for are built first, all at once (one nvcc per source).
    volume grown on r1 (/dir/assign?rack=r1; two until phase 19 took the
    time), 16,384 needles of 1024 + 0..63 B through Assign(count=1024)
    leases and /bulk frames, then blobs of 1 MiB + 0..4 KiB through
-   MasterClient.assign and POSTs until it holds at least 95% of its 256 MB
-   limit (1 GiB until phase 20 took the time); a damaged regular volume
+   MasterClient.assign and POSTs until it holds at least 95% of its 128 MB
+   limit (1 GiB until phase 20 took the time, 256 MB until phase 23); a damaged regular volume
    of 131,072 needles (collection scrub17, 17 damaged) on r4, written
    before its server starts. (b) `lock; ec.encode -collection ec17
    -fullPercent 95; unlock` (VolumeEcShardsGenerateBatch, K1 encode, then
    the spread by VolumeEcShardsCopy): no rack holds more than 4 shards of
-   a stripe; every shard's sha256 kept. (c) 512 healthy GETs of small
-   needles through master lookups, each == written. (d) With the admin
-   lock held in this process, r1's server stopped: /cluster/health
-   DEGRADED with exactly r1's shards missing; the 512 GETs again, each
+   a stripe; every shard's sha256 kept. (c) 256 healthy GETs of small
+   needles (512 until phase 23) through master lookups, each == written.
+   (d) With the admin lock held in this process, r1's server stopped:
+   /cluster/health DEGRADED with exactly r1's shards missing; the 256
+   GETs again, each
    == written, the reconstructs (K1) == the sampled intervals on lost
    shards; then the port's client, operation.read_batch, reads those
    needles and 16 of its blobs as /bulk-read frames, each ==
@@ -287,7 +298,7 @@ phases asked for are built first, all at once (one nvcc per source).
    every needle of it read back == written. (h) The port's `upload` and
    `download` verbs (subprocesses) round-trip four seeded files byte for
    byte. (i) Its `backup` of the scrub17 volume: .dat and .idx sha256 ==
-   the holder's. (j) Its `benchmark -n 4096 -size 1024 -c 16` (weed
+   the holder's. (j) Its `benchmark -n 2048 -size 1024 -c 16` (weed
    benchmark's 1,048,576 files cut to fit the smoke's time): write and
    read req/s, p50 and p99, 0 errors. K1's and K3's counts are zeroed
    just before the phase and read just after;
@@ -300,7 +311,8 @@ phases asked for are built first, all at once (one nvcc per source).
    quorum, the port's shell as subprocesses. The policy takes collection
    lc18 to EC after 5 quiet seconds, to a `local:` tier after 15, back on
    16 remote reads, with a TTL of an hour. (a) One lc18 volume grown on r1
-   and filled past 95% of 256 MB (1 GiB until phase 20) as phase 17's are. (b) The leader's cron
+   and filled past 95% of 128 MB (1 GiB until phase 20, 256 MB until phase
+   23) as phase 17's are. (b) The leader's cron
    encodes it (K1) and spreads it 4/4/3/3; the 14 shards' sha256 == the
    plain version's encode of the .dat. (c) The leader is killed with
    SIGKILL: a new one is elected (timed), cluster.raft.ps names it, the
@@ -334,10 +346,11 @@ phases asked for are built first, all at once (one nvcc per source).
    process, the filer's verbs and the shell as subprocesses. (1)
    filer.meta.tail in the background. (2) fs.configure puts /f20/keep/
    in collection f20keep at replication 010 and 32 small files land
-   there; then filer.copy of a seeded tree: 128 files of 1-64 KiB
-   (log-uniform), 4 of 1-16 MiB and one of 64 MiB (depth cut from 2,048
+   there; then filer.copy of a seeded tree: 64 files of 1-64 KiB
+   (log-uniform), 2 of 1-16 MiB and one of 64 MiB (depth cut from 2,048
    and 48 to keep the whole in time, the small files from 512 when phase
-   21 came, both halved when phase 22 came; the file sizes stay). (3)
+   21 came, both halved when phase 22 came and again when phase 23 did;
+   the file sizes stay). (3)
    fs.du, fs.ls -l
    and fs.tree agree with the tree; filer.cat of four files sha256 ==
    written; fs.mv of 16 files and fs.rm of 16 take effect. (4) ec.encode
@@ -367,7 +380,8 @@ phases asked for are built first, all at once (one nvcc per source).
    process; fs.configure maps bucket s21 to collection s21 and s21keep to
    s21keep (replication 010), s3.configure sets the admin identity, and
    every S3 and IAM request is signed by the port's SigV4 signer over
-   http.client. (a) Two objects of 96 MiB by multipart (8 MiB parts, 4
+   http.client. (a) One object of 96 MiB (two until phase 23) by
+   multipart (8 MiB parts, 4
    in flight), one of 24 MiB by a signed PUT streamed and hashed as it
    arrives, one of 9 MiB aws-chunked (STREAMING-AWS4-HMAC-SHA256-PAYLOAD),
    256 PutObjects of 1-64 KiB (p50/p99), 32 into s21keep; every ETag ==
@@ -393,8 +407,8 @@ phases asked for are built first, all at once (one nvcc per source).
    filer's /dav/ in its own collection (a22, b22, c22). One volume cluster
    serves the three filers: the sinks re-upload through each target
    filer's own assigns, the path two clusters would run. (a) Through
-   WebDAV: MKCOL of a three-level tree, 128 PUTs of 4 KiB-1 MiB
-   (log-uniform) and 4 of 16 MiB (GB/s, the small PUTs' p50/p99), PROPFIND
+   WebDAV: MKCOL of a three-level tree, 64 PUTs of 4 KiB-1 MiB
+   (log-uniform) and 2 of 16 MiB (128 and 4 until phase 23) (GB/s, the small PUTs' p50/p99), PROPFIND
    Depth 1 of every directory, MOVE of a directory, COPY and DELETE of a
    file, LOCK/UNLOCK. (b) `filer.sync -a A -b B -isActivePassive -path
    /dav` (a sync of / would carry A's filer.conf, and its collection, to
@@ -412,9 +426,42 @@ phases asked for are built first, all at once (one nvcc per source).
    log gains exactly that file's events, no replay (the offset in B's
    mongo store). K1's and K3's counts are zeroed just before the phase and
    read just after;
+23. the message queue and notifications on the card: a master of the port
+   (`-volumeSizeLimitMB 64 -ecShards 10,4`, its cron idle) as a
+   subprocess, four volume servers on the card in racks r1-r4 of this
+   process, the port's FilerServer in this process on a sqlite: store
+   with `fs.configure -locationPrefix /topics/ -collection mq23`, and two
+   BrokerServers B1 and B2 on that filer (in process: a broker persists
+   through an in-process filer); the shell, `filer.replicate` and the
+   master as subprocesses. (b) mq.topic.configure -topic bench/events
+   -partitions 4 (the reference shell's default), mq.topic.list,
+   mq.topic.desc, mq.balance and cluster.check with both brokers ok. (c)
+   8,192 messages of 1 KiB (the OpenMessaging Benchmark's default size;
+   32,768 asked, cut for the time) on 1,024 seeded keys
+   by four Publisher threads, one for each
+   partition's keys: msgs/s, MB/s, the acks' p50/p99; each partition acked
+   0..n-1; 1,024 typed records by publish_record read back decoded ==
+   written. (d) A consumer group of two GroupConsumers over B1 and B2:
+   every offset of every partition read, in order within each member,
+   each == published; B2 killed (kill(), no tail flush) half way, the
+   group resumes on B1 with nothing missing; DescribeConsumerGroups on B1
+   gives the last offsets as committed. (e) fs.meta.notify -dir
+   /topics/bench into a logfile: queue, kafka: on a MiniKafka in this
+   process (0 CRC failures) and mq: on B1 (topic notif/events, read back
+   by subscribe): each holds every entry of the tree, the keys equal; B1
+   stopped cleanly. (f) volume.scrub of the mq23 volumes, 0 corrupt (K3);
+   ec.encode of each (K1 encode), at most 4 shards a rack. (g) r1's server
+   stopped: a new broker B3 on the filer, the time until it serves its
+   first record; every partition subscribed from offset 0 through B3 ==
+   published (sha256 over offset, key and value), 8,192 in all; the
+   `filer.replicate -queue logfile: -sink local:` verb mirrors every file
+   of the notified tree == the filer's bytes; the servers' reconstructs ==
+   K1's one-stripe launches, the widths. K1's and K3's counts are zeroed
+   just before the phase and read just after;
 then the summary: one JSON line of every kernel with its launches (K1's
-   from phases 6, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21 and
-   22, K3's from phases 8, 10, 12, 13, 14, 15, 16, 17, 18, 20, 21 and 22),
+   from phases 6, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22
+   and 23, K3's from phases 8, 10, 12, 13, 14, 15, 16, 17, 18, 20, 21, 22
+   and 23),
    error against
    the plain version, times and bound; then the result line.
 
@@ -442,7 +489,7 @@ LOST_10_4 = (0, 5, 10, 13)
 LOST_14_2 = (3, 15)
 WIDTHS = (16, 48, 100, 384, 4112, 65536, 65552)
 PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18,
-          19, 20, 21, 22)
+          19, 20, 21, 22, 23)
 PALLAS = "seaweedfs_tpu/ops/rs_pallas.py"
 K1_SOURCE = "seaweedfs_tpu_torch/csrc/rs_gf.cu"
 K3_SOURCE = "seaweedfs_tpu_torch/csrc/crc32c.cu"
@@ -454,19 +501,21 @@ KERNELS = {2: ("rs_gf",), 7: ("crc32c",), 9: ("rs_gf",),  # phase -> csrc
            16: ("rs_gf", "crc32c"), 17: ("rs_gf", "crc32c"),
            18: ("rs_gf", "crc32c"), 19: ("rs_gf",),
            20: ("rs_gf", "crc32c"), 21: ("rs_gf", "crc32c"),
-           22: ("rs_gf", "crc32c")}
+           22: ("rs_gf", "crc32c"), 23: ("rs_gf", "crc32c")}
 K3_SHAPES = ((4096, 2048), (16384, 4096), (64, 1 << 20))  # first: the scrub's
 K3_ROWS = (1, 3, 4096, 4225)  # 4225 = 132 SMs x 32 warps + 1
 K3_LENGTHS = (0, 512, 1024, 2048, 4096, 65536, 1 << 20)
 NEEDLE_LENGTHS = (0, 1, 511, 512, 513, 1087, 9000)
-SCRUB_NEEDLES = 1 << 19  # phase 8: half of weed benchmark's write set (the
-                         # whole until phase 21 took the time)
+SCRUB_NEEDLES = 1 << 18  # phase 8: a quarter of weed benchmark's write set
+                         # (the whole until phase 21 took the time, half
+                         # until phase 23 did)
 EC_NEEDLES = 1 << 20   # weed benchmark's default write set, as phase 8
-EC_STORE_NEEDLES = 1 << 18  # phases 9 and 11: a quarter of it (half until
-                            # phase 20 took the time; phase 13 runs the same
-                            # flow behind the server)
-EC_SAMPLE = 16384      # needles read back per pass (phases 9, 10; a
-                       # /bulk-read sample in 14)
+EC_STORE_NEEDLES = 1 << 17  # phases 9 and 11: an eighth of it (half until
+                            # phase 20 took the time, a quarter until phase
+                            # 23 did; phase 13 runs the same flow behind the
+                            # server)
+EC_SAMPLE = 8192       # needles read back per pass (phases 9, 10; a
+                       # /bulk-read sample in 14; 16,384 until phase 23)
 NEEDLE_STRIPE_W = 1096  # phases 9, 10, 13: the one-stripe width K1 is timed
                         # at, a needle record of the write set that is not
                         # a multiple of 16 (the byte loop); the aligned
@@ -474,8 +523,9 @@ NEEDLE_STRIPE_W = 1096  # phases 9, 10, 13: the one-stripe width K1 is timed
 EC_VID = 1
 A_LOST, B_LOST = (0, 5), (10, 13)
 TIER_LOST = (0, 5)     # phase 10's lost shards at RS(14,2)
-TIER_NEEDLES = 1 << 18  # phase 10: a quarter of the write set (half until
-                        # phase 15 took the time), to keep the whole in time
+TIER_NEEDLES = 1 << 17  # phase 10: an eighth of the write set (half until
+                        # phase 15 took the time, a quarter until phase 23
+                        # did), to keep the whole in time
 TIER_CHURN = 64        # phase 10: needles deleted, and needles overwritten
 CODEC_SAMPLE = 4096    # phase 11: needles read back per pass
 MSR_LOST, MSR_LOST2 = 5, (0, 14)  # phase 11(a) at RS(14,2)
@@ -485,26 +535,30 @@ MESH_DAT = 1_145_031_680  # phase 12: the .dat size of 1,048,576 needles
 MESH_SCRUB_NEEDLES = 1 << 20  # phase 12: weed benchmark's default write set
 MESH_SCRUB_BATCH = (4096, 2048)
 MESH_DAMAGED = 17
-SERVER_NEEDLES = 1 << 17  # phase 13: an eighth of the write set (the
+SERVER_NEEDLES = 1 << 16  # phase 13: a sixteenth of the write set (the
                           # whole until phase 17 took the time, a quarter
-                          # until phase 20 did)
-SERVER_HTTP_NEEDLES = 4096  # phase 13: needles POSTed over HTTP after the
+                          # until phase 20 did, an eighth until phase 23)
+SERVER_HTTP_NEEDLES = 2048  # phase 13: needles POSTed over HTTP after the
                             # bulk set; phase 14: POSTs fanned out to B
+                            # (4,096 until phase 23)
 SERVER_SCRUB_NEEDLES = 1 << 17  # phase 13: the regular volume VolumeScrub
                                 # checks (262,144 until phase 20)
-SERVER_SAMPLE = 2048   # phase 13: needles GET per pass (cut from 16,384 to
-                       # make room for phase 14, from 4,096 for phase 22)
+SERVER_SAMPLE = 1024   # phase 13: needles GET per pass (cut from 16,384 to
+                       # make room for phase 14, from 4,096 for phase 22,
+                       # from 2,048 for phase 23)
 REPLICA_VID = 21       # phase 14's "001" volume
-REPLICA_NEEDLES = 1 << 17  # phase 14: an eighth of the write set as /bulk
-                           # frames (the whole until phase 15 took the time,
-                           # half until phase 16 did, a quarter until phase
-                           # 20 did)
+REPLICA_NEEDLES = 1 << 16  # phase 14: a sixteenth of the write set as
+                           # /bulk frames (the whole until phase 15 took the
+                           # time, half until phase 16 did, a quarter until
+                           # phase 20 did, an eighth until phase 23)
 REPLICA_FRAME = 1024   # phase 14: needles a /bulk frame (the JAX client's
                        # BULK_MAX_FRAME_NEEDLES)
 REPLICA_DELETES = 256  # phase 14: DELETEs fanned out
-REPLICA_GETS = 2048    # phase 14: GETs on A per pass, twice (4,096 until
-                       # phase 22 took the time); phase 15's tenant GETs
-REPLICA_PROXIED = 1024  # phase 14: of them, GETs proxied by C
+REPLICA_GETS = 1024    # phase 14: GETs on A per pass, twice (4,096 until
+                       # phase 22 took the time, 2,048 until phase 23 did);
+                       # phase 15's tenant GETs cycle over as many needles
+REPLICA_PROXIED = 512  # phase 14: of them, GETs proxied by C (1,024 until
+                       # phase 23)
 REPLICA_READ_FRAME = 256  # phase 14: needles a /bulk-read frame
 MAINT_NEEDLES = 1 << 18  # phase 15: the write set VolumeCopy moves (a
                          # quarter of weed benchmark's; the whole until phase
@@ -525,14 +579,15 @@ MAINT_QUANTUM = 64 << 20     # phase 15's round-robin quantum (>= a read)
 # grpc 1.80.0 and protobuf 6.33.6 (PERF.md), so phase 13 also reads its
 # degraded sample over gRPC
 GRPC_ON_CARD = True
-GO_NEEDLES = 1 << 17   # phase 16(a): the Go volume, an eighth of weed
+GO_NEEDLES = 1 << 16   # phase 16(a): the Go volume, a sixteenth of weed
                        # benchmark's write set (depth cut from half, which
                        # took 35 s of the phase, then from a quarter when
-                       # phase 20 came, to keep the whole in time)
+                       # phase 20 came and an eighth when phase 23 did, to
+                       # keep the whole in time)
 GO_DELETES = 1024      # phase 16(a): needles deleted by tombstones
 GO_SAMPLE = 16384      # phase 16(a): needles read with shards (3, 15) lost
-AZURE_NEEDLES = 1 << 17  # phase 16(b): the volume tiered to azure: (1 << 18
-                         # until phase 20)
+AZURE_NEEDLES = 1 << 16  # phase 16(b): the volume tiered to azure: (1 << 18
+                         # until phase 20, 1 << 17 until phase 23)
 GCS_NEEDLES = 1 << 16    # and the one tiered to gcs-json:
 TIER_GETS = 1024       # phase 16(b): needles GET cold, then warm (a quarter
                        # of them on gcs-json:)
@@ -544,9 +599,10 @@ IMAGE_SIZE = (640, 480)
 TRACE_GETS = 64        # phase 16(d): degraded GETs under the device trace
 HOOK_GETS = 4096       # phase 16(e): healthy GETs each way
 GO_VID, AZURE_VID, GCS_VID, IMAGE_VID, HOOK_VID = 41, 42, 43, 44, 45
-CONTROL_LIMIT_MB = 256   # phase 17: the master's -volumeSizeLimitMB (a
+CONTROL_LIMIT_MB = 128   # phase 17: the master's -volumeSizeLimitMB (a
                          # depth cut from the 30,000 default, master.go:73;
-                         # 1,024 until phase 20 took the time)
+                         # 1,024 until phase 20 took the time, 256 until
+                         # phase 23 did)
 CONTROL_VOLUMES = 1      # phase 17: ec17 volumes grown on r1 (two until
                          # phase 19 took the time)
 CONTROL_FILL = 0.95      # phase 17: each ec17 volume filled past this share
@@ -555,9 +611,9 @@ CONTROL_SMALL = 16384    # phase 17: needles of 1024 + 0..63 B, leased
 CONTROL_LEASE = 1024     # phase 17: keys an Assign(count=...) leases
 CONTROL_FRAME = 256      # phase 17: needles a /bulk frame (four a lease,
                          # written among the blobs)
-CONTROL_GETS = 512       # phase 17: GETs healthy, then with r1 lost (2,048
+CONTROL_GETS = 256       # phase 17: GETs healthy, then with r1 lost (2,048
                          # until phase 21 took the time, 1,024 until phase
-                         # 22 did)
+                         # 22 did, 512 until phase 23 did)
 CONTROL_CRON_S = 4       # phase 17: the master's -maintenanceIntervalS, the
                          # wait from the lock's release to the repair (10
                          # until phase 22 took the time)
@@ -566,10 +622,11 @@ CONTROL_SCRUB_NEEDLES = 1 << 17  # phase 17: the scrub17 volume (1 << 18
 SCRUB17_VID = 71         # phase 17's damaged regular volume on r4
 CONTROL_BATCH_BLOBS = 16  # phase 17(d): 1 MiB blobs of each volume in the
                           # port's operation.read_batch with r1 lost
-CONTROL_BENCH_N = 4096    # phase 17(j): benchmark files (weed benchmark's
+CONTROL_BENCH_N = 2048    # phase 17(j): benchmark files (weed benchmark's
                           # 1,048,576 cut to fit the smoke's time; 8,192
-                          # until phase 20)
-LIFE_LIMIT_MB = 256      # phase 18: the masters' -volumeSizeLimitMB, as 17
+                          # until phase 20, 4,096 until phase 23)
+LIFE_LIMIT_MB = 128      # phase 18: the masters' -volumeSizeLimitMB, as 17
+                         # (256 until phase 23)
 LIFE_FILL = 0.95         # phase 18: the lc18 volume filled past this share
 LIFE_SMALL = 16384       # phase 18: needles of 1024 + 0..63 B, leased
 LIFE_LEASE = 1024        # phase 18: keys an Assign(count=...) leases
@@ -586,16 +643,18 @@ LIFE_TTL_S = 3600.0      # phase 18(f): the policy's TTL (the instant is
 LIFE_SLO_THRESHOLD_S = 0.001  # phase 18(g): "half the GETs within 1 ms",
                               # below the degraded p50 (checked)
 CRASH_MIN_STATES = 500   # phase 19: crashsim's gate, as the reference's
-FILER_SMALL = 128        # phase 20: files of 1-64 KiB (log-uniform; depth
+FILER_SMALL = 64         # phase 20: files of 1-64 KiB (log-uniform; depth
                          # cut from 2,048 to keep the whole in time, from
-                         # 512 when phase 21 came, from 256 for phase 22)
-FILER_LARGE = 4          # phase 20: files of 1-16 MiB (cut from 48 alike,
-                         # from 8 for phase 22)
+                         # 512 when phase 21 came, from 256 for phase 22,
+                         # from 128 for phase 23)
+FILER_LARGE = 2          # phase 20: files of 1-16 MiB (cut from 48 alike,
+                         # from 8 for phase 22, from 4 for phase 23)
 FILER_HUGE_MB = 64       # phase 20: and one of 64 MiB
 FILER_SAMPLE = 256       # phase 20(6): small files GET with r1 lost
 FILER_RANGES = 16        # phase 20(6): Range GETs across chunk boundaries
-S3_BIG = 2               # phase 21(a): objects written by multipart (3
-                         # until phase 22 took the time),
+S3_BIG = 1               # phase 21(a): objects written by multipart (3
+                         # until phase 22 took the time, 2 until phase 23
+                         # did),
 S3_BIG_MB = 96           # of 96 MiB each,
 S3_PART_MB = 8           # in 8 MiB parts (the AWS CLI's multipart_chunksize)
 S3_IN_FLIGHT = 4         # with 4 parts in flight
@@ -605,9 +664,17 @@ S3_SMALL = 256           # phase 21(a): PutObjects of 1-64 KiB
 S3_KEEP = 32             # phase 21(f): objects of the plain s21keep bucket
 S3_RANGES = 16           # phase 21(e): Range GETs at seeded offsets
 S3_PAGE = 100            # phase 21(b): ListObjectsV2 max-keys
-DAV_SMALL = 128          # phase 22(a): WebDAV PUTs of 4 KiB-1 MiB
-DAV_BIG = 4              # and of 16 MiB
+DAV_SMALL = 64           # phase 22(a): WebDAV PUTs of 4 KiB-1 MiB (128
+                         # until phase 23)
+DAV_BIG = 2              # and of 16 MiB (4 until phase 23)
 DAV_BIG_MB = 16
+MQ_MESSAGES = 1 << 13    # phase 23(c): messages of 1 KiB, the OpenMessaging
+                         # Benchmark's default message size (32,768 asked;
+                         # halved as the phase took 108.8 s alone, 78 s of
+                         # it in publish, group read and replay, each linear
+                         # in the count; halved again with the other phases'
+                         # depths when the whole took 1,173.3 s),
+MQ_TYPED = 1024          # and typed records through publish_record
 K1_ENTRIES = {  # wrapper entry -> the TPU function it replaces
     "encode": f"{PALLAS}:156",
     "encode_seeded": f"{PALLAS}:164",
@@ -8056,6 +8123,594 @@ def phase_replication(torch, np, workdir: str, seed: int, card: str) -> dict:
     return {"k1": k1, "k3": k3, **res}
 
 
+# -- phase 23 ---------------------------------------------------------------
+def _partition_digest(records) -> "tuple[int, str]":
+    """(count, sha256 over each (offset, key, value)) of one partition's
+    records in offset order."""
+    h = hashlib.sha256()
+    n = 0
+    for off, key, value in records:
+        h.update(off.to_bytes(8, "little") + len(key).to_bytes(4, "little")
+                 + key + value)
+        n += 1
+    return n, h.hexdigest()
+
+
+def mq_round_trip(np, torch, workdir: str, seed: int, card: str,
+                  messages: int, typed: int, msg_bytes: int = 1024,
+                  keys: int = 1024, partitions: int = 4,
+                  cache_mb: int = 1, device: str = "cuda",
+                  small_block: int = 1 << 20) -> dict:
+    """Phase 23's path, every check fatal: a master of the port as a
+    subprocess, four volume servers on the card in this process (racks
+    r1-r4), the port's FilerServer in this process on a sqlite: store with
+    /topics/ in collection mq23, and two BrokerServers B1 and B2 on that
+    filer (a broker persists through an in-process filer); the shell and
+    the `filer.replicate` verb as subprocesses, a MiniKafka in this
+    process. Returns the measured numbers."""
+    import signal
+    import threading
+
+    from seaweedfs_tpu_torch.client.master_client import MasterClient
+    from seaweedfs_tpu_torch.ec.locate import EcGeometry
+    from seaweedfs_tpu_torch.filer.filer_server import FilerServer
+    from seaweedfs_tpu_torch.mq.broker import BrokerServer
+    from seaweedfs_tpu_torch.mq.client import Publisher, subscribe, \
+        topic_schema
+    from seaweedfs_tpu_torch.mq.consumer import GroupConsumer
+    from seaweedfs_tpu_torch.mq.schema import Schema
+    from seaweedfs_tpu_torch.mq.topic import partition_for_key, split_ring
+    from seaweedfs_tpu_torch.notification.queues import LogFileQueue
+    from seaweedfs_tpu_torch.ops import crc_cuda, rs_cuda
+    from seaweedfs_tpu_torch.pb import mq_pb2
+    from seaweedfs_tpu_torch.server.grpc_service import serve_volume
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.storage.disk_location import DiskLocation
+    from seaweedfs_tpu_torch.storage.store import Store
+    from seaweedfs_tpu_torch.utils import retry
+    from seaweedfs_tpu_torch.utils.mini_kafka import MiniKafka
+    from seaweedfs_tpu_torch.utils.rpc import MQ_SERVICE, Stub
+
+    geo = EcGeometry(10, 4, small_block=small_block)
+    racks = ("r1", "r2", "r3", "r4")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    out: dict = {}
+    served: dict = {}
+    procs: "dict[str, subprocess.Popen]" = {}
+    logs: list = []
+    brokers: list = []
+    consumers: list = []
+    mc = fs = kafka = None
+    retry.reset_breakers()
+    taken: set = set()
+
+    def port(pair: bool = False) -> int:
+        p = _free_filer_port(taken) if pair else _free_low_port(taken)
+        taken.update((p, p + 10000))
+        return p
+
+    mport, hport = port(), port()
+    maddr = f"127.0.0.1:{mport}"
+
+    def spawn(name: str, *args) -> subprocess.Popen:
+        f = open(os.path.join(workdir, f"{name}.log"), "w")
+        logs.append(f)
+        procs[name] = subprocess.Popen(_port_cli(*args), cwd=here, stdout=f,
+                                       stderr=subprocess.STDOUT, env=env)
+        return procs[name]
+
+    def log_of(name: str) -> str:
+        with open(os.path.join(workdir, f"{name}.log")) as f:
+            return f.read()
+
+    def alive(name: str) -> None:
+        if procs[name].poll() is not None:
+            raise AssertionError(f"{name} exited rc {procs[name].poll()}: "
+                                 f"{log_of(name)[-2000:]}")
+
+    def master_up() -> bool:
+        import http.client
+        alive("master")
+        try:
+            c = http.client.HTTPConnection("127.0.0.1", hport, timeout=5)
+            try:
+                c.request("GET", "/cluster/status")
+                return c.getresponse().status == 200
+            finally:
+                c.close()
+        except OSError:
+            return False
+
+    def shell(script: str) -> "tuple[str, float]":
+        so, se, s = _shell(maddr, script)
+        return so + se, s
+
+    def nodes() -> int:
+        return sum(len(rk.data_node_infos) for dc in
+                   mc.volume_list().topology_info.data_center_infos
+                   for rk in dc.rack_infos)
+
+    def reconstructs() -> int:
+        return sum(vs.read_stats.get("reconstructs", 0)
+                   for r, vs in vss.items() if r in served)
+
+    def collection_vids(coll: str) -> "dict[int, int]":
+        got = {}
+        for dc in mc.volume_list().topology_info.data_center_infos:
+            for rk in dc.rack_infos:
+                for dn in rk.data_node_infos:
+                    for disk in dn.disk_infos.values():
+                        for v in disk.volume_infos:
+                            if v.collection == coll and v.size > 8:
+                                got[v.id] = v.size
+        return got
+
+    def live_brokers() -> "list[str]":
+        from seaweedfs_tpu_torch.pb import master_pb2 as mpb
+        from seaweedfs_tpu_torch.utils.rpc import MASTER_SERVICE
+        resp = Stub(maddr, MASTER_SERVICE).call(
+            "ListClusterNodes",
+            mpb.ListClusterNodesRequest(client_type="broker"),
+            mpb.ListClusterNodesResponse, timeout=5)
+        return sorted(n.address for n in resp.cluster_nodes)
+
+    def new_broker() -> BrokerServer:
+        b = BrokerServer(maddr, port=port(), filer_server=fs,
+                         rebalance_delay_s=0.5)
+        b.membership_poll_s = 0.2
+        brokers.append(b.start())
+        return b
+
+    def committed(addr: str) -> "dict[int, int]":
+        resp = Stub(addr, MQ_SERVICE).call(
+            "DescribeConsumerGroups", mq_pb2.DescribeConsumerGroupsRequest(
+                topic=mq_pb2.Topic(namespace="bench", name="events")),
+            mq_pb2.DescribeConsumerGroupsResponse, timeout=10)
+        return {po.partition.range_start: po.committed
+                for g in resp.groups if g.name == "g23" for po in g.offsets}
+
+    def settled(bs) -> bool:
+        want = sorted(b.address for b in bs)
+        if live_brokers() != want:
+            return False
+        for b in bs:
+            b._broker_cache = (0.0, [])
+        return all(b.live_brokers() == want for b in bs)
+
+    try:
+        t0 = time.perf_counter()
+        spawn("master", "master", "-ip", "127.0.0.1", "-port", str(mport),
+              "-httpPort", str(hport), "-volumeSizeLimitMB", "64",
+              "-ecShards", "10,4", "-maintenanceScripts", "",
+              "-maintenanceHealthDriven", "off")
+        _wait(master_up, 120, "the master's HTTP API")
+        for r in racks:
+            d = os.path.join(workdir, r)
+            os.makedirs(d)
+            p = port(pair=True)
+            store = Store("127.0.0.1", p, "", [DiskLocation(
+                d, max_volume_count=32)], ec_geometry=geo,
+                coder_name="torch", device=device)
+            vs = VolumeServer(store, "127.0.0.1", p, data_center="dc1",
+                              rack=r, pulse_seconds=1.0)
+            served[r] = serve_volume(vs, p + 10000, master=maddr)
+        vss = {r: s.vs for r, s in served.items()}
+        rack_of = {vs.url: r for r, vs in vss.items()}
+        mc = MasterClient(maddr).start()
+        _wait(lambda: nodes() == 4, 60, "four servers registered")
+        fdir = os.path.join(workdir, "filer")
+        os.makedirs(fdir)
+        fs = FilerServer(maddr, store_spec=f"sqlite:{fdir}/filer.db",
+                         port=port(pair=True), chunk_size_mb=4,
+                         chunk_cache_mb=cache_mb,
+                         meta_log_path=os.path.join(fdir, "meta.log"))
+        fs.start()
+        said, _ = shell(f"fs.configure -filer {fs.url} -locationPrefix "
+                        f"/topics/ -collection mq23 -apply")
+        if "applied." not in said:
+            raise AssertionError(f"fs.configure: {said!r}")
+        b1, b2 = new_broker(), new_broker()
+        _wait(lambda: settled([b1, b2]), 60, "B1 and B2 live on both")
+        addrs = [b1.address, b2.address]
+        log(f"[mq] master (a subprocess, -volumeSizeLimitMB 64 -ecShards "
+            f"10,4), four volume servers on {device} in racks r1-r4, the "
+            f"port's FilerServer on sqlite: (/topics/ in collection mq23 by "
+            f"fs.configure) and brokers B1 {b1.address}, B2 {b2.address} "
+            f"on it in this process, in {time.perf_counter() - t0:.1f} s "
+            f"[{card}]")
+
+        # (b) the shell
+        said, sh_s = shell(f"mq.topic.configure -topic bench/events "
+                           f"-partitions {partitions}; mq.topic.list; "
+                           f"mq.topic.desc -topic bench/events; mq.balance; "
+                           f"cluster.check -failOn never")
+        for want in (f"configured bench/events with {partitions} partitions",
+                     "bench/events", f"{partitions} partitions",
+                     "balanced", f"broker {b1.address}: ok",
+                     f"broker {b2.address}: ok"):
+            if want not in said:
+                raise AssertionError(f"shell: {want!r} not in {said!r}")
+        leaders = re.findall(r"partition \[(\d+),(\d+)\) -> (\S+)", said)
+        if len(leaders) != partitions or {b for *_, b in leaders} != set(
+                addrs):
+            raise AssertionError(f"mq.topic.desc: {leaders}")
+        log(f"[mq] (b) mq.topic.configure -topic bench/events -partitions "
+            f"{partitions}, mq.topic.list, mq.topic.desc (leaders "
+            f"{collections.Counter(b for *_, b in leaders)}), mq.balance, "
+            f"cluster.check with both brokers ok, in {sh_s:.2f} s [{card}]")
+
+        # (c) publishing: one Publisher thread per partition's keys
+        rng = np.random.default_rng((seed, 23))
+        key_set = [b"k-%05d-%s" % (i, rng.bytes(4).hex().encode())
+                   for i in range(keys)]
+        ring = split_ring(partitions)
+        pick = rng.integers(0, keys, messages)
+        blob = rng.bytes(messages * msg_bytes)
+        by_part: "dict[int, list[int]]" = {p.range_start: [] for p in ring}
+        for i, k in enumerate(pick):
+            by_part[partition_for_key(key_set[k], ring).range_start].append(i)
+        acks: "dict[int, list[int]]" = {}
+        lat: "list[float]" = []
+        errors: list = []
+
+        def publish(rs: int) -> None:
+            pub = Publisher(addrs, "bench", "events",
+                            partition_count=partitions)
+            mine, times = [], []
+            try:
+                for i in by_part[rs]:
+                    t = time.perf_counter()
+                    mine.append(pub.publish(
+                        key_set[pick[i]],
+                        blob[i * msg_bytes:(i + 1) * msg_bytes]))
+                    times.append(time.perf_counter() - t)
+            except Exception as e:  # noqa: BLE001 — raised below
+                errors.append(e)
+            finally:
+                pub.close()
+            acks[rs] = mine
+            lat.extend(times)
+
+        threads = [threading.Thread(target=publish, args=(rs,), daemon=True)
+                   for rs in by_part]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(600)
+        pub_s = time.perf_counter() - t
+        if errors or any(th.is_alive() for th in threads):
+            raise AssertionError(f"publishing: {errors[:2]}")
+        expect: "dict[int, tuple[int, str]]" = {}
+        for rs, idx in by_part.items():
+            if acks[rs] != list(range(len(idx))):
+                raise AssertionError(f"partition {rs}: acks not 0..n-1")
+            expect[rs] = _partition_digest(
+                (off, key_set[pick[i]],
+                 blob[i * msg_bytes:(i + 1) * msg_bytes])
+                for off, i in zip(acks[rs], idx))
+        out.update(msgs_s=messages / pub_s,
+                   mb_s=messages * msg_bytes / pub_s / 1e6,
+                   ack_p50_ms=_pct(np, lat, 50) * 1e3,
+                   ack_p99_ms=_pct(np, lat, 99) * 1e3)
+        schema = Schema.infer({"device": "d", "seq": 0, "temp": 0.0,
+                               "tags": ["t"], "pos": {"x": 0, "y": 0.0}})
+        rows = [{"device": f"dev-{i % 37}", "seq": i,
+                 "temp": float(rng.normal()),
+                 "tags": [f"t{int(x)}" for x in rng.integers(0, 9, 2)],
+                 "pos": {"x": int(rng.integers(0, 1000)),
+                         "y": float(rng.normal())}} for i in range(typed)]
+        tpub = Publisher(addrs, "bench", "typed", partition_count=partitions,
+                         schema=schema)
+        try:
+            for row in rows:
+                tpub.publish_record(row["device"].encode(), row)
+        finally:
+            tpub.close()
+        fetched = topic_schema(addrs[1], "bench", "typed")
+        if fetched is None or fetched.schema_bytes() != schema.schema_bytes():
+            raise AssertionError("the typed topic's schema")
+        back = []
+        for p in tpub.partitions:
+            for _off, _k, v in subscribe(tpub._leaders[p.range_start],
+                                         "bench", "typed", start_offset=0,
+                                         partition=p):
+                back.append(fetched.decode(v))
+        if sorted(back, key=lambda r: r["seq"]) != rows:
+            raise AssertionError("typed records read back differ")
+        for b in (b1, b2):  # what B2's kill below may lose is on the filer
+            for lg in list(b.logs.values()):
+                lg.flush_tail()
+        log(f"[mq] (c) {messages} messages of {msg_bytes} B ({keys} seeded "
+            f"keys) by four Publisher threads (one a partition's keys: "
+            f"{[len(v) for v in by_part.values()]}) in {pub_s:.2f} s = "
+            f"{out['msgs_s']:.0f} msgs/s, {out['mb_s']:.2f} MB/s; acks p50 "
+            f"{out['ack_p50_ms']:.3f} ms p99 {out['ack_p99_ms']:.3f} ms; "
+            f"each partition acked 0..n-1; {typed} typed records by "
+            f"publish_record read back decoded == written (the schema from "
+            f"B2) [{card}]")
+
+        # (d) a consumer group over B1 and B2, B2 killed mid-stream
+        members = [GroupConsumer(addrs, "bench", "events", "g23", f"m{j}",
+                                 retry_interval_s=0.1) for j in (1, 2)]
+        consumers.extend(members)
+        for m in members:
+            if not m.wait_assigned(30):
+                raise AssertionError(f"{m.instance_id} never assigned")
+        last = {rs: len(idx) - 1 for rs, idx in by_part.items()}
+        seen: "dict[int, set]" = {rs: set() for rs in by_part}
+        order: "dict[tuple, int]" = {}  # (member, partition) -> last offset
+        # a member's partition restarts only one past a commit (or at 0):
+        # every other delivery is the one after the last, nothing skipped
+        starts: "dict[int, set]" = {rs: {0} for rs in by_part}
+        got: "dict[tuple, bytes]" = {}
+        dups = 0
+        commits = 0
+        killed_at = None
+        t = time.perf_counter()
+        deadline = time.monotonic() + 300
+        total = 0
+        while total < messages:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"group read {total} of {messages}")
+            polled = [(m, m.poll(timeout=0)) for m in members]
+            if all(rec is None for _m, rec in polled):
+                time.sleep(0.002)
+            for m, rec in polled:
+                if rec is None:
+                    continue
+                rs = rec.partition.range_start
+                prev = order.get((m.instance_id, rs), -1)
+                if rec.offset != prev + 1 and rec.offset not in starts[rs]:
+                    raise AssertionError(f"{m.instance_id} read {rs}:"
+                                         f"{rec.offset} after {prev}")
+                order[(m.instance_id, rs)] = rec.offset
+                if rec.offset in seen[rs]:
+                    dups += 1
+                    continue
+                seen[rs].add(rec.offset)
+                total += 1
+                got[(rs, rec.offset)] = rec.key + b"\0" + rec.value
+                if rec.offset % 1024 == 1023 or rec.offset == last[rs]:
+                    m.commit(rec)
+                    starts[rs].add(rec.offset + 1)
+                    commits += 1
+            if killed_at is None and total >= messages // 2:
+                b2.kill()
+                killed_at = total
+        group_s = time.perf_counter() - t
+        for rs, idx in by_part.items():
+            n, digest = _partition_digest(
+                (off, *got[(rs, off)].split(b"\0", 1))
+                for off in range(len(idx)))
+            if (n, digest) != expect[rs]:
+                raise AssertionError(f"group read of partition {rs} differs")
+        _wait(lambda: {rs: o for rs, o in committed(b1.address).items()}
+              == last, 60, "the group's committed offsets")
+        desc = committed(b1.address)
+        out.update(group_s=group_s, dups=dups)
+        log(f"[mq] (d) group g23 of two GroupConsumers over B1 and B2: every "
+            f"offset of every partition read ({messages} in {group_s:.2f} s "
+            f"= {messages / group_s:.0f} msgs/s), in order within each "
+            f"member's partition, each == published; B2 killed after "
+            f"{killed_at}, the group resumed on B1 with nothing missing "
+            f"({dups} redelivered past the last commit, {commits} commits); "
+            f"DescribeConsumerGroups on B1: committed {desc} == the last "
+            f"offsets [{card}]")
+        for m in members:
+            m.close()
+
+        # (e) notifications of /topics/bench into three queues
+        kafka = MiniKafka(port=port()).start()
+        qpath = os.path.join(workdir, "notify", "topics.log")
+        t = time.perf_counter()
+        said, _ = shell(
+            f"fs.meta.notify -filer {fs.url} -dir /topics/bench -queue "
+            f"logfile:{qpath}; fs.meta.notify -filer {fs.url} -dir "
+            f"/topics/bench -queue kafka:{kafka.address}/mq23-notify; "
+            f"fs.meta.notify -filer {fs.url} -dir /topics/bench -queue "
+            f"mq:{b1.address}/notif/events")
+        notify_s = time.perf_counter() - t
+        lines = re.findall(r"notified (\d+) directories, (\d+) files", said)
+        if len(lines) != 3 or len(set(lines)) != 1:
+            raise AssertionError(f"fs.meta.notify: {said!r}")
+        n_dirs, n_files = map(int, lines[0])
+        recs = [r for _o, r in LogFileQueue(qpath).read(0)]
+        keys_log = [r.directory for r in recs]
+        if len(keys_log) != n_dirs + n_files:
+            raise AssertionError(f"logfile queue: {len(keys_log)} records")
+        km = kafka.messages.get("mq23-notify", [])
+        if kafka.crc_failures or [k.decode() for k, _ in km] != keys_log:
+            raise AssertionError(f"kafka: {len(km)} messages, "
+                                 f"{kafka.crc_failures} CRC failures")
+        mq_keys = [k.decode() for _o, k, _v in subscribe(
+            b1.address, "notif", "events", start_offset=0)]
+        if mq_keys != keys_log:
+            raise AssertionError(f"mq: {len(mq_keys)} keys")
+        segs = sum(1 for r in recs if "/seg-" in r.directory)
+        b1.stop()
+        log(f"[mq] (e) fs.meta.notify -dir /topics/bench into logfile:, "
+            f"kafka: (MiniKafka, 0 CRC failures) and mq: (B1, notif/events, "
+            f"read back by subscribe): {n_dirs} directories and {n_files} "
+            f"files ({segs} segments) in each, keys equal, {notify_s:.2f} s "
+            f"with the shell; B1 stopped cleanly [{card}]")
+
+        # (f) the device work on the topic's volumes
+        for r in racks:
+            vss[r].heartbeat_flush()
+        time.sleep(1.5)
+        vids = collection_vids("mq23")
+        if not vids:
+            raise AssertionError("no mq23 volume holds data")
+        k3_0 = crc_cuda.launches
+        said, scrub_s = shell("; ".join(f"volume.scrub -volumeId {vid}"
+                                        for vid in sorted(vids)))
+        k3 = crc_cuda.launches - k3_0
+        checked = sum(int(m) for m in re.findall(
+            r"scrubbed (\d+) needles, 0 corrupt", said))
+        if not checked or re.search(r"scrubbed \d+ needles, [1-9]", said) \
+                or (device == "cuda" and not k3):
+            raise AssertionError(f"volume.scrub of mq23: {said[-2000:]!r}; "
+                                 f"{k3} K3 launches")
+        k0 = rs_cuda.launches_by_entry.get("encode", 0)
+        said, enc_s = shell("lock; " + "; ".join(
+            f"ec.encode -volumeId {vid}" for vid in sorted(vids))
+            + "; unlock")
+        enc_k1 = rs_cuda.launches_by_entry.get("encode", 0) - k0
+        for vid in vids:
+            spread = _wait(lambda: (lambda s: s if len(s) == geo.n else None)(
+                {sid: [rack_of[u] for u in urls]
+                 for sid, urls in mc.lookup_ec(vid).items() if urls}),
+                60, f"volume {vid}'s 14 shards registered")
+            per_rack = collections.Counter(r for rs in spread.values()
+                                           for r in rs)
+            if max(per_rack.values()) > geo.p:
+                raise AssertionError(f"volume {vid}: {dict(per_rack)}")
+        out.update(k3=k3, encode=sum(vids.values()) / enc_s / 1e9)
+        log(f"[mq] (f) volume.scrub of the mq23 volumes {sorted(vids)}: "
+            f"{checked} needles, 0 corrupt, {k3} K3 launches ({scrub_s:.2f} "
+            f"s); ec.encode -volumeId of each ({sum(vids.values())} B of "
+            f".dat) in {enc_s:.2f} s with the shell = {out['encode']:.3f} "
+            f"GB/s, K1 encode launches {enc_k1}, at most 4 shards a rack "
+            f"[{card}]")
+
+        # (g) r1 lost: a new broker replays, filer.replicate mirrors
+        served.pop("r1").stop()
+        _wait(lambda: nodes() == 3, 60, "r1's server gone from the topology")
+        r0 = reconstructs()
+        with K1Widths() as kw:
+            k0 = rs_cuda.launches_by_entry.get("reconstruct", 0)
+            t = time.perf_counter()
+            b3 = new_broker()
+            stream = subscribe(b3.address, "bench", "events",
+                               start_offset=0, partition=ring[0])
+            first = next(stream)
+            out["restart_s"] = time.perf_counter() - t
+            stream.close()
+            if first[0] != 0:
+                raise AssertionError(f"B3's first record {first[0]}")
+            t = time.perf_counter()
+            total = 0
+            for p in ring:
+                n, digest = _partition_digest(subscribe(
+                    b3.address, "bench", "events", start_offset=0,
+                    partition=p))
+                if (n, digest) != expect[p.range_start]:
+                    raise AssertionError(f"partition {p} replayed by B3 "
+                                         f"with r1 lost differs ({n})")
+                total += n
+            replay_s = time.perf_counter() - t
+            if total != messages:
+                raise AssertionError(f"B3 replayed {total} of {messages}")
+            mirror = os.path.join(workdir, "mirror")
+            t = time.perf_counter()
+            spawn("replicate", "filer.replicate", "-filer", fs.url,
+                  "-queue", f"logfile:{qpath}", "-sink", f"local:{mirror}")
+            want = {}
+            for r in recs:
+                if not r.event_notification.new_entry.is_directory:
+                    d, name = r.directory.rsplit("/", 1)
+                    e = fs.filer.find_entry(d, name)
+                    want[r.directory] = hashlib.sha256(
+                        fs.read_entry_bytes(e)).hexdigest()
+
+            def mirrored():
+                alive("replicate")
+                try:
+                    for path, h in want.items():
+                        with open(mirror + path, "rb") as f:
+                            if hashlib.sha256(f.read()).hexdigest() != h:
+                                return False
+                except FileNotFoundError:
+                    return False
+                return True
+            _wait(mirrored, 300, "the filer.replicate mirror", interval=0.2)
+            _wait(lambda: os.path.exists(qpath + ".offset") and int(open(
+                qpath + ".offset").read() or 0) == os.path.getsize(qpath),
+                60, "the replicate offset at the queue's end")
+            mirror_s = time.perf_counter() - t
+            procs["replicate"].send_signal(signal.SIGTERM)
+            if procs["replicate"].wait(timeout=30) != 0:
+                raise AssertionError(f"filer.replicate: "
+                                     f"{log_of('replicate')[-2000:]}")
+            procs.pop("replicate")
+            k1_rec = rs_cuda.launches_by_entry.get("reconstruct", 0) - k0
+        got_rec = reconstructs() - r0
+        widths = sorted(kw.widths)
+        if not got_rec or len(widths) != got_rec or (
+                device == "cuda" and k1_rec < got_rec):
+            raise AssertionError(f"{got_rec} reconstructs, {len(widths)} K1 "
+                                 f"one-stripe launches, {k1_rec} K1 "
+                                 f"reconstruct launches")
+        ragged = sum(1 for w in widths if w % 16)
+        out.update(replay_s=replay_s, mirror_s=mirror_s,
+                   reconstructs=got_rec, widths=widths, ragged=ragged,
+                   replay_mb_s=messages * msg_bytes / replay_s / 1e6)
+        log(f"[mq] (g) with r1 lost: B3 started on the filer served its "
+            f"first record {out['restart_s']:.2f} s after its start; every "
+            f"partition replayed from offset 0 == published (sha256 over "
+            f"offset, key and value), {total} messages in {replay_s:.2f} s "
+            f"= {out['replay_mb_s']:.2f} MB/s; filer.replicate -queue "
+            f"logfile: -sink local: mirrored {len(want)} files == the "
+            f"filer's bytes in {mirror_s:.2f} s; the servers reconstructed "
+            f"{got_rec} intervals == K1 one-stripe launches {len(widths)} "
+            f"(K1 reconstruct launches {k1_rec}); widths min {widths[0]} "
+            f"median {widths[len(widths) // 2]} max {widths[-1]}, {ragged} "
+            f"of {len(widths)} not a multiple of 16 [{card}]")
+        return out
+    finally:
+        for m in consumers:
+            m.close()
+        for b in brokers:
+            if not b._stop.is_set():
+                b.stop()
+        if kafka is not None:
+            kafka.stop()
+        for name in list(procs):
+            p = procs.pop(name)
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+                try:
+                    p.wait(timeout=20)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait(timeout=10)
+        if fs is not None:
+            fs.stop()
+        if mc is not None:
+            mc.stop()
+        for s in served.values():
+            s.stop()
+        for f in logs:
+            f.close()
+        retry.reset_breakers()
+
+
+def phase_mq(torch, np, workdir: str, seed: int, card: str) -> dict:
+    from seaweedfs_tpu_torch.ops import crc_cuda, rs_cuda
+    os.makedirs(workdir, exist_ok=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rs_cuda.reset_launches()
+    crc_cuda.reset_launches()
+    res = mq_round_trip(np, torch, workdir, seed + 23, card, MQ_MESSAGES,
+                        MQ_TYPED)
+    torch.cuda.synchronize()
+    k1 = dict(rs_cuda.launches_by_entry)
+    k3 = crc_cuda.launches
+    log(f"[mq] launches under the message queue and notifications: K1 "
+        f"{json.dumps(k1)}, K3 {k3}; phase wall "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    for entry in ("encode", "reconstruct"):
+        if not k1.get(entry):
+            raise AssertionError(f"K1 {entry} never launched in phase 23")
+    if not k3:
+        raise AssertionError("K3 never launched in phase 23")
+    return {"k1": k1, "k3": k3, **res}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8190,11 +8845,18 @@ def main(argv=None) -> int:
             repl = phase_replication(torch, np, args.workdir, args.seed, card)
         finally:
             shutil.rmtree(args.workdir, ignore_errors=True)
+    mqr = None
+    if 23 in phases:
+        try:
+            mqr = phase_mq(torch, np, args.workdir, args.seed, card)
+        finally:
+            shutil.rmtree(args.workdir, ignore_errors=True)
     log(f"[done] phases {sorted(phases | {1})} passed in "
         f"{time.perf_counter() - t0:.1f} s [{card}]")
     if None not in (errs, times, launches, k3_err, k3_times, k3_launches,
                     ec_launches, tier, codec_launches, mesh, server, replica,
-                    maint, rest, control, life, crash, filer, s3, repl):
+                    maint, rest, control, life, crash, filer, s3, repl,
+                    mqr):
         kernels = [dict(name=f"rs_gf_apply:{entry}", route="cuda",
                         source=K1_SOURCE, replaces=replaces,
                         launches=launches.get(entry, 0)
@@ -8211,7 +8873,8 @@ def main(argv=None) -> int:
                         + crash["k1"].get(entry, 0)
                         + filer["k1"].get(entry, 0)
                         + s3["k1"].get(entry, 0)
-                        + repl["k1"].get(entry, 0),
+                        + repl["k1"].get(entry, 0)
+                        + mqr["k1"].get(entry, 0),
                         max_abs_err=errs[entry], ms=times[entry]["ms"],
                         plain_ms=times[entry]["plain_ms"],
                         bound_ms=times[entry]["bound_ms"],
@@ -8224,7 +8887,7 @@ def main(argv=None) -> int:
                             + mesh["launches"]["k3"] + server["k3"]
                             + replica["k3"] + maint["k3"] + rest["k3"]
                             + control["k3"] + life["k3"] + filer["k3"]
-                            + s3["k3"] + repl["k3"],
+                            + s3["k3"] + repl["k3"] + mqr["k3"],
                             max_abs_err=k3_err,
                             ms=k3["ms"], plain_ms=k3["plain_ms"],
                             bound_ms=k3["bound_ms"], bound_by=k3["bound_by"],

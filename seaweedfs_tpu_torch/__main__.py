@@ -20,7 +20,7 @@ Verbs, the counterparts of the JAX package's (seaweedfs_tpu/__main__.py):
   `-webdavPort`.
 * ``shell`` (`run_shell`, :291): the admin shell over the ported command
   tables (shell/commands.py, ec_commands.py, volume_commands.py,
-  fs_commands.py, lifecycle_commands.py, qos_commands.py,
+  fs_commands.py, lifecycle_commands.py, mq_commands.py, qos_commands.py,
   telemetry_commands.py); `-c` runs semicolon-separated lines and exits
   non-zero when one fails.
 * ``filer`` (`run_filer`, :352): the filer daemon (HTTP on the port's
@@ -45,6 +45,13 @@ Verbs, the counterparts of the JAX package's (seaweedfs_tpu/__main__.py):
   (`run_geo_sync`, :639): the same through GeoSync (its own offsets,
   maintenance-class applies, the lag gauge and `-lagBound`). Each runs
   until SIGINT or SIGTERM; none loads torch.
+* ``filer.replicate`` (`run_filer_replicate`, :1074): a `logfile:`
+  notification queue (written by the filer or `fs.meta.notify`) applied
+  through a replication sink (`-sink local:|filer:|s3:|azure:|gcs-json:`),
+  resuming from `<queue>.offset`. ``mq.broker`` (`run_mq_broker`, :942):
+  the message-queue broker, standalone on a local segment directory
+  (`-dir`). Both end on SIGINT or SIGTERM, the broker after flushing its
+  partitions' tails; neither loads torch.
 * ``upload`` and ``download`` (`run_upload`, :827; `run_download`, :855):
   blobs through client/operation's submit and read.
 * ``benchmark`` (:889): `weed benchmark`, bench_tool.run.
@@ -398,8 +405,8 @@ def run_server(argv) -> int:
 
 def run_shell(argv) -> int:
     from .shell import (ec_commands, fs_commands,  # noqa: F401
-                        lifecycle_commands, qos_commands, telemetry_commands,
-                        volume_commands)
+                        lifecycle_commands, mq_commands, qos_commands,
+                        telemetry_commands, volume_commands)
     from .shell.commands import CommandEnv, repl, run_command
 
     p = argparse.ArgumentParser(prog="shell")
@@ -1246,6 +1253,120 @@ def run_geo_sync(argv) -> int:
     return _run_syncs(syncs)
 
 
+def _open_sink(spec: str):
+    """Replication sink from a spec string (reference `_open_sink`, :1046;
+    replication.toml picks the enabled sink the same way): 'local:/dir',
+    'filer:host:port[/prefix]', 's3:http://host:port/bucket[?ak:sk]',
+    'azure:...' and 'gcs-json:...' as the remote tiers spell them."""
+    from .replication.sink import FilerSink, LocalSink, S3Sink
+    kind, _, arg = spec.partition(":")
+    if kind == "local":
+        return LocalSink(arg)
+    if kind == "filer":
+        from .client.filer_client import FilerClient
+        addr, slash, prefix = arg.partition("/")
+        return FilerSink(FilerClient(addr), dir_prefix=slash + prefix
+                         if prefix else "")
+    if kind in ("s3", "b2", "gcs", "wasabi", "minio"):
+        url, _, cred = arg.partition("?")
+        scheme, sep, rest = url.partition("://")
+        host, _, bucket = rest.partition("/")
+        ak, _, sk = cred.partition(":")
+        return S3Sink(f"{scheme}://{host}", bucket, ak, sk)
+    if kind == "azure":
+        from .remote.azure import AzureSink, parse_azure_spec
+        return AzureSink(parse_azure_spec(arg))
+    if kind == "gcs-json":
+        from .remote.gcs import GcsSink, parse_gcs_spec
+        return GcsSink(parse_gcs_spec(arg))
+    raise ValueError(f"unknown sink spec {spec!r}")
+
+
+def run_filer_replicate(argv) -> int:
+    """Consume a notification queue and apply events through a replication
+    sink (reference command/filer_replicate.go and `run_filer_replicate`,
+    :1074 — the queue-decoupled alternative to filer.sync): the records of
+    a `logfile:` queue from the offset kept in `<queue>.offset` (or
+    -offsetFile), the offset rewritten after each record. SIGINT or SIGTERM
+    ends it with rc 0 (the reference ends on SIGINT alone)."""
+    import os
+
+    from .client.filer_client import FilerClient
+    from .notification.queues import LogFileQueue
+    from .replication.replicator import Replicator
+    p = argparse.ArgumentParser(prog="filer.replicate")
+    p.add_argument("-filer", default="127.0.0.1:8888",
+                   help="source filer (chunk reads)")
+    p.add_argument("-queue", required=True,
+                   help="notification source: logfile:/path (durable log "
+                        "written by the filer/fs.meta.notify)")
+    p.add_argument("-sink", required=True,
+                   help="local:/dir | filer:host:port | "
+                        "s3:http://host:port/bucket[?ak:sk]")
+    p.add_argument("-offsetFile", default="",
+                   help="resume-offset path (default <queue>.offset)")
+    opt = p.parse_args(argv)
+    kind, _, qpath = opt.queue.partition(":")
+    if kind != "logfile":
+        print("filer.replicate consumes a durable queue; use "
+              "logfile:/path (mq consumers: use filer.sync)",
+              file=sys.stderr)
+        return 1
+    done = _signals()
+    fc = FilerClient(opt.filer, client_name="filer-replicate")
+    repl = Replicator(_open_sink(opt.sink), fc.read_entry_bytes)
+    queue = LogFileQueue(qpath)
+    off_path = opt.offsetFile or qpath + ".offset"
+    offset = 0
+    if os.path.exists(off_path):
+        with open(off_path) as f:
+            offset = int(f.read().strip() or 0)
+    print(f"replicating {opt.queue} -> {opt.sink} (offset {offset})",
+          flush=True)
+    while not done.is_set():
+        progressed = False
+        for next_off, rec in queue.read(offset):
+            try:
+                repl.replicate(rec.directory, rec.event_notification)
+            except Exception as e:  # noqa: BLE001
+                print(f"apply {rec.directory}: {e}", file=sys.stderr)
+            offset = next_off
+            progressed = True
+            with open(off_path, "w") as f:
+                f.write(str(offset))
+            if done.is_set():
+                break
+        if not progressed:
+            done.wait(1.0)
+    queue.close()
+    fc.close()
+    return 0
+
+
+def run_mq_broker(argv) -> int:
+    """The message-queue broker daemon (reference weed mq.broker and
+    `run_mq_broker`, :942): standalone, its segments in a local directory
+    (`-dir`, '' = memory-only) through mq/broker.LocalSegmentStore. SIGINT
+    or SIGTERM stops it cleanly, which flushes every partition's tail (the
+    reference waits to be killed)."""
+    from .mq.broker import BrokerServer
+    p = argparse.ArgumentParser(prog="mq.broker")
+    p.add_argument("-ip", default="127.0.0.1")
+    p.add_argument("-port", type=int, default=17777)
+    p.add_argument("-master", default="127.0.0.1:9333")
+    p.add_argument("-dir", default="./mq-data",
+                   help="local segment directory ('' = memory-only)")
+    opt = p.parse_args(argv)
+    done = _signals()
+    broker = _started(BrokerServer(opt.master, ip=opt.ip, port=opt.port,
+                                   data_dir=opt.dir or None), "mq.broker")
+    print(f"mq broker {broker.address} (segments in "
+          f"{opt.dir or 'memory'})", flush=True)
+    done.wait()
+    broker.stop()
+    return 0
+
+
 VERBS = {"master": run_master, "volume": run_volume, "server": run_server,
          "shell": run_shell, "upload": run_upload, "backup": run_backup,
          "master.follow": run_master_follow, "export": run_export,
@@ -1256,7 +1377,8 @@ VERBS = {"master": run_master, "volume": run_volume, "server": run_server,
          "filer.cat": run_filer_cat, "filer.meta.backup": run_filer_meta_backup,
          "s3": run_s3, "iam": run_iam, "webdav": run_webdav,
          "filer.backup": run_filer_backup, "filer.sync": run_filer_sync,
-         "geo.sync": run_geo_sync}
+         "geo.sync": run_geo_sync, "filer.replicate": run_filer_replicate,
+         "mq.broker": run_mq_broker}
 
 
 def main(argv=None) -> int:

@@ -150,7 +150,7 @@ class AdminCron:
             # "unknown command", as run_command does for any name)
             from ..shell import (commands, ec_commands,  # noqa: F401
                                  fs_commands, lifecycle_commands,
-                                 volume_commands)
+                                 mq_commands, volume_commands)
             from ..client.master_client import MasterClient
             mc = MasterClient(self.master_address,
                               client_type="admin-cron").start()

@@ -10,8 +10,8 @@ cluster list).
 
 The port's copy of seaweedfs_tpu/shell/fs_commands.py: every fs.* command,
 volume.fsck and every s3.* command (s3.bucket.*, s3.bucket.quota[.check],
-s3.clean.uploads, s3.configure, s3.circuitbreaker). fs.meta.notify waits
-for the port's notification/ (ROADMAP Queue 1). HTTP goes through
+s3.clean.uploads, s3.configure, s3.circuitbreaker) and fs.meta.notify into
+the port's notification queues. HTTP goes through
 client/http_util instead of requests; the FilerClient that s3.configure and
 s3.circuitbreaker open is closed after use.
 """
@@ -704,6 +704,42 @@ def cmd_fs_log_purge(env: CommandEnv, args):
         "PurgeMetaLog", fpb.PurgeMetaLogRequest(before_ns=before),
         fpb.PurgeMetaLogResponse)
     env.println(f"purged {resp.purged} meta-log event(s)")
+
+
+@command("fs.meta.notify", "[-dir /path] -queue spec: replay directory tree "
+         "metadata into a notification queue")
+def cmd_fs_meta_notify(env: CommandEnv, args):
+    """Reference command_fs_meta_notify.go: recursively send every entry
+    as a new-entry EventNotification so a downstream replicator can
+    bootstrap from existing state. Queue spec as in notification.toml
+    ('memory' is useless here; use 'logfile:/path' or 'mq:host:port')."""
+    from ..notification import open_queue
+
+    p = _fs_parser("fs.meta.notify")
+    p.add_argument("-dir", default="/")
+    p.add_argument("-queue", default="",
+                   help="notification spec; default from notification.toml")
+    opt = p.parse_args(args)
+    spec = opt.queue
+    if not spec:
+        from ..utils.config import load_config
+        spec = (load_config("notification") or {}).get("queue", "")
+    if not spec:
+        env.println("no queue: pass -queue or configure notification.toml")
+        return
+    q = open_queue(spec)
+    stub = _filer_stub(env, opt.filer)
+    dirs = files = 0
+    try:
+        for path, e in _walk(stub, _abs(env, opt.dir)):
+            q.send(path, fpb.EventNotification(new_entry=e))
+            if e.is_directory:
+                dirs += 1
+            else:
+                files += 1
+    finally:
+        q.close()
+    env.println(f"notified {dirs} directories, {files} files")
 
 
 # -- s3.* (the buckets, their quotas and multipart staging) -------------

@@ -2,8 +2,8 @@
 
 The port's copy of seaweedfs_tpu/shell/volume_commands.py, every command.
 cluster.check pings filers and brokers too; the broker service name comes
-from the port's utils/rpc (MQ_SERVICE), since shell/mq_commands is not
-ported yet. volume.check.disk re-copies needles through client/http_util
+from the port's utils/rpc (MQ_SERVICE), as in every module of the port's
+mq plane. volume.check.disk re-copies needles through client/http_util
 instead of requests.
 """
 

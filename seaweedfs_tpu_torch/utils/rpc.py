@@ -407,6 +407,7 @@ class Stub:
 MASTER_SERVICE = "swtpu.master.Master"
 VOLUME_SERVICE = "swtpu.volume.VolumeServer"
 FILER_SERVICE = "swtpu.filer.Filer"
-# the message-queue broker's service (reference shell/mq_commands.py:13);
-# the port has no broker yet, but cluster.check pings any that registered
+# the message-queue broker's service (reference mq/broker.py:34 and
+# shell/mq_commands.py:13): mq/broker serves it, mq/client, mq/consumer,
+# shell/mq_commands and cluster.check dial it
 MQ_SERVICE = "swtpu.mq.Broker"

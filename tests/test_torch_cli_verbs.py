@@ -529,8 +529,29 @@ def test_usage_lists_the_replication_verbs():
     r = subprocess.run([sys.executable, "-m", "seaweedfs_tpu_torch"],
                        capture_output=True, text=True, timeout=60, cwd=REPO)
     assert r.returncode == 2
-    for verb in ("webdav", "filer.backup", "filer.sync", "geo.sync"):
+    for verb in ("webdav", "filer.backup", "filer.sync", "geo.sync",
+                 "filer.replicate", "mq.broker"):
         assert verb in r.stderr
+
+
+@pytest.mark.parametrize("verb", ["mq.broker", "filer.replicate"])
+def test_queue_verbs_take_the_references_flags(verb):
+    """`mq.broker` and `filer.replicate` take exactly the reference's flags
+    (those its run_* source adds, against the port's -h)."""
+    import inspect
+    import re
+
+    from seaweedfs_tpu import __main__ as ref_cli
+    fn = {"mq.broker": ref_cli.run_mq_broker,
+          "filer.replicate": ref_cli.run_filer_replicate}[verb]
+    ref_flags = re.findall(r'add_argument\("(-\w+)"', inspect.getsource(fn))
+    assert ref_flags
+    r = subprocess.run([sys.executable, "-m", "seaweedfs_tpu_torch", verb,
+                        "-h"], capture_output=True, text=True, timeout=60,
+                       cwd=REPO)
+    assert r.returncode == 0, r.stderr
+    got = set(re.findall(r"^  (-\w+)", r.stdout, re.M)) - {"-h"}
+    assert got == set(ref_flags)
 
 
 def _dav(port: int, method: str, path: str, body: bytes = b"",

@@ -316,23 +316,26 @@ def test_master_verb_help_lists_the_reference_flags():
 
 
 def test_shell_help_lists_exactly_the_ported_commands():
-    """`shell -c help` lists the reference's lock, volume.*, ec.*, fs.*,
-    s3.*, lifecycle.*, qos.*, cluster.check and cluster.top/profile
-    commands (those of its commands, ec_commands, volume_commands,
-    fs_commands, lifecycle_commands, qos_commands and telemetry_commands
-    modules) and nothing else: fs.meta.notify waits for notification/."""
+    """`shell -c help` lists the reference's lock, volume.*, ec.*, fs.*
+    (fs.meta.notify included), s3.*, lifecycle.*, mq.*, qos.*,
+    cluster.check and cluster.top/profile commands (those of its commands,
+    ec_commands, volume_commands, fs_commands, lifecycle_commands,
+    mq_commands, qos_commands and telemetry_commands modules) and nothing
+    else: the remote.* commands wait for the remote mounts."""
     from seaweedfs_tpu.shell import commands as ref_commands
     from seaweedfs_tpu.shell import (ec_commands, fs_commands,  # noqa: F401
-                                     lifecycle_commands, qos_commands,
-                                     telemetry_commands, volume_commands)
+                                     lifecycle_commands, mq_commands,
+                                     qos_commands, telemetry_commands,
+                                     volume_commands)
     ported = {"seaweedfs_tpu.shell.commands", "seaweedfs_tpu.shell.ec_commands",
               "seaweedfs_tpu.shell.volume_commands",
               "seaweedfs_tpu.shell.fs_commands",
               "seaweedfs_tpu.shell.lifecycle_commands",
+              "seaweedfs_tpu.shell.mq_commands",
               "seaweedfs_tpu.shell.qos_commands",
               "seaweedfs_tpu.shell.telemetry_commands"}
     want = sorted(name for name, c in ref_commands.COMMANDS.items()
-                  if c.fn.__module__ in ported and name != "fs.meta.notify")
+                  if c.fn.__module__ in ported)
     out = _cli("shell", "-master", "127.0.0.1:1", "-c", "help")
     assert out.returncode == 0, out.stderr
     got = [line.split()[0] for line in out.stdout.splitlines()
@@ -343,7 +346,9 @@ def test_shell_help_lists_exactly_the_ported_commands():
             "qos.status", "cluster.top", "cluster.profile", "cluster.check",
             "fs.ls", "fs.verify", "volume.fsck", "s3.bucket.list",
             "s3.bucket.quota.check", "s3.configure",
-            "s3.circuitbreaker"} <= set(got)
+            "s3.circuitbreaker", "fs.meta.notify", "mq.topic.list",
+            "mq.topic.desc", "mq.topic.describe", "mq.topic.configure",
+            "mq.balance"} <= set(got)
 
 
 @pytest.mark.parametrize("flag,waits", [
@@ -593,6 +598,51 @@ def test_webdav_replication_and_stores_import_no_torch_no_jax_no_reference():
                          cwd=str(_repo_root()))
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout
+
+
+_QUEUE_HYGIENE = r"""
+import sys
+sys.modules["jax"] = None
+import seaweedfs_tpu_torch.mq, seaweedfs_tpu_torch.mq.broker
+import seaweedfs_tpu_torch.mq.client, seaweedfs_tpu_torch.mq.consumer
+import seaweedfs_tpu_torch.mq.schema, seaweedfs_tpu_torch.mq.sub_coordinator
+import seaweedfs_tpu_torch.mq.topic, seaweedfs_tpu_torch.pb.mq_schema_pb2
+import seaweedfs_tpu_torch.notification.queues
+import seaweedfs_tpu_torch.notification.kafka
+import seaweedfs_tpu_torch.utils.mini_kafka
+import seaweedfs_tpu_torch.shell.mq_commands
+import seaweedfs_tpu_torch.shell.fs_commands
+from seaweedfs_tpu_torch.__main__ import run_filer_replicate, run_mq_broker
+print("LOADED", sorted(n for n in sys.modules
+                       if n.split(".")[0] in ("torch", "jax", "seaweedfs_tpu",
+                                              "aiohttp", "requests")
+                       and sys.modules[n] is not None))
+"""
+
+
+def test_mq_and_notification_import_no_torch_no_jax_no_reference():
+    """Importing the port's message queue (broker, clients, consumer
+    groups, schema, mq_schema_pb2, the mq.* commands), its notification
+    queues with the Kafka wire and MiniKafka, and the verbs mq.broker and
+    filer.replicate loads no torch, no jax, no aiohttp, no requests and
+    nothing of the JAX package."""
+    out = subprocess.run([sys.executable, "-c", _QUEUE_HYGIENE],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=str(_repo_root()))
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def test_mq_schema_pb2_is_the_references_descriptor():
+    """pb/mq_schema.proto and its pb2 are byte-equal copies: the same
+    serialized file descriptor, so records cross packages as bytes."""
+    from seaweedfs_tpu.pb import mq_schema_pb2 as ref_spb
+    from seaweedfs_tpu_torch.pb import mq_schema_pb2 as spb
+    assert spb.DESCRIPTOR.serialized_pb == ref_spb.DESCRIPTOR.serialized_pb
+    root = _repo_root()
+    for name in ("mq_schema.proto", "mq_schema_pb2.py"):
+        assert (root / "seaweedfs_tpu_torch/pb" / name).read_bytes() == \
+            (root / "seaweedfs_tpu/pb" / name).read_bytes()
 
 
 @pytest.mark.parametrize("verb", ["webdav", "filer.backup", "filer.sync",

@@ -16,6 +16,7 @@ import pytest
 import torch_cluster as tc
 from seaweedfs_tpu_torch.client import http_util
 from seaweedfs_tpu_torch.master.master_server import MasterServer
+from seaweedfs_tpu_torch.shell import mq_commands  # noqa: F401 (register)
 
 
 @pytest.fixture(scope="module")
@@ -92,18 +93,19 @@ def test_single_peer_quorum_is_a_plain_master():
 def test_unported_routes_and_commands_are_absent(cluster):
     """/cluster/telemetry and /debug/lifecycle answer on the port's
     master; cluster.check runs (it pings the volume servers, and the
-    filers and brokers the master lists: none here); the lines of commands
-    still unported (mq.*) print "unknown command" in the shell and in the
-    cron."""
+    filers and brokers the master lists: none here); mq.balance runs and
+    finds no broker; the lines of commands still unported (remote.*)
+    print "unknown command" in the shell and in the cron."""
     c = cluster
     snap = http_util.get(f"http://{c['http']}/cluster/telemetry").json()
     assert snap["leader"] is True
     doc = http_util.get(f"http://{c['http']}/debug/lifecycle").json()
     assert doc["policy"] is None and "recent" in doc
     assert http_util.get(f"http://{c['http']}/cluster/linkcosts").ok
-    out = tc.shell(c, "cluster.check -failOn never", "mq.topic.list",
-                   "lifecycle.status")
-    assert "unknown command 'mq.topic.list'" in out
+    out = tc.shell(c, "cluster.check -failOn never", "remote.mount",
+                   "lifecycle.status", "mq.balance")
+    assert "unknown command 'remote.mount'" in out
+    assert "no live broker in the cluster" in out
     assert " volume servers healthy" in out
     assert "cluster verdict: " in out
     assert "unknown command 'cluster.check'" not in out
@@ -112,9 +114,10 @@ def test_unported_routes_and_commands_are_absent(cluster):
     # the cron's script lines resolve in the port's tables alike
     cron = c["master"].admin_cron
     saved, fetch = cron.scripts, cron.health_fetch
-    cron.scripts, cron.health_fetch = ["mq.topic.list"], None
+    cron.scripts, cron.health_fetch = ["remote.mount", "mq.balance"], None
     try:
         cron.trigger()
     finally:
         cron.scripts, cron.health_fetch = saved, fetch
-    assert "unknown command 'mq.topic.list'" in cron.last_output
+    assert "unknown command 'remote.mount'" in cron.last_output
+    assert "no live broker in the cluster" in cron.last_output

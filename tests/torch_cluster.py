@@ -106,6 +106,30 @@ def wait_until(cond, timeout: float = 10.0, msg: str = "condition") -> None:
     raise AssertionError(f"timed out waiting for {msg}")
 
 
+def bounded(fn, timeout: float = 60.0):
+    """fn() on a daemon thread; fails if it has not returned within
+    `timeout` (there is no pytest-timeout), else its result or its
+    exception."""
+    import threading
+    box: dict = {}
+
+    def run():
+        try:
+            box["v"] = fn()
+        except BaseException as e:  # noqa: BLE001 — raised again below
+            box["e"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(timeout)
+    if t.is_alive():
+        raise AssertionError(f"{getattr(fn, '__name__', fn)} still running "
+                             f"after {timeout} s")
+    if "e" in box:
+        raise box["e"]
+    return box.get("v")
+
+
 def make_damaged_volume(dirname: str, collection: str, vid: int, n: int,
                         damaged: int, seed: int) -> "list[int]":
     """A regular volume of n needles written through Volume.write_needles,
@@ -256,6 +280,11 @@ def write_and_encode(c: dict, n_blobs: int = 60) -> None:
                    for v in n.all_volumes() if v.collection == "ec"}
         return all(got.get(v, 0) > 100_000 for v in vids)
 
+    # a heartbeat acknowledged after the last write: the master's sizes are
+    # the final ones, not a pulse's snapshot taken mid-way (one between
+    # 100,000 B and the 10% below left a volume out of the encode)
+    for served in c["served"].values():
+        served.vs.heartbeat_flush()
     wait_until(sizes_settled, msg="volume sizes in heartbeats")
     out = shell(c, "lock", "ec.encode -collection ec -fullPercent 10",
                 "unlock")
