@@ -5,7 +5,7 @@
 
 Phases, each fatal on failure (the script exits non-zero and prints no
 result). `--phases` runs a subset (default: all); phase 1 always runs, and
-the kernels line needs phases 3, 4 and 6 to 23. The kernels of the
+the kernels line needs phases 3, 4 and 6 to 24. The kernels of the
 phases asked for are built first, all at once (one nvcc per source).
 
 1. device: card name, count, `nvidia-smi` name and power limit;
@@ -458,10 +458,42 @@ phases asked for are built first, all at once (one nvcc per source).
    of the notified tree == the filer's bytes; the servers' reconstructs ==
    K1's one-stripe launches, the widths. K1's and K3's counts are zeroed
    just before the phase and read just after;
+24. mounts and gateways on the card: a master of the port
+   (`-volumeSizeLimitMB 64 -ecShards 10,4`, its cron idle) and the port's
+   filer (`-store sqlite: -maxMB 4 -collection g24`) as subprocesses, four
+   volume servers on the card in racks r1-r4 of this process. (a)
+   `remote.mount` through the port's shell of a `local:` tree of phase
+   20's sizes (64 objects of 1-64 KiB and 2 of 1-16 MiB, seeded) and of a
+   second small one: uncached GETs through the filer's HTTP == the objects
+   (sha256, read-through GB/s); `remote.cache` of each (chunks in volumes,
+   the cache's seconds); one object added to the remote, one removed and
+   one overwritten at its size, `remote.meta.sync` lists the first,
+   removes the second's entry, makes the third's anew (its GET the new
+   bytes, then cached again) and keeps the other cached entries' chunks;
+   the `filer.remote.sync` verb writes a local
+   create back to the remote. (b) WeedFS in this process over the port's
+   FilerClient (`-chunkSizeLimitMB 4`, the `mount` verb's default), with
+   writes and reads of 128 KiB (the kernel's max_write and max_read): 64
+   files of 1-64 KiB, 2 of 1-16 MiB and one of 64 MiB written and read
+   back equal (GB/s each way); rename, truncate, symlink, xattrs, statfs;
+   `mount.configure -quotaMB 256` through the port's shell over the
+   control socket, shown in statfs. Nothing is mounted: the card's
+   machine may lack FUSE, and WeedFS's methods are what the kernel's
+   requests call. (c) the `ftp` verb over the filer: ftplib STORs 16
+   files of 1-64 KiB and 2 of 1-16 MiB and RETRs them back equal (GB/s),
+   LIST == the filer's listing. (d) ec.encode of every g24 volume (K1
+   encode), then r1's server stopped: every file of (a) to (c) read back
+   equal through WeedFS and by FTP RETR (a new `ftp` verb), and the cached
+   remote entries by the filer's HTTP, GB/s for each; the servers'
+   reconstructs == K1's one-stripe launches, the widths and their ragged
+   share. (e) `remote.uncache` of each remote entry, read through again
+   equal; `remote.unmount` leaves no entry and keeps the other mapping.
+   K1's and K3's counts are zeroed just before the phase and read just
+   after;
 then the summary: one JSON line of every kernel with its launches (K1's
-   from phases 6, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22
-   and 23, K3's from phases 8, 10, 12, 13, 14, 15, 16, 17, 18, 20, 21, 22
-   and 23),
+   from phases 6, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22,
+   23 and 24, K3's from phases 8, 10, 12, 13, 14, 15, 16, 17, 18, 20, 21,
+   22 and 23),
    error against
    the plain version, times and bound; then the result line.
 
@@ -489,7 +521,7 @@ LOST_10_4 = (0, 5, 10, 13)
 LOST_14_2 = (3, 15)
 WIDTHS = (16, 48, 100, 384, 4112, 65536, 65552)
 PHASES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18,
-          19, 20, 21, 22, 23)
+          19, 20, 21, 22, 23, 24)
 PALLAS = "seaweedfs_tpu/ops/rs_pallas.py"
 K1_SOURCE = "seaweedfs_tpu_torch/csrc/rs_gf.cu"
 K3_SOURCE = "seaweedfs_tpu_torch/csrc/crc32c.cu"
@@ -501,7 +533,8 @@ KERNELS = {2: ("rs_gf",), 7: ("crc32c",), 9: ("rs_gf",),  # phase -> csrc
            16: ("rs_gf", "crc32c"), 17: ("rs_gf", "crc32c"),
            18: ("rs_gf", "crc32c"), 19: ("rs_gf",),
            20: ("rs_gf", "crc32c"), 21: ("rs_gf", "crc32c"),
-           22: ("rs_gf", "crc32c"), 23: ("rs_gf", "crc32c")}
+           22: ("rs_gf", "crc32c"), 23: ("rs_gf", "crc32c"),
+           24: ("rs_gf",)}
 K3_SHAPES = ((4096, 2048), (16384, 4096), (64, 1 << 20))  # first: the scrub's
 K3_ROWS = (1, 3, 4096, 4225)  # 4225 = 132 SMs x 32 warps + 1
 K3_LENGTHS = (0, 512, 1024, 2048, 4096, 65536, 1 << 20)
@@ -675,6 +708,11 @@ MQ_MESSAGES = 1 << 13    # phase 23(c): messages of 1 KiB, the OpenMessaging
                          # in the count; halved again with the other phases'
                          # depths when the whole took 1,173.3 s),
 MQ_TYPED = 1024          # and typed records through publish_record
+GW_FTP_SMALL = 16        # phase 24(c): files of 1-64 KiB STORed by FTP,
+GW_FTP_LARGE = 2         # and of 1-16 MiB; (a) and (b) write phase 20's
+                         # tree (FILER_SMALL, FILER_LARGE, FILER_HUGE_MB)
+GW_QUOTA_MB = 256        # phase 24(b): mount.configure -quotaMB
+FUSE_IO = 128 << 10      # phase 24: the kernel's max_write and max_read
 K1_ENTRIES = {  # wrapper entry -> the TPU function it replaces
     "encode": f"{PALLAS}:156",
     "encode_seeded": f"{PALLAS}:164",
@@ -1452,7 +1490,7 @@ def ec_store_round_trip(np, workdir: str, seed: int, card: str, geo,
     measured numbers and the degraded intervals' lengths."""
     from concurrent.futures import ThreadPoolExecutor
     from seaweedfs_tpu_torch.ec import files
-    from seaweedfs_tpu_torch.ec.locate import locate
+    from seaweedfs_tpu_torch.ec.volume import read_runs
     from seaweedfs_tpu_torch.server.volume_server import make_shard_reader
     from seaweedfs_tpu_torch.storage.disk_location import DiskLocation
     from seaweedfs_tpu_torch.storage.needle import Needle, record_size_from_header
@@ -1504,9 +1542,9 @@ def ec_store_round_trip(np, workdir: str, seed: int, card: str, geo,
         on_lost = {}
         for nid in order:
             off, size = ev_a.find_needle(nid)
-            on_lost[nid] = [iv.size for iv in locate(
+            on_lost[nid] = [r.size for r in read_runs(
                 geo, dat_size, off, record_size_from_header(size))
-                if iv.shard_and_offset(geo)[0] in lost]
+                if r.shard_id in lost]
         rstats: dict = {}
         reader = make_shard_reader(a, EC_VID, _serve(b, EC_VID), pool, rstats)
 
@@ -1794,7 +1832,7 @@ def tier_round_trip(np, workdir: str, seed: int, card: str, geo,
     number of degraded reads and the degraded intervals' lengths."""
     from concurrent.futures import ThreadPoolExecutor
     from seaweedfs_tpu_torch.ec import files
-    from seaweedfs_tpu_torch.ec.locate import locate
+    from seaweedfs_tpu_torch.ec.volume import read_runs
     from seaweedfs_tpu_torch.ops import crc_cuda, rs_cuda
     from seaweedfs_tpu_torch.server.volume_server import (
         FAILED_PRECONDITION, RpcAbort, VolumeServer, make_shard_reader)
@@ -2011,9 +2049,9 @@ def tier_round_trip(np, workdir: str, seed: int, card: str, geo,
         on_lost = {}
         for nid in order:
             off, size = ev.find_needle(nid)
-            on_lost[nid] = [iv.size for iv in locate(
+            on_lost[nid] = [r.size for r in read_runs(
                 geo, dat_size, off, record_size_from_header(size))
-                if iv.shard_and_offset(geo)[0] in TIER_LOST]
+                if r.shard_id in TIER_LOST]
         expected = sum(len(x) for x in on_lost.values())
         rstats: dict = {}
         reader = make_shard_reader(store, EC_VID, lambda *a: None, pool, rstats)
@@ -2224,7 +2262,8 @@ def codec_round_trip(np, workdir: str, seed: int, card: str, blocks,
     import torch
     from concurrent.futures import ThreadPoolExecutor
     from seaweedfs_tpu_torch.ec import files
-    from seaweedfs_tpu_torch.ec.locate import EcGeometry, locate
+    from seaweedfs_tpu_torch.ec.locate import EcGeometry
+    from seaweedfs_tpu_torch.ec.volume import read_runs
     from seaweedfs_tpu_torch.ops.coder import codec_coder, repair_read_bytes
     from seaweedfs_tpu_torch.server.volume_server import make_shard_reader
     from seaweedfs_tpu_torch.storage.disk_location import DiskLocation
@@ -2258,8 +2297,9 @@ def codec_round_trip(np, workdir: str, seed: int, card: str, blocks,
                 for nid in order:
                     off, size = ev.find_needle(nid)
                     recs[nid] = (off, record_size_from_header(size))
-            return {nid: sum(1 for iv in locate(geo, ev.dat_size, *recs[nid])
-                             if iv.shard_and_offset(geo)[0] in lost)
+            return {nid: sum(1 for r in read_runs(geo, ev.dat_size,
+                                                  *recs[nid])
+                             if r.shard_id in lost)
                     for nid in order}
 
         def read_pass(tag: str, ids, reader, stats, kind) -> dict:
@@ -2737,47 +2777,81 @@ def phase_mesh(torch, np, workdir: str, seed: int, card: str) -> dict:
 
 
 # -- phase 13 ---------------------------------------------------------------
-def _free_port() -> int:
-    """A free localhost port whose +10000 gRPC sibling is free and valid."""
-    import socket
-    for _ in range(200):
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            port = s.getsockname()[1]
-        if port + 10000 >= 65536:
-            continue
-        try:
-            with socket.socket() as s:
-                s.bind(("127.0.0.1", port + 10000))
-            return port
-        except OSError:
-            continue
-    raise RuntimeError("no free port pair")
-
-
-def _free_low_port(taken=()) -> int:
-    """A free localhost port below the kernel's ephemeral range: no
-    outgoing connection's source port can take it before its server,
-    started later in another process, binds it."""
-    import random
-    import socket
+def _port_range() -> "tuple[int, int]":
+    """[lo, hi) of the ports this script picks: below the kernel's
+    ephemeral range with their +10000 siblings, at most 10,000 wide so no
+    pick is another's sibling. Under pytest-xdist (the CPU tests run these
+    phases), worker k of n takes the k-th of n equal slices: a bind check
+    sees only the ports bound so far, so two workers drawing from one
+    range could both take a port whose server has not bound it yet."""
     try:
         with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
             low = int(f.read().split()[0])
     except (OSError, ValueError, IndexError):
         low = 32768
+    lo = 10000 if low - 10000 > 11000 else 1024
+    hi = min(low - 10000, lo + 10000)
+    worker = os.environ.get("PYTEST_XDIST_WORKER", "")
+    n = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "0") or 0)
+    if worker.startswith("gw") and n > 1:
+        k, span = int(worker[2:]) % n, (hi - lo) // n
+        lo, hi = lo + k * span, lo + (k + 1) * span
+    return lo, hi
+
+
+_HANDED: "set[int]" = set()  # ports this process has picked, and siblings
+
+
+def _free_low_port() -> int:
+    """A free localhost port below the kernel's ephemeral range: no
+    outgoing connection's source port can take it before its server,
+    started later in another process, binds it. No port is handed out
+    twice in one process, bound yet or not. Where the ephemeral range
+    starts too low to leave room below it, any free port."""
+    import random
+    import socket
+    lo, hi = _port_range()
     rng = random.Random()
-    for _ in range(500):
-        port = rng.randrange(10000, low)
-        if port in taken:
+    for _ in range(500 if hi > lo + 100 else 0):
+        port = rng.randrange(lo, hi)
+        if port in _HANDED:
             continue
         with socket.socket() as s:
             try:
                 s.bind(("127.0.0.1", port))
             except OSError:
                 continue
+        _HANDED.add(port)
         return port
-    raise RuntimeError("no free port below the ephemeral range")
+    for _ in range(100):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        if port not in _HANDED:
+            _HANDED.add(port)
+            return port
+    raise RuntimeError("no free port")
+
+
+def _free_port_pair() -> int:
+    """A free port whose +10000 gRPC sibling (the servers' and clients'
+    convention) is free too, both below the ephemeral range where it
+    leaves room (`_port_range`). tests/torch_cluster.free_port_pair is
+    this function, so the tests and the phases they run share one rule
+    and one record of the ports handed out."""
+    import socket
+    for _ in range(200):
+        port = _free_low_port()
+        if port + 10000 >= 65536 or port + 10000 in _HANDED:
+            continue
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port + 10000))
+            except OSError:
+                continue
+        _HANDED.add(port + 10000)
+        return port
+    raise RuntimeError("no free port pair")
 
 
 class _Client:
@@ -2800,11 +2874,13 @@ class _Client:
 
 
 def _intervals(ev, geo, nid: int) -> "list[tuple[int, int]]":
-    """(shard, length) of each interval of needle `nid` of EC volume `ev`."""
-    from seaweedfs_tpu_torch.ec.locate import locate
+    """(shard, length) of each run of needle `nid` of EC volume `ev`: its
+    intervals, each shard's adjacent ones merged as a read merges them
+    (ec/volume.read_runs), so one per reconstruct of a lost shard."""
+    from seaweedfs_tpu_torch.ec.volume import read_runs
     from seaweedfs_tpu_torch.storage.needle import record_size_from_header
     off, size = ev.find_needle(nid)
-    return [(iv.shard_and_offset(geo)[0], iv.size) for iv in locate(
+    return [(r.shard_id, r.size) for r in read_runs(
         geo, ev.dat_size, off, record_size_from_header(size))]
 
 
@@ -2827,7 +2903,7 @@ def server_round_trip(np, workdir: str, seed: int, card: str, geo,
     lost = {"a": A_LOST, "b": B_LOST}
     servers = {}
     for x in "abc":
-        port = _free_port()
+        port = _free_port_pair()
         store = Store("127.0.0.1", port, "", [DiskLocation(os.path.join(
             workdir, f"server_{x}"))], ec_geometry=geo, coder_name="torch",
             device=device)
@@ -3225,7 +3301,7 @@ def replica_round_trip(np, workdir: str, seed: int, card: str, geo,
     vid = REPLICA_VID
     servers = {}
     for x in "abc":
-        port = _free_port()
+        port = _free_port_pair()
         store = Store("127.0.0.1", port, "", [DiskLocation(os.path.join(
             workdir, f"replica_{x}"))], ec_geometry=geo, coder_name="torch",
             device=device)
@@ -3564,7 +3640,7 @@ def maintenance_round_trip(np, workdir: str, seed: int, card: str, geo,
         f"{time.perf_counter() - t:.2f} s: every gRPC plane under mTLS")
     servers = {}
     for x in "abc":
-        port = _free_port()
+        port = _free_port_pair()
         store = Store("127.0.0.1", port, "", [DiskLocation(os.path.join(
             workdir, f"maint_{x}"))], ec_geometry=geo, coder_name="torch",
             device=device)
@@ -3572,7 +3648,7 @@ def maintenance_round_trip(np, workdir: str, seed: int, card: str, geo,
                                   pulse_seconds=pulse_seconds)
     a, b, c = servers["a"], servers["b"], servers["c"]
     local = LocalPeers({vs.peer_address: vs for vs in servers.values()})
-    sink_address = f"127.0.0.1:{_free_port()}"
+    sink_address = f"127.0.0.1:{_free_port_pair()}"
 
     class Sink:
         """The master's end of SendHeartbeat and nothing more: it acks
@@ -4161,7 +4237,7 @@ def go_import(np, workdir: str, seed: int, card: str, geo, n: int,
     import concurrent.futures as cf
 
     from seaweedfs_tpu_torch.ec import encoder, files
-    from seaweedfs_tpu_torch.ec.locate import locate
+    from seaweedfs_tpu_torch.ec.volume import read_runs
     from seaweedfs_tpu_torch.ec.volume import EcVolume
     from seaweedfs_tpu_torch.ops.coder import TorchCoder
     from seaweedfs_tpu_torch.ops.crc32c import crc32c
@@ -4259,10 +4335,10 @@ def go_import(np, workdir: str, seed: int, card: str, geo, n: int,
                                                                  len(loc)),
                                                 replace=False))
         expected = sum(
-            1 for nid in ids for iv in locate(geo, ev.dat_size, loc[nid][0],
-                                              ref_format.record_size(
-                                                  loc[nid][1], 3))
-            if iv.shard_and_offset(geo)[0] in LOST_14_2)
+            1 for nid in ids for r in read_runs(geo, ev.dat_size, loc[nid][0],
+                                                ref_format.record_size(
+                                                    loc[nid][1], 3))
+            if r.shard_id in LOST_14_2)
         lat = []
         for nid in ids:
             t = time.perf_counter()
@@ -4560,7 +4636,7 @@ def rest_round_trip(np, workdir: str, seed: int, card: str, go_geo, geo,
         sampler.default_sampler().reset()
     servers = {}
     for x in "ab":
-        port = _free_port()
+        port = _free_port_pair()
         store = Store("127.0.0.1", port, "", [DiskLocation(os.path.join(
             workdir, f"rest_{x}"))], ec_geometry=geo, coder_name="torch",
             device=device)
@@ -5046,7 +5122,7 @@ def control_round_trip(np, workdir: str, seed: int, card: str,
     master = mc = None
     clients: dict = {}
     retry.reset_breakers()
-    mport, hport = _free_port(), _free_port()
+    mport, hport = _free_port_pair(), _free_port_pair()
     maddr = f"127.0.0.1:{mport}"
     mlog = open(os.path.join(workdir, "master.log"), "w")
 
@@ -5093,7 +5169,7 @@ def control_round_trip(np, workdir: str, seed: int, card: str,
 
         _wait(master_up, 120, "the master's HTTP API")
         for r in racks:
-            port = _free_port()
+            port = _free_port_pair()
             store = Store("127.0.0.1", port, "", [DiskLocation(
                 dirs[r], max_volume_count=32)], ec_geometry=geo,
                 coder_name="torch", device=device)
@@ -5546,9 +5622,7 @@ def lifecycle_round_trip(np, workdir: str, seed: int, card: str,
     clients: dict = {}
     mc = env = None
     retry.reset_breakers()
-    picked: "list[int]" = []
-    for _ in range(6):
-        picked.append(_free_low_port(picked))
+    picked = [_free_low_port() for _ in range(6)]
     ports = list(zip(picked[::2], picked[1::2]))
     peers = [f"127.0.0.1:{p}" for p, _ in ports]
     http_of = {f"127.0.0.1:{p}": h for p, h in ports}
@@ -5678,7 +5752,7 @@ def lifecycle_round_trip(np, workdir: str, seed: int, card: str,
         lead = _wait(lambda: leader_of(peers), 120,
                      "one leader among three masters")
         for r in racks:
-            port = _free_port()
+            port = _free_port_pair()
             store = Store("127.0.0.1", port, "", [DiskLocation(
                 dirs[r], max_volume_count=32)], ec_geometry=geo,
                 coder_name="torch", device=device)
@@ -5923,8 +5997,15 @@ def lifecycle_round_trip(np, workdir: str, seed: int, card: str,
         _wait(offloaded, 300, "the new leader's offload", interval=0.2)
         t_offloaded = time.perf_counter()
         out["offload_wait_s"] = t_offloaded - t_kill
-        off = [a for a in transitions(new)
-               if a["kind"] == "offload" and a["vid"] == vid]
+
+        def offload_events():
+            # the leader journals a transition when its last holder has
+            # answered, a moment after the shards turn remote
+            return [a for a in transitions(new)
+                    if a["kind"] == "offload" and a["vid"] == vid]
+
+        off = _wait(offload_events, 30, "the new leader's offload event",
+                    interval=0.1)
         objects = sum(len(fs) for _, _, fs in os.walk(remote_dir))
         if len(off) != 1 or objects != geo.n:
             raise AssertionError(f"offload events {off}; {objects} objects")
@@ -6306,22 +6387,31 @@ def phase_crash(torch, np, workdir: str, seed: int, card: str) -> dict:
 
 
 # -- phase 20 ---------------------------------------------------------------
-def _free_filer_port(taken=()) -> int:
-    """A port for a filer started in a subprocess, with its +10000 gRPC
-    sibling (the clients' convention) free too; below the ephemeral range
-    where it leaves room."""
-    for _ in range(200):
-        port = _free_low_port(taken)
-        if port + 10000 >= 65536:
-            continue
-        import socket
-        with socket.socket() as s:
-            try:
-                s.bind(("127.0.0.1", port + 10000))
-            except OSError:
-                continue
-        return port
-    raise RuntimeError("no free filer port pair")
+def _settle_sizes(vss: dict, mc, collection: str, timeout: float = 120):
+    """Each server's heartbeat acknowledged after the last write, then the
+    master's size of every `collection` volume equal to its holder's own
+    `.dat`: the volumes an encode picks from the master's list are then
+    every one that holds data. Returns {vid: size}."""
+    def local() -> "dict[int, int]":
+        return {vid: v.content_size for vs in vss.values()
+                for loc in vs.store.locations
+                for vid, v in list(loc.volumes.items())
+                if v.collection == collection}
+
+    def flushed() -> bool:
+        return all(vs.flush_heartbeat() for vs in vss.values())
+
+    def agreed():
+        want = local()
+        seen = {v.id: v.size
+                for dc in mc.volume_list().topology_info.data_center_infos
+                for rk in dc.rack_infos for dn in rk.data_node_infos
+                for disk in dn.disk_infos.values()
+                for v in disk.volume_infos if v.collection == collection}
+        return want if seen == want else None
+
+    _wait(flushed, timeout, f"the servers' heartbeats acknowledged")
+    return _wait(agreed, timeout, f"the master's {collection} volume sizes")
 
 
 class K1Widths:
@@ -6406,10 +6496,17 @@ def filer_round_trip(np, torch, workdir: str, seed: int, card: str,
     logs: list = []
     mc = fc = None
     retry.reset_breakers()
-    mport = _free_low_port()
-    hport = _free_low_port({mport})
-    fport = _free_filer_port({mport, hport})
+    mport, hport, fport = _free_low_port(), _free_low_port(), \
+        _free_port_pair()
     maddr, faddr = f"127.0.0.1:{mport}", f"127.0.0.1:{fport}"
+    t_run = time.perf_counter()
+    step = {"name": "(0) the cluster", "at": 0.0}
+
+    def mark(name: str) -> None:
+        """Log a step's start with its time since the phase's, so that a
+        failure names its step."""
+        step.update(name=name, at=time.perf_counter() - t_run)
+        log(f"[filer] step {name} begins at +{step['at']:.1f} s")
     fdir = os.path.join(workdir, "filer")
     os.makedirs(fdir)
 
@@ -6494,7 +6591,8 @@ def filer_round_trip(np, torch, workdir: str, seed: int, card: str,
         dirs = {r: os.path.join(workdir, r) for r in racks}
         for r in racks:
             os.makedirs(dirs[r])
-            port = _free_port()
+            # below the ephemeral range, as the master's and the filer's
+            port = _free_port_pair()
             store = Store("127.0.0.1", port, "", [DiskLocation(
                 dirs[r], max_volume_count=32)], ec_geometry=geo,
                 coder_name="torch", device=device)
@@ -6508,6 +6606,7 @@ def filer_round_trip(np, torch, workdir: str, seed: int, card: str,
                           mc.volume_list().topology_info.data_center_infos
                           for rk in dc.rack_infos) == 4, 60,
               "four servers registered")
+        mark("(0) the filer")
         up_s = start_filer("filer")
         log(f"[filer] master (a subprocess, -volumeSizeLimitMB 128 -ecShards "
             f"10,4), four volume servers on {device} in racks r1-r4, and the "
@@ -6515,15 +6614,18 @@ def filer_round_trip(np, torch, workdir: str, seed: int, card: str,
             f"-store sqlite: -maxMB 4 -collection f20; up in {up_s:.2f} s) "
             f"in {time.perf_counter() - t0:.1f} s [{card}]")
 
-        # (1) the meta tail, from now on
+        # (1) the meta tail, from the filer's first event: a tail slow to
+        # start (its interpreter under load) replays what it missed from
+        # the filer's meta log, so no fixed wait stands for its start
+        mark("(1) the meta tail")
         tail = spawn("tail", "filer.meta.tail", "-filer", faddr,
-                     "-pathPrefix", "/f20")
-        time.sleep(1.0)
+                     "-pathPrefix", "/f20", "-timeAgo", "3600")
         if tail.poll() is not None:
             raise AssertionError(f"filer.meta.tail exited: {log_of('tail')}")
 
         # (2) the seeded tree through filer.copy; a small replicated
         # subtree first, kept out of the encode, for the scrub to check
+        mark("(2) filer.copy")
         t = time.perf_counter()
         local = os.path.join(workdir, "tree")
         want = _filer_tree(np, local, seed, small, large, huge_mb)
@@ -6558,6 +6660,7 @@ def filer_round_trip(np, torch, workdir: str, seed: int, card: str,
             f"010) [{card}]")
 
         # (3) the namespace
+        mark("(3) the namespace")
         said, ns_s = shell(f"fs.du -filer {faddr} /f20/tree; fs.ls -l "
                            f"-filer {faddr} /f20/tree/large; fs.tree -filer "
                            f"{faddr} /f20/tree")
@@ -6609,18 +6712,11 @@ def filer_round_trip(np, torch, workdir: str, seed: int, card: str,
             f"sha256 == written; fs.mv of {len(moved)} files and fs.rm of "
             f"{len(removed)} took effect [{card}]")
 
-        # (4) ec.encode of every f20 volume with data (K1 encode)
-        for r in racks:
-            vss[r].heartbeat_flush()
-        time.sleep(1.5)
-        f20 = {}
-        for dc in mc.volume_list().topology_info.data_center_infos:
-            for rk in dc.rack_infos:
-                for dn in rk.data_node_infos:
-                    for disk in dn.disk_infos.values():
-                        for v in disk.volume_infos:
-                            if v.collection == "f20" and v.size > 8:
-                                f20[v.id] = v.size
+        # (4) ec.encode of every f20 volume with data (K1 encode), once the
+        # master's sizes are the servers' own
+        mark("(4) ec.encode")
+        f20 = {vid: size for vid, size in
+               _settle_sizes(vss, mc, "f20").items() if size > 8}
         if not f20:
             raise AssertionError("no f20 volume holds data")
         k0 = rs_cuda.launches_by_entry.get("encode", 0)
@@ -6646,6 +6742,7 @@ def filer_round_trip(np, torch, workdir: str, seed: int, card: str,
             f"[{card}]")
 
         # (5) rack r1 lost
+        mark("(5) r1 lost")
         served.pop("r1").stop()
         _wait(lambda: sum(len(rk.data_node_infos) for dc in
                           mc.volume_list().topology_info.data_center_infos
@@ -6653,6 +6750,7 @@ def filer_round_trip(np, torch, workdir: str, seed: int, card: str,
               "r1's server gone from the topology")
 
         # (6) reads through the filer with r1 lost
+        mark("(6) reads with r1 lost")
         large_paths = sorted(p for p in want if "/small/" not in p
                              and "/moved/" not in p)
         small_paths = sorted(p for p in want if "/small/" in p)
@@ -6705,6 +6803,7 @@ def filer_round_trip(np, torch, workdir: str, seed: int, card: str,
             f"[{card}]")
 
         # (7) the cluster's checks
+        mark("(7) fs.verify, volume.fsck, cluster.check")
         k3_0 = crc_cuda.launches
         said, ver_s = shell(f"fs.verify -filer {faddr} -scrub /f20")
         k3 = crc_cuda.launches - k3_0
@@ -6732,6 +6831,8 @@ def filer_round_trip(np, torch, workdir: str, seed: int, card: str,
 
         # (8) the tail saw the writes and the removals; kill -9 the filer
         # and start it again on the same store and meta log
+        mark("(8) the tail, a restart, the meta backup")
+
         def tail_events(kind: str) -> "list[str]":
             return [ln.split()[2] for ln in log_of("tail").splitlines()
                     if ln.split()[1:2] == [kind]]
@@ -6795,13 +6896,14 @@ def filer_round_trip(np, torch, workdir: str, seed: int, card: str,
             f"{len(saved)} entries [{card}]")
 
         # (9) one encrypted file, if the optional package is there
+        mark("(9) encryption")
         try:
             import cryptography  # noqa: F401
             have_crypto = True
         except ImportError:
             have_crypto = False
         if have_crypto:
-            eport = _free_filer_port({mport, hport, fport})
+            eport = _free_port_pair()
             p = spawn("efiler", "filer", "-master", maddr, "-ip",
                       "127.0.0.1", "-port", str(eport), "-store", "memory",
                       "-noPeerMeta", "-encryptVolumeData", "-maxMB", "1",
@@ -6849,6 +6951,11 @@ def filer_round_trip(np, torch, workdir: str, seed: int, card: str,
                 f"package does not import here [{card}]")
         out["encryption_ran"] = have_crypto
         return out
+    except BaseException as e:
+        e.add_note(f"phase 20 failed in step {step['name']}, begun at "
+                   f"+{step['at']:.1f} s, at "
+                   f"+{time.perf_counter() - t_run:.1f} s")
+        raise
     finally:
         if fc is not None:
             fc.close()
@@ -6998,11 +7105,9 @@ def s3_round_trip(np, torch, workdir: str, seed: int, card: str, big: int,
     clients: list = []
     mc = None
     retry.reset_breakers()
-    mport = _free_low_port()
-    hport = _free_low_port({mport})
-    fport = _free_filer_port({mport, hport})
-    sport = _free_low_port({mport, hport, fport, fport + 10000})
-    iport = _free_low_port({mport, hport, fport, fport + 10000, sport})
+    mport, hport, fport = _free_low_port(), _free_low_port(), \
+        _free_port_pair()
+    sport, iport = _free_low_port(), _free_low_port()
     maddr, faddr = f"127.0.0.1:{mport}", f"127.0.0.1:{fport}"
     saddr, iaddr = f"127.0.0.1:{sport}", f"127.0.0.1:{iport}"
     fdir = os.path.join(workdir, "filer")
@@ -7112,7 +7217,7 @@ def s3_round_trip(np, torch, workdir: str, seed: int, card: str, big: int,
         dirs = {r: os.path.join(workdir, r) for r in racks}
         for r in racks:
             os.makedirs(dirs[r])
-            port = _free_port()
+            port = _free_port_pair()
             store = Store("127.0.0.1", port, "", [DiskLocation(
                 dirs[r], max_volume_count=32)], ec_geometry=geo,
                 coder_name="torch", device=device)
@@ -7623,12 +7728,8 @@ def replication_round_trip(np, torch, workdir: str, seed: int, card: str,
     mc = None
     dav = None
     retry.reset_breakers()
-    taken: set = set()
-
     def port(filer: bool = False) -> int:
-        p = _free_filer_port(taken) if filer else _free_low_port(taken)
-        taken.update((p, p + 10000))
-        return p
+        return _free_port_pair() if filer else _free_low_port()
 
     mport, hport = port(), port()
     fports = {n: port(filer=True) for n in "ABC"}
@@ -8184,12 +8285,8 @@ def mq_round_trip(np, torch, workdir: str, seed: int, card: str,
     consumers: list = []
     mc = fs = kafka = None
     retry.reset_breakers()
-    taken: set = set()
-
     def port(pair: bool = False) -> int:
-        p = _free_filer_port(taken) if pair else _free_low_port(taken)
-        taken.update((p, p + 10000))
-        return p
+        return _free_port_pair() if pair else _free_low_port()
 
     mport, hport = port(), port()
     maddr = f"127.0.0.1:{mport}"
@@ -8711,6 +8808,592 @@ def phase_mq(torch, np, workdir: str, seed: int, card: str) -> dict:
     return {"k1": k1, "k3": k3, **res}
 
 
+# -- phase 24 ---------------------------------------------------------------
+def _gw_files(np, seed: int, prefix: str, small: int, large: int,
+              huge_mb: int = 0, dirs: int = 16,
+              large_mb: int = 16) -> "dict[str, bytes]":
+    """Seeded files as phase 20's tree: `small` of 1-64 KiB (log-uniform)
+    in `dirs` directories, `large` of 1-`large_mb` MiB and, if asked, one
+    of `huge_mb` MiB. Returns path under `prefix` -> bytes."""
+    rng = np.random.default_rng(seed)
+    out: "dict[str, bytes]" = {}
+    sizes = np.exp(rng.uniform(np.log(1 << 10), np.log(64 << 10), small))
+    for i, n in enumerate(sizes.astype(np.int64)):
+        out[f"{prefix}/small/d{i % dirs:02d}/s{i:05d}.bin"] = \
+            rng.bytes(int(n))
+    for i in range(large):
+        out[f"{prefix}/large/l{i:03d}.bin"] = rng.bytes(
+            int(rng.integers(1 << 20, (large_mb << 20) + 1)))
+    if huge_mb:
+        out[f"{prefix}/huge/h000.bin"] = rng.bytes(huge_mb << 20)
+    return out
+
+
+def _fuse_read(wfs, path: str, size: int) -> bytes:
+    """A file read through WeedFS as the kernel asks for it: open, reads
+    of max_read (128 KiB) each, release."""
+    fh = wfs.open(path)
+    try:
+        return b"".join(wfs.read(fh, off, FUSE_IO)
+                        for off in range(0, size, FUSE_IO))
+    finally:
+        wfs.release(fh)
+
+
+def gateways_round_trip(np, torch, workdir: str, seed: int, card: str,
+                        small: int, large: int, huge_mb: int, ftp_small: int,
+                        ftp_large: int, quota_mb: int, device: str = "cuda",
+                        small_block: int = 1 << 20,
+                        large_mb: int = 16) -> dict:
+    """Phase 24's path, every check fatal: a master of the port in a
+    subprocess (64 MB volumes), four volume servers on the card in this
+    process (racks r1-r4), the port's filer in a subprocess on sqlite:
+    (collection g24), its shell, `filer.remote.sync` and `ftp` verbs as
+    subprocesses, and WeedFS in this process over a FilerClient. Nothing
+    is mounted: WeedFS's methods are what the kernel's requests call.
+    Returns the measured numbers."""
+    import ftplib
+    import http.client
+    import io
+    import signal
+
+    from seaweedfs_tpu_torch.client.filer_client import FilerClient
+    from seaweedfs_tpu_torch.client.master_client import MasterClient
+    from seaweedfs_tpu_torch.ec.locate import EcGeometry
+    from seaweedfs_tpu_torch.mount.control import (mount_socket_path,
+                                                   serve_mount_control)
+    from seaweedfs_tpu_torch.mount.weedfs import WeedFS
+    from seaweedfs_tpu_torch.ops import rs_cuda
+    from seaweedfs_tpu_torch.server.grpc_service import serve_volume
+    from seaweedfs_tpu_torch.server.volume_server import VolumeServer
+    from seaweedfs_tpu_torch.storage.disk_location import DiskLocation
+    from seaweedfs_tpu_torch.storage.store import Store
+    from seaweedfs_tpu_torch.utils import retry
+
+    geo = EcGeometry(10, 4, small_block=small_block)
+    racks = ("r1", "r2", "r3", "r4")
+    here = os.path.dirname(os.path.abspath(__file__))
+    out: dict = {}
+    served: dict = {}
+    procs: "dict[str, subprocess.Popen]" = {}
+    logs: list = []
+    closers: list = []
+    mc = None
+    retry.reset_breakers()
+    def port(pair: bool = False) -> int:
+        return _free_port_pair() if pair else _free_low_port()
+
+    mport, hport, fport = port(), port(), port(pair=True)
+    maddr, faddr = f"127.0.0.1:{mport}", f"127.0.0.1:{fport}"
+    t_run = time.perf_counter()
+    step = {"name": "(0) the cluster", "at": 0.0}
+
+    def mark(name: str) -> None:
+        step.update(name=name, at=time.perf_counter() - t_run)
+        log(f"[gw] step {name} begins at +{step['at']:.1f} s")
+
+    def spawn(name: str, *args) -> subprocess.Popen:
+        f = open(os.path.join(workdir, f"{name}.log"), "w")
+        logs.append(f)
+        procs[name] = subprocess.Popen(_port_cli(*args), cwd=here, stdout=f,
+                                       stderr=subprocess.STDOUT)
+        return procs[name]
+
+    def log_of(name: str) -> str:
+        with open(os.path.join(workdir, f"{name}.log")) as f:
+            return f.read()
+
+    def ready(name: str, word: str, timeout: float = 120) -> None:
+        def up():
+            if procs[name].poll() is not None:
+                raise AssertionError(f"{name} exited rc {procs[name].poll()}"
+                                     f": {log_of(name)[-2000:]}")
+            return word in log_of(name)
+        _wait(up, timeout, f"{name}'s ready line")
+
+    def end(name: str, sig=signal.SIGTERM) -> str:
+        p = procs.pop(name, None)
+        if p is not None and p.poll() is None:
+            p.send_signal(sig)
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(timeout=10)
+        return log_of(name)
+
+    def fget(path: str) -> "tuple[int, bytes]":
+        c = http.client.HTTPConnection("127.0.0.1", fport, timeout=300)
+        try:
+            c.request("GET", path)
+            r = c.getresponse()
+            return r.status, r.read()
+        finally:
+            c.close()
+
+    def fput(path: str, body: bytes) -> None:
+        c = http.client.HTTPConnection("127.0.0.1", fport, timeout=300)
+        try:
+            c.request("PUT", path, body=body)
+            r = c.getresponse()
+            r.read()
+            if r.status != 201:
+                raise AssertionError(f"PUT {path}: {r.status}")
+        finally:
+            c.close()
+
+    def shell(script: str) -> "tuple[str, float]":
+        so, se, s = _shell(maddr, script)
+        return so + se, s
+
+    def ftp_client(p: int):
+        c = ftplib.FTP()
+        c.connect("127.0.0.1", p, timeout=300)
+        c.login()
+        return c
+
+    def retr(c, path: str) -> bytes:
+        buf = io.BytesIO()
+        c.retrbinary(f"RETR {path}", buf.write)
+        return buf.getvalue()
+
+    def reconstructs() -> int:
+        return sum(vs.read_stats.get("reconstructs", 0)
+                   for r, vs in vss.items() if r in served)
+
+    def entry_of(fc, path: str):
+        d, _, n = path.rpartition("/")
+        return fc.filer.find_entry(d or "/", n)
+
+    try:
+        t0 = time.perf_counter()
+        master = spawn("master", "master", "-ip", "127.0.0.1", "-port",
+                       str(mport), "-httpPort", str(hport),
+                       "-volumeSizeLimitMB", "64", "-ecShards", "10,4",
+                       "-maintenanceScripts", "",
+                       "-maintenanceHealthDriven", "off")
+
+        def master_up():
+            if master.poll() is not None:
+                raise AssertionError(f"the master exited rc {master.poll()}")
+            try:
+                c = http.client.HTTPConnection("127.0.0.1", hport, timeout=5)
+                c.request("GET", "/cluster/status")
+                ok = c.getresponse().status == 200
+                c.close()
+                return ok
+            except OSError:
+                return False
+
+        _wait(master_up, 120, "the master's HTTP API")
+        for r in racks:
+            d = os.path.join(workdir, r)
+            os.makedirs(d)
+            p = port(pair=True)
+            store = Store("127.0.0.1", p, "", [DiskLocation(
+                d, max_volume_count=32)], ec_geometry=geo,
+                coder_name="torch", device=device)
+            vs = VolumeServer(store, "127.0.0.1", p, data_center="dc1",
+                              rack=r, pulse_seconds=1.0)
+            served[r] = serve_volume(vs, p + 10000, master=maddr)
+        vss = {r: s.vs for r, s in served.items()}
+        rack_of = {vs.url: r for r, vs in vss.items()}
+        mc = MasterClient(maddr).start()
+        _wait(lambda: sum(len(rk.data_node_infos) for dc in
+                          mc.volume_list().topology_info.data_center_infos
+                          for rk in dc.rack_infos) == 4, 60,
+              "four servers registered")
+        fdir = os.path.join(workdir, "filer")
+        os.makedirs(fdir)
+        spawn("filer", "filer", "-master", maddr, "-ip", "127.0.0.1",
+              "-port", str(fport), "-store", f"sqlite:{fdir}/filer.db",
+              "-maxMB", "4", "-collection", "g24")
+
+        def filer_up():
+            if procs["filer"].poll() is not None:
+                raise AssertionError(f"the filer exited: "
+                                     f"{log_of('filer')[-2000:]}")
+            try:
+                return fget("/__status__")[0] == 200
+            except OSError:
+                return False
+        _wait(filer_up, 120, "the filer's HTTP plane")
+        log(f"[gw] master (a subprocess, -volumeSizeLimitMB 64 -ecShards "
+            f"10,4), four volume servers on {device} in racks r1-r4, the "
+            f"filer (a subprocess, -store sqlite: -maxMB 4 -collection g24) "
+            f"in {time.perf_counter() - t0:.1f} s [{card}]")
+
+        # (a) remote.mount of a local: tree through the port's shell
+        mark("(a) the remote mount")
+        rdir = os.path.join(workdir, "remote")
+        remote = _gw_files(np, seed, "data", small, large, large_mb=large_mb)
+        keep = _gw_files(np, seed + 9, "keepdata", 4, 0, dirs=1)
+        for rel, data in {**remote, **keep}.items():
+            p = os.path.join(rdir, rel)
+            os.makedirs(os.path.dirname(p), exist_ok=True)
+            with open(p, "wb") as f:
+                f.write(data)
+        rpath = {f"/g24/remote/{rel[len('data/'):]}": data
+                 for rel, data in remote.items()}
+        said, mount_s = shell(
+            f"remote.mount -filer {faddr} -dir /g24/keep -remote "
+            f"local:{rdir} -prefix keepdata/; remote.mount -filer {faddr} "
+            f"-dir /g24/remote -remote local:{rdir} -prefix data/")
+        if f"at /g24/remote: {len(rpath)} entries" not in said or \
+                "at /g24/keep: 4 entries" not in said:
+            raise AssertionError(f"remote.mount: {said[-2000:]!r}")
+        fc = FilerClient(faddr, client_name="smoke-gw")
+        closers.append(fc)
+        rbytes = sum(map(len, rpath.values()))
+        t = time.perf_counter()
+        for p, data in rpath.items():
+            st, body = fget(p)
+            if st != 200 or hashlib.sha256(body).digest() != \
+                    hashlib.sha256(data).digest():
+                raise AssertionError(f"uncached GET {p}: {st}")
+            if entry_of(fc, p).chunks:
+                raise AssertionError(f"{p} holds chunks before remote.cache")
+        out["read_through"] = rbytes / (time.perf_counter() - t) / 1e9
+        said, cache_s = shell("; ".join(
+            f"remote.cache -filer {faddr} -path {p}" for p in sorted(rpath)))
+        for p in rpath:
+            e = entry_of(fc, p)
+            if not e.chunks or not e.extended.get("remote"):
+                raise AssertionError(f"{p} after remote.cache: "
+                                     f"{len(e.chunks)} chunks")
+        out["cache_s"] = cache_s
+        # one object added to the remote, one removed, one overwritten in
+        # place at the same size; remote.meta.sync
+        added = np.random.default_rng(seed + 5).bytes(100_000)
+        with open(os.path.join(rdir, "data", "added.bin"), "wb") as f:
+            f.write(added)
+        gone, changed = sorted(rpath)[3], sorted(rpath)[5]
+        os.remove(os.path.join(rdir, "data", gone[len("/g24/remote/"):]))
+        rewritten = (np.frombuffer(rpath[changed], np.uint8) ^ 0xFF).tobytes()
+        with open(os.path.join(rdir, "data", changed[len("/g24/remote/"):]),
+                  "r+b") as f:
+            f.write(rewritten)
+        said, _ = shell(f"remote.meta.sync -filer {faddr} -dir /g24/remote")
+        rpath.pop(gone)
+        if f"meta-synced /g24/remote: {len(rpath) + 1} entries" not in said:
+            raise AssertionError(f"remote.meta.sync: {said[-2000:]!r}")
+        e = entry_of(fc, changed)
+        if e.chunks or fget(changed) != (200, rewritten):
+            raise AssertionError(f"{changed}, overwritten on the remote at "
+                                 f"its size, after remote.meta.sync: "
+                                 f"{len(e.chunks)} chunks")
+        said, _ = shell(f"remote.cache -filer {faddr} -path "
+                        f"/g24/remote/added.bin; remote.cache -filer {faddr}"
+                        f" -path {changed}")
+        e = entry_of(fc, "/g24/remote/added.bin")
+        if e is None or not e.chunks or fc.read_entry_bytes(e) != added:
+            raise AssertionError("the added object after remote.meta.sync")
+        e = entry_of(fc, changed)
+        if not e.chunks or fc.read_entry_bytes(e) != rewritten:
+            raise AssertionError(f"{changed} cached again after its rewrite")
+        if entry_of(fc, gone) is not None or fget(gone)[0] != 404:
+            raise AssertionError(f"{gone}: the removed object's entry")
+        if not all(entry_of(fc, p).chunks for p in rpath):
+            raise AssertionError("a cached entry lost its chunks to "
+                                 "remote.meta.sync")
+        rpath["/g24/remote/added.bin"] = added
+        rpath[changed] = rewritten
+        # filer.remote.sync writes a local create back to the remote
+        spawn("rsync", "filer.remote.sync", "-filer", faddr, "-dir",
+              "/g24/remote")
+        ready("rsync", "remote-sync watching")
+        local_new = np.random.default_rng(seed + 6).bytes(300_000)
+        fput("/g24/remote/local-new.bin", local_new)
+        back = os.path.join(rdir, "data", "local-new.bin")
+
+        def written_back():
+            try:
+                with open(back, "rb") as f:
+                    return f.read() == local_new
+            except OSError:
+                return False
+        _wait(written_back, 60, "filer.remote.sync's upload")
+        said = end("rsync")
+        if "upload data/local-new.bin" not in said:
+            raise AssertionError(f"filer.remote.sync: {said[-2000:]!r}")
+        a_files = dict(rpath)
+        a_files["/g24/remote/local-new.bin"] = local_new
+        log(f"[gw] (a) remote.mount of local: ({small} objects of 1-64 KiB"
+            f" and {large} of 1-{large_mb} MiB, {rbytes} B; a second mount "
+            f"/g24/keep)"
+            f" in {mount_s:.2f} s; "
+            f"uncached GETs sha256 == the objects at {out['read_through']:.3f}"
+            f" GB/s; remote.cache of each in {cache_s:.2f} s (chunks in "
+            f"volumes, the remote ref kept); one object added to the remote, "
+            f"one removed and one overwritten at its size: remote.meta.sync "
+            f"listed the added one, removed the other's entry, made the "
+            f"overwritten one's anew (its GET the new bytes) and kept every "
+            f"other cached entry's chunks; filer.remote.sync wrote a local "
+            f"create back to the remote [{card}]")
+
+        # (b) WeedFS in this process over a FilerClient: the FUSE layer
+        mark("(b) the FUSE layer")
+        wfc = FilerClient(faddr, client_name="smoke-mount")
+        closers.append(wfc)
+        wfs = WeedFS(wfc, chunk_size_mb=4, concurrency=8)
+        closers.append(wfs)
+        b_files = _gw_files(np, seed + 1, "/g24/fuse", small, large, huge_mb,
+                            large_mb=large_mb)
+        made = {"/g24", "/g24/fuse"}
+        wfs.mkdir("/g24/fuse")
+        t = time.perf_counter()
+        for p, data in b_files.items():
+            parts = p.split("/")
+            for i in range(3, len(parts)):
+                d = "/".join(parts[:i])
+                if d not in made:
+                    wfs.mkdir(d)
+                    made.add(d)
+            fh = wfs.create(p)
+            for off in range(0, len(data), FUSE_IO):
+                wfs.write(fh, off, data[off:off + FUSE_IO])
+            wfs.release(fh)
+        b_bytes = sum(map(len, b_files.values()))
+        out["fuse_write"] = b_bytes / (time.perf_counter() - t) / 1e9
+        t = time.perf_counter()
+        for p, data in b_files.items():
+            if _fuse_read(wfs, p, len(data)) != data:
+                raise AssertionError(f"WeedFS read of {p}")
+        out["fuse_read"] = b_bytes / (time.perf_counter() - t) / 1e9
+        small_b = sorted(p for p in b_files if "/small/" in p)
+        wfs.rename(small_b[0], "/g24/fuse/renamed.bin")
+        b_files["/g24/fuse/renamed.bin"] = b_files.pop(small_b[0])
+        big = sorted(p for p in b_files if "/large/" in p)[0]
+        half = len(b_files[big]) // 2 + 12_345
+        wfs.truncate(big, half)
+        b_files[big] = b_files[big][:half]
+        huge = "/g24/fuse/huge/h000.bin"
+        wfs.symlink(huge, "/g24/fuse/link")
+        wfs.setxattr(huge, "user.phase", b"24")
+        wfs.setxattr(huge, "user.gone", b"x")
+        wfs.removexattr(huge, "user.gone")
+        attr = wfs.getattr(big)
+        if attr["st_size"] != half or \
+                _fuse_read(wfs, big, half) != b_files[big] or \
+                wfs.readlink("/g24/fuse/link") != huge or \
+                wfs.getattr("/g24/fuse/link")["st_mode"] & 0o170000 != \
+                0o120000 or wfs.listxattr(huge) != ["user.phase"] or \
+                wfs.getxattr(huge, "user.phase") != b"24" or \
+                "renamed.bin" not in wfs.readdir("/g24/fuse") or \
+                wfs.statfs()["f_blocks"] != 1 << 30:
+            raise AssertionError("rename, truncate, symlink, xattr, statfs")
+        mnt = os.path.join(workdir, "mnt")
+        os.makedirs(mnt)
+        stop_ctl = serve_mount_control(wfs, mount_socket_path(mnt))
+        try:
+            said, _ = shell(f"mount.configure -dir {mnt} -quotaMB "
+                            f"{quota_mb}")
+        finally:
+            stop_ctl()
+        st = wfs.statfs()
+        if f"{mnt}: collection capacity {quota_mb} MB" not in said or \
+                wfs.collection_capacity != quota_mb << 20 or \
+                st["f_blocks"] != quota_mb // 4 or \
+                not st["f_bfree"] < st["f_blocks"]:
+            raise AssertionError(f"mount.configure: {said[-2000:]!r}, "
+                                 f"statfs {st}")
+        log(f"[gw] (b) WeedFS over a FilerClient (-chunkSizeLimitMB 4, "
+            f"writes and reads of 128 KiB): {len(b_files)} files, {b_bytes}"
+            f" B written at {out['fuse_write']:.3f} GB/s and read back equal"
+            f" at {out['fuse_read']:.3f} GB/s; rename, truncate to {half} B,"
+            f" symlink, xattrs and statfs held; mount.configure -quotaMB "
+            f"{quota_mb} through the shell over the control socket: statfs "
+            f"{st['f_blocks']} blocks of 4 MiB, {st['f_bfree']} free "
+            f"[{card}]")
+
+        # (c) the ftp verb over the filer
+        mark("(c) FTP")
+        c_files = _gw_files(np, seed + 2, "/g24/ftp", ftp_small, ftp_large,
+                            dirs=1, large_mb=large_mb)
+        ftp_port = port()
+        spawn("ftp", "ftp", "-filer", faddr, "-port", str(ftp_port))
+        ready("ftp", "ftp 127.0.0.1:")
+        c = ftp_client(ftp_port)
+        for d in ("/g24/ftp", "/g24/ftp/small", "/g24/ftp/large"):
+            c.mkd(d)
+        c_bytes = sum(map(len, c_files.values()))
+        t = time.perf_counter()
+        for p, data in c_files.items():
+            c.storbinary(f"STOR {p}", io.BytesIO(data))
+        out["stor"] = c_bytes / (time.perf_counter() - t) / 1e9
+        t = time.perf_counter()
+        for p, data in c_files.items():
+            if retr(c, p) != data:
+                raise AssertionError(f"RETR {p}")
+        out["retr"] = c_bytes / (time.perf_counter() - t) / 1e9
+        for d in ("/g24/ftp/small", "/g24/ftp/large"):
+            lines: list = []
+            c.retrlines(f"LIST {d}", lines.append)
+            got = sorted((ln.split()[-1], int(ln.split()[4])) for ln in lines)
+            want = sorted((e.name, e.attributes.file_size)
+                          for e in fc.filer.list_entries(d))
+            if got != want or not got:
+                raise AssertionError(f"LIST {d}: {got[:3]} != {want[:3]}")
+        c.quit()
+        end("ftp")
+        log(f"[gw] (c) the ftp verb over the filer: STOR of {len(c_files)} "
+            f"files ({c_bytes} B) at {out['stor']:.3f} GB/s, RETR equal at "
+            f"{out['retr']:.3f} GB/s, LIST == the filer's listing [{card}]")
+
+        # (d) ec.encode of every g24 volume (K1 encode); rack r1 lost;
+        # every file read back three ways
+        mark("(d) ec.encode, r1 lost, reads")
+        g24 = {vid: size for vid, size in
+               _settle_sizes(vss, mc, "g24").items() if size > 8}
+        if not g24:
+            raise AssertionError("no g24 volume holds data")
+        k0 = rs_cuda.launches_by_entry.get("encode", 0)
+        said, enc_s = shell("lock; " + "; ".join(
+            f"ec.encode -volumeId {vid}" for vid in sorted(g24)) + "; unlock")
+        out["k1_encode"] = rs_cuda.launches_by_entry.get("encode", 0) - k0
+        for vid in g24:
+            spread = _wait(lambda: (lambda s: s if len(s) == geo.n else None)(
+                {sid: [rack_of[u] for u in urls]
+                 for sid, urls in mc.lookup_ec(vid).items() if urls}),
+                60, f"volume {vid}'s 14 shards registered")
+            per_rack = collections.Counter(r for rs in spread.values()
+                                           for r in rs)
+            if max(per_rack.values()) > geo.p:
+                raise AssertionError(f"volume {vid}: {dict(per_rack)}")
+        out["encode"] = sum(g24.values()) / enc_s / 1e9
+        served.pop("r1").stop()
+        _wait(lambda: sum(len(rk.data_node_infos) for dc in
+                          mc.volume_list().topology_info.data_center_infos
+                          for rk in dc.rack_infos) == 3, 60,
+              "r1's server gone from the topology")
+        every = {**a_files, **b_files, **c_files}
+        every.pop("/g24/fuse/link", None)
+        r0 = reconstructs()
+        k0 = rs_cuda.launches_by_entry.get("reconstruct", 0)
+        recs = {}
+        with K1Widths() as kw:
+            rfc = FilerClient(faddr, client_name="smoke-mount-2")
+            closers.append(rfc)
+            rwfs = WeedFS(rfc, chunk_size_mb=4, subscribe_meta=False)
+            closers.append(rwfs)
+            t, n0 = time.perf_counter(), reconstructs()
+            for p, data in every.items():
+                if _fuse_read(rwfs, p, len(data)) != data:
+                    raise AssertionError(f"WeedFS read of {p} with r1 lost")
+            out["fuse_lost"] = sum(map(len, every.values())) / (
+                time.perf_counter() - t) / 1e9
+            recs["WeedFS"] = reconstructs() - n0
+            spawn("ftp2", "ftp", "-filer", faddr, "-port", str(ftp_port))
+            ready("ftp2", "ftp 127.0.0.1:")
+            c = ftp_client(ftp_port)
+            t, n0 = time.perf_counter(), reconstructs()
+            for p, data in every.items():
+                if retr(c, p) != data:
+                    raise AssertionError(f"RETR {p} with r1 lost")
+            out["ftp_lost"] = sum(map(len, every.values())) / (
+                time.perf_counter() - t) / 1e9
+            recs["FTP"] = reconstructs() - n0
+            c.quit()
+            end("ftp2")
+            t, n0 = time.perf_counter(), reconstructs()
+            for p, data in rpath.items():
+                st, body = fget(p)
+                if st != 200 or body != data:
+                    raise AssertionError(f"GET {p} with r1 lost: {st}")
+            out["http_lost"] = sum(map(len, rpath.values())) / (
+                time.perf_counter() - t) / 1e9
+            recs["HTTP"] = reconstructs() - n0
+        got_rec = reconstructs() - r0
+        k1_rec = rs_cuda.launches_by_entry.get("reconstruct", 0) - k0
+        widths = sorted(kw.widths)
+        if not got_rec or len(widths) != got_rec or (
+                device == "cuda" and k1_rec < got_rec):
+            raise AssertionError(f"{got_rec} reconstructs, {len(widths)} K1 "
+                                 f"one-stripe launches, {k1_rec} K1 "
+                                 f"reconstruct launches")
+        ragged = sum(1 for w in widths if w % 16)
+        out.update(reconstructs=got_rec, k1_reconstruct=k1_rec,
+                   widths=widths, ragged=ragged)
+        log(f"[gw] (d) ec.encode -volumeId of the {len(g24)} g24 volumes "
+            f"({sum(g24.values())} B of .dat) in {enc_s:.2f} s = "
+            f"{out['encode']:.3f} GB/s, K1 encode launches "
+            f"{out['k1_encode']}; r1 lost; all {len(every)} files read back "
+            f"equal through WeedFS at {out['fuse_lost']:.3f} GB/s and by FTP"
+            f" RETR at {out['ftp_lost']:.3f} GB/s, the {len(rpath)} cached "
+            f"remote entries by the filer's HTTP at {out['http_lost']:.3f} "
+            f"GB/s; reconstructs {json.dumps(recs)}, {got_rec} in all == K1 "
+            f"one-stripe launches {len(widths)} (K1 reconstruct launches "
+            f"{k1_rec}); widths min {widths[0]} median "
+            f"{widths[len(widths) // 2]} max {widths[-1]}, {ragged} of "
+            f"{len(widths)} not a multiple of 16 [{card}]")
+
+        # (e) remote.uncache, read through again; remote.unmount
+        mark("(e) uncache and unmount")
+        live = rpath
+        said, _ = shell("; ".join(f"remote.uncache -filer {faddr} -path {p}"
+                                  for p in sorted(live)))
+        if said.count("uncached /g24/remote/") != len(live):
+            raise AssertionError(f"remote.uncache: {said[-2000:]!r}")
+        t = time.perf_counter()
+        for p, data in live.items():
+            if entry_of(fc, p).chunks:
+                raise AssertionError(f"{p} holds chunks after uncache")
+            st, body = fget(p)
+            if st != 200 or body != data:
+                raise AssertionError(f"GET {p} after remote.uncache: {st}")
+        again_s = time.perf_counter() - t
+        said, _ = shell(f"remote.unmount -filer {faddr} -dir /g24/remote; "
+                        f"remote.configure -filer {faddr}")
+        if fc.filer.find_entry("/g24", "remote") is not None or \
+                "/g24/keep -> local:" not in said or \
+                "/g24/remote ->" in said or \
+                fget("/g24/keep/" + sorted(keep)[0].split("/", 1)[1]) != (
+                    200, keep[sorted(keep)[0]]):
+            raise AssertionError(f"remote.unmount: {said[-2000:]!r}")
+        log(f"[gw] (e) remote.uncache of {len(live)} entries, read through "
+            f"again equal in {again_s:.2f} s; remote.unmount left no entry "
+            f"under /g24/remote and kept the /g24/keep mapping [{card}]")
+        return out
+    except BaseException as e:
+        e.add_note(f"phase 24 failed in step {step['name']}, begun at "
+                   f"+{step['at']:.1f} s, at "
+                   f"+{time.perf_counter() - t_run:.1f} s")
+        raise
+    finally:
+        for x in reversed(closers):
+            (x.destroy if hasattr(x, "destroy") else x.close)()
+        for name in list(procs):
+            end(name, signal.SIGKILL if name == "filer" else signal.SIGTERM)
+        if mc is not None:
+            mc.stop()
+        for s in served.values():
+            s.stop()
+        for f in logs:
+            f.close()
+        retry.reset_breakers()
+
+
+def phase_gateways(torch, np, workdir: str, seed: int, card: str) -> dict:
+    from seaweedfs_tpu_torch.ops import crc_cuda, rs_cuda
+    os.makedirs(workdir, exist_ok=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rs_cuda.reset_launches()
+    crc_cuda.reset_launches()
+    res = gateways_round_trip(np, torch, workdir, seed + 24, card,
+                              FILER_SMALL, FILER_LARGE, FILER_HUGE_MB,
+                              GW_FTP_SMALL, GW_FTP_LARGE, GW_QUOTA_MB)
+    torch.cuda.synchronize()
+    k1 = dict(rs_cuda.launches_by_entry)
+    log(f"[gw] launches under the mounts and gateways: K1 {json.dumps(k1)},"
+        f" K3 {crc_cuda.launches}; phase wall "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    for entry in ("encode", "reconstruct"):
+        if not k1.get(entry):
+            raise AssertionError(f"K1 {entry} never launched in phase 24")
+    return {"k1": k1, **res}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8851,12 +9534,18 @@ def main(argv=None) -> int:
             mqr = phase_mq(torch, np, args.workdir, args.seed, card)
         finally:
             shutil.rmtree(args.workdir, ignore_errors=True)
+    gw = None
+    if 24 in phases:
+        try:
+            gw = phase_gateways(torch, np, args.workdir, args.seed, card)
+        finally:
+            shutil.rmtree(args.workdir, ignore_errors=True)
     log(f"[done] phases {sorted(phases | {1})} passed in "
         f"{time.perf_counter() - t0:.1f} s [{card}]")
     if None not in (errs, times, launches, k3_err, k3_times, k3_launches,
                     ec_launches, tier, codec_launches, mesh, server, replica,
                     maint, rest, control, life, crash, filer, s3, repl,
-                    mqr):
+                    mqr, gw):
         kernels = [dict(name=f"rs_gf_apply:{entry}", route="cuda",
                         source=K1_SOURCE, replaces=replaces,
                         launches=launches.get(entry, 0)
@@ -8874,7 +9563,8 @@ def main(argv=None) -> int:
                         + filer["k1"].get(entry, 0)
                         + s3["k1"].get(entry, 0)
                         + repl["k1"].get(entry, 0)
-                        + mqr["k1"].get(entry, 0),
+                        + mqr["k1"].get(entry, 0)
+                        + gw["k1"].get(entry, 0),
                         max_abs_err=errs[entry], ms=times[entry]["ms"],
                         plain_ms=times[entry]["plain_ms"],
                         bound_ms=times[entry]["bound_ms"],

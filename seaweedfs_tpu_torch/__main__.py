@@ -21,8 +21,8 @@ Verbs, the counterparts of the JAX package's (seaweedfs_tpu/__main__.py):
 * ``shell`` (`run_shell`, :291): the admin shell over the ported command
   tables (shell/commands.py, ec_commands.py, volume_commands.py,
   fs_commands.py, lifecycle_commands.py, mq_commands.py, qos_commands.py,
-  telemetry_commands.py); `-c` runs semicolon-separated lines and exits
-  non-zero when one fails.
+  remote_commands.py, telemetry_commands.py); `-c` runs semicolon-separated
+  lines and exits non-zero when one fails.
 * ``filer`` (`run_filer`, :352): the filer daemon (HTTP on the port's
   fastweb, gRPC, the meta log, the peer mesh unless `-noPeerMeta`); it
   loads no torch. ``filer.copy``, ``filer.cat``, ``filer.meta.tail`` and
@@ -52,6 +52,19 @@ Verbs, the counterparts of the JAX package's (seaweedfs_tpu/__main__.py):
   the message-queue broker, standalone on a local segment directory
   (`-dir`). Both end on SIGINT or SIGTERM, the broker after flushing its
   partitions' tails; neither loads torch.
+* ``filer.remote.sync`` and ``filer.remote.gateway``
+  (`run_filer_remote_sync`, :1126; `run_filer_remote_gateway`, :1177):
+  local changes under remote mounts written back to their remotes, and
+  buckets under /buckets made and removed on a remote too. ``ftp``
+  (`run_ftp`, :1237): the FTP gateway over a filer. Each ends on SIGINT or
+  SIGTERM with rc 0 (the reference's on SIGINT alone); none loads torch.
+* ``mount`` and ``fuse`` (`run_mount`, :902; `run_fuse`, :1273): a kernel
+  FUSE mount of a filer through the ctypes libfuse binding, with the
+  control socket `shell mount.configure` dials.
+* ``scaffold`` (:802) prints a config template; ``update`` (:1262) says
+  how to update a source checkout and downloads nothing;
+  ``autocomplete`` and ``unautocomplete`` (:1293, :1311) add and remove a
+  bash completion line in ~/.bashrc.
 * ``upload`` and ``download`` (`run_upload`, :827; `run_download`, :855):
   blobs through client/operation's submit and read.
 * ``benchmark`` (:889): `weed benchmark`, bench_tool.run.
@@ -406,7 +419,8 @@ def run_server(argv) -> int:
 def run_shell(argv) -> int:
     from .shell import (ec_commands, fs_commands,  # noqa: F401
                         lifecycle_commands, mq_commands, qos_commands,
-                        telemetry_commands, volume_commands)
+                        remote_commands, telemetry_commands,
+                        volume_commands)
     from .shell.commands import CommandEnv, repl, run_command
 
     p = argparse.ArgumentParser(prog="shell")
@@ -1366,6 +1380,298 @@ def run_mq_broker(argv) -> int:
     broker.stop()
     return 0
 
+def run_filer_remote_sync(argv) -> int:
+    """Write local changes under remote-mounted directories back to their
+    remote stores (reference command/filer_remote_sync.go and
+    `run_filer_remote_sync`, :1126): a subscription from the filer's own
+    clock, each event through remote_mount.apply_event_to_remote, the
+    mapping table read again when /etc/remote/mount.json changes. SIGINT or
+    SIGTERM ends it with rc 0; it loads no torch."""
+    from .client.filer_client import FilerClient
+    from .remote.remote_mount import (MOUNT_CONF, _load_mappings,
+                                      apply_event_to_remote)
+    p = argparse.ArgumentParser(prog="filer.remote.sync")
+    p.add_argument("-filer", default="127.0.0.1:8888")
+    p.add_argument("-dir", default="",
+                   help="only sync this mounted directory")
+    opt = p.parse_args(argv)
+    fc = FilerClient(opt.filer, client_name="remote-sync")
+
+    def load_mappings():
+        m = _load_mappings(fc)
+        return {d: v for d, v in m.items() if d == opt.dir} if opt.dir else m
+
+    mappings = load_mappings()
+    if not mappings:
+        print("no remote mounts to sync", file=sys.stderr)
+        fc.close()
+        return 1
+    stop = threading.Event()
+    prefix = opt.dir or "/"
+    # the FILER's clock, taken before the ready line: a skewed client
+    # clock would drop events; events in the gap replay from `since`
+    since = fc.filer.server_now_ns()
+
+    def apply(resp):
+        nonlocal mappings
+        ev = resp.event_notification
+        if MOUNT_CONF == f"{resp.directory}/" \
+                f"{ev.new_entry.name or ev.old_entry.name}":
+            mappings = load_mappings()  # a remote.mount/unmount
+            return
+        try:
+            act = apply_event_to_remote(fc, mappings, resp.directory, ev)
+            if act:
+                print(act, flush=True)
+        except Exception as e:  # noqa: BLE001 — one event, not the daemon
+            print(f"sync {resp.directory}: {e}", file=sys.stderr, flush=True)
+
+    _follow(fc.filer.subscribe(since, stop, path_prefix=prefix), apply,
+            ready=f"remote-sync watching {opt.filer}{prefix} "
+                  f"({len(mappings)} mounts)")
+    stop.set()
+    fc.close()
+    return 0
+
+
+def run_filer_remote_gateway(argv) -> int:
+    """Mirror bucket creation and deletion under /buckets into a remote
+    store, and their contents as filer.remote.sync does (reference
+    command/filer_remote_gateway.go and `run_filer_remote_gateway`,
+    :1177). SIGINT or SIGTERM ends it with rc 0; it loads no torch."""
+    from .client.filer_client import FilerClient
+    from .remote.remote_mount import (_load_mappings, _save_mappings,
+                                      apply_event_to_remote)
+    from .storage.backend import bucket_spec, open_remote
+    p = argparse.ArgumentParser(prog="filer.remote.gateway")
+    p.add_argument("-filer", default="127.0.0.1:8888")
+    p.add_argument("-createBucketAt", required=True,
+                   help="remote spec new buckets are created on")
+    opt = p.parse_args(argv)
+    root_spec = (opt.createBucketAt if ":" in opt.createBucketAt
+                 else f"local:{opt.createBucketAt}")
+    fc = FilerClient(opt.filer, client_name="remote-gateway")
+    client = open_remote(root_spec)
+    stop = threading.Event()
+    # this process is the only writer under /buckets, so its own updates
+    # keep the cached table fresh
+    mappings = _load_mappings(fc)
+    since = fc.filer.server_now_ns()
+
+    def apply(resp):
+        ev = resp.event_notification
+        try:
+            top = resp.directory == "/buckets"
+            if top and ev.HasField("new_entry") and \
+                    ev.new_entry.is_directory and ev.new_entry.name:
+                b = ev.new_entry.name
+                client.create_bucket(b)
+                mappings[f"/buckets/{b}"] = {
+                    "spec": bucket_spec(root_spec, b), "prefix": ""}
+                _save_mappings(fc, mappings)
+                print(f"created bucket {b}", flush=True)
+            elif top and ev.HasField("old_entry") and \
+                    ev.old_entry.is_directory and ev.old_entry.name \
+                    and not (ev.HasField("new_entry") and ev.new_entry.name):
+                b = ev.old_entry.name
+                client.delete_bucket(b)
+                mappings.pop(f"/buckets/{b}", None)
+                _save_mappings(fc, mappings)
+                print(f"deleted bucket {b}", flush=True)
+            else:
+                act = apply_event_to_remote(fc, mappings, resp.directory, ev)
+                if act:
+                    print(act, flush=True)
+        except Exception as e:  # noqa: BLE001 — one event, not the daemon
+            print(f"gateway {resp.directory}: {e}", file=sys.stderr,
+                  flush=True)
+
+    _follow(fc.filer.subscribe(since, stop, path_prefix="/buckets"), apply,
+            ready=f"remote-gateway: /buckets <-> {opt.createBucketAt}")
+    stop.set()
+    fc.close()
+    return 0
+
+
+def run_mount(argv) -> int:
+    """Kernel FUSE mount of a filer (reference command/mount.go and
+    `run_mount`, :902) through the ctypes libfuse binding
+    (mount/fuse_binding.py), with the control socket that `shell
+    mount.configure` dials. It loads no torch; it needs /dev/fuse,
+    fusermount and libfuse.so.2, and ends when the mount is unmounted
+    (fusermount -u) or on SIGINT or SIGTERM."""
+    from .client.filer_client import FilerClient
+    from .mount.control import mount_socket_path, serve_mount_control
+    from .mount.fuse_binding import fuse_loop
+    from .mount.weedfs import WeedFS
+    p = argparse.ArgumentParser(prog="mount")
+    p.add_argument("-filer", default="127.0.0.1:8888",
+                   help="filer ip:port (its gRPC is port+10000)")
+    p.add_argument("-filerGrpc", default="",
+                   help="filer gRPC address override")
+    p.add_argument("-dir", required=True, help="mountpoint")
+    p.add_argument("-chunkSizeLimitMB", type=int, default=4)
+    p.add_argument("-concurrentWriters", type=int, default=8)
+    p.add_argument("-allowOther", action="store_true")
+    p.add_argument("-cacheDir", default="",
+                   help="disk tier for the chunk cache (reference -cacheDir)")
+    p.add_argument("-cacheSizeMB", type=int, default=1024,
+                   help="disk chunk-cache bound (reference -cacheCapacityMB)")
+    opt = p.parse_args(argv)
+    fc = FilerClient(opt.filer, grpc_address=opt.filerGrpc,
+                     client_name="mount", cache_dir=opt.cacheDir or None,
+                     cache_disk_mb=opt.cacheSizeMB)
+    wfs = WeedFS(fc, chunk_size_mb=opt.chunkSizeLimitMB,
+                 concurrency=opt.concurrentWriters)
+    sock_path = mount_socket_path(opt.dir)
+    stop_ctl = serve_mount_control(wfs, sock_path)
+    print(f"mounting {opt.filer} at {opt.dir} (unmount: fusermount -u; "
+          f"control: {sock_path})", flush=True)
+    try:
+        code = fuse_loop(wfs, opt.dir, allow_other=opt.allowOther)
+    finally:
+        stop_ctl()
+    wfs.destroy()
+    fc.close()
+    return code
+
+
+def run_fuse(argv) -> int:
+    """/etc/fstab-compatible mount wrapper (reference command/fuse.go and
+    `run_fuse`, :1273): `python -m seaweedfs_tpu_torch fuse <mountpoint> -o
+    "filer=host:port,chunkSizeLimitMB=4"`."""
+    p = argparse.ArgumentParser(prog="fuse")
+    p.add_argument("mountpoint")
+    p.add_argument("-o", default="", help="comma-separated options")
+    opt = p.parse_args(argv)
+    return run_mount(_fuse_mount_args(opt.mountpoint, opt.o))
+
+
+def _fuse_mount_args(mountpoint: str, options: str) -> "list[str]":
+    """The `mount` flags of a `fuse -o` option string."""
+    opts = dict(kv.partition("=")[::2] for kv in options.split(",") if kv)
+    fwd = ["-dir", mountpoint, "-filer", opts.get("filer", "127.0.0.1:8888")]
+    if "chunkSizeLimitMB" in opts:
+        fwd += ["-chunkSizeLimitMB", opts["chunkSizeLimitMB"]]
+    if opts.get("allowOthers") in ("", "true") and "allowOthers" in opts:
+        fwd += ["-allowOther"]
+    return fwd
+
+
+def run_ftp(argv) -> int:
+    """FTP gateway over a remote filer (reference `run_ftp`, :1237; its
+    weed/ftpd is an unwired skeleton, this serves an RFC 959 subset).
+    SIGINT or SIGTERM stops it with rc 0; it loads no torch."""
+    from .client.filer_client import FilerClient
+    from .ftpd import FtpServer
+    p = argparse.ArgumentParser(prog="ftp")
+    p.add_argument("-filer", default="127.0.0.1:8888")
+    p.add_argument("-ip", default="127.0.0.1")
+    p.add_argument("-port", type=int, default=2121)
+    p.add_argument("-root", default="/", help="filer subtree to expose")
+    p.add_argument("-user", default="", help="require this login "
+                                             "(default anonymous)")
+    p.add_argument("-password", default="")
+    p.add_argument("-passivePortStart", type=int, default=0)
+    p.add_argument("-passivePortStop", type=int, default=0)
+    opt = p.parse_args(argv)
+    users = {opt.user: opt.password} if opt.user else None
+    rng = ((opt.passivePortStart, opt.passivePortStop)
+           if opt.passivePortStart and opt.passivePortStop else None)
+    stopped = _signals()
+    fc = FilerClient(opt.filer, client_name="ftpd")
+    ftp = _started(FtpServer(fc, ip=opt.ip, port=opt.port, root=opt.root,
+                             users=users, passive_ports=rng), "ftp")
+    print(f"ftp {ftp.url} over filer {opt.filer} (root {opt.root})",
+          flush=True)
+    stopped.wait()
+    ftp.stop()
+    fc.close()
+    return 0
+
+
+def run_scaffold(argv) -> int:
+    """Print a default TOML config template (reference command/scaffold.go
+    and `run_scaffold`, :802); write it with -output."""
+    import os
+    p = argparse.ArgumentParser(prog="scaffold")
+    p.add_argument("-config", default="security",
+                   help="master|filer|security|replication|notification|shell")
+    p.add_argument("-output", default="",
+                   help="directory to write <config>.toml into ('' = stdout)")
+    opt = p.parse_args(argv)
+    from .utils.scaffold import TEMPLATES
+    body = TEMPLATES.get(opt.config)
+    if body is None:
+        print(f"unknown config {opt.config!r}; have {sorted(TEMPLATES)}")
+        return 1
+    if opt.output:
+        os.makedirs(opt.output, exist_ok=True)
+        path = os.path.join(opt.output, f"{opt.config}.toml")
+        with open(path, "w") as f:
+            f.write(body)
+        print(f"wrote {path}")
+    else:
+        print(body)
+    return 0
+
+
+def run_update(argv) -> int:
+    """Self-update verb (reference command/update.go downloads the latest
+    release; `run_update`, :1262): a source checkout has no release
+    channel, so it says how to update and downloads nothing."""
+    p = argparse.ArgumentParser(prog="update")
+    p.add_argument("-output", default="", help="(reference parity)")
+    p.parse_args(argv)
+    print("update: this is a source installation; update with "
+          "`git pull` in the repository checkout")
+    return 0
+
+
+AUTOCOMPLETE_MARK = "# swtpu-autocomplete"
+
+
+def run_autocomplete(argv) -> int:
+    """Install bash completion of the verb table into ~/.bashrc (reference
+    command/autocomplete.go and `run_autocomplete`, :1293): the
+    reference's line, marked with AUTOCOMPLETE_MARK; a second install
+    leaves the file as it is."""
+    import os
+    rc = os.path.expanduser("~/.bashrc")
+    line = (f'complete -W "{" ".join(sorted(VERBS))}" -o default swtpu '
+            f"{AUTOCOMPLETE_MARK}\n")
+    existing = ""
+    if os.path.exists(rc):
+        with open(rc) as f:
+            existing = f.read()
+    if AUTOCOMPLETE_MARK in existing:
+        print("autocomplete already installed")
+        return 0
+    with open(rc, "a") as f:
+        f.write(line)
+    print(f"bash completion installed in {rc}; restart your shell")
+    return 0
+
+
+def run_unautocomplete(argv) -> int:
+    """Remove the lines run_autocomplete wrote from ~/.bashrc (reference
+    `run_unautocomplete`, :1311)."""
+    import os
+    rc = os.path.expanduser("~/.bashrc")
+    if not os.path.exists(rc):
+        print("nothing to remove")
+        return 0
+    with open(rc) as f:
+        lines = f.readlines()
+    kept = [ln for ln in lines if AUTOCOMPLETE_MARK not in ln]
+    if len(kept) == len(lines):
+        print("nothing to remove")
+        return 0
+    with open(rc, "w") as f:
+        f.writelines(kept)
+    print("bash completion removed")
+    return 0
+
 
 VERBS = {"master": run_master, "volume": run_volume, "server": run_server,
          "shell": run_shell, "upload": run_upload, "backup": run_backup,
@@ -1378,7 +1684,13 @@ VERBS = {"master": run_master, "volume": run_volume, "server": run_server,
          "s3": run_s3, "iam": run_iam, "webdav": run_webdav,
          "filer.backup": run_filer_backup, "filer.sync": run_filer_sync,
          "geo.sync": run_geo_sync, "filer.replicate": run_filer_replicate,
-         "mq.broker": run_mq_broker}
+         "mq.broker": run_mq_broker,
+         "filer.remote.sync": run_filer_remote_sync,
+         "filer.remote.gateway": run_filer_remote_gateway,
+         "mount": run_mount, "fuse": run_fuse, "ftp": run_ftp,
+         "scaffold": run_scaffold, "update": run_update,
+         "autocomplete": run_autocomplete,
+         "unautocomplete": run_unautocomplete}
 
 
 def main(argv=None) -> int:

@@ -24,7 +24,10 @@ standalone S3 gateway, which reads the entry's md5 for the ETag, fails
 every PutObject); `.filer.store.delete_entry` removes metadata only, as
 a store's does (the reference's deletes the chunks too, so a multipart
 object completed through it lost its parts' bytes); a TTL goes to the
-volume side as filer_server.volume_ttl spells it, not as "<seconds>s".
+volume side as filer_server.volume_ttl spells it, not as "<seconds>s"; an
+uncached remote-mounted entry reads through to its remote, as the filer
+server's read does (the reference's returns zeros of the entry's size, so
+a mount or an FTP RETR over it served zeros).
 """
 
 from __future__ import annotations
@@ -138,6 +141,9 @@ class FilerClient:
             data = bytes(entry.content)
             end = None if size is None else offset + size
             return data[offset:end]
+        if not entry.chunks and entry.extended.get("remote"):
+            from ..remote import read_remote
+            return read_remote(entry, offset, size)
         from ..filer.chunks import resolve_manifests
         chunks = resolve_manifests(list(entry.chunks), self._fetch_blob)
         fsize = max(total_size(chunks), entry.attributes.file_size)
@@ -155,13 +161,15 @@ class FilerClient:
             yield bytes(entry.content)
             return
         window = window or self.chunk_size
+        remote = not entry.chunks and bool(entry.extended.get("remote"))
         from ..filer.chunks import resolve_manifests
         chunks = resolve_manifests(list(entry.chunks), self._fetch_blob)
         fsize = max(total_size(chunks), entry.attributes.file_size)
         off = 0
         while off < fsize:
             size = min(window, fsize - off)
-            yield self._fill_window(chunks, off, size)
+            yield self.read_entry_bytes(entry, off, size) if remote \
+                else self._fill_window(chunks, off, size)
             off += size
 
     def _save_blob(self, data: bytes, ttl: str = "",

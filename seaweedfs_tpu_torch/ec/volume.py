@@ -11,10 +11,18 @@ remote fetches and, when a shard is lost, to the degraded reconstruct
 A shard this holder offloaded to a remote tier (the .vif's `remote_shards`)
 is still held: it serves through `RemoteEcVolumeShard`'s ranged reads
 (storage/backend.RemoteDatFile) instead of a local file.
+
+Unlike the reference, `read_logical` reads each shard's adjacent
+intervals as one run (`read_runs`), and the runs that go through the shard
+reader concurrently (READ_FANOUT): the reference reads interval by
+interval, one after another, so a degraded 4 MiB needle at 16 KiB blocks
+took 256 fetches and reconstructs end to end.
 """
 
 from __future__ import annotations
 
+import concurrent.futures as cf
+import contextvars
 import os
 import threading
 import time
@@ -27,6 +35,9 @@ from . import files
 from .locate import EcGeometry, locate
 
 log = logger("ec.volume")
+
+# runs of one logical read in flight through a shard reader at once
+READ_FANOUT = 8
 
 
 class ShardBits:
@@ -124,6 +135,52 @@ class RemoteEcVolumeShard:
         # nothing to release but the block cache; an idle close must not
         # force a re-fetch storm, so it is kept
         pass
+
+
+@dataclass
+class Run:
+    """One read of a shard: `size` bytes at `offset` in shard `shard_id`,
+    which fill the `pieces` (position in the logical read, length), in
+    order."""
+    shard_id: int
+    offset: int
+    size: int
+    pieces: list
+
+    def scatter(self, out: memoryview, data: bytes) -> None:
+        if len(data) != self.size:
+            raise OSError(f"short read of shard {self.shard_id} at "
+                          f"{self.offset}: {len(data)} of {self.size} B")
+        src = memoryview(data)
+        k = 0
+        for pos, n in self.pieces:
+            out[pos:pos + n] = src[k:k + n]
+            k += n
+
+
+def read_runs(geo: EcGeometry, dat_size: int, offset: int,
+              length: int) -> "list[Run]":
+    """The reads of a logical [offset, offset+length) span: its intervals
+    (`locate`), each shard's adjacent ones merged into one run. A span
+    longer than a stripe row comes back to a shard at the next block of
+    its file, so a degraded 4 MiB needle at 16 KiB blocks is one run on
+    each shard (one fetch, one reconstruct of a lost shard), not 256
+    intervals. A degraded read reconstructs each run on a lost shard
+    once."""
+    runs: "list[Run]" = []
+    last: "dict[int, Run]" = {}
+    pos = 0
+    for iv in locate(geo, dat_size, offset, length):
+        sid, off = iv.shard_and_offset(geo)
+        run = last.get(sid)
+        if run is not None and run.offset + run.size == off:
+            run.size += iv.size
+            run.pieces.append((pos, iv.size))
+        else:
+            run = last[sid] = Run(sid, off, iv.size, [(pos, iv.size)])
+            runs.append(run)
+        pos += iv.size
+    return runs
 
 
 class EcVolume:
@@ -283,15 +340,38 @@ class EcVolume:
 
     def read_logical(self, offset: int, length: int,
                      shard_reader: Optional[ShardReader] = None) -> bytes:
-        """Read a logical [offset, offset+length) span via the stripe map."""
-        out = bytearray(length)
-        pos = 0
-        for iv in locate(self.geo, self.dat_size, offset, length):
-            shard_id, shard_off = iv.shard_and_offset(self.geo)
-            chunk = self._read_shard(shard_id, shard_off, iv.size, shard_reader)
-            out[pos:pos + iv.size] = chunk
-            pos += iv.size
-        return bytes(out)
+        """Read a logical [offset, offset+length) span via the stripe map:
+        one read of each run (`read_runs`), the runs of shards not held
+        here through `shard_reader` concurrently, at most READ_FANOUT at a
+        time."""
+        out = memoryview(bytearray(length))
+        away = []
+        for run in read_runs(self.geo, self.dat_size, offset, length):
+            if shard_reader is not None and run.shard_id not in self.shards:
+                away.append(run)
+            else:
+                run.scatter(out, self._read_shard(
+                    run.shard_id, run.offset, run.size, shard_reader))
+        if len(away) == 1:
+            run = away[0]
+            run.scatter(out, self._read_shard(run.shard_id, run.offset,
+                                              run.size, shard_reader))
+        elif away:
+            pool = cf.ThreadPoolExecutor(
+                max_workers=min(READ_FANOUT, len(away)),
+                thread_name_prefix=f"ec-run-{self.id}")
+            try:
+                # each run under the caller's context, so its fetch and
+                # reconstruct spans stay in the read's trace
+                futs = [(run, pool.submit(contextvars.copy_context().run,
+                                          self._read_shard, run.shard_id,
+                                          run.offset, run.size, shard_reader))
+                        for run in away]
+                for run, fut in futs:
+                    run.scatter(out, fut.result())
+            finally:
+                pool.shutdown(wait=True, cancel_futures=True)
+        return out.tobytes()
 
     def _read_shard(self, shard_id: int, offset: int, length: int,
                     shard_reader: Optional[ShardReader]) -> bytes:

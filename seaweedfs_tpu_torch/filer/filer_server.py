@@ -28,8 +28,6 @@ The port's copy of seaweedfs_tpu/filer/filer_server.py. Its differences:
   Multipart forms go through fastweb.parse_multipart_single. A streamed
   GET's span and request seconds end when its head is ready; the window
   fetches after it keep their own filer.blob.read spans in the trace.
-* Remote-mounted entries (remote/remote_mount.py) are not ported yet: a
-  read of an uncached remote entry raises (ROADMAP Queue 1).
 * A write with a TTL (`?ttl=`, or a path rule's `ttl`, such as the S3
   gateway's lifecycle rules) sends it to the volume side in a unit
   storage/types.TTL.parse reads: the rule's own string, else
@@ -363,11 +361,18 @@ class FilerServer:
             yield data[offset:offset + size if size is not None else None]
             return
         if not entry.chunks and entry.extended.get("remote"):
-            # uncached remote-mounted entry (reference filer
-            # read_remote.go): the remote mounts are not ported yet
-            raise NotImplementedError(
-                "reading an uncached remote-mounted entry: remote mounts "
-                "are not ported yet (ROADMAP Queue 1)")
+            # uncached remote-mounted entry: stream straight from the
+            # remote store (reference filer read_remote.go), one chunk_size
+            # window at a time, as FilerClient.iter_entry_bytes does
+            from ..remote import read_remote
+            end = entry.attributes.file_size
+            if size is not None:
+                end = min(end, offset + size)
+            while offset < end:
+                n = min(self.chunk_size, end - offset)
+                yield read_remote(entry, offset, n)
+                offset += n
+            return
         chunks = self.filer.data_chunks(entry, self._fetch_blob)
         fsize = max(total_size(chunks), entry.attributes.file_size)
         if size is None:
@@ -777,7 +782,8 @@ class FilerServer:
             return fastweb.Response(iter(()), status=200, content_type=ctype,
                                     headers=headers, content_length=fsize)
         length = stop - offset
-        if length <= self.chunk_size or not entry.chunks:
+        if length <= self.chunk_size or \
+                not (entry.chunks or entry.extended.get("remote")):
             # small/inline reads: one buffer, one write
             data = await asyncio.to_thread(self.read_entry_bytes, entry,
                                            offset, length)

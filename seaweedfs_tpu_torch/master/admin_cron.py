@@ -145,12 +145,11 @@ class AdminCron:
     # -- internals ----------------------------------------------------------
     def _get_env(self):
         if self._env is None:
-            # import for side effect: registers the command tables (the
-            # port's: a script line of an unported command prints
-            # "unknown command", as run_command does for any name)
+            # import for side effect: registers the command tables
             from ..shell import (commands, ec_commands,  # noqa: F401
                                  fs_commands, lifecycle_commands,
-                                 mq_commands, volume_commands)
+                                 mq_commands, remote_commands,
+                                 volume_commands)
             from ..client.master_client import MasterClient
             mc = MasterClient(self.master_address,
                               client_type="admin-cron").start()

@@ -4,8 +4,8 @@ The port's copy of seaweedfs_tpu/profiling/ (no JAX in it): the same
 instruments, env knobs (SWTPU_PROFILE_HZ, SWTPU_FLIGHT_SLOW_MS, ...) and
 `/debug/profile` / `/debug/flight` contracts, metered into the port's
 `stats`, so a JAX-package telemetry collector reads a port server as it
-reads its own. The port's volume server carries all three; the master and
-the other daemons are not ported yet.
+reads its own. The port's master, volume server, filer and S3 gateway
+carry them, as the reference's do.
 
 Three cooperating instruments, wired into every daemon (master, volume,
 filer, S3):

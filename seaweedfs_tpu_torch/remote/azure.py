@@ -132,6 +132,12 @@ class AzureBlobClient(RemoteStorageClient):
             raise OSError(f"azure HEAD {key}: HTTP {r.status}")
         return int(r.headers.get("Content-Length", "0"))
 
+    def object_version(self, key: str) -> str:
+        r = self._request("HEAD", key)
+        if r.status >= 300:
+            raise OSError(f"azure HEAD {key}: HTTP {r.status}")
+        return r.headers.get("ETag", "")
+
     def delete_object(self, key: str) -> None:
         r = self._request("DELETE", key)
         if r.status not in (202, 404):

@@ -71,6 +71,13 @@ class GcsClient(RemoteStorageClient):
             raise OSError(f"gcs stat {key}: HTTP {r.status}")
         return int(r.json().get("size", 0))
 
+    def object_version(self, key: str) -> str:
+        r = http_util.get(self._obj_url(key), headers=self._hdrs())
+        if r.status >= 300:
+            raise OSError(f"gcs stat {key}: HTTP {r.status}")
+        doc = r.json()
+        return str(doc.get("generation") or doc.get("etag") or "")
+
     def delete_object(self, key: str) -> None:
         r = http_util.request("DELETE", self._obj_url(key),
                               headers=self._hdrs())

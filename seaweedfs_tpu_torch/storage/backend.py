@@ -47,6 +47,12 @@ class RemoteStorageClient:
     def object_size(self, key: str) -> int:
         raise NotImplementedError
 
+    def object_version(self, key: str) -> str:
+        """A token that changes whenever the object's bytes change (an
+        ETag, a generation, a file's mtime and inode); "" when the store
+        gives none, and then no copy of the object is known to be fresh."""
+        return ""
+
     def read_object_to(self, key: str, dst_path: str) -> None:
         size = self.object_size(key)
         with open(dst_path, "wb") as f:
@@ -110,6 +116,10 @@ class LocalDirRemote(RemoteStorageClient):
 
     def object_size(self, key: str) -> int:
         return os.path.getsize(self._p(key))
+
+    def object_version(self, key: str) -> str:
+        st = os.stat(self._p(key))
+        return f"{st.st_mtime_ns}-{st.st_size}-{st.st_ino}"
 
     def delete_object(self, key: str) -> None:
         try:
@@ -189,6 +199,12 @@ class S3Remote(RemoteStorageClient):
         if r.status_code >= 300:
             raise OSError(f"tier HEAD {key}: HTTP {r.status_code}")
         return int(r.headers.get("Content-Length", 0))
+
+    def object_version(self, key: str) -> str:
+        r = self._request("HEAD", key)
+        if r.status_code >= 300:
+            raise OSError(f"tier HEAD {key}: HTTP {r.status_code}")
+        return r.headers.get("ETag", "")
 
     def delete_object(self, key: str) -> None:
         self._request("DELETE", key)

@@ -8,11 +8,13 @@ the wire offline (reference integration tests hit real Azure; this image
 has zero egress).
 
 The port's copy of seaweedfs_tpu/utils/mini_azure.py, signing with the
-port's `remote.azure.sign_shared_key`.
+port's `remote.azure.sign_shared_key`. Its Head Blob also gives an ETag,
+which changes with the blob's bytes (the port's remote mounts compare it).
 """
 
 from __future__ import annotations
 
+import hashlib
 import threading
 import urllib.parse
 import xml.sax.saxutils as sx
@@ -105,9 +107,14 @@ class MiniAzure:
                     data = data[int(lo):int(hi) + 1 if hi else None]
                     status = 206
                 if req.method == "HEAD":
+                    # the ETag changes with the blob's bytes, as a real
+                    # account's does with each write
+                    etag = hashlib.md5(blobs[blob],
+                                       usedforsecurity=False).hexdigest()
                     return fastweb.Response(
                         b"", status=status,
-                        headers={"Content-Length": str(len(blobs[blob]))})
+                        headers={"Content-Length": str(len(blobs[blob])),
+                                 "ETag": f'"0x{etag}"'})
                 return fastweb.Response(data, status=status)
             if req.method == "DELETE" and blob:
                 existed = blobs.pop(blob, None) is not None

@@ -4,10 +4,13 @@ Media upload/download, object metadata, paged listing, delete — with
 Bearer-token enforcement, so remote/gcs.py is exercised over the wire
 offline (zero-egress image; reference tests hit real GCS).
 
-The port's copy of seaweedfs_tpu/utils/mini_gcs.py."""
+The port's copy of seaweedfs_tpu/utils/mini_gcs.py. Its object metadata
+also gives an etag, which changes with the object's bytes (the port's
+remote mounts compare it)."""
 
 from __future__ import annotations
 
+import hashlib
 import json
 import threading
 import urllib.parse
@@ -97,6 +100,10 @@ class MiniGcs:
                             data[int(lo):int(hi) + 1 if hi else None],
                             status=206)
                     return fastweb.Response(data)
+                # the etag changes with the object's bytes, as the real
+                # service's does with each write
                 return fastweb.json_response(
-                    {"name": name, "size": str(len(data))})
+                    {"name": name, "size": str(len(data)),
+                     "etag": hashlib.md5(
+                         data, usedforsecurity=False).hexdigest()})
         return fastweb.json_response({"error": "bad request"}, 400)

@@ -721,3 +721,242 @@ def test_replication_round_trip_of_chip_smoke_on_cpu(tmp_path):
                                             small_block=1 << 14)
     assert res["reconstructs"] == len(res["widths"]) > 0
     assert res["put"] > 0 and res["catch_up_s"] > 0 and res["restart"] > 0
+
+
+# -- the last nine verbs: remote mounts, mount and fuse, ftp, scaffold,
+# update, autocomplete and unautocomplete ----------------------------------
+def test_verbs_and_shell_commands_equal_the_references():
+    import subprocess as sp
+    from seaweedfs_tpu_torch import __main__ as port_main
+    assert set(port_main.VERBS) == set(ref_main.VERBS)
+    assert len(port_main.VERBS) == 35
+    code = ("import importlib, sys; pkg = sys.argv[1]; [importlib.import_"
+            "module(f'{pkg}.shell.{m}') for m in ('ec_commands', "
+            "'fs_commands', 'lifecycle_commands', 'mq_commands', "
+            "'qos_commands', 'remote_commands', 'telemetry_commands', "
+            "'volume_commands')]; c = importlib.import_module(f'{pkg}.shell."
+            "commands'); print(sorted(c.COMMANDS))")
+    names = [sp.run([sys.executable, "-c", code, pkg], capture_output=True,
+                    text=True, timeout=120, cwd=REPO).stdout
+             for pkg in ("seaweedfs_tpu_torch", "seaweedfs_tpu")]
+    assert names[0] == names[1] and "remote.mount.buckets" in names[0]
+
+
+def test_usage_lists_the_last_verbs():
+    r = subprocess.run([sys.executable, "-m", "seaweedfs_tpu_torch"],
+                       capture_output=True, text=True, timeout=60, cwd=REPO)
+    assert r.returncode == 2
+    for verb in ("mount", "fuse", "filer.remote.sync",
+                 "filer.remote.gateway", "ftp", "scaffold", "update",
+                 "autocomplete", "unautocomplete"):
+        assert verb in r.stderr
+
+
+def test_scaffold_prints_and_writes_the_references_templates(tmp_path):
+    from seaweedfs_tpu.utils import scaffold as ref_scaffold
+    from seaweedfs_tpu_torch.utils import scaffold
+    assert scaffold.TEMPLATES == ref_scaffold.TEMPLATES
+    for name, body in scaffold.TEMPLATES.items():
+        assert _verb("scaffold", "-config", name) == body + "\n"
+    out = _verb("scaffold", "-config", "filer", "-output", str(tmp_path))
+    assert out.strip() == f"wrote {tmp_path}/filer.toml"
+    assert (tmp_path / "filer.toml").read_text() == \
+        ref_scaffold.TEMPLATES["filer"]
+    r = subprocess.run([sys.executable, "-m", "seaweedfs_tpu_torch",
+                        "scaffold", "-config", "nope"], capture_output=True,
+                       text=True, timeout=60, cwd=REPO)
+    assert r.returncode == 1 and "unknown config 'nope'" in r.stdout
+
+
+def test_update_prints_and_downloads_nothing():
+    assert _verb("update").strip() == (
+        "update: this is a source installation; update with `git pull` in "
+        "the repository checkout")
+
+
+def test_autocomplete_install_remove_under_a_temporary_home(tmp_path):
+    """The same line as the reference's, once; unautocomplete removes only
+    it. Both write only the temporary HOME's .bashrc."""
+    from seaweedfs_tpu_torch import __main__ as port_main
+    home = tmp_path / "home"
+    home.mkdir()
+    (home / ".bashrc").write_text("export KEEP=1\n")
+    env = {**os.environ, "HOME": str(home)}
+
+    def run(verb):
+        r = subprocess.run([sys.executable, "-m", "seaweedfs_tpu_torch",
+                            verb], capture_output=True, text=True,
+                           timeout=60, cwd=REPO, env=env)
+        assert r.returncode == 0, r.stderr
+        return r.stdout.strip()
+
+    assert run("autocomplete").startswith("bash completion installed")
+    assert run("autocomplete") == "autocomplete already installed"
+    lines = (home / ".bashrc").read_text().splitlines()
+    assert lines[0] == "export KEEP=1" and len(lines) == 2
+    assert lines[1] == (f'complete -W "{" ".join(sorted(ref_main.VERBS))}" '
+                        f"-o default swtpu {ref_main.AUTOCOMPLETE_MARK}")
+    assert port_main.AUTOCOMPLETE_MARK == ref_main.AUTOCOMPLETE_MARK
+    assert run("unautocomplete") == "bash completion removed"
+    assert (home / ".bashrc").read_text() == "export KEEP=1\n"
+    assert run("unautocomplete") == "nothing to remove"
+    assert sorted(p.name for p in home.iterdir()) == [".bashrc"]
+
+
+def test_mount_and_fuse_verbs_serve_weedfs_without_a_mount(filer_verb,
+                                                          tmp_path,
+                                                          monkeypatch):
+    """`mount` builds WeedFS over a FilerClient with the control socket up,
+    and hands it to fuse_loop (replaced here by a stand-in, so nothing is
+    mounted): the stand-in reads the filer's files through the handlers,
+    writes one, and sets a quota with the shell's mount.configure, which
+    statfs then shows. `fuse -o` maps its options onto mount's flags."""
+    import io
+
+    from seaweedfs_tpu_torch import __main__ as port_main
+    from seaweedfs_tpu_torch.mount import fuse_binding
+    from seaweedfs_tpu_torch.mount.control import mount_socket_path
+    from seaweedfs_tpu_torch.shell import remote_commands  # noqa: F401
+    from seaweedfs_tpu_torch.shell.commands import CommandEnv, run_command
+    mnt = str(tmp_path / "mnt")
+    live = _live(filer_verb)
+    seen = {}
+
+    def fake_loop(wfs, mountpoint, allow_other=False, **kw):
+        seen["args"] = (mountpoint, allow_other, wfs.chunk_size)
+        for path, data in live.items():
+            fh = wfs.open(path)
+            seen[path] = wfs.read(fh, 0, len(data) + 1) == data
+            wfs.release(fh)
+        fh = wfs.create("/dst/from-mount.bin")
+        wfs.write(fh, 0, b"written by the mount verb")
+        wfs.release(fh)
+        env = CommandEnv.__new__(CommandEnv)
+        env.out, env.option = io.StringIO(), {}
+        run_command(env, f"mount.configure -dir {mountpoint} -quotaMB 48")
+        seen["said"] = env.out.getvalue()
+        seen["statfs"] = wfs.statfs()["f_blocks"]
+        return 0
+
+    monkeypatch.setattr(fuse_binding, "fuse_loop", fake_loop)
+    port = filer_verb["port"]
+    assert port_main.main(["mount", "-filer", f"127.0.0.1:{port}", "-dir",
+                           mnt, "-chunkSizeLimitMB", "2"]) == 0
+    assert seen["args"] == (mnt, False, 2 << 20)
+    assert all(seen[p] for p in live)
+    assert seen["said"].strip() == f"{mnt}: collection capacity 48 MB"
+    assert seen["statfs"] == 24
+    assert not os.path.exists(mount_socket_path(mnt))  # stopped with it
+    assert _verb("filer.cat", "-filer", f"127.0.0.1:{port}",
+                 "/dst/from-mount.bin") == "written by the mount verb"
+    assert port_main._fuse_mount_args(mnt, "filer=h:1,chunkSizeLimitMB=8,"
+                                      "allowOthers") == [
+        "-dir", mnt, "-filer", "h:1", "-chunkSizeLimitMB", "8",
+        "-allowOther"]
+    assert port_main._fuse_mount_args(mnt, "") == [
+        "-dir", mnt, "-filer", "127.0.0.1:8888"]
+
+
+def _ready(proc, word: bytes, timeout: float = 60) -> None:
+    import select
+    import time
+    deadline = time.monotonic() + timeout
+    buf = b""
+    while word not in buf:
+        left = deadline - time.monotonic()
+        assert left > 0 and proc.poll() is None, buf[-2000:]
+        if select.select([proc.stdout], [], [], left)[0]:
+            buf += os.read(proc.stdout.fileno(), 1 << 16)
+
+
+def test_filer_remote_sync_and_gateway_verbs(filer_verb, tmp_path):
+    """`filer.remote.sync` writes a local create under a remote mount back
+    to the remote and removes it on a delete; `filer.remote.gateway`
+    creates a bucket on the remote when /buckets/<b> is made, mounts it,
+    writes its files back, and deletes the bucket with the directory."""
+    from seaweedfs_tpu_torch.client.filer_client import FilerClient
+    from seaweedfs_tpu_torch.pb import filer_pb2 as fpb
+    from seaweedfs_tpu_torch.remote import mount_remote
+    from seaweedfs_tpu_torch.remote.remote_mount import _load_mappings
+    addr = f"127.0.0.1:{filer_verb['port']}"
+    cloud = tmp_path / "cloud"
+    (cloud / "data").mkdir(parents=True)
+    (cloud / "data" / "seed.txt").write_bytes(b"seeded")
+    buckets = tmp_path / "buckets"
+    buckets.mkdir()
+    fc = FilerClient(addr)
+    procs = []
+    try:
+        mount_remote(fc, "/clouddata", f"local:{cloud}/data")
+        procs.append(_spawn("filer.remote.sync", "-filer", addr, "-dir",
+                            "/clouddata"))
+        _ready(procs[-1], b"remote-sync watching")
+        procs.append(_spawn("filer.remote.gateway", "-filer", addr,
+                            "-createBucketAt", f"local:{buckets}"))
+        _ready(procs[-1], b"remote-gateway:")
+        fc.write_file("/clouddata/new.txt", b"written locally")
+        fc.filer.create_entry("/buckets", fpb.Entry(name="bk1",
+                                                    is_directory=True))
+        tc.wait_until(lambda: (cloud / "data" / "new.txt").exists() and
+                      (buckets / "bk1").is_dir(), timeout=30,
+                      msg="the write-back and the bucket")
+        assert (cloud / "data" / "new.txt").read_bytes() == b"written locally"
+        tc.wait_until(lambda: "/buckets/bk1" in _load_mappings(fc),
+                      timeout=30, msg="the bucket's mapping")
+        fc.write_file("/buckets/bk1/obj.bin", b"into the bucket")
+        tc.wait_until(lambda: (buckets / "bk1" / "obj.bin").exists(),
+                      timeout=30, msg="the bucket's object")
+        fc.filer.delete_entry("/clouddata", "new.txt")
+        fc.filer.delete_entry("/buckets", "bk1", is_recursive=True)
+        tc.wait_until(lambda: not (cloud / "data" / "new.txt").exists()
+                      and not (buckets / "bk1").exists(), timeout=30,
+                      msg="the remote delete and the bucket's")
+        assert (cloud / "data" / "seed.txt").read_bytes() == b"seeded"
+    finally:
+        outs = [_stop(p) for p in procs]
+        from seaweedfs_tpu_torch.remote import unmount_remote
+        unmount_remote(fc, "/clouddata")
+        fc.close()
+    assert "upload new.txt" in outs[0] and "delete new.txt" in outs[0]
+    assert "created bucket bk1" in outs[1] and "deleted bucket bk1" in outs[1]
+
+
+def test_ftp_verb_over_the_filer_daemon(filer_verb):
+    """`ftp -filer` serves the filer daemon's tree: RETR of every copied
+    file equal, a STOR read back through filer.cat, LIST equal to the
+    filer's listing; SIGTERM ends it with rc 0."""
+    import ftplib
+    import io
+    port = tc.free_port_pair()
+    addr = f"127.0.0.1:{filer_verb['port']}"
+    proc = _spawn("ftp", "-filer", addr, "-port", str(port))
+    try:
+        _ready(proc, b"ftp 127.0.0.1:")
+        c = ftplib.FTP()
+        c.connect("127.0.0.1", port, timeout=30)
+        c.login()
+        live = _live(filer_verb)
+        for path, data in live.items():
+            buf = io.BytesIO()
+            c.retrbinary(f"RETR {path}", buf.write)
+            assert buf.getvalue() == data
+        c.storbinary("STOR /dst/by-ftp.bin", io.BytesIO(b"ftp bytes" * 999))
+        lines = []
+        c.retrlines("LIST /dst", lines.append)
+        c.quit()
+    finally:
+        _stop(proc)
+    from seaweedfs_tpu_torch.client.filer_client import FilerClient
+    fc = FilerClient(addr)
+    try:
+        want = sorted((e.name, e.is_directory, e.attributes.file_size)
+                      for e in fc.filer.list_entries("/dst"))
+    finally:
+        fc.close()
+    assert sorted((ln.split()[-1], ln[0] == "d",
+                   0 if ln[0] == "d" else int(ln.split()[4]))
+                  for ln in lines) == [
+        (n, d, 0 if d else size) for n, d, size in want]
+    assert ("by-ftp.bin", False, 8991) in want
+    assert _verb("filer.cat", "-filer", addr, "/dst/by-ftp.bin") == \
+        "ftp bytes" * 999

@@ -106,6 +106,13 @@ print("S3", all(f"seaweedfs_tpu_torch.{m}" in sys.modules
                 for m in ("s3", "s3.auth", "s3.chunked", "s3.circuit_breaker",
                           "s3.s3_server", "iam", "iam.iam_server",
                           "pb.s3_pb2", "pb.iam_pb2")))
+print("MOUNTS", all(f"seaweedfs_tpu_torch.{m}" in sys.modules
+                    for m in ("mount", "mount.control", "mount.fuse_binding",
+                              "mount.inode_map", "mount.meta_cache",
+                              "mount.page_writer", "mount.weedfs", "ftpd",
+                              "ftpd.ftp_server", "remote.remote_mount",
+                              "shell.remote_commands", "utils.scaffold",
+                              "pb.build", "pb.mount_pb2", "pb.remote_pb2")))
 print("CODERS", sorted(n for n in ("mesh", "native") if coder._resolve(n)))
 print("BAD", bad)
 """
@@ -125,6 +132,7 @@ def test_import_hygiene_no_jax_no_reference_package():
     assert "DATA True" in out.stdout, out.stdout
     assert "FILER True" in out.stdout, out.stdout
     assert "S3 True" in out.stdout, out.stdout
+    assert "MOUNTS True" in out.stdout, out.stdout
     assert "CODERS ['mesh', 'native']" in out.stdout, out.stdout
     assert int(out.stdout.split("LOADED ")[1].split()[0]) >= 15
 
@@ -317,22 +325,23 @@ def test_master_verb_help_lists_the_reference_flags():
 
 def test_shell_help_lists_exactly_the_ported_commands():
     """`shell -c help` lists the reference's lock, volume.*, ec.*, fs.*
-    (fs.meta.notify included), s3.*, lifecycle.*, mq.*, qos.*,
-    cluster.check and cluster.top/profile commands (those of its commands,
-    ec_commands, volume_commands, fs_commands, lifecycle_commands,
-    mq_commands, qos_commands and telemetry_commands modules) and nothing
-    else: the remote.* commands wait for the remote mounts."""
+    (fs.meta.notify included), s3.*, lifecycle.*, mq.*, qos.*, remote.*,
+    mount.configure, cluster.check and cluster.top/profile commands (those
+    of its commands, ec_commands, volume_commands, fs_commands,
+    lifecycle_commands, mq_commands, qos_commands, remote_commands and
+    telemetry_commands modules): every command of the reference's shell."""
     from seaweedfs_tpu.shell import commands as ref_commands
     from seaweedfs_tpu.shell import (ec_commands, fs_commands,  # noqa: F401
                                      lifecycle_commands, mq_commands,
-                                     qos_commands, telemetry_commands,
-                                     volume_commands)
+                                     qos_commands, remote_commands,
+                                     telemetry_commands, volume_commands)
     ported = {"seaweedfs_tpu.shell.commands", "seaweedfs_tpu.shell.ec_commands",
               "seaweedfs_tpu.shell.volume_commands",
               "seaweedfs_tpu.shell.fs_commands",
               "seaweedfs_tpu.shell.lifecycle_commands",
               "seaweedfs_tpu.shell.mq_commands",
               "seaweedfs_tpu.shell.qos_commands",
+              "seaweedfs_tpu.shell.remote_commands",
               "seaweedfs_tpu.shell.telemetry_commands"}
     want = sorted(name for name, c in ref_commands.COMMANDS.items()
                   if c.fn.__module__ in ported)
@@ -348,7 +357,12 @@ def test_shell_help_lists_exactly_the_ported_commands():
             "s3.bucket.quota.check", "s3.configure",
             "s3.circuitbreaker", "fs.meta.notify", "mq.topic.list",
             "mq.topic.desc", "mq.topic.describe", "mq.topic.configure",
-            "mq.balance"} <= set(got)
+            "mq.balance", "remote.mount", "remote.unmount", "remote.cache",
+            "remote.uncache", "remote.configure", "remote.meta.sync",
+            "remote.mount.buckets", "mount.configure"} <= set(got)
+    assert set(got) == {name for name, c in ref_commands.COMMANDS.items()
+                        if c.fn.__module__.startswith(
+                            "seaweedfs_tpu.shell.")}
 
 
 @pytest.mark.parametrize("flag,waits", [

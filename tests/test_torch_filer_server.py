@@ -215,13 +215,15 @@ def _live_needles(c) -> int:
 
 
 def test_streamed_put_and_get_of_64_mib_hold_the_window(cluster,
-                                                        monkeypatch):
+                                                        monkeypatch,
+                                                        tmp_path):
     """A 64 MiB PUT at -maxMB 1 streams through the route's body queue (at
     most 256 KiB waiting, no piece larger) and the upload window (at most
     SWTPU_FILER_UPLOAD_CONC chunks in flight); the GET streams it back
     window by window (no window past SWTPU_FILER_READ_WINDOW chunks, and
     the transport holding no more than one window past its high-water
-    mark, asyncio's default 64 KiB); bytes and md5 equal."""
+    mark, asyncio's default 64 KiB); bytes and md5 equal. An uncached
+    remote-mounted object of 6 MiB streams back in windows of one chunk."""
     monkeypatch.setattr(fastweb, "STREAM_BOUND", 256 << 10)
     fs = FilerServer(cluster["master"].address, store_spec="memory",
                      port=tc.free_port_pair(), chunk_size_mb=1)
@@ -264,6 +266,19 @@ def test_streamed_put_and_get_of_64_mib_hold_the_window(cluster,
         assert peaks["sent_buffered"] <= window + (64 << 10)
         e = fs.filer.find_entry("/big", "obj.bin")
         assert len(e.chunks) == 64
+        from seaweedfs_tpu_torch.remote import mount_remote
+        remote = rng.bytes(6 * MiB + 12345)
+        (tmp_path / "rem").mkdir()
+        (tmp_path / "rem" / "obj.bin").write_bytes(remote)
+        mount_remote(fs, "/rem", f"local:{tmp_path}/rem")
+        for k in fs.stream_peaks:
+            fs.stream_peaks[k] = 0
+        st, _, body = _req(fs.port, "GET", "/rem/obj.bin")
+        assert (st, body) == (200, remote)
+        tc.wait_until(lambda: fs.stream_peaks["window"] > 0,
+                      msg="the remote GET's peaks recorded")
+        assert fs.stream_peaks["window"] <= MiB
+        assert fs.stream_peaks["sent_buffered"] <= MiB + (64 << 10)
     finally:
         fs.stop()
 
@@ -418,6 +433,67 @@ def test_degraded_read_of_a_sealed_filer_file(cluster, filers):
     finally:
         fs.stop()
         ref.stop()
+
+
+def test_degraded_4_mib_chunk_at_16_kib_blocks_reads_within_verify(
+        tmp_path):
+    """A 4 MiB chunk sealed at RS(10,4) with 16 KiB small blocks is 256
+    intervals; with shards 0, 5, 10 and 13 unmounted on every holder, four
+    GETs of it at once (as fs.verify reads a chunk: the volume server's
+    URL, a 10 s timeout) each come back whole within those 10 s, and each
+    reconstructs once per lost data shard: the server reads each shard's
+    adjacent intervals as one run, its remote runs concurrently. Interval
+    by interval, one after another, such a read outlasted fs.verify's
+    deadline under loaded test workers."""
+    from seaweedfs_tpu_torch.client import http_util
+    c = tc.start(tmp_path / "c", volume_size_limit_mb=64,
+                 small_block=1 << 14)
+    fs = FilerServer(c["master"].address, store_spec="memory",
+                     port=tc.free_port_pair(), chunk_size_mb=4,
+                     collection="v16").start()
+    try:
+        data = np.random.default_rng(21).bytes(4 * MiB)
+        fs.write_file("/v16/chunk.bin", data)
+        e = fs.filer.find_entry("/v16", "chunk.bin")
+        assert len(e.chunks) == 1
+        vid = int(e.chunks[0].file_id.split(",")[0])
+        for served in c["served"].values():
+            served.vs.heartbeat_flush()
+        tc.wait_until(lambda: any(
+            v.id == vid and v.size > 4 * MiB
+            for dc in c["mc"].volume_list().topology_info.data_center_infos
+            for rk in dc.rack_infos for dn in rk.data_node_infos
+            for d in dn.disk_infos.values() for v in d.volume_infos),
+            msg="the chunk's volume size at the master")
+        out = tc.shell(c, "lock", f"ec.encode -volumeId {vid}", "unlock")
+        assert "error" not in out.lower(), out
+        tc.wait_until(lambda: len(c["mc"].lookup_ec(vid)) == 14,
+                      timeout=30, msg="the volume's shards")
+        for served in c["served"].values():
+            if served.vs.store.find_ec_volume(vid) is not None:
+                served.vs.volume_ec_shards_unmount(vid, [0, 5, 10, 13])
+        r0 = sum(s.vs.read_stats.get("reconstructs", 0)
+                 for s in c["served"].values())
+        url = c["mc"].lookup_file_id(e.chunks[0].file_id)[0]
+        said = [None] * 4
+
+        def get(i):
+            t = time.monotonic()
+            r = http_util.get(url, timeout=10)
+            said[i] = (r.status, r.content == data, time.monotonic() - t)
+
+        threads = [threading.Thread(target=get, args=(i,)) for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        assert all(s is not None and s[:2] == (200, True) and s[2] < 10
+                   for s in said), said
+        assert sum(s.vs.read_stats.get("reconstructs", 0)
+                   for s in c["served"].values()) - r0 == 4 * 2
+    finally:
+        fs.stop()
+        tc.stop(c)
 
 
 def test_filer_round_trip_of_chip_smoke_on_cpu(tmp_path):

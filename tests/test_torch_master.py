@@ -90,21 +90,44 @@ def test_single_peer_quorum_is_a_plain_master():
     assert ms.raft is None and ms.is_leader
 
 
-def test_unported_routes_and_commands_are_absent(cluster):
+@pytest.fixture
+def mount_socket(tmp_path):
+    """A mount's control socket over a stand-in that keeps the quota; the
+    mount directory."""
+    from seaweedfs_tpu_torch.mount.control import (mount_socket_path,
+                                                   serve_mount_control)
+
+    class Quota:
+        collection_capacity = 0
+
+        def configure(self, cap):
+            self.collection_capacity = cap
+
+    mnt = str(tmp_path / "mnt")
+    stop = serve_mount_control(Quota(), mount_socket_path(mnt))
+    yield mnt
+    stop()
+
+
+def test_unported_routes_and_commands_are_absent(cluster, mount_socket):
     """/cluster/telemetry and /debug/lifecycle answer on the port's
     master; cluster.check runs (it pings the volume servers, and the
     filers and brokers the master lists: none here); mq.balance runs and
-    finds no broker; the lines of commands still unported (remote.*)
-    print "unknown command" in the shell and in the cron."""
-    c = cluster
+    finds no broker; mount.configure (ported last) reaches a mount's
+    control socket; a line of a command neither package has prints
+    "unknown command" in the shell and in the cron."""
+    from seaweedfs_tpu_torch.shell import remote_commands  # noqa: F401
+    c, mnt = cluster, mount_socket
     snap = http_util.get(f"http://{c['http']}/cluster/telemetry").json()
     assert snap["leader"] is True
     doc = http_util.get(f"http://{c['http']}/debug/lifecycle").json()
     assert doc["policy"] is None and "recent" in doc
     assert http_util.get(f"http://{c['http']}/cluster/linkcosts").ok
-    out = tc.shell(c, "cluster.check -failOn never", "remote.mount",
+    quota = f"mount.configure -dir {mnt} -quotaMB 8"
+    out = tc.shell(c, "cluster.check -failOn never", "remote.nosuch", quota,
                    "lifecycle.status", "mq.balance")
-    assert "unknown command 'remote.mount'" in out
+    assert "unknown command 'remote.nosuch'" in out
+    assert f"{mnt}: collection capacity 8 MB" in out
     assert "no live broker in the cluster" in out
     assert " volume servers healthy" in out
     assert "cluster verdict: " in out
@@ -114,10 +137,12 @@ def test_unported_routes_and_commands_are_absent(cluster):
     # the cron's script lines resolve in the port's tables alike
     cron = c["master"].admin_cron
     saved, fetch = cron.scripts, cron.health_fetch
-    cron.scripts, cron.health_fetch = ["remote.mount", "mq.balance"], None
+    cron.scripts, cron.health_fetch = ["remote.nosuch", quota,
+                                       "mq.balance"], None
     try:
         cron.trigger()
     finally:
         cron.scripts, cron.health_fetch = saved, fetch
-    assert "unknown command 'remote.mount'" in cron.last_output
+    assert "unknown command 'remote.nosuch'" in cron.last_output
+    assert f"{mnt}: collection capacity 8 MB" in cron.last_output
     assert "no live broker in the cluster" in cron.last_output

@@ -27,12 +27,13 @@ from seaweedfs_tpu_torch.utils.mini_azure import MiniAzure
 from seaweedfs_tpu_torch.utils.mini_gcs import MiniGcs
 
 
-def test_remote_package_exports_the_clients_only():
-    """The package exports the clients; the replication sinks live beside
-    them and are built at their first use (tests/test_torch_replication.py
-    holds them, and shows a tier client's import loads no replication
-    plane)."""
-    assert sorted(remote.__all__) == sorted([
+def test_remote_package_exports_the_mounts_and_the_clients():
+    """The package exports the reference's five mount functions and the
+    clients; the replication sinks live beside them and are built at their
+    first use (tests/test_torch_replication.py holds them, and shows a
+    tier client's import loads no replication plane)."""
+    from seaweedfs_tpu import remote as ref_remote
+    assert sorted(remote.__all__) == sorted(ref_remote.__all__ + [
         "sign_shared_key", "AzureBlobClient", "parse_azure_spec",
         "GcsClient", "parse_gcs_spec"])
     from seaweedfs_tpu_torch.replication.sink import ReplicationSink

@@ -1,7 +1,8 @@
 """A cluster of the port alone, and the operator's EC flow through it, for
 tests/test_torch_master.py (device="cpu") and tests/test_torch_gpu.py (the
-card). It imports only the port and numpy (never JAX, nor the conftest,
-which imports it), so the GPU tests run where JAX is not installed.
+card). It imports only the port, numpy and chip_smoke.py, whose port
+picks it shares (never JAX, nor the conftest, which imports it), so the
+GPU tests run where JAX is not installed.
 
 The cluster: the port's MasterServer with its HTTP API, health engine and
 admin cron (health-driven, script "ec.rebuild"), and four port volume
@@ -28,9 +29,9 @@ from __future__ import annotations
 import hashlib
 import io
 import os
-import socket
 import time
 
+import chip_smoke
 import numpy as np
 
 from seaweedfs_tpu_torch.client import http_util
@@ -54,44 +55,13 @@ RACKS = ("r1", "r2", "r3", "r4")
 SCRUB_VID, SCRUB_NEEDLES, SCRUB_DAMAGED = 90, 300, 3
 
 
-def _ephemeral_low() -> int:
-    try:
-        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
-            return int(f.read().split()[0])
-    except (OSError, ValueError, IndexError):
-        return 32768
-
-
 def free_port_pair() -> int:
     """A free port whose +10000 gRPC sibling is free, both below the
-    kernel's ephemeral range where it leaves room: no outgoing connection's
-    source port can take either before its server binds it (the hazard of
-    picking a port and binding it later, under many test workers). Where
-    the range starts too low for that, any free pair."""
-    import random
-    rng = random.Random()
-    top = _ephemeral_low() - 10000
-    lo = 10000 if top > 11000 else 1024
-    for _ in range(500 if top > lo + 100 else 0):
-        port = rng.randrange(lo, top)
-        if _bindable(port) and _bindable(port + 10000):
-            return port
-    for _ in range(100):
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            port = s.getsockname()[1]
-        if port + 10000 < 65536 and _bindable(port + 10000):
-            return port
-    raise RuntimeError("no free port pair")
-
-
-def _bindable(port: int) -> bool:
-    with socket.socket() as s:
-        try:
-            s.bind(("127.0.0.1", port))
-        except OSError:
-            return False
-    return True
+    kernel's ephemeral range where it leaves room: chip_smoke's pick (one
+    slice of the range per test worker, no port handed out twice in one
+    process), so no outgoing connection's source port, other worker's pick
+    or earlier pick takes either before its server binds it."""
+    return chip_smoke._free_port_pair()
 
 
 def wait_until(cond, timeout: float = 10.0, msg: str = "condition") -> None:
