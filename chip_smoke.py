@@ -1461,6 +1461,15 @@ def _pct(np, xs, q: float) -> float:
     return float(np.percentile(np.asarray(xs), q))
 
 
+def _degraded_phase_s() -> "tuple[float, float]":
+    """Seconds of this process's degraded reads so far, from the _sum of
+    SeaweedFS_ec_degraded_read_seconds: the gather, and what follows it
+    (the coder call and its wait, or the interleaved decode)."""
+    from seaweedfs_tpu_torch.stats import EC_DEGRADED_READ_SECONDS as h
+    return (h.sum("gather"),
+            h.sum("stage") + h.sum("wait") + h.sum("decode"))
+
+
 def write_set(np, store, rng, sizes, cookies, in_sample,
               vid: int = EC_VID) -> "dict[int, bytes]":
     """Write needles 1..len(sizes) of `sizes` random bytes each into
@@ -1552,13 +1561,13 @@ def ec_store_round_trip(np, workdir: str, seed: int, card: str, geo,
             """(latency, gather, decode) seconds of each sampled read."""
             out = {}
             for nid in order:
-                g0, k0 = rstats.get("gather_s", 0.0), rstats.get("decode_s", 0.0)
+                g0, k0 = _degraded_phase_s()
                 t = time.perf_counter()
                 n = a.read_needle(EC_VID, nid, cookie=int(cookies[nid - 1]),
                                   shard_reader=reader)
                 lat = time.perf_counter() - t
-                out[nid] = (lat, rstats.get("gather_s", 0.0) - g0,
-                            rstats.get("decode_s", 0.0) - k0)
+                g1, k1 = _degraded_phase_s()
+                out[nid] = (lat, g1 - g0, k1 - k0)
                 if n.data != want[nid]:
                     raise AssertionError(f"{tag} read of needle {nid} differs "
                                          "from what was written")
@@ -2055,6 +2064,7 @@ def tier_round_trip(np, workdir: str, seed: int, card: str, geo,
         expected = sum(len(x) for x in on_lost.values())
         rstats: dict = {}
         reader = make_shard_reader(store, EC_VID, lambda *a: None, pool, rstats)
+        phase0 = _degraded_phase_s()
         served = {"healthy": [], "degraded": []}
         cold = {"healthy": 0, "degraded": 0}
         t0 = time.perf_counter()
@@ -2070,6 +2080,8 @@ def tier_round_trip(np, workdir: str, seed: int, card: str, geo,
                 raise AssertionError(f"{kind} EC read of needle {nid} from the "
                                      "tier differs from what was written")
         pass_s = time.perf_counter() - t0
+        gather_s, decode_s = (x - x0 for x, x0 in zip(_degraded_phase_s(),
+                                                      phase0))
         if rstats.get("reconstructs", 0) != expected or not expected:
             raise AssertionError(f"{rstats.get('reconstructs', 0)} reconstructs; "
                                  f"the sample's intervals on {TIER_LOST} "
@@ -2082,7 +2094,7 @@ def tier_round_trip(np, workdir: str, seed: int, card: str, geo,
                 f"p99 {_pct(np, xs, 99) * 1e3:.4f} ms [{card}]")
         log(f"[tier] {len(order)} sampled needles == written in {pass_s:.3f} s; "
             f"{expected} reconstructs == the sampled intervals on {TIER_LOST} "
-            f"(gather {rstats['gather_s']:.3f} s, K1 call {rstats['decode_s']:.3f} s "
+            f"(gather {gather_s:.3f} s, K1 call {decode_s:.3f} s "
             f"in all) [{card}]")
 
         # 7. rebuild (0, 5) from the tier

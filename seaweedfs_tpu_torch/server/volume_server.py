@@ -71,7 +71,8 @@ from ..ec.encoder import rebuild_shards
 from ..ec.locate import EcGeometry
 from ..ops import events
 from ..ops.coder import host_result
-from ..stats import DEGRADED_EC_READS
+from ..stats import (DEGRADED_EC_READS, EC_DEGRADED_READ_SECONDS,
+                     EC_SHARD_FETCH_SECONDS, EC_SHARD_SERVE_SECONDS)
 from ..telemetry.hot import record as hot_record
 from ..storage.needle import Needle
 from ..storage.store import TIER_TRASH
@@ -122,11 +123,16 @@ def make_shard_reader(store, vid: int, fetch: Fetch,
     A reconstruct is one `ec.reconstruct` span, and the pool's fetches run
     in the caller's context, so their spans sit under it.
 
-    Every degraded interval counts one SeaweedFS_degraded_ec_reads_total.
-    `stats`, when given, accumulates `reconstructs` (degraded intervals),
-    `gather_s` (survivor reads and fetches), `decode_s` (the decode with
-    its coder calls and, for the piggyback strip, its paired a-range
-    fetches), `fetch_bytes` (survivor bytes gathered for the decodes),
+    Every degraded interval counts one SeaweedFS_degraded_ec_reads_total,
+    and its phases go to SeaweedFS_ec_degraded_read_seconds through
+    `tracing.stage`: `gather` (from the reconstruct's start to d survivors
+    in hand: local reads, fetches, pool waits), then for a plain coder
+    call `stage` (the host stack of the survivors, the coder's H2D, K1
+    and D2H enqueues) and `wait` (blocked on the D2H), or `decode` where
+    fetches and coder calls interleave (the piggyback strip; the whole of
+    an msr interval). `stats`, when given, accumulates `reconstructs`
+    (degraded intervals), `fetch_bytes` (survivor bytes gathered for the
+    decodes),
     `strips` (piggyback intervals whose b-half span was decoded through a
     piggybacked parity, its piggyback stripped with the paired a-range)
     and `msr_mode` (msr intervals by plan mode: "repair", "general", or
@@ -152,15 +158,12 @@ def make_shard_reader(store, vid: int, fetch: Fetch,
         # does not propagate contextvars)
         return pool.submit(contextvars.copy_context().run, fn, *args)
 
-    def _count(t0: float, t1: float, fetched: int, **kinds) -> None:
+    def _count(fetched: int, **kinds) -> None:
         DEGRADED_EC_READS.inc()  # one logical degraded read
         if stats is None:
             return
-        t2 = time.perf_counter()
         with mu:
             stats["reconstructs"] = stats.get("reconstructs", 0) + 1
-            stats["gather_s"] = stats.get("gather_s", 0.0) + t1 - t0
-            stats["decode_s"] = stats.get("decode_s", 0.0) + t2 - t1
             stats["fetch_bytes"] = stats.get("fetch_bytes", 0) + fetched
             if kinds.get("strip"):
                 stats["strips"] = stats.get("strips", 0) + 1
@@ -176,14 +179,64 @@ def make_shard_reader(store, vid: int, fetch: Fetch,
         return data
 
     def _reconstruct(shard_id: int, offset: int, length: int) -> bytes:
-        t0 = time.perf_counter()
         ev = store.find_ec_volume(vid)
         if ev is None:
             raise KeyError(f"shard {shard_id} unreachable")
         if ev.codec == "msr":
             # the coupled code is not positional: degraded reads fetch the
             # interval plan's layer slices
-            return _reconstruct_msr(ev, shard_id, offset, length, t0)
+            with tracing.stage("ec.decode", EC_DEGRADED_READ_SECONDS,
+                               "decode"):
+                return _reconstruct_msr(ev, shard_id, offset, length)
+        with tracing.stage("ec.gather", EC_DEGRADED_READ_SECONDS, "gather"):
+            gathered = _gather(ev, shard_id, offset, length)
+        geo = ev.geo
+        piggybacked = ev.codec == "piggyback"
+        present = tuple(sorted(gathered))[:geo.d]
+        coder = store.coder(geo.d, geo.p, codec=ev.codec)
+        fetched = geo.d * length
+        if piggybacked and any(s > geo.d for s in present):
+            # a piggybacked parity is load-bearing: strip its piggyback
+            # with the paired a-range (ec/repair.reconstruct_interval)
+            def fetch_pair(sid: int, off: int, ln: int) -> bytes:
+                nonlocal fetched
+                local = ev.shards.get(sid)
+                data = (local.read_at(off, ln) if local is not None
+                        else fetch(sid, off, ln))
+                if data is None:
+                    raise OSError(f"cannot reconstruct shard {shard_id}: "
+                                  f"paired range of shard {sid} unreachable")
+                with mu:  # runs on the pool's threads
+                    fetched += len(data)
+                return _checked(sid, data, off, ln)
+
+            def fetch_map(fn, reqs):
+                # fanned out like the gather: one serial round trip per
+                # paired range would stack onto the degraded latency
+                futs = [_submit(fn, *r) for r in reqs]
+                return [f.result() for f in futs]
+            with tracing.stage("ec.decode", EC_DEGRADED_READ_SECONDS,
+                               "decode"):
+                out_b = ec_repair.reconstruct_interval(
+                    coder, {s: gathered[s] for s in present}, shard_id,
+                    offset, length, ev.shard_size, fetch_pair,
+                    fetch_map=fetch_map)
+            _count(fetched, strip=offset + length > ev.shard_size // 2)
+            return out_b
+        inner = coder.inner if piggybacked else coder
+        with tracing.stage("k1.stage", EC_DEGRADED_READ_SECONDS, "stage"):
+            survivors = np.stack([np.frombuffer(gathered[s], dtype=np.uint8)
+                                  for s in present])
+            pending = inner.reconstruct(survivors, present, (shard_id,))
+        with tracing.stage("k1.wait", EC_DEGRADED_READ_SECONDS, "wait"):
+            out = host_result(pending)
+        _count(fetched)
+        return out[0].tobytes()
+
+    def _gather(ev, shard_id: int, offset: int,
+                length: int) -> "dict[int, bytes]":
+        """At least d survivors' bytes of the interval, local ones first,
+        the rest fetched concurrently; fewer raises OSError."""
         geo = ev.geo
         piggybacked = ev.codec == "piggyback"
         gathered: dict[int, bytes] = {}
@@ -234,42 +287,7 @@ def make_shard_reader(store, vid: int, fetch: Fetch,
         if len(gathered) < geo.d:
             raise OSError(f"cannot reconstruct shard {shard_id}: only "
                           f"{len(gathered)} shards reachable")
-        t1 = time.perf_counter()
-        present = tuple(sorted(gathered))[:geo.d]
-        coder = store.coder(geo.d, geo.p, codec=ev.codec)
-        fetched = geo.d * length
-        if piggybacked and any(s > geo.d for s in present):
-            # a piggybacked parity is load-bearing: strip its piggyback
-            # with the paired a-range (ec/repair.reconstruct_interval)
-            def fetch_pair(sid: int, off: int, ln: int) -> bytes:
-                nonlocal fetched
-                local = ev.shards.get(sid)
-                data = (local.read_at(off, ln) if local is not None
-                        else fetch(sid, off, ln))
-                if data is None:
-                    raise OSError(f"cannot reconstruct shard {shard_id}: "
-                                  f"paired range of shard {sid} unreachable")
-                with mu:  # runs on the pool's threads
-                    fetched += len(data)
-                return _checked(sid, data, off, ln)
-
-            def fetch_map(fn, reqs):
-                # fanned out like the gather: one serial round trip per
-                # paired range would stack onto the degraded latency
-                futs = [_submit(fn, *r) for r in reqs]
-                return [f.result() for f in futs]
-            out_b = ec_repair.reconstruct_interval(
-                coder, {s: gathered[s] for s in present}, shard_id, offset,
-                length, ev.shard_size, fetch_pair, fetch_map=fetch_map)
-            _count(t0, t1, fetched,
-                   strip=offset + length > ev.shard_size // 2)
-            return out_b
-        inner = coder.inner if piggybacked else coder
-        survivors = np.stack([np.frombuffer(gathered[s], dtype=np.uint8)
-                              for s in present])
-        out = host_result(inner.reconstruct(survivors, present, (shard_id,)))
-        _count(t0, t1, fetched)
-        return out[0].tobytes()
+        return gathered
 
     def _fetch_plan(ev, plan) -> "dict[int, bytes | None]":
         """One IntervalPlan's per-survivor fragments — local shards by
@@ -289,8 +307,8 @@ def make_shard_reader(store, vid: int, fetch: Fetch,
         futs = {_submit(one, sid): sid for sid in plan.fetch}
         return {futs[f]: f.result() for f in cf.as_completed(futs)}
 
-    def _reconstruct_msr(ev, shard_id: int, offset: int, length: int,
-                         t0: float) -> bytes:
+    def _reconstruct_msr(ev, shard_id: int, offset: int,
+                         length: int) -> bytes:
         geo = ev.geo
         coder = store.coder(geo.d, geo.p, codec="msr")
         sub = ev.shard_size // coder.alpha
@@ -314,18 +332,16 @@ def make_shard_reader(store, vid: int, fetch: Fetch,
                       for a, b in zip(cuts, cuts[1:])]
         else:
             pieces = [_msr_piece(ev, coder, shard_id, offset, length)]
-        t1 = t0 + sum(g for _, _, _, g in pieces)
-        out = b"".join(buf for buf, _, _, _ in pieces)
-        _count(t0, t1, sum(fb for _, _, fb, _ in pieces),
-               msr_mode="+".join(m for _, m, _, _ in pieces))
+        out = b"".join(buf for buf, _, _ in pieces)
+        _count(sum(fb for _, _, fb in pieces),
+               msr_mode="+".join(m for _, m, _ in pieces))
         return out
 
     def _msr_piece(ev, coder, shard_id: int, offset: int,
-                   length: int) -> "tuple[bytes, str, int, float]":
-        """(bytes, plan mode, fetch bytes, gather seconds) for one
-        boundary-aligned (or single-layer) span of the lost shard."""
+                   length: int) -> "tuple[bytes, str, int]":
+        """(bytes, plan mode, fetch bytes) for one boundary-aligned (or
+        single-layer) span of the lost shard."""
         geo = ev.geo
-        t0 = time.perf_counter()
         helpers = tuple(s for s in range(geo.n) if s != shard_id)
         plan = coder.interval_plan(helpers, shard_id, offset, length,
                                    ev.shard_size)
@@ -344,9 +360,7 @@ def make_shard_reader(store, vid: int, fetch: Fetch,
             if any(v is None for v in got.values()):
                 raise OSError(f"cannot reconstruct shard {shard_id}: msr "
                               "survivors unreachable")
-        gather_s = time.perf_counter() - t0
-        return (coder.interval_decode(plan, got), plan.mode,
-                plan.bytes_total(), gather_s)
+        return coder.interval_decode(plan, got), plan.mode, plan.bytes_total()
 
     return reader
 
@@ -534,7 +548,7 @@ class VolumeServer:
         self.heartbeat_flush: "Callable[[], bool] | None" = None
         # read-plane counters the degraded read moves (the reference's
         # trace events, kept countable): stale_locations_refreshed,
-        # last_probes, and make_shard_reader's reconstructs/gather_s/...
+        # last_probes, and make_shard_reader's reconstructs/fetch_bytes/...
         self.read_stats: dict = {}
         self._stats_lock = threading.Lock()
         self._stop = threading.Event()
@@ -1911,20 +1925,27 @@ class VolumeServer:
                 else:
                     sp.add_event("breaker_open", peer=addr, state=br.state)
             ordered = allowed
-        for addr in ordered:
-            br = retry.breaker(addr)
-            try:
-                data = self.peers.read_shard(addr, vid, sid, offset, length)
-                br.record_success()
-                sp.set_attr("holder", addr)
-                # corrupt site: bit flips on the shard wire, which the
-                # needle CRC downstream must catch
-                return failpoints.corrupt("ec.shard.read.data", data)
-            except Exception as e:  # noqa: BLE001 — try the next holder
-                br.record_failure()
-                sp.add_event("holder_failed", peer=addr, error=str(e)[:200])
-                log.warning("remote shard %d.%d read from %s: %s",
-                            vid, sid, addr, e)
+        if not ordered:
+            return None
+        # one SeaweedFS_ec_shard_fetch_seconds a fetch that tried a holder,
+        # the failed holders' time included
+        with tracing.stage("ec.fetch", EC_SHARD_FETCH_SECONDS):
+            for addr in ordered:
+                br = retry.breaker(addr)
+                try:
+                    data = self.peers.read_shard(addr, vid, sid, offset,
+                                                 length)
+                    br.record_success()
+                    sp.set_attr("holder", addr)
+                    # corrupt site: bit flips on the shard wire, which the
+                    # needle CRC downstream must catch
+                    return failpoints.corrupt("ec.shard.read.data", data)
+                except Exception as e:  # noqa: BLE001 — try the next holder
+                    br.record_failure()
+                    sp.add_event("holder_failed", peer=addr,
+                                 error=str(e)[:200])
+                    log.warning("remote shard %d.%d read from %s: %s",
+                                vid, sid, addr, e)
         return None
 
     def _make_shard_reader(self, vid: int):
@@ -2634,11 +2655,20 @@ class VolumeServer:
         # reads are the degraded-read data path and stay admission-free
         cost = sum(ln for _, ln in frag_ranges) if frag_ranges else size
         if frag_ranges:
-            return self._admitted(ev.collection, self._serve_fragment(
-                volume_id, sh, frag_ranges, combine_rows, combine_matrix,
-                list(gather_shard_ids), list(gather_sources)), cost)
-        return self._admitted(ev.collection,
-                              self._serve_range(sh, offset, size), cost)
+            return self._served("fragment", lambda: self._admitted(
+                ev.collection, self._serve_fragment(
+                    volume_id, sh, frag_ranges, combine_rows, combine_matrix,
+                    list(gather_shard_ids), list(gather_sources)), cost))
+        return self._served("range", lambda: self._admitted(
+            ev.collection, self._serve_range(sh, offset, size), cost))
+
+    @staticmethod
+    def _served(kind: str, open_chunks):
+        """The chunks of `open_chunks()`, timed into
+        SeaweedFS_ec_shard_serve_seconds{kind} until the stream ends: the
+        fragment's combine, the preads and the stream's flow control."""
+        with tracing.stage("ec.serve", EC_SHARD_SERVE_SECONDS, kind):
+            yield from open_chunks()
 
     @staticmethod
     def _serve_range(sh, offset: int, size: int):

@@ -97,6 +97,10 @@ _TIER_LABELS = ("from", "to", "stage", "window", "kind")
 _TIER_LABELS = _TIER_LABELS + ("thread_class", "state", "pool", "loop",
                                "link")
 
+# The degraded EC read's stage families: `phase` (gather/stage/wait/
+# decode) and, on the serving peer, `kind` (range/fragment, above).
+_TIER_LABELS = _TIER_LABELS + ("phase",)
+
 # Data-center names come from operator topology flags — bounded by the
 # fleet's DC count, which is more than the tier sets but far under the
 # address-shaped families. A `dc` label minting dozens of values means

@@ -196,6 +196,10 @@ class Histogram(_Metric):
         with self._lock:
             return self._totals.get(tuple(str(v) for v in label_values), 0)
 
+    def sum(self, *label_values: str) -> float:
+        with self._lock:
+            return self._sums.get(tuple(str(v) for v in label_values), 0.0)
+
     def expose(self, openmetrics: bool = False) -> list[str]:
         out = []
         with self._lock:
@@ -392,6 +396,29 @@ BREAKER_TRANSITIONS = _counter(
 DEGRADED_EC_READS = _counter(
     "SeaweedFS_degraded_ec_reads_total",
     "EC reads served by reconstructing from surviving shards")
+# The port's own: the degraded EC read's layers inside the volume
+# server's `store` stage, timed by tracing.stage (each also a range in a
+# running device capture). phase: gather (survivors in hand), stage (the
+# coder call: the host stack, the H2D enqueue, K1 and the D2H enqueue),
+# wait (blocked on the D2H), decode (the piggyback strip and msr, which
+# interleave fetches and coder calls); one shard fetch from its holders
+# on the calling thread; one VolumeEcShardRead answer on the serving
+# peer (kind: range or fragment). `phase` and `kind` are closed sets.
+_EC_READ_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+                    0.25, 0.5, 1.0, 2.5, 5.0, 10.0)
+EC_DEGRADED_READ_SECONDS = _histogram(
+    "SeaweedFS_ec_degraded_read_seconds",
+    "degraded EC read seconds per interval and phase "
+    "(gather, stage, wait, decode)",
+    ("phase",), buckets=_EC_READ_BUCKETS)
+EC_SHARD_FETCH_SECONDS = _histogram(
+    "SeaweedFS_ec_shard_fetch_seconds",
+    "remote EC shard fetch seconds, call to last byte, failed holders "
+    "included", buckets=_EC_READ_BUCKETS)
+EC_SHARD_SERVE_SECONDS = _histogram(
+    "SeaweedFS_ec_shard_serve_seconds",
+    "VolumeEcShardRead answer seconds on the serving peer, entry to the "
+    "stream's end", ("kind",), buckets=_EC_READ_BUCKETS)
 # Tracing layer (tracing/trace.py): spans recorded per component, and
 # spans evicted from the bounded ring buffer before anyone read them.
 TRACE_SPANS = _counter(

@@ -25,6 +25,9 @@ import time
 _lock = threading.Lock()
 _trace_lock = threading.Lock()
 _trace = None  # (profiler, trace path, holds the card's activity) if running
+# True while a capture runs: tracing.stage reads it, without a lock, to
+# decide whether a stage also opens a range in the capture
+capturing = False
 
 
 def cpu_profile(seconds: float = 5.0, top: int = 60,
@@ -97,8 +100,9 @@ def start_device_trace(out_dir: "str | None" = None,
     hold the card's activity (no card, or a profiler without CUDA
     activity) raises instead of starting one that would lack the kernels.
     A second start while one capture runs raises: the profiler is one per
-    process."""
-    global _trace
+    process. It records every thread's host ops and ranges, not only the
+    starting thread's: a server's stages run on its pool threads."""
+    global _trace, capturing
     import torch
 
     activities = [torch.profiler.ProfilerActivity.CPU]
@@ -114,9 +118,13 @@ def start_device_trace(out_dir: "str | None" = None,
     with _trace_lock:
         if _trace is not None:
             raise RuntimeError("a device trace is already being captured")
-        prof = torch.profiler.profile(activities=activities)
+        prof = torch.profiler.profile(
+            activities=activities,
+            experimental_config=torch._C._profiler._ExperimentalConfig(
+                profile_all_threads=True))
         prof.start()
         _trace = (prof, path, cuda_activity in activities)
+        capturing = True
     if cuda_activity in activities:
         x = torch.zeros(1, device="cuda")
         for _ in range(TRACE_WARMUP_KERNELS):
@@ -136,12 +144,13 @@ def stop_device_trace() -> str:
     A capture of the card first waits for every kernel and copy queued on
     it, from any thread: a launch still running at the stop would be
     missing from the trace."""
-    global _trace
+    global _trace, capturing
     with _trace_lock:
         if _trace is None:
             raise RuntimeError("no device trace is being captured")
         prof, path, on_card = _trace
         _trace = None
+        capturing = False
     if on_card:
         import torch
         torch.cuda.synchronize()

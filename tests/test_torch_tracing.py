@@ -41,7 +41,9 @@ def _full_sampling():
 
 
 def test_public_surface_matches_reference():
-    assert tracing.__all__ == ref_tracing.__all__
+    # `stage` (tracing/stages.py) is the port's own
+    assert [n for n in tracing.__all__ if n != "stage"] == ref_tracing.__all__
+    assert "stage" in tracing.__all__
     assert tracing.TRACEPARENT_HEADER == ref_tracing.TRACEPARENT_HEADER
 
 
