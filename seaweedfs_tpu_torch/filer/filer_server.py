@@ -650,6 +650,9 @@ class FilerServer:
         app.route("/__status__", status)
         app.route("/__ui__", offloaded(status_ui))
         app.route("/__metrics__", metrics)
+        # CPU by thread class, counted at each scrape of /__metrics__
+        from ..profiling import THREAD_CPU
+        THREAD_CPU.install()
         # exact debug routes win over the namespace catch-all for EVERY
         # method (a POST must not fall through and create a file no read
         # could reach): /debug/* is reserved, like /__status__

@@ -757,6 +757,9 @@ class MasterServer:
 
         app = fastweb.FastApp()
         app.route("/metrics", metrics)
+        # CPU by thread class, counted at each scrape of /metrics
+        from ..profiling import THREAD_CPU
+        THREAD_CPU.install()
         app.route("/dir/status", offloaded(guarded("/dir/status", dir_status)))
         app.route("/dir/lookup", guarded("/dir/lookup", dir_lookup))
         app.route("/dir/assign", guarded("/dir/assign", dir_assign))

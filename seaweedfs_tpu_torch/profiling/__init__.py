@@ -21,6 +21,11 @@ filer, S3):
   requests with stage timelines and trace correlation, served at
   `/debug/flight`.
 
+The port adds `threadcpu.THREAD_CPU`: each thread class's CPU seconds,
+read from /proc when /metrics is scraped
+(SeaweedFS_process_thread_cpu_seconds_total{class}), in a daemon that
+installed it where it serves /metrics.
+
 `handle_profile_query()` below is the ONE implementation of the
 `/debug/profile` HTTP contract all four daemons share (the four
 hand-rolled copies diverged until the volume server shipped the
@@ -38,13 +43,14 @@ from .flight import record as record_flight
 from .lag import LoopLagMonitor, MonitoredPool
 from .sampler import (THREAD_CLASSES, ContinuousSampler, acquire_sampler,
                       classify_thread, default_sampler, release_sampler)
+from .threadcpu import THREAD_CPU
 
 __all__ = [
     "THREAD_CLASSES", "ContinuousSampler", "acquire_sampler",
     "classify_thread", "default_sampler", "release_sampler",
     "LoopLagMonitor", "MonitoredPool",
     "FLIGHT", "FlightRecorder", "record_flight", "debug_flight_payload",
-    "handle_profile_query",
+    "handle_profile_query", "THREAD_CPU",
 ]
 
 DEFAULT_MAX_SECONDS = 30.0

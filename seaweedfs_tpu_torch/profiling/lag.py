@@ -17,7 +17,7 @@ Two instruments that turn "the loop felt slow" into numbers:
   pools ride on it; depth-at-admit lands in flight entries.
 
 Label values are fixed small sets ("volume"/"master"/"filer"/"s3",
-"read"/"ec_read"/...) — NEVER per-port — so several servers in one test
+"read"/"ec_read"/"grpc") — NEVER per-port — so several servers in one test
 process share series via delta accounting, and stats/expo_lint.py can
 hold a tier-style cardinality ceiling over both labels.
 

@@ -1,11 +1,13 @@
 """Continuous sampling profiler: always-on fleet flamegraphs.
 
-The port's copy of seaweedfs_tpu/profiling/sampler.py, with one more
-thread class: `ec_read`, the port volume server's degraded-read pool
-(`ec-read-<port>` threads), which the reference counts under read_pool,
-and one more waiting frame: an idle ThreadPoolExecutor worker, whose
-innermost Python frame is `thread.py:_worker` (it parks in the C
-`SimpleQueue.get`), samples as waiting; the reference counts it on-CPU.
+The port's copy of seaweedfs_tpu/profiling/sampler.py, with two more
+thread classes: `ec_read`, the port volume server's degraded-read pool
+(`ec-read-<port>` threads), and `ec_run`, an EC needle read's per-read
+fan-out (`ec-run-<vid>` threads), which the reference counts under
+read_pool and other; and one more waiting frame: an idle
+ThreadPoolExecutor worker, whose innermost Python frame is
+`thread.py:_worker` (it parks in the C `SimpleQueue.get`), samples as
+waiting; the reference counts it on-CPU.
 
 The reference answers "where is the CPU going?" with `net/http/pprof`
 on -debug.port (command/imports.go:4) — a continuous, low-overhead
@@ -49,8 +51,8 @@ import time
 
 from ..utils.env import env_float, env_int
 
-THREAD_CLASSES = ("event_loop", "read_pool", "ec_read", "writer_pool",
-                  "grpc", "raft", "other")
+THREAD_CLASSES = ("event_loop", "read_pool", "ec_read", "ec_run",
+                  "writer_pool", "grpc", "raft", "other")
 
 DEFAULT_HZ = 19.0  # prime: cannot lockstep with round periodic work
 
@@ -62,6 +64,9 @@ _NAME_RULES = (
     # the port's degraded-read fan-out pool (`ec-read-<port>`): a class of
     # its own, so a profile tells survivor gathers from needle reads
     ("ec-read-", "ec_read"),
+    # EcVolume.read_logical's per-read fan-out threads (`ec-run-<vid>`):
+    # the direct fetches and the reconstruct's gather, stage and K1 calls
+    ("ec-run-", "ec_run"),
     ("ec-degraded-read", "read_pool"),
     ("swtpu-ec-writer", "writer_pool"),
     ("chunk-upload-", "writer_pool"),

@@ -309,6 +309,9 @@ class S3Gateway:
         app.route("/debug/profile", gated(debug_profile))
         app.route("/debug/flight", gated(debug_flight))
         app.route("/metrics", gated(metrics))
+        # CPU by thread class, counted at each scrape of /metrics
+        from ..profiling import THREAD_CPU
+        THREAD_CPU.install()
         # alias matching the filer's reserved-namespace spelling so
         # the fleet telemetry collector can scrape either daemon
         # kind at /__metrics__ without knowing which it hit

@@ -20,6 +20,7 @@ import grpc
 
 from ..pb import master_pb2 as mpb
 from ..pb import volume_server_pb2 as vpb
+from ..tracing.stages import joined
 from ..utils.log import logger
 from ..utils.rpc import (MASTER_SERVICE, VOLUME_SERVICE, RpcService, Stub,
                          serve, set_cluster_key)
@@ -436,7 +437,7 @@ class GrpcPeers:
 
     def read_shard(self, addr: str, vid: int, sid: int, offset: int,
                    size: int) -> bytes:
-        return b"".join(r.data for r in Stub(addr, VOLUME_SERVICE).call_stream(
+        return joined(r.data for r in Stub(addr, VOLUME_SERVICE).call_stream(
             "VolumeEcShardRead",
             vpb.VolumeEcShardReadRequest(volume_id=vid, shard_id=sid,
                                          offset=offset, size=size),
@@ -445,7 +446,7 @@ class GrpcPeers:
     def read_fragment(self, addr: str, vid: int, sid: int, ranges,
                       combine_rows: int = 0, combine_matrix: bytes = b"",
                       gather_shard_ids=(), gather_sources=()) -> bytes:
-        return b"".join(r.data for r in Stub(addr, VOLUME_SERVICE).call_stream(
+        return joined(r.data for r in Stub(addr, VOLUME_SERVICE).call_stream(
             "VolumeEcShardRead",
             vpb.VolumeEcShardReadRequest(
                 volume_id=vid, shard_id=sid,

@@ -72,8 +72,9 @@ from ..ec.locate import EcGeometry
 from ..ops import events
 from ..ops.coder import host_result
 from ..stats import (DEGRADED_EC_READS, EC_DEGRADED_READ_SECONDS,
-                     EC_SHARD_FETCH_SECONDS, EC_SHARD_SERVE_SECONDS)
+                     EC_SHARD_SERVE_SECONDS)
 from ..telemetry.hot import record as hot_record
+from ..tracing.stages import joined, shard_fetch
 from ..storage.needle import Needle
 from ..storage.store import TIER_TRASH
 from ..storage.types import TTL, ReplicaPlacement, parse_file_id
@@ -1054,6 +1055,9 @@ class VolumeServer:
                                        self._handle_bulk_read,
                                        qos.CLASS_INTERACTIVE))
         app.route("/metrics", metrics)
+        # CPU by thread class, counted at each scrape of /metrics
+        from ..profiling import THREAD_CPU
+        THREAD_CPU.install()
         # pprof-style triggers (reference -debug.port net/http/pprof)
         app.route("/debug/profile", debug_profile)
         app.route("/debug/flight", debug_flight)
@@ -1889,15 +1893,19 @@ class VolumeServer:
 
     def _fetch_remote_shard(self, vid: int, sid: int, offset: int,
                             length: int, holders: "list[str]",
-                            include_open: bool = False) -> "bytes | None":
+                            include_open: bool = False,
+                            role: str = "survivor") -> "bytes | None":
         # one span per shard fetch: a degraded read's trace shows every
-        # attempted shard, the failed ones included
+        # attempted shard, the failed ones included. `role`: survivor (a
+        # reconstruct's or a rebuild's) or direct (a healthy interval's
+        # shard held elsewhere)
         with tracing.start_span(
                 "ec.shard.fetch", component="volume",
                 attrs={"vid": vid, "shard": sid, "offset": offset,
                        "length": length, "holders": len(holders)}) as sp:
             data = self._fetch_remote_shard_inner(vid, sid, offset, length,
-                                                  holders, include_open, sp)
+                                                  holders, include_open, sp,
+                                                  role)
             if data is None:
                 sp.set_error("no holder served shard"
                              if holders else "shard has no holders")
@@ -1905,7 +1913,8 @@ class VolumeServer:
 
     def _fetch_remote_shard_inner(self, vid: int, sid: int, offset: int,
                                   length: int, holders: "list[str]",
-                                  include_open: bool, sp) -> "bytes | None":
+                                  include_open: bool, sp,
+                                  role: str) -> "bytes | None":
         try:
             # a shard fetch failure -> the caller's degraded reconstruct
             failpoints.check("ec.shard.read")
@@ -1927,9 +1936,10 @@ class VolumeServer:
             ordered = allowed
         if not ordered:
             return None
-        # one SeaweedFS_ec_shard_fetch_seconds a fetch that tried a holder,
-        # the failed holders' time included
-        with tracing.stage("ec.fetch", EC_SHARD_FETCH_SECONDS):
+        # one SeaweedFS_ec_shard_fetch_seconds{role} a fetch that tried a
+        # holder, the failed holders' time included, divided at the first
+        # response message (tracing/stages.shard_fetch)
+        with shard_fetch(role):
             for addr in ordered:
                 br = retry.breaker(addr)
                 try:
@@ -1957,7 +1967,7 @@ class VolumeServer:
         def direct(sid: int, offset: int, length: int) -> "bytes | None":
             locs = self._lookup_ec_shards(vid)
             data = self._fetch_remote_shard(vid, sid, offset, length,
-                                            locs.get(sid, []))
+                                            locs.get(sid, []), role="direct")
             if data is None and locs.get(sid):
                 # holders listed but unreachable: the locations may be
                 # stale (the 11 s tier) — refresh once and retry
@@ -1967,7 +1977,8 @@ class VolumeServer:
                                       shard=sid)
                     self._count("stale_locations_refreshed")
                     data = self._fetch_remote_shard(vid, sid, offset, length,
-                                                    fresh.get(sid, []))
+                                                    fresh.get(sid, []),
+                                                    role="direct")
             return data
 
         def fetch(sid: int, offset: int, length: int) -> "bytes | None":
@@ -3172,13 +3183,13 @@ class LocalPeers:
 
     def read_shard(self, addr: str, vid: int, sid: int, offset: int,
                    size: int) -> bytes:
-        return b"".join(self._server(addr).volume_ec_shard_read(
+        return joined(self._server(addr).volume_ec_shard_read(
             vid, sid, offset=offset, size=size))
 
     def read_fragment(self, addr: str, vid: int, sid: int, ranges,
                       combine_rows: int = 0, combine_matrix: bytes = b"",
                       gather_shard_ids=(), gather_sources=()) -> bytes:
-        return b"".join(self._server(addr).volume_ec_shard_read(
+        return joined(self._server(addr).volume_ec_shard_read(
             vid, sid, fragment_offsets=[o for o, _ in ranges],
             fragment_lengths=[ln for _, ln in ranges],
             combine_rows=combine_rows, combine_matrix=combine_matrix,

@@ -91,15 +91,18 @@ _TIER_LABELS = ("from", "to", "stage", "window", "kind")
 # construction and ride the tier ceiling too: `thread_class` (the
 # sampler's fixed classification: event_loop/read_pool/writer_pool/
 # grpc/raft/other), `state` (on_cpu/waiting), `pool` (the handful of
-# named executors: read/ec_read/...), and `loop` (one value per daemon
+# named executors: read/ec_read/grpc/...), and `loop` (one value per daemon
 # kind: volume/master/filer/s3). The geo plane's `link` is the closed
 # geo/policy.LINK_CLASSES triple (intra_rack/cross_rack/cross_dc).
 _TIER_LABELS = _TIER_LABELS + ("thread_class", "state", "pool", "loop",
                                "link")
 
 # The degraded EC read's stage families: `phase` (gather/stage/wait/
-# decode) and, on the serving peer, `kind` (range/fragment, above).
-_TIER_LABELS = _TIER_LABELS + ("phase",)
+# decode; a shard fetch's first/rest), `role` (a fetch's survivor/
+# direct) and, on the serving peer, `kind` (range/fragment, above).
+# `class` is the thread-CPU family's closed set (profiling/threadcpu:
+# the sampler's thread classes, `capture` and `native`).
+_TIER_LABELS = _TIER_LABELS + ("phase", "role", "class")
 
 # Data-center names come from operator topology flags — bounded by the
 # fleet's DC count, which is more than the tier sets but far under the

@@ -402,8 +402,12 @@ DEGRADED_EC_READS = _counter(
 # coder call: the host stack, the H2D enqueue, K1 and the D2H enqueue),
 # wait (blocked on the D2H), decode (the piggyback strip and msr, which
 # interleave fetches and coder calls); one shard fetch from its holders
-# on the calling thread; one VolumeEcShardRead answer on the serving
-# peer (kind: range or fragment). `phase` and `kind` are closed sets.
+# on the calling thread (role: survivor, a reconstruct's or a rebuild's
+# survivor, or direct, a healthy interval's shard held elsewhere), that
+# fetch divided (phase: first, the call to the first response message;
+# rest, that message to the joined bytes) and the calling thread's own CPU across it; one
+# VolumeEcShardRead answer on the serving peer (kind: range or fragment).
+# `phase`, `role` and `kind` are closed sets.
 _EC_READ_BUCKETS = (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
                     0.25, 0.5, 1.0, 2.5, 5.0, 10.0)
 EC_DEGRADED_READ_SECONDS = _histogram(
@@ -414,11 +418,30 @@ EC_DEGRADED_READ_SECONDS = _histogram(
 EC_SHARD_FETCH_SECONDS = _histogram(
     "SeaweedFS_ec_shard_fetch_seconds",
     "remote EC shard fetch seconds, call to last byte, failed holders "
-    "included", buckets=_EC_READ_BUCKETS)
+    "included, by role (survivor, direct)", ("role",),
+    buckets=_EC_READ_BUCKETS)
+EC_SHARD_FETCH_PHASE_SECONDS = _histogram(
+    "SeaweedFS_ec_shard_fetch_phase_seconds",
+    "remote EC shard fetch seconds on the fetching side by role and phase "
+    "(first, rest)", ("role", "phase"), buckets=_EC_READ_BUCKETS)
+EC_SHARD_FETCH_CPU_SECONDS = _histogram(
+    "SeaweedFS_ec_shard_fetch_cpu_seconds",
+    "the calling thread's CPU seconds across a remote EC shard fetch, "
+    "by role", ("role",), buckets=(0.0001, 0.00025) + _EC_READ_BUCKETS)
 EC_SHARD_SERVE_SECONDS = _histogram(
     "SeaweedFS_ec_shard_serve_seconds",
     "VolumeEcShardRead answer seconds on the serving peer, entry to the "
     "stream's end", ("kind",), buckets=_EC_READ_BUCKETS)
+# The port's own: user + system CPU seconds of this process by thread
+# class (profiling/threadcpu.py, read from /proc when /metrics is
+# scraped): profiling.sampler's classes of the Python threads, `capture`
+# for a device capture's own start and stop, and `native`, the rest of
+# the process (gRPC core, the CUDA driver, torch's own pools). `class` is
+# a closed set.
+PROCESS_THREAD_CPU = _counter(
+    "SeaweedFS_process_thread_cpu_seconds_total",
+    "user + system CPU seconds of this process's threads by thread class",
+    ("class",))
 # Tracing layer (tracing/trace.py): spans recorded per component, and
 # spans evicted from the bounded ring buffer before anyone read them.
 TRACE_SPANS = _counter(

@@ -16,6 +16,7 @@ status server to wire in:
 
 from __future__ import annotations
 
+import functools
 import io
 import os
 import tempfile
@@ -90,6 +91,20 @@ def cpu_profile(seconds: float = 5.0, top: int = 60,
 TRACE_WARMUP_KERNELS = 256
 
 
+def _capture_cpu(fn):
+    """`fn`'s CPU on the calling thread counted as class `capture` of
+    SeaweedFS_process_thread_cpu_seconds_total (profiling/threadcpu), not
+    as its thread's: a capture's start and stop are not the work of the
+    thread that serves the request."""
+    @functools.wraps(fn)
+    def counted(*args, **kwargs):
+        from ..profiling.threadcpu import CAPTURE, THREAD_CPU
+        with THREAD_CPU.counted_as(CAPTURE):
+            return fn(*args, **kwargs)
+    return counted
+
+
+@_capture_cpu
 def start_device_trace(out_dir: "str | None" = None,
                        cuda: bool = False) -> str:
     """Start one torch.profiler capture (CPU activity, and the card's
@@ -139,6 +154,7 @@ def device_trace_path() -> "str | None":
         return _trace[1] if _trace is not None else None
 
 
+@_capture_cpu
 def stop_device_trace() -> str:
     """End the running capture, write its Chrome trace and return where.
     A capture of the card first waits for every kernel and copy queued on

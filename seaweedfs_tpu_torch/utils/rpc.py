@@ -23,10 +23,11 @@ import `grpc` or `google.protobuf`; the volume server's core never does.
 from __future__ import annotations
 
 import threading
-from concurrent import futures
 from typing import Callable
 
 import grpc
+
+from ..profiling.lag import MonitoredPool
 
 # -- optional gRPC auth ------------------------------------------------------
 # The reference gates its gRPC plane with mTLS from security.toml
@@ -323,9 +324,12 @@ def serve(bind: str, services: list[RpcService], max_workers: int = 16,
         # "+10000 convention" port would bind somewhere surprising and
         # clients would talk to the wrong server — fail loudly instead
         raise ValueError(f"invalid port in bind address {bind!r}")
+    # queue-accounted: a call's wait for a worker is
+    # SeaweedFS_pool_queue_wait_seconds{pool="grpc"}, which no handler's
+    # own timer sees
     server = grpc.server(
-        futures.ThreadPoolExecutor(max_workers=max_workers,
-                                   thread_name_prefix="grpc-worker"),
+        MonitoredPool("grpc", max_workers=max_workers,
+                      thread_name_prefix="grpc-worker"),
         interceptors=([_AuthInterceptor(derive_cluster_key(auth_key))]
                       if auth_key else []),
         options=[("grpc.max_receive_message_length", 256 << 20),

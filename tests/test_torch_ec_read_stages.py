@@ -95,7 +95,8 @@ def _full_sampling():
 def _counts() -> dict:
     out = {p: stats.EC_DEGRADED_READ_SECONDS.count(p) for p in PHASES}
     out["degraded"] = stats.DEGRADED_EC_READS.value()
-    out["fetch"] = stats.EC_SHARD_FETCH_SECONDS.count()
+    out["fetch"] = sum(stats.EC_SHARD_FETCH_SECONDS.count(role)
+                       for role in ("survivor", "direct"))
     out["serve"] = stats.EC_SHARD_SERVE_SECONDS.count("range")
     return out
 

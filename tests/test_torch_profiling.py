@@ -267,7 +267,7 @@ def test_port_ec_read_pool_has_its_own_class():
     assert prof.classify_thread("ec-read-8080_2") == "ec_read"
     assert ref_prof.classify_thread("ec-read-8080_2") == "other"
     assert set(prof.THREAD_CLASSES) == set(ref_prof.THREAD_CLASSES) | \
-        {"ec_read"}
+        {"ec_read", "ec_run"}
 
 
 def test_sampler_aggregate_equals_reference():

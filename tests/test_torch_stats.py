@@ -49,12 +49,18 @@ def _family(m):
 
 
 # the port's own families, which the JAX package has no counterpart of:
-# the degraded EC read's stage histograms
+# the degraded EC read's stage histograms, a shard fetch divided, and the
+# process's thread CPU by class
 PORT_ONLY = ("SeaweedFS_ec_degraded_read_seconds",
+             "SeaweedFS_ec_shard_fetch_cpu_seconds",
+             "SeaweedFS_ec_shard_fetch_phase_seconds",
              "SeaweedFS_ec_shard_fetch_seconds",
-             "SeaweedFS_ec_shard_serve_seconds")
+             "SeaweedFS_ec_shard_serve_seconds",
+             "SeaweedFS_process_thread_cpu_seconds_total")
 PORT_ONLY_NAMES = ("EC_DEGRADED_READ_SECONDS", "EC_SHARD_FETCH_SECONDS",
-                   "EC_SHARD_SERVE_SECONDS")
+                   "EC_SHARD_FETCH_PHASE_SECONDS",
+                   "EC_SHARD_FETCH_CPU_SECONDS", "EC_SHARD_SERVE_SECONDS",
+                   "PROCESS_THREAD_CPU")
 
 
 def test_registry_families_match_reference():

@@ -206,7 +206,7 @@ def _degraded_span_tree(mod, store, server, saved, sid=0, length=1024):
 
     locs = {2: ["holder-a:1"], 3: ["holder-b:1"]}
 
-    def inner(vid, s, offset, ln, holders, include_open, sp):
+    def inner(vid, s, offset, ln, holders, include_open, sp, *role):
         if not holders:
             return None
         _time.sleep(0.05)  # the holderless fetch of shard 5 ends first
